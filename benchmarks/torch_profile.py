@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's serving steps, on the card.
+
+    python3 benchmarks/torch_profile.py [--ticks 5] [--chunks 2]
+
+Builds the full-width qwen3-1.7b engine of ``chip_smoke.py`` (8 slots,
+2048-token slots, bf16, random weights from a seed), fills every slot with
+a 300-1000-token prompt, then traces ``--ticks`` decode ticks and
+``--chunks`` 256-token prefill chunks with ``torch.profiler`` (CPU and
+CUDA activities). Prints, for each step kind, the wall time per step, the
+summed device-kernel time per step, the device idle share and the top
+device ops, then the host-clock cost of one slot's retire -> flush ->
+restore page path; writes the chrome traces and a JSON record under
+``chiprun_out/``. Needs one CUDA card; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile(fn, n: int, label: str):
+    """Trace ``n`` calls of ``fn``; wall and device time per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # device kernels only: CPU-side ops (aten::mm, ...) report their
+    # children's device time too and would count it twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / n
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"trace_{label}.json"))
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC")) / n
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": (max(0.0, 1 - device_ms / wall_ms)
+                                  if device_ms else None),
+            "runtime_launches_per_step": n_launch,
+            "top": [(e.key[:120], _device_us(e) / 1e3 / n, e.count // n)
+                    for e in top]}
+
+
+def host_phases(engine) -> dict:
+    """Host-clock seconds of the retire -> flush -> restore page path for
+    one full-width slot: device copy of its pages, the copy to host memory
+    (``HostPageStore.put``), the simulated tier's flush and restore charges
+    (the Python CXL simulator walks every page), and the copy back."""
+    import torch
+    from repro_torch.core.tier import CxlTier
+    sync = torch.cuda.synchronize
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return time.perf_counter() - t0, out
+
+    rec = {}
+    rec["capture_s"], kv = clock(lambda: engine._capture_slot_kv(0))
+    nbytes = CxlTier.entry_bytes(kv)
+    rec["entry_bytes"] = nbytes
+    rec["store_put_s"], _ = clock(lambda: engine.store.put(
+        -1, {"kv": kv, "prompt": ()}))
+    tier = engine.serve_config.make_tier()
+    rec["tier_write_s"], _ = clock(lambda: tier.write_entry(-1, nbytes))
+    tier.advance(engine.tier_step_ns)
+    rec["tier_read_s"], _ = clock(lambda: tier.read_entry(-1, nbytes))
+    host = engine.store.pages[-1]["kv"]
+    rec["restore_copy_s"], _ = clock(lambda: engine._load_slot_kv(0, host))
+    engine.store.drop(-1)
+    return rec
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ticks", type=int, default=5)
+    ap.add_argument("--chunks", type=int, default=2)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda is not available: this profile needs the card")
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.models import model as M
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = registry.get("qwen3-1.7b")
+    rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
+    params = M.init_model(cfg, seed=0, device=dev)
+    engine = ServingEngine(params, cfg, rc, device=dev, config=ServeConfig(
+        n_slots=8, max_seq=2048, prefill_chunk=256,
+        tier_topology=("dram", "ssd-fast"), store_budget_bytes=16 << 30))
+    rng = np.random.default_rng(0)
+    for rid, n in enumerate(rng.integers(300, 1001, 8)):
+        engine.submit(Request(rid=rid, max_new_tokens=10_000, prompt=rng
+                              .integers(1, cfg.vocab_size, int(n)).tolist()))
+    engine.step()                         # admits (prefills) every slot
+    torch.cuda.synchronize()
+
+    kv1 = {n: a[:, :1] for n, a in engine.cache["kv"].items()}
+    chunk = torch.randint(1, cfg.vocab_size, (1, 256), device=dev,
+                          dtype=torch.int32)
+
+    def prefill_chunk():
+        cache1 = {"kv": kv1, "pos": torch.full((1,), 300, dtype=torch.int32,
+                                               device=dev)}
+        M.prefill_step_cached(params, cfg, rc, chunk, cache1, last_only=True)
+
+    rec = {"card": torch.cuda.get_device_name(0),
+           "decode_tick": profile(engine._decode_sample, args.ticks,
+                                  "decode_tick"),
+           "prefill_chunk": profile(prefill_chunk, args.chunks,
+                                    "prefill_chunk"),
+           "host_phases": host_phases(engine)}
+    for kind in ("decode_tick", "prefill_chunk"):
+        r = rec[kind]
+        print(f"[profile] {kind}: wall {r['wall_ms']:.3f} ms/step, device "
+              f"{r['device_ms']:.3f} ms/step, idle share "
+              f"{r['device_idle_share']}, runtime launches/step "
+              f"{r['runtime_launches_per_step']:.0f}")
+        for key, ms, count in r["top"]:
+            print(f"[profile]   {ms:9.4f} ms  x{count:<5d} {key}")
+    print(f"[profile] page path, one slot (host clock): "
+          f"{rec['host_phases']}")
+    with open(os.path.join(OUT_DIR, "torch_profile.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,11 @@
+"""granite-moe-1b-a400m [moe] — 24L d_model=1024 16H (GQA kv=8) expert d_ff=512
+vocab=49155, MoE 32 experts top-8. [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8, head_dim=64,
+    d_ff=512, vocab_size=49155, n_experts=32, top_k=8,
+    rope_theta=10000.0, activation="swiglu", tie_embeddings=True,
+)
