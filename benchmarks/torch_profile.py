@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's serving steps, on the card.
 
-    python3 benchmarks/torch_profile.py [--ticks 5] [--chunks 2]
+    python3 benchmarks/torch_profile.py [--arch qwen3-1.7b] [--ticks 5]
+        [--chunks 2]
 
-Builds the full-width qwen3-1.7b engine of ``chip_smoke.py`` (8 slots,
-2048-token slots, bf16, random weights from a seed), fills every slot with
-a 300-1000-token prompt, then traces ``--ticks`` decode ticks and
-``--chunks`` 256-token prefill chunks with ``torch.profiler`` (CPU and
-CUDA activities). Prints, for each step kind, the wall time per step, the
-summed device-kernel time per step, the device idle share and the top
-device ops, then the host-clock cost of one slot's retire -> flush ->
-restore page path; writes the chrome traces and a JSON record under
+Builds the full-width engine of ``chip_smoke.py`` for ``--arch``
+(qwen3-1.7b or zamba2-2.7b; 8 slots, 2048-token slots, bf16, random
+weights from a seed), fills every slot with a 300-1000-token prompt,
+then traces ``--ticks`` decode ticks and ``--chunks`` 256-token prefill
+chunks with ``torch.profiler`` (CPU and CUDA activities). Prints, for
+each step kind, the wall time per step, the summed device-kernel time
+per step, the device idle share and the top device ops, then the
+host-clock cost of one slot's retire -> flush -> restore page path;
+writes the chrome traces and a JSON record under
 ``chiprun_out/``. Needs one CUDA card; imports no JAX.
 """
 from __future__ import annotations
@@ -100,6 +102,7 @@ def host_phases(engine) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--ticks", type=int, default=5)
     ap.add_argument("--chunks", type=int, default=2)
     args = ap.parse_args()
@@ -115,7 +118,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = registry.get("qwen3-1.7b")
+    cfg = registry.get(args.arch)
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     params = M.init_model(cfg, seed=0, device=dev)
     engine = ServingEngine(params, cfg, rc, device=dev, config=ServeConfig(
@@ -128,20 +131,19 @@ def main() -> None:
     engine.step()                         # admits (prefills) every slot
     torch.cuda.synchronize()
 
-    kv1 = {n: a[:, :1] for n, a in engine.cache["kv"].items()}
     chunk = torch.randint(1, cfg.vocab_size, (1, 256), device=dev,
                           dtype=torch.int32)
 
     def prefill_chunk():
-        cache1 = {"kv": kv1, "pos": torch.full((1,), 300, dtype=torch.int32,
-                                               device=dev)}
+        cache1 = M.slot_view(engine.cache, 0)
+        cache1["pos"] = torch.full((1,), 300, dtype=torch.int32, device=dev)
         M.prefill_step_cached(params, cfg, rc, chunk, cache1, last_only=True)
 
-    rec = {"card": torch.cuda.get_device_name(0),
+    rec = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
            "decode_tick": profile(engine._decode_sample, args.ticks,
-                                  "decode_tick"),
+                                  f"{args.arch}_decode_tick"),
            "prefill_chunk": profile(prefill_chunk, args.chunks,
-                                    "prefill_chunk"),
+                                    f"{args.arch}_prefill_chunk"),
            "host_phases": host_phases(engine)}
     for kind in ("decode_tick", "prefill_chunk"):
         r = rec[kind]
@@ -153,7 +155,8 @@ def main() -> None:
             print(f"[profile]   {ms:9.4f} ms  x{count:<5d} {key}")
     print(f"[profile] page path, one slot (host clock): "
           f"{rec['host_phases']}")
-    with open(os.path.join(OUT_DIR, "torch_profile.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"torch_profile_{args.arch}.json"),
+              "w") as f:
         json.dump(rec, f, indent=1)
 
 

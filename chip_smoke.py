@@ -9,19 +9,31 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``src/repro_torch/csrc`` (timed);
 2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes in bf16 (atol = rtol = 2e-2), and time kernel,
-   plain version and one PyTorch library call (SDPA) with CUDA events;
-   then run the smoke-size model (f32) through chunked prefill and ragged
-   decode on the card and on the CPU from the same weights, and hold
-   logits and caches together (atol = rtol = 3e-5);
+   serving paths' shapes, and time kernel, plain version and, where one
+   exists, one PyTorch library call (SDPA) with CUDA events: the two
+   attention kernels in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's heads
+   (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H = 32,
+   D 80); the SSD scan in f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at
+   zamba2's 80 heads, P = N = 64, from a nonzero state, over a 256-token
+   chunk and a ragged 44-token one. Then run the smoke-size qwen3-1.7b and
+   zamba2-2.7b (f32) through chunked prefill and ragged decode on the card
+   and on the CPU from the same weights, and hold logits and caches
+   together;
 3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
    from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 16 requests of 300-1000 prompt tokens and
    32 new tokens, then 4 of the same prompts again under new rids, served
-   by prefix restore;
-4. check that every request finished, both kernels ran on that path, the
-   restores happened and stalled on the tier, and each restored request's
-   greedy tokens equal its first run's;
+   by prefix restore; check that every request finished, both attention
+   kernels ran on that path, the restores happened and stalled on the
+   tier, and each restored request's greedy tokens equal its first run's;
+4. zamba2-2.7b at full width (random bf16 weights from the same seed):
+   one 256-token prompt through one chunked prefill against 256
+   ``decode_step`` calls -- with the weights widened to f32, logits within
+   1e-3 and the prompt's greedy token equal; in bf16 the difference is
+   reported -- then serve it on the engine of phase 3 (8 requests of
+   300-1000 prompt tokens, 32 new tokens; the hybrid is never restored
+   from the tier, as in the reference) and check that every request
+   finished, pages were flushed, and all three kernels ran on that path;
 5. print the measured numbers, one ``kernels`` JSON line, the card line and
    last ``{"ok": true, "device": {...}}``. ``chiprun_out/chip_smoke.json``
    keeps the full record.
@@ -39,16 +51,24 @@ SRC = os.path.join(ROOT, "src")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 ARCH = "qwen3-1.7b"
+HYBRID = "zamba2-2.7b"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 16, 4, 32
+N_HYBRID_REQUESTS = 8
 PROMPT_LENS = (300, 1001)
 TOPOLOGY = ("dram", "ssd-fast")
 SEED = 0
 TOL = dict(atol=2e-2, rtol=2e-2)        # bf16, tests/test_kernel_parity.py
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)    # f32, tests/test_kernels.py
+# full-width zamba2, chunked vs stepwise prefill in f32: 10x the smoke-size
+# f32 bound of tests/test_torch_hybrid.py, for sums over a 54-layer stack
+FULL_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
+# (tensor cores), f32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -84,29 +104,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak: float = BF16_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, tol=TOL):
     import torch
     err = float((got.float() - want.float()).abs().max())
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: non-finite output")
-    if not torch.allclose(got.float(), want.float(), **TOL):
-        fail(f"{name}: max abs err {err} beyond atol=rtol=2e-2")
+    if not torch.allclose(got.float(), want.float(), **tol):
+        fail(f"{name}: max abs err {err} beyond {tol}")
     return err
 
 
 # ---------------------------------------------------------------- phase 2
 
-def check_decode(dev):
+def check_decode(dev, hkv, g, d):
+    """paged_decode at ``hkv`` kv heads of ``g`` query heads, head_dim
+    ``d``, over the serving path's 8 slots of 2048 tokens."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    b, p, page, hkv, g, d = N_SLOTS, MAX_SEQ // 256, 256, 8, 2, 128
+    b, p, page = N_SLOTS, MAX_SEQ // 256, 256
     h, smax = hkv * g, p * page
     gen = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
@@ -155,11 +177,13 @@ def check_decode(dev):
     return res
 
 
-def check_prefill(dev):
+def check_prefill(dev, hkv, g, d):
+    """flash_prefill at ``hkv`` kv heads of ``g`` query heads, head_dim
+    ``d``: one 256-token chunk against a 2048-token cache."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    hkv, g, d, c, smax = 8, 2, 128, CHUNK, MAX_SEQ
+    c, smax = CHUNK, MAX_SEQ
     h = hkv * g
     gen = torch.Generator(device=dev).manual_seed(2)
     q = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
@@ -209,12 +233,60 @@ def check_prefill(dev):
     return res
 
 
-def check_model_small(dev):
+def check_ssd(dev):
+    """ssd_scan at zamba2-2.7b's widths (B 1, H 80, P = N = 64) from a
+    nonzero state: a 256-token prefill chunk and a ragged 44-token one,
+    ``y`` and ``h_last`` against the plain chunked form at the kernel's
+    own sub-chunk (f32). No single PyTorch call computes the SSD, so there
+    is no library time."""
+    import torch
+    from repro_torch.kernels.mamba2_scan import ops, ref
+    b, h, p, n = 1, 80, 64, 64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h0 = torch.randn((b, h, p, n), generator=gen, device=dev)
+    res, inputs = {}, {}
+    for s in (CHUNK, 44):
+        xdt = torch.randn((b, s, h, p), generator=gen, device=dev)
+        bm = torch.randn((b, s, n), generator=gen, device=dev) * 0.5
+        cm = torch.randn((b, s, n), generator=gen, device=dev) * 0.5
+        la = -torch.rand((b, s, h), generator=gen, device=dev) * 0.2
+        inputs[s] = (xdt, bm, cm, la)
+        y, h_last = ops.ssd(xdt, bm, cm, la, h0=h0)
+        y_ref, h_ref = ref.ssd_chunked_ref(xdt, bm, cm, la, h0,
+                                           chunk=ops.KERNEL_CHUNK)
+        torch.cuda.synchronize()
+        res[f"err_y_s{s}"] = check_close(f"ssd_scan y S={s}", y, y_ref,
+                                         SSD_TOL)
+        res[f"err_h_s{s}"] = check_close(f"ssd_scan h_last S={s}", h_last,
+                                         h_ref, SSD_TOL)
+    xdt, bm, cm, la = inputs[CHUNK]
+    res["ms"] = time_ms(lambda: ops.ssd(xdt, bm, cm, la, h0=h0), 50)
+    res["plain_ms"] = time_ms(lambda: ref.ssd_chunked_ref(
+        xdt, bm, cm, la, h0, chunk=ops.KERNEL_CHUNK), 10)
+    res["library_ms"] = None
+    # each input read once, each output written once (f32); the
+    # recurrence's 4 P N flops per (token, head) at the f32 peak
+    n_bytes = 4 * (2 * xdt.numel() + bm.numel() + cm.numel() + la.numel()
+                   + 2 * h0.numel())
+    res["bound_ms"], res["bound_by"] = bound(
+        n_bytes, 4 * b * CHUNK * h * p * n, F32_FLOPS)
+    res["bound_peak"] = (f"{HBM_BYTES_PER_S:.3g} B/s, {F32_FLOPS:.3g} "
+                         f"f32 flop/s (no tensor cores)")
+    res["max_abs_err"] = max(res["err_y_s256"], res["err_h_s256"])
+    res["shape"] = (f"xdt [{b},{CHUNK},{h},{p}] f32 (also S=44), b/c "
+                    f"[{b},{CHUNK},{n}], h0 [{b},{h},{p},{n}]")
+    return res
+
+
+def check_model_small(dev, arch):
     """The whole model step on the card against the same weights on the
     CPU (plain kernel versions; the CPU tests hold that path to the JAX
-    reference): smoke-size qwen3-1.7b in f32, chunked prefill with a ragged
-    last chunk, then decode ticks with ragged per-slot positions. Returns
-    the largest logit and cache differences."""
+    reference): the smoke-size ``arch`` in f32, chunked prefill with a
+    ragged last chunk, then decode ticks with ragged per-slot positions.
+    Returns the largest logit and cache differences. Tolerances: f32 3e-5
+    (tests/test_kernel_parity.py), the hybrid 1e-4 (tests/test_kernels.py
+    for the SSD) with its Mamba2 states held relative to their scale (they
+    are ~1e-6 at smoke size)."""
     import copy
     import dataclasses
     import numpy as np
@@ -222,7 +294,7 @@ def check_model_small(dev):
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(registry.smoke(ARCH), dtype="float32")
+    cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig(),
                    kv_page_size=8)
     cpu = torch.device("cpu")
@@ -234,7 +306,8 @@ def check_model_small(dev):
     steps = [("prefill", prompt[:, s:s + 8]) for s in range(0, 21, 8)]
     steps += [("decode", rng.integers(1, cfg.vocab_size, (2, 1)).astype(
         np.int32)) for _ in range(4)]
-    f32_tol = dict(atol=3e-5, rtol=3e-5)   # tests/test_kernel_parity.py
+    tol = 1e-4 if cfg.family == "hybrid" else 3e-5
+    f32_tol = dict(atol=tol, rtol=tol)
     err = 0.0
     for i, (kind, toks) in enumerate(steps):
         if i == len(steps) - 4:                   # row 1 runs 5 positions on
@@ -247,34 +320,38 @@ def check_model_small(dev):
             logits[d], caches[d] = fn(params[d], cfg, rc, t, caches[d])
         got, want = logits[dev].cpu(), logits[cpu]
         if not torch.allclose(got, want, **f32_tol):
-            fail(f"small model {kind} step {i}: card logits differ from the "
-                 f"CPU by {float((got - want).abs().max())}")
+            fail(f"small {arch} {kind} step {i}: card logits differ from "
+                 f"the CPU by {float((got - want).abs().max())}")
         err = max(err, float((got - want).abs().max()))
-    cache_err = 0.0
-    for n in ("k", "v"):
-        got, want = caches[dev]["kv"][n].cpu(), caches[cpu]["kv"][n]
-        cache_err = max(cache_err, float((got - want).abs().max()))
-        if not torch.allclose(got, want, **f32_tol):
-            fail(f"small model: card {n} cache differs from the CPU by "
-                 f"{cache_err}")
-    return {"logits_max_abs_err": err, "cache_max_abs_err": cache_err,
-            "steps": len(steps)}
+    out = {"logits_max_abs_err": err, "steps": len(steps)}
+    leaves = {n: (caches[dev]["kv"][n], caches[cpu]["kv"][n])
+              for n in ("k", "v")}
+    leaves.update({n: (caches[dev][n], caches[cpu][n])
+                   for n in ("h", "conv") if n in caches[cpu]})
+    for n, (got, want) in leaves.items():
+        got = got.cpu()
+        scale = float(want.abs().max()) if n in ("h", "conv") else 1.0
+        cache_err = float((got - want).abs().max())
+        out[f"{n}_max_abs_err"] = cache_err
+        if scale == 0.0 or not torch.allclose(
+                got, want, atol=tol * scale, rtol=tol):
+            fail(f"small {arch}: card {n} cache differs from the CPU by "
+                 f"{cache_err} (scale {scale})")
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
 
-def serve(dev):
-    import numpy as np
+def build_engine(dev, arch):
+    """Full-width ``arch`` with random bf16 weights drawn on the card from
+    the seed, on the serving engine of both phases."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import model as M
     from repro_torch.serving.config import ServeConfig
-    from repro_torch.serving.engine import Request, ServingEngine
-
-    cfg = registry.get(ARCH)
+    from repro_torch.serving.engine import ServingEngine
+    cfg = registry.get(arch)
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     t0 = time.time()
     params = M.init_model(cfg, seed=SEED, device=dev)
@@ -284,6 +361,61 @@ def serve(dev):
                          prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
                          store_budget_bytes=16 << 30, seed=SEED)
     engine = ServingEngine(params, cfg, rc, config=config, device=dev)
+    return cfg, rc, params, engine, init_s
+
+
+def run_stats(engine, handles, wall_s, launches, init_s):
+    import torch
+    st = engine.stats
+    return {"init_s": init_s, "wall_s": wall_s, "launches": launches,
+            "requests_done": sum(h.done() for h in handles),
+            "requests": len(handles),
+            "decode_tokens": st["decode_tokens"],
+            "prefill_tokens": st["prefill_tokens"],
+            "decode_ticks": st["decode_dispatches"],
+            "prefill_chunks": st["prefill_dispatches"],
+            "tokens_per_s": st["decode_tokens"] / wall_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "prefix_hits": st["prefix_hits"],
+            "restore_stall_ns": st["restore_stall_ns"],
+            "tier_write_ns": st["tier_write_ns"],
+            "store_bytes": st["store_bytes"], "flushes": st["flushes"],
+            "tier_sr_hit_rate": st["tier_sr_hit_rate"]}
+
+
+def step_costs(engine, params, cfg, rc, prompt, dev):
+    """Steady-state device costs of the two steps at the path's shapes
+    (CUDA events), then one more tick whose logits must be finite and of
+    the expected shape."""
+    import torch
+    from repro_torch.models import model as M
+    out = {"decode_tick_ms": time_ms(engine._decode_sample, 10)}
+    chunk = torch.tensor([prompt[:CHUNK]], dtype=torch.int32, device=dev)
+
+    def prefill_chunk():
+        cache1 = M.slot_view(engine.cache, 0)
+        cache1["pos"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        M.prefill_step_cached(params, cfg, rc, chunk, cache1,
+                              last_only=True)
+    out["prefill_chunk_ms"] = time_ms(prefill_chunk, 5)
+    logits, _ = M.decode_step(params, cfg, rc, engine.last_tokens[:, None],
+                              engine.cache)
+    torch.cuda.synchronize()
+    if tuple(logits.shape) != (N_SLOTS, 1, cfg.vocab_size):
+        fail(f"{cfg.arch_id} decode logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{cfg.arch_id}: non-finite decode logits")
+    return out
+
+
+def serve(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.serving.engine import Request
+
+    cfg, rc, params, engine, init_s = build_engine(dev, ARCH)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(*PROMPT_LENS, N_REQUESTS)]
@@ -304,48 +436,122 @@ def serve(dev):
     wall_s = time.time() - t0
     launches = {"paged_decode": dops.launches, "flash_prefill": fops.launches}
 
-    st = engine.stats
-    out = {"init_s": init_s, "wall_s": wall_s, "launches": launches,
-           "requests_done": sum(h.done() for h in first + again),
-           "requests": len(first) + len(again),
-           "decode_tokens": st["decode_tokens"],
-           "prefill_tokens": st["prefill_tokens"],
-           "decode_ticks": st["decode_dispatches"],
-           "prefill_chunks": st["prefill_dispatches"],
-           "tokens_per_s": st["decode_tokens"] / wall_s,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-           "prefix_hits": st["prefix_hits"],
-           "restore_stall_ns": st["restore_stall_ns"],
-           "tier_write_ns": st["tier_write_ns"],
-           "store_bytes": st["store_bytes"], "flushes": st["flushes"],
-           "tier_sr_hit_rate": st["tier_sr_hit_rate"],
-           "restored": [h.request.restored for h in again],
-           "tokens_equal": [h.result() == first[i].result()
-                            for i, h in enumerate(again)
-                            if h.done() and first[i].done()]}
-
-    # steady-state costs of the two steps at the path's shapes
-    out["decode_tick_ms"] = time_ms(engine._decode_sample, 10)
-    kv1 = {n: a[:, :1] for n, a in engine.cache["kv"].items()}
-    chunk = torch.tensor([prompts[0][:CHUNK]], dtype=torch.int32,
-                         device=dev)
-
-    def prefill_chunk():
-        cache1 = {"kv": kv1, "pos": torch.zeros(1, dtype=torch.int32,
-                                                device=dev)}
-        M.prefill_step_cached(params, cfg, rc, chunk, cache1,
-                              last_only=True)
-    out["prefill_chunk_ms"] = time_ms(prefill_chunk, 5)
-
-    # the output itself: finite logits of the expected shape
-    logits, _ = M.decode_step(params, cfg, rc, engine.last_tokens[:, None],
-                              engine.cache)
-    torch.cuda.synchronize()
-    if tuple(logits.shape) != (N_SLOTS, 1, cfg.vocab_size):
-        fail(f"decode logits shape {tuple(logits.shape)}")
-    if not torch.isfinite(logits.float()).all():
-        fail("non-finite decode logits")
+    out = run_stats(engine, first + again, wall_s, launches, init_s)
+    out["restored"] = [h.request.restored for h in again]
+    out["tokens_equal"] = [h.result() == first[i].result()
+                           for i, h in enumerate(again)
+                           if h.done() and first[i].done()]
+    out.update(step_costs(engine, params, cfg, rc, prompts[0], dev))
     return out
+
+
+# ---------------------------------------------------------------- phase 4
+
+def check_hybrid_stepwise(dev, params, cfg, rc):
+    """One 256-token prompt at full width through one chunked prefill (the
+    SSD-scan and flash-prefill kernels) and through 256 ``decode_step``
+    calls (the reference engine's form of the hybrid prefill). With the
+    bf16 weights widened to f32 the two must agree within FULL_F32_TOL,
+    with the prompt's greedy token equal. In bf16 their difference is
+    measured and reported, not bounded: ``dt`` comes out of a bf16 product
+    whose rounding differs between a 1-row and a 256-row product, and the
+    decay ``exp(dt * A)`` (A up to 16) amplifies it layer after layer."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        1, cfg.vocab_size, (1, CHUNK)).astype(np.int32)).to(dev)
+    out = {"positions": CHUNK}
+    for name in ("float32", "bfloat16"):
+        wide = name == "float32"
+        c = dataclasses.replace(cfg, dtype=name)
+        p = copy.deepcopy(params).float() if wide else params
+        cache = M.cache_init(c, rc, 1, CHUNK, device=dev)
+        chunked, _ = M.prefill_step_cached(p, c, rc, toks, cache)
+        cache = M.cache_init(c, rc, 1, CHUNK, device=dev)
+        stepwise = torch.cat([M.decode_step(p, c, rc, toks[:, t:t + 1],
+                                            cache)[0]
+                              for t in range(CHUNK)], 1)
+        torch.cuda.synchronize()
+        got, want = chunked.float(), stepwise.float()
+        if not torch.isfinite(got).all() or not torch.isfinite(want).all():
+            fail(f"{cfg.arch_id} {name}: non-finite prefill logits")
+        same = (got.argmax(-1) == want.argmax(-1))[0]
+        diff = (got - want).abs()
+        out[name] = {"logits_max_abs_err": float(diff.max()),
+                     "logits_mean_abs_err": float(diff.mean()),
+                     "logit_scale": float(want.abs().max()),
+                     "argmax_equal_positions": int(same.sum())}
+        if wide:
+            check_close(f"{cfg.arch_id} f32 chunked vs stepwise prefill "
+                        f"logits", got, want, FULL_F32_TOL)
+            if not bool(same[-1]):
+                fail(f"{cfg.arch_id}: the prompt's greedy token differs "
+                     f"between chunked and stepwise prefill (f32)")
+        del p, cache, chunked, stepwise
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_hybrid(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_scan import ops as sops
+    from repro_torch.serving.engine import Request
+
+    cfg, rc, params, engine, init_s = build_engine(dev, HYBRID)
+    stepwise = check_hybrid_stepwise(dev, params, cfg, rc)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(*PROMPT_LENS, N_HYBRID_REQUESTS)]
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: counts from 0 just before, read just after
+    dops.launches = 0
+    fops.launches = 0
+    sops.launches = 0
+    t0 = time.time()
+    handles = [engine.submit(Request(rid=i, prompt=p,
+                                     max_new_tokens=MAX_NEW))
+               for i, p in enumerate(prompts)]
+    engine.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = {"paged_decode": dops.launches, "flash_prefill": fops.launches,
+                "ssd_scan": sops.launches}
+
+    out = run_stats(engine, handles, wall_s, launches, init_s)
+    out["stepwise"] = stepwise
+    out.update(step_costs(engine, params, cfg, rc, prompts[0], dev))
+    return out
+
+
+def report(arch, run):
+    log(f"serve {arch}: {run['requests_done']}/{run['requests']} requests, "
+        f"{run['decode_tokens']} decode + {run['prefill_tokens']} prefill "
+        f"tokens in {run['wall_s']:.2f}s ({run['tokens_per_s']:.1f} "
+        f"decode tok/s), {run['decode_ticks']} ticks, "
+        f"{run['prefill_chunks']} prefill chunks")
+    log(f"{arch}: decode tick {run['decode_tick_ms']:.3f} ms, prefill chunk "
+        f"({CHUNK} tokens) {run['prefill_chunk_ms']:.3f} ms, "
+        f"max_memory_allocated {run['max_memory_allocated']} bytes, "
+        f"weights init {run['init_s']:.1f}s")
+    log(f"{arch} tier: prefix_hits {run['prefix_hits']}, restore_stall_ns "
+        f"{run['restore_stall_ns']}, tier_write_ns {run['tier_write_ns']}, "
+        f"store_bytes {run['store_bytes']}, flushes {run['flushes']}, "
+        f"sr_hit_rate {run['tier_sr_hit_rate']}")
+    log(f"{arch}: launches on the main path: {run['launches']}")
+    if run["requests_done"] != run["requests"]:
+        fail(f"{arch}: only {run['requests_done']}/{run['requests']} "
+             f"finished")
+    for name, n in run["launches"].items():
+        if n <= 0:
+            fail(f"{arch}: kernel {name} was never launched on the main "
+                 f"path")
 
 
 def main() -> None:
@@ -373,34 +579,22 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
 
-    dec = check_decode(dev)
+    dec = check_decode(dev, 8, 2, 128)
     log(f"paged_decode ok: {dec['shape']}; {dec}")
-    pre = check_prefill(dev)
+    dec80 = check_decode(dev, 32, 1, 80)
+    log(f"paged_decode ok: {dec80['shape']}; {dec80}")
+    pre = check_prefill(dev, 8, 2, 128)
     log(f"flash_prefill ok: {pre['shape']}; {pre}")
-    small = check_model_small(dev)
-    log(f"small {ARCH} (f32) on the card agrees with the CPU: {small}")
+    pre80 = check_prefill(dev, 32, 1, 80)
+    log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
+    ssd = check_ssd(dev)
+    log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
+    small = {arch: check_model_small(dev, arch) for arch in (ARCH, HYBRID)}
+    for arch, res in small.items():
+        log(f"small {arch} (f32) on the card agrees with the CPU: {res}")
 
     run = serve(dev)
-    log(f"serve {ARCH}: {run['requests_done']}/{run['requests']} requests, "
-        f"{run['decode_tokens']} decode + {run['prefill_tokens']} prefill "
-        f"tokens in {run['wall_s']:.2f}s ({run['tokens_per_s']:.1f} "
-        f"decode tok/s), {run['decode_ticks']} ticks, "
-        f"{run['prefill_chunks']} prefill chunks")
-    log(f"decode tick {run['decode_tick_ms']:.3f} ms, prefill chunk "
-        f"({CHUNK} tokens) {run['prefill_chunk_ms']:.3f} ms, "
-        f"max_memory_allocated {run['max_memory_allocated']} bytes, "
-        f"weights init {run['init_s']:.1f}s")
-    log(f"tier: prefix_hits {run['prefix_hits']}, restore_stall_ns "
-        f"{run['restore_stall_ns']}, tier_write_ns {run['tier_write_ns']}, "
-        f"store_bytes {run['store_bytes']}, flushes {run['flushes']}, "
-        f"sr_hit_rate {run['tier_sr_hit_rate']}")
-    log(f"launches on the main path: {run['launches']}")
-
-    if run["requests_done"] != run["requests"]:
-        fail(f"only {run['requests_done']}/{run['requests']} finished")
-    for name, n in run["launches"].items():
-        if n <= 0:
-            fail(f"kernel {name} was never launched on the main path")
+    report(ARCH, run)
     if run["prefix_hits"] < N_RESUBMIT or run["restore_stall_ns"] <= 0:
         fail(f"prefix restores missing: hits {run['prefix_hits']}, "
              f"stall {run['restore_stall_ns']}")
@@ -409,16 +603,29 @@ def main() -> None:
     if len(run["tokens_equal"]) != N_RESUBMIT or not all(
             run["tokens_equal"]):
         fail(f"restored greedy tokens differ: {run['tokens_equal']}")
+    torch.cuda.empty_cache()
 
+    hyb = serve_hybrid(dev)
+    log(f"{HYBRID} chunked vs stepwise prefill: {hyb['stepwise']}")
+    report(HYBRID, hyb)
+    if hyb["flushes"] <= 0 or hyb["tier_write_ns"] <= 0:
+        fail(f"{HYBRID}: no pages flushed to the tier")
+
+    runs = {ARCH: run, HYBRID: hyb}
     kernels = []
     for name, res, src, replaces in (
             ("paged_decode", dec, "src/repro_torch/csrc/paged_decode.cu",
              "src/repro/kernels/decode_attention/kernel.py:79"),
             ("flash_prefill", pre, "src/repro_torch/csrc/flash_prefill.cu",
-             "src/repro/kernels/flash_attention/kernel.py:77")):
+             "src/repro/kernels/flash_attention/kernel.py:77"),
+            ("ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/mamba2_scan/kernel.py:68")):
+        by_path = {arch: r["launches"][name] for arch, r in runs.items()
+                   if name in r["launches"]}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": run["launches"][name],
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                         "plain_ms": res["plain_ms"],
                         "bound_ms": res["bound_ms"],
@@ -427,8 +634,10 @@ def main() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "build_s": build_s, "decode": dec, "prefill": pre,
-                   "small_model": small, "serve": run, "kernels": kernels},
+                   "build_s": build_s, "decode": dec, "decode_d80": dec80,
+                   "prefill": pre, "prefill_d80": pre80, "ssd_scan": ssd,
+                   "small_model": small, "serve": run,
+                   "serve_hybrid": hyb, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

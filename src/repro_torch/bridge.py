@@ -8,7 +8,8 @@ bf16 of its own (the reference's arrays use ml_dtypes' ``bfloat16``, which
 ``np.save`` turns into ``|V2``), so two-byte void or bfloat16 arrays are
 reinterpreted bit for bit. Weights keep their ``[d_in, d_out]``
 orientation; the stacked leading layer axis of ``params["blocks"]`` is
-sliced into one ``Block`` per layer.
+sliced into one ``Block`` per layer, and the hybrid's ``params["groups"]``
+([g, period, ...]) into one ``Mamba2`` per (group, layer).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, RMSNorm
+from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.transformer import Block
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
@@ -55,10 +57,32 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _block(blk: Dict, t, idx) -> Block:
+    """One dense block from a pytree whose leaves are indexed by ``idx``
+    (a layer index into stacked leaves, or ``()`` for unstacked ones)."""
+    a, m = blk["attn"], blk["mlp"]
+    attention = Attention(
+        t(a["wq"][idx]), t(a["wk"][idx]), t(a["wv"][idx]), t(a["wo"][idx]),
+        t(a["q_norm"][idx]) if "q_norm" in a else None,
+        t(a["k_norm"][idx]) if "k_norm" in a else None)
+    mlp = MLP(t(m["w_up"][idx]), t(m["w_down"][idx]),
+              t(m["w_gate"][idx]) if "w_gate" in m else None)
+    return Block(RMSNorm(t(blk["ln_attn"]["scale"][idx])), attention,
+                 RMSNorm(t(blk["ln_mlp"]["scale"][idx])), mlp)
+
+
+def _mamba(grp: Dict, t, idx) -> Mamba2:
+    names = ("in_proj", "bc_proj", "dt_proj", "dt_bias", "A_log", "D",
+             "conv_w")
+    return Mamba2(*(t(grp[n][idx]) for n in names),
+                  RMSNorm(t(grp["ln_out"]["scale"][idx])),
+                  t(grp["out_proj"][idx]))
+
+
 def params_from_jax(np_tree: Dict, cfg: ModelConfig,
-                    device="cuda") -> M.DenseModel:
-    """The reference's dense parameter pytree (numpy leaves) as a
-    ``DenseModel`` on ``device``."""
+                    device="cuda") -> torch.nn.Module:
+    """The reference's parameter pytree (numpy leaves) as a
+    ``DenseModel`` or ``HybridModel`` on ``device``."""
     M.check_family(cfg)
     dev = resolve_device(device)
 
@@ -68,31 +92,33 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
     emb = np_tree["embed"]
     embed = Embed(t(emb["embedding"]),
                   t(emb["unembed"]) if "unembed" in emb else None)
-    blk = np_tree["blocks"]
-    blocks = []
-    for i in range(cfg.n_layers):
-        a, m = blk["attn"], blk["mlp"]
-        attention = Attention(
-            t(a["wq"][i]), t(a["wk"][i]), t(a["wv"][i]), t(a["wo"][i]),
-            t(a["q_norm"][i]) if "q_norm" in a else None,
-            t(a["k_norm"][i]) if "k_norm" in a else None)
-        mlp = MLP(t(m["w_up"][i]), t(m["w_down"][i]),
-                  t(m["w_gate"][i]) if "w_gate" in m else None)
-        blocks.append(Block(RMSNorm(t(blk["ln_attn"]["scale"][i])),
-                            attention,
-                            RMSNorm(t(blk["ln_mlp"]["scale"][i])), mlp))
-    return M.DenseModel(embed, blocks, RMSNorm(t(np_tree["ln_f"]["scale"])))
+    ln_f = RMSNorm(t(np_tree["ln_f"]["scale"]))
+    if cfg.family == "hybrid":
+        grp, sp = np_tree["groups"], np_tree["shared"]
+        groups = [[_mamba(grp, t, (gi, i))
+                   for i in range(cfg.shared_block_period)]
+                  for gi in range(M.n_groups(cfg))]
+        shared = M.SharedBlock(t(sp["in_map"]), _block(sp["block"], t, ()),
+                               t(sp["out_map"]))
+        return M.HybridModel(embed, groups, shared, ln_f)
+    blocks = [_block(np_tree["blocks"], t, i) for i in range(cfg.n_layers)]
+    return M.DenseModel(embed, blocks, ln_f)
 
 
 def cache_from_jax(np_cache: Dict, device="cuda") -> Dict:
-    """The reference's paged cache (numpy leaves) as the port's cache."""
+    """The reference's cache (numpy leaves: paged ``kv``, ``pos`` and, for
+    the hybrid, ``h``/``conv``) as the port's cache."""
     dev = resolve_device(device)
-    return {"kv": {name: to_tensor(a, dev)
-                   for name, a in np_cache["kv"].items()},
-            "pos": to_tensor(np.asarray(np_cache["pos"], np.int32), dev)}
+    out = {"kv": {name: to_tensor(a, dev)
+                  for name, a in np_cache["kv"].items()},
+           "pos": to_tensor(np.asarray(np_cache["pos"], np.int32), dev)}
+    for name in ("h", "conv"):
+        if name in np_cache:
+            out[name] = to_tensor(np_cache[name], dev)
+    return out
 
 
 def cache_to_numpy(cache: Dict) -> Dict:
-    """The port's paged cache as numpy arrays (bf16 widened to f32)."""
-    return {"kv": {name: to_numpy(a) for name, a in cache["kv"].items()},
-            "pos": to_numpy(cache["pos"])}
+    """The port's cache as numpy arrays (bf16 widened to f32)."""
+    return {name: ({n: to_numpy(t) for n, t in a.items()} if name == "kv"
+                   else to_numpy(a)) for name, a in cache.items()}

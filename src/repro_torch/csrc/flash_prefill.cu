@@ -213,6 +213,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
     case 32: return launch<T, 32>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
     case 64: return launch<T, 64>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
+    case 80: return launch<T, 80>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
     case 128: return launch<T, 128>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
     case 256: return launch<T, 256>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
     default: return cudaErrorInvalidValue;
@@ -222,7 +223,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro
 
-// C entry (bound with ctypes); head_dim D in {16, 32, 64, 128, 256}.
+// C entry (bound with ctypes); head_dim D in {16, 32, 64, 80, 128, 256}.
 extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
                                    const int* pos, void* out, int B, int C,
                                    int H, int Hkv, int Smax, int D, int dtype,

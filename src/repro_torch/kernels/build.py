@@ -32,6 +32,7 @@ _SIGNATURES = {
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8
                           + [_F, _F, _P],
     "repro_flash_prefill": [_P, _P, _P, _P, _P] + [_I] * 7 + [_F, _F, _P],
+    "repro_ssd_scan": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _LIB = None

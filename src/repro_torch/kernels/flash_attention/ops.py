@@ -11,7 +11,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_prefill_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # instantiated in csrc/flash_prefill.cu
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # instantiated in csrc/flash_prefill.cu
 
 launches = 0
 

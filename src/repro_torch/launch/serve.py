@@ -2,17 +2,19 @@
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --cxl-topology dram,ssd-fast          # full width, on the card
+  python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --cxl-topology dram,ssd-fast          # the hybrid family, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu --requests 4     # smoke size, on the CPU
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
-that this port supports: the dense family, one rank, bf16/f32 pages and
-the closed submit-then-run loop. Every engine default comes from
-:class:`~repro_torch.serving.config.ServeConfig`. ``--cxl-media`` /
-``--cxl-topology`` attach the CXL-timed tier; ``--cxl-async`` and
-``--preempt-policy`` drive the scheduler; ``--fault-trace`` injects a
-named endpoint-fault preset. Weights are random, drawn on the device
-from ``--seed``.
+that this port supports: the dense and hybrid families, one rank,
+bf16/f32 pages and the closed submit-then-run loop. Every engine default
+comes from :class:`~repro_torch.serving.config.ServeConfig`.
+``--cxl-media`` / ``--cxl-topology`` attach the CXL-timed tier;
+``--cxl-async`` and ``--preempt-policy`` drive the scheduler;
+``--fault-trace`` injects a named endpoint-fault preset. Weights are
+random, drawn on the device from ``--seed``.
 """
 from __future__ import annotations
 

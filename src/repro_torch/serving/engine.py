@@ -1,6 +1,7 @@
 """Continuous-batching serving engine over the paged, tiered KV cache.
 
-The port of the reference's ``repro.serving.engine`` for the dense family:
+The port of the reference's ``repro.serving.engine`` for the dense and
+hybrid families:
 same surface (``Request``, ``RequestHandle``, ``HostPageStore``,
 ``ServingEngine`` with ``submit`` / ``step`` / ``run`` / ``advance_time``
 / ``stats``), same scheduler hooks, and the same CXL-timed tier charges, so
@@ -15,9 +16,12 @@ traffic.
    flusher (deterministic store) into the host-side page store, keyed by
    request id; prefix reuse fetches them back instead of re-prefilling.
    With a ``CxlTier`` attached every page movement is charged against the
-   simulated endpoints.
+   simulated endpoints. The hybrid family flushes its shared-block pages
+   too, but is never restored from them: its Mamba2 state is not in the
+   pages (as in the reference).
  * hot path — chunked prefill (one ``prefill_step_cached`` per chunk on a
-   view of the slot's pages, through the flash-prefill kernel) and one
+   view of the slot's cache row, through the flash-prefill kernel and,
+   for the hybrid, the SSD-scan kernel) and one
    decode tick for every slot with on-device sampling (through the
    paged-decode kernel). The cache is updated in place where the
    reference donates it; sampled tokens stay on the device until a slot
@@ -344,15 +348,17 @@ class ServingEngine:
                        new_pos: int, sample: bool):
         """One prefill chunk for one slot, in place on its pages.
 
-        Runs the chunked prefill on a view of the slot's pages with the
-        slot position pinned to the chunk start (a reused slot's device pos
-        is stale — decode advances every row each tick). Only the final
-        chunk samples the last-position token. Other slots never observe
-        the prefill."""
-        kv1 = {name: a[:, slot:slot + 1] for name, a in
-               self.cache["kv"].items()}
-        cache1 = {"kv": kv1, "pos": torch.full(
-            (1,), pos0, dtype=torch.int32, device=self.device)}
+        Runs the chunked prefill on views of the slot's row of every cache
+        leaf (pages, and the hybrid's Mamba2 states) with the slot position
+        pinned to the chunk start (a reused slot's device pos is stale —
+        decode advances every row each tick). As in the reference, the
+        Mamba2 states are not reset at admission: the scan starts from
+        whatever the slot's previous tenant and the idle ticks left there.
+        Only the final chunk samples the last-position token. Other slots
+        never observe the prefill."""
+        cache1 = M.slot_view(self.cache, slot)
+        cache1["pos"] = torch.full((1,), pos0, dtype=torch.int32,
+                                   device=self.device)
         logits, _ = M.prefill_step_cached(self.params, self.cfg, self.rc,
                                           tokens, cache1, last_only=sample)
         self.cache["pos"][slot] = new_pos

@@ -68,6 +68,9 @@ def _default_device_calls():
     cfg = registry.smoke("qwen3-1.7b")
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     cpu_params = M.init_model(cfg, device="cpu")
+    hcfg = registry.smoke("zamba2-2.7b")
+    hrc = RunConfig(model=hcfg, shape=SHAPES["decode_32k"],
+                    mesh=MeshConfig())
     return {
         "resolve_device": lambda: resolve_device(),
         "init_model": lambda: M.init_model(cfg),
@@ -77,13 +80,25 @@ def _default_device_calls():
         "ServingEngine": lambda: ServingEngine(cpu_params, cfg, rc),
         "serve": lambda: serve.serve("qwen3-1.7b", smoke=True),
         "cli": lambda: serve.main(["--arch", "qwen3-1.7b", "--smoke"]),
+        "hybrid_init_model": lambda: M.init_model(hcfg),
+        "hybrid_cache_init": lambda: M.cache_init(hcfg, hrc, 2, 32),
+        "hybrid_params_from_jax": lambda: bridge.params_from_jax({}, hcfg),
+        "hybrid_ServingEngine": lambda: ServingEngine(
+            M.init_model(hcfg, device="cpu"), hcfg, hrc),
+        "hybrid_serve": lambda: serve.serve("zamba2-2.7b", smoke=True),
+        "hybrid_cli": lambda: serve.main(["--arch", "zamba2-2.7b",
+                                          "--smoke"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_model",
                                    "cache_init", "params_from_jax",
                                    "cache_from_jax", "ServingEngine",
-                                   "serve", "cli"])
+                                   "serve", "cli", "hybrid_init_model",
+                                   "hybrid_cache_init",
+                                   "hybrid_params_from_jax",
+                                   "hybrid_ServingEngine", "hybrid_serve",
+                                   "hybrid_cli"])
 def test_default_device_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

@@ -164,8 +164,8 @@ def test_cache_layout_matches_reference():
     assert tc["pos"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b",
-                                  "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama-3.2-vision-11b", "xlstm-125m"])
 def test_unported_families_raise(arch):
     cfg = treg.smoke(arch)
     with pytest.raises(NotImplementedError):
