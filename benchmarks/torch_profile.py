@@ -2,11 +2,13 @@
 """Where the time goes in the port's serving steps, on the card.
 
     python3 benchmarks/torch_profile.py [--arch qwen3-1.7b] [--ticks 5]
-        [--chunks 2]
+        [--chunks 2] [--kv-quant int8]
 
 Builds the full-width engine of ``chip_smoke.py`` for ``--arch``
-(qwen3-1.7b or zamba2-2.7b; 8 slots, 2048-token slots, bf16, random
-weights from a seed), fills every slot with a 300-1000-token prompt,
+(qwen3-1.7b or zamba2-2.7b; 8 slots, 2048-token slots, bf16 weights, KV
+pages in bf16 or, with ``--kv-quant int8``, int8 codes with per-page
+scales; random weights from a seed), fills every slot with a
+300-1000-token prompt,
 then traces ``--ticks`` decode ticks and ``--chunks`` 256-token prefill
 chunks with ``torch.profiler`` (CPU and CUDA activities). Prints, for
 each step kind, the wall time per step, the summed device-kernel time
@@ -105,6 +107,7 @@ def main() -> None:
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--ticks", type=int, default=5)
     ap.add_argument("--chunks", type=int, default=2)
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -123,7 +126,10 @@ def main() -> None:
     params = M.init_model(cfg, seed=0, device=dev)
     engine = ServingEngine(params, cfg, rc, device=dev, config=ServeConfig(
         n_slots=8, max_seq=2048, prefill_chunk=256,
-        tier_topology=("dram", "ssd-fast"), store_budget_bytes=16 << 30))
+        tier_topology=("dram", "ssd-fast"), store_budget_bytes=16 << 30,
+        kv_quant=args.kv_quant))
+    rc = engine.rc
+    label = args.arch + ("_int8" if args.kv_quant == "int8" else "")
     rng = np.random.default_rng(0)
     for rid, n in enumerate(rng.integers(300, 1001, 8)):
         engine.submit(Request(rid=rid, max_new_tokens=10_000, prompt=rng
@@ -140,10 +146,11 @@ def main() -> None:
         M.prefill_step_cached(params, cfg, rc, chunk, cache1, last_only=True)
 
     rec = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
+           "kv_quant": args.kv_quant,
            "decode_tick": profile(engine._decode_sample, args.ticks,
-                                  f"{args.arch}_decode_tick"),
+                                  f"{label}_decode_tick"),
            "prefill_chunk": profile(prefill_chunk, args.chunks,
-                                    f"{args.arch}_prefill_chunk"),
+                                    f"{label}_prefill_chunk"),
            "host_phases": host_phases(engine)}
     for kind in ("decode_tick", "prefill_chunk"):
         r = rec[kind]
@@ -155,7 +162,7 @@ def main() -> None:
             print(f"[profile]   {ms:9.4f} ms  x{count:<5d} {key}")
     print(f"[profile] page path, one slot (host clock): "
           f"{rec['host_phases']}")
-    with open(os.path.join(OUT_DIR, f"torch_profile_{args.arch}.json"),
+    with open(os.path.join(OUT_DIR, f"torch_profile_{label}.json"),
               "w") as f:
         json.dump(rec, f, indent=1)
 

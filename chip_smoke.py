@@ -10,18 +10,24 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    kernels from ``src/repro_torch/csrc`` (timed);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, and time kernel, plain version and, where one
-   exists, one PyTorch library call (SDPA) with CUDA events: the two
-   attention kernels in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's heads
-   (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H = 32,
-   D 80); the SSD scan in f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at
-   zamba2's 80 heads, P = N = 64, from a nonzero state, over a 256-token
-   chunk and a ragged 44-token one. Then run the smoke-size qwen3-1.7b and
-   zamba2-2.7b (f32) through chunked prefill and ragged decode on the card
-   and on the CPU from the same weights, and hold logits and caches
-   together;
+   exists, one PyTorch library call (SDPA, cuBLAS) with CUDA events: the
+   two attention kernels in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's
+   heads (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H =
+   32, D 80); the decode kernel's int8 mode at qwen3's heads (bf16 2e-2,
+   int8 pages with their scales, the new row at full precision; its
+   yardstick is dequantize + SDPA); the SSD scan in f32 (atol = rtol =
+   1e-4, ``y`` and ``h_last``) at zamba2's 80 heads, P = N = 64, from a
+   nonzero state, over a 256-token chunk and a ragged 44-token one; the
+   paged weight-streaming matmul at qwen3's MLP width (x [8, 2048] and
+   [256, 2048], 8 of 16 pages of [256, 6144]; bf16 2e-2, f32 3e-5; no path
+   of the reference calls it). Then run the smoke-size qwen3-1.7b and
+   zamba2-2.7b (f32), and qwen3-1.7b with int8 pages, through chunked
+   prefill and ragged decode on the card and on the CPU from the same
+   weights, and hold logits and caches together (int8 codes equal but
+   for steps of one, counted);
 3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
    from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
-   DRAM + SSD CXL tier, greedy): 16 requests of 300-1000 prompt tokens and
+   DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
    32 new tokens, then 4 of the same prompts again under new rids, served
    by prefix restore; check that every request finished, both attention
    kernels ran on that path, the restores happened and stalled on the
@@ -34,7 +40,14 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    300-1000 prompt tokens, 32 new tokens; the hybrid is never restored
    from the tier, as in the reference) and check that every request
    finished, pages were flushed, and all three kernels ran on that path;
-5. print the measured numbers, one ``kernels`` JSON line, the card line and
+5. serve qwen3-1.7b at full width with int8 KV pages on the engine and
+   traffic of phase 3; check that every request finished, the int8 decode
+   kernel ran once per layer per tick and flash_prefill ran, every
+   resubmit was restored with its first token and its prompt's full pages
+   bit for bit, and a stored entry is under 0.55 of phase 3's bf16 entry;
+   then restore the same prompts from entries stored right after prefill
+   and check that their greedy tokens equal the first run's;
+6. print the measured numbers, one ``kernels`` JSON line, the card line and
    last ``{"ok": true, "device": {...}}``. ``chiprun_out/chip_smoke.json``
    keeps the full record.
 """
@@ -53,8 +66,15 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 ARCH = "qwen3-1.7b"
 HYBRID = "zamba2-2.7b"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
-N_REQUESTS, N_RESUBMIT, MAX_NEW = 16, 4, 32
+N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
+# an int8 entry over a bf16 one: the reference's gate is 1/itemsize + 0.05
+# (tests/test_kv_quant.py:233)
+INT8_ENTRY_RATIO = 0.55
+# paged_matmul at qwen3-1.7b's MLP width: K = d_model, N = d_ff, 8 logical
+# pages of 256 rows drawn from a pool of 16
+MATMUL_K, MATMUL_N, MATMUL_PAGE_K, MATMUL_POOL = 2048, 6144, 256, 16
+F32_TOL = dict(atol=3e-5, rtol=3e-5)    # tests/test_kernel_parity.py
 PROMPT_LENS = (300, 1001)
 TOPOLOGY = ("dram", "ssd-fast")
 SEED = 0
@@ -177,6 +197,93 @@ def check_decode(dev, hkv, g, d):
     return res
 
 
+def check_decode_int8(dev, hkv, g, d):
+    """paged_decode's int8 mode at ``hkv`` kv heads of ``g`` query heads,
+    head_dim ``d``, over the serving path's 8 slots of 2048 tokens: codes
+    quantized from random bf16 K/V with ``kv_quant.requantize_pages``, the
+    new token's K/V at ``pos = kv_len - 1``. Also times the bf16 mode at the
+    same shapes, and dequantize + SDPA as the library yardstick (no single
+    PyTorch call reads int8 pages)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models import kv_quant
+    b, p, page = N_SLOTS, MAX_SEQ // 256, 256
+    h, smax = hkv * g, p * page
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
+    init = torch.full((b, p, hkv), kv_quant.INIT_SCALE, device=dev)
+    pages, new = {}, {}
+    for name in ("k", "v"):
+        x = torch.randn((b, p, page, hkv, d), generator=gen,
+                        device=dev).bfloat16()
+        pages[name] = kv_quant.requantize_pages(x, init)
+        new[name] = torch.randn((b, 1, hkv, d), generator=gen,
+                                device=dev).bfloat16()
+    (kc, ks), (vc, vs) = pages["k"], pages["v"]
+    lens = [1, smax, 300, 777, 1024, 1500, 64, smax - 1]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pos = kv_len - 1
+    args = dict(k_scale=ks, v_scale=vs, new_k=new["k"], new_v=new["v"],
+                pos=pos)
+    res = {}
+    for cap in (0.0, 30.0):
+        got = ops.paged_decode(q, kc, vc, logit_softcap=cap, **args)
+        want = ref.paged_decode_int8_ref(q, kc, vc, ks, vs, new["k"],
+                                         new["v"], pos, cap)
+        torch.cuda.synchronize()
+        res[f"err_softcap{cap:g}"] = check_close(
+            f"paged_decode int8 cap={cap}", got, want)
+    a32 = dict(args, new_k=new["k"].float(), new_v=new["v"].float())
+    got32 = ops.paged_decode(q.float(), kc, vc, **a32)
+    res["err_f32"] = float((got32 - ref.paged_decode_int8_ref(
+        q.float(), kc, vc, ks, vs, a32["new_k"], a32["new_v"], pos)
+                            ).abs().max())
+    if res["err_f32"] > 1e-4:
+        fail(f"paged_decode int8 f32 max abs err {res['err_f32']}")
+
+    rows = torch.arange(b, device=dev)
+    mask = (torch.arange(smax, device=dev)[None] < kv_len[:, None].long()
+            )[:, None, None, :]
+    qs = q.transpose(1, 2)                                  # [B, H, 1, D]
+
+    def deq_sdpa():
+        kv = []
+        for c, sc, nw in ((kc, ks, new["k"]), (vc, vs, new["v"])):
+            x = kv_quant.dequantize_pages(c, sc, torch.bfloat16).view(
+                b, smax, hkv, d)
+            x[rows, pos.long()] = nw[:, 0]
+            kv.append(x.transpose(1, 2))
+        return F.scaled_dot_product_attention(qs, kv[0], kv[1],
+                                               attn_mask=mask,
+                                               enable_gqa=True)
+    got = ops.paged_decode(q, kc, vc, **args)
+    res["library_err"] = float((deq_sdpa().transpose(1, 2).float()
+                                - got.float()).abs().max())
+    res["ms"] = time_ms(lambda: ops.paged_decode(q, kc, vc, **args), 50)
+    res["plain_ms"] = time_ms(lambda: ref.paged_decode_int8_ref(
+        q, kc, vc, ks, vs, new["k"], new["v"], pos), 10)
+    kb, vb = (kv_quant.dequantize_pages(c, sc, torch.bfloat16)
+              for c, sc in ((kc, ks), (vc, vs)))
+    res["bf16_mode_ms"] = time_ms(lambda: ops.paged_decode(q, kb, vb,
+                                                           kv_len), 50)
+    res["library_ms"] = time_ms(deq_sdpa, 50)
+    res["library"] = "dequantize_pages + SDPA (two calls)"
+    # codes of the visible tokens (1 byte each) and the scales of their
+    # pages, read once; q, the new rows and the output in bf16
+    tokens = sum(min(n, smax) for n in lens)
+    pages_read = sum(-(-min(n, smax) // page) for n in lens)
+    n_bytes = (2 * tokens * hkv * d + 2 * pages_read * hkv * 4
+               + 2 * q.numel() * 2 + 2 * new["k"].numel() * 2
+               + pos.numel() * 4)
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * tokens * h * d)
+    res["max_abs_err"] = res["err_softcap0"]
+    res["shape"] = (f"q [{b},1,{h},{d}] bf16, codes [{b},{p},{page},{hkv},"
+                    f"{d}] int8, scales [{b},{p},{hkv}], pos "
+                    f"{[n - 1 for n in lens]}")
+    return res
+
+
 def check_prefill(dev, hkv, g, d):
     """flash_prefill at ``hkv`` kv heads of ``g`` query heads, head_dim
     ``d``: one 256-token chunk against a 2048-token cache."""
@@ -278,7 +385,57 @@ def check_ssd(dev):
     return res
 
 
-def check_model_small(dev, arch):
+def check_paged_matmul(dev):
+    """paged_matmul at qwen3-1.7b's MLP width: x [8, 2048] (the decode
+    batch) and [256, 2048] (a prefill chunk) against 8 logical pages of
+    [256, 6144] drawn by a seeded permutation from a pool of 16; bf16 at
+    both, f32 at M = 256. The weights are at the models' init scale,
+    N(0, 0.02^2), so that y is O(1) as in a layer: f32 sums of 2048
+    products taken in another order than cuBLAS's part by ~1e-4 when y is
+    O(50), as unit-variance weights make it. cuBLAS ``torch.matmul`` on
+    the pre-gathered weight is the library time."""
+    import torch
+    from repro_torch.kernels.hdm_stream import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pool = (torch.randn((MATMUL_POOL, MATMUL_PAGE_K, MATMUL_N), generator=gen,
+                        device=dev) * 0.02).bfloat16()
+    n_k = MATMUL_K // MATMUL_PAGE_K
+    ids = torch.randperm(MATMUL_POOL, generator=torch.Generator(
+    ).manual_seed(SEED))[:n_k].to(dev, torch.int32)
+    w = pool[ids.long()].reshape(MATMUL_K, MATMUL_N)     # pre-gathered
+    res = {"page_ids": ids.tolist()}
+    for m in (8, 256):
+        x = torch.randn((m, MATMUL_K), generator=gen, device=dev).bfloat16()
+        got = ops.stream_matmul(x, pool, ids)
+        want = ref.paged_matmul_ref(x, pool, ids)
+        torch.cuda.synchronize()
+        r = {"err": check_close(f"paged_matmul bf16 M={m}", got, want)}
+        if m == 256:
+            x32, pool32 = x.float(), pool.float()
+            r["err_f32"] = check_close(
+                "paged_matmul f32 M=256", ops.stream_matmul(x32, pool32, ids),
+                ref.paged_matmul_ref(x32, pool32, ids), F32_TOL)
+        r["ms"] = time_ms(lambda: ops.stream_matmul(x, pool, ids), 20)
+        r["plain_ms"] = time_ms(
+            lambda: ref.paged_matmul_ref(x, pool, ids), 10)
+        r["library_ms"] = time_ms(lambda: torch.matmul(x, w), 20)
+        r["library_err"] = float((torch.matmul(x, w).float()
+                                  - got.float()).abs().max())
+        # x and the 8 pages read once, y written once (bf16)
+        n_bytes = 2 * (x.numel() + w.numel() + m * MATMUL_N) + 4 * n_k
+        r["bound_ms"], r["bound_by"] = bound(n_bytes,
+                                             2 * m * MATMUL_K * MATMUL_N)
+        res[f"m{m}"] = r
+    res.update({k: res["m8"][k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")})
+    res["max_abs_err"] = max(res["m8"]["err"], res["m256"]["err"])
+    res["shape"] = (f"x [8,{MATMUL_K}] (also [256,{MATMUL_K}]) bf16, "
+                    f"w_pages [{MATMUL_POOL},{MATMUL_PAGE_K},{MATMUL_N}], "
+                    f"{n_k} page ids")
+    return res
+
+
+def check_model_small(dev, arch, kv_quant="none"):
     """The whole model step on the card against the same weights on the
     CPU (plain kernel versions; the CPU tests hold that path to the JAX
     reference): the smoke-size ``arch`` in f32, chunked prefill with a
@@ -286,7 +443,9 @@ def check_model_small(dev, arch):
     Returns the largest logit and cache differences. Tolerances: f32 3e-5
     (tests/test_kernel_parity.py), the hybrid 1e-4 (tests/test_kernels.py
     for the SSD) with its Mamba2 states held relative to their scale (they
-    are ~1e-6 at smoke size)."""
+    are ~1e-6 at smoke size). With int8 pages the codes must be equal but
+    for steps of one (counted), the scales within 1e-6 relative and the
+    dequantized pages within the tolerance plus one step."""
     import copy
     import dataclasses
     import numpy as np
@@ -296,7 +455,7 @@ def check_model_small(dev, arch):
     from repro_torch.models import model as M
     cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig(),
-                   kv_page_size=8)
+                   kv_page_size=8, kv_quant=kv_quant)
     cpu = torch.device("cpu")
     params = {cpu: M.init_model(cfg, seed=SEED, device=cpu)}
     params[dev] = copy.deepcopy(params[cpu]).to(dev)
@@ -324,6 +483,10 @@ def check_model_small(dev, arch):
                  f"the CPU by {float((got - want).abs().max())}")
         err = max(err, float((got - want).abs().max()))
     out = {"logits_max_abs_err": err, "steps": len(steps)}
+    if kv_quant == "int8":
+        out.update(int8_cache_diff(arch, caches[dev]["kv"], caches[cpu]["kv"],
+                                   tol))
+        return out
     leaves = {n: (caches[dev]["kv"][n], caches[cpu]["kv"][n])
               for n in ("k", "v")}
     leaves.update({n: (caches[dev][n], caches[cpu][n])
@@ -340,11 +503,39 @@ def check_model_small(dev, arch):
     return out
 
 
+def int8_cache_diff(arch, got, want, tol):
+    """int8 pages on the card (``got``) against the CPU's: scales within
+    1e-6 relative, codes equal but for steps of one, dequantized values
+    within ``tol`` plus one step. Returns the differences and the count
+    of codes that differ."""
+    import torch
+    out = {"codes": 0, "codes_differ": 0}
+    for n in ("k", "v"):
+        gq, wq = got[n].cpu(), want[n]
+        gs, ws = got[n + "_scale"].cpu(), want[n + "_scale"]
+        if not torch.allclose(gs, ws, rtol=1e-6, atol=0):
+            fail(f"small {arch} int8: card {n} scales differ from the CPU "
+                 f"by {float((gs - ws).abs().max())}")
+        step = (gq.int() - wq.int()).abs()
+        out["codes"] += gq.numel()
+        out["codes_differ"] += int((step > 0).sum())
+        out[f"{n}_max_code_step"] = int(step.max())
+        dg = gq.float() * gs[..., :, None, :, None]
+        dw = wq.float() * ws[..., :, None, :, None]
+        over = (dg - dw).abs() - (tol + tol * dw.abs()
+                                  + ws[..., :, None, :, None])
+        out[f"{n}_max_abs_err"] = float((dg - dw).abs().max())
+        if int(step.max()) > 1 or float(over.max()) > 0:
+            fail(f"small {arch} int8: card {n} codes differ from the CPU "
+                 f"by {int(step.max())} steps")
+    return out
+
+
 # ---------------------------------------------------------------- phase 3
 
-def build_engine(dev, arch):
+def build_engine(dev, arch, kv_quant="none"):
     """Full-width ``arch`` with random bf16 weights drawn on the card from
-    the seed, on the serving engine of both phases."""
+    the seed, on the serving engine of every serving phase."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
@@ -359,15 +550,19 @@ def build_engine(dev, arch):
     init_s = time.time() - t0
     config = ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
                          prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
-                         store_budget_bytes=16 << 30, seed=SEED)
+                         store_budget_bytes=16 << 30, seed=SEED,
+                         kv_quant=kv_quant)
     engine = ServingEngine(params, cfg, rc, config=config, device=dev)
     return cfg, rc, params, engine, init_s
 
 
 def run_stats(engine, handles, wall_s, launches, init_s):
     import torch
+    from repro_torch.core.tier import CxlTier
     st = engine.stats
+    entries = {CxlTier.entry_bytes(e) for e in engine.store.pages.values()}
     return {"init_s": init_s, "wall_s": wall_s, "launches": launches,
+            "n_layers": engine.cfg.n_layers, "entry_bytes": sorted(entries),
             "requests_done": sum(h.done() for h in handles),
             "requests": len(handles),
             "decode_tokens": st["decode_tokens"],
@@ -408,14 +603,35 @@ def step_costs(engine, params, cfg, rc, prompt, dev):
     return out
 
 
-def serve(dev):
+def prefix_pages_equal(engine, rid, again_rid, prompt_len):
+    """The int8 flush -> restore -> decode round trip: the pages that the
+    prompt filled (and no decode step touched) come back in the restored
+    request's own retired entry with the same codes and scales, bit for
+    bit (``tests/test_kv_quant.py``'s engine gate, at full width)."""
+    import torch
+    for _ in range(20):
+        if rid in engine.store.pages and again_rid in engine.store.pages:
+            break
+        engine.flusher.maybe_flush()
+    a, b = engine.store.pages.get(rid), engine.store.pages.get(again_rid)
+    if a is None or b is None:
+        return False
+    full = prompt_len // engine.cache["kv"]["k"].shape[3]
+    return all(torch.equal(a["kv"][n][:, :full], b["kv"][n][:, :full])
+               for n in a["kv"])
+
+
+def serve(dev, kv_quant="none"):
+    """Serve full-width qwen3-1.7b: N_REQUESTS prompts, then N_RESUBMIT of
+    them again under new rids (prefix restores)."""
     import numpy as np
     import torch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.serving.engine import Request
 
-    cfg, rc, params, engine, init_s = build_engine(dev, ARCH)
+    cfg, rc, params, engine, init_s = build_engine(dev, ARCH, kv_quant)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(*PROMPT_LENS, N_REQUESTS)]
@@ -423,7 +639,9 @@ def serve(dev):
 
     # the main path: counts from 0 just before, read just after
     dops.launches = 0
+    dops.int8_launches = 0
     fops.launches = 0
+    hops.launches = 0
     t0 = time.time()
     first = [engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
              for i, p in enumerate(prompts)]
@@ -434,15 +652,58 @@ def serve(dev):
     engine.run(max_ticks=10_000)
     torch.cuda.synchronize()
     wall_s = time.time() - t0
-    launches = {"paged_decode": dops.launches, "flash_prefill": fops.launches}
+    decode = "paged_decode_int8" if kv_quant == "int8" else "paged_decode"
+    launches = {decode: (dops.int8_launches if kv_quant == "int8"
+                         else dops.launches),
+                "flash_prefill": fops.launches}
+    off_path = {"paged_decode": dops.launches,
+                "paged_decode_int8": dops.int8_launches,
+                "paged_matmul": hops.launches}
+    off_path.pop(decode)
 
     out = run_stats(engine, first + again, wall_s, launches, init_s)
+    out["off_path_launches"] = off_path
     out["restored"] = [h.request.restored for h in again]
     out["tokens_equal"] = [h.result() == first[i].result()
                            for i, h in enumerate(again)
                            if h.done() and first[i].done()]
+    out["tokens_first_run"] = [first[i].result() for i in range(N_RESUBMIT)]
+    out["tokens_restored"] = [h.result() for h in again]
     out.update(step_costs(engine, params, cfg, rc, prompts[0], dev))
+    if kv_quant == "int8":
+        out["prefix_pages_equal"] = [
+            prefix_pages_equal(engine, i, 1000 + i, len(prompts[i]))
+            for i in range(N_RESUBMIT)]
+        out["tokens_equal_leading"] = [
+            next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                 len(x))
+            for x, y in zip(out["tokens_first_run"], out["tokens_restored"])]
+        out["post_prefill"] = restore_from_post_prefill(
+            dev, prompts[:N_RESUBMIT], out["tokens_first_run"])
     return out
+
+
+def restore_from_post_prefill(dev, prompts, first_tokens):
+    """int8 restores are exact when the entry is the post-prefill state.
+
+    A retired entry holds the pages as they stand at retire, so under
+    int8 the page holding ``pos`` carries the scale that the decoded rows
+    grew and its prompt rows come back re-rounded to it (the reference
+    engine does the same). Here each prompt first runs for one token on
+    fresh slots, so that its entry is exactly the state its first run
+    decoded from; restored, it must give that run's greedy tokens."""
+    from repro_torch.serving.engine import Request
+    _, _, _, engine, _ = build_engine(dev, ARCH, "int8")
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=1))
+    engine.run(max_ticks=10_000)
+    again = [engine.submit(Request(rid=100 + i, prompt=p,
+                                   max_new_tokens=MAX_NEW))
+             for i, p in enumerate(prompts)]
+    engine.run(max_ticks=10_000)
+    return {"restored": [h.request.restored for h in again],
+            "tokens_equal": [h.result() == t
+                             for h, t in zip(again, first_tokens)]}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -554,6 +815,20 @@ def report(arch, run):
                  f"path")
 
 
+def check_restores(arch, run):
+    """Every resubmit restored from the tier, with its first run's greedy
+    tokens."""
+    if run["prefix_hits"] < N_RESUBMIT or run["restore_stall_ns"] <= 0:
+        fail(f"{arch}: prefix restores missing: hits {run['prefix_hits']}, "
+             f"stall {run['restore_stall_ns']}")
+    if not all(run["restored"]):
+        fail(f"{arch}: resubmits not restored: {run['restored']}")
+    if len(run["tokens_equal"]) != N_RESUBMIT or not all(
+            run["tokens_equal"]):
+        fail(f"{arch}: restored greedy tokens differ: "
+             f"{run['tokens_equal']}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -587,22 +862,20 @@ def main() -> None:
     log(f"flash_prefill ok: {pre['shape']}; {pre}")
     pre80 = check_prefill(dev, 32, 1, 80)
     log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
+    dec8 = check_decode_int8(dev, 8, 2, 128)
+    log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
     ssd = check_ssd(dev)
     log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
+    mm = check_paged_matmul(dev)
+    log(f"paged_matmul ok: {mm['shape']}; {mm}")
     small = {arch: check_model_small(dev, arch) for arch in (ARCH, HYBRID)}
+    small[f"{ARCH} int8"] = check_model_small(dev, ARCH, "int8")
     for arch, res in small.items():
         log(f"small {arch} (f32) on the card agrees with the CPU: {res}")
 
     run = serve(dev)
     report(ARCH, run)
-    if run["prefix_hits"] < N_RESUBMIT or run["restore_stall_ns"] <= 0:
-        fail(f"prefix restores missing: hits {run['prefix_hits']}, "
-             f"stall {run['restore_stall_ns']}")
-    if not all(run["restored"]):
-        fail(f"resubmits not restored: {run['restored']}")
-    if len(run["tokens_equal"]) != N_RESUBMIT or not all(
-            run["tokens_equal"]):
-        fail(f"restored greedy tokens differ: {run['tokens_equal']}")
+    check_restores(ARCH, run)
     torch.cuda.empty_cache()
 
     hyb = serve_hybrid(dev)
@@ -611,34 +884,82 @@ def main() -> None:
     if hyb["flushes"] <= 0 or hyb["tier_write_ns"] <= 0:
         fail(f"{HYBRID}: no pages flushed to the tier")
 
-    runs = {ARCH: run, HYBRID: hyb}
+    torch.cuda.empty_cache()
+
+    run8 = serve(dev, "int8")
+    int8_name = f"{ARCH} int8"
+    report(int8_name, run8)
+    # restored from entries captured at retire, greedy tokens may part
+    # from the first run's after the first one (restore_from_post_prefill);
+    # the restore itself must be exact: the prompt's full pages come back
+    # bit for bit, and a post-prefill entry gives the first run's tokens
+    log(f"{int8_name}: restored tokens equal to the first run's "
+        f"{run8['tokens_equal']}, equal leading tokens "
+        f"{run8['tokens_equal_leading']} of {MAX_NEW}; prompt pages bit "
+        f"for bit {run8['prefix_pages_equal']}; restored from post-prefill "
+        f"entries {run8['post_prefill']}")
+    if run8["prefix_hits"] < N_RESUBMIT or not all(run8["restored"]):
+        fail(f"{int8_name}: resubmits not restored: {run8['restored']}")
+    if not all(run8["prefix_pages_equal"]) or min(
+            run8["tokens_equal_leading"]) < 1:
+        fail(f"{int8_name}: the round trip is not exact")
+    post = run8["post_prefill"]
+    if not (all(post["restored"]) and all(post["tokens_equal"])
+            and len(post["tokens_equal"]) == N_RESUBMIT):
+        fail(f"{int8_name}: restores of post-prefill entries differ from "
+             f"the first run: {post}")
+    per_tick = run8["launches"]["paged_decode_int8"] / run8["decode_ticks"]
+    if per_tick != run8["n_layers"] or any(
+            run8["off_path_launches"].values()):
+        fail(f"{int8_name}: int8 decode launches per tick {per_tick} (want "
+             f"one per layer, {run8['n_layers']}), off-path launches "
+             f"{run8['off_path_launches']}")
+    ratio = max(run8["entry_bytes"]) / min(run["entry_bytes"])
+    run8["entry_ratio"] = ratio
+    log(f"{int8_name}: entry {run8['entry_bytes']} bytes over the bf16 "
+        f"entry {run['entry_bytes']} = {ratio:.5f} (gate < "
+        f"{INT8_ENTRY_RATIO}); restore stall per restore "
+        f"{run8['restore_stall_ns'] / run8['prefix_hits']:.1f} ns against "
+        f"bf16 {run['restore_stall_ns'] / run['prefix_hits']:.1f} ns")
+    if ratio >= INT8_ENTRY_RATIO:
+        fail(f"{int8_name}: int8 entry / bf16 entry {ratio}")
+
+    runs = {ARCH: run, HYBRID: hyb, int8_name: run8}
     kernels = []
     for name, res, src, replaces in (
             ("paged_decode", dec, "src/repro_torch/csrc/paged_decode.cu",
              "src/repro/kernels/decode_attention/kernel.py:79"),
+            ("paged_decode_int8", dec8,
+             "src/repro_torch/csrc/paged_decode.cu",
+             "src/repro/kernels/decode_attention/kernel.py:79"),
             ("flash_prefill", pre, "src/repro_torch/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/kernel.py:77"),
             ("ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/mamba2_scan/kernel.py:68")):
+             "src/repro/kernels/mamba2_scan/kernel.py:68"),
+            ("paged_matmul", mm, "src/repro_torch/csrc/paged_matmul.cu",
+             "src/repro/kernels/hdm_stream/kernel.py:42")):
         by_path = {arch: r["launches"][name] for arch, r in runs.items()
                    if name in r["launches"]}
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-                        "plain_ms": res["plain_ms"],
-                        "bound_ms": res["bound_ms"],
-                        "bound_by": res["bound_by"],
-                        "library_ms": res["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
+               "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+               "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+               "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+        if name == "paged_matmul":
+            row["note"] = ("no path of the reference calls it (its engine "
+                           "drops the speculative-read weight prefetch on "
+                           "one device); ported as its op, stream_matmul")
+        kernels.append(row)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "decode": dec, "decode_d80": dec80,
-                   "prefill": pre, "prefill_d80": pre80, "ssd_scan": ssd,
-                   "small_model": small, "serve": run,
-                   "serve_hybrid": hyb, "kernels": kernels},
-                  f, indent=1)
+                   "decode_int8": dec8, "prefill": pre,
+                   "prefill_d80": pre80, "ssd_scan": ssd,
+                   "paged_matmul": mm, "small_model": small, "serve": run,
+                   "serve_hybrid": hyb, "serve_int8": run8,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -106,8 +106,9 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
 
 
 def cache_from_jax(np_cache: Dict, device="cuda") -> Dict:
-    """The reference's cache (numpy leaves: paged ``kv``, ``pos`` and, for
-    the hybrid, ``h``/``conv``) as the port's cache."""
+    """The reference's cache (numpy leaves: paged ``kv`` -- int8 codes with
+    their f32 ``k_scale``/``v_scale`` under ``kv_quant="int8"`` --, ``pos``
+    and, for the hybrid, ``h``/``conv``) as the port's cache."""
     dev = resolve_device(device)
     out = {"kv": {name: to_tensor(a, dev)
                   for name, a in np_cache["kv"].items()},

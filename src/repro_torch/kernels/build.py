@@ -31,8 +31,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8
                           + [_F, _F, _P],
+    "repro_paged_decode_int8": [_P] * 11 + [_I] * 9 + [_F, _F, _P],
     "repro_flash_prefill": [_P, _P, _P, _P, _P] + [_I] * 7 + [_F, _F, _P],
     "repro_ssd_scan": [_P] * 7 + [_I] * 5 + [_P],
+    "repro_paged_matmul": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _LIB = None

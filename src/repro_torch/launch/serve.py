@@ -4,12 +4,15 @@
       --cxl-topology dram,ssd-fast          # full width, on the card
   python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --cxl-topology dram,ssd-fast          # the hybrid family, on the card
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --kv-quant int8 \
+      --cxl-topology dram,ssd-fast          # int8 KV pages, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu --requests 4     # smoke size, on the CPU
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
 that this port supports: the dense and hybrid families, one rank,
-bf16/f32 pages and the closed submit-then-run loop. Every engine default
+bf16/f32 or int8 (``--kv-quant int8``) pages and the closed
+submit-then-run loop. Every engine default
 comes from :class:`~repro_torch.serving.config.ServeConfig`.
 ``--cxl-media`` / ``--cxl-topology`` attach the CXL-timed tier;
 ``--cxl-async`` and ``--preempt-policy`` drive the scheduler;
@@ -186,6 +189,11 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--prefill-chunk", type=int, default=_DEF.prefill_chunk)
     ap.add_argument("--seed", type=int, default=_DEF.seed)
+    ap.add_argument("--kv-quant", default=_DEF.kv_quant,
+                    choices=["none", "int8"],
+                    help="KV page format: model dtype, or int8 codes with "
+                         "per-(page, head) f32 scales (every tier charge "
+                         "sees the quantized bytes)")
     ap.add_argument("--cxl-media", default=_DEF.tier_media,
                     help="attach the CXL-timed tier: dram / ssd-fast / "
                          "ssd-slow (or any sim media spec, e.g. znand@2)")
@@ -221,7 +229,7 @@ def main(argv=None) -> None:
     config = ServeConfig(
         n_slots=args.slots, max_seq=args.max_seq,
         prefill_chunk=args.prefill_chunk, seed=args.seed,
-        cxl_async=args.cxl_async,
+        kv_quant=args.kv_quant, cxl_async=args.cxl_async,
         preempt_policy=args.preempt_policy, admit_mode=args.admit_mode,
         tier_media=args.cxl_media, tier_topology=topology,
         tier_placement=args.cxl_placement,

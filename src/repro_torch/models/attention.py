@@ -4,10 +4,13 @@ and the single-rank paged decode.
 Both attentions run the port's kernels (``repro_torch.kernels``): on a CUDA
 tensor the hand-written CUDA kernel, on a CPU tensor its plain version.
 The cache is written in place where the reference writes a new array.
+With int8 pages (``models.kv_quant``) the decode kernel reads the codes in
+place and only the page a row wrote is requantized; the reference
+requantizes every page, which leaves the others bit for bit unchanged.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -15,6 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import paged_decode
 from repro_torch.kernels.flash_attention.ops import flash_prefill
+from repro_torch.models import kv_quant
 from repro_torch.models.layers import (apply_rope, dense_init, frozen_param,
                                        head_rmsnorm, pdtype)
 
@@ -91,11 +95,35 @@ def write_rows(buf: torch.Tensor, new: torch.Tensor,
     buf[rows, idx] = new.to(buf.dtype)
 
 
+def _decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v, pos,
+                 logit_softcap):
+    """The int8 decode: the kernel attends over the codes with the new
+    row at full precision; then the page holding each row's clamped
+    ``pos`` is dequantized, takes the new row, and is requantized."""
+    o = paged_decode(q, k_codes, v_codes, k_scale=k_scale, v_scale=v_scale,
+                     new_k=new_k, new_v=new_v, pos=pos,
+                     logit_softcap=logit_softcap)
+    b, _, page = k_codes.shape[:3]
+    at = pos.long().clamp(0, k_codes.shape[1] * page - 1)
+    rows = torch.arange(b, device=q.device)
+    idx = (rows[:, None], (at // page)[:, None])     # [B, 1] pages
+    for codes, scale, new in ((k_codes, k_scale, new_k),
+                              (v_codes, v_scale, new_v)):
+        prev = scale[idx]
+        x = kv_quant.dequantize_pages(codes[idx], prev)
+        x[rows, 0, at % page] = new[:, 0].float()
+        codes[idx], scale[idx] = kv_quant.requantize_pages(x, prev)
+    return o
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, new_k: torch.Tensor,
                            new_v: torch.Tensor, pos: torch.Tensor, *,
                            n_ranks: int = 1,
-                           logit_softcap: float = 0.0) -> torch.Tensor:
+                           logit_softcap: float = 0.0,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Single-token decode over each slot's KV pages (the paged-decode
     kernel).
 
@@ -103,12 +131,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pos: int32 [B] per-slot positions. The new token's K/V is written in
     place at ``pos[b]`` (clamped to the last position) before slot b
     attends to positions [0, pos[b]]. Returns o [B,1,H,D]; the pages are
-    updated in place. Only the single-rank path is ported; the
-    page-sharded path raises.
+    updated in place. With ``k_scale``/``v_scale`` (f32 [B,P,Hkv]) the
+    pages are int8 codes: the new row is attended at full precision, then
+    its page is requantized and the scales grow in place. Only the
+    single-rank path is ported; the page-sharded path raises.
     """
     if n_ranks > 1:
         raise NotImplementedError("page-sharded (multi-rank) decode is not "
                                   "ported yet")
+    if k_scale is not None:
+        return _decode_int8(q, k_pages, v_pages, k_scale, v_scale, new_k,
+                            new_v, pos, logit_softcap)
     b, _, _, d = q.shape
     hkv = k_pages.shape[3]
     smax = k_pages.shape[1] * k_pages.shape[2]

@@ -5,17 +5,22 @@ The reference streams a stacked layer axis through its speculative-read
 scan; here the layers are a plain loop over ``DenseModel.blocks`` or
 ``HybridModel.groups`` (the reference's serving engine drops the prefetch
 for a single device too). Caches keep the reference's layout -- dense
-``{"kv": {"k","v"}: [L, B, P, page, Hkv, D], "pos": [B]}``; hybrid adds
-the f32 Mamba2 states ``"h"`` [g, period, B, nh, P, N] and ``"conv"``
-[g, period, B, W-1, C], with one shared-block K/V cache per group -- and
-are updated **in place**: the steps return the same cache dict they were
-given, where the reference returns new arrays (its engine donates them).
+``{"kv": {"k","v"}: [L, B, P, page, Hkv, D], "pos": [B]}``, with int8
+``k``/``v`` codes and f32 ``k_scale``/``v_scale`` [L, B, P, Hkv] under
+``kv_quant="int8"``; hybrid adds the f32 Mamba2 states ``"h"`` [g, period,
+B, nh, P, N] and ``"conv"`` [g, period, B, W-1, C], with one shared-block
+K/V cache per group -- and are updated **in place**: the steps return the
+same cache dict they were given, where the reference returns new arrays
+(its engine donates them).
 
 The hybrid prefill chunk differs from the reference in form, not in
 function: the reference scans ``decode_step`` over the chunk's tokens;
 here the Mamba2 layers run the chunked SSD kernel from the carried state
 and the shared block the chunked flash prefill, which computes the same
-logits and caches (``tests/test_torch_hybrid.py``).
+logits and caches (``tests/test_torch_hybrid.py``). With int8 pages the
+two forms differ (each decode step attends to the chunk's earlier tokens
+through their codes), so the shared block then runs the chunk token by
+token through the int8 decode, as the reference does.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import kv_quant, mamba2, transformer
 from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        embed_init, frozen_param, pdtype,
                                        rmsnorm, unembed_apply)
@@ -126,18 +131,26 @@ def cache_init(cfg: ModelConfig, rc: RunConfig, batch: int, max_seq: int,
     """Zeroed paged cache ``{"kv": {"k","v"}: [L,B,P,page,Hkv,D],
     "pos": int32 [B]}`` in the model dtype; a hybrid model has one K/V
     layer per group (L = groups) and zeroed f32 ``"h"``/``"conv"``
-    states."""
+    states. With ``rc.kv_quant == "int8"`` the ``k``/``v`` leaves are int8
+    codes and gain f32 ``k_scale``/``v_scale`` leaves [L,B,P,Hkv] filled
+    with ``kv_quant.INIT_SCALE``."""
     check_family(cfg)
-    if rc.kv_quant != "none":
-        raise NotImplementedError("int8 KV pages are not ported yet")
+    quant = kv_quant.validate_mode(rc.kv_quant) == "int8"
     dev = resolve_device(device)
     page = min(rc.kv_page_size, max_seq)
     n_pages = max(max_seq // page, 1)
     hybrid = cfg.family == "hybrid"
     n_kv = n_groups(cfg) if hybrid else cfg.n_layers
     shape = (n_kv, batch, n_pages, page, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"kv": {"k": torch.zeros(shape, dtype=pdtype(cfg), device=dev),
-                    "v": torch.zeros(shape, dtype=pdtype(cfg), device=dev)},
+    kv_dt = torch.int8 if quant else pdtype(cfg)
+    kv = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+          "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            kv[name] = torch.full(shape[:3] + shape[4:5],
+                                  kv_quant.INIT_SCALE, dtype=torch.float32,
+                                  device=dev)
+    cache = {"kv": kv,
              "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if hybrid:
         lead = (n_groups(cfg), cfg.shared_block_period)
@@ -244,7 +257,7 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
                               mamba2.mamba_prefill_chunk)
             z = transformer.block_prefill_cached(
                 sp.block, cfg, _shared_in(sp, x, emb), positions, pos,
-                _layer_kv(cache, gi))
+                _layer_kv(cache, gi), stepwise=True)
             x = x + z @ sp.out_map
     else:
         for i, block in enumerate(params.blocks):

@@ -12,6 +12,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import kv_quant
 from repro_torch.models.layers import (MLP, RMSNorm, mlp_apply, mlp_init,
                                        pdtype, rmsnorm)
 
@@ -52,29 +53,83 @@ def block_decode_paged(block: Block, cfg: ModelConfig, x: torch.Tensor,
     """Single-token decode against one layer's pages.
 
     x: [B, 1, d]; pos: int32 [B]; kv: {"k","v"} each [B, n_pages, page,
-    Hkv, D], written in place. Returns the block output [B, 1, d].
+    Hkv, D] (int8 pages add f32 "k_scale"/"v_scale" [B, n_pages, Hkv]),
+    written in place. Returns the block output [B, 1, d].
     """
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     positions = pos.reshape(-1, 1).to(torch.int32)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
     o = attn.paged_decode_attention(q, kv["k"], kv["v"], k, v, pos,
                                     n_ranks=n_ranks,
-                                    logit_softcap=cfg.attn_logit_softcap)
+                                    logit_softcap=cfg.attn_logit_softcap,
+                                    k_scale=kv.get("k_scale"),
+                                    v_scale=kv.get("v_scale"))
     return _finish(block, cfg, x, o)
+
+
+def _prefill_attention_int8(cfg: ModelConfig, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            pos: torch.Tensor,
+                            kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The chunk's attention over int8 pages, as the reference's dense
+    prefill computes it: dequantize the rows' pages to f32, write the
+    chunk's K/V at [pos, pos+C), run the flash prefill with q widened to
+    f32 (the reference's bf16 x f32 einsum promotes q), cast the output
+    back, and requantize the pages the chunk touched."""
+    bsz, n_pages, page = kv["k"].shape[:3]
+    c, smax = q.shape[1], n_pages * page
+    flat = (bsz, smax, cfg.n_kv_heads, cfg.head_dim)
+    start = pos.long().clamp(0, smax - c)
+    span = min(n_pages, (c - 1) // page + 2)       # pages [start, start+C)
+    pages = (start[:, None] // page + torch.arange(
+        span, device=q.device)[None]).clamp(max=n_pages - 1)
+    idx = (torch.arange(bsz, device=q.device)[:, None], pages)
+    deq = {}
+    for name, new in (("k", k), ("v", v)):
+        x = kv_quant.dequantize_pages(kv[name], kv[name + "_scale"])
+        attn.write_rows(x.view(flat), new, pos)
+        deq[name] = x
+    o = attn.chunk_prefill_attention(q.float(), deq["k"].view(flat),
+                                     deq["v"].view(flat), pos,
+                                     logit_softcap=cfg.attn_logit_softcap)
+    for name in ("k", "v"):
+        codes, scale = kv[name], kv[name + "_scale"]
+        codes[idx], scale[idx] = kv_quant.requantize_pages(deq[name][idx],
+                                                           scale[idx])
+    return o.to(q.dtype)
 
 
 def block_prefill_cached(block: Block, cfg: ModelConfig, x: torch.Tensor,
                          positions: torch.Tensor, pos: torch.Tensor,
-                         kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+                         kv: Dict[str, torch.Tensor], *,
+                         stepwise: bool = False) -> torch.Tensor:
     """One block over a C-token chunk, writing its K/V into the pages.
 
     x: [B, C, d]; positions: [B, C]; pos: int32 [B] per-row start
     positions; kv: {"k","v"} each [B, n_pages, page, Hkv, D]. The chunk
     K/V are written in place at [pos, pos+C) before the attention, so the
     chunk attends to prior context + its own causal prefix.
+
+    Int8 pages (``"k_scale"`` in kv) follow the reference: the dense
+    prefill attends over the dequantized pages with the chunk at full
+    precision and requantizes once; with ``stepwise`` (the hybrid, whose
+    reference prefill is a scan of ``decode_step``) each token is a
+    decode step that attends to the chunk's earlier tokens through their
+    codes and requantizes its page.
     """
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
+    if "k_scale" in kv and stepwise:
+        o = torch.cat([attn.paged_decode_attention(
+            q[:, i:i + 1].contiguous(), kv["k"], kv["v"],
+            k[:, i:i + 1].contiguous(), v[:, i:i + 1].contiguous(),
+            (pos + i).to(torch.int32), logit_softcap=cfg.attn_logit_softcap,
+            k_scale=kv["k_scale"], v_scale=kv["v_scale"])
+            for i in range(q.shape[1])], dim=1)
+        return _finish(block, cfg, x, o)
+    if "k_scale" in kv:
+        return _finish(block, cfg, x,
+                       _prefill_attention_int8(cfg, q, k, v, pos, kv))
     bsz, n_pages, page = kv["k"].shape[:3]
     flat = (bsz, n_pages * page, cfg.n_kv_heads, cfg.head_dim)
     kf, vf = kv["k"].view(flat), kv["v"].view(flat)

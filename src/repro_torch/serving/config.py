@@ -15,8 +15,8 @@ tier attachment (:meth:`ServeConfig.make_tier`) imports
 touches torch.
 
 This is the reference package's ``ServeConfig`` with the same fields and
-validation; options this port does not implement yet (int8 pages, the
-legacy host path, multi-rank serving) raise ``NotImplementedError``.
+validation; options this port does not implement yet (the legacy host
+path, multi-rank serving) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -189,9 +189,6 @@ class ServeConfig:
                 if not ev or ev[0] not in _FAULT_KINDS:
                     raise ValueError(f"unknown fault event {ev!r} "
                                      f"(kinds: {_FAULT_KINDS})")
-        if self.kv_quant == "int8":
-            raise NotImplementedError("int8 KV pages are not ported yet; "
-                                      "use kv_quant='none'")
         if self.legacy_host_path:
             raise NotImplementedError("the legacy host path is not ported; "
                                       "the port serves on the device-"

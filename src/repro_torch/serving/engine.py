@@ -27,8 +27,12 @@ traffic.
    reference donates it; sampled tokens stay on the device until a slot
    retires.
 
-Not ported: the legacy host path, int8 pages and multi-rank serving
-(``ServeConfig`` raises for them).
+With ``kv_quant="int8"`` the pages are int8 codes with per-(page, head)
+f32 scales: flush, restore, swap and prefix entries carry both, and every
+tier charge and store budget counts their bytes.
+
+Not ported: the legacy host path and multi-rank serving (``ServeConfig``
+raises for them).
 """
 from __future__ import annotations
 
@@ -270,6 +274,11 @@ class ServingEngine:
             raise ValueError(f"params live on {p_dev}, engine device is "
                              f"{self.device}")
         self.serve_config = config
+        # int8 pages: thread the knob into the RunConfig, so that
+        # cache_init emits codes + scales and every tier charge sees the
+        # quantized byte counts
+        if config.kv_quant != "none" and rc.kv_quant != config.kv_quant:
+            rc = dataclasses.replace(rc, kv_quant=config.kv_quant)
         self.params = params
         self.cfg = cfg
         self.rc = rc

@@ -8,6 +8,7 @@
   back to the CPU unless asked.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -47,7 +48,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_engine_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
-            "repro_torch.launch.serve, repro_torch.bridge; "
+            "repro_torch.launch.serve, repro_torch.bridge, "
+            "repro_torch.models.kv_quant, "
+            "repro_torch.kernels.hdm_stream.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -88,6 +91,12 @@ def _default_device_calls():
         "hybrid_serve": lambda: serve.serve("zamba2-2.7b", smoke=True),
         "hybrid_cli": lambda: serve.main(["--arch", "zamba2-2.7b",
                                           "--smoke"]),
+        "int8_cache_init": lambda: M.cache_init(
+            cfg, dataclasses.replace(rc, kv_quant="int8"), 2, 32),
+        "int8_ServingEngine": lambda: ServingEngine(cpu_params, cfg, rc,
+                                                    kv_quant="int8"),
+        "int8_cli": lambda: serve.main(["--arch", "qwen3-1.7b", "--smoke",
+                                        "--kv-quant", "int8"]),
     }
 
 
@@ -98,7 +107,8 @@ def _default_device_calls():
                                    "hybrid_cache_init",
                                    "hybrid_params_from_jax",
                                    "hybrid_ServingEngine", "hybrid_serve",
-                                   "hybrid_cli"])
+                                   "hybrid_cli", "int8_cache_init",
+                                   "int8_ServingEngine", "int8_cli"])
 def test_default_device_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

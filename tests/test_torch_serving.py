@@ -189,7 +189,7 @@ def test_host_page_store_copies_and_evicts():
 
 
 @pytest.mark.parametrize("knobs,exc", [
-    (dict(kv_quant="int8"), NotImplementedError),
+    (dict(kv_quant="int8", legacy_host_path=True), ValueError),
     (dict(legacy_host_path=True), NotImplementedError),
     (dict(kv_quant="fp8"), ValueError),
 ])
