@@ -6,16 +6,27 @@
 Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
 ``jax`` nor the JAX package. Phases, each fatal on failure:
 
-1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from ``src/repro_torch/csrc`` (timed);
+1. print the card (``nvidia-smi`` name and power limit), build the CUDA
+   kernels from ``src/repro_torch/csrc`` (timed) and print each kernel
+   instance's registers, shared memory and spills (``-Xptxas -v``);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, and time kernel, plain version and, where one
-   exists, one PyTorch library call (SDPA, cuBLAS) with CUDA events: the
+   exists, one PyTorch library call (SDPA, cuBLAS) -- kernel and library
+   call as device time (calls captured in a CUDA graph and replayed
+   between CUDA events), the plain version per call with CUDA events; the
+   decode kernel's output must be bit-identical run to run, and the
+   prefill kernel is also timed at other plans (rows per CTA, stages): the
    two attention kernels in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's
    heads (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H =
    32, D 80); the decode kernel's int8 mode at qwen3's heads (bf16 2e-2,
    int8 pages with their scales, the new row at full precision; its
-   yardstick is dequantize + SDPA); the SSD scan in f32 (atol = rtol =
+   yardstick is dequantize + SDPA); the attention kernels' edge shapes
+   (bf16 2e-2, f32 1e-4): flash_prefill at a ragged 37-token chunk near
+   the cache's end, G = 1, 2 and 8, D 64, softcap 30; paged_decode, both
+   modes, at lengths 1, 255, 256, 257 and Smax around a split, G = 1 and
+   8, the int8 fresh row on a tile's first and last row and past the
+   cache; the f32 flash_prefill instance at the int8 path's chunk, timed
+   beside f32 SDPA; the SSD scan in f32 (atol = rtol =
    1e-4, ``y`` and ``h_last``) at zamba2's 80 heads, P = N = 64, from a
    nonzero state, over a 256-token chunk and a ragged 44-token one; the
    paged weight-streaming matmul at qwen3's MLP width (x [8, 2048] and
@@ -124,6 +135,36 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: ``iters`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events, so
+    that the host's dispatch of each call (Python checks, ctypes) is not
+    in the time. For a kernel or library call that syncs with nothing."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def bound(n_bytes: float, n_flops: float, peak: float = BF16_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / peak * 1e3
@@ -140,7 +181,70 @@ def check_close(name, got, want, tol=TOL):
     return err
 
 
+def check_repeatable(name, call, other, n=50):
+    """``call``'s output is bit-identical run to run, each run after one
+    of ``other`` (the same plan and workspace, other values)."""
+    import torch
+    first = call().clone()
+    for _ in range(n):
+        other()
+        if not torch.equal(call(), first):
+            fail(f"{name}: output differs from run to run")
+    return n
+
+
 # ---------------------------------------------------------------- phase 2
+
+def launch_plans():
+    """The attention kernels' launch plans (grid, tiles, stages, dynamic
+    shared memory) at the serving paths' shapes: 8 slots x 2048 tokens in
+    pages of 256, 256-token chunks."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    plans = {}
+    for arch, h, hkv, d in ((ARCH, 16, 8, 128), (HYBRID, 32, 32, 80)):
+        plans[f"paged_decode {arch} bf16"] = dops.plan(
+            N_SLOTS, h, hkv, MAX_SEQ, 256, d, torch.bfloat16)
+        plans[f"flash_prefill {arch} bf16"] = fops.plan(
+            1, CHUNK, h, hkv, d, torch.bfloat16)
+    plans[f"paged_decode {ARCH} int8"] = dops.plan(
+        N_SLOTS, 16, 8, MAX_SEQ, 256, 128, torch.int8)
+    plans[f"flash_prefill {ARCH} f32"] = fops.plan(
+        1, CHUNK, 16, 8, 128, torch.float32)
+    return {k: dataclasses.asdict(p) for k, p in plans.items()}
+
+
+
+def ptxas_report(text: str):
+    """Each kernel instance's ``-Xptxas -v`` lines from ``build.log``:
+    registers and static shared memory ("Used ...") and spills, under
+    the demangled kernel name (``c++filt`` where the toolkit has it)."""
+    import re
+    import shutil
+    rows, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows.append({"kernel": name, "used": "", "spill": ""})
+        elif rows and "Used" in line:
+            rows[-1]["used"] = line.split(":", 1)[-1].strip()
+        elif rows and "spill" in line:
+            rows[-1]["spill"] = line.split(":", 1)[-1].strip()
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r["kernel"]
+                                                     for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = n.replace("(anonymous namespace)::", "")
+    return rows
+
+
 
 def check_decode(dev, hkv, g, d):
     """paged_decode at ``hkv`` kv heads of ``g`` query heads, head_dim
@@ -170,6 +274,9 @@ def check_decode(dev, hkv, g, d):
         q.float(), kp.float(), vp.float(), kv_len)).abs().max())
     if res["err_f32"] > 1e-4:
         fail(f"paged_decode f32 max abs err {res['err_f32']}")
+    res["bitwise_repeats"] = check_repeatable(
+        "paged_decode", lambda: ops.paged_decode(q, kp, vp, kv_len),
+        lambda: ops.paged_decode(q, kp, vp, kv_len, logit_softcap=30.0))
     # SDPA yardstick: the same function, per-slot length as a boolean mask
     # and the kv heads expanded to the query heads beforehand (untimed)
     mask = (torch.arange(smax, device=dev)[None] < kv_len[:, None].long()
@@ -183,10 +290,11 @@ def check_decode(dev, hkv, g, d):
     got = ops.paged_decode(q, kp, vp, kv_len)
     res["library_err"] = float((sdpa().transpose(1, 2).float()
                                 - got.float()).abs().max())
-    res["ms"] = time_ms(lambda: ops.paged_decode(q, kp, vp, kv_len), 50)
+    res["ms"] = device_ms(lambda: ops.paged_decode(q, kp, vp, kv_len), 50)
+    res["call_ms"] = time_ms(lambda: ops.paged_decode(q, kp, vp, kv_len), 50)
     res["plain_ms"] = time_ms(
         lambda: ref.paged_decode_ref(q, kp, vp, kv_len), 10)
-    res["library_ms"] = time_ms(sdpa, 50)
+    res["library_ms"] = device_ms(sdpa, 50)
     tokens = sum(min(n, smax) for n in lens)
     n_bytes = (2 * tokens * hkv * d * 2 + 2 * q.numel() * 2
                + kv_len.numel() * 4)
@@ -241,6 +349,9 @@ def check_decode_int8(dev, hkv, g, d):
                             ).abs().max())
     if res["err_f32"] > 1e-4:
         fail(f"paged_decode int8 f32 max abs err {res['err_f32']}")
+    res["bitwise_repeats"] = check_repeatable(
+        "paged_decode int8", lambda: ops.paged_decode(q, kc, vc, **args),
+        lambda: ops.paged_decode(q, kc, vc, logit_softcap=30.0, **args))
 
     rows = torch.arange(b, device=dev)
     mask = (torch.arange(smax, device=dev)[None] < kv_len[:, None].long()
@@ -260,14 +371,15 @@ def check_decode_int8(dev, hkv, g, d):
     got = ops.paged_decode(q, kc, vc, **args)
     res["library_err"] = float((deq_sdpa().transpose(1, 2).float()
                                 - got.float()).abs().max())
-    res["ms"] = time_ms(lambda: ops.paged_decode(q, kc, vc, **args), 50)
+    res["ms"] = device_ms(lambda: ops.paged_decode(q, kc, vc, **args), 50)
+    res["call_ms"] = time_ms(lambda: ops.paged_decode(q, kc, vc, **args), 50)
     res["plain_ms"] = time_ms(lambda: ref.paged_decode_int8_ref(
         q, kc, vc, ks, vs, new["k"], new["v"], pos), 10)
     kb, vb = (kv_quant.dequantize_pages(c, sc, torch.bfloat16)
               for c, sc in ((kc, ks), (vc, vs)))
-    res["bf16_mode_ms"] = time_ms(lambda: ops.paged_decode(q, kb, vb,
-                                                           kv_len), 50)
-    res["library_ms"] = time_ms(deq_sdpa, 50)
+    res["bf16_mode_ms"] = device_ms(lambda: ops.paged_decode(q, kb, vb,
+                                                             kv_len), 50)
+    res["library_ms"] = device_ms(deq_sdpa, 20)
     res["library"] = "dequantize_pages + SDPA (two calls)"
     # codes of the visible tokens (1 byte each) and the scales of their
     # pages, read once; q, the new rows and the output in bf16
@@ -327,16 +439,166 @@ def check_prefill(dev, hkv, g, d):
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
     res["library_err"] = float((sdpa().transpose(1, 2).float()
                                 - got.float()).abs().max())
-    res["ms"] = time_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["call_ms"] = time_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
     res["plain_ms"] = time_ms(
         lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
-    res["library_ms"] = time_ms(sdpa, 20)
+    res["library_ms"] = device_ms(sdpa, 20)
+    # other plans of the tensor-core kernel on the same inputs: rows per
+    # CTA (CTAs) and ring depth against the plan's choice
+    want = ref.flash_prefill_ref(q, kc, vc, pos)
+    res["plans_ms"] = {}
+    for rows, stages in ((16, 2), (16, 3), (16, 4), (32, 3), (64, 3)):
+        alt = ops.mma_plan(1, c, h, hkv, d, rows, stages)
+        check_close(f"flash_prefill rows={rows} stages={stages}",
+                    ops.launch(q, kc, vc, pos, 0.0, alt), want)
+        res["plans_ms"][f"rows{rows} stages{stages} ctas{alt.grid[0] * hkv}"
+                        ] = device_ms(lambda p=alt: ops.launch(
+                            q, kc, vc, pos, 0.0, p), 20)
     visible = sum(p0 + i + 1 for i in range(c))          # (query, key) pairs
     n_bytes = (2 * (p0 + c) * hkv * d * 2 + 2 * q.numel() * 2 + 4)
     res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d)
     res["max_abs_err"] = res["err_pos300_softcap0"]
     res["shape"] = (f"q [1,{c},{h},{d}] bf16, cache [1,{smax},{hkv},{d}], "
                     f"pos {p0} (also 0)")
+    return res
+
+
+def check_decode_edges(dev):
+    """paged_decode's split and tile edges, both modes: slots of length
+    (or pos + 1) 1, 255, 256, 257 and Smax around the 256-token split at
+    G = 1 and G = 8 (MAX_GROUP) query heads per kv head, D 128; bf16 at
+    TOL and f32 at 1e-4. The int8 mode also puts the fresh row on the
+    first and the last row of a tile (the plan's tile) and past the cache
+    (pos >= Smax, clamped to its last row)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models import kv_quant
+    p, page, d = MAX_SEQ // 256, 256, 128
+    smax = p * page
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f32_tol = dict(atol=1e-4, rtol=1e-4)
+    res = {}
+    lens = [1, 255, 256, 257, smax]
+    for hkv, g in ((8, 1), (2, ops.MAX_GROUP)):
+        h = hkv * g
+        tile = ops.plan(1, h, hkv, smax, page, d, torch.int8).tile
+        pos8 = [0, 254, 255, 256, smax - 1, 3 * tile, 3 * tile - 1, smax,
+                smax + 7]
+        b = max(len(lens), len(pos8))
+        q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+        kp, vp = (torch.randn((b, p, page, hkv, d), generator=gen,
+                              device=dev) for _ in range(2))
+        kv_len = torch.tensor(lens + [smax] * (b - len(lens)),
+                              dtype=torch.int32, device=dev)
+        for name, dt, tol in (("bf16", torch.bfloat16, TOL),
+                              ("f32", torch.float32, f32_tol)):
+            qd, kd, vd = q.to(dt), kp.to(dt), vp.to(dt)
+            for cap in (0.0, 30.0):
+                got = ops.paged_decode(qd, kd, vd, kv_len, logit_softcap=cap)
+                want = ref.paged_decode_ref(qd, kd, vd, kv_len, cap)
+                torch.cuda.synchronize()
+                res[f"g{g}_{name}_softcap{cap:g}"] = check_close(
+                    f"paged_decode edges G={g} {name} cap={cap}", got, want,
+                    tol)
+        init = torch.full((b, p, hkv), kv_quant.INIT_SCALE, device=dev)
+        (kc, ks), (vc, vs) = (kv_quant.requantize_pages(x.bfloat16(), init)
+                              for x in (kp, vp))
+        nk, nv = (torch.randn((b, 1, hkv, d), generator=gen, device=dev)
+                  for _ in range(2))
+        pos = torch.tensor(pos8 + [smax - 1] * (b - len(pos8)),
+                           dtype=torch.int32, device=dev)
+        for name, dt, tol in (("bf16", torch.bfloat16, TOL),
+                              ("f32", torch.float32, f32_tol)):
+            qd, nkd, nvd = q.to(dt), nk.to(dt), nv.to(dt)
+            got = ops.paged_decode(qd, kc, vc, k_scale=ks, v_scale=vs,
+                                   new_k=nkd, new_v=nvd, pos=pos)
+            want = ref.paged_decode_int8_ref(qd, kc, vc, ks, vs, nkd, nvd,
+                                             pos)
+            torch.cuda.synchronize()
+            res[f"g{g}_int8_{name}"] = check_close(
+                f"paged_decode int8 edges G={g} {name}", got, want, tol)
+        res[f"g{g}_int8_pos"] = pos8
+    res["kv_len"] = lens
+    return res
+
+
+def check_prefill_edges(dev):
+    """flash_prefill's edges in bf16 (TOL) on the tensor-core instances: a
+    ragged 37-token chunk with pos near Smax - C (ending at Smax, and 5
+    tokens past it, where the limit clamps to Smax - 1) beside a row at
+    pos 0, at G = 1 (zamba2's D 80), G = 2 (qwen3's D 128), G = 8
+    (MAX_GROUP) and D 64; softcap 30; and the f32 scalar instance at the
+    same shapes (1e-4)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    smax = MAX_SEQ
+    gen = torch.Generator(device=dev).manual_seed(7)
+    res = {}
+    for hkv, g, d in ((32, 1, 80), (8, 2, 128), (2, 8, 128), (8, 2, 64)):
+        h = hkv * g
+        kc, vc = (torch.randn((2, smax, hkv, d), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        for c, p0 in ((37, smax - 37), (37, smax - 32), (37, 1000),
+                      (CHUNK, 300)):
+            q = torch.randn((2, c, h, d), generator=gen,
+                            device=dev).bfloat16()
+            pos = torch.tensor([p0, 0], dtype=torch.int32, device=dev)
+            for cap in (0.0, 30.0):
+                got = ops.flash_prefill(q, kc, vc, pos, logit_softcap=cap)
+                want = ref.flash_prefill_ref(q, kc, vc, pos, cap)
+                torch.cuda.synchronize()
+                res[f"g{g}_d{d}_c{c}_pos{p0}_softcap{cap:g}"] = check_close(
+                    f"flash_prefill edges G={g} D={d} C={c} pos={p0} "
+                    f"cap={cap}", got, want)
+            if c == 37:
+                q32, k32, v32 = q.float(), kc.float(), vc.float()
+                res[f"g{g}_d{d}_c{c}_pos{p0}_f32"] = check_close(
+                    f"flash_prefill edges f32 G={g} D={d} C={c} pos={p0}",
+                    ops.flash_prefill(q32, k32, v32, pos),
+                    ref.flash_prefill_ref(q32, k32, v32, pos),
+                    dict(atol=1e-4, rtol=1e-4))
+    return res
+
+
+def check_prefill_f32(dev):
+    """The f32 flash_prefill instance (the scalar kernel the int8 path's
+    prefill runs) at the int8 path's chunk, q [1,256,16,128] against a
+    2048-token cache at pos 300, timed beside f32 SDPA (TF32 off) as its
+    library time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    c, smax, hkv, g, d, p0 = CHUNK, MAX_SEQ, 8, 2, 128, 300
+    h = hkv * g
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((1, c, h, d), generator=gen, device=dev)
+    kc, vc = (torch.randn((1, smax, hkv, d), generator=gen, device=dev)
+              for _ in range(2))
+    pos = torch.tensor([p0], dtype=torch.int32, device=dev)
+    got = ops.flash_prefill(q, kc, vc, pos)
+    res = {"max_abs_err": check_close(
+        "flash_prefill f32", got, ref.flash_prefill_ref(q, kc, vc, pos),
+        dict(atol=1e-4, rtol=1e-4))}
+    mask = (torch.arange(smax, device=dev)[None]
+            <= p0 + torch.arange(c, device=dev)[:, None])
+    qs = q.transpose(1, 2)
+    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1)
+              for t in (kc, vc))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    res["library_err"] = float((sdpa().transpose(1, 2) - got).abs().max())
+    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["plain_ms"] = time_ms(
+        lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
+    res["library_ms"] = device_ms(sdpa, 20)
+    visible = sum(p0 + i + 1 for i in range(c))
+    n_bytes = 4 * (2 * (p0 + c) * hkv * d + 2 * q.numel()) + 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d,
+                                             F32_FLOPS)
+    res["shape"] = (f"q [1,{c},{h},{d}] f32, cache [1,{smax},{hkv},{d}], "
+                    f"pos {p0}")
     return res
 
 
@@ -367,7 +629,7 @@ def check_ssd(dev):
         res[f"err_h_s{s}"] = check_close(f"ssd_scan h_last S={s}", h_last,
                                          h_ref, SSD_TOL)
     xdt, bm, cm, la = inputs[CHUNK]
-    res["ms"] = time_ms(lambda: ops.ssd(xdt, bm, cm, la, h0=h0), 50)
+    res["ms"] = device_ms(lambda: ops.ssd(xdt, bm, cm, la, h0=h0), 50)
     res["plain_ms"] = time_ms(lambda: ref.ssd_chunked_ref(
         xdt, bm, cm, la, h0, chunk=ops.KERNEL_CHUNK), 10)
     res["library_ms"] = None
@@ -415,10 +677,10 @@ def check_paged_matmul(dev):
             r["err_f32"] = check_close(
                 "paged_matmul f32 M=256", ops.stream_matmul(x32, pool32, ids),
                 ref.paged_matmul_ref(x32, pool32, ids), F32_TOL)
-        r["ms"] = time_ms(lambda: ops.stream_matmul(x, pool, ids), 20)
+        r["ms"] = device_ms(lambda: ops.stream_matmul(x, pool, ids), 20)
         r["plain_ms"] = time_ms(
             lambda: ref.paged_matmul_ref(x, pool, ids), 10)
-        r["library_ms"] = time_ms(lambda: torch.matmul(x, w), 20)
+        r["library_ms"] = device_ms(lambda: torch.matmul(x, w), 20)
         r["library_err"] = float((torch.matmul(x, w).float()
                                   - got.float()).abs().max())
         # x and the 8 pages read once, y written once (bf16)
@@ -850,9 +1112,12 @@ def main() -> None:
     build.library()
     build_s = time.time() - t0
     log(f"kernels built in {build_s:.1f}s -> {lib_path}")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    ptxas = ptxas_report((lib_path.parent / "build.log").read_text())
+    for row in ptxas:
+        log(f"ptxas: {row['kernel']}: {row['used']}; {row['spill']}")
+    plans = launch_plans()
+    for name, p in plans.items():
+        log(f"plan: {name}: {p}")
 
     dec = check_decode(dev, 8, 2, 128)
     log(f"paged_decode ok: {dec['shape']}; {dec}")
@@ -864,6 +1129,12 @@ def main() -> None:
     log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
     dec8 = check_decode_int8(dev, 8, 2, 128)
     log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
+    dec_edges = check_decode_edges(dev)
+    log(f"paged_decode edges ok (both modes): {dec_edges}")
+    pre_edges = check_prefill_edges(dev)
+    log(f"flash_prefill edges ok: {pre_edges}")
+    pre32 = check_prefill_f32(dev)
+    log(f"flash_prefill f32 ok: {pre32['shape']}; {pre32}")
     ssd = check_ssd(dev)
     log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
     mm = check_paged_matmul(dev)
@@ -946,6 +1217,10 @@ def main() -> None:
                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+        if name == "flash_prefill":
+            row["f32"] = {k: pre32[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")}
         if name == "paged_matmul":
             row["note"] = ("no path of the reference calls it (its engine "
                            "drops the speculative-read weight prefetch on "
@@ -955,8 +1230,10 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "decode": dec, "decode_d80": dec80,
-                   "decode_int8": dec8, "prefill": pre,
-                   "prefill_d80": pre80, "ssd_scan": ssd,
+                   "decode_int8": dec8, "decode_edges": dec_edges,
+                   "prefill": pre, "prefill_d80": pre80,
+                   "prefill_edges": pre_edges, "prefill_f32": pre32,
+                   "ptxas": ptxas, "plans": plans, "ssd_scan": ssd,
                    "paged_matmul": mm, "small_model": small, "serve": run,
                    "serve_hybrid": hyb, "serve_int8": run8,
                    "kernels": kernels}, f, indent=1)

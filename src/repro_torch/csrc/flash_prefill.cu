@@ -3,43 +3,85 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention (body _attn_kernel), widened to what the serving path's
 // chunk_prefill_attention (src/repro/models/attention.py:204) computes:
-// query i of row b attends to cache positions kv_pos <= pos[b] + i (its
-// prior context plus the chunk's own causal prefix), with ragged chunk
-// length C and cache length Smax masked instead of asserted. At pos = 0 and
-// C = Smax this is the Pallas kernel's causal attention.
+// query i of row b attends to cache positions kv_pos <= min(pos[b] + i,
+// Smax - 1) (its prior context plus the chunk's own causal prefix), with
+// ragged chunk length C and cache length Smax masked instead of asserted.
+// At pos = 0 and C = Smax this is the Pallas kernel's causal attention.
 //
 // Layout: q [B,C,H,D]; caches [B,Smax,Hkv,D] (the flat view of the paged
-// cache, read in place); pos int32 [B]; out [B,C,H,D] in q's dtype.
+// cache, read in place); pos int32 [B]; out [B,C,H,D] in q's dtype. The G
+// query heads of a kv head are packed as rows row = qi*G + g, so a CTA
+// loads each K/V tile once for all of them.
 //
-// What bounds it on an H100: counting each input read once, the bytes of q,
-// the output and the visible K/V at the serving path's shapes (a 256-token
-// chunk at offsets below ~1000); operations only once the prior context is
-// several chunks long, since each K/V row serves C*G query rows (~512
-// flop/byte at C=256, G=2, against the card's ~295 ridge). Either way the
-// cost of this first version is its arithmetic: scalar f32 FMAs out of
-// shared memory, not tensor cores. A CTA owns 64 (query, head) rows of
-// one kv head, stages 64-key K/V tiles in shared memory as f32, and keeps
-// the online-softmax state (m, l, acc) in registers, 4 rows x D/16 columns
-// per thread. KV tiles wholly past the tile's last visible key
-// (pos[b] + its last query) are never loaded, as the Pallas kernel skips
-// blocks above the diagonal. mma.sync / wgmma tiles are later work.
+// What bounds it on an H100: at the serving path's shapes (qwen3-1.7b: a
+// 256-token chunk at offset 300, 16 heads over 8 kv heads, D 128) the
+// bytes of q, the output and the visible K/V are ~2.2 MB (0.0013 ms at
+// 3.35 TB/s) and the products ~0.9 GFLOP (0.0009 ms at 989 TFLOP/s): each
+// K/V row serves C*G = 512 query rows, ~512 flop/byte against the card's
+// ~295 ridge. So the bound is bytes by a little, and at this size the
+// pipeline fill, the launch and the number of CTAs set the time: the
+// tensor-core kernel takes ~0.033 ms there on an H100 SXM at 700 W (~25x
+// the bound, about half of SDPA's time; chip_smoke.py, PERF.md), the
+// scalar kernel it replaces for bf16 took ~0.17 ms.
+//
+// Two kernels, dispatched explicitly by (dtype, D) in dispatch():
+//
+// - bf16 at D in {64, 80, 128} (qwen3's 128, zamba2's shared block's 80):
+//   flash_prefill_mma_kernel, FlashAttention-2 style. Each warp owns 16
+//   (query, head) rows; its Q fragments are loaded once with ldmatrix and
+//   stay in registers. Both products run on tensor cores
+//   (mma.sync.m16n8k16, bf16 in, f32 accumulate): S = Q K^T with K
+//   fragments by ldmatrix, then the S accumulator is scaled, masked and
+//   exponentiated in place (online softmax, row max and sum over the quad
+//   of lanes that share a row), rounded to bf16 and used directly as the A
+//   operand of P.V, V fragments by ldmatrix.trans: P never touches shared
+//   memory. K/V tiles of 64 keys are staged as bf16 with 16-byte cp.async
+//   into a ring of 3 stages (tile j+1 and j+2 load while tile j computes),
+//   rows padded to D + 8 elements so that ldmatrix is free of bank
+//   conflicts (row strides of 272, 176 and 144 bytes). Tiles wholly past
+//   the CTA's last visible key are never loaded; keys past it inside the
+//   last tile are zero-filled; the mask runs only on tiles that cross a
+//   warp's first row's limit, and a warp skips tiles past its last row's
+//   limit. Rows past C*G are computed on zero queries and never stored.
+//   Rows per CTA (16, 32 or 64; 2 warps per 32 rows) come from the plan,
+//   kernels/flash_attention/ops.py::plan, which takes the most rows that
+//   still give >= 132 CTAs (one per SM): qwen3's chunk has 512 rows per kv
+//   head x 8 kv heads, so 16-row CTAs, 256 of them (64-row CTAs would be
+//   64); zamba2's 256 rows x 32 kv heads take 32-row CTAs, 256 of them.
+//   Shared memory 2 (D + 8)(rows + 3 * 2 * 64) bytes: 108,800 at qwen3's.
+//   Measured on the H100, fewer and larger CTAs are faster all the same
+//   (64-row CTAs, 64 of them, take ~0.7x the time at qwen3's chunk): a
+//   one-warp CTA issues every copy of each 32 KB K/V tile itself, and 32
+//   CTAs stage the same tile. 64-row CTAs over a split key axis are next.
+// - everything else -- f32 (the int8 path's prefill and the f32 smoke
+//   models) and bf16 at D in {16, 32, 256} -- flash_prefill_scalar_kernel,
+//   the first version: 64-row CTAs, f32 tiles in shared memory, scalar f32
+//   FMAs. f32 stays there because one TF32 product would miss the f32
+//   checks (1e-4 on the card, 3e-5 on the CPU); error-compensated 3xTF32
+//   is the later step. D = 256 would need 128 accumulator registers a
+//   thread for 16 rows on the tensor-core path.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
+
+// ---- the scalar kernel: f32, and bf16 at D in {16, 32, 256}
+
 constexpr int kRows = 64;      // (query, head) rows per CTA
 constexpr int kKeys = 64;      // keys per KV tile
 constexpr int kThreads = 256;  // 16 (rows/4) x 16 (keys, columns)
 
-template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t scalar_smem_bytes(int D) {
   return (size_t)(3 * kRows * (D + 1) + kRows * (kKeys + 1)) * sizeof(float);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_prefill_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ pos,
                      T* __restrict__ out, int C, int H, int Hkv, int Smax,
                      float scale, float softcap) {
@@ -182,59 +224,357 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* pos, void* out, int B, int C, int H, int Hkv,
-                   int Smax, float scale, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+
+// ---- the tensor-core kernel: bf16, D in {64, 80, 128}
+
+constexpr int kMmaKeys = 64;         // keys per K/V tile
+constexpr int kMmaMaxThreads = 128;  // 64 rows: 4 warps of 16 rows
+
+constexpr size_t mma_smem_bytes(int D, int rows, int stages) {
+  return (size_t)2 * (D + 8) * (rows + stages * 2 * kMmaKeys);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaMaxThreads)
+flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int* __restrict__ pos,
+                         __nv_bfloat16* __restrict__ out, int C, int H,
+                         int Hkv, int Smax, int stages, float scale,
+                         float softcap) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;          // padded row (elements)
+  constexpr int CH = D / 8;          // 16-byte chunks per row
+  constexpr int KS = D / 16;         // k-steps of Q K^T
+  constexpr int NB = D / 8;          // 8-column blocks of O
+  constexpr int SB = kMmaKeys / 8;   // 8-key blocks of S
+  const int tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const int nthr = blockDim.x, rows = nthr / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;  // fragment row, column pair
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [rows][LD]
+  bf16* ring = Qs + rows * LD;                   // stages x {K, V} [64][LD]
+
+  const int n_rows = C * G, row0 = tile * rows, p0 = pos[b];
+  // last visible key of a row; rows past C*G take the last row's
+  auto limit = [&](int row) {
+    return min(p0 + min(row, n_rows - 1) / G, Smax - 1);
+  };
+  const int kv_end = limit(row0 + rows - 1) + 1;  // keys [0, kv_end)
+  const int n_tiles = (kv_end + kMmaKeys - 1) / kMmaKeys;
+
+  for (int i = tid; i < rows * CH; i += nthr) {
+    const int r = i / CH, cc = i - r * CH, row = row0 + r;
+    const bool ok = row < n_rows;
+    const int qi = ok ? row / G : 0, g = ok ? row - qi * G : 0;
+    cp_async16(Qs + r * LD + cc * 8,
+               q + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D +
+                   cc * 8,
+               ok);
   }
-  const int n_rows = C * (H / Hkv);
-  dim3 grid((n_rows + kRows - 1) / kRows, Hkv, B);
-  flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      bf16* Kt = ring + (size_t)(t % stages) * 2 * kMmaKeys * LD;
+      bf16* Vt = Kt + kMmaKeys * LD;
+      for (int i = tid; i < kMmaKeys * CH; i += nthr) {
+        const int r = i / CH, cc = i - r * CH, key = t * kMmaKeys + r;
+        const bool ok = key < kv_end;
+        const size_t off =
+            (((size_t)b * Smax + (ok ? key : 0)) * Hkv + hk) * D + cc * 8;
+        cp_async16(Kt + r * LD + cc * 8, k + off, ok);
+        cp_async16(Vt + r * LD + cc * 8, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages - 1; ++s) load_tile(s);  // Q joins tile 0
+
+  const int wrow0 = row0 + warp * 16;
+  const bool warp_live = wrow0 < n_rows;
+  const int lim_a = limit(wrow0 + gid), lim_b = limit(wrow0 + gid + 8);
+  const int lim_lo = limit(wrow0), lim_hi = limit(wrow0 + 15);
+  const float qk_scale = scale * kLog2e;
+
+  uint32_t qf[KS][4];
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait(stages - 2);  // tile t (and Q) landed, this thread's part
+    __syncthreads();            // ... everyone's; tile t - 1 is consumed
+    load_tile(t + stages - 1);
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+    }
+    const int k0 = t * kMmaKeys;
+    if (!warp_live || k0 > lim_hi) continue;  // nothing visible to the warp
+    const bf16* Kt = ring + (size_t)(t % stages) * 2 * kMmaKeys * LD;
+    const bf16* Vt = Kt + kMmaKeys * LD;
+
+    // S = Q K^T: s[j] holds keys k0 + 8j .. +7 of rows gid and gid + 8
+    float s[SB][4];
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < SB / 2; ++j2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
+                            + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * j2 + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // online softmax in place (log2 domain); the mask only where a row's
+    // limit falls inside the tile
+    const bool masked = k0 + kMmaKeys - 1 > lim_lo;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = softcap > 0.f ? softcap_logit(s[j][e] * scale, softcap) *
+                                      kLog2e
+                                : s[j][e] * qk_scale;
+        if (masked && k0 + j * 8 + tig * 2 + (e & 1) > (e < 2 ? lim_a : lim_b))
+          x = -INFINITY;
+        s[j][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x);
+        else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no visible key yet keeps m = -inf: exponentiate against
+    // 0 so that nothing becomes NaN
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float al_a = exp2f(m_a - base_a), al_b = exp2f(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      s[j][0] = exp2f(s[j][0] - base_a);
+      s[j][1] = exp2f(s[j][1] - base_a);
+      s[j][2] = exp2f(s[j][2] - base_b);
+      s[j][3] = exp2f(s[j][3] - base_b);
+      rs_a += s[j][0] + s[j][1];
+      rs_b += s[j][2] + s[j][3];
+    }
+    l_a = l_a * al_a + rs_a;  // this thread's columns; summed over the quad
+    l_b = l_b * al_b + rs_b;  // at the end
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= al_a;
+      o[n][1] *= al_a;
+      o[n][2] *= al_b;
+      o[n][3] *= al_b;
+    }
+
+    // O += P V: the S fragments of keys 16kk .. 16kk + 15 are P's A operand
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  n2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * n2], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * n2 + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = wrow0 + gid + 8 * half;
+    if (row >= n_rows) continue;
+    const int qi = row / G, g = row - qi * G;
+    bf16* op = out + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D +
+               tig * 2;
+    const float inv = half ? inv_b : inv_a;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) = __floats2bfloat162_rn(
+          o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+  }
+}
+
+// ---- launches
+
+template <typename T, int D>
+cudaError_t launch_scalar(const void* q, const void* k, const void* v,
+                          const int* pos, void* out, int B, int C, int H,
+                          int Hkv, int Smax, float scale, float softcap,
+                          int grid_x, int smem, cudaStream_t stream) {
+  static int smem_set = 0;  // the attribute as last set for this instance
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_prefill_scalar_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // returned here; not left for a later launch
+      return err;
+    }
+    smem_set = smem;
+  }
+  dim3 grid(grid_x, Hkv, B);
+  flash_prefill_scalar_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, static_cast<T*>(out), C, H, Hkv, Smax,
       scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v,
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int* pos, void* out, int B, int C, int H,
-                       int Hkv, int Smax, int D, float scale, float softcap,
-                       cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
-    case 32: return launch<T, 32>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
-    case 64: return launch<T, 64>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
-    case 80: return launch<T, 80>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
-    case 128: return launch<T, 128>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
-    case 256: return launch<T, 256>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap, s);
-    default: return cudaErrorInvalidValue;
+                       int Hkv, int Smax, float scale, float softcap,
+                       int grid_x, int rows, int stages, int smem,
+                       cudaStream_t stream) {
+  static int smem_set = 0;  // the attribute as last set for this instance
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_prefill_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // returned here; not left for a later launch
+      return err;
+    }
+    smem_set = smem;
   }
+  dim3 grid(grid_x, Hkv, B);
+  flash_prefill_mma_kernel<D><<<grid, rows * 2, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), pos,
+      static_cast<__nv_bfloat16*>(out), C, H, Hkv, Smax, stages, scale,
+      softcap);
+  return cudaGetLastError();
+}
+
+// f32 at every D; bf16 only where the tensor-core kernel has no instance
+template <typename T>
+cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
+                            const int* pos, void* out, int B, int C, int H,
+                            int Hkv, int Smax, int D, float scale,
+                            float softcap, int grid_x, int smem,
+                            cudaStream_t s) {
+  constexpr bool kAll = std::is_same<T, float>::value;
+#define REPRO_SCALAR(d)                                                     \
+  case d:                                                                   \
+    return launch_scalar<T, d>(q, k, v, pos, out, B, C, H, Hkv, Smax,      \
+                               scale, softcap, grid_x, smem, s)
+  switch (D) {
+    REPRO_SCALAR(16);
+    REPRO_SCALAR(32);
+    REPRO_SCALAR(256);
+    default: break;
+  }
+  if constexpr (kAll) {
+    switch (D) {
+      REPRO_SCALAR(64);
+      REPRO_SCALAR(80);
+      REPRO_SCALAR(128);
+      default: break;
+    }
+  }
+#undef REPRO_SCALAR
+  return cudaErrorInvalidValue;
+}
+
+bool mma_instance(int dtype, int D) {
+  return dtype == kBFloat16 && (D == 64 || D == 80 || D == 128);
+}
+
+// The plan from kernels/flash_attention/ops.py::plan, bounds-checked (its
+// shared memory must cover what the kernel indexes), then the kernel it
+// names: the tensor-core kernel for mma_instance(dtype, D), the
+// scalar one for every other (dtype, D). No kernel is tried in place of
+// another.
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const int* pos, void* out, int B, int C, int H, int Hkv,
+                     int Smax, int D, int dtype, float scale, float softcap,
+                     int grid_x, int rows, int stages, int smem,
+                     cudaStream_t s) {
+  const int n_rows = C * (H / Hkv);
+  if (rows <= 0 || grid_x != (n_rows + rows - 1) / rows || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  if (mma_instance(dtype, D)) {
+    if ((rows != 16 && rows != 32 && rows != 64) || stages < 2 ||
+        stages > 4 || (size_t)smem < mma_smem_bytes(D, rows, stages))
+      return cudaErrorInvalidValue;
+#define REPRO_MMA(d)                                                        \
+  case d:                                                                   \
+    return launch_mma<d>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale,     \
+                         softcap, grid_x, rows, stages, smem, s)
+    switch (D) {
+      REPRO_MMA(64);
+      REPRO_MMA(80);
+      REPRO_MMA(128);
+      default: return cudaErrorInvalidValue;
+    }
+#undef REPRO_MMA
+  }
+  if (rows != kRows || stages != 1 || (size_t)smem < scalar_smem_bytes(D))
+    return cudaErrorInvalidValue;
+  if (dtype == kBFloat16)
+    return dispatch_scalar<__nv_bfloat16>(q, k, v, pos, out, B, C, H, Hkv,
+                                          Smax, D, scale, softcap, grid_x,
+                                          smem, s);
+  if (dtype == kFloat32)
+    return dispatch_scalar<float>(q, k, v, pos, out, B, C, H, Hkv, Smax, D,
+                                  scale, softcap, grid_x, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro
 
 // C entry (bound with ctypes); head_dim D in {16, 32, 64, 80, 128, 256}.
+// grid_x, rows (per CTA), stages and smem (dynamic shared memory bytes)
+// are kernels/flash_attention/ops.py::plan's, checked here.
 extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
                                    const int* pos, void* out, int B, int C,
                                    int H, int Hkv, int Smax, int D, int dtype,
-                                   float scale, float softcap, void* stream) {
-  if (H % Hkv != 0 || C < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBFloat16)
-    return repro::dispatch_d<__nv_bfloat16>(q, k, v, pos, out, B, C, H, Hkv,
-                                            Smax, D, scale, softcap, s);
-  if (dtype == repro::kFloat32)
-    return repro::dispatch_d<float>(q, k, v, pos, out, B, C, H, Hkv, Smax, D,
-                                    scale, softcap, s);
-  return cudaErrorInvalidValue;
+                                   float scale, float softcap, int grid_x,
+                                   int rows, int stages, int smem,
+                                   void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || C < 1) return cudaErrorInvalidValue;
+  return repro::dispatch(q, k, v, pos, out, B, C, H, Hkv, Smax, D, dtype,
+                         scale, softcap, grid_x, rows, stages, smem,
+                         static_cast<cudaStream_t>(stream));
 }

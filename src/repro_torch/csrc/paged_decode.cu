@@ -1,5 +1,5 @@
 // Paged flash-decode: one new query token per slot against that slot's KV
-// pages, with a per-slot length kv_len[b].
+// pages, with a per-slot length, as one pipelined split-K launch.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention/kernel.py::
 // paged_flash_decode (body _decode_kernel), widened from its one scalar
@@ -8,31 +8,55 @@
 // src/repro/models/attention.py:135, for that reason).
 //
 // Layout: q [B,1,H,D]; pages [B,P,page,Hkv,D] read in place as the flat
-// [B,Smax,Hkv,D] view (no transposed copy); kv_len int32 [B]; out [B,1,H,D]
-// in q's dtype. Softmax in f32; P.V multiplies f32 p by v widened to f32,
-// as the serving path does (attention.py:173-174) -- the Pallas kernel
-// casts p to v's dtype first (kernel.py:69).
-//
-// What bounds it on an H100: the K/V bytes it reads. Each (b, kv head)
-// touches G query rows, so there are ~2G flops per K/V byte -- far below
-// the card's ~295 flop/byte ridge. At the serving shapes (B=8 slots,
-// Hkv=8) one CTA per (b, kv head) would occupy only 64 of 132 SMs, so the
-// token axis is split across CTAs (`split` tokens each, one page at the
-// path's shapes): pass 1 writes each split's online-softmax partials
-// (acc, m, l), pass 2 merges them with the max/sum rescale of the
-// reference's cross-rank combine (attention.py:387-394). Splits at or past
-// kv_len[b] exit before reading a byte, so pages past a slot's length are
-// never read. Still simple: 2-byte loads, no cp.async/TMA pipelining.
+// [B,Smax,Hkv,D] view; kv_len int32 [B]; out [B,1,H,D] in q's dtype.
+// Softmax in f32 (base 2, the scale folded into log2 e); P.V multiplies f32
+// p by v widened to f32, as the serving path does (attention.py:173-174).
 //
 // The int8 mode (the Pallas kernel's quant=True, kernel.py:50-54) reads
 // int8 codes [B,P,page,Hkv,D] in place and multiplies each code by its
-// page's f32 scale [B,P,Hkv] -- the same product as the reference's
-// dequantize_pages -- so only a byte per element crosses HBM. The serving
-// step attends to the new token at full precision before it requantizes
-// (src/repro/models/attention.py:322-347), so that row, at
-// min(pos[b], Smax-1), comes from new_k/new_v [B,1,Hkv,D] in q's dtype,
-// not from the codes; the kernel writes no page. Row b attends over
-// [0, min(pos[b]+1, Smax)). Everything else is the bf16 instance's.
+// page's f32 scale [B,P,Hkv], the product of the reference's
+// dequantize_pages. The serving step attends to the new token at full
+// precision before it requantizes (src/repro/models/attention.py:322-347),
+// so the row at min(pos[b], Smax-1) comes from new_k/new_v [B,1,Hkv,D] in
+// q's dtype, substituted element by element after the code x scale
+// product; the kernel writes no page. Row b attends over
+// [0, min(pos[b]+1, Smax)).
+//
+// What bounds it on an H100: the K/V bytes it reads. Each (b, kv head)
+// serves G <= 8 query rows, so there are ~2G flops per K/V byte, far below
+// the card's ~295 flop/byte ridge, and nothing for tensor cores to do. At
+// qwen3-1.7b's decode tick (8 slots x 2048 tokens, Hkv 8, D 128, bf16) the
+// visible K/V of chip_smoke.py's ragged lengths is 31.8 MB: 0.0095 ms at
+// 3.35 TB/s, and 0.0048 ms for the int8 codes; this kernel takes ~3.6x
+// and ~6x that on an H100 SXM at 700 W (chip_smoke.py; PERF.md), where the
+// two-pass version it replaces took ~13x and ~22x. The design is about
+// bytes in flight:
+// - grid (splits, Hkv, B), 128 threads. A split is a whole number of pages
+//   (256 tokens at the path's shapes: 8 splits x 8 kv heads x 8 slots = 512
+//   CTAs, 2048 at zamba2-2.7b's 32 kv heads); splits at or past a slot's
+//   length exit before reading a byte.
+// - every K/V read is a 16-byte cp.async (8 bf16, 16 int8 codes or 4 f32)
+//   into a ring of `stages` (4) shared-memory tiles of K and V. A tile is
+//   4 rows per thread-row-slot (32 tokens of bf16 at D 128, 64 of int8:
+//   8 KB each of K and V) and never crosses a page, so the int8 mode reads
+//   one scale per tile and kv head. Each thread reads back only the chunks
+//   it copied itself, so the loop needs cp.async.wait_group and no barrier.
+// - a token row is spread over a group of `lanes` = pow2ceil(D*bytes/16)
+//   lanes (the plan's), one 16-byte chunk each (D 80 bf16: 10 of 16 lanes
+//   work); q.k is a chunk dot and log2(lanes) xor shuffles; each thread
+//   keeps its own online-softmax state (m, l, acc for its chunk's columns)
+//   across the split's tiles, so no [G, split] score array exists.
+// - at the split's end the row slots are merged, by shuffles inside a warp
+//   and once through shared memory across the 4 warps; the split writes
+//   (acc, m, l) to a workspace, and the last CTA of its (b, kv head), found
+//   by an atomic counter once every thread's stores are fenced
+//   (__threadfence, then a barrier), merges the splits in split order (no
+//   float atomics: bit-identical run to run) and resets the counter. A
+//   slot with one split writes out directly. One launch per call.
+// Query heads are padded to GM = 2 or 8 (compile-time; the plan's
+// group_pad names the instance), so q's chunk and the accumulator live in
+// registers; where GM x elements per chunk > 32 (bf16 and int8 at G > 2),
+// q stays in shared memory as f32 instead.
 #include <type_traits>
 
 #include "common.cuh"
@@ -42,207 +66,472 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;  // query heads per kv head
+constexpr int kMaxGroup = 8;        // query heads per kv head
+constexpr int kRowsPerThread = 4;   // tile rows a thread scores per tile
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a block can use
 
-// kQuant: KV is int8 codes scaled per (b, page, kv head), `len_or_pos` is
+// one 16-byte chunk of KV elements in shared memory, widened to f32
+template <typename KV>
+struct Chunk;
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void load(const unsigned char* p, float* x) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Chunk<float> {
+  static constexpr int E = 4;
+  __device__ static void load(const unsigned char* p, float* x) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = u.z;
+    x[3] = u.w;
+  }
+};
+
+template <>
+struct Chunk<int8_t> {
+  static constexpr int E = 16;
+  __device__ static void load(const unsigned char* p, float* x) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = static_cast<float>(c[i]);
+  }
+};
+
+// q in shared memory when its chunk would take more than 32 registers
+__host__ __device__ constexpr bool q_in_smem(int gm, int elems) {
+  return gm * elems > 32;
+}
+
+// The dynamic shared memory the kernel indexes: q (when staged), then the
+// K/V ring, which the cross-warp merge reuses. The plan may give more.
+size_t smem_needed(int kv_bytes, int gm, int D, int tile, int stages) {
+  const size_t ring = (size_t)stages * 2 * tile * D * kv_bytes;
+  const size_t merge = (size_t)kWarps * gm * (D + 2) * sizeof(float);
+  const size_t qs = q_in_smem(gm, 16 / kv_bytes) ? (size_t)gm * D * 4 : 0;
+  return qs + (ring > merge ? ring : merge);
+}
+
+// kQuant (KV = int8): codes scaled per (b, page, kv head), `len_or_pos` is
 // pos[B] and the row at min(pos, Smax-1) comes from new_k/new_v. Else KV
 // is T and `len_or_pos` is kv_len[B].
-template <typename T, bool kQuant>
+template <typename T, typename KV, int GM>
 __global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q,
-                      const std::conditional_t<kQuant, int8_t, T>* __restrict__ k,
-                      const std::conditional_t<kQuant, int8_t, T>* __restrict__ v,
-                      const float* __restrict__ k_scale,
-                      const float* __restrict__ v_scale,
-                      const T* __restrict__ new_k, const T* __restrict__ new_v,
-                      const int* __restrict__ len_or_pos,
-                      float* __restrict__ part_acc,
-                      float* __restrict__ part_ml, int H, int Hkv, int Smax,
-                      int page, int D, int split, float scale,
-                      float softcap) {
-  using KV = std::conditional_t<kQuant, int8_t, T>;
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const T* __restrict__ new_k, const T* __restrict__ new_v,
+                    const int* __restrict__ len_or_pos, T* __restrict__ out,
+                    float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int* __restrict__ counters,
+                    int H, int Hkv, int Smax, int page, int D, int split,
+                    int tile, int stages, int lanes, float scale,
+                    float softcap) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int E = Chunk<KV>::E;
+  constexpr bool kQSmem = q_in_smem(GM, E);
   const int si = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
   const int G = H / Hkv;
-  extern __shared__ float smem[];
-  float* s_q = smem;               // [G, D]
-  float* s_p = smem + G * D;       // [G, split]: scores, then probabilities
-  float* s_vsc = s_p + G * split;  // [split] V scale per token (kQuant)
-
-  const int len = kQuant ? min(len_or_pos[b] + 1, Smax)
-                         : min(len_or_pos[b], Smax);
+  const int lp = len_or_pos[b];
+  const int len = kQuant ? min(lp + 1, Smax) : min(lp, Smax);
+  const int n_active = max(1, (len + split - 1) / split);
+  if (si >= n_active) return;  // past the slot's length: read nothing
   const int t0 = si * split;
   const int n_tok = max(0, min(split, len - t0));
-  // split-local index of the token read from new_k/new_v (-1: none)
-  const int fresh = kQuant ? min(len_or_pos[b], Smax - 1) - t0 : -1;
-  const size_t part = (size_t)(b * Hkv + hk) * n_splits + si;
-  float* acc_out = part_acc + part * G * D;
-  float* ml_out = part_ml + part * G * 2;
-  if (n_tok == 0) {  // nothing of this split is visible: read nothing
-    for (int i = threadIdx.x; i < G * D; i += kThreads) acc_out[i] = 0.f;
-    for (int g = threadIdx.x; g < G; g += kThreads) {
-      ml_out[2 * g] = -INFINITY;
-      ml_out[2 * g + 1] = 0.f;
-    }
-    return;
-  }
+  const int fresh = kQuant ? min(lp, Smax - 1) - t0 : -1;  // split-local
+
+  const int n_chunks = D / E;
+  const int n_slots = kThreads / lanes;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid & (lanes - 1), slot = tid / lanes;
+  const bool has_c = c < n_chunks;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + (kQSmem ? (size_t)GM * D * sizeof(float) : 0);
+  const size_t tile_bytes = (size_t)tile * D * sizeof(KV);
 
   const T* qb = q + ((size_t)b * H + (size_t)hk * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) s_q[i] = to_f32(qb[i]);
-  // per-token page scale of K (and V, kept for pass 1c)
-  const size_t sc_row = ((size_t)b * (Smax / page)) * Hkv + hk;
-  if (kQuant)
-    for (int t = threadIdx.x; t < n_tok; t += kThreads)
-      s_vsc[t] = v_scale[sc_row + (size_t)((t0 + t) / page) * Hkv];
-  __syncthreads();
+  float qr[kQSmem ? 1 : GM][kQSmem ? 1 : E];
+  if constexpr (kQSmem) {
+    for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f32(qb[i]);
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        qr[g][e] = (g < G && has_c) ? to_f32(qb[g * D + c * E + e]) : 0.f;
+  }
+  auto qval = [&](int g, int e) -> float {
+    if constexpr (kQSmem) return q_s[g * D + c * E + e];
+    else return qr[g][e];
+  };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t tok_stride = (size_t)Hkv * D;
-  const size_t base = ((size_t)b * Smax + t0) * tok_stride + (size_t)hk * D;
-  const KV* kb = k + base;
-  const KV* vb = v + base;
-  const size_t new_off = ((size_t)b * Hkv + hk) * D;
+  const size_t chunk_off = ((size_t)b * Smax + t0) * tok_stride +
+                           (size_t)hk * D + (size_t)c * E;
+  const KV* kb = k + chunk_off;
+  const KV* vb = v + chunk_off;
+  const size_t new_off = ((size_t)b * Hkv + hk) * D + (size_t)c * E;
+  const int n_tiles = (n_tok + tile - 1) / tile;
 
-  // pass 1a: one warp per token, lanes across D, f32 dot per query head
-  for (int t = warp; t < n_tok; t += kWarps) {
-    const KV* kr = kb + (size_t)t * tok_stride;
-    const float ksc =
-        kQuant ? k_scale[sc_row + (size_t)((t0 + t) / page) * Hkv] : 1.f;
-    float dot[kMaxGroup];
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) dot[g] = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float kd = (t == fresh) ? to_f32(new_k[new_off + d])
-                                    : (kQuant ? to_f32(kr[d]) * ksc
-                                              : to_f32(kr[d]));
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < G) dot[g] += s_q[g * D + d] * kd;
+  // tile j's rows of this thread's chunk -> ring stage j % stages
+  auto issue = [&](int j) {
+    if (j < n_tiles && has_c) {
+      unsigned char* kt = ring + (size_t)(j % stages) * 2 * tile_bytes;
+      unsigned char* vt = kt + tile_bytes;
+      for (int r = slot; r < tile; r += n_slots) {
+        const int t = j * tile + r;
+        if (t < n_tok) {
+          const size_t so = ((size_t)r * D + (size_t)c * E) * sizeof(KV);
+          cp_async16(kt + so, kb + (size_t)t * tok_stride);
+          cp_async16(vt + so, vb + (size_t)t * tok_stride);
+        }
+      }
     }
+    cp_async_commit();
+  };
+
+  float m[GM], l[GM], acc[GM][E];
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
+  for (int g = 0; g < GM; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+  const float qk_scale = scale * kLog2e;
+
+  for (int s = 0; s < stages - 1; ++s) issue(s);
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait(stages - 2);  // this thread's copies of tile j landed
+    issue(j + stages - 1);      // into the stage it read at tile j - 1
+    const unsigned char* kt = ring + (size_t)(j % stages) * 2 * tile_bytes;
+    const unsigned char* vt = kt + tile_bytes;
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (kQuant) {
+      const size_t at = ((size_t)b * (Smax / page) + (t0 + j * tile) / page)
+                        * Hkv + hk;
+      ksc = k_scale[at];
+      vsc = v_scale[at];
+    }
+
+    // scores of this thread's rows of the tile (log2 domain)
+    float s[kRowsPerThread][GM];
+    bool ok[kRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = slot + i * n_slots;
+      const int t = j * tile + r;
+      ok[i] = r < tile && t < n_tok;
+      float kf[E];
+      if (ok[i] && has_c) {
+        Chunk<KV>::load(kt + ((size_t)r * D + (size_t)c * E) * sizeof(KV),
+                        kf);
+        if (kQuant && t == fresh) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[e] = to_f32(new_k[new_off + e]);
+        } else if (kQuant) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[e] *= ksc;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kf[e] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          float d = 0.f;
+          if (has_c) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) d += qval(g, e) * kf[e];
+          }
+          for (int off = lanes >> 1; off > 0; off >>= 1)
+            d += __shfl_xor_sync(0xffffffffu, d, off);
+          const float x = softcap > 0.f
+                              ? softcap_logit(d * scale, softcap) * kLog2e
+                              : d * qk_scale;
+          s[i][g] = ok[i] ? x : -INFINITY;
+        }
+      }
+    }
+
+    // online softmax over the split: rescale once per tile
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
       if (g < G) {
-        const float s = seg_sum(dot[g]);
-        if (lane == 0) s_p[g * split + t] = softcap_logit(s * scale, softcap);
+        float mt = s[0][g];
+#pragma unroll
+        for (int i = 1; i < kRowsPerThread; ++i) mt = fmaxf(mt, s[i][g]);
+        const float mn = fmaxf(m[g], mt);
+        if (mn != -INFINITY) {
+          const float alpha = exp2f(m[g] - mn);
+          l[g] *= alpha;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+          m[g] = mn;
+        }
+      }
+    }
+
+    // P.V over the same rows
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      if (!ok[i]) continue;
+      const int r = slot + i * n_slots;
+      float vf[E];
+      if (has_c) {
+        Chunk<KV>::load(vt + ((size_t)r * D + (size_t)c * E) * sizeof(KV),
+                        vf);
+        if (kQuant && j * tile + r == fresh) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) vf[e] = to_f32(new_v[new_off + e]);
+        } else if (kQuant) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) vf[e] *= vsc;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          const float p = exp2f(s[i][g] - m[g]);
+          l[g] += p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] += p * vf[e];
+        }
+      }
+    }
+  }
+
+  // merge the row slots of a warp (lanes of one chunk, xor lanes, 2 lanes..)
+  for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+        float ao[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          ao[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        const float mn = fmaxf(m[g], mo);
+        if (mn != -INFINITY) {
+          const float wa = exp2f(m[g] - mn), wb = exp2f(mo - mn);
+          l[g] = l[g] * wa + lo * wb;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = acc[g][e] * wa + ao[e] * wb;
+          m[g] = mn;
+        }
+      }
+    }
+  }
+
+  // ... then the 4 warps once, through shared memory (the ring's bytes)
+  float* w_acc = reinterpret_cast<float*>(ring);     // [kWarps][GM][D]
+  float* w_ml = w_acc + (size_t)kWarps * GM * D;     // [kWarps][GM][2]
+  __syncthreads();  // every thread is done with the ring
+  if (lane < lanes && has_c) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          w_acc[((size_t)warp * GM + g) * D + c * E + e] = acc[g][e];
+        if (c == 0) {
+          w_ml[(warp * GM + g) * 2] = m[g];
+          w_ml[(warp * GM + g) * 2 + 1] = l[g];
+        }
       }
     }
   }
   __syncthreads();
 
-  // pass 1b: split-local max and exp-sum per query head
-  for (int g = warp; g < G; g += kWarps) {
-    float m = -INFINITY;
-    for (int t = lane; t < n_tok; t += 32) m = fmaxf(m, s_p[g * split + t]);
-    m = seg_max(m);
-    float l = 0.f;
-    for (int t = lane; t < n_tok; t += 32) {
-      const float p = expf(s_p[g * split + t] - m);
-      s_p[g * split + t] = p;
-      l += p;
-    }
-    l = seg_sum(l);
-    if (lane == 0) {
-      ml_out[2 * g] = m;
-      ml_out[2 * g + 1] = l;
-    }
-  }
-  __syncthreads();
-
-  // pass 1c: unnormalised P.V, one thread per output column
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float acc[kMaxGroup];
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < n_tok; ++t) {
-      const KV c = vb[(size_t)t * tok_stride + d];
-      const float vd = (t == fresh) ? to_f32(new_v[new_off + d])
-                                    : (kQuant ? to_f32(c) * s_vsc[t]
-                                              : to_f32(c));
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < G) acc[g] += s_p[g * split + t] * vd;
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) acc_out[g * D + d] = acc[g];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml, T* __restrict__ out,
-                      int H, int Hkv, int D, int n_splits) {
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int G = H / Hkv;
-  const size_t base = (size_t)(b * Hkv + hk) * n_splits;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+  const bool single = n_active == 1;
+  const size_t part0 = (size_t)(b * Hkv + hk) * n_splits;
+  T* ob = out + ((size_t)b * H + (size_t)hk * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D, d = i - g * D;
-    float m_all = -INFINITY;
-    for (int s = 0; s < n_splits; ++s)
-      m_all = fmaxf(m_all, part_ml[(base + s) * G * 2 + 2 * g]);
-    float l = 0.f, acc = 0.f;
-    if (m_all != -INFINITY) {
-      for (int s = 0; s < n_splits; ++s) {
-        const float w = expf(part_ml[(base + s) * G * 2 + 2 * g] - m_all);
-        l += part_ml[(base + s) * G * 2 + 2 * g + 1] * w;
-        acc += part_acc[(base + s) * G * D + g * D + d] * w;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_ml[(w * GM + g) * 2]);
+    float a = 0.f, lsum = 0.f;
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float wt = exp2f(w_ml[(w * GM + g) * 2] - mx);
+        lsum += w_ml[(w * GM + g) * 2 + 1] * wt;
+        a += w_acc[((size_t)w * GM + g) * D + d] * wt;
       }
     }
-    store_f32(acc / fmaxf(l, 1e-30f),
-              out + ((size_t)b * H + (size_t)hk * G + g) * D + d);
+    if (single) {
+      store_f32(a / fmaxf(lsum, 1e-30f), ob + i);
+    } else {
+      part_acc[(part0 + si) * G * D + i] = a;
+      if (d == 0) {
+        part_ml[((part0 + si) * G + g) * 2] = mx;
+        part_ml[((part0 + si) * G + g) * 2 + 1] = lsum;
+      }
+    }
   }
+  if (single) return;
+
+  // the last split of this (b, kv head) to finish merges all of them; every
+  // thread fences its own partial stores and the barrier waits for all of
+  // them before one thread counts the split done
+  __threadfence();
+  __syncthreads();
+  int last = 0;
+  if (tid == 0) last = atomicAdd(&counters[b * Hkv + hk], 1) == n_active - 1;
+  if (!__syncthreads_or(last)) return;
+  __threadfence();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D;
+    float mx = -INFINITY;
+    for (int sp = 0; sp < n_active; ++sp)
+      mx = fmaxf(mx, __ldcg(part_ml + ((part0 + sp) * G + g) * 2));
+    float a = 0.f, lsum = 0.f;
+    if (mx != -INFINITY) {
+      for (int sp = 0; sp < n_active; ++sp) {  // split order
+        const float wt =
+            exp2f(__ldcg(part_ml + ((part0 + sp) * G + g) * 2) - mx);
+        lsum += __ldcg(part_ml + ((part0 + sp) * G + g) * 2 + 1) * wt;
+        a += __ldcg(part_acc + (part0 + sp) * G * D + i) * wt;
+      }
+    }
+    store_f32(a / fmaxf(lsum, 1e-30f), ob + i);
+  }
+  if (tid == 0) counters[b * Hkv + hk] = 0;  // ready for the next call
 }
 
-template <typename T, bool kQuant>
+// The plan from kernels/decode_attention/ops.py::plan, which owns the
+// layout, bounds-checked against what the kernel instance it names (gm)
+// can run; 0 if it holds.
+int check_plan(int kv_bytes, int G, int Smax, int page, int D, int split,
+               int n_splits, int tile, int stages, int lanes, int gm,
+               int smem) {
+  if ((gm != 2 && gm != kMaxGroup) || G < 1 || G > gm || page <= 0 ||
+      Smax % page != 0 || split <= 0 || split % page != 0 ||
+      n_splits != (Smax + split - 1) / split || tile <= 0 ||
+      page % tile != 0 || stages < 2 || stages > 5 ||
+      (D * kv_bytes) % 16 != 0)
+    return cudaErrorInvalidValue;
+  // a row's chunks on one power-of-two group of lanes inside a warp; a
+  // tile's rows within kRowsPerThread per row slot
+  const int n_chunks = D * kv_bytes / 16;
+  if (n_chunks < 1 || lanes < n_chunks || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0 ||
+      tile > kRowsPerThread * (kThreads / lanes))
+    return cudaErrorInvalidValue;
+  if ((size_t)smem < smem_needed(kv_bytes, gm, D, tile, stages) ||
+      smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <typename T, typename KV, int GM>
+cudaError_t launch_gm(const void* q, const void* k, const void* v,
+                      const float* k_scale, const float* v_scale,
+                      const void* new_k, const void* new_v,
+                      const int* len_or_pos, void* out, float* part_acc,
+                      float* part_ml, int* counters, int B, int H, int Hkv,
+                      int Smax, int page, int D, int split, int n_splits,
+                      int tile, int stages, int lanes, int smem,
+                      float scale, float softcap, cudaStream_t stream) {
+  static int smem_set = 0;  // the attribute as last set for this instance
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel<T, KV, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // returned here; not left for a later launch
+      return err;
+    }
+    smem_set = smem;
+  }
+  dim3 grid(n_splits, Hkv, B);
+  paged_decode_kernel<T, KV, GM><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale,
+      static_cast<const T*>(new_k), static_cast<const T*>(new_v), len_or_pos,
+      static_cast<T*>(out), part_acc, part_ml, counters, H, Hkv, Smax, page,
+      D, split, tile, stages, lanes, scale, softcap);
+  return cudaGetLastError();
+}
+
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const void* new_k, const void* new_v,
                    const int* len_or_pos, void* out, float* part_acc,
-                   float* part_ml, int B, int H, int Hkv, int Smax, int page,
-                   int D, int split, int n_splits, float scale, float softcap,
-                   cudaStream_t stream) {
-  using KV = std::conditional_t<kQuant, int8_t, T>;
-  const int G = H / Hkv;
-  const size_t smem =
-      (size_t)(G * D + G * split + (kQuant ? split : 0)) * sizeof(float);
-  dim3 grid1(n_splits, Hkv, B);
-  decode_partial_kernel<T, kQuant><<<grid1, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), k_scale, v_scale,
-      static_cast<const T*>(new_k), static_cast<const T*>(new_v), len_or_pos,
-      part_acc, part_ml, H, Hkv, Smax, page, D, split, scale, softcap);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid2(Hkv, B);
-  decode_combine_kernel<T><<<grid2, kThreads, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), H, Hkv, D, n_splits);
-  return cudaGetLastError();
+                   float* part_ml, int* counters, int B, int H, int Hkv,
+                   int Smax, int page, int D, int split, int n_splits,
+                   int tile, int stages, int lanes, int gm, int smem,
+                   float scale, float softcap, cudaStream_t s) {
+  const int rc = check_plan(sizeof(KV), H / Hkv, Smax, page, D, split,
+                            n_splits, tile, stages, lanes, gm, smem);
+  if (rc != cudaSuccess) return static_cast<cudaError_t>(rc);
+  if (gm == 2)
+    return launch_gm<T, KV, 2>(q, k, v, k_scale, v_scale, new_k, new_v,
+                               len_or_pos, out, part_acc, part_ml, counters,
+                               B, H, Hkv, Smax, page, D, split, n_splits,
+                               tile, stages, lanes, smem, scale, softcap, s);
+  return launch_gm<T, KV, kMaxGroup>(
+      q, k, v, k_scale, v_scale, new_k, new_v, len_or_pos, out, part_acc,
+      part_ml, counters, B, H, Hkv, Smax, page, D, split, n_splits, tile,
+      stages, lanes, smem, scale, softcap, s);
 }
 
 }  // namespace
 }  // namespace repro
 
-// C entries (bound with ctypes). part_acc: f32 [B,Hkv,n_splits,G,D];
-// part_ml: f32 [B,Hkv,n_splits,G,2]; both allocated by the caller.
+// C entries (bound with ctypes). The launch plan (split, n_splits, tile,
+// stages, lanes per token row, gm = the query heads per kv head padded to
+// an instance, smem) comes from kernels/decode_attention/ops.py::plan and
+// is bounds-checked here. Workspace, allocated once by the caller and reused:
+// part_acc f32 [B,Hkv,n_splits,G,D], part_ml f32 [B,Hkv,n_splits,G,2],
+// counters int32 [B,Hkv], zero before the first call (the kernel leaves
+// them zero).
 extern "C" int repro_paged_decode(const void* q, const void* k, const void* v,
                                   const int* kv_len, void* out,
-                                  float* part_acc, float* part_ml, int B,
-                                  int H, int Hkv, int Smax, int D, int split,
-                                  int n_splits, int dtype, float scale,
-                                  float softcap, void* stream) {
-  if (H % Hkv != 0 || H / Hkv > repro::kMaxGroup) return cudaErrorInvalidValue;
+                                  float* part_acc, float* part_ml,
+                                  int* counters, int B, int H, int Hkv,
+                                  int Smax, int page, int D, int split,
+                                  int n_splits, int tile, int stages,
+                                  int lanes, int gm, int smem, int dtype,
+                                  float scale, float softcap, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // page only indexes scales, which this mode has none of
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16, false>(
+    return repro::launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, v, nullptr, nullptr, nullptr, nullptr, kv_len, out, part_acc,
-        part_ml, B, H, Hkv, Smax, Smax, D, split, n_splits, scale, softcap, s);
+        part_ml, counters, B, H, Hkv, Smax, page, D, split, n_splits, tile,
+        stages, lanes, gm, smem, scale, softcap, s);
   if (dtype == repro::kFloat32)
-    return repro::launch<float, false>(
+    return repro::launch<float, float>(
         q, k, v, nullptr, nullptr, nullptr, nullptr, kv_len, out, part_acc,
-        part_ml, B, H, Hkv, Smax, Smax, D, split, n_splits, scale, softcap, s);
+        part_ml, counters, B, H, Hkv, Smax, page, D, split, n_splits, tile,
+        stages, lanes, gm, smem, scale, softcap, s);
   return cudaErrorInvalidValue;
 }
 
@@ -251,20 +540,21 @@ extern "C" int repro_paged_decode(const void* q, const void* k, const void* v,
 extern "C" int repro_paged_decode_int8(
     const void* q, const void* k, const void* v, const float* k_scale,
     const float* v_scale, const void* new_k, const void* new_v,
-    const int* pos, void* out, float* part_acc, float* part_ml, int B, int H,
-    int Hkv, int Smax, int page, int D, int split, int n_splits, int dtype,
-    float scale, float softcap, void* stream) {
-  if (H % Hkv != 0 || H / Hkv > repro::kMaxGroup || page <= 0 ||
-      Smax % page != 0)
-    return cudaErrorInvalidValue;
+    const int* pos, void* out, float* part_acc, float* part_ml,
+    int* counters, int B, int H, int Hkv, int Smax, int page, int D,
+    int split, int n_splits, int tile, int stages, int lanes, int gm,
+    int smem, int dtype, float scale, float softcap, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16, true>(
+    return repro::launch<__nv_bfloat16, int8_t>(
         q, k, v, k_scale, v_scale, new_k, new_v, pos, out, part_acc, part_ml,
-        B, H, Hkv, Smax, page, D, split, n_splits, scale, softcap, s);
+        counters, B, H, Hkv, Smax, page, D, split, n_splits, tile, stages,
+        lanes, gm, smem, scale, softcap, s);
   if (dtype == repro::kFloat32)
-    return repro::launch<float, true>(
+    return repro::launch<float, int8_t>(
         q, k, v, k_scale, v_scale, new_k, new_v, pos, out, part_acc, part_ml,
-        B, H, Hkv, Smax, page, D, split, n_splits, scale, softcap, s);
+        counters, B, H, Hkv, Smax, page, D, split, n_splits, tile, stages,
+        lanes, gm, smem, scale, softcap, s);
   return cudaErrorInvalidValue;
 }

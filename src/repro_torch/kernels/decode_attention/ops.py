@@ -4,9 +4,21 @@ On a CUDA tensor it launches ``csrc/paged_decode.cu`` (or raises); on a
 CPU tensor it runs the plain version (``ref.paged_decode_ref``, or
 ``ref.paged_decode_int8_ref`` for int8 pages). There is no fallback from
 one to the other. ``launches`` counts launches of the bf16/f32 mode,
-``int8_launches`` those of the int8 mode.
+``int8_launches`` those of the int8 mode; each call is one launch.
+
+The launch plan (split and tile sizes, stages, shared memory, the
+workspace's shapes) is ``plan()``, a pure function of the shapes that the
+CPU tests check; the C entries take it as given and reject a plan that
+does not match the kernel. The workspace (per-split partials and the
+counters that find each (slot, kv head)'s last split) is allocated once
+per device and plan by ``_workspace`` and reused by every call: the
+kernel leaves the counters at zero. Calls that share it run on one
+stream, as the serving path's do.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -14,17 +26,96 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (paged_decode_int8_ref,
                                                       paged_decode_ref)
 
-SPLIT_TOKENS = 256   # tokens per CTA of pass 1 (one page at the path's
-                     # shapes)
+SPLIT_TOKENS = 256   # tokens per split, rounded to whole pages (one page
+                     # at the path's shapes)
 MAX_GROUP = 8        # query heads per kv head the kernel takes
+THREADS, WARPS = 128, 4
+ROWS_PER_THREAD = 4  # tile rows a thread scores per tile
+STAGES = 4           # cp.async ring depth
+MAX_SMEM = 232448    # dynamic shared memory per block
 
 launches = 0
 int8_launches = 0
+_WORKSPACE = {}
 
 
-def split_count(smax: int) -> int:
-    """Pass-1 CTAs per (slot, kv head) for a cache of ``smax`` tokens."""
-    return -(-smax // SPLIT_TOKENS)
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    split: int         # tokens per split, a whole number of pages
+    n_splits: int      # grid (n_splits, kv heads, slots) of THREADS each
+    tile: int          # tokens per K/V tile; divides the page
+    stages: int
+    lanes: int         # lanes that share one token row
+    group_pad: int     # query heads per kv head, padded (2 or 8): the
+                       # kernel instance
+    smem_bytes: int
+    part_acc: tuple    # workspace shapes (f32, f32, int32)
+    part_ml: tuple
+    counters: tuple
+
+
+def split_tokens(page: int) -> int:
+    """Tokens per split: ``SPLIT_TOKENS`` as a whole number of pages."""
+    return page * max(1, SPLIT_TOKENS // page)
+
+
+def split_count(smax: int, page: int = SPLIT_TOKENS) -> int:
+    """Splits (CTAs) per (slot, kv head) for a cache of ``smax`` tokens."""
+    return -(-smax // split_tokens(page))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, hkv: int, smax: int, page: int, d: int,
+         kv_dtype: torch.dtype) -> Plan:
+    """The launch of ``csrc/paged_decode.cu`` for q [b,1,h,d] against
+    pages [b, smax/page, page, hkv, d] of ``kv_dtype`` (int8: the int8
+    mode). A token row is read as 16-byte chunks, one per lane of a group
+    of ``lanes`` (a power of two); a tile is ``ROWS_PER_THREAD`` rows per
+    row slot, cut to the largest power of two that divides the page."""
+    g = h // hkv
+    if g < 1 or h % hkv or g > MAX_GROUP:
+        raise ValueError(f"{h} query heads over {hkv} kv heads: the kernel "
+                         f"takes 1..{MAX_GROUP} per kv head")
+    if page < 1 or smax % page:
+        raise ValueError(f"cache of {smax} tokens in pages of {page}")
+    kv_bytes = kv_dtype.itemsize
+    elems = 16 // kv_bytes
+    if d % elems or not 1 <= d // elems <= 32:
+        raise ValueError(f"head_dim {d} in {kv_dtype}: a row must be 1..32 "
+                         f"chunks of 16 bytes")
+    lanes = 1 << (d // elems - 1).bit_length()
+    split = split_tokens(page)
+    n_splits = split_count(smax, page)
+    tile = min(ROWS_PER_THREAD * (THREADS // lanes), page & -page)
+    gm = 2 if g <= 2 else MAX_GROUP
+    ring = STAGES * 2 * tile * d * kv_bytes
+    merge = WARPS * gm * (d + 2) * 4
+    q_smem = gm * d * 4 if gm * elems > 32 else 0
+    return Plan(split=split, n_splits=n_splits, tile=tile, stages=STAGES,
+                lanes=lanes, group_pad=gm,
+                smem_bytes=q_smem + max(ring, merge),
+                part_acc=(b, hkv, n_splits, g, d),
+                part_ml=(b, hkv, n_splits, g, 2), counters=(b, hkv))
+
+
+def _workspace(device: torch.device, p: Plan):
+    """The partials and counters of ``p`` on ``device``, made once."""
+    key = (device, p.part_acc)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = (torch.empty(p.part_acc, dtype=torch.float32, device=device),
+              torch.empty(p.part_ml, dtype=torch.float32, device=device),
+              torch.zeros(p.counters, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
+
+
+def _launch_plan(b, h, hkv, smax, page, d, kv_dtype, device):
+    p = plan(b, h, hkv, smax, page, d, kv_dtype)
+    if p.smem_bytes > MAX_SMEM:
+        raise ValueError(f"plan needs {p.smem_bytes} bytes of shared memory,"
+                         f" over {MAX_SMEM}")
+    return p, _workspace(device, p)
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -67,25 +158,21 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(f"unsupported dtype {q.dtype}")
     if kv_len.dtype != torch.int32:
         raise TypeError("kv_len must be int32")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"at most {MAX_GROUP} query heads per kv head")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("kv_len", kv_len)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     smax = p * page
-    n_splits = split_count(smax)
-    g = h // hkv
+    pl, (part_acc, part_ml, counters) = _launch_plan(
+        b, h, hkv, smax, page, d, k_pages.dtype, q.device)
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, hkv, n_splits, g, 2), dtype=torch.float32,
-                          device=q.device)
     lib = build.library()
     rc = lib.repro_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), b, h, hkv, smax, d, SPLIT_TOKENS, n_splits,
+        part_ml.data_ptr(), counters.data_ptr(), b, h, hkv, smax, page, d,
+        pl.split, pl.n_splits, pl.tile, pl.stages, pl.lanes, pl.group_pad,
+        pl.smem_bytes,
         build.DTYPE_CODES[q.dtype], 1.0 / (d ** 0.5), float(logit_softcap),
         build.stream_ptr(q.device))
     launches += 1
@@ -142,25 +229,21 @@ def _paged_decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v,
         raise TypeError(f"unsupported dtype {q.dtype}")
     if pos.dtype != torch.int32:
         raise TypeError("pos must be int32")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"at most {MAX_GROUP} query heads per kv head")
     for name, t in inputs:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     smax = p * page
-    n_splits = split_count(smax)
-    g = h // hkv
+    pl, (part_acc, part_ml, counters) = _launch_plan(
+        b, h, hkv, smax, page, d, torch.int8, q.device)
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, hkv, n_splits, g, 2), dtype=torch.float32,
-                          device=q.device)
     lib = build.library()
     rc = lib.repro_paged_decode_int8(
         q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), new_k.data_ptr(),
         new_v.data_ptr(), pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), b, h, hkv, smax, page, d, SPLIT_TOKENS, n_splits,
+        part_ml.data_ptr(), counters.data_ptr(), b, h, hkv, smax, page, d,
+        pl.split, pl.n_splits, pl.tile, pl.stages, pl.lanes, pl.group_pad,
+        pl.smem_bytes,
         build.DTYPE_CODES[q.dtype], 1.0 / (d ** 0.5), float(logit_softcap),
         build.stream_ptr(q.device))
     int8_launches += 1

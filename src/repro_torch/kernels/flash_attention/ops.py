@@ -3,8 +3,16 @@
 On a CUDA tensor it launches ``csrc/flash_prefill.cu`` (or raises); on a
 CPU tensor it runs the plain version (``ref.flash_prefill_ref``). There is
 no fallback from one to the other. ``launches`` counts kernel launches.
+
+The launch plan (which of the file's two kernels, the grid, rows per CTA,
+pipeline stages and dynamic shared memory) is ``plan()``, a pure function
+of the shapes that the CPU tests check; the C entry takes it as given and
+rejects a plan that does not match its kernel.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -12,8 +20,55 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_prefill_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # instantiated in csrc/flash_prefill.cu
+MMA_HEAD_DIMS = (64, 80, 128)            # bf16 head dims on tensor cores
+MMA_KEYS = 64                            # keys per K/V tile
+MMA_STAGES = 3                           # cp.async ring depth
+MMA_ROWS = (64, 32, 16)                  # rows per CTA, most first
+SCALAR_ROWS, SCALAR_KEYS = 64, 64
+N_SMS = 132                              # H100 SXM
+MAX_SMEM = 232448                        # dynamic shared memory per block
 
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    kernel: str        # "mma" (tensor cores) or "scalar"
+    grid: tuple        # (row tiles, kv heads, batch)
+    rows: int          # (query, head) rows per CTA; 32 threads per 16 rows
+                       # on tensor cores, 256 threads in the scalar kernel
+    stages: int        # K/V tiles in flight (1: the scalar kernel's one)
+    smem_bytes: int
+
+
+def mma_plan(b: int, c: int, h: int, hkv: int, d: int, rows: int,
+             stages: int = MMA_STAGES) -> Plan:
+    """The tensor-core kernel's launch at ``rows`` rows per CTA and a ring
+    of ``stages`` K/V tiles: q's rows, then the ring, as bf16 rows padded
+    to d + 8 elements."""
+    gx = -(-c * (h // hkv) // rows)
+    smem = 2 * (d + 8) * (rows + stages * 2 * MMA_KEYS)
+    return Plan("mma", (gx, hkv, b), rows, stages, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, c: int, h: int, hkv: int, d: int,
+         dtype: torch.dtype) -> Plan:
+    """The launch of ``csrc/flash_prefill.cu`` for q [b,c,h,d] (the cache
+    length does not change it). bf16 at ``MMA_HEAD_DIMS`` runs the
+    tensor-core kernel with the most rows per CTA (64, 32, 16) that still
+    give ``N_SMS`` CTAs, else 16; everything else the scalar kernel's
+    64-row CTAs."""
+    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+        for rows in MMA_ROWS:
+            p = mma_plan(b, c, h, hkv, d, rows)
+            if p.grid[0] * hkv * b >= N_SMS:
+                break
+        return p
+    n_rows = c * (h // hkv)
+    smem = (3 * SCALAR_ROWS * (d + 1) + SCALAR_ROWS * (SCALAR_KEYS + 1)) * 4
+    return Plan("scalar", (-(-n_rows // SCALAR_ROWS), hkv, b), SCALAR_ROWS,
+                1, smem)
 
 
 def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
@@ -24,7 +79,6 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
     Query i of row b attends to cache positions ``<= pos[b] + i``; the
     chunk's own K/V must already be written at ``[pos[b], pos[b] + C)``.
     """
-    global launches
     if q.dim() != 4 or k_cache.dim() != 4:
         raise ValueError(f"expected q [B,C,H,D] and caches [B,Smax,Hkv,D], "
                          f"got {tuple(q.shape)} / {tuple(k_cache.shape)}")
@@ -54,12 +108,28 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
                     ("pos", pos)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return launch(q, k_cache, v_cache, pos, logit_softcap,
+                  plan(b, c, h, hkv, d, q.dtype))
+
+
+def launch(q, k_cache, v_cache, pos, logit_softcap: float,
+           p: Plan) -> torch.Tensor:
+    """One launch of the kernel at plan ``p`` on inputs that
+    ``flash_prefill`` has checked (``chip_smoke.py`` also times other
+    plans of the tensor-core kernel through it)."""
+    global launches
+    b, c, h, d = q.shape
+    _, smax, hkv, _ = k_cache.shape
+    if p.smem_bytes > MAX_SMEM:
+        raise ValueError(f"plan needs {p.smem_bytes} bytes of shared memory,"
+                         f" over {MAX_SMEM}")
     out = torch.empty_like(q)
     lib = build.library()
     rc = lib.repro_flash_prefill(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), b, c, h, hkv, smax, d, build.DTYPE_CODES[q.dtype],
-        1.0 / (d ** 0.5), float(logit_softcap), build.stream_ptr(q.device))
+        1.0 / (d ** 0.5), float(logit_softcap), p.grid[0], p.rows, p.stages,
+        p.smem_bytes, build.stream_ptr(q.device))
     launches += 1
     build.check(rc, "flash_prefill")
     return out
