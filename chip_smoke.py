@@ -1,48 +1,60 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch / CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
 ``jax`` nor the JAX package. Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernels from ``src/repro_torch/csrc`` (timed) and print each kernel
-   instance's registers, shared memory and spills (``-Xptxas -v``);
+   instance's registers, shared memory and spills (``-Xptxas -v``); with
+   ``--parent DIR`` (a checkout of the commit before the f32 flash_prefill
+   and ssd_scan redesign, refused unless its C entries take the arguments
+   this script passes them) also build that commit's two kernels into a
+   second library, at the same time, to time old and new in this run;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, and time kernel, plain version and, where one
    exists, one PyTorch library call (SDPA, cuBLAS) -- kernel and library
    call as device time (calls captured in a CUDA graph and replayed
-   between CUDA events), the plain version per call with CUDA events; the
-   decode kernel's output must be bit-identical run to run, and the
-   prefill kernel is also timed at other plans (rows per CTA, stages): the
+   between CUDA events), the plain version per call with CUDA events;
+   the decode kernel (both modes), the f32 flash_prefill and the SSD scan
+   must be bit-identical run to run over 50 repeats; the bf16 and f32
+   prefill and the SSD scan are also timed at the other plans of their
+   sweeps (rows per CTA x stages; spans per (row, head)). In turn: the
    two attention kernels in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's
-   heads (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H =
-   32, D 80); the decode kernel's int8 mode at qwen3's heads (bf16 2e-2,
+   heads (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H
+   = 32, D 80); the decode kernel's int8 mode at qwen3's heads (bf16 2e-2,
    int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
    (bf16 2e-2, f32 1e-4): flash_prefill at a ragged 37-token chunk near
-   the cache's end, G = 1, 2 and 8, D 64, softcap 30; paged_decode, both
-   modes, at lengths 1, 255, 256, 257 and Smax around a split, G = 1 and
-   8, the int8 fresh row on a tile's first and last row and past the
-   cache; the f32 flash_prefill instance at the int8 path's chunk, timed
-   beside f32 SDPA; the SSD scan in f32 (atol = rtol =
+   the cache's end, G = 1, 2 and 8, D 64, softcap 30, in bf16 and in f32
+   (the 3xTF32 kernel at D 80, 128 and 64); paged_decode, both modes, at
+   lengths 1, 255, 256, 257 and Smax around a split, G = 1 and 8, the int8
+   fresh row on a tile's first and last row and past the cache; the f32
+   flash_prefill instance (3xTF32 tensor cores) at the int8 path's chunk,
+   timed beside f32 SDPA and the parent's scalar kernel; the scalar
+   instance at gemma-2b's D 256 (bf16); the SSD scan in f32 (atol = rtol =
    1e-4, ``y`` and ``h_last``) at zamba2's 80 heads, P = N = 64, from a
-   nonzero state, over a 256-token chunk and a ragged 44-token one; the
-   paged weight-streaming matmul at qwen3's MLP width (x [8, 2048] and
-   [256, 2048], 8 of 16 pages of [256, 6144]; bf16 2e-2, f32 3e-5; no path
-   of the reference calls it). Then run the smoke-size qwen3-1.7b and
-   zamba2-2.7b (f32), and qwen3-1.7b with int8 pages, through chunked
-   prefill and ragged decode on the card and on the CPU from the same
-   weights, and hold logits and caches together (int8 codes equal but
-   for steps of one, counted);
+   nonzero and a zero state, over a 256-token chunk and a ragged 44-token
+   one, timed beside the parent's kernel; the C entries of both refusing,
+   before any launch, each plan that ``check_plan`` refuses (rows or
+   stages the kernel does not take, too little shared memory, the wrong
+   kernel, spans that miss tokens); the paged weight-streaming
+   matmul at qwen3's MLP width (x [8, 2048] and [256, 2048], 8 of 16 pages
+   of [256, 6144]; bf16 2e-2, f32 3e-5; no path of the reference calls
+   it). Then run the smoke-size qwen3-1.7b and zamba2-2.7b (f32), and
+   qwen3-1.7b with int8 pages, through chunked prefill and ragged decode
+   on the card and on the CPU from the same weights, and hold logits and
+   caches together (int8 codes equal but for steps of one, counted);
 3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
    from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
    32 new tokens, then 4 of the same prompts again under new rids, served
    by prefix restore; check that every request finished, both attention
-   kernels ran on that path, the restores happened and stalled on the
-   tier, and each restored request's greedy tokens equal its first run's;
+   kernels ran on that path and no other kernel did, the restores
+   happened and stalled on the tier, and each restored request's greedy
+   tokens equal its first run's;
 4. zamba2-2.7b at full width (random bf16 weights from the same seed):
    one 256-token prompt through one chunked prefill against 256
    ``decode_step`` calls -- with the weights widened to f32, logits within
@@ -50,12 +62,15 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    reported -- then serve it on the engine of phase 3 (8 requests of
    300-1000 prompt tokens, 32 new tokens; the hybrid is never restored
    from the tier, as in the reference) and check that every request
-   finished, pages were flushed, and all three kernels ran on that path;
+   finished, pages were flushed, and all three kernels ran on that path
+   and no other kernel did;
 5. serve qwen3-1.7b at full width with int8 KV pages on the engine and
    traffic of phase 3; check that every request finished, the int8 decode
    kernel ran once per layer per tick and flash_prefill ran, every
    resubmit was restored with its first token and its prompt's full pages
-   bit for bit, and a stored entry is under 0.55 of phase 3's bf16 entry;
+   bit for bit, and a stored entry is under 0.55 of phase 3's bf16 entry,
+   and that the prefill ran on the f32 (3xTF32) flash_prefill instance
+   and no other kernel ran;
    then restore the same prompts from entries stored right after prefill
    and check that their greedy tokens equal the first run's;
 6. print the measured numbers, one ``kernels`` JSON line, the card line and
@@ -95,11 +110,14 @@ SSD_TOL = dict(atol=1e-4, rtol=1e-4)    # f32, tests/test_kernels.py
 # f32 bound of tests/test_torch_hybrid.py, for sums over a 54-layer stack
 FULL_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
-# (tensor cores), f32 flop/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 and TF32
+# flop/s (tensor cores), f32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
+# an f32 product in error-compensated 3xTF32 is three TF32 products
+TF32_PRODUCTS = 3
 
 
 def fail(msg: str) -> None:
@@ -203,6 +221,7 @@ def launch_plans():
     import torch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_scan import ops as sops
     plans = {}
     for arch, h, hkv, d in ((ARCH, 16, 8, 128), (HYBRID, 32, 32, 80)):
         plans[f"paged_decode {arch} bf16"] = dops.plan(
@@ -213,6 +232,7 @@ def launch_plans():
         N_SLOTS, 16, 8, MAX_SEQ, 256, 128, torch.int8)
     plans[f"flash_prefill {ARCH} f32"] = fops.plan(
         1, CHUNK, 16, 8, 128, torch.float32)
+    plans[f"ssd_scan {HYBRID}"] = sops.plan(1, CHUNK, 80, 64, 64)
     return {k: dataclasses.asdict(p) for k, p in plans.items()}
 
 
@@ -528,8 +548,8 @@ def check_prefill_edges(dev):
     ragged 37-token chunk with pos near Smax - C (ending at Smax, and 5
     tokens past it, where the limit clamps to Smax - 1) beside a row at
     pos 0, at G = 1 (zamba2's D 80), G = 2 (qwen3's D 128), G = 8
-    (MAX_GROUP) and D 64; softcap 30; and the f32 scalar instance at the
-    same shapes (1e-4)."""
+    (MAX_GROUP) and D 64; softcap 30; and the f32 instance (the 3xTF32
+    tensor-core kernel at these head dims) at the same shapes (1e-4)."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     smax = MAX_SEQ
@@ -561,25 +581,131 @@ def check_prefill_edges(dev):
     return res
 
 
-def check_prefill_f32(dev):
-    """The f32 flash_prefill instance (the scalar kernel the int8 path's
-    prefill runs) at the int8 path's chunk, q [1,256,16,128] against a
-    2048-token cache at pos 300, timed beside f32 SDPA (TF32 off) as its
-    library time."""
+# the parent's C entries as parent_prefill and parent_ssd call them
+# (P pointer, I int, F float): the 7-pointer ssd_scan is the one CTA per
+# (head, row) scan that the split scan replaced
+PARENT_SIGNATURES = {"repro_flash_prefill": "PPPPPIIIIIIIFFIIIIP",
+                     "repro_ssd_scan": "PPPPPPPIIIIIP"}
+
+
+def parent_signatures(build_py):
+    """The ``_SIGNATURES`` table of a checkout's ``kernels/build.py``, read
+    with ``ast`` (not imported), as strings of P / I / F."""
+    import ast
+    from pathlib import Path
+    tree = ast.parse(Path(build_py).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "_SIGNATURES"
+                for t in node.targets):
+            table = eval(compile(ast.Expression(node.value), str(build_py),
+                                 "eval"), {"__builtins__": {}},
+                         {"_P": "P", "_I": "I", "_F": "F"})
+            return {name: "".join(args) for name, args in table.items()}
+    fail(f"{build_py}: no _SIGNATURES table")
+
+
+def parent_library(parent):
+    """The f32 flash_prefill and ssd_scan kernels of the commit before
+    their redesign (the scalar flash_prefill instance at D 64/80/128 f32,
+    the one-CTA-per-(head, row) SSD scan), built from ``parent`` -- a
+    checkout of that commit (``--parent DIR``) -- into a second library so
+    that this run times old and new on the same card. None without it.
+    Fails unless the checkout's C entries take the arguments that
+    ``parent_prefill`` and ``parent_ssd`` pass and its f32 prefill at
+    those head dims is the scalar kernel."""
+    import ctypes
+    from pathlib import Path
+    from repro_torch.kernels import build
+    if parent is None:
+        return None
+    pkg = Path(parent) / "src" / "repro_torch"
+    csrc = pkg / "csrc"
+    if not (csrc / "ssd_scan.cu").exists():
+        fail(f"--parent {parent}: no src/repro_torch/csrc/ssd_scan.cu")
+    sigs = parent_signatures(pkg / "kernels" / "build.py")
+    for name, want in PARENT_SIGNATURES.items():
+        if sigs.get(name) != want:
+            fail(f"--parent {parent}: {name} takes {sigs.get(name)}, not "
+                 f"{want}: not the commit before the redesign")
+    if "flash_prefill_tf32_kernel" in (csrc / "flash_prefill.cu").read_text():
+        fail(f"--parent {parent}: its f32 prefill is already the 3xTF32 "
+             f"kernel")
+    lib = ctypes.CDLL(str(build.build(csrc, ("flash_prefill", "ssd_scan"))))
+    ctype = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
+    for name, args in PARENT_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctype[a] for a in args]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def parent_prefill(lib, q, kc, vc, pos):
+    """The parent's f32 flash_prefill: the scalar kernel's 64-row CTAs."""
+    import torch
+    from repro_torch.kernels import build
+    b, c, h, d = q.shape
+    _, smax, hkv, _ = kc.shape
+    out = torch.empty_like(q)
+    rows = 64
+    smem = (3 * rows * (d + 1) + rows * (64 + 1)) * 4
+    rc = lib.repro_flash_prefill(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, c, h, hkv, smax, d, 0, 1.0 / d ** 0.5, 0.0,
+        -(-c * (h // hkv) // rows), rows, 1, smem,
+        build.stream_ptr(q.device))
+    build.check(rc, "parent flash_prefill")
+    return out
+
+
+def parent_ssd(lib, xdt, bm, cm, la, h0):
+    """The parent's ssd_scan: one CTA per (head, row)."""
+    import torch
+    from repro_torch.kernels import build
+    b, s, h, p = xdt.shape
+    n = bm.shape[2]
+    y = torch.empty_like(xdt)
+    h_last = torch.empty((b, h, p, n), device=xdt.device)
+    rc = lib.repro_ssd_scan(xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                            la.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                            h_last.data_ptr(), b, s, h, p, n,
+                            build.stream_ptr(xdt.device))
+    build.check(rc, "parent ssd_scan")
+    return y, h_last
+
+
+def check_prefill_f32(dev, parent):
+    """The f32 flash_prefill instance (the 3xTF32 tensor-core kernel the
+    int8 path's prefill runs) at the int8 path's chunk, q [1,256,16,128]
+    against a 2048-token cache at pos 300 (1e-4): bit-identical over 50
+    repeats, timed beside f32 SDPA (TF32 off) as its library time, at
+    every plan of the sweep (rows per CTA x stages), and beside the
+    parent's scalar kernel where ``parent`` is built."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     c, smax, hkv, g, d, p0 = CHUNK, MAX_SEQ, 8, 2, 128, 300
     h = hkv * g
+    tol = dict(atol=1e-4, rtol=1e-4)
     gen = torch.Generator(device=dev).manual_seed(2)
     q = torch.randn((1, c, h, d), generator=gen, device=dev)
     kc, vc = (torch.randn((1, smax, hkv, d), generator=gen, device=dev)
               for _ in range(2))
     pos = torch.tensor([p0], dtype=torch.int32, device=dev)
+    want = ref.flash_prefill_ref(q, kc, vc, pos)
     got = ops.flash_prefill(q, kc, vc, pos)
-    res = {"max_abs_err": check_close(
-        "flash_prefill f32", got, ref.flash_prefill_ref(q, kc, vc, pos),
-        dict(atol=1e-4, rtol=1e-4))}
+    res = {"plan": str(ops.plan(1, c, h, hkv, d, torch.float32)),
+           "max_abs_err": check_close("flash_prefill f32", got, want, tol)}
+    if ops.plan(1, c, h, hkv, d, torch.float32).kernel != "tf32":
+        fail("flash_prefill f32 at D 128 is not planned on the TF32 kernel")
+    res["err_softcap30"] = check_close(
+        "flash_prefill f32 cap=30", ops.flash_prefill(
+            q, kc, vc, pos, logit_softcap=30.0),
+        ref.flash_prefill_ref(q, kc, vc, pos, 30.0), tol)
+    q2 = torch.randn_like(q)
+    res["bitwise_repeats"] = check_repeatable(
+        "flash_prefill f32", lambda: ops.flash_prefill(q, kc, vc, pos),
+        lambda: ops.flash_prefill(q2, kc, vc, pos))
     mask = (torch.arange(smax, device=dev)[None]
             <= p0 + torch.arange(c, device=dev)[:, None])
     qs = q.transpose(1, 2)
@@ -593,27 +719,93 @@ def check_prefill_f32(dev):
     res["plain_ms"] = time_ms(
         lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
     res["library_ms"] = device_ms(sdpa, 20)
+    res["plans_ms"] = {}
+    for rows in (16, 32, 64):
+        for stages in (2, 3):
+            alt = ops.tf32_plan(1, c, h, hkv, d, rows, stages)
+            check_close(f"flash_prefill f32 rows={rows} stages={stages}",
+                        ops.launch(q, kc, vc, pos, 0.0, alt), want, tol)
+            res["plans_ms"][f"rows{rows} stages{stages} ctas"
+                            f"{alt.grid[0] * hkv}"] = device_ms(
+                lambda p=alt: ops.launch(q, kc, vc, pos, 0.0, p), 20)
+    res["parent_ms"] = None
+    if parent is not None:
+        res["parent_err"] = check_close(
+            "parent flash_prefill f32",
+            parent_prefill(parent, q, kc, vc, pos), want, tol)
+        res["parent_ms"] = device_ms(
+            lambda: parent_prefill(parent, q, kc, vc, pos), 20)
+        res["ms_again"] = device_ms(
+            lambda: ops.flash_prefill(q, kc, vc, pos), 20)
     visible = sum(p0 + i + 1 for i in range(c))
     n_bytes = 4 * (2 * (p0 + c) * hkv * d + 2 * q.numel()) + 4
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d,
-                                             F32_FLOPS)
+    flops = 4 * visible * h * d
+    res["bound_ms"], res["bound_by"] = bound(
+        n_bytes, TF32_PRODUCTS * flops, TF32_FLOPS)
+    res["bound_f32_fma_ms"] = bound(n_bytes, flops, F32_FLOPS)[0]
     res["shape"] = (f"q [1,{c},{h},{d}] f32, cache [1,{smax},{hkv},{d}], "
                     f"pos {p0}")
     return res
 
 
-def check_ssd(dev):
+def check_prefill_scalar(dev):
+    """The scalar flash_prefill instance, which the head dims without a
+    tensor-core instance run (16, 32, 256; the smoke models' 16), at
+    gemma-2b's prefill chunk: q [1,256,8,256] bf16 over one kv head,
+    against a 2048-token cache at pos 300 (bf16 2e-2). No serving path of
+    the full-width models runs it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    c, smax, hkv, g, d, p0 = CHUNK, MAX_SEQ, 1, 8, 256, 300
+    h = hkv * g
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randn((1, smax, hkv, d), generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    pos = torch.tensor([p0], dtype=torch.int32, device=dev)
+    if ops.plan(1, c, h, hkv, d, torch.bfloat16).kernel != "scalar":
+        fail("flash_prefill bf16 at D 256 is not planned on the scalar "
+             "kernel")
+    got = ops.flash_prefill(q, kc, vc, pos)
+    res = {"max_abs_err": check_close(
+        "flash_prefill scalar bf16 D=256", got,
+        ref.flash_prefill_ref(q, kc, vc, pos))}
+    mask = (torch.arange(smax, device=dev)[None]
+            <= p0 + torch.arange(c, device=dev)[:, None])
+    qs = q.transpose(1, 2)
+    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1)
+              for t in (kc, vc))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["plain_ms"] = time_ms(
+        lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
+    res["library_ms"] = device_ms(sdpa, 20)
+    visible = sum(p0 + i + 1 for i in range(c))
+    n_bytes = 2 * (2 * (p0 + c) * hkv * d + 2 * q.numel()) + 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d,
+                                             F32_FLOPS)
+    res["shape"] = (f"q [1,{c},{h},{d}] bf16, cache [1,{smax},{hkv},{d}], "
+                    f"pos {p0}")
+    return res
+
+
+def check_ssd(dev, parent):
     """ssd_scan at zamba2-2.7b's widths (B 1, H 80, P = N = 64) from a
     nonzero state: a 256-token prefill chunk and a ragged 44-token one,
     ``y`` and ``h_last`` against the plain chunked form at the kernel's
-    own sub-chunk (f32). No single PyTorch call computes the SSD, so there
-    is no library time."""
+    own sub-chunk (f32, 1e-4); the chain bit-identical over 50 repeats;
+    timed at the plan and at the other split counts of the sweep, and
+    beside the parent's kernel where ``parent`` is built. No single
+    PyTorch call computes the SSD, so there is no library time."""
     import torch
     from repro_torch.kernels.mamba2_scan import ops, ref
     b, h, p, n = 1, 80, 64, 64
     gen = torch.Generator(device=dev).manual_seed(3)
     h0 = torch.randn((b, h, p, n), generator=gen, device=dev)
-    res, inputs = {}, {}
+    res, inputs = {"plan": str(ops.plan(b, CHUNK, h, p, n))}, {}
     for s in (CHUNK, 44):
         xdt = torch.randn((b, s, h, p), generator=gen, device=dev)
         bm = torch.randn((b, s, n), generator=gen, device=dev) * 0.5
@@ -629,22 +821,134 @@ def check_ssd(dev):
         res[f"err_h_s{s}"] = check_close(f"ssd_scan h_last S={s}", h_last,
                                          h_ref, SSD_TOL)
     xdt, bm, cm, la = inputs[CHUNK]
+    y_ref, h_ref = ref.ssd_chunked_ref(xdt, bm, cm, la, h0,
+                                       chunk=ops.KERNEL_CHUNK)
+    y0, h00 = ops.ssd(xdt, bm, cm, la)                  # h0 = None: zero
+    z_ref = ref.ssd_chunked_ref(xdt, bm, cm, la, None,
+                                chunk=ops.KERNEL_CHUNK)
+    res["err_y_zero_h0"] = check_close("ssd_scan y h0=0", y0, z_ref[0],
+                                       SSD_TOL)
+    res["err_h_zero_h0"] = check_close("ssd_scan h_last h0=0", h00,
+                                       z_ref[1], SSD_TOL)
+    h0b = torch.randn_like(h0)
+    res["bitwise_repeats"] = check_repeatable(
+        "ssd_scan", lambda: torch.cat([t.flatten() for t in ops.ssd(
+            xdt, bm, cm, la, h0=h0)]),
+        lambda: ops.ssd(xdt, bm, cm, la, h0=h0b))
     res["ms"] = device_ms(lambda: ops.ssd(xdt, bm, cm, la, h0=h0), 50)
     res["plain_ms"] = time_ms(lambda: ref.ssd_chunked_ref(
         xdt, bm, cm, la, h0, chunk=ops.KERNEL_CHUNK), 10)
     res["library_ms"] = None
+    res["plans_ms"] = {}
+    for splits in (1, 2, 4):
+        alt = ops.split_plan(b, CHUNK, h, p, n, splits)
+        y, h_last = ops.launch(xdt, bm, cm, la, h0, alt)
+        check_close(f"ssd_scan y splits={splits}", y, y_ref, SSD_TOL)
+        check_close(f"ssd_scan h_last splits={splits}", h_last, h_ref,
+                    SSD_TOL)
+        res["plans_ms"][f"splits{alt.splits} ctas{alt.splits * h}"] = \
+            device_ms(lambda pl=alt: ops.launch(xdt, bm, cm, la, h0, pl), 50)
+    res["parent_ms"] = None
+    if parent is not None:
+        y, h_last = parent_ssd(parent, xdt, bm, cm, la, h0)
+        res["parent_err"] = max(
+            check_close("parent ssd_scan y", y, y_ref, SSD_TOL),
+            check_close("parent ssd_scan h_last", h_last, h_ref, SSD_TOL))
+        res["parent_ms"] = device_ms(
+            lambda: parent_ssd(parent, xdt, bm, cm, la, h0), 50)
+        res["ms_again"] = device_ms(
+            lambda: ops.ssd(xdt, bm, cm, la, h0=h0), 50)
     # each input read once, each output written once (f32); the
-    # recurrence's 4 P N flops per (token, head) at the f32 peak
+    # recurrence's 4 P N flops per (token, head) as 3 TF32 products
     n_bytes = 4 * (2 * xdt.numel() + bm.numel() + cm.numel() + la.numel()
                    + 2 * h0.numel())
+    flops = 4 * b * CHUNK * h * p * n
     res["bound_ms"], res["bound_by"] = bound(
-        n_bytes, 4 * b * CHUNK * h * p * n, F32_FLOPS)
-    res["bound_peak"] = (f"{HBM_BYTES_PER_S:.3g} B/s, {F32_FLOPS:.3g} "
-                         f"f32 flop/s (no tensor cores)")
+        n_bytes, TF32_PRODUCTS * flops, TF32_FLOPS)
+    res["bound_f32_fma_ms"] = bound(n_bytes, flops, F32_FLOPS)[0]
+    res["bound_peak"] = (f"{HBM_BYTES_PER_S:.3g} B/s, {TF32_FLOPS:.3g} "
+                         f"TF32 flop/s x {TF32_PRODUCTS} products")
     res["max_abs_err"] = max(res["err_y_s256"], res["err_h_s256"])
     res["shape"] = (f"xdt [{b},{CHUNK},{h},{p}] f32 (also S=44), b/c "
                     f"[{b},{CHUNK},{n}], h0 [{b},{h},{p},{n}]")
     return res
+
+
+def check_refusals(dev):
+    """The C entries of flash_prefill and ssd_scan refuse the plans that
+    ``check_plan`` refuses, called directly past it, so that the Python
+    and the C limits cannot part unnoticed; nothing is launched. Each
+    refused plan is inside the block's shared memory, so that only the
+    rule it breaks refuses it."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_scan import ops as sops
+    lib = build.library()
+    stream = build.stream_ptr(dev)
+    out = {}
+    tf32 = fops.tf32_plan(1, 256, 16, 8, 64, 32, 2)
+    prefill = {   # name: (plan, dtype) at q [1,256,16,64], or D 256
+        "tf32 rows 48": (fops.Plan("tf32", (11, 8, 1), 48, 2,
+                                   tf32.smem_bytes), torch.float32, 64),
+        "tf32 stages 4": (fops.tf32_plan(1, 256, 16, 8, 64, 32, 4),
+                          torch.float32, 64),
+        "tf32 smem short": (dataclasses.replace(
+            tf32, smem_bytes=tf32.smem_bytes - 16), torch.float32, 64),
+        "mma stages 5": (fops.mma_plan(1, 256, 16, 8, 64, 16, 5),
+                         torch.bfloat16, 64),
+        "mma on f32": (fops.mma_plan(1, 256, 16, 8, 64, 16, 3),
+                       torch.float32, 64),
+        "scalar rows 32": (fops.Plan("scalar", (128, 8, 1), 32, 1,
+                                     fops.scalar_plan(
+                                         1, 256, 16, 8, 256).smem_bytes),
+                           torch.bfloat16, 256)}
+    for name, (pl, dtype, d) in prefill.items():
+        q = torch.zeros((1, 256, 16, d), dtype=dtype, device=dev)
+        kc = torch.zeros((1, MAX_SEQ, 8, d), dtype=dtype, device=dev)
+        pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        try:
+            fops.check_plan(pl, 1, 256, 16, 8, d, dtype)
+            fail(f"flash_prefill check_plan takes plan {name}: {pl}")
+        except ValueError:
+            pass
+        if pl.smem_bytes > fops.MAX_SMEM:
+            fail(f"flash_prefill plan {name} does not fit: {pl}")
+        out[f"flash_prefill {name}"] = rc = lib.repro_flash_prefill(
+            q.data_ptr(), kc.data_ptr(), kc.data_ptr(), pos.data_ptr(),
+            torch.empty_like(q).data_ptr(), 1, 256, 16, 8, MAX_SEQ, d,
+            build.DTYPE_CODES[dtype], 1.0 / d ** 0.5, 0.0, pl.grid[0],
+            pl.rows, pl.stages, pl.smem_bytes, stream)
+        if rc == 0:
+            fail(f"the flash_prefill C entry takes plan {name}: {pl}")
+    good = sops.plan(1, 256, 80, 64, 64)
+    ssd = {"spans short": dataclasses.replace(good, splits=3, span=1),
+           "a span past S": dataclasses.replace(good, splits=4, span=2)}
+    x = torch.zeros((1, 256, 80, 64), device=dev)
+    bm = torch.zeros((1, 256, 64), device=dev)
+    la = torch.zeros((1, 256, 80), device=dev)
+    h = torch.zeros((1, 80, 64, 64), device=dev)
+    for name, pl in ssd.items():
+        try:
+            sops.check_plan(pl, 1, 256, 80, 64, 64)
+            fail(f"ssd_scan check_plan takes plan {name}: {pl}")
+        except ValueError:
+            pass
+        part_h = torch.zeros((1, 80, pl.splits, 64, 64), device=dev)
+        part_l = torch.zeros((1, 80, pl.splits), device=dev)
+        sync = torch.zeros((1, 80, 2 + pl.splits), dtype=torch.int32,
+                           device=dev)
+        out[f"ssd_scan {name}"] = rc = lib.repro_ssd_scan(
+            x.data_ptr(), bm.data_ptr(), bm.data_ptr(), la.data_ptr(),
+            h.data_ptr(), torch.empty_like(x).data_ptr(),
+            torch.empty_like(h).data_ptr(), part_h.data_ptr(),
+            part_l.data_ptr(), sync.data_ptr(), 1, 256, 80, 64, 64,
+            pl.splits, pl.span, pl.smem_bytes, stream)
+        if rc == 0:
+            fail(f"the ssd_scan C entry takes plan {name}: {pl}")
+    torch.cuda.synchronize(dev)
+    return out
 
 
 def check_paged_matmul(dev):
@@ -818,6 +1122,43 @@ def build_engine(dev, arch, kv_quant="none"):
     return cfg, rc, params, engine, init_s
 
 
+def zero_counters():
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.hdm_stream import ops as hops
+    from repro_torch.kernels.mamba2_scan import ops as sops
+    dops.launches = dops.int8_launches = 0
+    fops.launches = 0
+    fops.kernel_launches = dict.fromkeys(fops.kernel_launches, 0)
+    sops.launches = hops.launches = 0
+
+
+def read_counters():
+    """Every kernel wrapper's launch count, under the ``kernels`` line's
+    names."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.hdm_stream import ops as hops
+    from repro_torch.kernels.mamba2_scan import ops as sops
+    return {"paged_decode": dops.launches,
+            "paged_decode_int8": dops.int8_launches,
+            "flash_prefill": fops.kernel_launches["mma"],
+            "flash_prefill_tf32": fops.kernel_launches["tf32"],
+            "flash_prefill_scalar": fops.kernel_launches["scalar"],
+            "ssd_scan": sops.launches, "paged_matmul": hops.launches}
+
+
+def split_counts(arch, counts, on_path):
+    """The counts read after a main path, split into the kernels the path
+    must run and the rest, which must all be 0."""
+    launches = {name: counts[name] for name in on_path}
+    off_path = {name: n for name, n in counts.items() if name not in on_path}
+    if any(off_path.values()):
+        fail(f"{arch}: kernels launched off the path: {off_path}")
+    return launches, off_path
+
+
 def run_stats(engine, handles, wall_s, launches, init_s):
     import torch
     from repro_torch.core.tier import CxlTier
@@ -888,9 +1229,6 @@ def serve(dev, kv_quant="none"):
     them again under new rids (prefix restores)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.serving.engine import Request
 
     cfg, rc, params, engine, init_s = build_engine(dev, ARCH, kv_quant)
@@ -900,10 +1238,7 @@ def serve(dev, kv_quant="none"):
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path: counts from 0 just before, read just after
-    dops.launches = 0
-    dops.int8_launches = 0
-    fops.launches = 0
-    hops.launches = 0
+    zero_counters()
     t0 = time.time()
     first = [engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
              for i, p in enumerate(prompts)]
@@ -914,14 +1249,14 @@ def serve(dev, kv_quant="none"):
     engine.run(max_ticks=10_000)
     torch.cuda.synchronize()
     wall_s = time.time() - t0
-    decode = "paged_decode_int8" if kv_quant == "int8" else "paged_decode"
-    launches = {decode: (dops.int8_launches if kv_quant == "int8"
-                         else dops.launches),
-                "flash_prefill": fops.launches}
-    off_path = {"paged_decode": dops.launches,
-                "paged_decode_int8": dops.int8_launches,
-                "paged_matmul": hops.launches}
-    off_path.pop(decode)
+    counts = read_counters()
+    # bf16 pages: the bf16 decode mode and the bf16 tensor-core prefill;
+    # int8 pages: the int8 mode and the f32 (3xTF32) prefill instance
+    int8 = kv_quant == "int8"
+    launches, off_path = split_counts(
+        f"{ARCH} int8" if int8 else ARCH, counts,
+        ("paged_decode_int8", "flash_prefill_tf32") if int8
+        else ("paged_decode", "flash_prefill"))
 
     out = run_stats(engine, first + again, wall_s, launches, init_s)
     out["off_path_launches"] = off_path
@@ -1021,9 +1356,6 @@ def check_hybrid_stepwise(dev, params, cfg, rc):
 def serve_hybrid(dev):
     import numpy as np
     import torch
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.mamba2_scan import ops as sops
     from repro_torch.serving.engine import Request
 
     cfg, rc, params, engine, init_s = build_engine(dev, HYBRID)
@@ -1034,9 +1366,7 @@ def serve_hybrid(dev):
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path: counts from 0 just before, read just after
-    dops.launches = 0
-    fops.launches = 0
-    sops.launches = 0
+    zero_counters()
     t0 = time.time()
     handles = [engine.submit(Request(rid=i, prompt=p,
                                      max_new_tokens=MAX_NEW))
@@ -1044,10 +1374,12 @@ def serve_hybrid(dev):
     engine.run(max_ticks=10_000)
     torch.cuda.synchronize()
     wall_s = time.time() - t0
-    launches = {"paged_decode": dops.launches, "flash_prefill": fops.launches,
-                "ssd_scan": sops.launches}
+    launches, off_path = split_counts(
+        HYBRID, read_counters(),
+        ("paged_decode", "flash_prefill", "ssd_scan"))
 
     out = run_stats(engine, handles, wall_s, launches, init_s)
+    out["off_path_launches"] = off_path
     out["stepwise"] = stepwise
     out.update(step_costs(engine, params, cfg, rc, prompts[0], dev))
     return out
@@ -1092,6 +1424,13 @@ def check_restores(arch, run):
 
 
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", default=None, help=(
+        "a checkout of the commit before the f32 flash_prefill / ssd_scan "
+        "redesign: its two kernels are built and timed beside the new "
+        "ones"))
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this smoke needs the card")
@@ -1106,12 +1445,18 @@ def main() -> None:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     t0 = time.time()
-    lib_path = build.build()
+    with ThreadPoolExecutor(2) as pool:    # every nvcc starts at once
+        built = pool.submit(build.build)
+        parent_built = pool.submit(parent_library, args.parent)
+        lib_path, parent = built.result(), parent_built.result()
     build.library()
     build_s = time.time() - t0
-    log(f"kernels built in {build_s:.1f}s -> {lib_path}")
+    log(f"kernels built in {build_s:.1f}s -> {lib_path}; parent's f32 "
+        f"flash_prefill and ssd_scan: "
+        f"{'built from ' + args.parent if parent else 'not built'}")
     ptxas = ptxas_report((lib_path.parent / "build.log").read_text())
     for row in ptxas:
         log(f"ptxas: {row['kernel']}: {row['used']}; {row['spill']}")
@@ -1133,10 +1478,14 @@ def main() -> None:
     log(f"paged_decode edges ok (both modes): {dec_edges}")
     pre_edges = check_prefill_edges(dev)
     log(f"flash_prefill edges ok: {pre_edges}")
-    pre32 = check_prefill_f32(dev)
+    pre32 = check_prefill_f32(dev, parent)
     log(f"flash_prefill f32 ok: {pre32['shape']}; {pre32}")
-    ssd = check_ssd(dev)
+    pre_sc = check_prefill_scalar(dev)
+    log(f"flash_prefill scalar ok: {pre_sc['shape']}; {pre_sc}")
+    ssd = check_ssd(dev, parent)
     log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
+    refused = check_refusals(dev)
+    log(f"C entries refuse what check_plan refuses (rc): {refused}")
     mm = check_paged_matmul(dev)
     log(f"paged_matmul ok: {mm['shape']}; {mm}")
     small = {arch: check_model_small(dev, arch) for arch in (ARCH, HYBRID)}
@@ -1180,11 +1529,9 @@ def main() -> None:
         fail(f"{int8_name}: restores of post-prefill entries differ from "
              f"the first run: {post}")
     per_tick = run8["launches"]["paged_decode_int8"] / run8["decode_ticks"]
-    if per_tick != run8["n_layers"] or any(
-            run8["off_path_launches"].values()):
+    if per_tick != run8["n_layers"]:
         fail(f"{int8_name}: int8 decode launches per tick {per_tick} (want "
-             f"one per layer, {run8['n_layers']}), off-path launches "
-             f"{run8['off_path_launches']}")
+             f"one per layer, {run8['n_layers']})")
     ratio = max(run8["entry_bytes"]) / min(run["entry_bytes"])
     run8["entry_ratio"] = ratio
     log(f"{int8_name}: entry {run8['entry_bytes']} bytes over the bf16 "
@@ -1205,22 +1552,32 @@ def main() -> None:
              "src/repro/kernels/decode_attention/kernel.py:79"),
             ("flash_prefill", pre, "src/repro_torch/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/kernel.py:77"),
+            ("flash_prefill_tf32", pre32,
+             "src/repro_torch/csrc/flash_prefill.cu",
+             "src/repro/kernels/flash_attention/kernel.py:77"),
+            ("flash_prefill_scalar", pre_sc,
+             "src/repro_torch/csrc/flash_prefill.cu",
+             "src/repro/kernels/flash_attention/kernel.py:77"),
             ("ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/mamba2_scan/kernel.py:68"),
             ("paged_matmul", mm, "src/repro_torch/csrc/paged_matmul.cu",
              "src/repro/kernels/hdm_stream/kernel.py:42")):
-        by_path = {arch: r["launches"][name] for arch, r in runs.items()
-                   if name in r["launches"]}
+        by_path = {arch: {**r["launches"], **r["off_path_launches"]}[name]
+                   for arch, r in runs.items()}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-               "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
-        if name == "flash_prefill":
-            row["f32"] = {k: pre32[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err")}
+               "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+               "shape": res["shape"]}
+        for key in ("parent_ms", "plans_ms"):
+            if key in res:
+                row[key] = res[key]
+        if name == "flash_prefill_scalar":
+            row["note"] = ("bf16 and f32 at head dims 16, 32 and 256 (the "
+                           "smoke models, gemma-2b); no full-width path "
+                           "runs it")
         if name == "paged_matmul":
             row["note"] = ("no path of the reference calls it (its engine "
                            "drops the speculative-read weight prefetch on "
@@ -1233,7 +1590,9 @@ def main() -> None:
                    "decode_int8": dec8, "decode_edges": dec_edges,
                    "prefill": pre, "prefill_d80": pre80,
                    "prefill_edges": pre_edges, "prefill_f32": pre32,
+                   "prefill_scalar": pre_sc,
                    "ptxas": ptxas, "plans": plans, "ssd_scan": ssd,
+                   "refused_plans": refused,
                    "paged_matmul": mm, "small_model": small, "serve": run,
                    "serve_hybrid": hyb, "serve_int8": run8,
                    "kernels": kernels}, f, indent=1)

@@ -58,6 +58,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(pred ? 16 : 0));
 }
 
+// Asks for the 128-byte line holding `gmem` to be brought into L2.
+__device__ __forceinline__ void prefetch_l2(const void* gmem) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -105,6 +110,82 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- f32 products on tensor cores: error-compensated 3xTF32
+// (mma.sync m16n8k8, tf32 in, f32 accumulate). Fragments of a 16x8 A tile
+// (row-major) and an 8x8 B tile (column-major), g = lane / 4, t = lane % 4:
+//   a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
+//   b0 (k t, n g)  b1 (k t+4, n g)
+//   c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+// The order of k inside one mma is free, so an accumulator can serve as
+// the A operand of the next product as (c0, c2, c1, c3) -- its columns 2t
+// and 2t+1 taken as k = t and t+4 -- when B's rows are read as 2t, 2t+1.
+
+// x = hi + lo as two tf32 operands. hi is x rounded to tf32 as
+// cvt.rna.tf32.f32 rounds it (nearest, ties away from zero), in two
+// integer ops: a conversion runs at a quarter of their rate. lo = x - hi
+// (exact) is passed as it is: the tensor core reads a tf32 operand's upper
+// 19 bits, so it takes lo truncated to tf32 (an error under 2^-21 |x|).
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Tf32Pair split_tf32(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment split once into hi and lo halves
+struct Tf32Frag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ Tf32Frag split_frag(float a0, float a1, float a2,
+                                               float a3) {
+  const float a[4] = {a0, a1, a2, a3};
+  Tf32Frag f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Tf32Pair p = split_tf32(a[e]);
+    f.hi[e] = p.hi;
+    f.lo[e] = p.lo;
+  }
+  return f;
+}
+
+// c += a b in 3xTF32: the two small cross terms, then hi . hi (lo . lo,
+// ~2^-22 relative, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float* c, const Tf32Frag& a,
+                                           float b0, float b1) {
+  const Tf32Pair p0 = split_tf32(b0), p1 = split_tf32(b1);
+  mma_tf32(c, a.lo, p0.hi, p1.hi);
+  mma_tf32(c, a.hi, p0.lo, p1.lo);
+  mma_tf32(c, a.hi, p0.hi, p1.hi);
+}
+
+// ---- flags between the CTAs of one launch (device scope)
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
 }  // namespace repro

@@ -15,16 +15,20 @@
 //
 // What bounds it on an H100: at the serving path's shapes (qwen3-1.7b: a
 // 256-token chunk at offset 300, 16 heads over 8 kv heads, D 128) the
-// bytes of q, the output and the visible K/V are ~2.2 MB (0.0013 ms at
+// bytes of q, the output and the visible K/V are ~4.4 MB (0.0013 ms at
 // 3.35 TB/s) and the products ~0.9 GFLOP (0.0009 ms at 989 TFLOP/s): each
 // K/V row serves C*G = 512 query rows, ~512 flop/byte against the card's
 // ~295 ridge. So the bound is bytes by a little, and at this size the
 // pipeline fill, the launch and the number of CTAs set the time: the
 // tensor-core kernel takes ~0.033 ms there on an H100 SXM at 700 W (~25x
 // the bound, about half of SDPA's time; chip_smoke.py, PERF.md), the
-// scalar kernel it replaces for bf16 took ~0.17 ms.
+// scalar kernel it replaces for bf16 took ~0.17 ms. In f32 (the int8
+// path's chunk, the same shape) the bytes are ~8.8 MB (0.0026 ms) and
+// the products run as 3 TF32 products each at 495 TFLOP/s (0.0054 ms), so
+// operations bound it; outside the tensor cores (67 TFLOP/s) they would
+// take 0.0134 ms, and the scalar kernel took ~0.135 ms.
 //
-// Two kernels, dispatched explicitly by (dtype, D) in dispatch():
+// Three kernels, dispatched explicitly by (dtype, D) in dispatch():
 //
 // - bf16 at D in {64, 80, 128} (qwen3's 128, zamba2's shared block's 80):
 //   flash_prefill_mma_kernel, FlashAttention-2 style. Each warp owns 16
@@ -53,15 +57,38 @@
 //   (64-row CTAs, 64 of them, take ~0.7x the time at qwen3's chunk): a
 //   one-warp CTA issues every copy of each 32 KB K/V tile itself, and 32
 //   CTAs stage the same tile. 64-row CTAs over a split key axis are next.
-// - everything else -- f32 (the int8 path's prefill and the f32 smoke
-//   models) and bf16 at D in {16, 32, 256} -- flash_prefill_scalar_kernel,
-//   the first version: 64-row CTAs, f32 tiles in shared memory, scalar f32
-//   FMAs. f32 stays there because one TF32 product would miss the f32
-//   checks (1e-4 on the card, 3e-5 on the CPU); error-compensated 3xTF32
-//   is the later step. D = 256 would need 128 accumulator registers a
-//   thread for 16 rows on the tensor-core path.
-#include <type_traits>
-
+// - f32 at D in {64, 80, 128} (the int8 path's prefill, which widens q to
+//   f32 over the dequantized pages): flash_prefill_tf32_kernel, the same
+//   FlashAttention-2 shape on tensor cores in error-compensated 3xTF32
+//   (mma.sync.m16n8k8, tf32 in, f32 accumulate). Each operand is split once
+//   into hi = x rounded to tf32 and lo = x - hi, and lo.hi, hi.lo and hi.hi
+//   go into one f32 accumulator: ~2^-21 relative per product, where one
+//   TF32 product (10 mantissa bits) would miss the f32 checks (1e-4 on the
+//   card, 3e-5 on the CPU). The split is integer ops (common.cuh), not
+//   cvt, which runs at a quarter of their rate. Q's fragments are read
+//   from global memory straight into registers (as f32, split per tile: hi
+//   and lo of Q at D 128 would take 128 registers beside O's 64). The S
+//   accumulator of 8 keys is P's A operand as (c0, c2, c1, c3), its columns
+//   2t, 2t+1 taken as k = t, t+4, with V's B fragment read from key rows 2t
+//   and 2t + 1: no shuffle, no shared memory. Two warps share each 16 rows,
+//   each taking 32 keys of every 64-key tile with its own online softmax;
+//   they merge once at the end, in group order, through shared memory. This
+//   halves each warp's serial walk over the keys and keeps all four of an
+//   SM's schedulers busy with a 32-row CTA. K/V tiles are staged in f32 by
+//   16-byte cp.async into a ring of 2 or 3 stages, rows padded to D + 4
+//   floats (row strides of 528, 336 and 272 bytes: every fragment read is
+//   free of bank conflicts). Shared memory 4 (D + 4) stages 2 64 bytes:
+//   135,168 at D 128 and 2 stages, 202,752 at 3 (one CTA a SM either way),
+//   so q is not staged. The masking, zero-filling and row conventions are
+//   the bf16 kernel's. Rows per CTA and stages come from the plan, chosen
+//   by measurement on the H100 (chip_smoke.py's plan sweep; PERF.md): at
+//   the int8 path's chunk 32-row CTAs (128 CTAs of 4 warps) take ~0.042
+//   ms at 2 or 3 stages, 64-row ones ~0.054, 16-row ones ~0.096 (two waves
+//   of one CTA a SM); the scalar kernel took ~0.131.
+// - everything else -- bf16 and f32 at D in {16, 32, 256} -- goes to
+//   flash_prefill_scalar_kernel, the first version: 64-row CTAs, f32 tiles
+//   in shared memory, scalar f32 FMAs. D = 256 would need 128 accumulator
+//   registers a thread for 16 rows on the tensor-core path.
 #include "common.cuh"
 
 namespace repro {
@@ -69,7 +96,7 @@ namespace {
 
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
-// ---- the scalar kernel: f32, and bf16 at D in {16, 32, 256}
+// ---- the scalar kernel: bf16 and f32 at D in {16, 32, 256}
 
 constexpr int kRows = 64;      // (query, head) rows per CTA
 constexpr int kKeys = 64;      // keys per KV tile
@@ -433,24 +460,269 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- the 3xTF32 tensor-core kernel: f32, D in {64, 80, 128}
+
+constexpr int kTfKeys = 64;                   // keys per K/V tile
+constexpr int kTfGroups = 2;                  // warps per 16 rows
+constexpr int kTfGroupKeys = kTfKeys / kTfGroups;
+constexpr int kTfMaxThreads = 64 / 16 * kTfGroups * 32;  // 64 rows
+
+constexpr size_t tf32_smem_bytes(int D, int stages) {
+  return (size_t)4 * (D + 4) * stages * 2 * kTfKeys;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTfMaxThreads)
+flash_prefill_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const int* __restrict__ pos, float* __restrict__ out,
+                          int C, int H, int Hkv, int Smax, int stages,
+                          float scale, float softcap) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int LD = D + 4;                  // padded row (floats)
+  constexpr int CH = D / 4;                  // 16-byte chunks per row
+  constexpr int KS = D / 8;                  // k-steps of Q K^T
+  constexpr int NB = D / 8;                  // 8-column blocks of O
+  constexpr int SB = kTfGroupKeys / 8;       // 8-key blocks of S
+  const int tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const int nthr = blockDim.x, n_rw = nthr / (32 * kTfGroups);
+  const int rows = 16 * n_rw;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % n_rw, grp = warp / n_rw;  // row block, key group
+  const int gid = lane >> 2, tig = lane & 3;      // fragment row, column
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // stages x {K, V}
+
+  const int n_rows = C * G, row0 = tile * rows, p0 = pos[b];
+  // last visible key of a row; rows past C*G take the last row's
+  auto limit = [&](int row) {
+    return min(p0 + min(row, n_rows - 1) / G, Smax - 1);
+  };
+  const int kv_end = limit(row0 + rows - 1) + 1;  // keys [0, kv_end)
+  const int n_tiles = (kv_end + kTfKeys - 1) / kTfKeys;
+
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      float* Kt = ring + (size_t)(t % stages) * 2 * kTfKeys * LD;
+      float* Vt = Kt + kTfKeys * LD;
+      for (int i = tid; i < kTfKeys * CH; i += nthr) {
+        const int r = i / CH, cc = i - r * CH, key = t * kTfKeys + r;
+        const bool ok = key < kv_end;
+        const size_t off =
+            (((size_t)b * Smax + (ok ? key : 0)) * Hkv + hk) * D + cc * 4;
+        cp_async16(Kt + r * LD + cc * 4, k + off, ok);
+        cp_async16(Vt + r * LD + cc * 4, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages - 1; ++s) load_tile(s);
+
+  const int wrow0 = row0 + rw * 16;
+  const bool warp_live = wrow0 < n_rows;
+  const int lim_a = limit(wrow0 + gid), lim_b = limit(wrow0 + gid + 8);
+  const int lim_lo = limit(wrow0), lim_hi = limit(wrow0 + 15);
+  const float qk_scale = scale * kLog2e;
+
+  // Q's A fragments from global memory, once (zero past C*G)
+  float qf[KS][4];
+  {
+    auto qrow = [&](int row) -> const float* {
+      if (row >= n_rows) return nullptr;
+      const int qi = row / G, g = row - qi * G;
+      return q + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D;
+    };
+    const float* qa = qrow(wrow0 + gid);
+    const float* qb = qrow(wrow0 + gid + 8);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c0 = kk * 8 + tig;
+      qf[kk][0] = qa ? qa[c0] : 0.f;
+      qf[kk][1] = qb ? qb[c0] : 0.f;
+      qf[kk][2] = qa ? qa[c0 + 4] : 0.f;
+      qf[kk][3] = qb ? qb[c0 + 4] : 0.f;
+    }
+  }
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait(stages - 2);  // tile t landed, this thread's part
+    __syncthreads();            // ... everyone's; tile t - 1 is consumed
+    load_tile(t + stages - 1);
+    const int k0 = t * kTfKeys + grp * kTfGroupKeys;  // this warp's keys
+    if (!warp_live || k0 > lim_hi) continue;  // nothing visible to the warp
+    const float* Kt = ring + (size_t)(t % stages) * 2 * kTfKeys * LD +
+                      grp * kTfGroupKeys * LD;
+    const float* Vt = Kt + kTfKeys * LD;
+
+    // S = Q K^T: s[j] holds keys k0 + 8j .. +7 of rows gid and gid + 8
+    float s[SB][4];
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const Tf32Frag qa = split_frag(qf[kk][0], qf[kk][1], qf[kk][2],
+                                     qf[kk][3]);
+#pragma unroll
+      for (int j = 0; j < SB; ++j) {
+        const float* kr = Kt + (j * 8 + gid) * LD + kk * 8 + tig;
+        mma_3xtf32(s[j], qa, kr[0], kr[4]);
+      }
+    }
+
+    // online softmax in place (log2 domain); the mask only where a row's
+    // limit falls inside the warp's keys
+    const bool masked = k0 + kTfGroupKeys - 1 > lim_lo;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = softcap > 0.f ? softcap_logit(s[j][e] * scale, softcap) *
+                                      kLog2e
+                                : s[j][e] * qk_scale;
+        if (masked && k0 + j * 8 + tig * 2 + (e & 1) > (e < 2 ? lim_a : lim_b))
+          x = -INFINITY;
+        s[j][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x);
+        else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no visible key yet keeps m = -inf: exponentiate against
+    // 0 so that nothing becomes NaN
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float al_a = exp2f(m_a - base_a), al_b = exp2f(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      s[j][0] = exp2f(s[j][0] - base_a);
+      s[j][1] = exp2f(s[j][1] - base_a);
+      s[j][2] = exp2f(s[j][2] - base_b);
+      s[j][3] = exp2f(s[j][3] - base_b);
+      rs_a += s[j][0] + s[j][1];
+      rs_b += s[j][2] + s[j][3];
+    }
+    l_a = l_a * al_a + rs_a;  // this thread's columns; summed over the quad
+    l_b = l_b * al_b + rs_b;  // at the end
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= al_a;
+      o[n][1] *= al_a;
+      o[n][2] *= al_b;
+      o[n][3] *= al_b;
+    }
+
+    // O += P V: the S accumulator of keys 8j .. 8j + 7 is P's A operand as
+    // (c0, c2, c1, c3); V's B fragment from key rows 2t and 2t + 1
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      const Tf32Frag pa = split_frag(s[j][0], s[j][2], s[j][1], s[j][3]);
+      const float* vr = Vt + (j * 8 + 2 * tig) * LD + gid;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        mma_3xtf32(o[n], pa, vr[n * 8], vr[n * 8 + LD]);
+    }
+  }
+
+  // merge the key groups in group order: group 1 hands its (m, l, O) over
+  // through the ring (every copy has landed: later groups are empty)
+  __syncthreads();
+  float* mb = ring + (size_t)rw * (NB * 4 + 4) * 32 + lane;
+  if (grp == 1 && warp_live) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mb[(n * 4 + e) * 32] = o[n][e];
+    mb[(NB * 4 + 0) * 32] = m_a;
+    mb[(NB * 4 + 1) * 32] = m_b;
+    mb[(NB * 4 + 2) * 32] = l_a;
+    mb[(NB * 4 + 3) * 32] = l_b;
+  }
+  __syncthreads();
+  if (grp != 0 || !warp_live) return;
+  {
+    const float pm_a = mb[(NB * 4 + 0) * 32], pm_b = mb[(NB * 4 + 1) * 32];
+    const float mn_a = fmaxf(m_a, pm_a), mn_b = fmaxf(m_b, pm_b);
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float sa = exp2f(m_a - base_a), pa = exp2f(pm_a - base_a);
+    const float sb = exp2f(m_b - base_b), pb = exp2f(pm_b - base_b);
+    l_a = l_a * sa + mb[(NB * 4 + 2) * 32] * pa;
+    l_b = l_b * sb + mb[(NB * 4 + 3) * 32] * pb;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] = o[n][0] * sa + mb[(n * 4 + 0) * 32] * pa;
+      o[n][1] = o[n][1] * sa + mb[(n * 4 + 1) * 32] * pa;
+      o[n][2] = o[n][2] * sb + mb[(n * 4 + 2) * 32] * pb;
+      o[n][3] = o[n][3] * sb + mb[(n * 4 + 3) * 32] * pb;
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = wrow0 + gid + 8 * half;
+    if (row >= n_rows) continue;
+    const int qi = row / G, g = row - qi * G;
+    float* op = out + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D +
+                tig * 2;
+    const float inv = half ? inv_b : inv_a;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<float2*>(op + n * 8) =
+          make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+  }
+}
+
 // ---- launches
+
+// Raises a kernel's dynamic shared memory limit to `smem` where it was set
+// lower (`smem_set`: the attribute as last set for that instance).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, int& smem_set) {
+  if (smem <= smem_set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // returned here; not left for a later launch
+    return err;
+  }
+  smem_set = smem;
+  return cudaSuccess;
+}
 
 template <typename T, int D>
 cudaError_t launch_scalar(const void* q, const void* k, const void* v,
                           const int* pos, void* out, int B, int C, int H,
                           int Hkv, int Smax, float scale, float softcap,
                           int grid_x, int smem, cudaStream_t stream) {
-  static int smem_set = 0;  // the attribute as last set for this instance
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_scalar_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // returned here; not left for a later launch
-      return err;
-    }
-    smem_set = smem;
-  }
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(flash_prefill_scalar_kernel<T, D>, smem,
+                               smem_set);
+  if (err != cudaSuccess) return err;
   dim3 grid(grid_x, Hkv, B);
   flash_prefill_scalar_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -465,17 +737,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        int Hkv, int Smax, float scale, float softcap,
                        int grid_x, int rows, int stages, int smem,
                        cudaStream_t stream) {
-  static int smem_set = 0;  // the attribute as last set for this instance
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // returned here; not left for a later launch
-      return err;
-    }
-    smem_set = smem;
-  }
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(flash_prefill_mma_kernel<D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   dim3 grid(grid_x, Hkv, B);
   flash_prefill_mma_kernel<D><<<grid, rows * 2, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -486,14 +750,31 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// f32 at every D; bf16 only where the tensor-core kernel has no instance
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const int* pos, void* out, int B, int C, int H,
+                        int Hkv, int Smax, float scale, float softcap,
+                        int grid_x, int rows, int stages, int smem,
+                        cudaStream_t stream) {
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(flash_prefill_tf32_kernel<D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(grid_x, Hkv, B);
+  const int threads = rows * 2 * kTfGroups;
+  flash_prefill_tf32_kernel<D><<<grid, threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), pos, static_cast<float*>(out), C, H, Hkv,
+      Smax, stages, scale, softcap);
+  return cudaGetLastError();
+}
+
+// the head dims without a tensor-core instance, bf16 and f32
 template <typename T>
 cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
                             const int* pos, void* out, int B, int C, int H,
                             int Hkv, int Smax, int D, float scale,
                             float softcap, int grid_x, int smem,
                             cudaStream_t s) {
-  constexpr bool kAll = std::is_same<T, float>::value;
 #define REPRO_SCALAR(d)                                                     \
   case d:                                                                   \
     return launch_scalar<T, d>(q, k, v, pos, out, B, C, H, Hkv, Smax,      \
@@ -502,29 +783,18 @@ cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
     REPRO_SCALAR(16);
     REPRO_SCALAR(32);
     REPRO_SCALAR(256);
-    default: break;
-  }
-  if constexpr (kAll) {
-    switch (D) {
-      REPRO_SCALAR(64);
-      REPRO_SCALAR(80);
-      REPRO_SCALAR(128);
-      default: break;
-    }
+    default: return cudaErrorInvalidValue;
   }
 #undef REPRO_SCALAR
-  return cudaErrorInvalidValue;
 }
 
-bool mma_instance(int dtype, int D) {
-  return dtype == kBFloat16 && (D == 64 || D == 80 || D == 128);
-}
+bool tensor_core_dim(int D) { return D == 64 || D == 80 || D == 128; }
 
 // The plan from kernels/flash_attention/ops.py::plan, bounds-checked (its
 // shared memory must cover what the kernel indexes), then the kernel it
-// names: the tensor-core kernel for mma_instance(dtype, D), the
-// scalar one for every other (dtype, D). No kernel is tried in place of
-// another.
+// names: by (dtype, D), the bf16 tensor-core kernel, the 3xTF32 one for
+// f32, or the scalar one for D in {16, 32, 256}. No kernel is tried in
+// place of another.
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* pos, void* out, int B, int C, int H, int Hkv,
                      int Smax, int D, int dtype, float scale, float softcap,
@@ -533,21 +803,29 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   const int n_rows = C * (H / Hkv);
   if (rows <= 0 || grid_x != (n_rows + rows - 1) / rows || smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  if (mma_instance(dtype, D)) {
+  if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
+  if (tensor_core_dim(D)) {
+    const bool bf16 = dtype == kBFloat16;
+    const size_t need = bf16 ? mma_smem_bytes(D, rows, stages)
+                             : tf32_smem_bytes(D, stages);
     if ((rows != 16 && rows != 32 && rows != 64) || stages < 2 ||
-        stages > 4 || (size_t)smem < mma_smem_bytes(D, rows, stages))
+        stages > (bf16 ? 4 : 3) || (size_t)smem < need)
       return cudaErrorInvalidValue;
-#define REPRO_MMA(d)                                                        \
+#define REPRO_TC(d)                                                         \
   case d:                                                                   \
-    return launch_mma<d>(q, k, v, pos, out, B, C, H, Hkv, Smax, scale,     \
-                         softcap, grid_x, rows, stages, smem, s)
+    return bf16 ? launch_mma<d>(q, k, v, pos, out, B, C, H, Hkv, Smax,     \
+                                scale, softcap, grid_x, rows, stages, smem, \
+                                s)                                          \
+                : launch_tf32<d>(q, k, v, pos, out, B, C, H, Hkv, Smax,    \
+                                 scale, softcap, grid_x, rows, stages,     \
+                                 smem, s)
     switch (D) {
-      REPRO_MMA(64);
-      REPRO_MMA(80);
-      REPRO_MMA(128);
+      REPRO_TC(64);
+      REPRO_TC(80);
+      REPRO_TC(128);
       default: return cudaErrorInvalidValue;
     }
-#undef REPRO_MMA
+#undef REPRO_TC
   }
   if (rows != kRows || stages != 1 || (size_t)smem < scalar_smem_bytes(D))
     return cudaErrorInvalidValue;
@@ -555,10 +833,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     return dispatch_scalar<__nv_bfloat16>(q, k, v, pos, out, B, C, H, Hkv,
                                           Smax, D, scale, softcap, grid_x,
                                           smem, s);
-  if (dtype == kFloat32)
-    return dispatch_scalar<float>(q, k, v, pos, out, B, C, H, Hkv, Smax, D,
-                                  scale, softcap, grid_x, smem, s);
-  return cudaErrorInvalidValue;
+  return dispatch_scalar<float>(q, k, v, pos, out, B, C, H, Hkv, Smax, D,
+                                scale, softcap, grid_x, smem, s);
 }
 
 }  // namespace

@@ -32,7 +32,7 @@ _SIGNATURES = {
     "repro_paged_decode": [_P] * 8 + [_I] * 14 + [_F, _F, _P],
     "repro_paged_decode_int8": [_P] * 12 + [_I] * 14 + [_F, _F, _P],
     "repro_flash_prefill": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P],
-    "repro_ssd_scan": [_P] * 7 + [_I] * 5 + [_P],
+    "repro_ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
     "repro_paged_matmul": [_P] * 4 + [_I] * 6 + [_P],
 }
 
@@ -49,34 +49,37 @@ def _nvcc() -> str:
     return path
 
 
-def sources():
-    """The kernel sources, in a stable order."""
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC, names=None):
+    """The kernel sources of ``csrc`` (those whose stem is in ``names``,
+    where given), in a stable order."""
+    return [p for p in sorted(csrc.glob("*.cu"))
+            if names is None or p.stem in names]
 
 
-def build_dir() -> Path:
-    """Where this exact set of sources and flags builds."""
+def build_dir(csrc: Path = CSRC, names=None) -> Path:
+    """Where this exact set of sources, headers and flags builds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cuh")) + sources(csrc, names):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every source (in parallel) and link ``libreprokernels.so``;
-    returns its path. Compiler output, ptxas register and shared-memory
-    reports included, lands in ``build.log`` beside it."""
-    out = build_dir()
+def build(csrc: Path = CSRC, names=None) -> Path:
+    """Compile every source of ``csrc`` (or those named; in parallel) and
+    link ``libreprokernels.so``; returns its path. Compiler output, ptxas
+    register and shared-memory reports included, lands in ``build.log``
+    beside it."""
+    out = build_dir(csrc, names)
     lib = out / "libreprokernels.so"
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for src in sources():
+    for src in sources(csrc, names):
         obj = out / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
                "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -2,12 +2,18 @@
 
 On a CUDA tensor it launches ``csrc/flash_prefill.cu`` (or raises); on a
 CPU tensor it runs the plain version (``ref.flash_prefill_ref``). There is
-no fallback from one to the other. ``launches`` counts kernel launches.
+no fallback from one to the other. ``launches`` counts kernel launches,
+``kernel_launches`` the same by the plan's kernel.
 
-The launch plan (which of the file's two kernels, the grid, rows per CTA,
-pipeline stages and dynamic shared memory) is ``plan()``, a pure function
-of the shapes that the CPU tests check; the C entry takes it as given and
-rejects a plan that does not match its kernel.
+The launch plan (which of the file's three kernels, the grid, rows per
+CTA, pipeline stages and dynamic shared memory) is ``plan()``, a pure
+function of the shapes that the CPU tests check; the C entry takes it as
+given and rejects a plan that does not match its kernel. The kernel
+follows from (dtype, head_dim): bf16 at ``MMA_HEAD_DIMS`` on tensor cores
+("mma"), f32 at the same head dims on tensor cores in 3xTF32 ("tf32"),
+every other head dim on the scalar kernel. Rows per CTA and stages were
+chosen by timing the candidates on the H100 (``chip_smoke.py``'s plan
+sweeps, PERF.md).
 """
 from __future__ import annotations
 
@@ -20,23 +26,32 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_prefill_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # instantiated in csrc/flash_prefill.cu
-MMA_HEAD_DIMS = (64, 80, 128)            # bf16 head dims on tensor cores
+MMA_HEAD_DIMS = (64, 80, 128)            # on tensor cores, bf16 and f32
 MMA_KEYS = 64                            # keys per K/V tile
 MMA_STAGES = 3                           # cp.async ring depth
 MMA_ROWS = (64, 32, 16)                  # rows per CTA, most first
+TF32_KEYS = 64                           # keys per f32 K/V tile
+TF32_ROWS, TF32_STAGES = 32, 2           # the f32 plan (chip_smoke.py's sweep)
 SCALAR_ROWS, SCALAR_KEYS = 64, 64
 N_SMS = 132                              # H100 SXM
 MAX_SMEM = 232448                        # dynamic shared memory per block
+# rows per CTA and stages each kernel is written for
+PLAN_RANGE = {"mma": ((16, 32, 64), (2, 3, 4)),
+              "tf32": ((16, 32, 64), (2, 3)),
+              "scalar": ((SCALAR_ROWS,), (1,))}
 
 launches = 0
+kernel_launches = {"mma": 0, "tf32": 0, "scalar": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    kernel: str        # "mma" (tensor cores) or "scalar"
+    kernel: str        # "mma" (bf16 tensor cores), "tf32" (f32 tensor
+                       # cores, 3xTF32) or "scalar"
     grid: tuple        # (row tiles, kv heads, batch)
     rows: int          # (query, head) rows per CTA; 32 threads per 16 rows
-                       # on tensor cores, 256 threads in the scalar kernel
+                       # on bf16 tensor cores, 64 in 3xTF32 (two warps
+                       # share the keys), 256 threads in the scalar kernel
     stages: int        # K/V tiles in flight (1: the scalar kernel's one)
     smem_bytes: int
 
@@ -51,24 +66,70 @@ def mma_plan(b: int, c: int, h: int, hkv: int, d: int, rows: int,
     return Plan("mma", (gx, hkv, b), rows, stages, smem)
 
 
+def tf32_plan(b: int, c: int, h: int, hkv: int, d: int, rows: int,
+              stages: int) -> Plan:
+    """The 3xTF32 kernel's launch at ``rows`` rows per CTA (two warps per
+    16 rows, each taking half of every tile's keys) and a ring of
+    ``stages`` K/V tiles of ``TF32_KEYS`` keys, f32 rows padded to d + 4
+    floats (q is read into registers, not staged)."""
+    gx = -(-c * (h // hkv) // rows)
+    smem = 4 * (d + 4) * stages * 2 * TF32_KEYS
+    return Plan("tf32", (gx, hkv, b), rows, stages, smem)
+
+
+def scalar_plan(b: int, c: int, h: int, hkv: int, d: int) -> Plan:
+    """The scalar kernel's launch: 64-row CTAs, f32 tiles of q, K, V and
+    the scores in shared memory."""
+    n_rows = c * (h // hkv)
+    smem = (3 * SCALAR_ROWS * (d + 1) + SCALAR_ROWS * (SCALAR_KEYS + 1)) * 4
+    return Plan("scalar", (-(-n_rows // SCALAR_ROWS), hkv, b), SCALAR_ROWS,
+                1, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(b: int, c: int, h: int, hkv: int, d: int,
          dtype: torch.dtype) -> Plan:
     """The launch of ``csrc/flash_prefill.cu`` for q [b,c,h,d] (the cache
     length does not change it). bf16 at ``MMA_HEAD_DIMS`` runs the
     tensor-core kernel with the most rows per CTA (64, 32, 16) that still
-    give ``N_SMS`` CTAs, else 16; everything else the scalar kernel's
-    64-row CTAs."""
+    give ``N_SMS`` CTAs, else 16; f32 there the 3xTF32 kernel at
+    ``TF32_ROWS`` rows and ``TF32_STAGES`` stages, the fastest of the
+    sweep at the int8 path's chunk; every other head dim the scalar
+    kernel's 64-row CTAs."""
+    if dtype == torch.float32 and d in MMA_HEAD_DIMS:
+        return tf32_plan(b, c, h, hkv, d, TF32_ROWS, TF32_STAGES)
     if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
         for rows in MMA_ROWS:
             p = mma_plan(b, c, h, hkv, d, rows)
             if p.grid[0] * hkv * b >= N_SMS:
                 break
         return p
-    n_rows = c * (h // hkv)
-    smem = (3 * SCALAR_ROWS * (d + 1) + SCALAR_ROWS * (SCALAR_KEYS + 1)) * 4
-    return Plan("scalar", (-(-n_rows // SCALAR_ROWS), hkv, b), SCALAR_ROWS,
-                1, smem)
+    return scalar_plan(b, c, h, hkv, d)
+
+
+def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
+               dtype: torch.dtype) -> None:
+    """Raise ValueError unless ``p`` is what its kernel's plan function
+    gives at its rows and stages (grid and shared memory included), on the
+    kernel that (dtype, d) names, at rows and stages that kernel takes,
+    inside the block's shared memory. The C entry checks the launch
+    again against the kernel it instantiates."""
+    if d not in HEAD_DIMS or dtype not in build.DTYPE_CODES:
+        raise ValueError(f"no instance for head_dim {d} in {dtype}")
+    want = ("scalar" if d not in MMA_HEAD_DIMS
+            else "mma" if dtype == torch.bfloat16 else "tf32")
+    if p.kernel != want:
+        raise ValueError(f"plan names the {p.kernel} kernel; {dtype} at "
+                         f"head_dim {d} runs the {want} kernel")
+    rows, stages = PLAN_RANGE[want]
+    if p.rows not in rows or p.stages not in stages:
+        raise ValueError(f"the {want} kernel refuses plan {p}")
+    made = (scalar_plan(b, c, h, hkv, d) if want == "scalar"
+            else (mma_plan if want == "mma" else tf32_plan)(
+                b, c, h, hkv, d, p.rows, p.stages))
+    if p != made or p.smem_bytes > MAX_SMEM:
+        raise ValueError(f"plan {p} is not the {want} kernel's {made} or "
+                         f"does not fit {MAX_SMEM} bytes")
 
 
 def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
@@ -120,9 +181,7 @@ def launch(q, k_cache, v_cache, pos, logit_softcap: float,
     global launches
     b, c, h, d = q.shape
     _, smax, hkv, _ = k_cache.shape
-    if p.smem_bytes > MAX_SMEM:
-        raise ValueError(f"plan needs {p.smem_bytes} bytes of shared memory,"
-                         f" over {MAX_SMEM}")
+    check_plan(p, b, c, h, hkv, d, q.dtype)
     out = torch.empty_like(q)
     lib = build.library()
     rc = lib.repro_flash_prefill(
@@ -131,5 +190,6 @@ def launch(q, k_cache, v_cache, pos, logit_softcap: float,
         1.0 / (d ** 0.5), float(logit_softcap), p.grid[0], p.rows, p.stages,
         p.smem_bytes, build.stream_ptr(q.device))
     launches += 1
+    kernel_launches[p.kernel] += 1
     build.check(rc, "flash_prefill")
     return out

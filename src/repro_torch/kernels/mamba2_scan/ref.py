@@ -13,7 +13,15 @@ from an initial state ``h0`` [B,H,P,N] (zero when None) and returning
   masked quadratic inside each chunk, the carried state decayed into each
   position, and the state update to the chunk end. A ragged tail is padded
   with ``xdt = 0`` and ``log_a = 0``, which carries the state through
-  exactly.
+  exactly;
+* ``ssd_split_ref`` -- the arithmetic of ``csrc/ssd_scan.cu`` written
+  plainly: the token axis cut into spans of whole sub-chunks, each span
+  scanned from a zero state (its end state S_c and log decay L_c), then
+  the chain ``h_in(c+1) = exp(L_c) h_in(c) + S_c`` from ``h0`` in split
+  order, and ``exp(L_before + la_i) C_i h_in(c)^T`` added to each span's
+  output. Its four products go through ``mm`` (f32 ``torch.matmul`` by
+  default; the CPU tests pass ``tf32.matmul_3xtf32``, the kernel's
+  tensor-core arithmetic).
 
 The CPU tests run them; ``chip_smoke.py`` holds ``csrc/ssd_scan.cu``
 against ``ssd_chunked_ref`` on the card.
@@ -90,3 +98,58 @@ def ssd_chunked_ref(xdt: torch.Tensor, bmat: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, nc * q, h, p)[:, :s]
     return y, state
+
+
+def split_spans(s: int, splits: int, sub: int):
+    """The spans of ``csrc/ssd_scan.cu``: ``[lo, hi)`` token ranges of
+    whole ``sub``-token sub-chunks (the last one ragged), at most
+    ``splits`` of them, shared out as evenly as whole sub-chunks allow,
+    every one non-empty."""
+    n_sub = -(-s // sub)
+    span = -(-n_sub // max(1, min(splits, n_sub)))
+    return [(lo, min(s, lo + span * sub))
+            for lo in range(0, s, span * sub)]
+
+
+def ssd_split_ref(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                  log_a: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                  splits: int = 4, sub: int = 64, mm=torch.matmul
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spans scanned from zero, then chained; see the module docstring
+    for layouts. ``sub`` is the kernel's sub-chunk (64 tokens)."""
+    x = xdt.float().permute(0, 2, 1, 3)                      # [B,H,S,P]
+    bm, cm = bmat.float()[:, None], cmat.float()[:, None]    # [B,1,S,N]
+    la = log_a.float().permute(0, 2, 1)                      # [B,H,S]
+    y = torch.empty_like(x)
+    h_in = _state0(xdt, bmat.shape[2], h0)
+    spans = []
+    for lo, hi in split_spans(x.shape[2], splits, sub):
+        state = torch.zeros_like(h_in)
+        big_l = torch.zeros(la.shape[:2], dtype=torch.float32,
+                            device=x.device)
+        parts = []
+        for t0 in range(lo, hi, sub):
+            t1 = min(hi, t0 + sub)
+            xq, bq, cq = x[:, :, t0:t1], bm[:, :, t0:t1], cm[:, :, t0:t1]
+            lq = torch.cumsum(la[:, :, t0:t1], dim=-1)        # [B,H,q]
+            q = t1 - t0
+            causal = torch.ones(q, q, dtype=torch.bool,
+                                device=x.device).tril()
+            g = mm(cq, bq.transpose(-1, -2))                 # [B,1,q,q]
+            m = torch.where(causal, g * torch.exp(lq[..., :, None]
+                                                  - lq[..., None, :]), 0.0)
+            yq = mm(m, xq) + torch.exp(lq)[..., None] * mm(
+                cq, state.transpose(-1, -2))
+            parts.append((t0, t1, yq, big_l, cq, lq))
+            w = torch.exp(lq[..., -1:] - lq)                 # [B,H,q]
+            state = (torch.exp(lq[..., -1])[..., None, None] * state
+                     + mm((xq * w[..., None]).transpose(-1, -2), bq))
+            big_l = big_l + lq[..., -1]
+        spans.append((state, big_l, parts))
+    for state, big_l, parts in spans:
+        for t0, t1, yq, l_before, cq, lq in parts:
+            y[:, :, t0:t1] = yq + torch.exp(
+                l_before[..., None] + lq)[..., None] * mm(
+                    cq, h_in.transpose(-1, -2))
+        h_in = torch.exp(big_l)[..., None, None] * h_in + state
+    return y.permute(0, 2, 1, 3), h_in

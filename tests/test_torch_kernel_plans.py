@@ -7,7 +7,9 @@ card, so what surrounds them is checked here: every shape that
 ``chip_smoke.py`` and the three full-width serving paths use must fit the
 H100's 232,448 bytes of shared memory a block, decode splits must cover
 the cache exactly once on page boundaries with tiles that never cross a
-page, and the prefill grid must fill the card's 132 SMs at qwen3's chunk.
+page, and the bf16 prefill grid must fill the card's 132 SMs at qwen3's
+chunk. The f32 prefill's 3xTF32 plans and the SSD scan's splits are
+checked in ``tests/test_torch_tf32_ssd.py``.
 
 The decode kernel's split-and-merge arithmetic (per-split ``acc``, max and
 sum, merged in split order) is written out plainly in
@@ -127,9 +129,9 @@ def test_prefill_plan_rows_and_fits(shape, dtype):
     n_rows = c * (h // hkv)
     assert p.grid[1:] == (hkv, b)
     assert (p.grid[0] - 1) * p.rows < n_rows <= p.grid[0] * p.rows
-    if dtype == BF16 and d in fops.MMA_HEAD_DIMS:
-        assert p.kernel == "mma" and p.rows in (16, 32, 64)
-        assert p.stages >= 2
+    if d in fops.MMA_HEAD_DIMS:
+        assert p.kernel == ("mma" if dtype == BF16 else "tf32")
+        assert p.rows in (16, 32, 64) and p.stages >= 2
     else:
         assert p.kernel == "scalar" and p.stages == 1
 
@@ -162,11 +164,12 @@ def test_prefill_mma_plans_at_qwen3_chunk(rows, stages):
 
 
 @pytest.mark.parametrize("d,dtype", [(16, BF16), (32, BF16), (256, BF16),
-                                     (128, F32), (80, F32)], ids=str)
+                                     (16, F32), (256, F32)], ids=str)
 def test_prefill_plan_scalar_instances(d, dtype):
-    """f32 and the bf16 head dims without a tensor-core instance stay on
-    the scalar kernel, named by the plan (no kernel is tried in place of
-    another)."""
+    """The head dims without a tensor-core instance stay on the scalar
+    kernel in both dtypes, named by the plan (no kernel is tried in place
+    of another). f32 at the tensor-core head dims is checked in
+    ``tests/test_torch_tf32_ssd.py``."""
     assert fops.plan(1, 256, 16, 8, d, dtype).kernel == "scalar"
 
 
