@@ -9,41 +9,51 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernels from ``src/repro_torch/csrc`` (timed) and print each kernel
    instance's registers, shared memory and spills (``-Xptxas -v``); with
-   ``--parent DIR`` (a checkout of the commit before the f32 flash_prefill
-   and ssd_scan redesign, refused unless its C entries take the arguments
-   this script passes them) also build that commit's two kernels into a
-   second library, at the same time, to time old and new in this run;
+   ``--parent DIR`` (a checkout of the commit before the D 256
+   flash_prefill and paged_matmul redesign, refused unless its C entries
+   take the arguments this script passes them and both are still its
+   scalar kernels) also build that commit's two kernels into a second
+   library, at the same time, to time old and new in this run;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, and time kernel, plain version and, where one
    exists, one PyTorch library call (SDPA, cuBLAS) -- kernel and library
    call as device time (calls captured in a CUDA graph and replayed
    between CUDA events), the plain version per call with CUDA events;
-   the decode kernel (both modes), the f32 flash_prefill and the SSD scan
-   must be bit-identical run to run over 50 repeats; the bf16 and f32
-   prefill and the SSD scan are also timed at the other plans of their
-   sweeps (rows per CTA x stages; spans per (row, head)). In turn: the
-   two attention kernels in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's
-   heads (Hkv 8, 2 query heads each, D 128) and at zamba2-2.7b's (Hkv = H
-   = 32, D 80); the decode kernel's int8 mode at qwen3's heads (bf16 2e-2,
+   the decode kernel (both modes), the f32 and the D 256 flash_prefill,
+   the SSD scan and paged_matmul must be bit-identical run to run over 50
+   repeats; the bf16, f32 and D 256 prefill, the SSD scan and
+   paged_matmul are also timed at the other plans of their sweeps (rows
+   per CTA x stages; spans per (row, head); K-splits or block tiles x
+   stages). In turn: the two attention kernels in bf16 (atol = rtol =
+   2e-2) at qwen3-1.7b's heads (Hkv 8, 2 query heads each, D 128), at
+   zamba2-2.7b's (Hkv = H = 32, D 80) and, the decode kernel, at
+   gemma-2b's (one kv head of 8 query heads, D 256); the decode kernel's
+   int8 mode at qwen3's heads (bf16 2e-2,
    int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
    (bf16 2e-2, f32 1e-4): flash_prefill at a ragged 37-token chunk near
-   the cache's end, G = 1, 2 and 8, D 64, softcap 30, in bf16 and in f32
-   (the 3xTF32 kernel at D 80, 128 and 64); paged_decode, both modes, at
+   the cache's end, G = 1, 2 and 8, D 64 and 256, softcap 30, in bf16 and
+   in f32 (the 3xTF32 kernel at D 80, 128 and 64, the scalar one at 256);
+   paged_decode, both modes, at
    lengths 1, 255, 256, 257 and Smax around a split, G = 1 and 8, the int8
    fresh row on a tile's first and last row and past the cache; the f32
    flash_prefill instance (3xTF32 tensor cores) at the int8 path's chunk,
-   timed beside f32 SDPA and the parent's scalar kernel; the scalar
-   instance at gemma-2b's D 256 (bf16); the SSD scan in f32 (atol = rtol =
-   1e-4, ``y`` and ``h_last``) at zamba2's 80 heads, P = N = 64, from a
-   nonzero and a zero state, over a 256-token chunk and a ragged 44-token
-   one, timed beside the parent's kernel; the C entries of both refusing,
-   before any launch, each plan that ``check_plan`` refuses (rows or
-   stages the kernel does not take, too little shared memory, the wrong
-   kernel, spans that miss tokens); the paged weight-streaming
-   matmul at qwen3's MLP width (x [8, 2048] and [256, 2048], 8 of 16 pages
-   of [256, 6144]; bf16 2e-2, f32 3e-5; no path of the reference calls
-   it). Then run the smoke-size qwen3-1.7b and zamba2-2.7b (f32), and
+   timed beside f32 SDPA; the bf16 D 256 instance (tensor cores, two
+   warps per 16 rows) at gemma-2b's chunk, timed beside SDPA and the
+   parent's scalar kernel, and the scalar instance there in f32; the SSD
+   scan in f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at zamba2's 80
+   heads, P = N = 64, from a nonzero and a zero state, over a 256-token
+   chunk and a ragged 44-token one; the C entries of the three refusing,
+   before any launch, each plan that ``check_plan`` refuses (rows,
+   stages, tiles or splits the kernel does not take, too little shared
+   memory, the wrong kernel or instance, spans that miss tokens, K tiles
+   across pages); the paged weight-streaming matmul at qwen3's MLP width
+   (x [8, 2048] on the skinny instance and [256, 2048] on the tile one, 8
+   of 16 pages of [256, 6144]; bf16 2e-2, f32 3e-5 on the scalar
+   instance; no path of the reference calls it), timed with the weight
+   cold in L2 (four pools in turn) beside cuBLAS and the parent's kernel
+   at the same L2 state, warm times beside. Then run the smoke-size
+   qwen3-1.7b and zamba2-2.7b (f32), and
    qwen3-1.7b with int8 pages, through chunked prefill and ragged decode
    on the card and on the CPU from the same weights, and hold logits and
    caches together (int8 codes equal but for steps of one, counted);
@@ -73,7 +83,13 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    and no other kernel ran;
    then restore the same prompts from entries stored right after prefill
    and check that their greedy tokens equal the first run's;
-6. print the measured numbers, one ``kernels`` JSON line, the card line and
+6. serve gemma-2b at full width (MQA with one kv head, head_dim 256,
+   geglu, tied embeddings; random bf16 weights from the seed) on the
+   engine and traffic of phase 3; check that every request finished, the
+   restores stalled on the tier and gave their first run's greedy tokens,
+   the D 256 flash_prefill instance ran once per layer per chunk and the
+   bf16 paged_decode once per layer per tick, and no other kernel ran;
+7. print the measured numbers, one ``kernels`` JSON line, the card line and
    last ``{"ok": true, "device": {...}}``. ``chiprun_out/chip_smoke.json``
    keeps the full record.
 """
@@ -91,6 +107,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 ARCH = "qwen3-1.7b"
 HYBRID = "zamba2-2.7b"
+GEMMA = "gemma-2b"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
@@ -100,6 +117,9 @@ INT8_ENTRY_RATIO = 0.55
 # paged_matmul at qwen3-1.7b's MLP width: K = d_model, N = d_ff, 8 logical
 # pages of 256 rows drawn from a pool of 16
 MATMUL_K, MATMUL_N, MATMUL_PAGE_K, MATMUL_POOL = 2048, 6144, 256, 16
+# pools the cold-L2 timings rotate through: 25 MB of pages a call, 75 MB
+# of others between two uses of one pool, against the card's 50 MB of L2
+MATMUL_POOLS = 4
 F32_TOL = dict(atol=3e-5, rtol=3e-5)    # tests/test_kernel_parity.py
 PROMPT_LENS = (300, 1001)
 TOPOLOGY = ("dram", "ssd-fast")
@@ -214,13 +234,14 @@ def check_repeatable(name, call, other, n=50):
 # ---------------------------------------------------------------- phase 2
 
 def launch_plans():
-    """The attention kernels' launch plans (grid, tiles, stages, dynamic
+    """The kernels' launch plans (grid, tiles, stages, splits, dynamic
     shared memory) at the serving paths' shapes: 8 slots x 2048 tokens in
-    pages of 256, 256-token chunks."""
+    pages of 256, 256-token chunks; paged_matmul at qwen3's MLP width."""
     import dataclasses
     import torch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.kernels.mamba2_scan import ops as sops
     plans = {}
     for arch, h, hkv, d in ((ARCH, 16, 8, 128), (HYBRID, 32, 32, 80)):
@@ -233,6 +254,13 @@ def launch_plans():
     plans[f"flash_prefill {ARCH} f32"] = fops.plan(
         1, CHUNK, 16, 8, 128, torch.float32)
     plans[f"ssd_scan {HYBRID}"] = sops.plan(1, CHUNK, 80, 64, 64)
+    plans[f"paged_decode {GEMMA} bf16"] = dops.plan(
+        N_SLOTS, 8, 1, MAX_SEQ, 256, 256, torch.bfloat16)
+    plans[f"flash_prefill {GEMMA} bf16"] = fops.plan(
+        1, CHUNK, 8, 1, 256, torch.bfloat16)
+    for m in (8, CHUNK):
+        plans[f"paged_matmul M={m} bf16"] = hops.plan(
+            m, MATMUL_K, MATMUL_N, MATMUL_PAGE_K, torch.bfloat16)
     return {k: dataclasses.asdict(p) for k, p in plans.items()}
 
 
@@ -268,7 +296,9 @@ def ptxas_report(text: str):
 
 def check_decode(dev, hkv, g, d):
     """paged_decode at ``hkv`` kv heads of ``g`` query heads, head_dim
-    ``d``, over the serving path's 8 slots of 2048 tokens."""
+    ``d``, over the serving path's 8 slots of 2048 tokens; f32 too where
+    the decode kernel has an f32 instance (a row of at most 32 16-byte
+    chunks: D <= 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
@@ -289,11 +319,12 @@ def check_decode(dev, hkv, g, d):
         torch.cuda.synchronize()
         res[f"err_softcap{cap:g}"] = check_close(f"paged_decode cap={cap}",
                                                  got, want)
-    got32 = ops.paged_decode(q.float(), kp.float(), vp.float(), kv_len)
-    res["err_f32"] = float((got32 - ref.paged_decode_ref(
-        q.float(), kp.float(), vp.float(), kv_len)).abs().max())
-    if res["err_f32"] > 1e-4:
-        fail(f"paged_decode f32 max abs err {res['err_f32']}")
+    if d * 4 <= 32 * 16:
+        got32 = ops.paged_decode(q.float(), kp.float(), vp.float(), kv_len)
+        res["err_f32"] = float((got32 - ref.paged_decode_ref(
+            q.float(), kp.float(), vp.float(), kv_len)).abs().max())
+        if res["err_f32"] > 1e-4:
+            fail(f"paged_decode f32 max abs err {res['err_f32']}")
     res["bitwise_repeats"] = check_repeatable(
         "paged_decode", lambda: ops.paged_decode(q, kp, vp, kv_len),
         lambda: ops.paged_decode(q, kp, vp, kv_len, logit_softcap=30.0))
@@ -548,14 +579,16 @@ def check_prefill_edges(dev):
     ragged 37-token chunk with pos near Smax - C (ending at Smax, and 5
     tokens past it, where the limit clamps to Smax - 1) beside a row at
     pos 0, at G = 1 (zamba2's D 80), G = 2 (qwen3's D 128), G = 8
-    (MAX_GROUP) and D 64; softcap 30; and the f32 instance (the 3xTF32
-    tensor-core kernel at these head dims) at the same shapes (1e-4)."""
+    (MAX_GROUP), D 64, and D 256 at G = 1 and 8 (gemma-2b's, on the D 256
+    instance); softcap 30; and f32 at the same shapes (1e-4): the 3xTF32
+    tensor-core kernel, and the scalar one at D 256."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     smax = MAX_SEQ
     gen = torch.Generator(device=dev).manual_seed(7)
     res = {}
-    for hkv, g, d in ((32, 1, 80), (8, 2, 128), (2, 8, 128), (8, 2, 64)):
+    for hkv, g, d in ((32, 1, 80), (8, 2, 128), (2, 8, 128), (8, 2, 64),
+                      (8, 1, 256), (1, 8, 256)):
         h = hkv * g
         kc, vc = (torch.randn((2, smax, hkv, d), generator=gen,
                               device=dev).bfloat16() for _ in range(2))
@@ -581,11 +614,11 @@ def check_prefill_edges(dev):
     return res
 
 
-# the parent's C entries as parent_prefill and parent_ssd call them
-# (P pointer, I int, F float): the 7-pointer ssd_scan is the one CTA per
-# (head, row) scan that the split scan replaced
+# the parent's C entries as parent_prefill and parent_matmul call them
+# (P pointer, I int, F float): the 4-pointer paged_matmul is the scalar
+# kernel without a plan that the tensor-core instances replaced
 PARENT_SIGNATURES = {"repro_flash_prefill": "PPPPPIIIIIIIFFIIIIP",
-                     "repro_ssd_scan": "PPPPPPPIIIIIP"}
+                     "repro_paged_matmul": "PPPPIIIIIIP"}
 
 
 def parent_signatures(build_py):
@@ -606,14 +639,14 @@ def parent_signatures(build_py):
 
 
 def parent_library(parent):
-    """The f32 flash_prefill and ssd_scan kernels of the commit before
-    their redesign (the scalar flash_prefill instance at D 64/80/128 f32,
-    the one-CTA-per-(head, row) SSD scan), built from ``parent`` -- a
-    checkout of that commit (``--parent DIR``) -- into a second library so
-    that this run times old and new on the same card. None without it.
-    Fails unless the checkout's C entries take the arguments that
-    ``parent_prefill`` and ``parent_ssd`` pass and its f32 prefill at
-    those head dims is the scalar kernel."""
+    """The flash_prefill and paged_matmul kernels of the commit before
+    their redesign (the scalar flash_prefill instance at bf16 D 256, the
+    scalar paged_matmul), built from ``parent`` -- a checkout of that
+    commit (``--parent DIR``) -- into a second library so that this run
+    times old and new on the same card. None without it. Fails unless the
+    checkout's C entries take the arguments that ``parent_prefill`` and
+    ``parent_matmul`` pass, its bf16 prefill at D 256 is the scalar kernel
+    and its paged_matmul has no tensor-core instance."""
     import ctypes
     from pathlib import Path
     from repro_torch.kernels import build
@@ -621,17 +654,21 @@ def parent_library(parent):
         return None
     pkg = Path(parent) / "src" / "repro_torch"
     csrc = pkg / "csrc"
-    if not (csrc / "ssd_scan.cu").exists():
-        fail(f"--parent {parent}: no src/repro_torch/csrc/ssd_scan.cu")
+    if not (csrc / "paged_matmul.cu").exists():
+        fail(f"--parent {parent}: no src/repro_torch/csrc/paged_matmul.cu")
     sigs = parent_signatures(pkg / "kernels" / "build.py")
     for name, want in PARENT_SIGNATURES.items():
         if sigs.get(name) != want:
             fail(f"--parent {parent}: {name} takes {sigs.get(name)}, not "
                  f"{want}: not the commit before the redesign")
-    if "flash_prefill_tf32_kernel" in (csrc / "flash_prefill.cu").read_text():
-        fail(f"--parent {parent}: its f32 prefill is already the 3xTF32 "
-             f"kernel")
-    lib = ctypes.CDLL(str(build.build(csrc, ("flash_prefill", "ssd_scan"))))
+    if "flash_prefill_d256_kernel" in (csrc / "flash_prefill.cu").read_text():
+        fail(f"--parent {parent}: its bf16 prefill at D 256 is already the "
+             f"tensor-core kernel")
+    if "mma_bf16" in (csrc / "paged_matmul.cu").read_text():
+        fail(f"--parent {parent}: its paged_matmul is already on tensor "
+             f"cores")
+    lib = ctypes.CDLL(str(build.build(csrc, ("flash_prefill",
+                                             "paged_matmul"))))
     ctype = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
     for name, args in PARENT_SIGNATURES.items():
         fn = getattr(lib, name)
@@ -641,7 +678,8 @@ def parent_library(parent):
 
 
 def parent_prefill(lib, q, kc, vc, pos):
-    """The parent's f32 flash_prefill: the scalar kernel's 64-row CTAs."""
+    """The parent's flash_prefill at D 256: the scalar kernel's 64-row
+    CTAs."""
     import torch
     from repro_torch.kernels import build
     b, c, h, d = q.shape
@@ -651,36 +689,35 @@ def parent_prefill(lib, q, kc, vc, pos):
     smem = (3 * rows * (d + 1) + rows * (64 + 1)) * 4
     rc = lib.repro_flash_prefill(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, c, h, hkv, smax, d, 0, 1.0 / d ** 0.5, 0.0,
+        out.data_ptr(), b, c, h, hkv, smax, d, build.DTYPE_CODES[q.dtype],
+        1.0 / d ** 0.5, 0.0,
         -(-c * (h // hkv) // rows), rows, 1, smem,
         build.stream_ptr(q.device))
     build.check(rc, "parent flash_prefill")
     return out
 
 
-def parent_ssd(lib, xdt, bm, cm, la, h0):
-    """The parent's ssd_scan: one CTA per (head, row)."""
+def parent_matmul(lib, x, pool, ids):
+    """The parent's paged_matmul: scalar f32 FMAs on 64 x 64 tiles."""
     import torch
     from repro_torch.kernels import build
-    b, s, h, p = xdt.shape
-    n = bm.shape[2]
-    y = torch.empty_like(xdt)
-    h_last = torch.empty((b, h, p, n), device=xdt.device)
-    rc = lib.repro_ssd_scan(xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                            la.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                            h_last.data_ptr(), b, s, h, p, n,
-                            build.stream_ptr(xdt.device))
-    build.check(rc, "parent ssd_scan")
-    return y, h_last
+    m, k = x.shape
+    n_pages, page_k, n = pool.shape
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    rc = lib.repro_paged_matmul(x.data_ptr(), pool.data_ptr(),
+                                ids.data_ptr(), y.data_ptr(), m, k, n,
+                                page_k, n_pages, build.DTYPE_CODES[x.dtype],
+                                build.stream_ptr(x.device))
+    build.check(rc, "parent paged_matmul")
+    return y
 
 
-def check_prefill_f32(dev, parent):
+def check_prefill_f32(dev):
     """The f32 flash_prefill instance (the 3xTF32 tensor-core kernel the
     int8 path's prefill runs) at the int8 path's chunk, q [1,256,16,128]
     against a 2048-token cache at pos 300 (1e-4): bit-identical over 50
-    repeats, timed beside f32 SDPA (TF32 off) as its library time, at
-    every plan of the sweep (rows per CTA x stages), and beside the
-    parent's scalar kernel where ``parent`` is built."""
+    repeats, timed beside f32 SDPA (TF32 off) as its library time and at
+    every plan of the sweep (rows per CTA x stages)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -728,15 +765,6 @@ def check_prefill_f32(dev, parent):
             res["plans_ms"][f"rows{rows} stages{stages} ctas"
                             f"{alt.grid[0] * hkv}"] = device_ms(
                 lambda p=alt: ops.launch(q, kc, vc, pos, 0.0, p), 20)
-    res["parent_ms"] = None
-    if parent is not None:
-        res["parent_err"] = check_close(
-            "parent flash_prefill f32",
-            parent_prefill(parent, q, kc, vc, pos), want, tol)
-        res["parent_ms"] = device_ms(
-            lambda: parent_prefill(parent, q, kc, vc, pos), 20)
-        res["ms_again"] = device_ms(
-            lambda: ops.flash_prefill(q, kc, vc, pos), 20)
     visible = sum(p0 + i + 1 for i in range(c))
     n_bytes = 4 * (2 * (p0 + c) * hkv * d + 2 * q.numel()) + 4
     flops = 4 * visible * h * d
@@ -748,29 +776,19 @@ def check_prefill_f32(dev, parent):
     return res
 
 
-def check_prefill_scalar(dev):
-    """The scalar flash_prefill instance, which the head dims without a
-    tensor-core instance run (16, 32, 256; the smoke models' 16), at
-    gemma-2b's prefill chunk: q [1,256,8,256] bf16 over one kv head,
-    against a 2048-token cache at pos 300 (bf16 2e-2). No serving path of
-    the full-width models runs it."""
+def gemma_chunk(dev, dtype, seed=8):
+    """gemma-2b's prefill chunk: q [1,256,8,256] over one kv head, a
+    2048-token cache, pos 300; with SDPA on the same inputs (the kv head
+    expanded beforehand, untimed)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops, ref
     c, smax, hkv, g, d, p0 = CHUNK, MAX_SEQ, 1, 8, 256, 300
     h = hkv * g
-    gen = torch.Generator(device=dev).manual_seed(8)
-    q = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((1, c, h, d), generator=gen, device=dev).to(dtype)
     kc, vc = (torch.randn((1, smax, hkv, d), generator=gen,
-                          device=dev).bfloat16() for _ in range(2))
+                          device=dev).to(dtype) for _ in range(2))
     pos = torch.tensor([p0], dtype=torch.int32, device=dev)
-    if ops.plan(1, c, h, hkv, d, torch.bfloat16).kernel != "scalar":
-        fail("flash_prefill bf16 at D 256 is not planned on the scalar "
-             "kernel")
-    got = ops.flash_prefill(q, kc, vc, pos)
-    res = {"max_abs_err": check_close(
-        "flash_prefill scalar bf16 D=256", got,
-        ref.flash_prefill_ref(q, kc, vc, pos))}
     mask = (torch.arange(smax, device=dev)[None]
             <= p0 + torch.arange(c, device=dev)[:, None])
     qs = q.transpose(1, 2)
@@ -779,27 +797,106 @@ def check_prefill_scalar(dev):
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    visible = sum(p0 + i + 1 for i in range(c))
+    n_bytes = dtype.itemsize * (2 * (p0 + c) * hkv * d + 2 * q.numel()) + 4
+    shape = (f"q [1,{c},{h},{d}] {str(dtype)[6:]}, cache "
+             f"[1,{smax},{hkv},{d}], pos {p0}")
+    return q, kc, vc, pos, sdpa, n_bytes, 4 * visible * h * d, shape
+
+
+def check_prefill_d256(dev, parent):
+    """The bf16 flash_prefill instance at D 256 (two warps per 16 rows,
+    each on half of the head dim), which gemma-2b's prefill runs, at its
+    chunk (bf16 2e-2): softcap 0 and 30, pos 0 and 300; bit-identical over
+    50 repeats; timed beside SDPA, at every plan of the sweep (rows per CTA
+    x stages), and beside the parent's scalar kernel where ``parent`` is
+    built. Its edge shapes are in ``check_prefill_edges``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, kc, vc, pos, sdpa, n_bytes, flops, shape = gemma_chunk(
+        dev, torch.bfloat16)
+    _, c, h, d = q.shape
+    hkv = kc.shape[2]
+    p = ops.plan(1, c, h, hkv, d, torch.bfloat16)
+    if p.kernel != "mma256":
+        fail(f"flash_prefill bf16 at D 256 is planned on {p.kernel}")
+    res = {"plan": str(p)}
+    for p0 in (0, 300):
+        pp = torch.tensor([p0], dtype=torch.int32, device=dev)
+        for cap in (0.0, 30.0):
+            got = ops.flash_prefill(q, kc, vc, pp, logit_softcap=cap)
+            want = ref.flash_prefill_ref(q, kc, vc, pp, cap)
+            torch.cuda.synchronize()
+            res[f"err_pos{p0}_softcap{cap:g}"] = check_close(
+                f"flash_prefill D256 pos={p0} cap={cap}", got, want)
+    q2 = torch.randn_like(q)
+    res["bitwise_repeats"] = check_repeatable(
+        "flash_prefill D256", lambda: ops.flash_prefill(q, kc, vc, pos),
+        lambda: ops.flash_prefill(q2, kc, vc, pos))
+    got = ops.flash_prefill(q, kc, vc, pos)
+    want = ref.flash_prefill_ref(q, kc, vc, pos)
+    res["library_err"] = float((sdpa().transpose(1, 2).float()
+                                - got.float()).abs().max())
     res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
     res["plain_ms"] = time_ms(
         lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
     res["library_ms"] = device_ms(sdpa, 20)
-    visible = sum(p0 + i + 1 for i in range(c))
-    n_bytes = 2 * (2 * (p0 + c) * hkv * d + 2 * q.numel()) + 4
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d,
-                                             F32_FLOPS)
-    res["shape"] = (f"q [1,{c},{h},{d}] bf16, cache [1,{smax},{hkv},{d}], "
-                    f"pos {p0}")
+    res["plans_ms"] = {}
+    for rows, stages in ((16, 2), (16, 3), (32, 2), (32, 3), (64, 2)):
+        alt = ops.d256_plan(1, c, h, hkv, rows, stages)
+        check_close(f"flash_prefill D256 rows={rows} stages={stages}",
+                    ops.launch(q, kc, vc, pos, 0.0, alt), want)
+        res["plans_ms"][f"rows{rows} stages{stages} ctas{alt.grid[0]}"] = \
+            device_ms(lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 20)
+    res["parent_ms"] = None
+    if parent is not None:
+        res["parent_err"] = check_close(
+            "parent flash_prefill D256",
+            parent_prefill(parent, q, kc, vc, pos), want)
+        res["parent_ms"] = device_ms(
+            lambda: parent_prefill(parent, q, kc, vc, pos), 20)
+        res["ms_again"] = device_ms(
+            lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, BF16_FLOPS)
+    res["max_abs_err"] = res["err_pos300_softcap0"]
+    res["shape"] = shape
     return res
 
 
-def check_ssd(dev, parent):
+def check_prefill_scalar(dev):
+    """The scalar flash_prefill instance, which what has no tensor-core
+    instance runs (D 16 and 32 in both dtypes, the smoke models' 16; f32
+    at D 256, gemma-2b with int8 pages), at gemma-2b's chunk in f32
+    (1e-4), timed beside f32 SDPA (TF32 off). No measured path runs it."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, kc, vc, pos, sdpa, n_bytes, flops, shape = gemma_chunk(
+        dev, torch.float32)
+    _, c, h, d = q.shape
+    if ops.plan(1, c, h, kc.shape[2], d, torch.float32).kernel != "scalar":
+        fail("flash_prefill f32 at D 256 is not planned on the scalar "
+             "kernel")
+    got = ops.flash_prefill(q, kc, vc, pos)
+    res = {"max_abs_err": check_close(
+        "flash_prefill scalar f32 D=256", got,
+        ref.flash_prefill_ref(q, kc, vc, pos), dict(atol=1e-4, rtol=1e-4))}
+    res["library_err"] = float((sdpa().transpose(1, 2) - got).abs().max())
+    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["plain_ms"] = time_ms(
+        lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
+    res["library_ms"] = device_ms(sdpa, 20)
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, F32_FLOPS)
+    res["shape"] = shape
+    return res
+
+
+def check_ssd(dev):
     """ssd_scan at zamba2-2.7b's widths (B 1, H 80, P = N = 64) from a
     nonzero state: a 256-token prefill chunk and a ragged 44-token one,
     ``y`` and ``h_last`` against the plain chunked form at the kernel's
     own sub-chunk (f32, 1e-4); the chain bit-identical over 50 repeats;
-    timed at the plan and at the other split counts of the sweep, and
-    beside the parent's kernel where ``parent`` is built. No single
-    PyTorch call computes the SSD, so there is no library time."""
+    timed at the plan and at the other split counts of the sweep. No
+    single PyTorch call computes the SSD, so there is no library time."""
     import torch
     from repro_torch.kernels.mamba2_scan import ops, ref
     b, h, p, n = 1, 80, 64, 64
@@ -848,16 +945,6 @@ def check_ssd(dev, parent):
                     SSD_TOL)
         res["plans_ms"][f"splits{alt.splits} ctas{alt.splits * h}"] = \
             device_ms(lambda pl=alt: ops.launch(xdt, bm, cm, la, h0, pl), 50)
-    res["parent_ms"] = None
-    if parent is not None:
-        y, h_last = parent_ssd(parent, xdt, bm, cm, la, h0)
-        res["parent_err"] = max(
-            check_close("parent ssd_scan y", y, y_ref, SSD_TOL),
-            check_close("parent ssd_scan h_last", h_last, h_ref, SSD_TOL))
-        res["parent_ms"] = device_ms(
-            lambda: parent_ssd(parent, xdt, bm, cm, la, h0), 50)
-        res["ms_again"] = device_ms(
-            lambda: ops.ssd(xdt, bm, cm, la, h0=h0), 50)
     # each input read once, each output written once (f32); the
     # recurrence's 4 P N flops per (token, head) as 3 TF32 products
     n_bytes = 4 * (2 * xdt.numel() + bm.numel() + cm.numel() + la.numel()
@@ -875,15 +962,16 @@ def check_ssd(dev, parent):
 
 
 def check_refusals(dev):
-    """The C entries of flash_prefill and ssd_scan refuse the plans that
-    ``check_plan`` refuses, called directly past it, so that the Python
-    and the C limits cannot part unnoticed; nothing is launched. Each
-    refused plan is inside the block's shared memory, so that only the
-    rule it breaks refuses it."""
+    """The C entries of flash_prefill, ssd_scan and paged_matmul refuse
+    the plans that ``check_plan`` refuses, called directly past it, so
+    that the Python and the C limits cannot part unnoticed; nothing is
+    launched. Each refused plan is inside the block's shared memory, so
+    that only the rule it breaks refuses it."""
     import dataclasses
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.kernels.mamba2_scan import ops as sops
     lib = build.library()
     stream = build.stream_ptr(dev)
@@ -903,7 +991,20 @@ def check_refusals(dev):
         "scalar rows 32": (fops.Plan("scalar", (128, 8, 1), 32, 1,
                                      fops.scalar_plan(
                                          1, 256, 16, 8, 256).smem_bytes),
-                           torch.bfloat16, 256)}
+                           torch.float32, 256),
+        "mma256 rows 48": (fops.Plan("mma256", (11, 8, 1), 48, 2,
+                                     fops.d256_plan(1, 256, 16, 8, 64,
+                                                    2).smem_bytes),
+                           torch.bfloat16, 256),
+        "mma256 stages 4": (dataclasses.replace(
+            fops.d256_plan(1, 256, 16, 8, 16, 3), stages=4),
+            torch.bfloat16, 256),
+        "mma256 smem short": (dataclasses.replace(
+            fops.d256_plan(1, 256, 16, 8, 16, 3),
+            smem_bytes=fops.d256_plan(1, 256, 16, 8, 16, 3).smem_bytes - 16),
+            torch.bfloat16, 256),
+        "mma256 on f32": (fops.d256_plan(1, 256, 16, 8, 16, 3),
+                          torch.float32, 256)}
     for name, (pl, dtype, d) in prefill.items():
         q = torch.zeros((1, 256, 16, d), dtype=dtype, device=dev)
         kc = torch.zeros((1, MAX_SEQ, 8, d), dtype=dtype, device=dev)
@@ -947,58 +1048,181 @@ def check_refusals(dev):
             pl.splits, pl.span, pl.smem_bytes, stream)
         if rc == 0:
             fail(f"the ssd_scan C entry takes plan {name}: {pl}")
+    m, k, n = 8, MATMUL_K, MATMUL_N
+    sk = hops.plan(m, k, n, MATMUL_PAGE_K, torch.bfloat16)
+    tl = hops.plan(256, k, n, MATMUL_PAGE_K, torch.bfloat16)
+    matmul = {   # name: (plan, M, page_k, dtype)
+        "skinny M 17": (sk, 17, MATMUL_PAGE_K, torch.bfloat16),
+        "skinny stages 5": (dataclasses.replace(
+            sk, stages=5, smem_bytes=sk.smem_bytes // 4 * 5), m,
+            MATMUL_PAGE_K, torch.bfloat16),
+        "skinny smem short": (dataclasses.replace(
+            sk, smem_bytes=sk.smem_bytes - 16), m, MATMUL_PAGE_K,
+            torch.bfloat16),
+        "skinny splits past tiles": (dataclasses.replace(
+            sk, splits=k // sk.tile_k * 2), m, MATMUL_PAGE_K,
+            torch.bfloat16),
+        "skinny tiles across pages": (sk, m, 32, torch.bfloat16),
+        "skinny on f32": (sk, m, MATMUL_PAGE_K, torch.float32),
+        "tile on M 8": (tl, m, MATMUL_PAGE_K, torch.bfloat16),
+        "tile 64x64": (dataclasses.replace(tl, tile_m=64, tile_n=64), 256,
+                       MATMUL_PAGE_K, torch.bfloat16)}
+    x = torch.zeros((256, k), dtype=torch.bfloat16, device=dev)
+    part = torch.zeros((k // sk.tile_k * 2, 256, n), device=dev)
+    counters = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for name, (pl, mm, page_k, dtype) in matmul.items():
+        try:
+            hops.check_plan(pl, mm, k, n, page_k, dtype)
+            fail(f"paged_matmul check_plan takes plan {name}: {pl}")
+        except ValueError:
+            pass
+        if pl.smem_bytes > hops.MAX_SMEM:
+            fail(f"paged_matmul plan {name} does not fit: {pl}")
+        out[f"paged_matmul {name}"] = rc = lib.repro_paged_matmul(
+            x.data_ptr(), x.data_ptr(), counters.data_ptr(), x.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), mm, k, n, page_k,
+            k // page_k, build.DTYPE_CODES[dtype],
+            hops.INSTANCE_CODES[pl.instance], pl.tile_m, pl.tile_n,
+            pl.tile_k, pl.stages, pl.splits, pl.smem_bytes, stream)
+        if rc == 0:
+            fail(f"the paged_matmul C entry takes plan {name}: {pl}")
     torch.cuda.synchronize(dev)
     return out
 
 
-def check_paged_matmul(dev):
+def rotating(fn, n):
+    """A call that runs ``fn(0)``, ``fn(1)``, ... ``fn(n - 1)``, ``fn(0)``,
+    ... in turn: timed through ``device_ms`` with a multiple of ``n``
+    calls, each call finds the inputs of the ``n - 1`` calls before it
+    between itself and its own last use."""
+    state = [0]
+
+    def call():
+        i = state[0]
+        state[0] = (i + 1) % n
+        return fn(i)
+    return call
+
+
+def check_paged_matmul(dev, parent):
     """paged_matmul at qwen3-1.7b's MLP width: x [8, 2048] (the decode
-    batch) and [256, 2048] (a prefill chunk) against 8 logical pages of
-    [256, 6144] drawn by a seeded permutation from a pool of 16; bf16 at
-    both, f32 at M = 256. The weights are at the models' init scale,
+    batch, the skinny instance) and [256, 2048] (a prefill chunk, the tile
+    instance) against 8 logical pages of [256, 6144] drawn by a seeded
+    permutation from a pool of 16 (bf16 2e-2); f32 at M = 256 on the
+    scalar instance (3e-5). The weights are at the models' init scale,
     N(0, 0.02^2), so that y is O(1) as in a layer: f32 sums of 2048
     products taken in another order than cuBLAS's part by ~1e-4 when y is
-    O(50), as unit-variance weights make it. cuBLAS ``torch.matmul`` on
-    the pre-gathered weight is the library time."""
+    O(50), as unit-variance weights make it. Bit-identical over 50
+    repeats at both M. Times with the weight cold in L2, as a
+    weight-streaming caller finds it: each call reads another of
+    MATMUL_POOLS pools (25 MB of pages each, MATMUL_POOLS - 1 others
+    between two uses against the card's 50 MB of L2), for the kernel,
+    every plan of its sweep, cuBLAS ``torch.matmul`` on the pre-gathered
+    weight (the library time) and the parent's kernel where ``parent`` is
+    built; the warm times (one pool) beside them, named as such."""
     import torch
     from repro_torch.kernels.hdm_stream import ops, ref
     gen = torch.Generator(device=dev).manual_seed(5)
-    pool = (torch.randn((MATMUL_POOL, MATMUL_PAGE_K, MATMUL_N), generator=gen,
-                        device=dev) * 0.02).bfloat16()
+    pools = [(torch.randn((MATMUL_POOL, MATMUL_PAGE_K, MATMUL_N),
+                          generator=gen, device=dev) * 0.02).bfloat16()
+             for _ in range(MATMUL_POOLS)]
     n_k = MATMUL_K // MATMUL_PAGE_K
     ids = torch.randperm(MATMUL_POOL, generator=torch.Generator(
     ).manual_seed(SEED))[:n_k].to(dev, torch.int32)
-    w = pool[ids.long()].reshape(MATMUL_K, MATMUL_N)     # pre-gathered
-    res = {"page_ids": ids.tolist()}
+    ws = [pl[ids.long()].reshape(MATMUL_K, MATMUL_N) for pl in pools]
+    pool, w = pools[0], ws[0]
+    n = MATMUL_POOLS
+    res = {"page_ids": ids.tolist(), "cold_pools": n,
+           "cold_bytes_between_uses": (n - 1) * ws[0].numel() * 2}
     for m in (8, 256):
         x = torch.randn((m, MATMUL_K), generator=gen, device=dev).bfloat16()
+        p = ops.plan(m, MATMUL_K, MATMUL_N, MATMUL_PAGE_K, torch.bfloat16)
         got = ops.stream_matmul(x, pool, ids)
         want = ref.paged_matmul_ref(x, pool, ids)
         torch.cuda.synchronize()
-        r = {"err": check_close(f"paged_matmul bf16 M={m}", got, want)}
-        if m == 256:
-            x32, pool32 = x.float(), pool.float()
-            r["err_f32"] = check_close(
-                "paged_matmul f32 M=256", ops.stream_matmul(x32, pool32, ids),
-                ref.paged_matmul_ref(x32, pool32, ids), F32_TOL)
-        r["ms"] = device_ms(lambda: ops.stream_matmul(x, pool, ids), 20)
+        r = {"plan": str(p),
+             "err": check_close(f"paged_matmul bf16 M={m}", got, want)}
+        x2 = torch.randn_like(x)
+        r["bitwise_repeats"] = check_repeatable(
+            f"paged_matmul M={m}", lambda: ops.stream_matmul(x, pool, ids),
+            lambda: ops.stream_matmul(x2, pool, ids))
+        r["ms"] = device_ms(rotating(
+            lambda i: ops.stream_matmul(x, pools[i], ids), n), 4 * n)
+        r["warm_ms"] = device_ms(lambda: ops.stream_matmul(x, pool, ids), 20)
         r["plain_ms"] = time_ms(
             lambda: ref.paged_matmul_ref(x, pool, ids), 10)
-        r["library_ms"] = device_ms(lambda: torch.matmul(x, w), 20)
+        r["library_ms"] = device_ms(rotating(
+            lambda i: torch.matmul(x, ws[i]), n), 4 * n)
+        r["library_warm_ms"] = device_ms(lambda: torch.matmul(x, w), 20)
         r["library_err"] = float((torch.matmul(x, w).float()
                                   - got.float()).abs().max())
+        # the sweep: K-splits x stages (skinny), block tiles x stages (tile)
+        alts = ([ops.skinny_plan(m, MATMUL_K, MATMUL_N, sp, st)
+                 for sp in (1, 2, 4, 8) for st in (2, 3, 4)] if m <= 16
+                else [ops.tile_plan(m, MATMUL_K, MATMUL_N, tm, tn, st)
+                      for tm, tn in ops.TILE_SHAPES for st in (2, 3, 4)])
+        r["plans_ms"] = {}
+        for alt in alts:
+            check_close(f"paged_matmul M={m} {alt}",
+                        ops.launch(x, pool, ids, alt), want)
+            key = (f"splits{alt.splits} stages{alt.stages}" if m <= 16 else
+                   f"tile{alt.tile_m}x{alt.tile_n} stages{alt.stages}")
+            r["plans_ms"][f"{key} ctas{alt.grid[0] * alt.grid[1]}"] = \
+                device_ms(rotating(lambda i, pl=alt: ops.launch(
+                    x, pools[i], ids, pl), n), 4 * n)
+        r["parent_ms"] = None
+        if parent is not None:
+            r["parent_err"] = check_close(
+                f"parent paged_matmul M={m}",
+                parent_matmul(parent, x, pool, ids), want)
+            r["parent_ms"] = device_ms(rotating(
+                lambda i: parent_matmul(parent, x, pools[i], ids), n), 4 * n)
+            r["parent_warm_ms"] = device_ms(
+                lambda: parent_matmul(parent, x, pool, ids), 20)
+            r["ms_again"] = device_ms(rotating(
+                lambda i: ops.stream_matmul(x, pools[i], ids), n), 4 * n)
         # x and the 8 pages read once, y written once (bf16)
         n_bytes = 2 * (x.numel() + w.numel() + m * MATMUL_N) + 4 * n_k
         r["bound_ms"], r["bound_by"] = bound(n_bytes,
                                              2 * m * MATMUL_K * MATMUL_N)
         res[f"m{m}"] = r
+        if m == 256:
+            res["f32"] = check_paged_matmul_f32(dev, x, pool, ids)
     res.update({k: res["m8"][k] for k in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")})
+                                          "bound_ms", "bound_by",
+                                          "parent_ms", "plans_ms")})
     res["max_abs_err"] = max(res["m8"]["err"], res["m256"]["err"])
     res["shape"] = (f"x [8,{MATMUL_K}] (also [256,{MATMUL_K}]) bf16, "
                     f"w_pages [{MATMUL_POOL},{MATMUL_PAGE_K},{MATMUL_N}], "
-                    f"{n_k} page ids")
+                    f"{n_k} page ids, L2 cold ({n} pools)")
     return res
+
+
+def check_paged_matmul_f32(dev, x, pool, ids):
+    """The scalar paged_matmul instance, which f32 runs, at M = 256 (3e-5),
+    timed warm beside f32 cuBLAS (TF32 off)."""
+    import torch
+    from repro_torch.kernels.hdm_stream import ops, ref
+    x32, pool32 = x.float(), pool.float()
+    m, k = x32.shape
+    if ops.plan(m, k, MATMUL_N, MATMUL_PAGE_K, torch.float32).instance \
+            != "scalar":
+        fail("paged_matmul f32 is not planned on the scalar instance")
+    got = ops.stream_matmul(x32, pool32, ids)
+    r = {"max_abs_err": check_close(
+        "paged_matmul f32 M=256", got,
+        ref.paged_matmul_ref(x32, pool32, ids), F32_TOL)}
+    w32 = pool32[ids.long()].reshape(k, MATMUL_N)
+    r["ms"] = device_ms(lambda: ops.stream_matmul(x32, pool32, ids), 20)
+    r["plain_ms"] = time_ms(
+        lambda: ref.paged_matmul_ref(x32, pool32, ids), 10)
+    r["library_ms"] = device_ms(lambda: torch.matmul(x32, w32), 20)
+    n_bytes = 4 * (x32.numel() + w32.numel() + m * MATMUL_N) + 4 * len(ids)
+    r["bound_ms"], r["bound_by"] = bound(n_bytes, 2 * m * k * MATMUL_N,
+                                         F32_FLOPS)
+    r["shape"] = (f"x [{m},{k}] f32, w_pages [{MATMUL_POOL},"
+                  f"{MATMUL_PAGE_K},{MATMUL_N}], L2 warm")
+    return r
 
 
 def check_model_small(dev, arch, kv_quant="none"):
@@ -1132,6 +1356,7 @@ def zero_counters():
     fops.launches = 0
     fops.kernel_launches = dict.fromkeys(fops.kernel_launches, 0)
     sops.launches = hops.launches = 0
+    hops.instance_launches = dict.fromkeys(hops.instance_launches, 0)
 
 
 def read_counters():
@@ -1144,9 +1369,13 @@ def read_counters():
     return {"paged_decode": dops.launches,
             "paged_decode_int8": dops.int8_launches,
             "flash_prefill": fops.kernel_launches["mma"],
+            "flash_prefill_d256": fops.kernel_launches["mma256"],
             "flash_prefill_tf32": fops.kernel_launches["tf32"],
             "flash_prefill_scalar": fops.kernel_launches["scalar"],
-            "ssd_scan": sops.launches, "paged_matmul": hops.launches}
+            "ssd_scan": sops.launches,
+            "paged_matmul": (hops.instance_launches["skinny"]
+                             + hops.instance_launches["tile"]),
+            "paged_matmul_scalar": hops.instance_launches["scalar"]}
 
 
 def split_counts(arch, counts, on_path):
@@ -1224,14 +1453,15 @@ def prefix_pages_equal(engine, rid, again_rid, prompt_len):
                for n in a["kv"])
 
 
-def serve(dev, kv_quant="none"):
-    """Serve full-width qwen3-1.7b: N_REQUESTS prompts, then N_RESUBMIT of
-    them again under new rids (prefix restores)."""
+def serve(dev, kv_quant="none", arch=ARCH):
+    """Serve full-width ``arch`` (qwen3-1.7b, or gemma-2b): N_REQUESTS
+    prompts, then N_RESUBMIT of them again under new rids (prefix
+    restores)."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import Request
 
-    cfg, rc, params, engine, init_s = build_engine(dev, ARCH, kv_quant)
+    cfg, rc, params, engine, init_s = build_engine(dev, arch, kv_quant)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(*PROMPT_LENS, N_REQUESTS)]
@@ -1250,12 +1480,14 @@ def serve(dev, kv_quant="none"):
     torch.cuda.synchronize()
     wall_s = time.time() - t0
     counts = read_counters()
-    # bf16 pages: the bf16 decode mode and the bf16 tensor-core prefill;
-    # int8 pages: the int8 mode and the f32 (3xTF32) prefill instance
+    # bf16 pages: the bf16 decode mode and the bf16 tensor-core prefill
+    # (gemma-2b: its D 256 instance); int8 pages: the int8 mode and the f32
+    # (3xTF32) prefill instance
     int8 = kv_quant == "int8"
     launches, off_path = split_counts(
-        f"{ARCH} int8" if int8 else ARCH, counts,
+        f"{arch} int8" if int8 else arch, counts,
         ("paged_decode_int8", "flash_prefill_tf32") if int8
+        else ("paged_decode", "flash_prefill_d256") if arch == GEMMA
         else ("paged_decode", "flash_prefill"))
 
     out = run_stats(engine, first + again, wall_s, launches, init_s)
@@ -1423,13 +1655,24 @@ def check_restores(arch, run):
              f"{run['tokens_equal']}")
 
 
+def check_per_step(arch, run, prefill, decode):
+    """The path's prefill kernel ran once per layer per chunk and its
+    decode kernel once per layer per tick."""
+    n = run["n_layers"]
+    want = {prefill: n * run["prefill_chunks"],
+            decode: n * run["decode_ticks"]}
+    got = {name: run["launches"][name] for name in want}
+    if got != want:
+        fail(f"{arch}: launches {got}, want one per layer per step {want}")
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None, help=(
-        "a checkout of the commit before the f32 flash_prefill / ssd_scan "
-        "redesign: its two kernels are built and timed beside the new "
-        "ones"))
+        "a checkout of the commit before the D 256 flash_prefill / "
+        "paged_matmul redesign: its two kernels are built and timed beside "
+        "the new ones"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1454,8 +1697,8 @@ def main() -> None:
         lib_path, parent = built.result(), parent_built.result()
     build.library()
     build_s = time.time() - t0
-    log(f"kernels built in {build_s:.1f}s -> {lib_path}; parent's f32 "
-        f"flash_prefill and ssd_scan: "
+    log(f"kernels built in {build_s:.1f}s -> {lib_path}; parent's "
+        f"flash_prefill and paged_matmul: "
         f"{'built from ' + args.parent if parent else 'not built'}")
     ptxas = ptxas_report((lib_path.parent / "build.log").read_text())
     for row in ptxas:
@@ -1468,6 +1711,8 @@ def main() -> None:
     log(f"paged_decode ok: {dec['shape']}; {dec}")
     dec80 = check_decode(dev, 32, 1, 80)
     log(f"paged_decode ok: {dec80['shape']}; {dec80}")
+    dec256 = check_decode(dev, 1, 8, 256)
+    log(f"paged_decode ok: {dec256['shape']}; {dec256}")
     pre = check_prefill(dev, 8, 2, 128)
     log(f"flash_prefill ok: {pre['shape']}; {pre}")
     pre80 = check_prefill(dev, 32, 1, 80)
@@ -1478,15 +1723,17 @@ def main() -> None:
     log(f"paged_decode edges ok (both modes): {dec_edges}")
     pre_edges = check_prefill_edges(dev)
     log(f"flash_prefill edges ok: {pre_edges}")
-    pre32 = check_prefill_f32(dev, parent)
+    pre32 = check_prefill_f32(dev)
     log(f"flash_prefill f32 ok: {pre32['shape']}; {pre32}")
+    pre256 = check_prefill_d256(dev, parent)
+    log(f"flash_prefill D256 ok: {pre256['shape']}; {pre256}")
     pre_sc = check_prefill_scalar(dev)
     log(f"flash_prefill scalar ok: {pre_sc['shape']}; {pre_sc}")
-    ssd = check_ssd(dev, parent)
+    ssd = check_ssd(dev)
     log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
     refused = check_refusals(dev)
     log(f"C entries refuse what check_plan refuses (rc): {refused}")
-    mm = check_paged_matmul(dev)
+    mm = check_paged_matmul(dev, parent)
     log(f"paged_matmul ok: {mm['shape']}; {mm}")
     small = {arch: check_model_small(dev, arch) for arch in (ARCH, HYBRID)}
     small[f"{ARCH} int8"] = check_model_small(dev, ARCH, "int8")
@@ -1541,8 +1788,14 @@ def main() -> None:
         f"bf16 {run['restore_stall_ns'] / run['prefix_hits']:.1f} ns")
     if ratio >= INT8_ENTRY_RATIO:
         fail(f"{int8_name}: int8 entry / bf16 entry {ratio}")
+    torch.cuda.empty_cache()
 
-    runs = {ARCH: run, HYBRID: hyb, int8_name: run8}
+    gem = serve(dev, arch=GEMMA)
+    report(GEMMA, gem)
+    check_restores(GEMMA, gem)
+    check_per_step(GEMMA, gem, "flash_prefill_d256", "paged_decode")
+
+    runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem}
     kernels = []
     for name, res, src, replaces in (
             ("paged_decode", dec, "src/repro_torch/csrc/paged_decode.cu",
@@ -1555,12 +1808,18 @@ def main() -> None:
             ("flash_prefill_tf32", pre32,
              "src/repro_torch/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/kernel.py:77"),
+            ("flash_prefill_d256", pre256,
+             "src/repro_torch/csrc/flash_prefill.cu",
+             "src/repro/kernels/flash_attention/kernel.py:77"),
             ("flash_prefill_scalar", pre_sc,
              "src/repro_torch/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/kernel.py:77"),
             ("ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/mamba2_scan/kernel.py:68"),
             ("paged_matmul", mm, "src/repro_torch/csrc/paged_matmul.cu",
+             "src/repro/kernels/hdm_stream/kernel.py:42"),
+            ("paged_matmul_scalar", mm["f32"],
+             "src/repro_torch/csrc/paged_matmul.cu",
              "src/repro/kernels/hdm_stream/kernel.py:42")):
         by_path = {arch: {**r["launches"], **r["off_path_launches"]}[name]
                    for arch, r in runs.items()}
@@ -1575,18 +1834,22 @@ def main() -> None:
             if key in res:
                 row[key] = res[key]
         if name == "flash_prefill_scalar":
-            row["note"] = ("bf16 and f32 at head dims 16, 32 and 256 (the "
-                           "smoke models, gemma-2b); no full-width path "
-                           "runs it")
-        if name == "paged_matmul":
+            row["note"] = ("bf16 and f32 at head dims 16 and 32 (the smoke "
+                           "models), f32 at 256 (gemma-2b with int8 "
+                           "pages); no full-width path runs it")
+        if name.startswith("paged_matmul"):
             row["note"] = ("no path of the reference calls it (its engine "
                            "drops the speculative-read weight prefetch on "
-                           "one device); ported as its op, stream_matmul")
+                           "one device); ported as its op, stream_matmul; "
+                           + ("bf16 on tensor cores, times with L2 cold"
+                              if name == "paged_matmul" else
+                              "f32 on the scalar instance, L2 warm"))
         kernels.append(row)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "decode": dec, "decode_d80": dec80,
+                   "decode_d256": dec256, "prefill_d256": pre256,
                    "decode_int8": dec8, "decode_edges": dec_edges,
                    "prefill": pre, "prefill_d80": pre80,
                    "prefill_edges": pre_edges, "prefill_f32": pre32,
@@ -1595,6 +1858,7 @@ def main() -> None:
                    "refused_plans": refused,
                    "paged_matmul": mm, "small_model": small, "serve": run,
                    "serve_hybrid": hyb, "serve_int8": run8,
+                   "serve_gemma": gem,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

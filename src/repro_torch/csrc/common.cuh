@@ -172,6 +172,23 @@ __device__ __forceinline__ void mma_3xtf32(float* c, const Tf32Frag& a,
   mma_tf32(c, a.hi, p0.hi, p1.hi);
 }
 
+// ---- launches
+
+// Raises a kernel's dynamic shared memory limit to `smem` where it was set
+// lower (`smem_set`: the attribute as last set for that instance).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, int& smem_set) {
+  if (smem <= smem_set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // returned here; not left for a later launch
+    return err;
+  }
+  smem_set = smem;
+  return cudaSuccess;
+}
+
 // ---- flags between the CTAs of one launch (device scope)
 
 __device__ __forceinline__ int ld_acquire(const int* p) {

@@ -28,7 +28,7 @@
 // operations bound it; outside the tensor cores (67 TFLOP/s) they would
 // take 0.0134 ms, and the scalar kernel took ~0.135 ms.
 //
-// Three kernels, dispatched explicitly by (dtype, D) in dispatch():
+// Four kernels, dispatched explicitly by (dtype, D) in dispatch():
 //
 // - bf16 at D in {64, 80, 128} (qwen3's 128, zamba2's shared block's 80):
 //   flash_prefill_mma_kernel, FlashAttention-2 style. Each warp owns 16
@@ -85,10 +85,27 @@
 //   the int8 path's chunk 32-row CTAs (128 CTAs of 4 warps) take ~0.042
 //   ms at 2 or 3 stages, 64-row ones ~0.054, 16-row ones ~0.096 (two waves
 //   of one CTA a SM); the scalar kernel took ~0.131.
-// - everything else -- bf16 and f32 at D in {16, 32, 256} -- goes to
+// - bf16 at D 256 (gemma-2b; MQA, so its 256-token chunk is 2048 rows over
+//   one kv head): flash_prefill_d256_kernel, the bf16 kernel's shape with
+//   two warps per 16 rows, each on half of the head dim. One warp holding
+//   16 rows x 256 columns of O needs 128 f32 accumulator registers, Q's
+//   fragments 64 more and S's 32: past 255. Split in halves, a warp keeps
+//   Q (32 registers) and O (64) for its 128 columns, computes its half's
+//   partial of S = Q K^T (16 x 64 f32), and the pair swaps partials through
+//   shared memory (a named barrier per pair); both add the same two
+//   numbers, so both hold the same S bit for bit, run the same online
+//   softmax, and each runs P.V into its own 128 columns. The partials live
+//   in the pair's own 16 staged Q rows (8448 bytes), free once Q is in
+//   registers. 64-key K/V tiles padded to D + 8 (528-byte rows, ldmatrix
+//   free of bank conflicts) in a ring of 2 or 3 stages: shared memory
+//   2 (D + 8)(rows + stages 2 64) bytes, 219,648 at 32 rows and 3 stages
+//   (one CTA a SM). At gemma's chunk every CTA reads the same 0.57 MB of
+//   K/V, which stays in L2. Rows per CTA (16, 32, 64) and stages come from
+//   the plan, chosen by chip_smoke.py's sweep (PERF.md).
+// - everything else -- bf16 and f32 at D in {16, 32}, f32 at D 256 (gemma
+//   with int8 pages, which no measured path serves) -- goes to
 //   flash_prefill_scalar_kernel, the first version: 64-row CTAs, f32 tiles
-//   in shared memory, scalar f32 FMAs. D = 256 would need 128 accumulator
-//   registers a thread for 16 rows on the tensor-core path.
+//   in shared memory, scalar f32 FMAs.
 #include "common.cuh"
 
 namespace repro {
@@ -96,7 +113,7 @@ namespace {
 
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
-// ---- the scalar kernel: bf16 and f32 at D in {16, 32, 256}
+// ---- the scalar kernel: bf16 and f32 at D in {16, 32}, f32 at D 256
 
 constexpr int kRows = 64;      // (query, head) rows per CTA
 constexpr int kKeys = 64;      // keys per KV tile
@@ -460,6 +477,243 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- the tensor-core kernel at D 256 (bf16): two warps per 16 rows, each
+// on half of the head dim
+
+constexpr int kD256 = 256;
+constexpr int kHalfD = kD256 / 2;
+constexpr int kWideKeys = 64;           // keys per K/V tile
+constexpr int kWideMaxThreads = 256;    // 64 rows: 4 pairs of warps
+
+constexpr size_t d256_smem_bytes(int rows, int stages) {
+  return (size_t)2 * (kD256 + 8) * (rows + stages * 2 * kWideKeys);
+}
+
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+__global__ void __launch_bounds__(kWideMaxThreads)
+flash_prefill_d256_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const int* __restrict__ pos,
+                          __nv_bfloat16* __restrict__ out, int C, int H,
+                          int Hkv, int Smax, int stages, float scale,
+                          float softcap) {
+  using bf16 = __nv_bfloat16;
+  constexpr int D = kD256;
+  constexpr int LD = D + 8;             // padded row (elements)
+  constexpr int CH = D / 8;             // 16-byte chunks per row
+  constexpr int KS = kHalfD / 16;       // k-steps of the half Q K^T
+  constexpr int NB = kHalfD / 8;        // 8-column blocks of the half O
+  constexpr int SB = kWideKeys / 8;     // 8-key blocks of S
+  const int tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const int nthr = blockDim.x, rows = nthr / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp >> 1, half = warp & 1;  // 16-row block, half of D
+  const int gid = lane >> 2, tig = lane & 3;  // fragment row, column pair
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [rows][LD]
+  bf16* ring = Qs + rows * LD;                   // stages x {K, V} [64][LD]
+  // once Q is in registers, a pair's 16 Q rows (8448 bytes) hold its two
+  // S partials (2 x 4096 bytes), one per warp
+  float* xbuf = reinterpret_cast<float*>(Qs + rw * 16 * LD);
+  float* own = xbuf + half * SB * 4 * 32;
+  const float* other = xbuf + (1 - half) * SB * 4 * 32;
+
+  const int n_rows = C * G, row0 = tile * rows, p0 = pos[b];
+  // last visible key of a row; rows past C*G take the last row's
+  auto limit = [&](int row) {
+    return min(p0 + min(row, n_rows - 1) / G, Smax - 1);
+  };
+  const int kv_end = limit(row0 + rows - 1) + 1;  // keys [0, kv_end)
+  const int n_tiles = (kv_end + kWideKeys - 1) / kWideKeys;
+
+  for (int i = tid; i < rows * CH; i += nthr) {
+    const int r = i / CH, cc = i - r * CH, row = row0 + r;
+    const bool ok = row < n_rows;
+    const int qi = ok ? row / G : 0, g = ok ? row - qi * G : 0;
+    cp_async16(Qs + r * LD + cc * 8,
+               q + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D +
+                   cc * 8,
+               ok);
+  }
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      bf16* Kt = ring + (size_t)(t % stages) * 2 * kWideKeys * LD;
+      bf16* Vt = Kt + kWideKeys * LD;
+      for (int i = tid; i < kWideKeys * CH; i += nthr) {
+        const int r = i / CH, cc = i - r * CH, key = t * kWideKeys + r;
+        const bool ok = key < kv_end;
+        const size_t off =
+            (((size_t)b * Smax + (ok ? key : 0)) * Hkv + hk) * D + cc * 8;
+        cp_async16(Kt + r * LD + cc * 8, k + off, ok);
+        cp_async16(Vt + r * LD + cc * 8, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages - 1; ++s) load_tile(s);  // Q joins tile 0
+
+  const int wrow0 = row0 + rw * 16;
+  const bool warp_live = wrow0 < n_rows;
+  const int lim_a = limit(wrow0 + gid), lim_b = limit(wrow0 + gid + 8);
+  const int lim_lo = limit(wrow0), lim_hi = limit(wrow0 + 15);
+  const float qk_scale = scale * kLog2e;
+  const int col0 = half * kHalfD;  // this warp's columns of Q, K, V and O
+
+  uint32_t qf[KS][4];
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait(stages - 2);  // tile t (and Q) landed, this thread's part
+    __syncthreads();            // ... everyone's; tile t - 1 is consumed
+    load_tile(t + stages - 1);
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (rw * 16 + (lane & 15)) * LD + col0 +
+                                kk * 16 + (lane >> 4) * 8);
+      pair_sync(rw);  // both halves hold Q before its rows take S
+    }
+    const int k0 = t * kWideKeys;
+    if (!warp_live || k0 > lim_hi) continue;  // nothing visible to the pair
+    const bf16* Kt = ring + (size_t)(t % stages) * 2 * kWideKeys * LD;
+    const bf16* Vt = Kt + kWideKeys * LD;
+
+    // this half's part of S = Q K^T: s[j] holds keys k0 + 8j .. +7 of rows
+    // gid and gid + 8
+    float s[SB][4];
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < SB / 2; ++j2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
+                            + col0 + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * j2 + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+    // the two halves' partials through shared memory: both warps add the
+    // same two numbers (a + b == b + a exactly), so both hold the same S.
+    // The __syncthreads at the next tile's top orders the next write after
+    // the partner's read.
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) own[(j * 4 + e) * 32 + lane] = s[j][e];
+    pair_sync(rw);
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += other[(j * 4 + e) * 32 + lane];
+
+    // online softmax in place (log2 domain), the same in both halves; the
+    // mask only where a row's limit falls inside the tile
+    const bool masked = k0 + kWideKeys - 1 > lim_lo;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = softcap > 0.f ? softcap_logit(s[j][e] * scale, softcap) *
+                                      kLog2e
+                                : s[j][e] * qk_scale;
+        if (masked && k0 + j * 8 + tig * 2 + (e & 1) > (e < 2 ? lim_a : lim_b))
+          x = -INFINITY;
+        s[j][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x);
+        else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no visible key yet keeps m = -inf: exponentiate against
+    // 0 so that nothing becomes NaN
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float al_a = exp2f(m_a - base_a), al_b = exp2f(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      s[j][0] = exp2f(s[j][0] - base_a);
+      s[j][1] = exp2f(s[j][1] - base_a);
+      s[j][2] = exp2f(s[j][2] - base_b);
+      s[j][3] = exp2f(s[j][3] - base_b);
+      rs_a += s[j][0] + s[j][1];
+      rs_b += s[j][2] + s[j][3];
+    }
+    l_a = l_a * al_a + rs_a;  // this thread's columns; summed over the quad
+    l_b = l_b * al_b + rs_b;  // at the end
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= al_a;
+      o[n][1] *= al_a;
+      o[n][2] *= al_b;
+      o[n][3] *= al_b;
+    }
+
+    // O += P V on this half's columns: the S fragments of keys 16kk ..
+    // 16kk + 15 are P's A operand
+#pragma unroll
+    for (int kk = 0; kk < kWideKeys / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < kHalfD / 16; ++n2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  col0 + n2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * n2], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * n2 + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = wrow0 + gid + 8 * hr;
+    if (row >= n_rows) continue;
+    const int qi = row / G, g = row - qi * G;
+    bf16* op = out + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D +
+               col0 + tig * 2;
+    const float inv = hr ? inv_b : inv_a;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) = __floats2bfloat162_rn(
+          o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+  }
+}
+
 // ---- the 3xTF32 tensor-core kernel: f32, D in {64, 80, 128}
 
 constexpr int kTfKeys = 64;                   // keys per K/V tile
@@ -699,21 +953,6 @@ flash_prefill_tf32_kernel(const float* __restrict__ q,
 
 // ---- launches
 
-// Raises a kernel's dynamic shared memory limit to `smem` where it was set
-// lower (`smem_set`: the attribute as last set for that instance).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem, int& smem_set) {
-  if (smem <= smem_set) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // returned here; not left for a later launch
-    return err;
-  }
-  smem_set = smem;
-  return cudaSuccess;
-}
-
 template <typename T, int D>
 cudaError_t launch_scalar(const void* q, const void* k, const void* v,
                           const int* pos, void* out, int B, int C, int H,
@@ -750,6 +989,24 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_d256(const void* q, const void* k, const void* v,
+                        const int* pos, void* out, int B, int C, int H,
+                        int Hkv, int Smax, float scale, float softcap,
+                        int grid_x, int rows, int stages, int smem,
+                        cudaStream_t stream) {
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(flash_prefill_d256_kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(grid_x, Hkv, B);
+  flash_prefill_d256_kernel<<<grid, rows * 4, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), pos,
+      static_cast<__nv_bfloat16*>(out), C, H, Hkv, Smax, stages, scale,
+      softcap);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
                         const int* pos, void* out, int B, int C, int H,
@@ -768,7 +1025,7 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the head dims without a tensor-core instance, bf16 and f32
+// the head dims without a tensor-core instance (bf16 at D 256 has one)
 template <typename T>
 cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
                             const int* pos, void* out, int B, int C, int H,
@@ -792,9 +1049,10 @@ bool tensor_core_dim(int D) { return D == 64 || D == 80 || D == 128; }
 
 // The plan from kernels/flash_attention/ops.py::plan, bounds-checked (its
 // shared memory must cover what the kernel indexes), then the kernel it
-// names: by (dtype, D), the bf16 tensor-core kernel, the 3xTF32 one for
-// f32, or the scalar one for D in {16, 32, 256}. No kernel is tried in
-// place of another.
+// names: by (dtype, D), the bf16 tensor-core kernel at D 64/80/128 or at
+// D 256, the 3xTF32 one for f32 at D 64/80/128, or the scalar one for the
+// rest (D 16 and 32, f32 at D 256). No kernel is tried in place of
+// another.
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* pos, void* out, int B, int C, int H, int Hkv,
                      int Smax, int D, int dtype, float scale, float softcap,
@@ -826,6 +1084,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
       default: return cudaErrorInvalidValue;
     }
 #undef REPRO_TC
+  }
+  if (D == kD256 && dtype == kBFloat16) {
+    if ((rows != 16 && rows != 32 && rows != 64) || stages < 2 ||
+        stages > 3 || (size_t)smem < d256_smem_bytes(rows, stages))
+      return cudaErrorInvalidValue;
+    return launch_d256(q, k, v, pos, out, B, C, H, Hkv, Smax, scale, softcap,
+                       grid_x, rows, stages, smem, s);
   }
   if (rows != kRows || stages != 1 || (size_t)smem < scalar_smem_bytes(D))
     return cudaErrorInvalidValue;

@@ -33,7 +33,7 @@ _SIGNATURES = {
     "repro_paged_decode_int8": [_P] * 12 + [_I] * 14 + [_F, _F, _P],
     "repro_flash_prefill": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P],
     "repro_ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
-    "repro_paged_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    "repro_paged_matmul": [_P] * 6 + [_I] * 13 + [_P],
 }
 
 _LIB = None

@@ -5,15 +5,17 @@ CPU tensor it runs the plain version (``ref.flash_prefill_ref``). There is
 no fallback from one to the other. ``launches`` counts kernel launches,
 ``kernel_launches`` the same by the plan's kernel.
 
-The launch plan (which of the file's three kernels, the grid, rows per
+The launch plan (which of the file's four kernels, the grid, rows per
 CTA, pipeline stages and dynamic shared memory) is ``plan()``, a pure
 function of the shapes that the CPU tests check; the C entry takes it as
 given and rejects a plan that does not match its kernel. The kernel
 follows from (dtype, head_dim): bf16 at ``MMA_HEAD_DIMS`` on tensor cores
-("mma"), f32 at the same head dims on tensor cores in 3xTF32 ("tf32"),
-every other head dim on the scalar kernel. Rows per CTA and stages were
-chosen by timing the candidates on the H100 (``chip_smoke.py``'s plan
-sweeps, PERF.md).
+("mma"), bf16 at D 256 on tensor cores with two warps per 16 rows, each
+on half of the head dim ("mma256", gemma-2b), f32 at ``MMA_HEAD_DIMS`` on
+tensor cores in 3xTF32 ("tf32"), and the rest -- D 16 and 32 in both
+dtypes, f32 at D 256 -- on the scalar kernel. Rows per CTA and stages
+were chosen by timing the candidates on the H100 (``chip_smoke.py``'s
+plan sweeps, PERF.md).
 """
 from __future__ import annotations
 
@@ -32,26 +34,32 @@ MMA_STAGES = 3                           # cp.async ring depth
 MMA_ROWS = (64, 32, 16)                  # rows per CTA, most first
 TF32_KEYS = 64                           # keys per f32 K/V tile
 TF32_ROWS, TF32_STAGES = 32, 2           # the f32 plan (chip_smoke.py's sweep)
+D256 = 256                               # bf16 "mma256" head dim
+D256_KEYS = 64                           # keys per K/V tile
+D256_ROWS, D256_STAGES = 32, 3           # the D 256 plan (chip_smoke.py's sweep)
 SCALAR_ROWS, SCALAR_KEYS = 64, 64
 N_SMS = 132                              # H100 SXM
 MAX_SMEM = 232448                        # dynamic shared memory per block
 # rows per CTA and stages each kernel is written for
 PLAN_RANGE = {"mma": ((16, 32, 64), (2, 3, 4)),
               "tf32": ((16, 32, 64), (2, 3)),
+              "mma256": ((16, 32, 64), (2, 3)),
               "scalar": ((SCALAR_ROWS,), (1,))}
 
 launches = 0
-kernel_launches = {"mma": 0, "tf32": 0, "scalar": 0}
+kernel_launches = {"mma": 0, "mma256": 0, "tf32": 0, "scalar": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    kernel: str        # "mma" (bf16 tensor cores), "tf32" (f32 tensor
-                       # cores, 3xTF32) or "scalar"
+    kernel: str        # "mma" (bf16 tensor cores), "mma256" (bf16 at D
+                       # 256), "tf32" (f32 tensor cores, 3xTF32) or
+                       # "scalar"
     grid: tuple        # (row tiles, kv heads, batch)
     rows: int          # (query, head) rows per CTA; 32 threads per 16 rows
-                       # on bf16 tensor cores, 64 in 3xTF32 (two warps
-                       # share the keys), 256 threads in the scalar kernel
+                       # on bf16 tensor cores, 64 at D 256 (two warps split
+                       # the head dim) and in 3xTF32 (two warps share the
+                       # keys), 256 threads in the scalar kernel
     stages: int        # K/V tiles in flight (1: the scalar kernel's one)
     smem_bytes: int
 
@@ -77,6 +85,18 @@ def tf32_plan(b: int, c: int, h: int, hkv: int, d: int, rows: int,
     return Plan("tf32", (gx, hkv, b), rows, stages, smem)
 
 
+def d256_plan(b: int, c: int, h: int, hkv: int, rows: int,
+              stages: int) -> Plan:
+    """The D 256 tensor-core kernel's launch at ``rows`` rows per CTA (two
+    warps per 16 rows, one per half of the head dim) and a ring of
+    ``stages`` K/V tiles of ``D256_KEYS`` keys: q's rows (which then hold
+    the pairs' S partials), then the ring, as bf16 rows padded to 264
+    elements."""
+    gx = -(-c * (h // hkv) // rows)
+    smem = 2 * (D256 + 8) * (rows + stages * 2 * D256_KEYS)
+    return Plan("mma256", (gx, hkv, b), rows, stages, smem)
+
+
 def scalar_plan(b: int, c: int, h: int, hkv: int, d: int) -> Plan:
     """The scalar kernel's launch: 64-row CTAs, f32 tiles of q, K, V and
     the scores in shared memory."""
@@ -94,10 +114,14 @@ def plan(b: int, c: int, h: int, hkv: int, d: int,
     tensor-core kernel with the most rows per CTA (64, 32, 16) that still
     give ``N_SMS`` CTAs, else 16; f32 there the 3xTF32 kernel at
     ``TF32_ROWS`` rows and ``TF32_STAGES`` stages, the fastest of the
-    sweep at the int8 path's chunk; every other head dim the scalar
-    kernel's 64-row CTAs."""
+    sweep at the int8 path's chunk; bf16 at D 256 the "mma256" kernel at
+    ``D256_ROWS`` rows and ``D256_STAGES`` stages, the fastest of the
+    sweep at gemma-2b's chunk; every other case the scalar kernel's
+    64-row CTAs."""
     if dtype == torch.float32 and d in MMA_HEAD_DIMS:
         return tf32_plan(b, c, h, hkv, d, TF32_ROWS, TF32_STAGES)
+    if dtype == torch.bfloat16 and d == D256:
+        return d256_plan(b, c, h, hkv, D256_ROWS, D256_STAGES)
     if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
         for rows in MMA_ROWS:
             p = mma_plan(b, c, h, hkv, d, rows)
@@ -116,7 +140,8 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
     again against the kernel it instantiates."""
     if d not in HEAD_DIMS or dtype not in build.DTYPE_CODES:
         raise ValueError(f"no instance for head_dim {d} in {dtype}")
-    want = ("scalar" if d not in MMA_HEAD_DIMS
+    want = ("mma256" if d == D256 and dtype == torch.bfloat16
+            else "scalar" if d not in MMA_HEAD_DIMS
             else "mma" if dtype == torch.bfloat16 else "tf32")
     if p.kernel != want:
         raise ValueError(f"plan names the {p.kernel} kernel; {dtype} at "
@@ -125,6 +150,8 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
     if p.rows not in rows or p.stages not in stages:
         raise ValueError(f"the {want} kernel refuses plan {p}")
     made = (scalar_plan(b, c, h, hkv, d) if want == "scalar"
+            else d256_plan(b, c, h, hkv, p.rows, p.stages)
+            if want == "mma256"
             else (mma_plan if want == "mma" else tf32_plan)(
                 b, c, h, hkv, d, p.rows, p.stages))
     if p != made or p.smem_bytes > MAX_SMEM:

@@ -2,7 +2,18 @@
 
 On a CUDA tensor it launches ``csrc/paged_matmul.cu`` (or raises); on a
 CPU tensor it runs the plain version (``ref.paged_matmul_ref``). There is
-no fallback from one to the other. ``launches`` counts kernel launches.
+no fallback from one to the other. ``launches`` counts kernel launches,
+``instance_launches`` the same by the plan's instance.
+
+The launch plan (the instance, its tiles, ring stages, K-splits, shared
+memory and workspace) is ``plan()``, a pure function of the shapes that
+the CPU tests check; the C entry takes it as given and refuses a plan that
+its instance cannot run. bf16 runs on tensor cores: "skinny" for the
+decode batch (M <= 16; W^T x^T with split-K over 64-column strips, merged
+in split order by the last CTA of a strip), "tile" above it (block tiles
+chosen by ``chip_smoke.py``'s sweep, PERF.md). f32, and shapes the two
+refuse (N not a whole number of 16-byte chunks, pages not whole K tiles),
+run the scalar instance.
 
 No serving or training path of the reference calls this op: its serving
 engine drops the speculative-read weight prefetch on one device, and only
@@ -10,12 +21,152 @@ the kernel tests call ``stream_matmul``. It is ported as that op.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.hdm_stream.ref import paged_matmul_ref
 
+N_SMS = 132                              # H100 SXM
+MAX_SMEM = 232448                        # dynamic shared memory per block
+SKINNY_M = 16                            # the skinny instance's largest M
+SKINNY_N, SKINNY_K = 64, 64              # a CTA's strip of N, a K tile
+SKINNY_STAGES = 4
+SKINNY_CTAS = 2 * N_SMS                  # CTAs (strips x K-splits) to reach
+SKINNY_SPLITS = (1, 2, 4, 8)             # K-splits tried, fewest first
+TILE_K = 64
+TILE_STAGES = 3
+# block tiles (tile_m, tile_n) of the tile instance, most preferred first
+TILE_SHAPES = ((128, 64), (64, 128), (128, 128))
+SCALAR_TILE = (64, 64, 32)
+INSTANCE_CODES = {"scalar": 0, "skinny": 1, "tile": 2}
+
 launches = 0
+instance_launches = dict.fromkeys(INSTANCE_CODES, 0)
+_WORKSPACE = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    instance: str      # "skinny", "tile" (bf16 tensor cores) or "scalar"
+    grid: tuple        # (N strips or tiles, K-splits or M tiles)
+    tile_m: int        # rows of x per CTA (skinny: 16, the padded M)
+    tile_n: int        # columns of N per CTA
+    tile_k: int        # K rows per staged tile; divides the page
+    stages: int        # tiles in flight (1: the scalar kernel)
+    splits: int        # K-splits; each covers tiles_per_split K tiles
+    tiles_per_split: int
+    threads: int
+    smem_bytes: int    # dynamic shared memory (0: the scalar kernel's is
+                       # static)
+    workspace: tuple   # f32 partials [splits, M, N] ((): none)
+    counters: int      # int32 per-strip counters (0: none)
+
+
+def skinny_plan(m: int, k: int, n: int, splits: int,
+                stages: int = SKINNY_STAGES) -> Plan:
+    """The skinny instance at ``splits`` K-splits: 64-column strips of N,
+    64-deep K tiles, each split a contiguous run of whole tiles."""
+    n_t = k // SKINNY_K
+    per = -(-n_t // splits)
+    splits = -(-n_t // per)
+    strips = -(-n // SKINNY_N)
+    smem = 2 * stages * (SKINNY_K * (SKINNY_N + 8) + 16 * (SKINNY_K + 8))
+    ws = (splits, m, n) if splits > 1 else ()
+    return Plan("skinny", (strips, splits), 16, SKINNY_N, SKINNY_K, stages,
+                splits, per, 128, smem, ws, strips if splits > 1 else 0)
+
+
+def tile_plan(m: int, k: int, n: int, tile_m: int, tile_n: int,
+              stages: int = TILE_STAGES) -> Plan:
+    """The tile instance at block tiles of ``tile_m`` x ``tile_n`` (warp
+    tiles of 64 x 32; 32 x 32 in the 64 x 128 block) and 64-deep K
+    tiles."""
+    threads = tile_m // (32 if tile_m == 64 else 64) * (tile_n // 32) * 32
+    smem = 2 * stages * (tile_m * (TILE_K + 8) + TILE_K * (tile_n + 8))
+    return Plan("tile", (-(-n // tile_n), -(-m // tile_m)), tile_m, tile_n,
+                TILE_K, stages, 1, k // TILE_K, threads, smem, (), 0)
+
+
+def scalar_plan(m: int, k: int, n: int, page_k: int) -> Plan:
+    """The scalar instance: 64 x 64 output tiles, 32-deep K slices."""
+    bm, bn, bk = SCALAR_TILE
+    return Plan("scalar", (-(-n // bn), -(-m // bm)), bm, bn, bk, 1, 1,
+                k // page_k, 256, 0, (), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, k: int, n: int, page_k: int, dtype: torch.dtype) -> Plan:
+    """The launch of ``csrc/paged_matmul.cu`` for x [m, k] and pages of
+    ``page_k`` rows of width ``n``. bf16 with n % 8 == 0: at m <= 16 the
+    skinny instance with the fewest K-splits in ``SKINNY_SPLITS`` that give
+    ``SKINNY_CTAS`` CTAs (pages of whole 64-deep tiles), above it the tile
+    instance at the first of ``TILE_SHAPES`` whose grid has ``N_SMS``
+    CTAs, else the one with the most (pages of whole 64-deep tiles); the
+    scalar instance otherwise."""
+    if dtype == torch.bfloat16 and n % 8 == 0:
+        if m <= SKINNY_M and page_k % SKINNY_K == 0:
+            n_t = k // SKINNY_K
+            for s in SKINNY_SPLITS:
+                p = skinny_plan(m, k, n, min(s, n_t))
+                if p.grid[0] * p.grid[1] >= SKINNY_CTAS:
+                    break
+            return p
+        if m > SKINNY_M and page_k % TILE_K == 0:
+            plans = [tile_plan(m, k, n, *t) for t in TILE_SHAPES]
+            full = [p for p in plans if p.grid[0] * p.grid[1] >= N_SMS]
+            return full[0] if full else max(
+                plans, key=lambda p: p.grid[0] * p.grid[1])
+    return scalar_plan(m, k, n, page_k)
+
+
+def check_plan(p: Plan, m: int, k: int, n: int, page_k: int,
+               dtype: torch.dtype) -> None:
+    """Raise ValueError unless ``p`` is what its instance's plan function
+    gives at its tiles, stages and splits, on an instance that takes
+    (m, dtype), with K tiles inside a page and within the block's shared
+    memory. The C entry checks the launch again."""
+    if p.instance == "scalar":
+        made = scalar_plan(m, k, n, page_k)
+    else:
+        if dtype != torch.bfloat16 or n % 8:
+            raise ValueError(f"the {p.instance} instance takes bf16 with "
+                             f"N % 8 == 0, not {dtype} at N {n}")
+        if page_k % p.tile_k:
+            raise ValueError(f"K tiles of {p.tile_k} cross pages of "
+                             f"{page_k}")
+        if not 2 <= p.stages <= 4:
+            raise ValueError(f"the {p.instance} instance refuses plan {p}")
+        if p.instance == "skinny":
+            if m > SKINNY_M:
+                raise ValueError(f"skinny takes M <= {SKINNY_M}, not {m}")
+            made = skinny_plan(m, k, n, p.splits, p.stages)
+        elif p.instance == "tile":
+            if m <= SKINNY_M or (p.tile_m, p.tile_n) not in TILE_SHAPES:
+                raise ValueError(f"the tile instance refuses plan {p}")
+            made = tile_plan(m, k, n, p.tile_m, p.tile_n, p.stages)
+        else:
+            raise ValueError(f"no instance {p.instance!r}")
+    if p != made or p.smem_bytes > MAX_SMEM:
+        raise ValueError(f"plan {p} is not the {p.instance} instance's "
+                         f"{made} or does not fit {MAX_SMEM} bytes")
+
+
+def _workspace(device: torch.device, p: Plan):
+    """The partials and zeroed counters of ``p`` on ``device``, made once
+    (the kernel leaves the counters at zero). Calls that share them run
+    on one stream."""
+    if not p.workspace:
+        return None, None
+    key = (device, p.workspace)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = (torch.empty(p.workspace, dtype=torch.float32, device=device),
+              torch.zeros(p.counters, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def stream_matmul(x: torch.Tensor, w_pages: torch.Tensor,
@@ -26,7 +177,6 @@ def stream_matmul(x: torch.Tensor, w_pages: torch.Tensor,
     [K // page_k], each in [0, n_pages). Returns [M, N] in x's dtype, f32
     accumulation. M and N need not divide any tile.
     """
-    global launches
     if x.dim() != 2 or w_pages.dim() != 3 or page_ids.dim() != 1:
         raise ValueError(f"expected x [M,K], w_pages [n_pages,page_k,N] and "
                          f"page_ids [K/page_k], got {tuple(x.shape)} / "
@@ -52,11 +202,27 @@ def stream_matmul(x: torch.Tensor, w_pages: torch.Tensor,
     for name, t in (("x", x), ("w_pages", w_pages), ("page_ids", page_ids)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return launch(x, w_pages, page_ids, plan(m, k, n, page_k, x.dtype))
+
+
+def launch(x, w_pages, page_ids, p: Plan) -> torch.Tensor:
+    """One launch of the kernel at plan ``p`` on inputs that
+    ``stream_matmul`` has checked (``chip_smoke.py`` also times other
+    plans through it)."""
+    global launches
+    m, k = x.shape
+    n_pages, page_k, n = w_pages.shape
+    check_plan(p, m, k, n, page_k, x.dtype)
+    part, counters = _workspace(x.device, p)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = build.library().repro_paged_matmul(
         x.data_ptr(), w_pages.data_ptr(), page_ids.data_ptr(), y.data_ptr(),
+        0 if part is None else part.data_ptr(),
+        0 if counters is None else counters.data_ptr(),
         m, k, n, page_k, n_pages, build.DTYPE_CODES[x.dtype],
-        build.stream_ptr(x.device))
+        INSTANCE_CODES[p.instance], p.tile_m, p.tile_n, p.tile_k, p.stages,
+        p.splits, p.smem_bytes, build.stream_ptr(x.device))
     launches += 1
+    instance_launches[p.instance] += 1
     build.check(rc, "paged_matmul")
     return y

@@ -8,7 +8,11 @@ in interpret mode, as ``tests/test_kernels.py`` runs it) and its oracle
 ``HDM_SHAPES`` of ``tests/test_kernel_parity.py``: f32, bf16, and f32
 weights that went through the int8 page format. Tolerances follow
 ``tests/test_kernel_parity.py``: f32 3e-5, bf16 2e-2. The CUDA kernel is
-held to the plain version on the card by ``chip_smoke.py``.
+held to the plain version on the card by ``chip_smoke.py``; here its launch
+plans (``ops.plan``: instance by M, K tiles inside a page, K-splits and N
+strips covering the product once, shared memory, a grid that fills the
+card) and the skinny instance's split-K arithmetic
+(``ref.paged_matmul_split_ref``, against the Pallas kernel and the oracle).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,11 @@ from repro.kernels.hdm_stream.ref import paged_matmul_ref
 from repro.models import kv_quant as jkvq
 from repro_torch.kernels.hdm_stream import ops
 from repro_torch.kernels.hdm_stream.ref import paged_matmul_ref as plain_ref
+from repro_torch.kernels.hdm_stream.ref import paged_matmul_split_ref
+
+MAX_SMEM = 232448
+N_SMS = 132
+BF16, F32 = torch.bfloat16, torch.float32
 
 # (M, K, N, page_k, n_pages, block_m, block_n)
 SHAPES = [
@@ -106,3 +115,130 @@ def test_stream_matmul_rejects_what_the_kernel_does_not_take():
         ops.stream_matmul(x, w, torch.zeros(3, dtype=torch.int32))
     with pytest.raises(TypeError, match="dtype"):
         ops.stream_matmul(x, w.bfloat16(), torch.zeros(2, dtype=torch.int32))
+
+
+# ------------------------------------------------------------ launch plans
+
+# (m, k, n, page_k): qwen3-1.7b's MLP width as chip_smoke.py runs it (the
+# decode batch and a prefill chunk), M 16/17 around the skinny edge, and
+# the shapes above
+PLAN_SHAPES = {
+    "qwen3 M=8": (8, 2048, 6144, 256),
+    "qwen3 M=16": (16, 2048, 6144, 256),
+    "qwen3 M=17": (17, 2048, 6144, 256),
+    "qwen3 M=256": (256, 2048, 6144, 256),
+    "pages of 64": (8, 512, 128, 64),
+    **{f"test {s[:4]}": s[:4] for s in SHAPES},
+}
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=str)
+@pytest.mark.parametrize("shape", PLAN_SHAPES.values(),
+                         ids=PLAN_SHAPES.keys())
+def test_plan_instance_tiles_and_cover(shape, dtype):
+    m, k, n, page_k = shape
+    p = ops.plan(m, k, n, page_k, dtype)
+    ops.check_plan(p, m, k, n, page_k, dtype)
+    assert p.smem_bytes <= MAX_SMEM
+    if dtype == F32 or n % 8 or page_k % 64:
+        assert p.instance == "scalar"
+        return
+    assert p.instance == ("skinny" if m <= ops.SKINNY_M else "tile")
+    # K tiles never cross a page
+    assert page_k % p.tile_k == 0 and k % p.tile_k == 0
+    # the K-splits cover K's tiles exactly once, in order, none empty
+    cover = np.zeros(k // p.tile_k, np.int64)
+    for s in range(p.splits):
+        lo = s * p.tiles_per_split
+        hi = min(k // p.tile_k, lo + p.tiles_per_split)
+        assert lo < hi
+        cover[lo:hi] += 1
+    np.testing.assert_array_equal(cover, 1)
+    # N strips (and M tiles) cover the product once
+    assert (p.grid[0] - 1) * p.tile_n < n <= p.grid[0] * p.tile_n
+    if p.instance == "skinny":
+        assert m <= p.tile_m == 16 and p.grid[1] == p.splits
+        assert p.workspace == ((p.splits, m, n) if p.splits > 1 else ())
+        assert p.counters == (p.grid[0] if p.splits > 1 else 0)
+    else:
+        assert p.splits == 1 and p.workspace == ()
+        assert (p.grid[1] - 1) * p.tile_m < m <= p.grid[1] * p.tile_m
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_plan_fills_the_card_at_qwen3_mlp(m):
+    """The decode batch and a prefill chunk at qwen3-1.7b's MLP width both
+    put at least one CTA on every SM: 96 strips x 4 K-splits (384) at
+    M = 8, 48 x 2 (or 96 x 2) block tiles at M = 256."""
+    p = ops.plan(m, 2048, 6144, 256, BF16)
+    assert p.grid[0] * p.grid[1] >= N_SMS
+    if m == 8:
+        assert (p.instance, p.grid, p.splits) == ("skinny", (96, 4), 4)
+    else:
+        assert p.instance == "tile" and p.tile_m * p.tile_n <= 128 * 128
+
+
+@pytest.mark.parametrize("change,exc", [
+    (dict(splits=3), ValueError),                 # splits leave tiles out
+    (dict(stages=5), ValueError),                 # past the ring's depth
+    (dict(smem_bytes=1024), ValueError),          # too little shared memory
+    (dict(instance="tile"), ValueError),          # the wrong instance
+])
+def test_check_plan_refuses(change, exc):
+    import dataclasses
+    p = ops.plan(8, 2048, 6144, 256, BF16)
+    with pytest.raises(exc):
+        ops.check_plan(dataclasses.replace(p, **change), 8, 2048, 6144, 256,
+                       BF16)
+
+
+def test_check_plan_refuses_tiles_across_pages_and_f32():
+    p = ops.plan(8, 2048, 6144, 256, BF16)
+    with pytest.raises(ValueError, match="cross"):
+        ops.check_plan(p, 8, 2048, 6144, 32, BF16)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.check_plan(p, 8, 2048, 6144, 256, F32)
+    tile = ops.plan(256, 2048, 6144, 256, BF16)
+    with pytest.raises(ValueError):
+        ops.check_plan(tile, 8, 2048, 6144, 256, BF16)   # M 8 on "tile"
+
+
+# ------------------------------------------------- split-K arithmetic
+
+SPLIT_SHAPES = SHAPES + [(8, 128, 64, 32, 6, 8, 32)]     # and the M = 8 case
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_ref_matches_reference(shape, splits, name):
+    """K cut into ``splits`` runs, partials added in split order, against
+    the Pallas kernel (interpret mode) and the oracle."""
+    m, k, n, page_k, n_pages, bm, bn = shape
+    x, w, pids = _inputs(shape, 3)
+    jdt, tdt = DTYPES[name]
+    rows = -(-k // splits)
+    got = paged_matmul_split_ref(torch.from_numpy(x).to(tdt),
+                                 torch.from_numpy(w).to(tdt),
+                                 torch.from_numpy(pids), rows)
+    assert got.dtype == tdt and got.shape == (m, n)
+    xj, wj = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    kernel = jax_stream_matmul(xj, wj, jnp.asarray(pids), block_m=bm,
+                               block_n=bn)
+    oracle = paged_matmul_ref(xj, wj, jnp.asarray(pids))
+    for want in (kernel, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **_tol(name))
+
+
+def test_split_ref_at_the_plan_matches_plain():
+    """At the M = 8 plan's K-splits (4 runs of 512 rows) the split sum
+    equals the plain version within f32 3e-5 (sums in another order)."""
+    p = ops.plan(8, 2048, 6144, 256, BF16)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((8, 2048), generator=gen)
+    w = torch.randn((16, 256, 6144), generator=gen) * 0.02
+    ids = torch.randperm(16, generator=gen)[:8].to(torch.int32)
+    got = paged_matmul_split_ref(x, w, ids, p.tiles_per_split * p.tile_k)
+    torch.testing.assert_close(got, plain_ref(x, w, ids), atol=3e-5,
+                               rtol=3e-5)

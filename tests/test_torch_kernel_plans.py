@@ -56,6 +56,9 @@ PREFILL_SHAPES = {
     "G=8": (2, 256, 16, 2, 2048, 128),
     "D=64": (2, 37, 16, 8, 2048, 64),
     "smoke": (2, 8, 4, 4, 64, 16),
+    "gemma-2b": (1, 256, 8, 1, 2048, 256),
+    "ragged D=256 G=1": (2, 37, 8, 8, 2048, 256),
+    "ragged D=256 G=8": (2, 37, 8, 1, 2048, 256),
 }
 
 
@@ -132,6 +135,9 @@ def test_prefill_plan_rows_and_fits(shape, dtype):
     if d in fops.MMA_HEAD_DIMS:
         assert p.kernel == ("mma" if dtype == BF16 else "tf32")
         assert p.rows in (16, 32, 64) and p.stages >= 2
+    elif d == 256 and dtype == BF16:
+        assert p.kernel == "mma256"
+        assert p.rows in (16, 32, 64) and p.stages in (2, 3)
     else:
         assert p.kernel == "scalar" and p.stages == 1
 
@@ -167,10 +173,47 @@ def test_prefill_mma_plans_at_qwen3_chunk(rows, stages):
                                      (16, F32), (256, F32)], ids=str)
 def test_prefill_plan_scalar_instances(d, dtype):
     """The head dims without a tensor-core instance stay on the scalar
-    kernel in both dtypes, named by the plan (no kernel is tried in place
-    of another). f32 at the tensor-core head dims is checked in
-    ``tests/test_torch_tf32_ssd.py``."""
-    assert fops.plan(1, 256, 16, 8, d, dtype).kernel == "scalar"
+    kernel in both dtypes (D 16 and 32; f32 at D 256), named by the plan
+    (no kernel is tried in place of another). bf16 at D 256 has its own
+    tensor-core instance, "mma256". f32 at the tensor-core head dims is
+    checked in ``tests/test_torch_tf32_ssd.py``."""
+    want = "mma256" if (d, dtype) == (256, BF16) else "scalar"
+    assert fops.plan(1, 256, 16, 8, d, dtype).kernel == want
+
+
+@pytest.mark.parametrize("rows,stages", [(16, 2), (16, 3), (32, 2), (32, 3),
+                                         (64, 2)])
+def test_prefill_d256_plans_at_gemma_chunk(rows, stages):
+    """The D 256 plans chip_smoke.py times at gemma-2b's chunk (256 tokens
+    x 8 query heads over one kv head: 2048 rows): q's rows and a ring of
+    ``stages`` 64-key K and V tiles, bf16 rows padded to 264, inside the
+    block's shared memory; the grid covers the 2048 rows once."""
+    b, c, h, hkv, _, d = PREFILL_SHAPES["gemma-2b"]
+    p = fops.d256_plan(b, c, h, hkv, rows, stages)
+    fops.check_plan(p, b, c, h, hkv, d, BF16)
+    assert p.smem_bytes == 2 * 264 * (rows + stages * 2 * 64) <= MAX_SMEM
+    assert p.grid == (2048 // rows, 1, 1)
+    assert p.grid[0] * p.rows == c * (h // hkv)
+
+
+def test_prefill_d256_plan_at_gemma_chunk():
+    """plan() names the D 256 instance at gemma's chunk with rows and
+    stages it takes; the 64-row, 3-stage ring (236,544 bytes) and rows
+    or stages outside its range are refused."""
+    import dataclasses
+    b, c, h, hkv, _, d = PREFILL_SHAPES["gemma-2b"]
+    p = fops.plan(b, c, h, hkv, d, BF16)
+    assert (p.kernel, p.rows, p.stages) == ("mma256", fops.D256_ROWS,
+                                            fops.D256_STAGES)
+    assert p.smem_bytes <= MAX_SMEM and p.grid[0] * p.rows == 2048
+    for bad in (fops.d256_plan(b, c, h, hkv, 64, 3),
+                dataclasses.replace(p, stages=4),
+                dataclasses.replace(p, rows=48),
+                dataclasses.replace(p, smem_bytes=p.smem_bytes - 16)):
+        with pytest.raises(ValueError):
+            fops.check_plan(bad, b, c, h, hkv, d, BF16)
+    with pytest.raises(ValueError):
+        fops.check_plan(p, b, c, h, hkv, d, F32)       # f32 runs scalar
 
 
 # ------------------------------------------------- split-and-merge arithmetic
@@ -258,6 +301,28 @@ def test_flash_prefill_plain_matches_chunk_prefill_d80(dtype, softcap, g):
     k_j, k_t = _pair(rng, (b, smax, hkv, d), dtype)
     v_j, v_t = _pair(rng, (b, smax, hkv, d), dtype)
     pos = np.array([smax - c, 5], np.int32)
+    want = jattn.chunk_prefill_attention(q_j, k_j, v_j, jnp.asarray(pos),
+                                         logit_softcap=softcap)
+    got = flash_prefill(q_t, k_t, v_t, torch.from_numpy(pos),
+                        logit_softcap=softcap)
+    assert got.dtype == dtype and got.shape == q_t.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=str)
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_flash_prefill_plain_matches_chunk_prefill_d256(dtype, softcap):
+    """The D 256 instance's widths at gemma-2b's heads (one kv head of 8
+    query heads): a ragged 37-token chunk ending at the cache's end beside
+    one at an offset past a block edge, against the serving path's jnp
+    chunk_prefill_attention."""
+    from repro_torch.kernels.flash_attention.ops import flash_prefill
+    rng = np.random.default_rng(13)
+    b, c, hkv, g, d, smax = 2, 37, 1, 8, 256, 72
+    q_j, q_t = _pair(rng, (b, c, hkv * g, d), dtype)
+    k_j, k_t = _pair(rng, (b, smax, hkv, d), dtype)
+    v_j, v_t = _pair(rng, (b, smax, hkv, d), dtype)
+    pos = np.array([smax - c, 9], np.int32)
     want = jattn.chunk_prefill_attention(q_j, k_j, v_j, jnp.asarray(pos),
                                          logit_softcap=softcap)
     got = flash_prefill(q_t, k_t, v_t, torch.from_numpy(pos),
