@@ -5,7 +5,8 @@
         [--chunks 2] [--kv-quant int8]
 
 Builds the full-width engine of ``chip_smoke.py`` for ``--arch``
-(qwen3-1.7b or zamba2-2.7b; 8 slots, 2048-token slots, bf16 weights, KV
+(qwen3-1.7b, zamba2-2.7b or gemma-2b; 8 slots, 2048-token slots, bf16
+weights, KV
 pages in bf16 or, with ``--kv-quant int8``, int8 codes with per-page
 scales; random weights from a seed), fills every slot with a
 300-1000-token prompt,

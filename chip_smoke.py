@@ -9,8 +9,8 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernels from ``src/repro_torch/csrc`` (timed) and print each kernel
    instance's registers, shared memory and spills (``-Xptxas -v``); with
-   ``--parent DIR`` (a checkout of the commit before the D 256
-   flash_prefill and paged_matmul redesign, refused unless its C entries
+   ``--parent DIR`` (a checkout of the commit before the f32 flash_prefill
+   at D 256 and f32 paged_matmul redesign, refused unless its C entries
    take the arguments this script passes them and both are still its
    scalar kernels) also build that commit's two kernels into a second
    library, at the same time, to time old and new in this run;
@@ -19,44 +19,48 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    exists, one PyTorch library call (SDPA, cuBLAS) -- kernel and library
    call as device time (calls captured in a CUDA graph and replayed
    between CUDA events), the plain version per call with CUDA events;
-   the decode kernel (both modes), the f32 and the D 256 flash_prefill,
-   the SSD scan and paged_matmul must be bit-identical run to run over 50
-   repeats; the bf16, f32 and D 256 prefill, the SSD scan and
+   the decode kernel (both modes), the f32 and the D 256 flash_prefill
+   instances, the SSD scan and paged_matmul (all four tensor-core and f32
+   instances) must be bit-identical run to run over 50 repeats; the
+   bf16, f32 and both D 256 prefill instances, the SSD scan and
    paged_matmul are also timed at the other plans of their sweeps (rows
-   per CTA x stages; spans per (row, head); K-splits or block tiles x
-   stages). In turn: the two attention kernels in bf16 (atol = rtol =
-   2e-2) at qwen3-1.7b's heads (Hkv 8, 2 query heads each, D 128), at
-   zamba2-2.7b's (Hkv = H = 32, D 80) and, the decode kernel, at
-   gemma-2b's (one kv head of 8 query heads, D 256); the decode kernel's
-   int8 mode at qwen3's heads (bf16 2e-2,
-   int8 pages with their scales, the new row at full precision; its
+   per CTA x stages, or stages; spans per (row, head);
+   K-splits or block tiles x stages). In turn: the two attention kernels
+   in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's heads (Hkv 8, 2 query
+   heads each, D 128), at zamba2-2.7b's (Hkv = H = 32, D 80) and, the
+   decode kernel, at gemma-2b's (one kv head of 8 query heads, D 256);
+   the decode kernel's int8 mode at qwen3's heads and at gemma-2b's (bf16
+   2e-2, int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
    (bf16 2e-2, f32 1e-4): flash_prefill at a ragged 37-token chunk near
    the cache's end, G = 1, 2 and 8, D 64 and 256, softcap 30, in bf16 and
-   in f32 (the 3xTF32 kernel at D 80, 128 and 64, the scalar one at 256);
-   paged_decode, both modes, at
-   lengths 1, 255, 256, 257 and Smax around a split, G = 1 and 8, the int8
-   fresh row on a tile's first and last row and past the cache; the f32
-   flash_prefill instance (3xTF32 tensor cores) at the int8 path's chunk,
-   timed beside f32 SDPA; the bf16 D 256 instance (tensor cores, two
-   warps per 16 rows) at gemma-2b's chunk, timed beside SDPA and the
-   parent's scalar kernel, and the scalar instance there in f32; the SSD
-   scan in f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at zamba2's 80
-   heads, P = N = 64, from a nonzero and a zero state, over a 256-token
-   chunk and a ragged 44-token one; the C entries of the three refusing,
-   before any launch, each plan that ``check_plan`` refuses (rows,
-   stages, tiles or splits the kernel does not take, too little shared
-   memory, the wrong kernel or instance, spans that miss tokens, K tiles
-   across pages); the paged weight-streaming matmul at qwen3's MLP width
-   (x [8, 2048] on the skinny instance and [256, 2048] on the tile one, 8
-   of 16 pages of [256, 6144]; bf16 2e-2, f32 3e-5 on the scalar
-   instance; no path of the reference calls it), timed with the weight
-   cold in L2 (four pools in turn) beside cuBLAS and the parent's kernel
-   at the same L2 state, warm times beside. Then run the smoke-size
-   qwen3-1.7b and zamba2-2.7b (f32), and
-   qwen3-1.7b with int8 pages, through chunked prefill and ragged decode
-   on the card and on the CPU from the same weights, and hold logits and
-   caches together (int8 codes equal but for steps of one, counted);
+   in f32 (the 3xTF32 kernels: at D 80, 128 and 64, and at 256);
+   paged_decode, both modes, at lengths 1, 255, 256, 257 and Smax around
+   a split, G = 1 and 8, the int8 fresh row on a tile's first and last
+   row and past the cache; the f32 flash_prefill instance (3xTF32 tensor
+   cores) at the int8 path's chunk, timed beside f32 SDPA; the bf16 D 256
+   instance (tensor cores, two warps per 16 rows) at gemma-2b's chunk,
+   timed beside SDPA; the f32 D 256 instance (3xTF32, two key groups of
+   four warps on the head dim's quarters) there in f32 (1e-4), timed
+   beside f32 SDPA and the parent's scalar kernel; the scalar instance
+   (D 16 and 32 only) at that chunk's geometry with D 32; the SSD scan in
+   f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at zamba2's 80 heads,
+   P = N = 64, from a nonzero and a zero state, over a 256-token chunk
+   and a ragged 44-token one; the C entries of the three refusing, before
+   any launch, each plan that ``check_plan`` refuses (rows, stages,
+   tiles or splits the kernel does not take, too little shared memory,
+   the wrong kernel or instance, spans that miss tokens, K tiles across
+   pages); the paged weight-streaming matmul at qwen3's MLP width (x
+   [8, 2048] on the skinny instances and [256, 2048] on the tile ones, 8
+   of 16 pages of [256, 6144]; bf16 2e-2, f32 3e-5; no path of the
+   reference calls it), timed with the weight cold in L2 (four pools in
+   turn) beside cuBLAS (f32 beside the parent's scalar instance too) at
+   the same L2 state, warm times beside, and the scalar instance over
+   pages of 32 rows. Then run the smoke-size qwen3-1.7b and zamba2-2.7b
+   (f32), and qwen3-1.7b with int8 pages, through chunked prefill and
+   ragged decode on the card and on the CPU from the same weights, and
+   hold logits and caches together (int8 codes equal but for steps of
+   one, counted);
 3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
    from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
@@ -89,7 +93,15 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    restores stalled on the tier and gave their first run's greedy tokens,
    the D 256 flash_prefill instance ran once per layer per chunk and the
    bf16 paged_decode once per layer per tick, and no other kernel ran;
-7. print the measured numbers, one ``kernels`` JSON line, the card line and
+7. serve gemma-2b at full width with int8 KV pages on the engine and
+   traffic of phase 3, with phase 5's gates at gemma's shape: every
+   request finished, the int8 decode ran once per layer per tick and the
+   f32 D 256 flash_prefill instance once per layer per chunk, no other
+   kernel ran, every resubmit was restored with its first token and its
+   prompt's full pages bit for bit, restores from post-prefill entries
+   gave the first run's tokens, and the entry is under 0.55 of phase 6's
+   bf16 entry;
+8. print the measured numbers, one ``kernels`` JSON line, the card line and
    last ``{"ok": true, "device": {...}}``. ``chiprun_out/chip_smoke.json``
    keeps the full record.
 """
@@ -258,9 +270,14 @@ def launch_plans():
         N_SLOTS, 8, 1, MAX_SEQ, 256, 256, torch.bfloat16)
     plans[f"flash_prefill {GEMMA} bf16"] = fops.plan(
         1, CHUNK, 8, 1, 256, torch.bfloat16)
+    plans[f"paged_decode {GEMMA} int8"] = dops.plan(
+        N_SLOTS, 8, 1, MAX_SEQ, 256, 256, torch.int8)
+    plans[f"flash_prefill {GEMMA} f32"] = fops.plan(
+        1, CHUNK, 8, 1, 256, torch.float32)
     for m in (8, CHUNK):
-        plans[f"paged_matmul M={m} bf16"] = hops.plan(
-            m, MATMUL_K, MATMUL_N, MATMUL_PAGE_K, torch.bfloat16)
+        for dt in (torch.bfloat16, torch.float32):
+            plans[f"paged_matmul M={m} {str(dt)[6:]}"] = hops.plan(
+                m, MATMUL_K, MATMUL_N, MATMUL_PAGE_K, dt)
     return {k: dataclasses.asdict(p) for k, p in plans.items()}
 
 
@@ -581,7 +598,8 @@ def check_prefill_edges(dev):
     pos 0, at G = 1 (zamba2's D 80), G = 2 (qwen3's D 128), G = 8
     (MAX_GROUP), D 64, and D 256 at G = 1 and 8 (gemma-2b's, on the D 256
     instance); softcap 30; and f32 at the same shapes (1e-4): the 3xTF32
-    tensor-core kernel, and the scalar one at D 256."""
+    tensor-core kernels, at D 256 the one with four warps on the head
+    dim's quarters."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     smax = MAX_SEQ
@@ -615,10 +633,10 @@ def check_prefill_edges(dev):
 
 
 # the parent's C entries as parent_prefill and parent_matmul call them
-# (P pointer, I int, F float): the 4-pointer paged_matmul is the scalar
-# kernel without a plan that the tensor-core instances replaced
+# (P pointer, I int, F float): the commit before the f32 redesign, whose
+# paged_matmul takes a plan (instance 0: the scalar kernel)
 PARENT_SIGNATURES = {"repro_flash_prefill": "PPPPPIIIIIIIFFIIIIP",
-                     "repro_paged_matmul": "PPPPIIIIIIP"}
+                     "repro_paged_matmul": "PPPPPPIIIIIIIIIIIIIP"}
 
 
 def parent_signatures(build_py):
@@ -640,13 +658,13 @@ def parent_signatures(build_py):
 
 def parent_library(parent):
     """The flash_prefill and paged_matmul kernels of the commit before
-    their redesign (the scalar flash_prefill instance at bf16 D 256, the
-    scalar paged_matmul), built from ``parent`` -- a checkout of that
-    commit (``--parent DIR``) -- into a second library so that this run
-    times old and new on the same card. None without it. Fails unless the
-    checkout's C entries take the arguments that ``parent_prefill`` and
-    ``parent_matmul`` pass, its bf16 prefill at D 256 is the scalar kernel
-    and its paged_matmul has no tensor-core instance."""
+    their f32 redesign (the scalar flash_prefill instance at f32 D 256, the
+    scalar paged_matmul instance in f32), built from ``parent`` -- a
+    checkout of that commit (``--parent DIR``) -- into a second library so
+    that this run times old and new on the same card. None without it.
+    Fails unless the checkout's C entries take the arguments that
+    ``parent_prefill`` and ``parent_matmul`` pass and both f32 instances
+    are still its scalar kernels."""
     import ctypes
     from pathlib import Path
     from repro_torch.kernels import build
@@ -661,12 +679,13 @@ def parent_library(parent):
         if sigs.get(name) != want:
             fail(f"--parent {parent}: {name} takes {sigs.get(name)}, not "
                  f"{want}: not the commit before the redesign")
-    if "flash_prefill_d256_kernel" in (csrc / "flash_prefill.cu").read_text():
-        fail(f"--parent {parent}: its bf16 prefill at D 256 is already the "
-             f"tensor-core kernel")
-    if "mma_bf16" in (csrc / "paged_matmul.cu").read_text():
-        fail(f"--parent {parent}: its paged_matmul is already on tensor "
-             f"cores")
+    prefill = (csrc / "flash_prefill.cu").read_text()
+    if "REPRO_SCALAR(256)" not in prefill or "tf32_256" in prefill:
+        fail(f"--parent {parent}: its f32 prefill at D 256 is not the "
+             f"scalar kernel")
+    if "_f32_kernel" in (csrc / "paged_matmul.cu").read_text():
+        fail(f"--parent {parent}: its f32 paged_matmul is not the scalar "
+             f"instance")
     lib = ctypes.CDLL(str(build.build(csrc, ("flash_prefill",
                                              "paged_matmul"))))
     ctype = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
@@ -678,7 +697,7 @@ def parent_library(parent):
 
 
 def parent_prefill(lib, q, kc, vc, pos):
-    """The parent's flash_prefill at D 256: the scalar kernel's 64-row
+    """The parent's flash_prefill at f32 D 256: the scalar kernel's 64-row
     CTAs."""
     import torch
     from repro_torch.kernels import build
@@ -698,15 +717,17 @@ def parent_prefill(lib, q, kc, vc, pos):
 
 
 def parent_matmul(lib, x, pool, ids):
-    """The parent's paged_matmul: scalar f32 FMAs on 64 x 64 tiles."""
+    """The parent's f32 paged_matmul: its scalar instance (scalar f32 FMAs
+    on 64 x 64 tiles, 32-deep K slices; instance code 0)."""
     import torch
     from repro_torch.kernels import build
     m, k = x.shape
     n_pages, page_k, n = pool.shape
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = lib.repro_paged_matmul(x.data_ptr(), pool.data_ptr(),
-                                ids.data_ptr(), y.data_ptr(), m, k, n,
+                                ids.data_ptr(), y.data_ptr(), 0, 0, m, k, n,
                                 page_k, n_pages, build.DTYPE_CODES[x.dtype],
+                                0, 64, 64, 32, 1, 1, 0,
                                 build.stream_ptr(x.device))
     build.check(rc, "parent paged_matmul")
     return y
@@ -776,13 +797,13 @@ def check_prefill_f32(dev):
     return res
 
 
-def gemma_chunk(dev, dtype, seed=8):
-    """gemma-2b's prefill chunk: q [1,256,8,256] over one kv head, a
-    2048-token cache, pos 300; with SDPA on the same inputs (the kv head
-    expanded beforehand, untimed)."""
+def gemma_chunk(dev, dtype, seed=8, d=256):
+    """gemma-2b's prefill chunk: q [1,256,8,d] over one kv head (d 256,
+    its head_dim), a 2048-token cache, pos 300; with SDPA on the same
+    inputs (the kv head expanded beforehand, untimed)."""
     import torch
     import torch.nn.functional as F
-    c, smax, hkv, g, d, p0 = CHUNK, MAX_SEQ, 1, 8, 256, 300
+    c, smax, hkv, g, p0 = CHUNK, MAX_SEQ, 1, 8, 300
     h = hkv * g
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((1, c, h, d), generator=gen, device=dev).to(dtype)
@@ -804,13 +825,12 @@ def gemma_chunk(dev, dtype, seed=8):
     return q, kc, vc, pos, sdpa, n_bytes, 4 * visible * h * d, shape
 
 
-def check_prefill_d256(dev, parent):
+def check_prefill_d256(dev):
     """The bf16 flash_prefill instance at D 256 (two warps per 16 rows,
     each on half of the head dim), which gemma-2b's prefill runs, at its
     chunk (bf16 2e-2): softcap 0 and 30, pos 0 and 300; bit-identical over
-    50 repeats; timed beside SDPA, at every plan of the sweep (rows per CTA
-    x stages), and beside the parent's scalar kernel where ``parent`` is
-    built. Its edge shapes are in ``check_prefill_edges``."""
+    50 repeats; timed beside SDPA and at every plan of the sweep (rows per
+    CTA x stages). Its edge shapes are in ``check_prefill_edges``."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     q, kc, vc, pos, sdpa, n_bytes, flops, shape = gemma_chunk(
@@ -848,37 +868,90 @@ def check_prefill_d256(dev, parent):
                     ops.launch(q, kc, vc, pos, 0.0, alt), want)
         res["plans_ms"][f"rows{rows} stages{stages} ctas{alt.grid[0]}"] = \
             device_ms(lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 20)
-    res["parent_ms"] = None
-    if parent is not None:
-        res["parent_err"] = check_close(
-            "parent flash_prefill D256",
-            parent_prefill(parent, q, kc, vc, pos), want)
-        res["parent_ms"] = device_ms(
-            lambda: parent_prefill(parent, q, kc, vc, pos), 20)
-        res["ms_again"] = device_ms(
-            lambda: ops.flash_prefill(q, kc, vc, pos), 20)
     res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, BF16_FLOPS)
     res["max_abs_err"] = res["err_pos300_softcap0"]
     res["shape"] = shape
     return res
 
 
-def check_prefill_scalar(dev):
-    """The scalar flash_prefill instance, which what has no tensor-core
-    instance runs (D 16 and 32 in both dtypes, the smoke models' 16; f32
-    at D 256, gemma-2b with int8 pages), at gemma-2b's chunk in f32
-    (1e-4), timed beside f32 SDPA (TF32 off). No measured path runs it."""
+def check_prefill_tf32_256(dev, parent):
+    """The f32 flash_prefill instance at D 256 (3xTF32; two key groups of
+    four warps, each warp on a quarter of the head dim), which gemma-2b's
+    prefill over int8 pages runs, at its chunk in f32 (1e-4): softcap 0
+    and 30, pos 0 and 300; bit-identical over 50 repeats; timed beside f32
+    SDPA (TF32 off), at every plan of the sweep (stages), and beside the
+    parent's scalar kernel where ``parent`` is built. Its
+    edge shapes are in ``check_prefill_edges``."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     q, kc, vc, pos, sdpa, n_bytes, flops, shape = gemma_chunk(
         dev, torch.float32)
     _, c, h, d = q.shape
+    hkv = kc.shape[2]
+    tol = dict(atol=1e-4, rtol=1e-4)
+    p = ops.plan(1, c, h, hkv, d, torch.float32)
+    if p.kernel != "tf32_256":
+        fail(f"flash_prefill f32 at D 256 is planned on {p.kernel}")
+    res = {"plan": str(p)}
+    for p0 in (0, 300):
+        pp = torch.tensor([p0], dtype=torch.int32, device=dev)
+        for cap in (0.0, 30.0):
+            got = ops.flash_prefill(q, kc, vc, pp, logit_softcap=cap)
+            want = ref.flash_prefill_ref(q, kc, vc, pp, cap)
+            torch.cuda.synchronize()
+            res[f"err_pos{p0}_softcap{cap:g}"] = check_close(
+                f"flash_prefill f32 D256 pos={p0} cap={cap}", got, want, tol)
+    q2 = torch.randn_like(q)
+    res["bitwise_repeats"] = check_repeatable(
+        "flash_prefill f32 D256", lambda: ops.flash_prefill(q, kc, vc, pos),
+        lambda: ops.flash_prefill(q2, kc, vc, pos))
+    got = ops.flash_prefill(q, kc, vc, pos)
+    want = ref.flash_prefill_ref(q, kc, vc, pos)
+    res["library_err"] = float((sdpa().transpose(1, 2) - got).abs().max())
+    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["plain_ms"] = time_ms(
+        lambda: ref.flash_prefill_ref(q, kc, vc, pos), 5)
+    res["library_ms"] = device_ms(sdpa, 20)
+    res["plans_ms"] = {}
+    for stages in (2, 3):
+        alt = ops.tf32_256_plan(1, c, h, hkv, ops.TQ_ROWS, stages)
+        check_close(f"flash_prefill f32 D256 stages={stages}",
+                    ops.launch(q, kc, vc, pos, 0.0, alt), want, tol)
+        res["plans_ms"][f"stages{stages} ctas{alt.grid[0]}"] = device_ms(
+            lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 20)
+    res["parent_ms"] = None
+    if parent is not None:
+        res["parent_err"] = check_close(
+            "parent flash_prefill f32 D256",
+            parent_prefill(parent, q, kc, vc, pos), want, tol)
+        res["parent_ms"] = device_ms(
+            lambda: parent_prefill(parent, q, kc, vc, pos), 20)
+        res["ms_again"] = device_ms(
+            lambda: ops.flash_prefill(q, kc, vc, pos), 20)
+    res["bound_ms"], res["bound_by"] = bound(
+        n_bytes, TF32_PRODUCTS * flops, TF32_FLOPS)
+    res["bound_f32_fma_ms"] = bound(n_bytes, flops, F32_FLOPS)[0]
+    res["max_abs_err"] = res["err_pos300_softcap0"]
+    res["shape"] = shape
+    return res
+
+
+def check_prefill_scalar(dev):
+    """The scalar flash_prefill instance, which only the head dims without
+    a tensor-core instance run (D 16 and 32, the smoke models'), at
+    gemma-2b's chunk geometry with D 32 in f32 (1e-4), timed beside f32
+    SDPA (TF32 off). No full-width path runs it."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, kc, vc, pos, sdpa, n_bytes, flops, shape = gemma_chunk(
+        dev, torch.float32, d=32)
+    _, c, h, d = q.shape
     if ops.plan(1, c, h, kc.shape[2], d, torch.float32).kernel != "scalar":
-        fail("flash_prefill f32 at D 256 is not planned on the scalar "
+        fail("flash_prefill f32 at D 32 is not planned on the scalar "
              "kernel")
     got = ops.flash_prefill(q, kc, vc, pos)
     res = {"max_abs_err": check_close(
-        "flash_prefill scalar f32 D=256", got,
+        "flash_prefill scalar f32 D=32", got,
         ref.flash_prefill_ref(q, kc, vc, pos), dict(atol=1e-4, rtol=1e-4))}
     res["library_err"] = float((sdpa().transpose(1, 2) - got).abs().max())
     res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 20)
@@ -977,7 +1050,7 @@ def check_refusals(dev):
     stream = build.stream_ptr(dev)
     out = {}
     tf32 = fops.tf32_plan(1, 256, 16, 8, 64, 32, 2)
-    prefill = {   # name: (plan, dtype) at q [1,256,16,64], or D 256
+    prefill = {   # name: (plan, dtype, D) at q [1,256,16,D]
         "tf32 rows 48": (fops.Plan("tf32", (11, 8, 1), 48, 2,
                                    tf32.smem_bytes), torch.float32, 64),
         "tf32 stages 4": (fops.tf32_plan(1, 256, 16, 8, 64, 32, 4),
@@ -988,10 +1061,10 @@ def check_refusals(dev):
                          torch.bfloat16, 64),
         "mma on f32": (fops.mma_plan(1, 256, 16, 8, 64, 16, 3),
                        torch.float32, 64),
-        "scalar rows 32": (fops.Plan("scalar", (128, 8, 1), 32, 1,
+        "scalar rows 32": (fops.Plan("scalar", (16, 8, 1), 32, 1,
                                      fops.scalar_plan(
-                                         1, 256, 16, 8, 256).smem_bytes),
-                           torch.float32, 256),
+                                         1, 256, 16, 8, 32).smem_bytes),
+                           torch.float32, 32),
         "mma256 rows 48": (fops.Plan("mma256", (11, 8, 1), 48, 2,
                                      fops.d256_plan(1, 256, 16, 8, 64,
                                                     2).smem_bytes),
@@ -1004,7 +1077,21 @@ def check_refusals(dev):
             smem_bytes=fops.d256_plan(1, 256, 16, 8, 16, 3).smem_bytes - 16),
             torch.bfloat16, 256),
         "mma256 on f32": (fops.d256_plan(1, 256, 16, 8, 16, 3),
-                          torch.float32, 256)}
+                          torch.float32, 256),
+        "scalar at f32 D 256": (fops.scalar_plan(1, 256, 16, 8, 256),
+                                torch.float32, 256),
+        "tf32_256 rows 32": (fops.tf32_256_plan(1, 256, 16, 8, 32, 2),
+                             torch.float32, 256),
+        "tf32_256 stages 4": (dataclasses.replace(
+            fops.tf32_256_plan(1, 256, 16, 8, 16, 3), stages=4),
+            torch.float32, 256),
+        "tf32_256 smem short": (dataclasses.replace(
+            fops.tf32_256_plan(1, 256, 16, 8, 16, 2),
+            smem_bytes=fops.tf32_256_plan(1, 256, 16, 8, 16, 2
+                                          ).smem_bytes - 16),
+            torch.float32, 256),
+        "tf32_256 on bf16": (fops.tf32_256_plan(1, 256, 16, 8, 16, 2),
+                             torch.bfloat16, 256)}
     for name, (pl, dtype, d) in prefill.items():
         q = torch.zeros((1, 256, 16, d), dtype=dtype, device=dev)
         kc = torch.zeros((1, MAX_SEQ, 8, d), dtype=dtype, device=dev)
@@ -1051,6 +1138,8 @@ def check_refusals(dev):
     m, k, n = 8, MATMUL_K, MATMUL_N
     sk = hops.plan(m, k, n, MATMUL_PAGE_K, torch.bfloat16)
     tl = hops.plan(256, k, n, MATMUL_PAGE_K, torch.bfloat16)
+    skf = hops.plan(m, k, n, MATMUL_PAGE_K, torch.float32)
+    tlf = hops.plan(256, k, n, MATMUL_PAGE_K, torch.float32)
     matmul = {   # name: (plan, M, page_k, dtype)
         "skinny M 17": (sk, 17, MATMUL_PAGE_K, torch.bfloat16),
         "skinny stages 5": (dataclasses.replace(
@@ -1066,7 +1155,23 @@ def check_refusals(dev):
         "skinny on f32": (sk, m, MATMUL_PAGE_K, torch.float32),
         "tile on M 8": (tl, m, MATMUL_PAGE_K, torch.bfloat16),
         "tile 64x64": (dataclasses.replace(tl, tile_m=64, tile_n=64), 256,
-                       MATMUL_PAGE_K, torch.bfloat16)}
+                       MATMUL_PAGE_K, torch.bfloat16),
+        "skinny_f32 on bf16": (skf, m, MATMUL_PAGE_K, torch.bfloat16),
+        "skinny_f32 M 17": (skf, 17, MATMUL_PAGE_K, torch.float32),
+        "skinny_f32 smem short": (dataclasses.replace(
+            skf, smem_bytes=skf.smem_bytes - 16), m, MATMUL_PAGE_K,
+            torch.float32),
+        "tile_f32 on M 8": (tlf, m, MATMUL_PAGE_K, torch.float32),
+        "tile_f32 96x64": (dataclasses.replace(tlf, tile_m=96, tile_n=64),
+                           256, MATMUL_PAGE_K, torch.float32),
+        "tile_f32 smem short": (dataclasses.replace(
+            tlf, smem_bytes=tlf.smem_bytes - 16), 256, MATMUL_PAGE_K,
+            torch.float32),
+        "tile on f32": (tl, 256, MATMUL_PAGE_K, torch.float32),
+        "scalar where skinny_f32 runs": (hops.scalar_plan(
+            m, k, n, MATMUL_PAGE_K), m, MATMUL_PAGE_K, torch.float32),
+        "scalar where tile runs": (hops.scalar_plan(
+            256, k, n, MATMUL_PAGE_K), 256, MATMUL_PAGE_K, torch.bfloat16)}
     x = torch.zeros((256, k), dtype=torch.bfloat16, device=dev)
     part = torch.zeros((k // sk.tile_k * 2, 256, n), device=dev)
     counters = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -1104,12 +1209,13 @@ def rotating(fn, n):
     return call
 
 
-def check_paged_matmul(dev, parent):
-    """paged_matmul at qwen3-1.7b's MLP width: x [8, 2048] (the decode
-    batch, the skinny instance) and [256, 2048] (a prefill chunk, the tile
-    instance) against 8 logical pages of [256, 6144] drawn by a seeded
-    permutation from a pool of 16 (bf16 2e-2); f32 at M = 256 on the
-    scalar instance (3e-5). The weights are at the models' init scale,
+def check_paged_matmul(dev):
+    """paged_matmul in bf16 at qwen3-1.7b's MLP width: x [8, 2048] (the
+    decode batch, the skinny instance) and [256, 2048] (a prefill chunk,
+    the tile instance) against 8 logical pages of [256, 6144] drawn by a
+    seeded permutation from a pool of 16 (bf16 2e-2). The f32 instances
+    are ``check_paged_matmul_f32``'s. The weights are at the models' init
+    scale,
     N(0, 0.02^2), so that y is O(1) as in a layer: f32 sums of 2048
     products taken in another order than cuBLAS's part by ~1e-4 when y is
     O(50), as unit-variance weights make it. Bit-identical over 50
@@ -1117,9 +1223,9 @@ def check_paged_matmul(dev, parent):
     weight-streaming caller finds it: each call reads another of
     MATMUL_POOLS pools (25 MB of pages each, MATMUL_POOLS - 1 others
     between two uses against the card's 50 MB of L2), for the kernel,
-    every plan of its sweep, cuBLAS ``torch.matmul`` on the pre-gathered
-    weight (the library time) and the parent's kernel where ``parent`` is
-    built; the warm times (one pool) beside them, named as such."""
+    every plan of its sweep and cuBLAS ``torch.matmul`` on the
+    pre-gathered weight (the library time); the warm times (one pool)
+    beside them, named as such."""
     import torch
     from repro_torch.kernels.hdm_stream import ops, ref
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1170,27 +1276,14 @@ def check_paged_matmul(dev, parent):
             r["plans_ms"][f"{key} ctas{alt.grid[0] * alt.grid[1]}"] = \
                 device_ms(rotating(lambda i, pl=alt: ops.launch(
                     x, pools[i], ids, pl), n), 4 * n)
-        r["parent_ms"] = None
-        if parent is not None:
-            r["parent_err"] = check_close(
-                f"parent paged_matmul M={m}",
-                parent_matmul(parent, x, pool, ids), want)
-            r["parent_ms"] = device_ms(rotating(
-                lambda i: parent_matmul(parent, x, pools[i], ids), n), 4 * n)
-            r["parent_warm_ms"] = device_ms(
-                lambda: parent_matmul(parent, x, pool, ids), 20)
-            r["ms_again"] = device_ms(rotating(
-                lambda i: ops.stream_matmul(x, pools[i], ids), n), 4 * n)
         # x and the 8 pages read once, y written once (bf16)
         n_bytes = 2 * (x.numel() + w.numel() + m * MATMUL_N) + 4 * n_k
         r["bound_ms"], r["bound_by"] = bound(n_bytes,
                                              2 * m * MATMUL_K * MATMUL_N)
         res[f"m{m}"] = r
-        if m == 256:
-            res["f32"] = check_paged_matmul_f32(dev, x, pool, ids)
     res.update({k: res["m8"][k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by",
-                                          "parent_ms", "plans_ms")})
+                                          "plans_ms")})
     res["max_abs_err"] = max(res["m8"]["err"], res["m256"]["err"])
     res["shape"] = (f"x [8,{MATMUL_K}] (also [256,{MATMUL_K}]) bf16, "
                     f"w_pages [{MATMUL_POOL},{MATMUL_PAGE_K},{MATMUL_N}], "
@@ -1198,31 +1291,123 @@ def check_paged_matmul(dev, parent):
     return res
 
 
-def check_paged_matmul_f32(dev, x, pool, ids):
-    """The scalar paged_matmul instance, which f32 runs, at M = 256 (3e-5),
-    timed warm beside f32 cuBLAS (TF32 off)."""
+def check_paged_matmul_f32(dev, parent):
+    """paged_matmul in f32 at qwen3-1.7b's MLP width, pages and ids drawn
+    as in ``check_paged_matmul``: x [8, 2048] on skinny_f32 (FFMA; its
+    plain version ``ref.paged_matmul_split_ref`` at the plan's K-splits)
+    and [256, 2048] on tile_f32 (3xTF32), both at 3e-5 against
+    ``ref.paged_matmul_ref`` and bit-identical over 50 repeats; timed with
+    the weight cold in L2 (four pools in turn) and warm, beside f32 cuBLAS
+    (TF32 off) on the gathered weight, the parent's scalar instance where
+    ``parent`` is built, and every plan of the sweeps (K-splits x stages;
+    block tiles x stages). Then the scalar instance, which now runs only
+    shapes neither takes, at M = 256 over pages of 32 rows (64 of a pool
+    of 128), warm."""
     import torch
     from repro_torch.kernels.hdm_stream import ops, ref
-    x32, pool32 = x.float(), pool.float()
-    m, k = x32.shape
-    if ops.plan(m, k, MATMUL_N, MATMUL_PAGE_K, torch.float32).instance \
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pools = [torch.randn((MATMUL_POOL, MATMUL_PAGE_K, MATMUL_N),
+                         generator=gen, device=dev) * 0.02
+             for _ in range(MATMUL_POOLS)]
+    n_k = MATMUL_K // MATMUL_PAGE_K
+    ids = torch.randperm(MATMUL_POOL, generator=torch.Generator(
+    ).manual_seed(SEED))[:n_k].to(dev, torch.int32)
+    ws = [pl[ids.long()].reshape(MATMUL_K, MATMUL_N) for pl in pools]
+    pool, w = pools[0], ws[0]
+    n = MATMUL_POOLS
+    res = {}
+    for m, name in ((8, "skinny_f32"), (256, "tile_f32")):
+        x = torch.randn((m, MATMUL_K), generator=gen, device=dev)
+        p = ops.plan(m, MATMUL_K, MATMUL_N, MATMUL_PAGE_K, torch.float32)
+        if p.instance != name:
+            fail(f"paged_matmul f32 M={m} is planned on {p.instance}")
+        got = ops.stream_matmul(x, pool, ids)
+        want = ref.paged_matmul_ref(x, pool, ids)
+        torch.cuda.synchronize()
+        r = {"plan": str(p), "max_abs_err": check_close(
+            f"paged_matmul f32 M={m}", got, want, F32_TOL)}
+        if m <= ops.SKINNY_M:
+            r["split_ref_err"] = check_close(
+                f"paged_matmul f32 M={m} vs its split sum", got,
+                ref.paged_matmul_split_ref(x, pool, ids,
+                                           p.tiles_per_split * p.tile_k),
+                F32_TOL)
+        x2 = torch.randn_like(x)
+        r["bitwise_repeats"] = check_repeatable(
+            f"paged_matmul f32 M={m}",
+            lambda: ops.stream_matmul(x, pool, ids),
+            lambda: ops.stream_matmul(x2, pool, ids))
+        r["ms"] = device_ms(rotating(
+            lambda i: ops.stream_matmul(x, pools[i], ids), n), 4 * n)
+        r["warm_ms"] = device_ms(lambda: ops.stream_matmul(x, pool, ids), 20)
+        r["plain_ms"] = time_ms(
+            lambda: ref.paged_matmul_ref(x, pool, ids), 10)
+        r["library_ms"] = device_ms(rotating(
+            lambda i: torch.matmul(x, ws[i]), n), 4 * n)
+        r["library_warm_ms"] = device_ms(lambda: torch.matmul(x, w), 20)
+        r["library_err"] = float((torch.matmul(x, w) - got).abs().max())
+        alts = ([ops.skinny_plan(m, MATMUL_K, MATMUL_N, sp, st, torch.float32)
+                 for sp in (2, 4, 8) for st in (2, 3, 4)] if m <= 16
+                else [ops.tile_plan(m, MATMUL_K, MATMUL_N, tm, tn, st,
+                                    torch.float32)
+                      for tm, tn in ops.TILE_F32_SHAPES for st in (2, 3)])
+        r["plans_ms"] = {}
+        for alt in alts:
+            check_close(f"paged_matmul f32 M={m} {alt}",
+                        ops.launch(x, pool, ids, alt), want, F32_TOL)
+            key = (f"splits{alt.splits} stages{alt.stages}" if m <= 16 else
+                   f"tile{alt.tile_m}x{alt.tile_n} stages{alt.stages}")
+            r["plans_ms"][f"{key} ctas{alt.grid[0] * alt.grid[1]}"] = \
+                device_ms(rotating(lambda i, pl=alt: ops.launch(
+                    x, pools[i], ids, pl), n), 4 * n)
+        r["parent_ms"] = None
+        if parent is not None:
+            r["parent_err"] = check_close(
+                f"parent paged_matmul f32 M={m}",
+                parent_matmul(parent, x, pool, ids), want, F32_TOL)
+            r["parent_ms"] = device_ms(rotating(
+                lambda i: parent_matmul(parent, x, pools[i], ids), n), 4 * n)
+            r["parent_warm_ms"] = device_ms(
+                lambda: parent_matmul(parent, x, pool, ids), 20)
+            r["ms_again"] = device_ms(rotating(
+                lambda i: ops.stream_matmul(x, pools[i], ids), n), 4 * n)
+        # x and the 8 pages read once, y written once (f32); skinny_f32 on
+        # FFMA, tile_f32 as 3 TF32 products per f32 product
+        n_bytes = 4 * (x.numel() + w.numel() + m * MATMUL_N) + 4 * n_k
+        flops = 2 * m * MATMUL_K * MATMUL_N
+        r["bound_ms"], r["bound_by"] = (
+            bound(n_bytes, flops, F32_FLOPS) if name == "skinny_f32"
+            else bound(n_bytes, TF32_PRODUCTS * flops, TF32_FLOPS))
+        r["shape"] = (f"x [{m},{MATMUL_K}] f32, w_pages [{MATMUL_POOL},"
+                      f"{MATMUL_PAGE_K},{MATMUL_N}], {n_k} page ids, L2 "
+                      f"cold ({n} pools)")
+        res[name] = r
+    # the scalar instance: pages of 32 rows (not whole 64-deep K tiles)
+    page_k = 32
+    small = pools[0].view(-1, page_k, MATMUL_N)          # 128 pages of 32
+    sids = torch.randperm(small.shape[0], generator=torch.Generator(
+    ).manual_seed(SEED))[:MATMUL_K // page_k].to(dev, torch.int32)
+    x = torch.randn((256, MATMUL_K), generator=gen, device=dev)
+    if ops.plan(256, MATMUL_K, MATMUL_N, page_k, torch.float32).instance \
             != "scalar":
-        fail("paged_matmul f32 is not planned on the scalar instance")
-    got = ops.stream_matmul(x32, pool32, ids)
+        fail("paged_matmul f32 over 32-row pages is not planned on the "
+             "scalar instance")
+    got = ops.stream_matmul(x, small, sids)
     r = {"max_abs_err": check_close(
-        "paged_matmul f32 M=256", got,
-        ref.paged_matmul_ref(x32, pool32, ids), F32_TOL)}
-    w32 = pool32[ids.long()].reshape(k, MATMUL_N)
-    r["ms"] = device_ms(lambda: ops.stream_matmul(x32, pool32, ids), 20)
+        "paged_matmul scalar f32 M=256", got,
+        ref.paged_matmul_ref(x, small, sids), F32_TOL)}
+    sw = small[sids.long()].reshape(MATMUL_K, MATMUL_N)
+    r["ms"] = device_ms(lambda: ops.stream_matmul(x, small, sids), 20)
     r["plain_ms"] = time_ms(
-        lambda: ref.paged_matmul_ref(x32, pool32, ids), 10)
-    r["library_ms"] = device_ms(lambda: torch.matmul(x32, w32), 20)
-    n_bytes = 4 * (x32.numel() + w32.numel() + m * MATMUL_N) + 4 * len(ids)
-    r["bound_ms"], r["bound_by"] = bound(n_bytes, 2 * m * k * MATMUL_N,
-                                         F32_FLOPS)
-    r["shape"] = (f"x [{m},{k}] f32, w_pages [{MATMUL_POOL},"
-                  f"{MATMUL_PAGE_K},{MATMUL_N}], L2 warm")
-    return r
+        lambda: ref.paged_matmul_ref(x, small, sids), 10)
+    r["library_ms"] = device_ms(lambda: torch.matmul(x, sw), 20)
+    n_bytes = 4 * (x.numel() + sw.numel() + 256 * MATMUL_N) + 4 * len(sids)
+    r["bound_ms"], r["bound_by"] = bound(
+        n_bytes, 2 * 256 * MATMUL_K * MATMUL_N, F32_FLOPS)
+    r["shape"] = (f"x [256,{MATMUL_K}] f32, w_pages [{small.shape[0]},"
+                  f"{page_k},{MATMUL_N}], {len(sids)} page ids, L2 warm")
+    res["scalar"] = r
+    return res
 
 
 def check_model_small(dev, arch, kv_quant="none"):
@@ -1371,10 +1556,13 @@ def read_counters():
             "flash_prefill": fops.kernel_launches["mma"],
             "flash_prefill_d256": fops.kernel_launches["mma256"],
             "flash_prefill_tf32": fops.kernel_launches["tf32"],
+            "flash_prefill_tf32_256": fops.kernel_launches["tf32_256"],
             "flash_prefill_scalar": fops.kernel_launches["scalar"],
             "ssd_scan": sops.launches,
             "paged_matmul": (hops.instance_launches["skinny"]
                              + hops.instance_launches["tile"]),
+            "paged_matmul_skinny_f32": hops.instance_launches["skinny_f32"],
+            "paged_matmul_tile_f32": hops.instance_launches["tile_f32"],
             "paged_matmul_scalar": hops.instance_launches["scalar"]}
 
 
@@ -1454,9 +1642,9 @@ def prefix_pages_equal(engine, rid, again_rid, prompt_len):
 
 
 def serve(dev, kv_quant="none", arch=ARCH):
-    """Serve full-width ``arch`` (qwen3-1.7b, or gemma-2b): N_REQUESTS
-    prompts, then N_RESUBMIT of them again under new rids (prefix
-    restores)."""
+    """Serve full-width ``arch`` (qwen3-1.7b, or gemma-2b) with bf16 or
+    int8 KV pages: N_REQUESTS prompts, then N_RESUBMIT of them again under
+    new rids (prefix restores)."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import Request
@@ -1482,13 +1670,15 @@ def serve(dev, kv_quant="none", arch=ARCH):
     counts = read_counters()
     # bf16 pages: the bf16 decode mode and the bf16 tensor-core prefill
     # (gemma-2b: its D 256 instance); int8 pages: the int8 mode and the f32
-    # (3xTF32) prefill instance
+    # (3xTF32) prefill instance (gemma-2b: its D 256 instance)
     int8 = kv_quant == "int8"
+    prefill = {(ARCH, False): "flash_prefill",
+               (GEMMA, False): "flash_prefill_d256",
+               (ARCH, True): "flash_prefill_tf32",
+               (GEMMA, True): "flash_prefill_tf32_256"}[arch, int8]
     launches, off_path = split_counts(
         f"{arch} int8" if int8 else arch, counts,
-        ("paged_decode_int8", "flash_prefill_tf32") if int8
-        else ("paged_decode", "flash_prefill_d256") if arch == GEMMA
-        else ("paged_decode", "flash_prefill"))
+        ("paged_decode_int8" if int8 else "paged_decode", prefill))
 
     out = run_stats(engine, first + again, wall_s, launches, init_s)
     out["off_path_launches"] = off_path
@@ -1508,11 +1698,11 @@ def serve(dev, kv_quant="none", arch=ARCH):
                  len(x))
             for x, y in zip(out["tokens_first_run"], out["tokens_restored"])]
         out["post_prefill"] = restore_from_post_prefill(
-            dev, prompts[:N_RESUBMIT], out["tokens_first_run"])
+            dev, arch, prompts[:N_RESUBMIT], out["tokens_first_run"])
     return out
 
 
-def restore_from_post_prefill(dev, prompts, first_tokens):
+def restore_from_post_prefill(dev, arch, prompts, first_tokens):
     """int8 restores are exact when the entry is the post-prefill state.
 
     A retired entry holds the pages as they stand at retire, so under
@@ -1522,7 +1712,7 @@ def restore_from_post_prefill(dev, prompts, first_tokens):
     fresh slots, so that its entry is exactly the state its first run
     decoded from; restored, it must give that run's greedy tokens."""
     from repro_torch.serving.engine import Request
-    _, _, _, engine, _ = build_engine(dev, ARCH, "int8")
+    _, _, _, engine, _ = build_engine(dev, arch, "int8")
     for i, p in enumerate(prompts):
         engine.submit(Request(rid=i, prompt=p, max_new_tokens=1))
     engine.run(max_ticks=10_000)
@@ -1666,13 +1856,53 @@ def check_per_step(arch, run, prefill, decode):
         fail(f"{arch}: launches {got}, want one per layer per step {want}")
 
 
+def check_int8_run(name, run8, bf16_run):
+    """The gates of a full-width int8 run: every resubmit restored with its
+    first token and its prompt's full pages bit for bit, restores of
+    post-prefill entries giving the first run's tokens, the int8 decode
+    once per layer per tick, and an entry under INT8_ENTRY_RATIO of the
+    same model's bf16 entry. Restored from entries captured at retire,
+    greedy tokens may part from the first run's after the first one (the
+    page holding ``pos`` carries the scale its decoded rows grew; see
+    ``restore_from_post_prefill``)."""
+    log(f"{name}: restored tokens equal to the first run's "
+        f"{run8['tokens_equal']}, equal leading tokens "
+        f"{run8['tokens_equal_leading']} of {MAX_NEW}; prompt pages bit "
+        f"for bit {run8['prefix_pages_equal']}; restored from post-prefill "
+        f"entries {run8['post_prefill']}")
+    if run8["prefix_hits"] < N_RESUBMIT or not all(run8["restored"]):
+        fail(f"{name}: resubmits not restored: {run8['restored']}")
+    if not all(run8["prefix_pages_equal"]) or min(
+            run8["tokens_equal_leading"]) < 1:
+        fail(f"{name}: the round trip is not exact")
+    post = run8["post_prefill"]
+    if not (all(post["restored"]) and all(post["tokens_equal"])
+            and len(post["tokens_equal"]) == N_RESUBMIT):
+        fail(f"{name}: restores of post-prefill entries differ from the "
+             f"first run: {post}")
+    per_tick = run8["launches"]["paged_decode_int8"] / run8["decode_ticks"]
+    if per_tick != run8["n_layers"]:
+        fail(f"{name}: int8 decode launches per tick {per_tick} (want one "
+             f"per layer, {run8['n_layers']})")
+    ratio = max(run8["entry_bytes"]) / min(bf16_run["entry_bytes"])
+    run8["entry_ratio"] = ratio
+    log(f"{name}: entry {run8['entry_bytes']} bytes over the bf16 entry "
+        f"{bf16_run['entry_bytes']} = {ratio:.5f} (gate < "
+        f"{INT8_ENTRY_RATIO}); restore stall per restore "
+        f"{run8['restore_stall_ns'] / run8['prefix_hits']:.1f} ns against "
+        f"bf16 {bf16_run['restore_stall_ns'] / bf16_run['prefix_hits']:.1f}"
+        f" ns")
+    if ratio >= INT8_ENTRY_RATIO:
+        fail(f"{name}: int8 entry / bf16 entry {ratio}")
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None, help=(
-        "a checkout of the commit before the D 256 flash_prefill / "
-        "paged_matmul redesign: its two kernels are built and timed beside "
-        "the new ones"))
+        "a checkout of the commit before the f32 flash_prefill (D 256) / "
+        "paged_matmul redesign: its two scalar instances are built and "
+        "timed beside the new ones"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1719,22 +1949,28 @@ def main() -> None:
     log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
     dec8 = check_decode_int8(dev, 8, 2, 128)
     log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
+    dec8_256 = check_decode_int8(dev, 1, 8, 256)
+    log(f"paged_decode int8 ok: {dec8_256['shape']}; {dec8_256}")
     dec_edges = check_decode_edges(dev)
     log(f"paged_decode edges ok (both modes): {dec_edges}")
     pre_edges = check_prefill_edges(dev)
     log(f"flash_prefill edges ok: {pre_edges}")
     pre32 = check_prefill_f32(dev)
     log(f"flash_prefill f32 ok: {pre32['shape']}; {pre32}")
-    pre256 = check_prefill_d256(dev, parent)
+    pre256 = check_prefill_d256(dev)
     log(f"flash_prefill D256 ok: {pre256['shape']}; {pre256}")
+    pre32_256 = check_prefill_tf32_256(dev, parent)
+    log(f"flash_prefill f32 D256 ok: {pre32_256['shape']}; {pre32_256}")
     pre_sc = check_prefill_scalar(dev)
     log(f"flash_prefill scalar ok: {pre_sc['shape']}; {pre_sc}")
     ssd = check_ssd(dev)
     log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
     refused = check_refusals(dev)
     log(f"C entries refuse what check_plan refuses (rc): {refused}")
-    mm = check_paged_matmul(dev, parent)
+    mm = check_paged_matmul(dev)
     log(f"paged_matmul ok: {mm['shape']}; {mm}")
+    mm32 = check_paged_matmul_f32(dev, parent)
+    log(f"paged_matmul f32 ok: {mm32}")
     small = {arch: check_model_small(dev, arch) for arch in (ARCH, HYBRID)}
     small[f"{ARCH} int8"] = check_model_small(dev, ARCH, "int8")
     for arch, res in small.items():
@@ -1750,78 +1986,67 @@ def main() -> None:
     report(HYBRID, hyb)
     if hyb["flushes"] <= 0 or hyb["tier_write_ns"] <= 0:
         fail(f"{HYBRID}: no pages flushed to the tier")
-
     torch.cuda.empty_cache()
 
     run8 = serve(dev, "int8")
     int8_name = f"{ARCH} int8"
     report(int8_name, run8)
-    # restored from entries captured at retire, greedy tokens may part
-    # from the first run's after the first one (restore_from_post_prefill);
-    # the restore itself must be exact: the prompt's full pages come back
-    # bit for bit, and a post-prefill entry gives the first run's tokens
-    log(f"{int8_name}: restored tokens equal to the first run's "
-        f"{run8['tokens_equal']}, equal leading tokens "
-        f"{run8['tokens_equal_leading']} of {MAX_NEW}; prompt pages bit "
-        f"for bit {run8['prefix_pages_equal']}; restored from post-prefill "
-        f"entries {run8['post_prefill']}")
-    if run8["prefix_hits"] < N_RESUBMIT or not all(run8["restored"]):
-        fail(f"{int8_name}: resubmits not restored: {run8['restored']}")
-    if not all(run8["prefix_pages_equal"]) or min(
-            run8["tokens_equal_leading"]) < 1:
-        fail(f"{int8_name}: the round trip is not exact")
-    post = run8["post_prefill"]
-    if not (all(post["restored"]) and all(post["tokens_equal"])
-            and len(post["tokens_equal"]) == N_RESUBMIT):
-        fail(f"{int8_name}: restores of post-prefill entries differ from "
-             f"the first run: {post}")
-    per_tick = run8["launches"]["paged_decode_int8"] / run8["decode_ticks"]
-    if per_tick != run8["n_layers"]:
-        fail(f"{int8_name}: int8 decode launches per tick {per_tick} (want "
-             f"one per layer, {run8['n_layers']})")
-    ratio = max(run8["entry_bytes"]) / min(run["entry_bytes"])
-    run8["entry_ratio"] = ratio
-    log(f"{int8_name}: entry {run8['entry_bytes']} bytes over the bf16 "
-        f"entry {run['entry_bytes']} = {ratio:.5f} (gate < "
-        f"{INT8_ENTRY_RATIO}); restore stall per restore "
-        f"{run8['restore_stall_ns'] / run8['prefix_hits']:.1f} ns against "
-        f"bf16 {run['restore_stall_ns'] / run['prefix_hits']:.1f} ns")
-    if ratio >= INT8_ENTRY_RATIO:
-        fail(f"{int8_name}: int8 entry / bf16 entry {ratio}")
+    check_int8_run(int8_name, run8, run)
     torch.cuda.empty_cache()
 
     gem = serve(dev, arch=GEMMA)
     report(GEMMA, gem)
     check_restores(GEMMA, gem)
     check_per_step(GEMMA, gem, "flash_prefill_d256", "paged_decode")
+    torch.cuda.empty_cache()
 
-    runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem}
+    gem8 = serve(dev, "int8", arch=GEMMA)
+    gem8_name = f"{GEMMA} int8"
+    report(gem8_name, gem8)
+    check_int8_run(gem8_name, gem8, gem)
+    check_per_step(gem8_name, gem8, "flash_prefill_tf32_256",
+                   "paged_decode_int8")
+
+    runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
+            gem8_name: gem8}
+    prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
+    matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
+    decode_src = "src/repro_torch/csrc/paged_decode.cu"
+    decode_tpu = "src/repro/kernels/decode_attention/kernel.py:79"
+    prefill_tpu = "src/repro/kernels/flash_attention/kernel.py:77"
+    matmul_tpu = "src/repro/kernels/hdm_stream/kernel.py:42"
     kernels = []
-    for name, res, src, replaces in (
-            ("paged_decode", dec, "src/repro_torch/csrc/paged_decode.cu",
-             "src/repro/kernels/decode_attention/kernel.py:79"),
-            ("paged_decode_int8", dec8,
-             "src/repro_torch/csrc/paged_decode.cu",
-             "src/repro/kernels/decode_attention/kernel.py:79"),
-            ("flash_prefill", pre, "src/repro_torch/csrc/flash_prefill.cu",
-             "src/repro/kernels/flash_attention/kernel.py:77"),
-            ("flash_prefill_tf32", pre32,
-             "src/repro_torch/csrc/flash_prefill.cu",
-             "src/repro/kernels/flash_attention/kernel.py:77"),
-            ("flash_prefill_d256", pre256,
-             "src/repro_torch/csrc/flash_prefill.cu",
-             "src/repro/kernels/flash_attention/kernel.py:77"),
-            ("flash_prefill_scalar", pre_sc,
-             "src/repro_torch/csrc/flash_prefill.cu",
-             "src/repro/kernels/flash_attention/kernel.py:77"),
-            ("ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/mamba2_scan/kernel.py:68"),
-            ("paged_matmul", mm, "src/repro_torch/csrc/paged_matmul.cu",
-             "src/repro/kernels/hdm_stream/kernel.py:42"),
-            ("paged_matmul_scalar", mm["f32"],
-             "src/repro_torch/csrc/paged_matmul.cu",
-             "src/repro/kernels/hdm_stream/kernel.py:42")):
-        by_path = {arch: {**r["launches"], **r["off_path_launches"]}[name]
+    # (row, launch counter, result, source, TPU kernel, the paths whose
+    # launches are this row's: None for all of them)
+    for name, counter, res, src, replaces, paths in (
+            ("paged_decode", "paged_decode", dec, decode_src, decode_tpu,
+             None),
+            ("paged_decode_int8", "paged_decode_int8", dec8, decode_src,
+             decode_tpu, (int8_name,)),
+            ("paged_decode_int8_d256", "paged_decode_int8", dec8_256,
+             decode_src, decode_tpu, (gem8_name,)),
+            ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
+             None),
+            ("flash_prefill_tf32", "flash_prefill_tf32", pre32, prefill_src,
+             prefill_tpu, None),
+            ("flash_prefill_d256", "flash_prefill_d256", pre256, prefill_src,
+             prefill_tpu, None),
+            ("flash_prefill_tf32_256", "flash_prefill_tf32_256", pre32_256,
+             prefill_src, prefill_tpu, None),
+            ("flash_prefill_scalar", "flash_prefill_scalar", pre_sc,
+             prefill_src, prefill_tpu, None),
+            ("ssd_scan", "ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/mamba2_scan/kernel.py:68", None),
+            ("paged_matmul", "paged_matmul", mm, matmul_src, matmul_tpu,
+             None),
+            ("paged_matmul_skinny_f32", "paged_matmul_skinny_f32",
+             mm32["skinny_f32"], matmul_src, matmul_tpu, None),
+            ("paged_matmul_tile_f32", "paged_matmul_tile_f32",
+             mm32["tile_f32"], matmul_src, matmul_tpu, None),
+            ("paged_matmul_scalar", "paged_matmul_scalar", mm32["scalar"],
+             matmul_src, matmul_tpu, None)):
+        by_path = {arch: ({**r["launches"], **r["off_path_launches"]}[counter]
+                          if paths is None or arch in paths else 0)
                    for arch, r in runs.items()}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(by_path.values()),
@@ -1833,32 +2058,46 @@ def main() -> None:
         for key in ("parent_ms", "plans_ms"):
             if key in res:
                 row[key] = res[key]
+        if name == "paged_decode_int8_d256":
+            row["note"] = ("the int8 mode at gemma-2b's shape (one kv head "
+                           "of 8 query heads, D 256): the same kernel and "
+                           "count as paged_decode_int8, whose launches on "
+                           "the gemma-2b int8 path are this row's; not "
+                           "redesigned in this slice")
         if name == "flash_prefill_scalar":
             row["note"] = ("bf16 and f32 at head dims 16 and 32 (the smoke "
-                           "models), f32 at 256 (gemma-2b with int8 "
-                           "pages); no full-width path runs it")
+                           "models); no full-width path runs it")
         if name.startswith("paged_matmul"):
             row["note"] = ("no path of the reference calls it (its engine "
                            "drops the speculative-read weight prefetch on "
                            "one device); ported as its op, stream_matmul; "
-                           + ("bf16 on tensor cores, times with L2 cold"
-                              if name == "paged_matmul" else
-                              "f32 on the scalar instance, L2 warm"))
+                           + {"paged_matmul": "bf16 on tensor cores, times "
+                                              "with L2 cold",
+                              "paged_matmul_skinny_f32":
+                                  "f32 on FFMA at M <= 16, L2 cold",
+                              "paged_matmul_tile_f32":
+                                  "f32 in 3xTF32 at M > 16, L2 cold",
+                              "paged_matmul_scalar":
+                                  "f32 over pages of 32 rows, which only "
+                                  "the scalar instance takes, L2 warm"}[name])
         kernels.append(row)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "decode": dec, "decode_d80": dec80,
                    "decode_d256": dec256, "prefill_d256": pre256,
-                   "decode_int8": dec8, "decode_edges": dec_edges,
+                   "decode_int8": dec8, "decode_int8_d256": dec8_256,
+                   "decode_edges": dec_edges,
                    "prefill": pre, "prefill_d80": pre80,
                    "prefill_edges": pre_edges, "prefill_f32": pre32,
+                   "prefill_f32_d256": pre32_256,
                    "prefill_scalar": pre_sc,
                    "ptxas": ptxas, "plans": plans, "ssd_scan": ssd,
                    "refused_plans": refused,
-                   "paged_matmul": mm, "small_model": small, "serve": run,
+                   "paged_matmul": mm, "paged_matmul_f32": mm32,
+                   "small_model": small, "serve": run,
                    "serve_hybrid": hyb, "serve_int8": run8,
-                   "serve_gemma": gem,
+                   "serve_gemma": gem, "serve_gemma_int8": gem8,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

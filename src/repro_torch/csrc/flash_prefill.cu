@@ -28,7 +28,7 @@
 // operations bound it; outside the tensor cores (67 TFLOP/s) they would
 // take 0.0134 ms, and the scalar kernel took ~0.135 ms.
 //
-// Four kernels, dispatched explicitly by (dtype, D) in dispatch():
+// Five kernels, dispatched explicitly by (dtype, D) in dispatch():
 //
 // - bf16 at D in {64, 80, 128} (qwen3's 128, zamba2's shared block's 80):
 //   flash_prefill_mma_kernel, FlashAttention-2 style. Each warp owns 16
@@ -102,10 +102,30 @@
 //   (one CTA a SM). At gemma's chunk every CTA reads the same 0.57 MB of
 //   K/V, which stays in L2. Rows per CTA (16, 32, 64) and stages come from
 //   the plan, chosen by chip_smoke.py's sweep (PERF.md).
-// - everything else -- bf16 and f32 at D in {16, 32}, f32 at D 256 (gemma
-//   with int8 pages, which no measured path serves) -- goes to
-//   flash_prefill_scalar_kernel, the first version: 64-row CTAs, f32 tiles
-//   in shared memory, scalar f32 FMAs.
+// - f32 at D 256 (gemma-2b with int8 pages, whose prefill widens q to f32
+//   over the dequantized pages): flash_prefill_tf32_256_kernel, the 3xTF32
+//   kernel's arithmetic with four warps on the quarters of the head dim,
+//   twice over: two key groups per 16 rows, as in the D 128 kernel. One
+//   warp cannot hold 16 rows x 256 columns in f32 (O alone is 128
+//   registers, Q's hi and lo fragments 256 more), nor can two (64 of O and
+//   128 of Q each). A quarter is 32 registers of O and 64 of Q split once
+//   into hi and lo. Each warp computes its quarter's partial of S = Q K^T
+//   over its group's half of the tile's keys, the group's four warps swap
+//   partials through shared memory behind a 128-thread named barrier, and
+//   each adds the four in quarter order, so that all four hold S bit for
+//   bit, run the same online softmax and multiply P by their own 64
+//   columns of V. The two groups merge once at the end, in group order.
+//   One CTA of 16 rows (8 warps) per SM: gemma's chunk has 2048 rows over
+//   one kv head, 128 CTAs; with one key group, 4 warps an SM took ~0.058
+//   ms there and 32-row CTAs (64 of 8 warps) ~0.073. f32 K/V tiles of 64
+//   keys at rows of D + 4 floats would be 133 KB a stage, so tiles are 32
+//   keys (16 took ~1.2x the time): 66,560 bytes a stage, in a ring of 2
+//   or 3 stages, plus 8 KB of partials (every fragment read free of bank
+//   conflicts at the 1040-byte row stride). The stages come from the plan,
+//   chosen by chip_smoke.py's sweep (PERF.md).
+// - everything else -- bf16 and f32 at D in {16, 32}, the smoke models'
+//   head dims -- goes to flash_prefill_scalar_kernel, the first version:
+//   64-row CTAs, f32 tiles in shared memory, scalar f32 FMAs.
 #include "common.cuh"
 
 namespace repro {
@@ -113,7 +133,7 @@ namespace {
 
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
-// ---- the scalar kernel: bf16 and f32 at D in {16, 32}, f32 at D 256
+// ---- the scalar kernel: bf16 and f32 at D in {16, 32}
 
 constexpr int kRows = 64;      // (query, head) rows per CTA
 constexpr int kKeys = 64;      // keys per KV tile
@@ -951,6 +971,272 @@ flash_prefill_tf32_kernel(const float* __restrict__ q,
   }
 }
 
+// ---- the 3xTF32 tensor-core kernel at D 256 (f32): four warps per 16 rows
+// on quarters of the head dim, in two key groups
+
+constexpr int kTqD = 256;
+constexpr int kTqCols = kTqD / 4;            // a warp's columns of Q, K, V, O
+constexpr int kTqGroups = 2;                 // key groups per 16 rows
+constexpr int kTqRows = 16;                  // rows per CTA
+constexpr int kTqKeys = 32;                  // keys per K/V tile
+constexpr int kTqThreads = kTqRows / 16 * 4 * kTqGroups * 32;
+
+constexpr size_t tf32_256_smem_bytes(int stages) {
+  // the K/V ring, then each key group's four S partials of 16 rows x
+  // kTqKeys / 2
+  return (size_t)4 * (stages * 2 * kTqKeys * (kTqD + 4) +
+                      kTqRows * 4 * kTqKeys);
+}
+
+__device__ __forceinline__ void quad_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id + 1) : "memory");
+}
+
+__global__ void __launch_bounds__(kTqThreads)
+flash_prefill_tf32_256_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const int* __restrict__ pos,
+                              float* __restrict__ out, int C, int H, int Hkv,
+                              int Smax, int stages, float scale,
+                              float softcap) {
+  constexpr int D = kTqD;
+  constexpr int LD = D + 4;             // padded row (floats)
+  constexpr int CH = D / 4;             // 16-byte chunks per row
+  constexpr int KS = kTqCols / 8;       // k-steps of the quarter's Q K^T
+  constexpr int NB = kTqCols / 8;       // 8-column blocks of the quarter's O
+  constexpr int KEYS = kTqKeys;
+  constexpr int GK = KEYS / kTqGroups;  // a group's keys of every tile
+  constexpr int SB = GK / 8;            // 8-key blocks of its S
+  constexpr int PART = SB * 4 * 32;     // one warp's S partial (floats)
+  const int tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2, qd = warp & 3;  // key group, quarter of D
+  const int gid = lane >> 2, tig = lane & 3;  // fragment row, column
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // stages x {K, V}
+  float* xbuf = ring + (size_t)stages * 2 * KEYS * LD + grp * 4 * PART;
+  float* own = xbuf + qd * PART;
+
+  const int n_rows = C * G, row0 = tile * kTqRows, p0 = pos[b];
+  // last visible key of a row; rows past C*G take the last row's
+  auto limit = [&](int row) {
+    return min(p0 + min(row, n_rows - 1) / G, Smax - 1);
+  };
+  const int kv_end = limit(row0 + kTqRows - 1) + 1;  // keys [0, kv_end)
+  const int n_tiles = (kv_end + KEYS - 1) / KEYS;
+
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      float* Kt = ring + (size_t)(t % stages) * 2 * KEYS * LD;
+      float* Vt = Kt + KEYS * LD;
+      for (int i = tid; i < KEYS * CH; i += kTqThreads) {
+        const int r = i / CH, cc = i - r * CH, key = t * KEYS + r;
+        const bool ok = key < kv_end;
+        const size_t off =
+            (((size_t)b * Smax + (ok ? key : 0)) * Hkv + hk) * D + cc * 4;
+        cp_async16(Kt + r * LD + cc * 4, k + off, ok);
+        cp_async16(Vt + r * LD + cc * 4, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages - 1; ++s) load_tile(s);
+
+  const bool live = row0 < n_rows;
+  const int lim_a = limit(row0 + gid), lim_b = limit(row0 + gid + 8);
+  const int lim_lo = limit(row0), lim_hi = limit(row0 + 15);
+  const float qk_scale = scale * kLog2e;
+  const int col0 = qd * kTqCols;  // this warp's columns
+
+  // Q's A fragments of this quarter from global memory, split once (zero
+  // past C*G)
+  Tf32Frag qs[KS];
+  {
+    auto qrow = [&](int row) -> const float* {
+      if (row >= n_rows) return nullptr;
+      const int qi = row / G, g = row - qi * G;
+      return q + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D + col0;
+    };
+    const float* qa = qrow(row0 + gid);
+    const float* qb = qrow(row0 + gid + 8);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c0 = kk * 8 + tig;
+      qs[kk] = split_frag(qa ? qa[c0] : 0.f, qb ? qb[c0] : 0.f,
+                          qa ? qa[c0 + 4] : 0.f, qb ? qb[c0 + 4] : 0.f);
+    }
+  }
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait(stages - 2);  // tile t landed, this thread's part
+    __syncthreads();            // ... everyone's; tile t - 1 is consumed
+    load_tile(t + stages - 1);
+    const int k0 = t * KEYS + grp * GK;  // this group's keys
+    if (!live || k0 > lim_hi) continue;  // nothing visible to the group
+    const float* Kt = ring + (size_t)(t % stages) * 2 * KEYS * LD +
+                      grp * GK * LD;
+    const float* Vt = Kt + KEYS * LD;
+
+    // this quarter's part of S = Q K^T: s[j] holds keys k0 + 8j .. +7 of
+    // rows gid and gid + 8
+    float s[SB][4];
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j = 0; j < SB; ++j) {
+        const float* kr = Kt + (j * 8 + gid) * LD + col0 + kk * 8 + tig;
+        mma_3xtf32(s[j], qs[kk], kr[0], kr[4]);
+      }
+    }
+    // the four quarters' partials through shared memory, added by every
+    // warp of the group in quarter order, so that all four hold the same
+    // S bit for bit. The __syncthreads at the next tile's top orders the
+    // next write after the partners' reads.
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) own[(j * 4 + e) * 32 + lane] = s[j][e];
+    quad_sync(grp);
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = (j * 4 + e) * 32 + lane;
+        s[j][e] = ((xbuf[i] + xbuf[PART + i]) + xbuf[2 * PART + i]) +
+                  xbuf[3 * PART + i];
+      }
+
+    // online softmax in place (log2 domain), the same in the group's four
+    // warps; the mask only where a row's limit falls inside its keys
+    const bool masked = k0 + GK - 1 > lim_lo;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = softcap > 0.f ? softcap_logit(s[j][e] * scale, softcap) *
+                                      kLog2e
+                                : s[j][e] * qk_scale;
+        if (masked && k0 + j * 8 + tig * 2 + (e & 1) > (e < 2 ? lim_a : lim_b))
+          x = -INFINITY;
+        s[j][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x);
+        else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no visible key yet keeps m = -inf: exponentiate against
+    // 0 so that nothing becomes NaN
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float al_a = exp2f(m_a - base_a), al_b = exp2f(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      s[j][0] = exp2f(s[j][0] - base_a);
+      s[j][1] = exp2f(s[j][1] - base_a);
+      s[j][2] = exp2f(s[j][2] - base_b);
+      s[j][3] = exp2f(s[j][3] - base_b);
+      rs_a += s[j][0] + s[j][1];
+      rs_b += s[j][2] + s[j][3];
+    }
+    l_a = l_a * al_a + rs_a;  // this thread's columns; summed over the quad
+    l_b = l_b * al_b + rs_b;  // of lanes at the end
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= al_a;
+      o[n][1] *= al_a;
+      o[n][2] *= al_b;
+      o[n][3] *= al_b;
+    }
+
+    // O += P V on this quarter's columns: the S accumulator of keys 8j ..
+    // 8j + 7 is P's A operand as (c0, c2, c1, c3); V's B fragment from key
+    // rows 2t and 2t + 1
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      const Tf32Frag pa = split_frag(s[j][0], s[j][2], s[j][1], s[j][3]);
+      const float* vr = Vt + (j * 8 + 2 * tig) * LD + col0 + gid;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        mma_3xtf32(o[n], pa, vr[n * 8], vr[n * 8 + LD]);
+    }
+  }
+
+  // merge the key groups in group order: group 1 hands its (m, l, O) over
+  // through the ring (every copy has landed: later groups are empty)
+  __syncthreads();
+  float* mb = ring + (size_t)qd * (NB * 4 + 4) * 32 + lane;
+  if (grp == 1 && live) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mb[(n * 4 + e) * 32] = o[n][e];
+    mb[(NB * 4 + 0) * 32] = m_a;
+    mb[(NB * 4 + 1) * 32] = m_b;
+    mb[(NB * 4 + 2) * 32] = l_a;
+    mb[(NB * 4 + 3) * 32] = l_b;
+  }
+  __syncthreads();
+  if (grp != 0 || !live) return;
+  {
+    const float pm_a = mb[(NB * 4 + 0) * 32], pm_b = mb[(NB * 4 + 1) * 32];
+    const float mn_a = fmaxf(m_a, pm_a), mn_b = fmaxf(m_b, pm_b);
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float sa = exp2f(m_a - base_a), pa = exp2f(pm_a - base_a);
+    const float sb = exp2f(m_b - base_b), pb = exp2f(pm_b - base_b);
+    l_a = l_a * sa + mb[(NB * 4 + 2) * 32] * pa;
+    l_b = l_b * sb + mb[(NB * 4 + 3) * 32] * pb;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] = o[n][0] * sa + mb[(n * 4 + 0) * 32] * pa;
+      o[n][1] = o[n][1] * sa + mb[(n * 4 + 1) * 32] * pa;
+      o[n][2] = o[n][2] * sb + mb[(n * 4 + 2) * 32] * pb;
+      o[n][3] = o[n][3] * sb + mb[(n * 4 + 3) * 32] * pb;
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + gid + 8 * hr;
+    if (row >= n_rows) continue;
+    const int qi = row / G, g = row - qi * G;
+    float* op = out + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * D +
+                col0 + tig * 2;
+    const float inv = hr ? inv_b : inv_a;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<float2*>(op + n * 8) =
+          make_float2(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+  }
+}
+
 // ---- launches
 
 template <typename T, int D>
@@ -1025,7 +1311,24 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the head dims without a tensor-core instance (bf16 at D 256 has one)
+cudaError_t launch_tf32_256(const void* q, const void* k, const void* v,
+                            const int* pos, void* out, int B, int C, int H,
+                            int Hkv, int Smax, float scale, float softcap,
+                            int grid_x, int stages, int smem,
+                            cudaStream_t stream) {
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(flash_prefill_tf32_256_kernel, smem,
+                               smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(grid_x, Hkv, B);
+  flash_prefill_tf32_256_kernel<<<grid, kTqThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), pos, static_cast<float*>(out), C, H, Hkv,
+      Smax, stages, scale, softcap);
+  return cudaGetLastError();
+}
+
+// the head dims without a tensor-core instance (16 and 32)
 template <typename T>
 cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
                             const int* pos, void* out, int B, int C, int H,
@@ -1039,7 +1342,6 @@ cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
   switch (D) {
     REPRO_SCALAR(16);
     REPRO_SCALAR(32);
-    REPRO_SCALAR(256);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_SCALAR
@@ -1050,9 +1352,8 @@ bool tensor_core_dim(int D) { return D == 64 || D == 80 || D == 128; }
 // The plan from kernels/flash_attention/ops.py::plan, bounds-checked (its
 // shared memory must cover what the kernel indexes), then the kernel it
 // names: by (dtype, D), the bf16 tensor-core kernel at D 64/80/128 or at
-// D 256, the 3xTF32 one for f32 at D 64/80/128, or the scalar one for the
-// rest (D 16 and 32, f32 at D 256). No kernel is tried in place of
-// another.
+// D 256, the 3xTF32 one for f32 at D 64/80/128 or at D 256, or the scalar
+// one for the rest (D 16 and 32). No kernel is tried in place of another.
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* pos, void* out, int B, int C, int H, int Hkv,
                      int Smax, int D, int dtype, float scale, float softcap,
@@ -1062,8 +1363,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (rows <= 0 || grid_x != (n_rows + rows - 1) / rows || smem > kMaxSmem)
     return cudaErrorInvalidValue;
   if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
+  const bool bf16 = dtype == kBFloat16;
+  if (D == kTqD && !bf16) {  // its plan's shared memory, exactly: a bf16
+                             // D 256 plan at 16 rows has more
+    if (rows != kTqRows || stages < 2 || stages > 3 ||
+        (size_t)smem != tf32_256_smem_bytes(stages))
+      return cudaErrorInvalidValue;
+    return launch_tf32_256(q, k, v, pos, out, B, C, H, Hkv, Smax, scale,
+                           softcap, grid_x, stages, smem, s);
+  }
   if (tensor_core_dim(D)) {
-    const bool bf16 = dtype == kBFloat16;
     const size_t need = bf16 ? mma_smem_bytes(D, rows, stages)
                              : tf32_smem_bytes(D, stages);
     if ((rows != 16 && rows != 32 && rows != 64) || stages < 2 ||
@@ -1085,7 +1394,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     }
 #undef REPRO_TC
   }
-  if (D == kD256 && dtype == kBFloat16) {
+  if (D == kD256) {  // bf16 here: f32 took the 3xTF32 kernel above
     if ((rows != 16 && rows != 32 && rows != 64) || stages < 2 ||
         stages > 3 || (size_t)smem < d256_smem_bytes(rows, stages))
       return cudaErrorInvalidValue;

@@ -5,17 +5,18 @@ CPU tensor it runs the plain version (``ref.flash_prefill_ref``). There is
 no fallback from one to the other. ``launches`` counts kernel launches,
 ``kernel_launches`` the same by the plan's kernel.
 
-The launch plan (which of the file's four kernels, the grid, rows per
-CTA, pipeline stages and dynamic shared memory) is ``plan()``, a pure
-function of the shapes that the CPU tests check; the C entry takes it as
-given and rejects a plan that does not match its kernel. The kernel
-follows from (dtype, head_dim): bf16 at ``MMA_HEAD_DIMS`` on tensor cores
-("mma"), bf16 at D 256 on tensor cores with two warps per 16 rows, each
-on half of the head dim ("mma256", gemma-2b), f32 at ``MMA_HEAD_DIMS`` on
-tensor cores in 3xTF32 ("tf32"), and the rest -- D 16 and 32 in both
-dtypes, f32 at D 256 -- on the scalar kernel. Rows per CTA and stages
-were chosen by timing the candidates on the H100 (``chip_smoke.py``'s
-plan sweeps, PERF.md).
+The launch plan (which of the file's five kernels, the grid, rows per
+CTA, pipeline stages and dynamic shared memory) is ``plan()``, a pure function of the shapes that the CPU tests check; the C
+entry takes it as given and rejects a plan that does not match its kernel.
+The kernel follows from (dtype, head_dim): bf16 at ``MMA_HEAD_DIMS`` on
+tensor cores ("mma"), bf16 at D 256 on tensor cores with two warps per 16
+rows, each on half of the head dim ("mma256", gemma-2b), f32 at
+``MMA_HEAD_DIMS`` on tensor cores in 3xTF32 ("tf32"), f32 at D 256 in
+3xTF32 with four warps per 16 rows, each on a quarter of the head dim
+("tf32_256", gemma-2b with int8 pages), and the rest -- D 16 and 32 in both
+dtypes -- on the scalar kernel. Rows per CTA and stages were chosen by
+timing the candidates on the H100 (``chip_smoke.py``'s plan sweeps,
+PERF.md).
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ TF32_ROWS, TF32_STAGES = 32, 2           # the f32 plan (chip_smoke.py's sweep)
 D256 = 256                               # bf16 "mma256" head dim
 D256_KEYS = 64                           # keys per K/V tile
 D256_ROWS, D256_STAGES = 32, 3           # the D 256 plan (chip_smoke.py's sweep)
+# the f32 D 256 kernel: 16 rows per CTA (two key groups of four warps),
+# 32-key K/V tiles; its stages (chip_smoke.py's sweep)
+TQ_ROWS, TQ_KEYS, TQ_STAGES = 16, 32, 2
 SCALAR_ROWS, SCALAR_KEYS = 64, 64
 N_SMS = 132                              # H100 SXM
 MAX_SMEM = 232448                        # dynamic shared memory per block
@@ -44,22 +48,25 @@ MAX_SMEM = 232448                        # dynamic shared memory per block
 PLAN_RANGE = {"mma": ((16, 32, 64), (2, 3, 4)),
               "tf32": ((16, 32, 64), (2, 3)),
               "mma256": ((16, 32, 64), (2, 3)),
+              "tf32_256": ((TQ_ROWS,), (2, 3)),
               "scalar": ((SCALAR_ROWS,), (1,))}
 
 launches = 0
-kernel_launches = {"mma": 0, "mma256": 0, "tf32": 0, "scalar": 0}
+kernel_launches = dict.fromkeys(PLAN_RANGE, 0)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     kernel: str        # "mma" (bf16 tensor cores), "mma256" (bf16 at D
-                       # 256), "tf32" (f32 tensor cores, 3xTF32) or
-                       # "scalar"
+                       # 256), "tf32" (f32 tensor cores, 3xTF32),
+                       # "tf32_256" (f32 at D 256, 3xTF32) or "scalar"
     grid: tuple        # (row tiles, kv heads, batch)
     rows: int          # (query, head) rows per CTA; 32 threads per 16 rows
                        # on bf16 tensor cores, 64 at D 256 (two warps split
                        # the head dim) and in 3xTF32 (two warps share the
-                       # keys), 256 threads in the scalar kernel
+                       # keys), 128 in f32 at D 256 (two key groups of four
+                       # warps on the head dim's quarters), 256 threads in
+                       # the scalar kernel
     stages: int        # K/V tiles in flight (1: the scalar kernel's one)
     smem_bytes: int
 
@@ -97,6 +104,18 @@ def d256_plan(b: int, c: int, h: int, hkv: int, rows: int,
     return Plan("mma256", (gx, hkv, b), rows, stages, smem)
 
 
+def tf32_256_plan(b: int, c: int, h: int, hkv: int, rows: int,
+                  stages: int) -> Plan:
+    """The f32 D 256 kernel's launch at ``rows`` rows per CTA (two key
+    groups of four warps per 16 rows, a warp per quarter of the head dim)
+    and a ring of ``stages`` K/V tiles of ``TQ_KEYS`` keys, f32 rows padded
+    to 260 floats, then each group's four S partials (q is read into
+    registers)."""
+    gx = -(-c * (h // hkv) // rows)
+    smem = 4 * (stages * 2 * TQ_KEYS * (D256 + 4) + rows * 4 * TQ_KEYS)
+    return Plan("tf32_256", (gx, hkv, b), rows, stages, smem)
+
+
 def scalar_plan(b: int, c: int, h: int, hkv: int, d: int) -> Plan:
     """The scalar kernel's launch: 64-row CTAs, f32 tiles of q, K, V and
     the scores in shared memory."""
@@ -104,6 +123,15 @@ def scalar_plan(b: int, c: int, h: int, hkv: int, d: int) -> Plan:
     smem = (3 * SCALAR_ROWS * (d + 1) + SCALAR_ROWS * (SCALAR_KEYS + 1)) * 4
     return Plan("scalar", (-(-n_rows // SCALAR_ROWS), hkv, b), SCALAR_ROWS,
                 1, smem)
+
+
+def kernel_for(d: int, dtype: torch.dtype) -> str:
+    """The kernel that (dtype, head_dim) runs."""
+    if d == D256:
+        return "mma256" if dtype == torch.bfloat16 else "tf32_256"
+    if d in MMA_HEAD_DIMS:
+        return "mma" if dtype == torch.bfloat16 else "tf32"
+    return "scalar"
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,14 +143,18 @@ def plan(b: int, c: int, h: int, hkv: int, d: int,
     give ``N_SMS`` CTAs, else 16; f32 there the 3xTF32 kernel at
     ``TF32_ROWS`` rows and ``TF32_STAGES`` stages, the fastest of the
     sweep at the int8 path's chunk; bf16 at D 256 the "mma256" kernel at
-    ``D256_ROWS`` rows and ``D256_STAGES`` stages, the fastest of the
-    sweep at gemma-2b's chunk; every other case the scalar kernel's
-    64-row CTAs."""
-    if dtype == torch.float32 and d in MMA_HEAD_DIMS:
+    ``D256_ROWS`` rows and ``D256_STAGES`` stages and f32 there the
+    "tf32_256" one at ``TQ_ROWS`` rows and ``TQ_STAGES`` stages, the
+    fastest of their sweeps at gemma-2b's chunk;
+    D 16 and 32 the scalar kernel's 64-row CTAs."""
+    kernel = kernel_for(d, dtype)
+    if kernel == "tf32":
         return tf32_plan(b, c, h, hkv, d, TF32_ROWS, TF32_STAGES)
-    if dtype == torch.bfloat16 and d == D256:
+    if kernel == "mma256":
         return d256_plan(b, c, h, hkv, D256_ROWS, D256_STAGES)
-    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+    if kernel == "tf32_256":
+        return tf32_256_plan(b, c, h, hkv, TQ_ROWS, TQ_STAGES)
+    if kernel == "mma":
         for rows in MMA_ROWS:
             p = mma_plan(b, c, h, hkv, d, rows)
             if p.grid[0] * hkv * b >= N_SMS:
@@ -136,13 +168,11 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
     """Raise ValueError unless ``p`` is what its kernel's plan function
     gives at its rows and stages (grid and shared memory included), on the
     kernel that (dtype, d) names, at rows and stages that kernel takes,
-    inside the block's shared memory. The C entry checks the launch
-    again against the kernel it instantiates."""
+    inside the block's shared memory. The C entry checks the launch again
+    against the kernel it instantiates."""
     if d not in HEAD_DIMS or dtype not in build.DTYPE_CODES:
         raise ValueError(f"no instance for head_dim {d} in {dtype}")
-    want = ("mma256" if d == D256 and dtype == torch.bfloat16
-            else "scalar" if d not in MMA_HEAD_DIMS
-            else "mma" if dtype == torch.bfloat16 else "tf32")
+    want = kernel_for(d, dtype)
     if p.kernel != want:
         raise ValueError(f"plan names the {p.kernel} kernel; {dtype} at "
                          f"head_dim {d} runs the {want} kernel")
@@ -152,6 +182,8 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
     made = (scalar_plan(b, c, h, hkv, d) if want == "scalar"
             else d256_plan(b, c, h, hkv, p.rows, p.stages)
             if want == "mma256"
+            else tf32_256_plan(b, c, h, hkv, p.rows, p.stages)
+            if want == "tf32_256"
             else (mma_plan if want == "mma" else tf32_plan)(
                 b, c, h, hkv, d, p.rows, p.stages))
     if p != made or p.smem_bytes > MAX_SMEM:
@@ -204,7 +236,7 @@ def launch(q, k_cache, v_cache, pos, logit_softcap: float,
            p: Plan) -> torch.Tensor:
     """One launch of the kernel at plan ``p`` on inputs that
     ``flash_prefill`` has checked (``chip_smoke.py`` also times other
-    plans of the tensor-core kernel through it)."""
+    plans of the tensor-core kernels through it)."""
     global launches
     b, c, h, d = q.shape
     _, smax, hkv, _ = k_cache.shape

@@ -2,9 +2,10 @@
 
 The same function as ``csrc/flash_prefill.cu`` with f32 accumulation and an
 exact softmax: the CPU tests run it, and ``chip_smoke.py`` holds the kernel
-against it on the card. Its two products go through ``mm`` (f32
-``torch.matmul`` by default; the CPU tests pass ``tf32.matmul_3xtf32`` to
-show the f32 kernel's tensor-core arithmetic meets the f32 tolerance).
+against it on the card. Its two products go through ``mm`` and ``mm_pv``
+(f32 ``torch.matmul`` by default, ``mm_pv`` defaulting to ``mm``; the CPU
+tests pass ``tf32`` products to show the f32 kernels' tensor-core
+arithmetic meets the f32 tolerance).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ NEG_INF = -1e30
 def flash_prefill_ref(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: torch.Tensor,
                       logit_softcap: float = 0.0,
-                      mm=torch.matmul) -> torch.Tensor:
+                      mm=torch.matmul, mm_pv=None) -> torch.Tensor:
     """q: [B,C,H,D]; caches [B,Smax,Hkv,D]; pos int [B] -> [B,C,H,D].
 
     Query i of row b attends to cache positions ``<= pos[b] + i``.
@@ -36,5 +37,5 @@ def flash_prefill_ref(q: torch.Tensor, k_cache: torch.Tensor,
     visible = kv_pos[None, None, :] <= limit[:, :, None]        # [B, C, Smax]
     s = torch.where(visible[:, None, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o = mm(w, vh).permute(0, 3, 1, 2, 4)                       # [B,C,Hkv,G,D]
+    o = (mm_pv or mm)(w, vh).permute(0, 3, 1, 2, 4)            # [B,C,Hkv,G,D]
     return o.reshape(b, c, h, d).to(q.dtype)

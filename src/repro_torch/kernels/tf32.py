@@ -9,7 +9,8 @@ truncated to TF32, and sums ``lo.hi + hi.lo + hi.hi`` in f32, dropping
 only ``lo.lo`` (~2^-22). Products of TF32 values are exact in f32, so a
 CPU f32 matmul of the split operands is the tensor core's product up to
 the order of the f32 sums. The CPU tests hold the kernels' plain versions
-computed with these products to the f32 ones.
+computed with these products to the f32 ones (``matmul_3xtf32_parts``:
+the f32 D 256 prefill's Q K^T, summed over four quarters of the head dim).
 """
 from __future__ import annotations
 
@@ -52,3 +53,17 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b_hi, b_lo = split_tf32(b)
     return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)
             + torch.matmul(a_hi, b_hi))
+
+
+def matmul_3xtf32_parts(a: torch.Tensor, b: torch.Tensor,
+                        parts: int) -> torch.Tensor:
+    """``a @ b`` in 3xTF32 with the contraction axis cut into ``parts``
+    equal slices, their products added in slice order: ((p0 + p1) + p2)
+    + ... -- as the warps that own a slice each add their partials."""
+    k = a.shape[-1] // parts
+    out = None
+    for i in range(parts):
+        p = matmul_3xtf32(a[..., i * k:(i + 1) * k],
+                          b[..., i * k:(i + 1) * k, :])
+        out = p if out is None else out + p
+    return out

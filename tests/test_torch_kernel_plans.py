@@ -138,6 +138,9 @@ def test_prefill_plan_rows_and_fits(shape, dtype):
     elif d == 256 and dtype == BF16:
         assert p.kernel == "mma256"
         assert p.rows in (16, 32, 64) and p.stages in (2, 3)
+    elif d == 256:
+        assert p.kernel == "tf32_256"
+        assert p.rows == 16 and p.stages in (2, 3)
     else:
         assert p.kernel == "scalar" and p.stages == 1
 
@@ -173,11 +176,11 @@ def test_prefill_mma_plans_at_qwen3_chunk(rows, stages):
                                      (16, F32), (256, F32)], ids=str)
 def test_prefill_plan_scalar_instances(d, dtype):
     """The head dims without a tensor-core instance stay on the scalar
-    kernel in both dtypes (D 16 and 32; f32 at D 256), named by the plan
-    (no kernel is tried in place of another). bf16 at D 256 has its own
-    tensor-core instance, "mma256". f32 at the tensor-core head dims is
-    checked in ``tests/test_torch_tf32_ssd.py``."""
-    want = "mma256" if (d, dtype) == (256, BF16) else "scalar"
+    kernel in both dtypes (D 16 and 32), named by the plan (no kernel is
+    tried in place of another). D 256 has its own tensor-core instances,
+    "mma256" in bf16 and "tf32_256" in f32. f32 at the tensor-core head
+    dims is checked in ``tests/test_torch_tf32_ssd.py``."""
+    want = {256: "mma256" if dtype == BF16 else "tf32_256"}.get(d, "scalar")
     assert fops.plan(1, 256, 16, 8, d, dtype).kernel == want
 
 
@@ -213,7 +216,7 @@ def test_prefill_d256_plan_at_gemma_chunk():
         with pytest.raises(ValueError):
             fops.check_plan(bad, b, c, h, hkv, d, BF16)
     with pytest.raises(ValueError):
-        fops.check_plan(p, b, c, h, hkv, d, F32)       # f32 runs scalar
+        fops.check_plan(p, b, c, h, hkv, d, F32)       # f32 runs tf32_256
 
 
 # ------------------------------------------------- split-and-merge arithmetic

@@ -15,18 +15,27 @@ written plainly and held to the reference:
   the reference's Pallas ``ssd`` (interpret mode off the TPU) and its
   ``ssd_scan_ref`` oracle at ``tests/test_kernels.py``'s shapes plus a
   ragged S, from a nonzero state, at that test's 1e-4;
+* the f32 prefill at D 256 (gemma-2b with int8 pages): its arithmetic,
+  3xTF32 products of Q K^T over the head dim's four quarters added in
+  quarter order (``tf32.matmul_3xtf32_parts``), then P V in 3xTF32, meets
+  the reference's Pallas ``flash_attention`` in f32 (interpret mode off
+  the TPU, as ``tests/test_kernel_parity.py`` runs it) at 3e-5, at one
+  kv head, G 1 and 8, softcap 0 and 30, where one TF32 product misses
+  1e-4;
 * ``plan()`` of both kernels: shared memory within the H100's 232,448
   bytes a block, spans covering S exactly once on sub-chunk boundaries,
-  the f32 prefill plan at the int8 chunk, and the plans the C entries
-  refuse.
+  the f32 prefill plans at the int8 chunk and at gemma-2b's, and the
+  plans the C entries refuse.
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.ops import attention as jax_attention
 from repro.kernels.mamba2_scan.ops import ssd as jax_ssd
 from repro.kernels.mamba2_scan.ref import ssd_scan_ref
 from repro_torch.kernels import tf32
@@ -344,3 +353,109 @@ def test_prefill_plan_rejects(case):
     }[case]
     with pytest.raises(ValueError):
         fops.check_plan(bad, *shape, dtype)
+
+
+# ------------------------------------------------- f32 prefill at D 256
+
+# Q K^T over the head dim's four quarters, each warp's partial in 3xTF32,
+# added in quarter order; P V in 3xTF32 (each warp its own 64 columns)
+QUARTERS_QK = functools.partial(tf32.matmul_3xtf32_parts, parts=4)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("g", [1, 8])
+def test_prefill_d256_quarters_3xtf32_meet_pallas_and_one_tf32_misses(g,
+                                                                      cap):
+    """Causal attention of 256 tokens at D 256 over one kv head (gemma's
+    MQA) in f32: the Pallas kernel in interpret mode (two 128-key blocks)
+    against the f32 D 256 instance's arithmetic and against one TF32
+    product."""
+    rng = np.random.default_rng(3)
+    s, d = 256, 256
+    q = rng.standard_normal((1, s, g, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, 1, d)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True,
+                                    q_block=128, kv_block=128,
+                                    logit_softcap=cap))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    pos = torch.zeros(1, dtype=torch.int32)
+    three = fref.flash_prefill_ref(tq, tk, tv, pos, cap, mm=QUARTERS_QK,
+                                   mm_pv=tf32.matmul_3xtf32)
+    one = fref.flash_prefill_ref(tq, tk, tv, pos, cap, mm=tf32.matmul_tf32)
+    np.testing.assert_allclose(three.numpy(), want, **F32_TOL)
+    assert _misses(one, torch.from_numpy(want.copy()), CARD_TOL)
+
+
+def test_prefill_d256_quarters_3xtf32_at_gemma_chunk():
+    """gemma-2b's int8 prefill chunk (256 tokens at pos 300, 8 query heads
+    over one kv head, a 2048-token cache) in f32: the D 256 instance's
+    arithmetic meets the plain f32 version at 3e-5."""
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randn((1, 256, 8, 256), generator=gen)
+    k, v = (torch.randn((1, 2048, 1, 256), generator=gen) for _ in range(2))
+    pos = torch.tensor([300], dtype=torch.int32)
+    want = fref.flash_prefill_ref(q, k, v, pos)
+    three = fref.flash_prefill_ref(q, k, v, pos, mm=QUARTERS_QK,
+                                   mm_pv=tf32.matmul_3xtf32)
+    torch.testing.assert_close(three, want, **F32_TOL)
+
+
+# (b, c, h, hkv): gemma-2b's chunk, and chip_smoke.py's f32 D 256 edges
+TQ_SHAPES = {"gemma-2b chunk": (1, 256, 8, 1), "ragged G=1": (2, 37, 8, 8),
+             "ragged G=8": (2, 37, 8, 1)}
+
+
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("shape", TQ_SHAPES.values(), ids=TQ_SHAPES.keys())
+def test_prefill_tf32_256_sweep_plans_fit(shape, stages):
+    """Every plan of chip_smoke.py's f32 D 256 sweep: 16-row CTAs of two
+    key groups of four warps (256 threads), a ring of ``stages`` K and V
+    tiles of 32 f32 rows padded to 260 floats, and each group's four S
+    partials of 16 rows x 16 keys, inside a block."""
+    b, c, h, hkv = shape
+    p = fops.tf32_256_plan(b, c, h, hkv, 16, stages)
+    assert p.smem_bytes == 4 * (stages * 2 * 32 * 260 + 16 * 4 * 32)
+    assert p.smem_bytes <= MAX_SMEM
+    assert p.grid == (-(-c * (h // hkv) // 16), hkv, b)
+    fops.check_plan(p, b, c, h, hkv, 256, F32)
+
+
+def test_prefill_plan_f32_d256_runs_the_tf32_256_kernel():
+    """f32 at D 256 is planned on the 3xTF32 D 256 kernel, never the
+    scalar one: at gemma-2b's chunk 128 CTAs of 16 rows at the sweep's
+    stages; a 3-stage ring takes 207,872 bytes and a 4-stage one does not
+    fit."""
+    p = fops.plan(1, 256, 8, 1, 256, F32)
+    assert p == fops.tf32_256_plan(1, 256, 8, 1, fops.TQ_ROWS,
+                                   fops.TQ_STAGES)
+    assert (p.kernel, p.rows, p.grid) == ("tf32_256", 16, (128, 1, 1))
+    fops.check_plan(p, 1, 256, 8, 1, 256, F32)
+    assert fops.tf32_256_plan(1, 256, 8, 1, 16, 3).smem_bytes == 207872
+    assert fops.tf32_256_plan(1, 256, 8, 1, 16, 4).smem_bytes > MAX_SMEM
+    for d in (16, 32):                        # the scalar kernel's only
+        assert fops.plan(1, 256, 8, 1, d, F32).kernel == "scalar"
+
+
+@pytest.mark.parametrize("case", ["scalar at f32 D 256", "on bf16",
+                                  "at D 128", "rows 32", "stages 4",
+                                  "smem short", "grid"])
+def test_prefill_tf32_256_plan_rejects(case):
+    """check_plan refuses the scalar kernel at f32 D 256, the new kernel
+    in bf16 or at another head dim, and rows, stages, shared memory or a
+    grid it does not take."""
+    shape = (1, 256, 8, 1)
+    p = fops.tf32_256_plan(*shape, 16, 2)
+    bad, d, dtype = {
+        "scalar at f32 D 256": (fops.scalar_plan(*shape, 256), 256, F32),
+        "on bf16": (p, 256, torch.bfloat16),
+        "at D 128": (p, 128, F32),
+        "rows 32": (fops.tf32_256_plan(*shape, 32, 2), 256, F32),
+        "stages 4": (fops.tf32_256_plan(*shape, 16, 4), 256, F32),
+        "smem short": (dataclasses.replace(p, smem_bytes=p.smem_bytes - 16),
+                       256, F32),
+        "grid": (dataclasses.replace(p, grid=(64, 1, 1)), 256, F32),
+    }[case]
+    with pytest.raises(ValueError):
+        fops.check_plan(bad, *shape, d, dtype)
