@@ -27,7 +27,9 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    per CTA x stages, or stages; spans per (row, head);
    K-splits or block tiles x stages). In turn: the two attention kernels
    in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's heads (Hkv 8, 2 query
-   heads each, D 128), at zamba2-2.7b's (Hkv = H = 32, D 80) and, the
+   heads each, D 128), at zamba2-2.7b's (Hkv = H = 32, D 80), at
+   granite-moe-1b-a400m's (Hkv 8, 2 query heads each, D 64) and
+   musicgen-large's (Hkv = H = 32, D 64, over 1024-token slots) and, the
    decode kernel, at gemma-2b's (one kv head of 8 query heads, D 256);
    the decode kernel's int8 mode at qwen3's heads and at gemma-2b's (bf16
    2e-2, int8 pages with their scales, the new row at full precision; its
@@ -56,11 +58,11 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    reference calls it), timed with the weight cold in L2 (four pools in
    turn) beside cuBLAS (f32 beside the parent's scalar instance too) at
    the same L2 state, warm times beside, and the scalar instance over
-   pages of 32 rows. Then run the smoke-size qwen3-1.7b and zamba2-2.7b
-   (f32), and qwen3-1.7b with int8 pages, through chunked prefill and
-   ragged decode on the card and on the CPU from the same weights, and
-   hold logits and caches together (int8 codes equal but for steps of
-   one, counted);
+   pages of 32 rows. Then run the smoke-size qwen3-1.7b, zamba2-2.7b,
+   granite-moe-1b-a400m and musicgen-large (f32), and qwen3-1.7b with int8
+   pages, through chunked prefill and ragged decode on the card and on the
+   CPU from the same weights, and hold logits and caches together (int8
+   codes equal but for steps of one, counted);
 3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
    from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
@@ -101,12 +103,30 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    prompt's full pages bit for bit, restores from post-prefill entries
    gave the first run's tokens, and the entry is under 0.55 of phase 6's
    bf16 entry;
-8. print the measured numbers, one ``kernels`` JSON line, the card line and
-   last ``{"ok": true, "device": {...}}``. ``chiprun_out/chip_smoke.json``
-   keeps the full record.
+8. serve granite-moe-1b-a400m at full width (24 MoE layers, 32 experts
+   top-8 at capacity ``round(1.25 t k / E)``, which drops pairs at decode
+   too on one device, as the reference does; 8 kv heads of 2 query heads,
+   D 64) on the engine and traffic of phase 3; check that every request
+   finished, the restores stalled on the tier and each gave its first
+   run's first token and its prompt's full pages bit for bit (the tokens
+   after it may part: a tick routes every slot's row together, so a
+   restored request's neighbours change its drops), flash_prefill (bf16
+   D 64) ran once per layer per chunk and the bf16 paged_decode once per
+   layer per tick, and no other kernel ran; print the share of (token,
+   expert) pairs dropped at decode and at prefill;
+9. serve musicgen-large at full width (48 layers, 32 kv heads = heads,
+   D 64, 4 codebooks fed one token, sinusoidal positions) on phase 3's
+   engine with 1024-token slots: 3 requests of 300-600 prompt tokens and
+   32 new tokens, then 2 of them again (prefix restores); phase 3's gates
+   (restored greedy tokens equal the first run's) and phase 8's kernels,
+   once per layer per step;
+10. print the measured numbers, one ``kernels`` JSON line, the card line
+   and last ``{"ok": true, "device": {...}}``.
+   ``chiprun_out/chip_smoke.json`` keeps the full record.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -120,9 +140,16 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 ARCH = "qwen3-1.7b"
 HYBRID = "zamba2-2.7b"
 GEMMA = "gemma-2b"
+GRANITE = "granite-moe-1b-a400m"
+MUSICGEN = "musicgen-large"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
+# musicgen's 384 MiB entry (1024-token slots) costs the Python tier ~9 s a
+# flush or restore (H100 80GB HBM3 host, PERF.md section 5): fewer
+# requests and shorter slots than phase 3's, for the script's time limit
+MUSICGEN_MAX_SEQ, MUSICGEN_PROMPT_LENS = 1024, (300, 601)
+N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT = 3, 2
 # an int8 entry over a bf16 one: the reference's gate is 1/itemsize + 0.05
 # (tests/test_kv_quant.py:233)
 INT8_ENTRY_RATIO = 0.55
@@ -256,9 +283,12 @@ def launch_plans():
     from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.kernels.mamba2_scan import ops as sops
     plans = {}
-    for arch, h, hkv, d in ((ARCH, 16, 8, 128), (HYBRID, 32, 32, 80)):
+    for arch, h, hkv, d, smax in ((ARCH, 16, 8, 128, MAX_SEQ),
+                                  (HYBRID, 32, 32, 80, MAX_SEQ),
+                                  (GRANITE, 16, 8, 64, MAX_SEQ),
+                                  (MUSICGEN, 32, 32, 64, MUSICGEN_MAX_SEQ)):
         plans[f"paged_decode {arch} bf16"] = dops.plan(
-            N_SLOTS, h, hkv, MAX_SEQ, 256, d, torch.bfloat16)
+            N_SLOTS, h, hkv, smax, 256, d, torch.bfloat16)
         plans[f"flash_prefill {arch} bf16"] = fops.plan(
             1, CHUNK, h, hkv, d, torch.bfloat16)
     plans[f"paged_decode {ARCH} int8"] = dops.plan(
@@ -311,23 +341,24 @@ def ptxas_report(text: str):
 
 
 
-def check_decode(dev, hkv, g, d):
+def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
     """paged_decode at ``hkv`` kv heads of ``g`` query heads, head_dim
-    ``d``, over the serving path's 8 slots of 2048 tokens; f32 too where
-    the decode kernel has an f32 instance (a row of at most 32 16-byte
-    chunks: D <= 128)."""
+    ``d``, over the serving path's 8 slots of ``smax`` tokens (lengths
+    past ``smax`` cut to it); f32 too where the decode kernel has an f32
+    instance (a row of at most 32 16-byte chunks: D <= 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    b, p, page = N_SLOTS, MAX_SEQ // 256, 256
-    h, smax = hkv * g, p * page
+    b, p, page = N_SLOTS, smax // 256, 256
+    h = hkv * g
     gen = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
     kp = torch.randn((b, p, page, hkv, d), generator=gen,
                      device=dev).bfloat16()
     vp = torch.randn((b, p, page, hkv, d), generator=gen,
                      device=dev).bfloat16()
-    lens = [1, smax, 300, 777, 1024, 1500, 64, smax - 1]
+    lens = [min(n, smax) for n in (1, smax, 300, 777, 1024, 1500, 64,
+                                   smax - 1)]
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     res = {}
     for cap in (0.0, 30.0):
@@ -464,13 +495,13 @@ def check_decode_int8(dev, hkv, g, d):
     return res
 
 
-def check_prefill(dev, hkv, g, d):
+def check_prefill(dev, hkv, g, d, smax=MAX_SEQ):
     """flash_prefill at ``hkv`` kv heads of ``g`` query heads, head_dim
-    ``d``: one 256-token chunk against a 2048-token cache."""
+    ``d``: one 256-token chunk against an ``smax``-token cache."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    c, smax = CHUNK, MAX_SEQ
+    c = CHUNK
     h = hkv * g
     gen = torch.Generator(device=dev).manual_seed(2)
     q = torch.randn((1, c, h, d), generator=gen, device=dev).bfloat16()
@@ -1436,10 +1467,11 @@ def check_model_small(dev, arch, kv_quant="none"):
     params[dev] = copy.deepcopy(params[cpu]).to(dev)
     caches = {d: M.cache_init(cfg, rc, 2, 64, device=d) for d in params}
     rng = np.random.default_rng(SEED)
-    prompt = rng.integers(1, cfg.vocab_size, (2, 21)).astype(np.int32)
-    steps = [("prefill", prompt[:, s:s + 8]) for s in range(0, 21, 8)]
-    steps += [("decode", rng.integers(1, cfg.vocab_size, (2, 1)).astype(
-        np.int32)) for _ in range(4)]
+    lead = (2, cfg.n_codebooks) if cfg.family == "audio" else (2,)
+    prompt = rng.integers(1, cfg.vocab_size, lead + (21,)).astype(np.int32)
+    steps = [("prefill", prompt[..., s:s + 8]) for s in range(0, 21, 8)]
+    steps += [("decode", rng.integers(1, cfg.vocab_size, lead + (1,))
+               .astype(np.int32)) for _ in range(4)]
     tol = 1e-4 if cfg.family == "hybrid" else 3e-5
     f32_tol = dict(atol=tol, rtol=tol)
     err = 0.0
@@ -1508,9 +1540,10 @@ def int8_cache_diff(arch, got, want, tol):
 
 # ---------------------------------------------------------------- phase 3
 
-def build_engine(dev, arch, kv_quant="none"):
+def build_engine(dev, arch, kv_quant="none", max_seq=MAX_SEQ):
     """Full-width ``arch`` with random bf16 weights drawn on the card from
-    the seed, on the serving engine of every serving phase."""
+    the seed, on the serving engine of every serving phase (slots of
+    ``max_seq`` tokens)."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
@@ -1523,7 +1556,7 @@ def build_engine(dev, arch, kv_quant="none"):
     params = M.init_model(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    config = ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
+    config = ServeConfig(n_slots=N_SLOTS, max_seq=max_seq,
                          prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
                          store_budget_bytes=16 << 30, seed=SEED,
                          kv_quant=kv_quant)
@@ -1605,7 +1638,8 @@ def step_costs(engine, params, cfg, rc, prompt, dev):
     import torch
     from repro_torch.models import model as M
     out = {"decode_tick_ms": time_ms(engine._decode_sample, 10)}
-    chunk = torch.tensor([prompt[:CHUNK]], dtype=torch.int32, device=dev)
+    chunk = engine._codebooks(torch.tensor([prompt[:CHUNK]],
+                                           dtype=torch.int32, device=dev))
 
     def prefill_chunk():
         cache1 = M.slot_view(engine.cache, 0)
@@ -1613,67 +1647,111 @@ def step_costs(engine, params, cfg, rc, prompt, dev):
         M.prefill_step_cached(params, cfg, rc, chunk, cache1,
                               last_only=True)
     out["prefill_chunk_ms"] = time_ms(prefill_chunk, 5)
-    logits, _ = M.decode_step(params, cfg, rc, engine.last_tokens[:, None],
+    logits, _ = M.decode_step(params, cfg, rc,
+                              engine._codebooks(engine.last_tokens[:, None]),
                               engine.cache)
     torch.cuda.synchronize()
-    if tuple(logits.shape) != (N_SLOTS, 1, cfg.vocab_size):
+    books = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    if tuple(logits.shape) != (N_SLOTS,) + books + (1, cfg.vocab_size):
         fail(f"{cfg.arch_id} decode logits shape {tuple(logits.shape)}")
     if not torch.isfinite(logits.float()).all():
         fail(f"{cfg.arch_id}: non-finite decode logits")
     return out
 
 
+def retired_entry(engine, rid):
+    """``rid``'s retired entry without charging a flush: the staging ring's
+    latest write of it, else the host store's."""
+    staged = [entry for key, entry in engine.flusher.pending if key == rid]
+    return staged[-1] if staged else engine.store.pages.get(rid)
+
+
 def prefix_pages_equal(engine, rid, again_rid, prompt_len):
-    """The int8 flush -> restore -> decode round trip: the pages that the
+    """The flush -> restore -> decode round trip: the pages that the
     prompt filled (and no decode step touched) come back in the restored
-    request's own retired entry with the same codes and scales, bit for
-    bit (``tests/test_kv_quant.py``'s engine gate, at full width)."""
+    request's own retired entry with the same values (int8: codes and
+    scales), bit for bit (``tests/test_kv_quant.py``'s engine gate, at
+    full width)."""
     import torch
-    for _ in range(20):
-        if rid in engine.store.pages and again_rid in engine.store.pages:
-            break
-        engine.flusher.maybe_flush()
-    a, b = engine.store.pages.get(rid), engine.store.pages.get(again_rid)
+    a, b = retired_entry(engine, rid), retired_entry(engine, again_rid)
     if a is None or b is None:
         return False
     full = prompt_len // engine.cache["kv"]["k"].shape[3]
-    return all(torch.equal(a["kv"][n][:, :full], b["kv"][n][:, :full])
-               for n in a["kv"])
+    return all(torch.equal(a["kv"][n][:, :full].cpu(),
+                           b["kv"][n][:, :full].cpu()) for n in a["kv"])
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Counts the (token, expert) pairs that the MoE layers route and drop
+    at capacity, on decode ticks and on prefill chunks: wraps the two
+    one-rank entry points the blocks call. The count routes each input a
+    second time (no kernel of the port's); yields ``{kind: [dropped (a
+    device tensor), routed]}``."""
+    from repro_torch.models import moe
+    acc = {"decode": [0, 0], "prefill": [0, 0]}
+    inner = {"decode": moe.moe_apply_ep_decode, "prefill": moe.moe_apply_ep}
+
+    def wrap(kind):
+        def counted(m, cfg, x, **kw):
+            n, pairs = moe.dropped_pairs(m, cfg, x)
+            acc[kind][0] = acc[kind][0] + n
+            acc[kind][1] += pairs
+            return inner[kind](m, cfg, x, **kw)
+        return counted
+    moe.moe_apply_ep_decode, moe.moe_apply_ep = wrap("decode"), wrap(
+        "prefill")
+    try:
+        yield acc
+    finally:
+        moe.moe_apply_ep_decode, moe.moe_apply_ep = (inner["decode"],
+                                                     inner["prefill"])
 
 
 def serve(dev, kv_quant="none", arch=ARCH):
-    """Serve full-width ``arch`` (qwen3-1.7b, or gemma-2b) with bf16 or
-    int8 KV pages: N_REQUESTS prompts, then N_RESUBMIT of them again under
-    new rids (prefix restores)."""
+    """Serve full-width ``arch`` (qwen3-1.7b, gemma-2b, granite or
+    musicgen) with bf16 or int8 KV pages: its requests, then some of them
+    again under new rids (prefix restores). granite's MoE layers count the
+    pairs they drop."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import Request
 
-    cfg, rc, params, engine, init_s = build_engine(dev, arch, kv_quant)
+    n_req, n_again, lens, max_seq = (
+        (N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT, MUSICGEN_PROMPT_LENS,
+         MUSICGEN_MAX_SEQ) if arch == MUSICGEN
+        else (N_REQUESTS, N_RESUBMIT, PROMPT_LENS, MAX_SEQ))
+    cfg, rc, params, engine, init_s = build_engine(dev, arch, kv_quant,
+                                                   max_seq)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(*PROMPT_LENS, N_REQUESTS)]
+               for n in rng.integers(*lens, n_req)]
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path: counts from 0 just before, read just after
-    zero_counters()
-    t0 = time.time()
-    first = [engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
-             for i, p in enumerate(prompts)]
-    engine.run(max_ticks=10_000)
-    again = [engine.submit(Request(rid=1000 + i, prompt=prompts[i],
-                                   max_new_tokens=MAX_NEW))
-             for i in range(N_RESUBMIT)]
-    engine.run(max_ticks=10_000)
-    torch.cuda.synchronize()
-    wall_s = time.time() - t0
-    counts = read_counters()
+    with (counting_drops() if cfg.family == "moe"
+          else contextlib.nullcontext()) as drops:
+        zero_counters()
+        t0 = time.time()
+        first = [engine.submit(Request(rid=i, prompt=p,
+                                       max_new_tokens=MAX_NEW))
+                 for i, p in enumerate(prompts)]
+        engine.run(max_ticks=10_000)
+        again = [engine.submit(Request(rid=1000 + i, prompt=prompts[i],
+                                       max_new_tokens=MAX_NEW))
+                 for i in range(n_again)]
+        engine.run(max_ticks=10_000)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        counts = read_counters()
     # bf16 pages: the bf16 decode mode and the bf16 tensor-core prefill
     # (gemma-2b: its D 256 instance); int8 pages: the int8 mode and the f32
     # (3xTF32) prefill instance (gemma-2b: its D 256 instance)
     int8 = kv_quant == "int8"
     prefill = {(ARCH, False): "flash_prefill",
                (GEMMA, False): "flash_prefill_d256",
+               (GRANITE, False): "flash_prefill",
+               (MUSICGEN, False): "flash_prefill",
                (ARCH, True): "flash_prefill_tf32",
                (GEMMA, True): "flash_prefill_tf32_256"}[arch, int8]
     launches, off_path = split_counts(
@@ -1686,17 +1764,22 @@ def serve(dev, kv_quant="none", arch=ARCH):
     out["tokens_equal"] = [h.result() == first[i].result()
                            for i, h in enumerate(again)
                            if h.done() and first[i].done()]
-    out["tokens_first_run"] = [first[i].result() for i in range(N_RESUBMIT)]
+    out["tokens_first_run"] = [first[i].result() for i in range(n_again)]
     out["tokens_restored"] = [h.result() for h in again]
+    if drops is not None:
+        out["dropped_pairs"] = {kind: {"dropped": int(n), "routed": pairs,
+                                       "share": int(n) / pairs}
+                                for kind, (n, pairs) in drops.items()}
     out.update(step_costs(engine, params, cfg, rc, prompts[0], dev))
-    if kv_quant == "int8":
+    if int8 or cfg.family == "moe":
         out["prefix_pages_equal"] = [
             prefix_pages_equal(engine, i, 1000 + i, len(prompts[i]))
-            for i in range(N_RESUBMIT)]
+            for i in range(n_again)]
         out["tokens_equal_leading"] = [
             next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
                  len(x))
             for x, y in zip(out["tokens_first_run"], out["tokens_restored"])]
+    if int8:
         out["post_prefill"] = restore_from_post_prefill(
             dev, arch, prompts[:N_RESUBMIT], out["tokens_first_run"])
     return out
@@ -1831,18 +1914,29 @@ def report(arch, run):
                  f"path")
 
 
-def check_restores(arch, run):
-    """Every resubmit restored from the tier, with its first run's greedy
-    tokens."""
-    if run["prefix_hits"] < N_RESUBMIT or run["restore_stall_ns"] <= 0:
+def check_restores(arch, run, tokens=True):
+    """Every resubmit restored from the tier and stalled on it, with its
+    first run's greedy tokens (``tokens``); else (granite, whose tick
+    couples its slots through the experts' capacity) with its first run's
+    first token and its prompt's full pages bit for bit."""
+    n = len(run["restored"])
+    if run["prefix_hits"] < n or run["restore_stall_ns"] <= 0:
         fail(f"{arch}: prefix restores missing: hits {run['prefix_hits']}, "
              f"stall {run['restore_stall_ns']}")
     if not all(run["restored"]):
         fail(f"{arch}: resubmits not restored: {run['restored']}")
-    if len(run["tokens_equal"]) != N_RESUBMIT or not all(
-            run["tokens_equal"]):
+    if tokens and (len(run["tokens_equal"]) != n
+                   or not all(run["tokens_equal"])):
         fail(f"{arch}: restored greedy tokens differ: "
              f"{run['tokens_equal']}")
+    if not tokens:
+        log(f"{arch}: restored tokens equal to the first run's "
+            f"{run['tokens_equal']}, equal leading tokens "
+            f"{run['tokens_equal_leading']} of {MAX_NEW}; prompt pages bit "
+            f"for bit {run['prefix_pages_equal']}")
+        if not all(run["prefix_pages_equal"]) or min(
+                run["tokens_equal_leading"]) < 1:
+            fail(f"{arch}: the restore is not exact")
 
 
 def check_per_step(arch, run, prefill, decode):
@@ -1904,6 +1998,7 @@ def main() -> None:
         "paged_matmul redesign: its two scalar instances are built and "
         "timed beside the new ones"))
     args = ap.parse_args()
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this smoke needs the card")
@@ -1947,6 +2042,15 @@ def main() -> None:
     log(f"flash_prefill ok: {pre['shape']}; {pre}")
     pre80 = check_prefill(dev, 32, 1, 80)
     log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
+    # D 64: granite's heads (Hkv 8, G 2) and musicgen's (Hkv 32, G 1) over
+    # their serving paths' slots
+    dec64 = {GRANITE: check_decode(dev, 8, 2, 64),
+             MUSICGEN: check_decode(dev, 32, 1, 64, MUSICGEN_MAX_SEQ)}
+    pre64 = {GRANITE: check_prefill(dev, 8, 2, 64),
+             MUSICGEN: check_prefill(dev, 32, 1, 64, MUSICGEN_MAX_SEQ)}
+    for arch in (GRANITE, MUSICGEN):
+        log(f"paged_decode ok: {dec64[arch]['shape']}; {dec64[arch]}")
+        log(f"flash_prefill ok: {pre64[arch]['shape']}; {pre64[arch]}")
     dec8 = check_decode_int8(dev, 8, 2, 128)
     log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
     dec8_256 = check_decode_int8(dev, 1, 8, 256)
@@ -1971,7 +2075,8 @@ def main() -> None:
     log(f"paged_matmul ok: {mm['shape']}; {mm}")
     mm32 = check_paged_matmul_f32(dev, parent)
     log(f"paged_matmul f32 ok: {mm32}")
-    small = {arch: check_model_small(dev, arch) for arch in (ARCH, HYBRID)}
+    small = {arch: check_model_small(dev, arch)
+             for arch in (ARCH, HYBRID, GRANITE, MUSICGEN)}
     small[f"{ARCH} int8"] = check_model_small(dev, ARCH, "int8")
     for arch, res in small.items():
         log(f"small {arch} (f32) on the card agrees with the CPU: {res}")
@@ -2006,9 +2111,23 @@ def main() -> None:
     check_int8_run(gem8_name, gem8, gem)
     check_per_step(gem8_name, gem8, "flash_prefill_tf32_256",
                    "paged_decode_int8")
+    torch.cuda.empty_cache()
+
+    gran = serve(dev, arch=GRANITE)
+    report(GRANITE, gran)
+    log(f"{GRANITE}: (token, expert) pairs dropped at capacity: "
+        f"{gran['dropped_pairs']}")
+    check_restores(GRANITE, gran, tokens=False)
+    check_per_step(GRANITE, gran, "flash_prefill", "paged_decode")
+    torch.cuda.empty_cache()
+
+    mus = serve(dev, arch=MUSICGEN)
+    report(MUSICGEN, mus)
+    check_restores(MUSICGEN, mus)
+    check_per_step(MUSICGEN, mus, "flash_prefill", "paged_decode")
 
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
-            gem8_name: gem8}
+            gem8_name: gem8, GRANITE: gran, MUSICGEN: mus}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -2020,13 +2139,21 @@ def main() -> None:
     # launches are this row's: None for all of them)
     for name, counter, res, src, replaces, paths in (
             ("paged_decode", "paged_decode", dec, decode_src, decode_tpu,
-             None),
+             (ARCH, HYBRID, GEMMA)),
+            ("paged_decode_d64_granite", "paged_decode", dec64[GRANITE],
+             decode_src, decode_tpu, (GRANITE,)),
+            ("paged_decode_d64_musicgen", "paged_decode", dec64[MUSICGEN],
+             decode_src, decode_tpu, (MUSICGEN,)),
             ("paged_decode_int8", "paged_decode_int8", dec8, decode_src,
              decode_tpu, (int8_name,)),
             ("paged_decode_int8_d256", "paged_decode_int8", dec8_256,
              decode_src, decode_tpu, (gem8_name,)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
-             None),
+             (ARCH, HYBRID)),
+            ("flash_prefill_d64_granite", "flash_prefill", pre64[GRANITE],
+             prefill_src, prefill_tpu, (GRANITE,)),
+            ("flash_prefill_d64_musicgen", "flash_prefill",
+             pre64[MUSICGEN], prefill_src, prefill_tpu, (MUSICGEN,)),
             ("flash_prefill_tf32", "flash_prefill_tf32", pre32, prefill_src,
              prefill_tpu, None),
             ("flash_prefill_d256", "flash_prefill_d256", pre256, prefill_src,
@@ -2058,6 +2185,11 @@ def main() -> None:
         for key in ("parent_ms", "plans_ms"):
             if key in res:
                 row[key] = res[key]
+        if name.endswith(("_granite", "_musicgen")):
+            row["note"] = ("the bf16 instance at D 64 on the path of "
+                           + name.split("_")[-1] + " (the same kernel and "
+                           "count as the row without the suffix, whose "
+                           "launches on this path are this row's)")
         if name == "paged_decode_int8_d256":
             row["note"] = ("the int8 mode at gemma-2b's shape (one kv head "
                            "of 8 query heads, D 256): the same kernel and "
@@ -2081,10 +2213,13 @@ def main() -> None:
                                   "f32 over pages of 32 rows, which only "
                                   "the scalar instance takes, L2 warm"}[name])
         kernels.append(row)
+    wall_s = time.time() - t_start
+    log(f"every phase passed in {wall_s:.1f}s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "build_s": build_s, "decode": dec, "decode_d80": dec80,
+                   "wall_s": wall_s, "build_s": build_s, "decode": dec,
+                   "decode_d80": dec80,
                    "decode_d256": dec256, "prefill_d256": pre256,
                    "decode_int8": dec8, "decode_int8_d256": dec8_256,
                    "decode_edges": dec_edges,
@@ -2098,6 +2233,8 @@ def main() -> None:
                    "small_model": small, "serve": run,
                    "serve_hybrid": hyb, "serve_int8": run8,
                    "serve_gemma": gem, "serve_gemma_int8": gem8,
+                   "decode_d64": dec64, "prefill_d64": pre64,
+                   "serve_granite": gran, "serve_musicgen": mus,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,8 +8,10 @@ bf16 of its own (the reference's arrays use ml_dtypes' ``bfloat16``, which
 ``np.save`` turns into ``|V2``), so two-byte void or bfloat16 arrays are
 reinterpreted bit for bit. Weights keep their ``[d_in, d_out]``
 orientation; the stacked leading layer axis of ``params["blocks"]`` is
-sliced into one ``Block`` per layer, and the hybrid's ``params["groups"]``
-([g, period, ...]) into one ``Mamba2`` per (group, layer).
+sliced into one ``Block`` (the MoE family: ``MoEBlock``) per layer, and
+the hybrid's ``params["groups"]`` ([g, period, ...]) into one ``Mamba2``
+per (group, layer). The audio family's embedding crosses as it is: K
+codebook tables stacked into [K·V, d], and its untied [d, K·V] unembed.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, RMSNorm
 from repro_torch.models.mamba2 import Mamba2
-from repro_torch.models.transformer import Block
+from repro_torch.models.moe import MoE
+from repro_torch.models.transformer import Block, MoEBlock
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float16): torch.float16,
@@ -57,18 +60,26 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _block(blk: Dict, t, idx) -> Block:
-    """One dense block from a pytree whose leaves are indexed by ``idx``
-    (a layer index into stacked leaves, or ``()`` for unstacked ones)."""
-    a, m = blk["attn"], blk["mlp"]
+def _block(blk: Dict, t, idx) -> Block | MoEBlock:
+    """One dense block (an MoE block where the pytree has ``"moe"``) from
+    a pytree whose leaves are indexed by ``idx`` (a layer index into
+    stacked leaves, or ``()`` for unstacked ones)."""
+    a = blk["attn"]
     attention = Attention(
         t(a["wq"][idx]), t(a["wk"][idx]), t(a["wv"][idx]), t(a["wo"][idx]),
         t(a["q_norm"][idx]) if "q_norm" in a else None,
         t(a["k_norm"][idx]) if "k_norm" in a else None)
+    norms = (RMSNorm(t(blk["ln_attn"]["scale"][idx])),
+             RMSNorm(t(blk["ln_mlp"]["scale"][idx])))
+    if "moe" in blk:
+        e = blk["moe"]
+        experts = MoE(*(t(e[n][idx]) for n in ("router", "e_gate", "e_up",
+                                                "e_down")))
+        return MoEBlock(norms[0], attention, norms[1], experts)
+    m = blk["mlp"]
     mlp = MLP(t(m["w_up"][idx]), t(m["w_down"][idx]),
               t(m["w_gate"][idx]) if "w_gate" in m else None)
-    return Block(RMSNorm(t(blk["ln_attn"]["scale"][idx])), attention,
-                 RMSNorm(t(blk["ln_mlp"]["scale"][idx])), mlp)
+    return Block(norms[0], attention, norms[1], mlp)
 
 
 def _mamba(grp: Dict, t, idx) -> Mamba2:
@@ -82,7 +93,8 @@ def _mamba(grp: Dict, t, idx) -> Mamba2:
 def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     device="cuda") -> torch.nn.Module:
     """The reference's parameter pytree (numpy leaves) as a
-    ``DenseModel`` or ``HybridModel`` on ``device``."""
+    ``DenseModel`` (dense, MoE or audio) or ``HybridModel`` on
+    ``device``."""
     M.check_family(cfg)
     dev = resolve_device(device)
 

@@ -1,4 +1,5 @@
-"""Common layer primitives: norms, RoPE, embeddings, MLP variants.
+"""Common layer primitives: norms, RoPE and sinusoidal positions,
+embeddings (musicgen's K codebook tables too), MLP variants.
 
 Parameters are ``nn.Module``s holding tensors in ``cfg.dtype`` (bf16 by
 default); normalization and softmax statistics accumulate in float32.
@@ -7,6 +8,8 @@ as ``x @ W`` (no ``nn.Linear`` transpose), so a parameter crosses from the
 JAX package unchanged (``repro_torch.bridge``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +91,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Additive sinusoidal embedding (musicgen), f32. positions: [B, S]
+    -> [B, S, d_model] (sines, then cosines)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs                 # [B, S, half]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP variants
 # ---------------------------------------------------------------------------
@@ -133,7 +147,8 @@ def mlp_apply(mlp: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embed(nn.Module):
-    """Token table [V, d]; ``unembed`` [d, V] only when not tied."""
+    """Token table [V, d]; ``unembed`` [d, V] only when not tied. The
+    audio family stacks its K codebooks' tables: [K·V, d] and [d, K·V]."""
 
     def __init__(self, embedding: torch.Tensor,
                  unembed: torch.Tensor | None = None):
@@ -145,21 +160,34 @@ class Embed(nn.Module):
 def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
     """Draw the embedding (and untied unembedding) from ``gen``."""
     dt = pdtype(cfg)
-    table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+    rows = (cfg.n_codebooks if cfg.family == "audio" else 1) * cfg.vocab_size
+    table = (torch.randn((rows, cfg.d_model), generator=gen,
                          device=device) * 0.02).to(dt)
     unembed = None
     if not cfg.tie_embeddings:
-        unembed = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device)
+        unembed = dense_init(gen, cfg.d_model, rows, dt, device)
     return Embed(table, unembed)
 
 
 def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens: [B, S] int -> [B, S, d]."""
+    """tokens: [B, S] int -> [B, S, d]. Audio: tokens [B, K, S], codebook
+    k's ids offset by ``k · vocab``, the K rows summed -> [B, S, d]."""
+    if cfg.family == "audio":
+        offsets = (torch.arange(cfg.n_codebooks, device=tokens.device)
+                   * cfg.vocab_size)[None, :, None]
+        return embed.embedding[tokens.long() + offsets].sum(dim=1)
     return embed.embedding[tokens.long()]
 
 
 def unembed_apply(embed: Embed, cfg: ModelConfig, x: torch.Tensor):
-    """x: [B, S, d] -> logits [B, S, V] (tied table transposed)."""
+    """x: [B, S, d] -> logits [B, S, V] (tied table transposed); audio
+    -> [B, K, S, V], one slice of V per codebook."""
     if cfg.tie_embeddings:
-        return x @ embed.embedding.T
-    return x @ embed.unembed
+        logits = x @ embed.embedding.T
+    else:
+        logits = x @ embed.unembed
+    if cfg.family == "audio":
+        b, s, _ = logits.shape
+        logits = logits.view(b, s, cfg.n_codebooks,
+                             cfg.vocab_size).movedim(2, 1)
+    return logits

@@ -1,10 +1,16 @@
-"""Model assembly for the dense and hybrid families: init, paged cache,
-decode and chunked prefill steps, on-device sampling.
+"""Model assembly for the dense, MoE, audio and hybrid families: init,
+paged cache, decode and chunked prefill steps, on-device sampling.
 
 The reference streams a stacked layer axis through its speculative-read
 scan; here the layers are a plain loop over ``DenseModel.blocks`` or
 ``HybridModel.groups`` (the reference's serving engine drops the prefetch
-for a single device too). Caches keep the reference's layout -- dense
+for a single device too). The MoE family (granite) is a ``DenseModel`` of
+``MoEBlock``s; the audio family (musicgen) a ``DenseModel`` of dense
+blocks over K codebook tables: its tokens are [B, K, S], their K rows
+summed, sinusoidal positions added at each row's own positions, and its
+logits [B, K, S, V]. All three share the dense cache layout and the
+chunked prefill, one parallel chunk forward per layer. Caches keep the
+reference's layout -- dense
 ``{"kv": {"k","v"}: [L, B, P, page, Hkv, D], "pos": [B]}``, with int8
 ``k``/``v`` codes and f32 ``k_scale``/``v_scale`` [L, B, P, Hkv] under
 ``kv_quant="int8"``; hybrid adds the f32 Mamba2 states ``"h"`` [g, period,
@@ -34,9 +40,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import kv_quant, mamba2, transformer
 from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        embed_init, frozen_param, pdtype,
-                                       rmsnorm, unembed_apply)
+                                       rmsnorm, sinusoidal_positions,
+                                       unembed_apply)
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -47,7 +54,8 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 class DenseModel(nn.Module):
-    """A dense decoder: ``embed``, per-layer ``blocks`` and ``ln_f``."""
+    """A decoder of per-layer ``blocks`` (dense ``Block``s, or ``MoEBlock``s
+    for the MoE family) between ``embed`` and ``ln_f``."""
 
     def __init__(self, embed: Embed, blocks, ln_f: RMSNorm):
         super().__init__()
@@ -116,8 +124,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                        * 0.02).to(dt)
             return HybridModel(embed, groups,
                                SharedBlock(in_map, block, out_map), ln_f)
-        blocks = [transformer.block_init(gen, cfg, dev)
-                  for _ in range(cfg.n_layers)]
+        init = (transformer.moe_block_init if cfg.family == "moe"
+                else transformer.block_init)
+        blocks = [init(gen, cfg, dev) for _ in range(cfg.n_layers)]
         return DenseModel(embed, blocks, ln_f)
 
 
@@ -198,6 +207,16 @@ def _shared_in(sp: SharedBlock, x: torch.Tensor,
     return torch.cat([x, emb], dim=-1) @ sp.in_map
 
 
+def _embed(params: nn.Module, cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """The token embedding, plus the sinusoidal positions (positions
+    [B, S]) for a model without rope (musicgen)."""
+    x = embed_apply(params.embed, cfg, tokens)
+    if cfg.family == "audio" or not cfg.use_rope:
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # decode / prefill
 # ---------------------------------------------------------------------------
@@ -207,13 +226,14 @@ def _shared_in(sp: SharedBlock, x: torch.Tensor,
 def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
                 tokens: torch.Tensor, cache: Dict
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode for every row. tokens: [B, 1] -> logits [B, 1, V].
+    """One-token decode for every row. tokens: [B, 1] -> logits [B, 1, V]
+    (audio: [B, K, 1] -> [B, K, 1, V]).
 
     Writes each row's new K/V at its ``cache["pos"]`` and advances every
     row's position by one, in place."""
     check_family(cfg)
     pos = cache["pos"]
-    x = embed_apply(params.embed, cfg, tokens)
+    x = _embed(params, cfg, tokens, pos.reshape(-1, 1).to(torch.int32))
     if cfg.family == "hybrid":
         emb, sp = x, params.shared
         for gi in range(len(params.groups)):
@@ -239,17 +259,18 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
                         ) -> Tuple[torch.Tensor, Dict]:
     """Chunked multi-token prefill that writes the paged KV cache in place.
 
-    tokens: [B, C] int. Every row ingests its C tokens starting at its own
-    ``cache["pos"]``; returns (logits [B, C, V] — or only the last
-    position's, [B, 1, V], with ``last_only`` — and the cache with pos
-    advanced by C).
+    tokens: [B, C] int (audio: [B, K, C]). Every row ingests its C tokens
+    starting at its own ``cache["pos"]``; returns (logits [B, C, V] — or
+    only the last position's, [B, 1, V], with ``last_only``; audio [B, K,
+    C or 1, V] — and the cache with pos advanced by C).
     """
     check_family(cfg)
     pos = cache["pos"]
-    x = embed_apply(params.embed, cfg, tokens)
-    c = x.shape[1]
+    c = tokens.shape[-1]
     positions = (pos.reshape(-1, 1).to(torch.int32)
-                 + torch.arange(c, dtype=torch.int32, device=x.device)[None])
+                 + torch.arange(c, dtype=torch.int32,
+                                device=tokens.device)[None])
+    x = _embed(params, cfg, tokens, positions)
     if cfg.family == "hybrid":
         emb, sp = x, params.shared
         for gi in range(len(params.groups)):
@@ -277,7 +298,11 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
 
 
 def last_token_logits(logits: torch.Tensor) -> torch.Tensor:
-    """Final-position logits row per batch element: [B, S, V] -> [B, V]."""
+    """Final-position logits row per batch element: [B, S, V] -> [B, V];
+    audio [B, K, S, V] -> codebook 0's (the engine feeds the one sampled
+    token to every codebook)."""
+    if logits.ndim == 4:
+        return logits[:, 0, -1]
     return logits[:, -1]
 
 

@@ -1,7 +1,9 @@
-"""Dense transformer blocks: paged decode and chunked prefill steps.
+"""Transformer blocks: paged decode and chunked prefill steps.
 
 A block is an ``nn.Module`` of one layer's weights; the model holds one per
 layer (the reference stacks them on a leading axis for its layer scan).
+The dense ``Block`` and the ``MoEBlock`` share the attention half; each
+brings its own feed-forward half (``ffn``): the MLP, or the routed experts.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import kv_quant
+from repro_torch.models import kv_quant, moe
 from repro_torch.models.layers import (MLP, RMSNorm, mlp_apply, mlp_init,
                                        pdtype, rmsnorm)
 
@@ -28,6 +30,32 @@ class Block(nn.Module):
         self.ln_mlp = ln_mlp
         self.mlp = mlp
 
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor, *,
+            decode: bool) -> torch.Tensor:
+        """The feed-forward half on the normed ``h``: the MLP."""
+        return mlp_apply(self.mlp, cfg, h)
+
+
+class MoEBlock(nn.Module):
+    """One MoE layer: ``ln_attn``, ``attn``, ``ln_mlp``, ``moe``."""
+
+    def __init__(self, ln_attn: RMSNorm, attention: attn.Attention,
+                 ln_mlp: RMSNorm, experts: moe.MoE):
+        super().__init__()
+        self.ln_attn = ln_attn
+        self.attn = attention
+        self.ln_mlp = ln_mlp
+        self.moe = experts
+
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor, *,
+            decode: bool) -> torch.Tensor:
+        """The feed-forward half on the normed ``h``: the routed experts,
+        ``moe_apply_ep_decode`` on a decode tick, else ``moe_apply_ep``
+        (both ``moe_apply`` on one rank, drops included)."""
+        if decode:
+            return moe.moe_apply_ep_decode(self.moe, cfg, h)
+        return moe.moe_apply_ep(self.moe, cfg, h)[0]
+
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Block:
     """Draw one layer's weights from ``gen``."""
@@ -38,17 +66,29 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Block:
                  mlp_init(gen, cfg, device))
 
 
-def _finish(block: Block, cfg: ModelConfig, x: torch.Tensor,
-            o: torch.Tensor) -> torch.Tensor:
-    """Attention output projection + residual, then the MLP half."""
+def moe_block_init(gen: torch.Generator, cfg: ModelConfig,
+                   device) -> MoEBlock:
+    """Draw one MoE layer's weights from ``gen``."""
+    dt = pdtype(cfg)
+    return MoEBlock(RMSNorm.ones(cfg.d_model, dt, device),
+                    attn.attn_init(gen, cfg, device),
+                    RMSNorm.ones(cfg.d_model, dt, device),
+                    moe.moe_init(gen, cfg, device))
+
+
+def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
+            o: torch.Tensor, *, decode: bool = False) -> torch.Tensor:
+    """Attention output projection + residual, then the block's
+    feed-forward half (``block.ffn``) + residual."""
     b, s = x.shape[0], x.shape[1]
     x = x + o.reshape(b, s, cfg.q_dim) @ block.attn.wo
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
-    return x + mlp_apply(block.mlp, cfg, h)
+    return x + block.ffn(cfg, h, decode=decode)
 
 
-def block_decode_paged(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                       pos: torch.Tensor, kv: Dict[str, torch.Tensor], *,
+def block_decode_paged(block: Block | MoEBlock, cfg: ModelConfig,
+                       x: torch.Tensor, pos: torch.Tensor,
+                       kv: Dict[str, torch.Tensor], *,
                        n_ranks: int = 1) -> torch.Tensor:
     """Single-token decode against one layer's pages.
 
@@ -64,7 +104,7 @@ def block_decode_paged(block: Block, cfg: ModelConfig, x: torch.Tensor,
                                     logit_softcap=cfg.attn_logit_softcap,
                                     k_scale=kv.get("k_scale"),
                                     v_scale=kv.get("v_scale"))
-    return _finish(block, cfg, x, o)
+    return _finish(block, cfg, x, o, decode=True)
 
 
 def _prefill_attention_int8(cfg: ModelConfig, q: torch.Tensor,
@@ -99,8 +139,9 @@ def _prefill_attention_int8(cfg: ModelConfig, q: torch.Tensor,
     return o.to(q.dtype)
 
 
-def block_prefill_cached(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                         positions: torch.Tensor, pos: torch.Tensor,
+def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
+                         x: torch.Tensor, positions: torch.Tensor,
+                         pos: torch.Tensor,
                          kv: Dict[str, torch.Tensor], *,
                          stepwise: bool = False) -> torch.Tensor:
     """One block over a C-token chunk, writing its K/V into the pages.

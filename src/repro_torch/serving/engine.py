@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged, tiered KV cache.
 
-The port of the reference's ``repro.serving.engine`` for the dense and
-hybrid families:
+The port of the reference's ``repro.serving.engine`` for the dense, MoE,
+audio and hybrid families:
 same surface (``Request``, ``RequestHandle``, ``HostPageStore``,
 ``ServingEngine`` with ``submit`` / ``step`` / ``run`` / ``advance_time``
 / ``stats``), same scheduler hooks, and the same CXL-timed tier charges, so
@@ -346,11 +346,19 @@ class ServingEngine:
         out[slot] = tok
         return out
 
+    def _codebooks(self, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, S] tokens as the model takes them: the audio family feeds
+        the one sampled stream to every codebook, [B, K, S]."""
+        if self.cfg.family != "audio":
+            return tokens
+        b, s = tokens.shape
+        return tokens[:, None].expand(b, self.cfg.n_codebooks, s)
+
     def _decode_sample(self) -> torch.Tensor:
         """One decode tick: step every slot + sample on device."""
         logits, self.cache = M.decode_step(
-            self.params, self.cfg, self.rc, self.last_tokens[:, None],
-            self.cache)
+            self.params, self.cfg, self.rc,
+            self._codebooks(self.last_tokens[:, None]), self.cache)
         return self._sample(M.last_token_logits(logits))
 
     def _prefill_chunk(self, tokens: torch.Tensor, slot: int, pos0: int,
@@ -415,8 +423,8 @@ class ServingEngine:
         chunks = [prompt[i:i + c] for i in range(0, len(prompt), c)]
         pos0, tok = 0, None
         for i, chunk in enumerate(chunks):
-            arr = torch.tensor([chunk], dtype=torch.int32,
-                               device=self.device)
+            arr = self._codebooks(torch.tensor([chunk], dtype=torch.int32,
+                                               device=self.device))
             final = i == len(chunks) - 1
             tok = self._prefill_chunk(arr, slot, pos0, pos0 + len(chunk),
                                       final)
