@@ -28,17 +28,20 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    K-splits or block tiles x stages). In turn: the two attention kernels
    in bf16 (atol = rtol = 2e-2) at qwen3-1.7b's heads (Hkv 8, 2 query
    heads each, D 128), at zamba2-2.7b's (Hkv = H = 32, D 80), at
-   granite-moe-1b-a400m's (Hkv 8, 2 query heads each, D 64) and
-   musicgen-large's (Hkv = H = 32, D 64, over 1024-token slots) and, the
-   decode kernel, at gemma-2b's (one kv head of 8 query heads, D 256);
+   granite-moe-1b-a400m's (Hkv 8, 2 query heads each, D 64),
+   musicgen-large's (Hkv = H = 32, D 64, over 1024-token slots) and
+   llama-3.2-vision-11b's (Hkv 8, 4 query heads each, D 128; the decode
+   runs its 8-row instance, half of whose rows are padding, recorded)
+   and, the decode kernel, at gemma-2b's (one kv head of 8 query heads,
+   D 256);
    the decode kernel's int8 mode at qwen3's heads and at gemma-2b's (bf16
    2e-2, int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
    (bf16 2e-2, f32 1e-4): flash_prefill at a ragged 37-token chunk near
-   the cache's end, G = 1, 2 and 8, D 64 and 256, softcap 30, in bf16 and
-   in f32 (the 3xTF32 kernels: at D 80, 128 and 64, and at 256);
+   the cache's end, G = 1, 2, 4 and 8, D 64 and 256, softcap 30, in bf16
+   and in f32 (the 3xTF32 kernels: at D 80, 128 and 64, and at 256);
    paged_decode, both modes, at lengths 1, 255, 256, 257 and Smax around
-   a split, G = 1 and 8, the int8 fresh row on a tile's first and last
+   a split, G = 1, 4 and 8, the int8 fresh row on a tile's first and last
    row and past the cache; the f32 flash_prefill instance (3xTF32 tensor
    cores) at the int8 path's chunk, timed beside f32 SDPA; the bf16 D 256
    instance (tensor cores, two warps per 16 rows) at gemma-2b's chunk,
@@ -59,9 +62,11 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    turn) beside cuBLAS (f32 beside the parent's scalar instance too) at
    the same L2 state, warm times beside, and the scalar instance over
    pages of 32 rows. Then run the smoke-size qwen3-1.7b, zamba2-2.7b,
-   granite-moe-1b-a400m and musicgen-large (f32), and qwen3-1.7b with int8
-   pages, through chunked prefill and ragged decode on the card and on the
-   CPU from the same weights, and hold logits and caches together (int8
+   granite-moe-1b-a400m, musicgen-large, llama-3.2-vision-11b (its cross
+   gates set away from 0 and its vision K/V written from random
+   embeddings) and xlstm-125m (f32), and qwen3-1.7b with int8 pages,
+   through chunked prefill and ragged decode on the card and on the CPU
+   from the same weights, and hold logits and caches together (int8
    codes equal but for steps of one, counted);
 3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
    from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
@@ -71,8 +76,9 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    kernels ran on that path and no other kernel did, the restores
    happened and stalled on the tier, and each restored request's greedy
    tokens equal its first run's;
-4. zamba2-2.7b at full width (random bf16 weights from the same seed):
-   one 256-token prompt through one chunked prefill against 256
+4. zamba2-2.7b at full width, cut to 24 of its 54 layers (4 groups of 6
+   Mamba2 layers; random bf16 weights from the same seed): one 256-token
+   prompt through one chunked prefill against 256
    ``decode_step`` calls -- with the weights widened to f32, logits within
    1e-3 and the prompt's greedy token equal; in bf16 the difference is
    reported -- then serve it on the engine of phase 3 (8 requests of
@@ -103,10 +109,10 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    prompt's full pages bit for bit, restores from post-prefill entries
    gave the first run's tokens, and the entry is under 0.55 of phase 6's
    bf16 entry;
-8. serve granite-moe-1b-a400m at full width (24 MoE layers, 32 experts
-   top-8 at capacity ``round(1.25 t k / E)``, which drops pairs at decode
-   too on one device, as the reference does; 8 kv heads of 2 query heads,
-   D 64) on the engine and traffic of phase 3; check that every request
+8. serve granite-moe-1b-a400m at full width, cut to 12 of its 24 MoE
+   layers (32 experts top-8 at capacity ``round(1.25 t k / E)``, which
+   drops pairs at decode too on one device, as the reference does; 8 kv
+   heads of 2 query heads, D 64) on the engine and traffic of phase 3; check that every request
    finished, the restores stalled on the tier and each gave its first
    run's first token and its prompt's full pages bit for bit (the tokens
    after it may part: a tick routes every slot's row together, so a
@@ -114,13 +120,37 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    D 64) ran once per layer per chunk and the bf16 paged_decode once per
    layer per tick, and no other kernel ran; print the share of (token,
    expert) pairs dropped at decode and at prefill;
-9. serve musicgen-large at full width (48 layers, 32 kv heads = heads,
-   D 64, 4 codebooks fed one token, sinusoidal positions) on phase 3's
+9. serve musicgen-large at full width, cut to 24 of its 48 layers (32 kv
+   heads = heads, D 64, 4 codebooks fed one token, sinusoidal positions;
+   a 192 MiB entry) on phase 3's
    engine with 1024-token slots: 3 requests of 300-600 prompt tokens and
    32 new tokens, then 2 of them again (prefix restores); phase 3's gates
    (restored greedy tokens equal the first run's) and phase 8's kernels,
    once per layer per step;
-10. print the measured numbers, one ``kernels`` JSON line, the card line
+10. serve llama-3.2-vision-11b at full width (40 layers: 8 groups of 4
+   self-attention layers and one gated cross-attention layer over 1601
+   vision tokens; 32 query heads over 8 kv heads, D 128, SwiGLU d_ff
+   14336, vocab 128256; ~9.8 B random bf16 weights drawn on the card) on
+   phase 3's engine: 4 requests of 300-1000 prompt tokens and 32 new
+   tokens, none resubmitted (the family is never restored, as in the
+   reference); check that every request finished and its pages were
+   flushed as one entry of the 32 self-attention layers (256 MiB),
+   flash_prefill ran once per self-attention layer per chunk and the
+   bf16 paged_decode once per self-attention layer per tick, no other
+   kernel ran, and the vision K/V are still the cache's zeros (the
+   serving path has no vision input; the reference's engine never
+   writes them either);
+11. serve xlstm-125m at full width (12 layers in 2 groups of 5 mLSTM
+   layers and one sLSTM layer, d_model 768, 4 heads, vocab 50304) on
+   phase 3's engine: 8 requests of 300-1000 prompt tokens and 32 new
+   tokens, its prefill each layer over the whole chunk (memory updates and
+   cells token by token, as the reference's scan of ``decode_step``;
+   projections once a chunk);
+   check that every request finished, no kernel launched (the family has
+   none) and nothing was flushed (its cache has no pages); print the
+   tick's ms and the prefill's ms per token;
+12. print the measured numbers, the seconds of each phase, one
+   ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
 """
@@ -142,6 +172,8 @@ HYBRID = "zamba2-2.7b"
 GEMMA = "gemma-2b"
 GRANITE = "granite-moe-1b-a400m"
 MUSICGEN = "musicgen-large"
+VLM = "llama-3.2-vision-11b"
+XLSTM = "xlstm-125m"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
@@ -150,6 +182,19 @@ N_HYBRID_REQUESTS = 8
 # requests and shorter slots than phase 3's, for the script's time limit
 MUSICGEN_MAX_SEQ, MUSICGEN_PROMPT_LENS = 1024, (300, 601)
 N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT = 3, 2
+# the VLM's 256 MiB entries (32 self-attention layers) and xLSTM's token-
+# by-token prefill (its reference's form): fewer VLM requests than phase
+# 3's, never resubmitted (neither family is restored from the tier)
+N_VLM_REQUESTS, N_XLSTM_REQUESTS = 4, 8
+# xLSTM's prefill (a recurrence a token in every layer) is timed over a
+# chunk of this many tokens
+XLSTM_TIMED_TOKENS = 32
+# Depth cuts, for the script's time budget: the kernels' shapes and the
+# per-layer gates do not depend on depth, the Python tier's charge (~24-32
+# ms per MiB of entry on the host of an H100 80GB HBM3 at 700 W, PERF.md
+# section 5) and the eager steps do. Widths, heads, vocabularies and
+# traffic stay the full models'.
+CUT_LAYERS = {HYBRID: 24, GRANITE: 12, MUSICGEN: 24}
 # an int8 entry over a bf16 one: the reference's gate is 1/itemsize + 0.05
 # (tests/test_kv_quant.py:233)
 INT8_ENTRY_RATIO = 0.55
@@ -186,6 +231,31 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+PHASE_S = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Host seconds of one phase of the script, logged and kept in
+    ``PHASE_S``."""
+    t0 = time.time()
+    yield
+    PHASE_S[name] = time.time() - t0
+    log(f"phase {name}: {PHASE_S[name]:.1f}s")
+
+
+def free_card() -> None:
+    """Drop the last phase's model and cache from the card: collect the
+    engine's reference cycles (its scheduler and handles point back at
+    it), then return the cached blocks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"card memory allocated after the phase: "
+        f"{torch.cuda.memory_allocated()} bytes")
 
 
 def card_line() -> str:
@@ -286,7 +356,8 @@ def launch_plans():
     for arch, h, hkv, d, smax in ((ARCH, 16, 8, 128, MAX_SEQ),
                                   (HYBRID, 32, 32, 80, MAX_SEQ),
                                   (GRANITE, 16, 8, 64, MAX_SEQ),
-                                  (MUSICGEN, 32, 32, 64, MUSICGEN_MAX_SEQ)):
+                                  (MUSICGEN, 32, 32, 64, MUSICGEN_MAX_SEQ),
+                                  (VLM, 32, 8, 128, MAX_SEQ)):
         plans[f"paged_decode {arch} bf16"] = dops.plan(
             N_SLOTS, h, hkv, smax, 256, d, torch.bfloat16)
         plans[f"flash_prefill {arch} bf16"] = fops.plan(
@@ -399,6 +470,11 @@ def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
                + kv_len.numel() * 4)
     res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * tokens * h * d)
     res["max_abs_err"] = res["err_softcap0"]
+    # the instance runs ``group_pad`` query rows per kv head: g of them
+    # real, the rest padding (G 4 runs the 8-row instance)
+    res["group_pad"] = ops.plan(b, h, hkv, smax, page, d,
+                                torch.bfloat16).group_pad
+    res["padded_rows_share"] = 1 - g / res["group_pad"]
     res["shape"] = (f"q [{b},1,{h},{d}] bf16, pages [{b},{p},{page},{hkv},"
                     f"{d}], kv_len {lens}")
     return res
@@ -569,7 +645,8 @@ def check_decode_edges(dev):
     G = 1 and G = 8 (MAX_GROUP) query heads per kv head, D 128; bf16 at
     TOL and f32 at 1e-4. The int8 mode also puts the fresh row on the
     first and the last row of a tile (the plan's tile) and past the cache
-    (pos >= Smax, clamped to its last row)."""
+    (pos >= Smax, clamped to its last row). Also G = 4 (the VLM's group,
+    on the 8-row instance with half its rows padding)."""
     import torch
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.models import kv_quant
@@ -579,7 +656,7 @@ def check_decode_edges(dev):
     f32_tol = dict(atol=1e-4, rtol=1e-4)
     res = {}
     lens = [1, 255, 256, 257, smax]
-    for hkv, g in ((8, 1), (2, ops.MAX_GROUP)):
+    for hkv, g in ((8, 1), (8, 4), (2, ops.MAX_GROUP)):
         h = hkv * g
         tile = ops.plan(1, h, hkv, smax, page, d, torch.int8).tile
         pos8 = [0, 254, 255, 256, smax - 1, 3 * tile, 3 * tile - 1, smax,
@@ -626,8 +703,9 @@ def check_prefill_edges(dev):
     """flash_prefill's edges in bf16 (TOL) on the tensor-core instances: a
     ragged 37-token chunk with pos near Smax - C (ending at Smax, and 5
     tokens past it, where the limit clamps to Smax - 1) beside a row at
-    pos 0, at G = 1 (zamba2's D 80), G = 2 (qwen3's D 128), G = 8
-    (MAX_GROUP), D 64, and D 256 at G = 1 and 8 (gemma-2b's, on the D 256
+    pos 0, at G = 1 (zamba2's D 80), G = 2 (qwen3's D 128), G = 4 (the
+    VLM's D 128), G = 8 (MAX_GROUP), D 64, and D 256 at G = 1 and 8
+    (gemma-2b's, on the D 256
     instance); softcap 30; and f32 at the same shapes (1e-4): the 3xTF32
     tensor-core kernels, at D 256 the one with four warps on the head
     dim's quarters."""
@@ -636,8 +714,8 @@ def check_prefill_edges(dev):
     smax = MAX_SEQ
     gen = torch.Generator(device=dev).manual_seed(7)
     res = {}
-    for hkv, g, d in ((32, 1, 80), (8, 2, 128), (2, 8, 128), (8, 2, 64),
-                      (8, 1, 256), (1, 8, 256)):
+    for hkv, g, d in ((32, 1, 80), (8, 2, 128), (8, 4, 128), (2, 8, 128),
+                      (8, 2, 64), (8, 1, 256), (1, 8, 256)):
         h = hkv * g
         kc, vc = (torch.randn((2, smax, hkv, d), generator=gen,
                               device=dev).bfloat16() for _ in range(2))
@@ -1447,10 +1525,13 @@ def check_model_small(dev, arch, kv_quant="none"):
     reference): the smoke-size ``arch`` in f32, chunked prefill with a
     ragged last chunk, then decode ticks with ragged per-slot positions.
     Returns the largest logit and cache differences. Tolerances: f32 3e-5
-    (tests/test_kernel_parity.py), the hybrid 1e-4 (tests/test_kernels.py
-    for the SSD) with its Mamba2 states held relative to their scale (they
-    are ~1e-6 at smoke size). With int8 pages the codes must be equal but
-    for steps of one (counted), the scales within 1e-6 relative and the
+    (tests/test_kernel_parity.py); the recurrent families (the hybrid,
+    xLSTM) 1e-4 (tests/test_kernels.py for the SSD), their states held
+    relative to their scale (the Mamba2 states are ~1e-6 at smoke size).
+    The VLM runs with its cross gates set away from 0 and its vision K/V
+    written from random embeddings (``vision_kv``), so that the cross
+    layers take part. With int8 pages the codes must be equal but for
+    steps of one (counted), the scales within 1e-6 relative and the
     dequantized pages within the tolerance plus one step."""
     import copy
     import dataclasses
@@ -1459,20 +1540,31 @@ def check_model_small(dev, arch, kv_quant="none"):
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.models import model as M
+    from repro_torch.models import transformer
     cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig(),
                    kv_page_size=8, kv_quant=kv_quant)
     cpu = torch.device("cpu")
     params = {cpu: M.init_model(cfg, seed=SEED, device=cpu)}
-    params[dev] = copy.deepcopy(params[cpu]).to(dev)
-    caches = {d: M.cache_init(cfg, rc, 2, 64, device=d) for d in params}
+    caches = {cpu: M.cache_init(cfg, rc, 2, 64, device=cpu)}
     rng = np.random.default_rng(SEED)
+    if cfg.family == "vlm":
+        emb = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+        for gi, cross in enumerate(params[cpu].cross):
+            cross.attn_gate.fill_(0.6)
+            cross.mlp_gate.fill_(-0.4)
+            k, v = transformer.vision_kv(cross, cfg, emb)
+            caches[cpu]["cross_k"][gi], caches[cpu]["cross_v"][gi] = k, v
+    params[dev] = copy.deepcopy(params[cpu]).to(dev)
+    caches[dev] = {n: ({k: t.to(dev) for k, t in a.items()} if n == "kv"
+                       else a.to(dev)) for n, a in caches[cpu].items()}
     lead = (2, cfg.n_codebooks) if cfg.family == "audio" else (2,)
     prompt = rng.integers(1, cfg.vocab_size, lead + (21,)).astype(np.int32)
     steps = [("prefill", prompt[..., s:s + 8]) for s in range(0, 21, 8)]
     steps += [("decode", rng.integers(1, cfg.vocab_size, lead + (1,))
                .astype(np.int32)) for _ in range(4)]
-    tol = 1e-4 if cfg.family == "hybrid" else 3e-5
+    tol = 1e-4 if cfg.family in ("hybrid", "ssm") else 3e-5
     f32_tol = dict(atol=tol, rtol=tol)
     err = 0.0
     for i, (kind, toks) in enumerate(steps):
@@ -1495,18 +1587,20 @@ def check_model_small(dev, arch, kv_quant="none"):
                                    tol))
         return out
     leaves = {n: (caches[dev]["kv"][n], caches[cpu]["kv"][n])
-              for n in ("k", "v")}
+              for n in caches[cpu].get("kv", {})}
     leaves.update({n: (caches[dev][n], caches[cpu][n])
-                   for n in ("h", "conv") if n in caches[cpu]})
+                   for n in caches[cpu] if n not in ("kv", "pos")})
     for n, (got, want) in leaves.items():
         got = got.cpu()
-        scale = float(want.abs().max()) if n in ("h", "conv") else 1.0
+        scale = 1.0 if n in ("k", "v") else float(want.abs().max())
         cache_err = float((got - want).abs().max())
         out[f"{n}_max_abs_err"] = cache_err
         if scale == 0.0 or not torch.allclose(
                 got, want, atol=tol * scale, rtol=tol):
             fail(f"small {arch}: card {n} cache differs from the CPU by "
                  f"{cache_err} (scale {scale})")
+    if not torch.equal(caches[dev]["pos"].cpu(), caches[cpu]["pos"]):
+        fail(f"small {arch}: card positions differ from the CPU")
     return out
 
 
@@ -1543,7 +1637,9 @@ def int8_cache_diff(arch, got, want, tol):
 def build_engine(dev, arch, kv_quant="none", max_seq=MAX_SEQ):
     """Full-width ``arch`` with random bf16 weights drawn on the card from
     the seed, on the serving engine of every serving phase (slots of
-    ``max_seq`` tokens)."""
+    ``max_seq`` tokens); cut to ``CUT_LAYERS[arch]`` layers where it has
+    an entry."""
+    import dataclasses
     import torch
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
@@ -1551,6 +1647,8 @@ def build_engine(dev, arch, kv_quant="none", max_seq=MAX_SEQ):
     from repro_torch.serving.config import ServeConfig
     from repro_torch.serving.engine import ServingEngine
     cfg = registry.get(arch)
+    if arch in CUT_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS[arch])
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     t0 = time.time()
     params = M.init_model(cfg, seed=SEED, device=dev)
@@ -1614,8 +1712,11 @@ def run_stats(engine, handles, wall_s, launches, init_s):
     from repro_torch.core.tier import CxlTier
     st = engine.stats
     entries = {CxlTier.entry_bytes(e) for e in engine.store.pages.values()}
+    kv = engine.cache.get("kv")
     return {"init_s": init_s, "wall_s": wall_s, "launches": launches,
-            "n_layers": engine.cfg.n_layers, "entry_bytes": sorted(entries),
+            "n_layers": engine.cfg.n_layers,
+            "kv_layers": 0 if kv is None else kv["k"].shape[0],
+            "entry_bytes": sorted(entries),
             "requests_done": sum(h.done() for h in handles),
             "requests": len(handles),
             "decode_tokens": st["decode_tokens"],
@@ -1634,11 +1735,14 @@ def run_stats(engine, handles, wall_s, launches, init_s):
 def step_costs(engine, params, cfg, rc, prompt, dev):
     """Steady-state device costs of the two steps at the path's shapes
     (CUDA events), then one more tick whose logits must be finite and of
-    the expected shape."""
+    the expected shape. xLSTM's prefill (a recurrence a token in every
+    layer) is timed over ``XLSTM_TIMED_TOKENS`` tokens, not a whole
+    chunk."""
     import torch
     from repro_torch.models import model as M
     out = {"decode_tick_ms": time_ms(engine._decode_sample, 10)}
-    chunk = engine._codebooks(torch.tensor([prompt[:CHUNK]],
+    n = XLSTM_TIMED_TOKENS if cfg.family == "ssm" else CHUNK
+    chunk = engine._codebooks(torch.tensor([prompt[:n]],
                                            dtype=torch.int32, device=dev))
 
     def prefill_chunk():
@@ -1647,6 +1751,8 @@ def step_costs(engine, params, cfg, rc, prompt, dev):
         M.prefill_step_cached(params, cfg, rc, chunk, cache1,
                               last_only=True)
     out["prefill_chunk_ms"] = time_ms(prefill_chunk, 5)
+    out["prefill_chunk_tokens"] = n
+    out["prefill_ms_per_token"] = out["prefill_chunk_ms"] / n
     logits, _ = M.decode_step(params, cfg, rc,
                               engine._codebooks(engine.last_tokens[:, None]),
                               engine.cache)
@@ -1858,16 +1964,21 @@ def check_hybrid_stepwise(dev, params, cfg, rc):
     return out
 
 
-def serve_hybrid(dev):
+def serve_fresh(dev, arch, n_requests, on_path):
+    """Serve ``n_requests`` fresh requests of full-width ``arch``, a family
+    the engine never restores from the tier (the hybrid, the VLM, xLSTM),
+    and hold the main path to the kernels ``on_path``. zamba2 first checks
+    its chunked prefill against its stepwise form."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import Request
 
-    cfg, rc, params, engine, init_s = build_engine(dev, HYBRID)
-    stepwise = check_hybrid_stepwise(dev, params, cfg, rc)
+    cfg, rc, params, engine, init_s = build_engine(dev, arch)
+    stepwise = (check_hybrid_stepwise(dev, params, cfg, rc)
+                if cfg.family == "hybrid" else None)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(*PROMPT_LENS, N_HYBRID_REQUESTS)]
+               for n in rng.integers(*PROMPT_LENS, n_requests)]
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path: counts from 0 just before, read just after
@@ -1879,13 +1990,17 @@ def serve_hybrid(dev):
     engine.run(max_ticks=10_000)
     torch.cuda.synchronize()
     wall_s = time.time() - t0
-    launches, off_path = split_counts(
-        HYBRID, read_counters(),
-        ("paged_decode", "flash_prefill", "ssd_scan"))
+    launches, off_path = split_counts(arch, read_counters(), on_path)
 
     out = run_stats(engine, handles, wall_s, launches, init_s)
     out["off_path_launches"] = off_path
-    out["stepwise"] = stepwise
+    if stepwise is not None:
+        out["stepwise"] = stepwise
+    out["stored_rids"] = sorted(engine.store.pages)
+    if cfg.family == "vlm":
+        out["vision_kv_nonzero"] = int(engine.cache["cross_k"].count_nonzero()
+                                       + engine.cache["cross_v"]
+                                       .count_nonzero())
     out.update(step_costs(engine, params, cfg, rc, prompts[0], dev))
     return out
 
@@ -1897,7 +2012,9 @@ def report(arch, run):
         f"decode tok/s), {run['decode_ticks']} ticks, "
         f"{run['prefill_chunks']} prefill chunks")
     log(f"{arch}: decode tick {run['decode_tick_ms']:.3f} ms, prefill chunk "
-        f"({CHUNK} tokens) {run['prefill_chunk_ms']:.3f} ms, "
+        f"({run['prefill_chunk_tokens']} tokens) "
+        f"{run['prefill_chunk_ms']:.3f} ms "
+        f"({run['prefill_ms_per_token']:.4f} ms per token), "
         f"max_memory_allocated {run['max_memory_allocated']} bytes, "
         f"weights init {run['init_s']:.1f}s")
     log(f"{arch} tier: prefix_hits {run['prefix_hits']}, restore_stall_ns "
@@ -1940,9 +2057,10 @@ def check_restores(arch, run, tokens=True):
 
 
 def check_per_step(arch, run, prefill, decode):
-    """The path's prefill kernel ran once per layer per chunk and its
-    decode kernel once per layer per tick."""
-    n = run["n_layers"]
+    """The path's prefill kernel ran once per attention layer (K/V layer
+    of the cache) per chunk and its decode kernel once per attention
+    layer per tick."""
+    n = run["kv_layers"]
     want = {prefill: n * run["prefill_chunks"],
             decode: n * run["decode_ticks"]}
     got = {name: run["launches"][name] for name in want}
@@ -1975,9 +2093,9 @@ def check_int8_run(name, run8, bf16_run):
         fail(f"{name}: restores of post-prefill entries differ from the "
              f"first run: {post}")
     per_tick = run8["launches"]["paged_decode_int8"] / run8["decode_ticks"]
-    if per_tick != run8["n_layers"]:
+    if per_tick != run8["kv_layers"]:
         fail(f"{name}: int8 decode launches per tick {per_tick} (want one "
-             f"per layer, {run8['n_layers']})")
+             f"per layer, {run8['kv_layers']})")
     ratio = max(run8["entry_bytes"]) / min(bf16_run["entry_bytes"])
     run8["entry_ratio"] = ratio
     log(f"{name}: entry {run8['entry_bytes']} bytes over the bf16 entry "
@@ -1988,6 +2106,60 @@ def check_int8_run(name, run8, bf16_run):
         f" ns")
     if ratio >= INT8_ENTRY_RATIO:
         fail(f"{name}: int8 entry / bf16 entry {ratio}")
+
+
+def check_vlm_kernels(dev):
+    """Both attention kernels at the VLM's heads (Hkv 8 of 4 query heads
+    each, D 128) over the serving path's slots and chunk; the decode runs
+    its 8-row instance, half of whose rows are padding at G 4."""
+    dec = check_decode(dev, 8, 4, 128)
+    log(f"paged_decode ok: {dec['shape']}; {dec}")
+    pre = check_prefill(dev, 8, 4, 128)
+    log(f"flash_prefill ok: {pre['shape']}; {pre}")
+    return dec, pre
+
+
+def serve_vlm(dev):
+    """Serve full-width llama-3.2-vision-11b; its gates: every request
+    finished and its pages were flushed as one entry of the 32 self-
+    attention layers' pages, flash_prefill ran once per self-attention
+    layer per chunk and the bf16 paged_decode once per self-attention
+    layer per tick, no other kernel ran, and the vision K/V are still
+    the cache's zeros (the serving path never writes them, as in the
+    reference)."""
+    from repro_torch.configs import registry
+    cfg = registry.get(VLM)
+    vlm = serve_fresh(dev, VLM, N_VLM_REQUESTS,
+                      ("paged_decode", "flash_prefill"))
+    report(VLM, vlm)
+    check_per_step(VLM, vlm, "flash_prefill", "paged_decode")
+    entry = 2 * vlm["kv_layers"] * MAX_SEQ * cfg.kv_dim * 2
+    log(f"{VLM}: {vlm['kv_layers']} K/V layers; entries "
+        f"{vlm['entry_bytes']} bytes (want {entry}) for requests "
+        f"{vlm['stored_rids']}; nonzero vision K/V values "
+        f"{vlm['vision_kv_nonzero']}")
+    if (vlm["kv_layers"] != cfg.n_layers // cfg.cross_attn_period
+            * (cfg.cross_attn_period - 1)
+            or vlm["flushes"] != N_VLM_REQUESTS
+            or vlm["stored_rids"] != list(range(N_VLM_REQUESTS))
+            or vlm["entry_bytes"] != [entry]):
+        fail(f"{VLM}: not every request's pages were flushed as one "
+             f"{entry}-byte entry")
+    if vlm["vision_kv_nonzero"]:
+        fail(f"{VLM}: the serving path wrote the vision K/V")
+    return vlm
+
+
+def serve_xlstm(dev):
+    """Serve full-width xlstm-125m; its gates: every request finished, no
+    kernel launched (xLSTM has none) and nothing was flushed (its cache
+    has no pages, as in the reference)."""
+    xl = serve_fresh(dev, XLSTM, N_XLSTM_REQUESTS, ())
+    report(XLSTM, xl)
+    if xl["kv_layers"] or xl["flushes"] or xl["store_bytes"] \
+            or xl["tier_write_ns"] or xl["stored_rids"]:
+        fail(f"{XLSTM}: pages flushed from a cache without pages")
+    return xl
 
 
 def main() -> None:
@@ -2032,102 +2204,123 @@ def main() -> None:
     for name, p in plans.items():
         log(f"plan: {name}: {p}")
 
-    dec = check_decode(dev, 8, 2, 128)
-    log(f"paged_decode ok: {dec['shape']}; {dec}")
-    dec80 = check_decode(dev, 32, 1, 80)
-    log(f"paged_decode ok: {dec80['shape']}; {dec80}")
-    dec256 = check_decode(dev, 1, 8, 256)
-    log(f"paged_decode ok: {dec256['shape']}; {dec256}")
-    pre = check_prefill(dev, 8, 2, 128)
-    log(f"flash_prefill ok: {pre['shape']}; {pre}")
-    pre80 = check_prefill(dev, 32, 1, 80)
-    log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
-    # D 64: granite's heads (Hkv 8, G 2) and musicgen's (Hkv 32, G 1) over
-    # their serving paths' slots
-    dec64 = {GRANITE: check_decode(dev, 8, 2, 64),
-             MUSICGEN: check_decode(dev, 32, 1, 64, MUSICGEN_MAX_SEQ)}
-    pre64 = {GRANITE: check_prefill(dev, 8, 2, 64),
-             MUSICGEN: check_prefill(dev, 32, 1, 64, MUSICGEN_MAX_SEQ)}
-    for arch in (GRANITE, MUSICGEN):
-        log(f"paged_decode ok: {dec64[arch]['shape']}; {dec64[arch]}")
-        log(f"flash_prefill ok: {pre64[arch]['shape']}; {pre64[arch]}")
-    dec8 = check_decode_int8(dev, 8, 2, 128)
-    log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
-    dec8_256 = check_decode_int8(dev, 1, 8, 256)
-    log(f"paged_decode int8 ok: {dec8_256['shape']}; {dec8_256}")
-    dec_edges = check_decode_edges(dev)
-    log(f"paged_decode edges ok (both modes): {dec_edges}")
-    pre_edges = check_prefill_edges(dev)
-    log(f"flash_prefill edges ok: {pre_edges}")
-    pre32 = check_prefill_f32(dev)
-    log(f"flash_prefill f32 ok: {pre32['shape']}; {pre32}")
-    pre256 = check_prefill_d256(dev)
-    log(f"flash_prefill D256 ok: {pre256['shape']}; {pre256}")
-    pre32_256 = check_prefill_tf32_256(dev, parent)
-    log(f"flash_prefill f32 D256 ok: {pre32_256['shape']}; {pre32_256}")
-    pre_sc = check_prefill_scalar(dev)
-    log(f"flash_prefill scalar ok: {pre_sc['shape']}; {pre_sc}")
-    ssd = check_ssd(dev)
-    log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
-    refused = check_refusals(dev)
-    log(f"C entries refuse what check_plan refuses (rc): {refused}")
-    mm = check_paged_matmul(dev)
-    log(f"paged_matmul ok: {mm['shape']}; {mm}")
-    mm32 = check_paged_matmul_f32(dev, parent)
-    log(f"paged_matmul f32 ok: {mm32}")
-    small = {arch: check_model_small(dev, arch)
-             for arch in (ARCH, HYBRID, GRANITE, MUSICGEN)}
-    small[f"{ARCH} int8"] = check_model_small(dev, ARCH, "int8")
-    for arch, res in small.items():
-        log(f"small {arch} (f32) on the card agrees with the CPU: {res}")
+    with phase("kernel checks"):
+        dec = check_decode(dev, 8, 2, 128)
+        log(f"paged_decode ok: {dec['shape']}; {dec}")
+        dec80 = check_decode(dev, 32, 1, 80)
+        log(f"paged_decode ok: {dec80['shape']}; {dec80}")
+        dec256 = check_decode(dev, 1, 8, 256)
+        log(f"paged_decode ok: {dec256['shape']}; {dec256}")
+        pre = check_prefill(dev, 8, 2, 128)
+        log(f"flash_prefill ok: {pre['shape']}; {pre}")
+        pre80 = check_prefill(dev, 32, 1, 80)
+        log(f"flash_prefill ok: {pre80['shape']}; {pre80}")
+        # D 64: granite's heads (Hkv 8, G 2) and musicgen's (Hkv 32, G 1)
+        # over their serving paths' slots
+        dec64 = {GRANITE: check_decode(dev, 8, 2, 64),
+                 MUSICGEN: check_decode(dev, 32, 1, 64, MUSICGEN_MAX_SEQ)}
+        pre64 = {GRANITE: check_prefill(dev, 8, 2, 64),
+                 MUSICGEN: check_prefill(dev, 32, 1, 64, MUSICGEN_MAX_SEQ)}
+        for arch in (GRANITE, MUSICGEN):
+            log(f"paged_decode ok: {dec64[arch]['shape']}; {dec64[arch]}")
+            log(f"flash_prefill ok: {pre64[arch]['shape']}; {pre64[arch]}")
+        dec_g4, pre_g4 = check_vlm_kernels(dev)
+        dec8 = check_decode_int8(dev, 8, 2, 128)
+        log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
+        dec8_256 = check_decode_int8(dev, 1, 8, 256)
+        log(f"paged_decode int8 ok: {dec8_256['shape']}; {dec8_256}")
+        dec_edges = check_decode_edges(dev)
+        log(f"paged_decode edges ok (both modes): {dec_edges}")
+        pre_edges = check_prefill_edges(dev)
+        log(f"flash_prefill edges ok: {pre_edges}")
+        pre32 = check_prefill_f32(dev)
+        log(f"flash_prefill f32 ok: {pre32['shape']}; {pre32}")
+        pre256 = check_prefill_d256(dev)
+        log(f"flash_prefill D256 ok: {pre256['shape']}; {pre256}")
+        pre32_256 = check_prefill_tf32_256(dev, parent)
+        log(f"flash_prefill f32 D256 ok: {pre32_256['shape']}; {pre32_256}")
+        pre_sc = check_prefill_scalar(dev)
+        log(f"flash_prefill scalar ok: {pre_sc['shape']}; {pre_sc}")
+        ssd = check_ssd(dev)
+        log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
+        refused = check_refusals(dev)
+        log(f"C entries refuse what check_plan refuses (rc): {refused}")
+        mm = check_paged_matmul(dev)
+        log(f"paged_matmul ok: {mm['shape']}; {mm}")
+        mm32 = check_paged_matmul_f32(dev, parent)
+        log(f"paged_matmul f32 ok: {mm32}")
+    with phase("small models"):
+        small = {arch: check_model_small(dev, arch)
+                 for arch in (ARCH, HYBRID, GRANITE, MUSICGEN, VLM, XLSTM)}
+        small[f"{ARCH} int8"] = check_model_small(dev, ARCH, "int8")
+        for arch, res in small.items():
+            log(f"small {arch} (f32) on the card agrees with the CPU: {res}")
 
-    run = serve(dev)
-    report(ARCH, run)
-    check_restores(ARCH, run)
-    torch.cuda.empty_cache()
+    with phase(ARCH):
+        run = serve(dev)
+        report(ARCH, run)
+        check_restores(ARCH, run)
+    free_card()
 
-    hyb = serve_hybrid(dev)
-    log(f"{HYBRID} chunked vs stepwise prefill: {hyb['stepwise']}")
-    report(HYBRID, hyb)
-    if hyb["flushes"] <= 0 or hyb["tier_write_ns"] <= 0:
-        fail(f"{HYBRID}: no pages flushed to the tier")
-    torch.cuda.empty_cache()
+    with phase(HYBRID):
+        hyb = serve_fresh(dev, HYBRID, N_HYBRID_REQUESTS,
+                          ("paged_decode", "flash_prefill", "ssd_scan"))
+        log(f"{HYBRID} chunked vs stepwise prefill: {hyb['stepwise']}")
+        report(HYBRID, hyb)
+        if hyb["flushes"] <= 0 or hyb["tier_write_ns"] <= 0:
+            fail(f"{HYBRID}: no pages flushed to the tier")
+    free_card()
 
-    run8 = serve(dev, "int8")
     int8_name = f"{ARCH} int8"
-    report(int8_name, run8)
-    check_int8_run(int8_name, run8, run)
-    torch.cuda.empty_cache()
+    with phase(int8_name):
+        run8 = serve(dev, "int8")
+        report(int8_name, run8)
+        check_int8_run(int8_name, run8, run)
+    free_card()
 
-    gem = serve(dev, arch=GEMMA)
-    report(GEMMA, gem)
-    check_restores(GEMMA, gem)
-    check_per_step(GEMMA, gem, "flash_prefill_d256", "paged_decode")
-    torch.cuda.empty_cache()
+    with phase(GEMMA):
+        gem = serve(dev, arch=GEMMA)
+        report(GEMMA, gem)
+        check_restores(GEMMA, gem)
+        check_per_step(GEMMA, gem, "flash_prefill_d256", "paged_decode")
+    free_card()
 
-    gem8 = serve(dev, "int8", arch=GEMMA)
     gem8_name = f"{GEMMA} int8"
-    report(gem8_name, gem8)
-    check_int8_run(gem8_name, gem8, gem)
-    check_per_step(gem8_name, gem8, "flash_prefill_tf32_256",
-                   "paged_decode_int8")
-    torch.cuda.empty_cache()
+    with phase(gem8_name):
+        gem8 = serve(dev, "int8", arch=GEMMA)
+        report(gem8_name, gem8)
+        check_int8_run(gem8_name, gem8, gem)
+        check_per_step(gem8_name, gem8, "flash_prefill_tf32_256",
+                       "paged_decode_int8")
+    free_card()
 
-    gran = serve(dev, arch=GRANITE)
-    report(GRANITE, gran)
-    log(f"{GRANITE}: (token, expert) pairs dropped at capacity: "
-        f"{gran['dropped_pairs']}")
-    check_restores(GRANITE, gran, tokens=False)
-    check_per_step(GRANITE, gran, "flash_prefill", "paged_decode")
-    torch.cuda.empty_cache()
+    with phase(GRANITE):
+        gran = serve(dev, arch=GRANITE)
+        report(GRANITE, gran)
+        log(f"{GRANITE}: (token, expert) pairs dropped at capacity: "
+            f"{gran['dropped_pairs']}")
+        check_restores(GRANITE, gran, tokens=False)
+        check_per_step(GRANITE, gran, "flash_prefill", "paged_decode")
+    free_card()
 
-    mus = serve(dev, arch=MUSICGEN)
-    report(MUSICGEN, mus)
-    check_restores(MUSICGEN, mus)
-    check_per_step(MUSICGEN, mus, "flash_prefill", "paged_decode")
+    with phase(MUSICGEN):
+        mus = serve(dev, arch=MUSICGEN)
+        report(MUSICGEN, mus)
+        check_restores(MUSICGEN, mus)
+        check_per_step(MUSICGEN, mus, "flash_prefill", "paged_decode")
+    free_card()
+
+    with phase(VLM):
+        vlm = serve_vlm(dev)
+    free_card()
+
+    with phase(XLSTM):
+        xl = serve_xlstm(dev)
+    free_card()
 
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
-            gem8_name: gem8, GRANITE: gran, MUSICGEN: mus}
+            gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
+            XLSTM: xl}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -2144,6 +2337,8 @@ def main() -> None:
              decode_src, decode_tpu, (GRANITE,)),
             ("paged_decode_d64_musicgen", "paged_decode", dec64[MUSICGEN],
              decode_src, decode_tpu, (MUSICGEN,)),
+            ("paged_decode_g4_vlm", "paged_decode", dec_g4, decode_src,
+             decode_tpu, (VLM,)),
             ("paged_decode_int8", "paged_decode_int8", dec8, decode_src,
              decode_tpu, (int8_name,)),
             ("paged_decode_int8_d256", "paged_decode_int8", dec8_256,
@@ -2154,6 +2349,8 @@ def main() -> None:
              prefill_src, prefill_tpu, (GRANITE,)),
             ("flash_prefill_d64_musicgen", "flash_prefill",
              pre64[MUSICGEN], prefill_src, prefill_tpu, (MUSICGEN,)),
+            ("flash_prefill_g4_vlm", "flash_prefill", pre_g4, prefill_src,
+             prefill_tpu, (VLM,)),
             ("flash_prefill_tf32", "flash_prefill_tf32", pre32, prefill_src,
              prefill_tpu, None),
             ("flash_prefill_d256", "flash_prefill_d256", pre256, prefill_src,
@@ -2182,7 +2379,7 @@ def main() -> None:
                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                "shape": res["shape"]}
-        for key in ("parent_ms", "plans_ms"):
+        for key in ("parent_ms", "plans_ms", "padded_rows_share"):
             if key in res:
                 row[key] = res[key]
         if name.endswith(("_granite", "_musicgen")):
@@ -2190,6 +2387,13 @@ def main() -> None:
                            + name.split("_")[-1] + " (the same kernel and "
                            "count as the row without the suffix, whose "
                            "launches on this path are this row's)")
+        if name.endswith("_g4_vlm"):
+            row["note"] = ("the bf16 instance at D 128 on the VLM's path "
+                           "(8 kv heads of 4 query heads; the decode runs "
+                           "its 8-row instance, half of whose rows are "
+                           "padding): the same kernel and count as the row "
+                           "without the suffix, whose launches on this "
+                           "path are this row's")
         if name == "paged_decode_int8_d256":
             row["note"] = ("the int8 mode at gemma-2b's shape (one kv head "
                            "of 8 query heads, D 256): the same kernel and "
@@ -2214,6 +2418,7 @@ def main() -> None:
                                   "the scalar instance takes, L2 warm"}[name])
         kernels.append(row)
     wall_s = time.time() - t_start
+    log(f"phases (s): {PHASE_S}")
     log(f"every phase passed in {wall_s:.1f}s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2235,6 +2440,9 @@ def main() -> None:
                    "serve_gemma": gem, "serve_gemma_int8": gem8,
                    "decode_d64": dec64, "prefill_d64": pre64,
                    "serve_granite": gran, "serve_musicgen": mus,
+                   "decode_g4": dec_g4, "prefill_g4": pre_g4,
+                   "serve_vlm": vlm, "serve_xlstm": xl,
+                   "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

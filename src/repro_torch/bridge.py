@@ -10,8 +10,12 @@ reinterpreted bit for bit. Weights keep their ``[d_in, d_out]``
 orientation; the stacked leading layer axis of ``params["blocks"]`` is
 sliced into one ``Block`` (the MoE family: ``MoEBlock``) per layer, and
 the hybrid's ``params["groups"]`` ([g, period, ...]) into one ``Mamba2``
-per (group, layer). The audio family's embedding crosses as it is: K
-codebook tables stacked into [K·V, d], and its untied [d, K·V] unembed.
+per (group, layer), the VLM's ``groups.self_blocks`` ([g, period - 1,
+...]) and ``groups.cross`` ([g, ...]) into ``Block``s and ``CrossBlock``s,
+and xLSTM's ``groups.mlstm`` ([g, slstm_every - 1, ...]) and
+``groups.slstm`` ([g, ...]) into ``MLSTM``s and ``SLSTM``s. The audio
+family's embedding crosses as it is: K codebook tables stacked into [K·V,
+d], and its untied [d, K·V] unembed.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, RMSNorm
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import Block, MoEBlock
+from repro_torch.models.transformer import Block, CrossBlock, MoEBlock
+from repro_torch.models.xlstm import MLSTM, SLSTM
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float16): torch.float16,
@@ -42,6 +47,7 @@ def _is_bf16(arr: np.ndarray) -> bool:
 
 def to_tensor(arr, device) -> torch.Tensor:
     """One numpy array as a tensor on ``device`` (bf16 via uint16 bits)."""
+    shape = np.shape(arr)              # ascontiguousarray makes 0-d 1-d
     arr = np.ascontiguousarray(arr)
     if _is_bf16(arr):
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -49,7 +55,7 @@ def to_tensor(arr, device) -> torch.Tensor:
         t = torch.from_numpy(arr.copy())
     else:
         raise TypeError(f"unsupported array dtype {arr.dtype}")
-    return t.to(device)
+    return t.reshape(shape).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -60,10 +66,16 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _block(blk: Dict, t, idx) -> Block | MoEBlock:
-    """One dense block (an MoE block where the pytree has ``"moe"``) from
-    a pytree whose leaves are indexed by ``idx`` (a layer index into
-    stacked leaves, or ``()`` for unstacked ones)."""
+def _mlp(m: Dict, t, idx) -> MLP:
+    return MLP(t(m["w_up"][idx]), t(m["w_down"][idx]),
+               t(m["w_gate"][idx]) if "w_gate" in m else None)
+
+
+def _block(blk: Dict, t, idx) -> Block | MoEBlock | CrossBlock:
+    """One dense block (an MoE block where the pytree has ``"moe"``, a
+    cross-attention block where it has ``"attn_gate"``) from a pytree
+    whose leaves are indexed by ``idx`` (a layer index into stacked
+    leaves, a (group, layer) pair, or ``()`` for unstacked ones)."""
     a = blk["attn"]
     attention = Attention(
         t(a["wq"][idx]), t(a["wk"][idx]), t(a["wv"][idx]), t(a["wo"][idx]),
@@ -76,10 +88,27 @@ def _block(blk: Dict, t, idx) -> Block | MoEBlock:
         experts = MoE(*(t(e[n][idx]) for n in ("router", "e_gate", "e_up",
                                                 "e_down")))
         return MoEBlock(norms[0], attention, norms[1], experts)
-    m = blk["mlp"]
-    mlp = MLP(t(m["w_up"][idx]), t(m["w_down"][idx]),
-              t(m["w_gate"][idx]) if "w_gate" in m else None)
-    return Block(norms[0], attention, norms[1], mlp)
+    if "attn_gate" in blk:
+        return CrossBlock(norms[0], attention, t(blk["attn_gate"][idx]),
+                          norms[1], _mlp(blk["mlp"], t, idx),
+                          t(blk["mlp_gate"][idx]))
+    return Block(norms[0], attention, norms[1], _mlp(blk["mlp"], t, idx))
+
+
+def _mlstm(grp: Dict, t, idx) -> MLSTM:
+    w = [t(grp[n][idx]) for n in ("w_up1", "w_up2", "conv_w", "w_qkv",
+                                  "w_gates", "gate_bias")]
+    return MLSTM(RMSNorm(t(grp["ln"]["scale"][idx])), *w,
+                 RMSNorm(t(grp["ln_head"]["scale"][idx])),
+                 t(grp["w_down2"][idx]))
+
+
+def _slstm(grp: Dict, t, idx) -> SLSTM:
+    w = [t(grp[n][idx]) for n in ("conv_w", "w_gates", "r_gates",
+                                  "gate_bias", "w_out")]
+    return SLSTM(RMSNorm(t(grp["ln"]["scale"][idx])), *w,
+                 RMSNorm(t(grp["ln_ff"]["scale"][idx])),
+                 _mlp(grp["ffn"], t, idx))
 
 
 def _mamba(grp: Dict, t, idx) -> Mamba2:
@@ -93,8 +122,8 @@ def _mamba(grp: Dict, t, idx) -> Mamba2:
 def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     device="cuda") -> torch.nn.Module:
     """The reference's parameter pytree (numpy leaves) as a
-    ``DenseModel`` (dense, MoE or audio) or ``HybridModel`` on
-    ``device``."""
+    ``DenseModel`` (dense, MoE or audio), ``HybridModel``, ``VLMModel`` or
+    ``XLSTMModel`` on ``device``."""
     M.check_family(cfg)
     dev = resolve_device(device)
 
@@ -113,6 +142,18 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
         shared = M.SharedBlock(t(sp["in_map"]), _block(sp["block"], t, ()),
                                t(sp["out_map"]))
         return M.HybridModel(embed, groups, shared, ln_f)
+    if cfg.family in ("vlm", "ssm"):
+        vlm = cfg.family == "vlm"
+        grp = np_tree["groups"]
+        (inner, make_inner), (outer, make_outer) = (
+            (("self_blocks", _block), ("cross", _block)) if vlm
+            else (("mlstm", _mlstm), ("slstm", _slstm)))
+        g = M.n_groups(cfg)
+        first = [[make_inner(grp[inner], t, (gi, i))
+                  for i in range(cfg.n_layers // g - 1)] for gi in range(g)]
+        last = [make_outer(grp[outer], t, gi) for gi in range(g)]
+        return (M.VLMModel if vlm else M.XLSTMModel)(embed, first, last,
+                                                     ln_f)
     blocks = [_block(np_tree["blocks"], t, i) for i in range(cfg.n_layers)]
     return M.DenseModel(embed, blocks, ln_f)
 
@@ -120,14 +161,14 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
 def cache_from_jax(np_cache: Dict, device="cuda") -> Dict:
     """The reference's cache (numpy leaves: paged ``kv`` -- int8 codes with
     their f32 ``k_scale``/``v_scale`` under ``kv_quant="int8"`` --, ``pos``
-    and, for the hybrid, ``h``/``conv``) as the port's cache."""
+    and the family's own leaves: the hybrid's ``h``/``conv``, the VLM's
+    ``cross_k``/``cross_v``, xLSTM's states, which has no ``kv``) as the
+    port's cache."""
     dev = resolve_device(device)
-    out = {"kv": {name: to_tensor(a, dev)
-                  for name, a in np_cache["kv"].items()},
-           "pos": to_tensor(np.asarray(np_cache["pos"], np.int32), dev)}
-    for name in ("h", "conv"):
-        if name in np_cache:
-            out[name] = to_tensor(np_cache[name], dev)
+    out = {name: ({n: to_tensor(x, dev) for n, x in a.items()}
+                  if name == "kv" else to_tensor(a, dev))
+           for name, a in np_cache.items() if name != "pos"}
+    out["pos"] = to_tensor(np.asarray(np_cache["pos"], np.int32), dev)
     return out
 
 

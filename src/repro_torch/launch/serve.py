@@ -10,12 +10,16 @@
       --cxl-topology dram,ssd-fast          # the MoE family, on the card
   python -m repro_torch.launch.serve --arch musicgen-large \
       --cxl-topology dram,ssd-fast          # the audio family, on the card
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \
+      --cxl-topology dram,ssd-fast          # the VLM family, on the card
+  python -m repro_torch.launch.serve --arch xlstm-125m \
+      --cxl-topology dram,ssd-fast          # the xLSTM family, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu --requests 4     # smoke size, on the CPU
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
-that this port supports: the dense, MoE, audio and hybrid families (not
-vlm or ssm), one rank,
+that this port supports: every family (dense, MoE, audio, hybrid, VLM
+and xLSTM), one rank,
 bf16/f32 or int8 (``--kv-quant int8``) pages and the closed
 submit-then-run loop. Every engine default
 comes from :class:`~repro_torch.serving.config.ServeConfig`.

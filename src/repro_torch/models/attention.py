@@ -1,8 +1,14 @@
-"""Attention for the serving path: QKV projection, chunked-prefill attention
-and the single-rank paged decode.
+"""Attention for the serving path: QKV projection, chunked-prefill attention,
+the single-rank paged decode, and the VLM's cross attention over a
+contiguous cache of vision K/V.
 
-Both attentions run the port's kernels (``repro_torch.kernels``): on a CUDA
-tensor the hand-written CUDA kernel, on a CPU tensor its plain version.
+The paged attentions run the port's kernels (``repro_torch.kernels``): on a
+CUDA tensor the hand-written CUDA kernel, on a CPU tensor its plain
+version. The cross attention is plain PyTorch on either device, as the
+reference computes it in plain jnp outside any Pallas kernel
+(``decode_attention``, ``chunked_attention`` with ``causal=False``); its
+1601 vision tokens fill no whole number of pages, so no paged kernel
+takes them.
 The cache is written in place where the reference writes a new array.
 With int8 pages (``models.kv_quant``) the decode kernel reads the codes in
 place and only the page a row wrote is requantized; the reference
@@ -64,6 +70,26 @@ def qkv_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Attention of every query over every key of a contiguous, non-paged
+    cache, in f32: the VLM cross layer's (no mask, no softcap).
+
+    q: [B, S, H, D]; k/v: [B, Skv, Hkv, D] (H a multiple of Hkv). Scores
+    and the softmax in f32 as the reference's ``_flash_decode_partial``
+    computes them, one softmax over every key instead of 2048-key blocks
+    merged online (the same function; the VLM's 1601 keys are one block
+    there). Returns [B, S, H, D] in q's dtype."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qh = q.reshape(b, s, hkv, h // hkv, d).float()
+    sc = torch.einsum("bshgd,bkhd->bshgk", qh, k.float()) * (1.0 / d ** 0.5)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bshgk,bkhd->bshgd", p, v.float())
+    l = p.sum(dim=-1, keepdim=True)
+    return (o / torch.clamp(l, min=1e-30)).reshape(b, s, h, d).to(q.dtype)
 
 
 def chunk_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,32 +1,45 @@
-"""Model assembly for the dense, MoE, audio and hybrid families: init,
-paged cache, decode and chunked prefill steps, on-device sampling.
+"""Model assembly for the dense, MoE, audio, hybrid, VLM and xLSTM
+families: init, paged cache, decode and chunked prefill steps, on-device
+sampling.
 
 The reference streams a stacked layer axis through its speculative-read
-scan; here the layers are a plain loop over ``DenseModel.blocks`` or
-``HybridModel.groups`` (the reference's serving engine drops the prefetch
-for a single device too). The MoE family (granite) is a ``DenseModel`` of
-``MoEBlock``s; the audio family (musicgen) a ``DenseModel`` of dense
-blocks over K codebook tables: its tokens are [B, K, S], their K rows
-summed, sinusoidal positions added at each row's own positions, and its
-logits [B, K, S, V]. All three share the dense cache layout and the
-chunked prefill, one parallel chunk forward per layer. Caches keep the
-reference's layout -- dense
+scan; here the layers are a plain loop over ``DenseModel.blocks``,
+``HybridModel.groups``, ``VLMModel.self_blocks`` / ``cross`` or
+``XLSTMModel.mlstm`` / ``slstm`` (the reference's serving engine drops the
+prefetch for a single device too). The MoE family (granite) is a
+``DenseModel`` of ``MoEBlock``s; the audio family (musicgen) a
+``DenseModel`` of dense blocks over K codebook tables: its tokens are [B,
+K, S], their K rows summed, sinusoidal positions added at each row's own
+positions, and its logits [B, K, S, V]. All three share the dense cache
+layout and the chunked prefill, one parallel chunk forward per layer.
+Caches keep the reference's layout -- dense
 ``{"kv": {"k","v"}: [L, B, P, page, Hkv, D], "pos": [B]}``, with int8
 ``k``/``v`` codes and f32 ``k_scale``/``v_scale`` [L, B, P, Hkv] under
 ``kv_quant="int8"``; hybrid adds the f32 Mamba2 states ``"h"`` [g, period,
 B, nh, P, N] and ``"conv"`` [g, period, B, W-1, C], with one shared-block
-K/V cache per group -- and are updated **in place**: the steps return the
-same cache dict they were given, where the reference returns new arrays
-(its engine donates them).
+K/V cache per group; the VLM has one K/V layer per self-attention layer
+(L = g (period - 1), group-major) and the vision K/V ``"cross_k"`` /
+``"cross_v"`` [g, B, Nv, Hkv, D] in the model dtype; xLSTM has no ``"kv"``
+at all, only its f32 states (``"mC"``, ``"mn"``, ``"mm"``, ``"mconv"`` [g,
+period - 1, B, ...] and ``"sh"``, ``"sc"``, ``"sn"``, ``"sm"``,
+``"sconv"`` [g, B, ...]), zeroed as the reference's ``cache_init`` zeroes
+them -- and are updated **in place**: the steps return the same cache dict
+they were given, where the reference returns new arrays (its engine
+donates them).
 
-The hybrid prefill chunk differs from the reference in form, not in
-function: the reference scans ``decode_step`` over the chunk's tokens;
-here the Mamba2 layers run the chunked SSD kernel from the carried state
-and the shared block the chunked flash prefill, which computes the same
-logits and caches (``tests/test_torch_hybrid.py``). With int8 pages the
-two forms differ (each decode step attends to the chunk's earlier tokens
-through their codes), so the shared block then runs the chunk token by
-token through the int8 decode, as the reference does.
+The hybrid and VLM prefill chunks differ from the reference in form, not
+in function: the reference scans ``decode_step`` over the chunk's tokens;
+here the Mamba2 layers run the chunked SSD kernel from the carried state,
+the attention blocks the chunked flash prefill and the VLM's cross layers
+one attention of the whole chunk over the vision K/V, which computes the
+same logits and caches (``tests/test_torch_hybrid.py``,
+``tests/test_torch_vlm.py``). With int8 pages the two forms differ (each
+decode step attends to the chunk's earlier tokens through their codes), so
+those attention blocks then run the chunk token by token through the int8
+decode, as the reference does. The xLSTM prefill takes each layer over
+the whole chunk: its memory updates and cells token by token from the
+carried state, as the reference's scan does, its projections once for the
+chunk (``models/xlstm.py``).
 """
 from __future__ import annotations
 
@@ -37,13 +50,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import kv_quant, mamba2, transformer
+from repro_torch.models import kv_quant, mamba2, transformer, xlstm
 from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        embed_init, frozen_param, pdtype,
                                        rmsnorm, sinusoidal_positions,
                                        unembed_apply)
 
-PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -89,9 +102,40 @@ class HybridModel(nn.Module):
         self.ln_f = ln_f
 
 
+class VLMModel(nn.Module):
+    """llama-3.2-vision: ``embed``, ``groups`` of ``cross_attn_period - 1``
+    dense ``self_blocks`` each followed by one ``cross`` block, and
+    ``ln_f``."""
+
+    def __init__(self, embed: Embed, self_blocks, cross, ln_f: RMSNorm):
+        super().__init__()
+        self.embed = embed
+        self.self_blocks = nn.ModuleList(nn.ModuleList(g)
+                                         for g in self_blocks)
+        self.cross = nn.ModuleList(cross)
+        self.ln_f = ln_f
+
+
+class XLSTMModel(nn.Module):
+    """xLSTM: ``embed``, ``groups`` of ``slstm_every - 1`` ``mlstm``
+    layers each followed by one ``slstm`` layer, and ``ln_f``."""
+
+    def __init__(self, embed: Embed, mlstm, slstm, ln_f: RMSNorm):
+        super().__init__()
+        self.embed = embed
+        self.mlstm = nn.ModuleList(nn.ModuleList(g) for g in mlstm)
+        self.slstm = nn.ModuleList(slstm)
+        self.ln_f = ln_f
+
+
 def n_groups(cfg: ModelConfig) -> int:
-    """Hybrid: the number of Mamba2 groups (= shared-block calls)."""
-    return cfg.n_layers // cfg.shared_block_period
+    """The number of stacked groups of the hybrid (Mamba2 groups = shared-
+    block calls), the VLM (self-attention groups = cross layers) and xLSTM
+    (mLSTM groups = sLSTM layers); the reference's ``n_stacked``."""
+    period = {"hybrid": cfg.shared_block_period,
+              "vlm": cfg.cross_attn_period,
+              "ssm": cfg.slstm_every}[cfg.family]
+    return cfg.n_layers // period
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +156,19 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     with torch.no_grad():
         embed = embed_init(gen, cfg, dev)
         ln_f = RMSNorm.ones(cfg.d_model, dt, dev)
+        if cfg.family == "vlm":
+            per, g = cfg.cross_attn_period - 1, n_groups(cfg)
+            self_blocks = [[transformer.block_init(gen, cfg, dev)
+                            for _ in range(per)] for _ in range(g)]
+            cross = [transformer.cross_block_init(gen, cfg, dev)
+                     for _ in range(g)]
+            return VLMModel(embed, self_blocks, cross, ln_f)
+        if cfg.family == "ssm":
+            per, g = cfg.slstm_every - 1, n_groups(cfg)
+            mlstm = [[xlstm.mlstm_init(gen, cfg, dev) for _ in range(per)]
+                     for _ in range(g)]
+            slstm = [xlstm.slstm_init(gen, cfg, dev) for _ in range(g)]
+            return XLSTMModel(embed, mlstm, slstm, ln_f)
         if cfg.family == "hybrid":
             groups = [[mamba2.mamba_init(gen, cfg, dev)
                        for _ in range(cfg.shared_block_period)]
@@ -140,16 +197,40 @@ def cache_init(cfg: ModelConfig, rc: RunConfig, batch: int, max_seq: int,
     """Zeroed paged cache ``{"kv": {"k","v"}: [L,B,P,page,Hkv,D],
     "pos": int32 [B]}`` in the model dtype; a hybrid model has one K/V
     layer per group (L = groups) and zeroed f32 ``"h"``/``"conv"``
-    states. With ``rc.kv_quant == "int8"`` the ``k``/``v`` leaves are int8
-    codes and gain f32 ``k_scale``/``v_scale`` leaves [L,B,P,Hkv] filled
-    with ``kv_quant.INIT_SCALE``."""
+    states; a VLM one per self-attention layer and zeroed vision K/V
+    ``"cross_k"``/``"cross_v"`` [g,B,Nv,Hkv,D]; xLSTM no ``"kv"``, only
+    its zeroed f32 states (the reference's engine cache: not the state
+    initialisers' -1e9 and 1e-6). With ``rc.kv_quant == "int8"`` the
+    ``k``/``v`` leaves are int8 codes and gain f32 ``k_scale``/``v_scale``
+    leaves [L,B,P,Hkv] filled with ``kv_quant.INIT_SCALE``."""
     check_family(cfg)
     quant = kv_quant.validate_mode(rc.kv_quant) == "int8"
     dev = resolve_device(device)
+    fam = cfg.family
+    f32 = dict(dtype=torch.float32, device=dev)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if fam == "ssm":
+        g, m = n_groups(cfg), cfg.slstm_every - 1
+        d_in, nh = cfg.mlstm_expand * cfg.d_model, cfg.n_heads
+        dh_m, dh_s = d_in // nh, cfg.d_model // nh
+        conv = xlstm.CONV - 1
+        cache = {"mC": (g, m, batch, nh, dh_m, dh_m),
+                 "mn": (g, m, batch, nh, dh_m), "mm": (g, m, batch, nh),
+                 "mconv": (g, m, batch, conv, d_in),
+                 "sh": (g, batch, nh, dh_s), "sc": (g, batch, nh, dh_s),
+                 "sn": (g, batch, nh, dh_s), "sm": (g, batch, nh, dh_s),
+                 "sconv": (g, batch, conv, cfg.d_model)}
+        cache = {name: torch.zeros(shape, **f32)
+                 for name, shape in cache.items()}
+        cache["pos"] = pos
+        return cache
     page = min(rc.kv_page_size, max_seq)
     n_pages = max(max_seq // page, 1)
-    hybrid = cfg.family == "hybrid"
-    n_kv = n_groups(cfg) if hybrid else cfg.n_layers
+    n_kv = cfg.n_layers
+    if fam == "hybrid":
+        n_kv = n_groups(cfg)
+    elif fam == "vlm":
+        n_kv = n_groups(cfg) * (cfg.cross_attn_period - 1)
     shape = (n_kv, batch, n_pages, page, cfg.n_kv_heads, cfg.head_dim)
     kv_dt = torch.int8 if quant else pdtype(cfg)
     kv = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
@@ -157,20 +238,25 @@ def cache_init(cfg: ModelConfig, rc: RunConfig, batch: int, max_seq: int,
     if quant:
         for name in ("k_scale", "v_scale"):
             kv[name] = torch.full(shape[:3] + shape[4:5],
-                                  kv_quant.INIT_SCALE, dtype=torch.float32,
-                                  device=dev)
-    cache = {"kv": kv,
-             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if hybrid:
+                                  kv_quant.INIT_SCALE, **f32)
+    cache = {"kv": kv, "pos": pos}
+    if fam == "hybrid":
         lead = (n_groups(cfg), cfg.shared_block_period)
         for name, a in mamba2.mamba_state_init(cfg, batch,
                                                device=dev).items():
             cache[name] = a.expand(lead + a.shape).contiguous()
+    if fam == "vlm":
+        vshape = (n_groups(cfg), batch, cfg.n_vision_tokens,
+                  cfg.n_kv_heads, cfg.head_dim)
+        for name in ("cross_k", "cross_v"):
+            cache[name] = torch.zeros(vshape, dtype=pdtype(cfg), device=dev)
     return cache
 
 
 # batch axis of each cache leaf ("kv" leaves: 1)
-_BATCH_AXIS = {"pos": 0, "h": 2, "conv": 2}
+_BATCH_AXIS = {"pos": 0, "h": 2, "conv": 2, "cross_k": 1, "cross_v": 1,
+               "mC": 2, "mn": 2, "mm": 2, "mconv": 2, "sh": 1, "sc": 1,
+               "sn": 1, "sm": 1, "sconv": 1}
 
 
 def slot_view(cache: Dict, slot: int) -> Dict:
@@ -202,6 +288,50 @@ def _mamba_layers(params: HybridModel, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
+def _vlm_layers(params: VLMModel, cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict, self_block) -> torch.Tensor:
+    """Every group's self-attention blocks through ``self_block(block, x,
+    kv)`` (the paged decode or the chunked prefill, on the group-major
+    K/V layer), then its cross layer over the group's vision K/V."""
+    per = cfg.cross_attn_period - 1
+    for gi, group in enumerate(params.self_blocks):
+        for i, block in enumerate(group):
+            x = self_block(block, x, _layer_kv(cache, gi * per + i))
+        x = transformer.cross_block_apply(params.cross[gi], cfg, x,
+                                          cache["cross_k"][gi],
+                                          cache["cross_v"][gi])
+    return x
+
+
+# the xLSTM steps' state names -> the cache's leaves
+_MLSTM_STATE = {"C": "mC", "n": "mn", "m": "mm", "conv": "mconv"}
+_SLSTM_STATE = {"h": "sh", "c": "sc", "n": "sn", "m": "sm", "conv": "sconv"}
+
+
+def _state_step(fn, layer, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+                names: Dict[str, str], idx) -> torch.Tensor:
+    """``x, new = fn(layer, cfg, x, state)`` on the state held in the
+    cache leaves ``names`` at ``idx``, which take ``new`` in place."""
+    state = {k: cache[n][idx] for k, n in names.items()}
+    x, new = fn(layer, cfg, x, state)
+    for k, t in state.items():
+        t.copy_(new[k])
+    return x
+
+
+def _xlstm_layers(params: XLSTMModel, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Dict) -> torch.Tensor:
+    """S tokens ([B, S, d]) through every group's mLSTM layers and its
+    sLSTM layer, the states written in place."""
+    for gi, group in enumerate(params.mlstm):
+        for i, layer in enumerate(group):
+            x = _state_step(xlstm.mlstm_step, layer, cfg, x, cache,
+                            _MLSTM_STATE, (gi, i))
+        x = _state_step(xlstm.slstm_step, params.slstm[gi], cfg, x, cache,
+                        _SLSTM_STATE, gi)
+    return x
+
+
 def _shared_in(sp: SharedBlock, x: torch.Tensor,
                emb: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, emb], dim=-1) @ sp.in_map
@@ -210,7 +340,7 @@ def _shared_in(sp: SharedBlock, x: torch.Tensor,
 def _embed(params: nn.Module, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     """The token embedding, plus the sinusoidal positions (positions
-    [B, S]) for a model without rope (musicgen)."""
+    [B, S]) for a model without rope (musicgen, xLSTM)."""
     x = embed_apply(params.embed, cfg, tokens)
     if cfg.family == "audio" or not cfg.use_rope:
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
@@ -242,6 +372,12 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
                                                _shared_in(sp, x, emb), pos,
                                                _layer_kv(cache, gi))
             x = x + z @ sp.out_map
+    elif cfg.family == "vlm":
+        x = _vlm_layers(params, cfg, x, cache,
+                        lambda blk, x, kv: transformer.block_decode_paged(
+                            blk, cfg, x, pos, kv))
+    elif cfg.family == "ssm":
+        x = _xlstm_layers(params, cfg, x, cache)
     else:
         for i, block in enumerate(params.blocks):
             x = transformer.block_decode_paged(block, cfg, x, pos,
@@ -280,6 +416,12 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
                 sp.block, cfg, _shared_in(sp, x, emb), positions, pos,
                 _layer_kv(cache, gi), stepwise=True)
             x = x + z @ sp.out_map
+    elif cfg.family == "vlm":
+        x = _vlm_layers(params, cfg, x, cache,
+                        lambda blk, x, kv: transformer.block_prefill_cached(
+                            blk, cfg, x, positions, pos, kv, stepwise=True))
+    elif cfg.family == "ssm":
+        x = _xlstm_layers(params, cfg, x, cache)
     else:
         for i, block in enumerate(params.blocks):
             x = transformer.block_prefill_cached(block, cfg, x, positions,

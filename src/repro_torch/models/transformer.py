@@ -1,13 +1,17 @@
-"""Transformer blocks: paged decode and chunked prefill steps.
+"""Transformer blocks: paged decode and chunked prefill steps, and the
+VLM's gated cross-attention layer.
 
 A block is an ``nn.Module`` of one layer's weights; the model holds one per
 layer (the reference stacks them on a leading axis for its layer scan).
 The dense ``Block`` and the ``MoEBlock`` share the attention half; each
 brings its own feed-forward half (``ffn``): the MLP, or the routed experts.
+The ``CrossBlock`` (llama-3.2-vision) attends over vision K/V that no step
+writes: the serving engine leaves them at the cache's zeros, as the
+reference's does.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -15,8 +19,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_quant, moe
-from repro_torch.models.layers import (MLP, RMSNorm, mlp_apply, mlp_init,
-                                       pdtype, rmsnorm)
+from repro_torch.models.layers import (MLP, RMSNorm, frozen_param,
+                                       mlp_apply, mlp_init, pdtype, rmsnorm)
 
 
 class Block(nn.Module):
@@ -57,6 +61,23 @@ class MoEBlock(nn.Module):
         return moe.moe_apply_ep(self.moe, cfg, h)[0]
 
 
+class CrossBlock(nn.Module):
+    """One gated cross-attention layer: ``ln_attn``, ``attn``, the 0-d
+    ``attn_gate``, ``ln_mlp``, ``mlp`` and the 0-d ``mlp_gate`` (each
+    branch scaled by tanh of its gate; both gates start at 0)."""
+
+    def __init__(self, ln_attn: RMSNorm, attention: attn.Attention,
+                 attn_gate: torch.Tensor, ln_mlp: RMSNorm, mlp: MLP,
+                 mlp_gate: torch.Tensor):
+        super().__init__()
+        self.ln_attn = ln_attn
+        self.attn = attention
+        self.attn_gate = frozen_param(attn_gate)
+        self.ln_mlp = ln_mlp
+        self.mlp = mlp
+        self.mlp_gate = frozen_param(mlp_gate)
+
+
 def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Block:
     """Draw one layer's weights from ``gen``."""
     dt = pdtype(cfg)
@@ -74,6 +95,52 @@ def moe_block_init(gen: torch.Generator, cfg: ModelConfig,
                     attn.attn_init(gen, cfg, device),
                     RMSNorm.ones(cfg.d_model, dt, device),
                     moe.moe_init(gen, cfg, device))
+
+
+def cross_block_init(gen: torch.Generator, cfg: ModelConfig,
+                     device) -> CrossBlock:
+    """Draw one cross-attention layer from ``gen`` (attention, then MLP);
+    both gates are 0, as in the reference."""
+    dt = pdtype(cfg)
+    attention = attn.attn_init(gen, cfg, device)
+    mlp = mlp_init(gen, cfg, device)
+    zero = torch.zeros((), dtype=dt, device=device)
+    return CrossBlock(RMSNorm.ones(cfg.d_model, dt, device), attention,
+                      zero, RMSNorm.ones(cfg.d_model, dt, device), mlp,
+                      zero.clone())
+
+
+def _gate(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(g.float()).to(like.dtype)
+
+
+def cross_block_apply(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The gated cross-attention layer over vision K/V. x: [B, S, d]; k/v:
+    [B, Nv, Hkv, D]. Every query attends to all Nv keys (no RoPE, no
+    mask): the reference's ``cross_block_apply`` for a sequence and its
+    ``_decode_vlm`` cross layer for one token, as one function."""
+    b, s = x.shape[0], x.shape[1]
+    h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
+    q, _, _ = attn.qkv_project(block.attn, cfg, h, None, rope=False)
+    o = attn.decode_attention(q, k, v)
+    x = x + _gate(block.attn_gate, x) * (o.reshape(b, s, cfg.q_dim)
+                                         @ block.attn.wo)
+    h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
+    return x + _gate(block.mlp_gate, x) * mlp_apply(block.mlp, cfg, h)
+
+
+def vision_kv(block: CrossBlock, cfg: ModelConfig,
+              vision_embeds: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of (stubbed) vision embeddings [B, Nv, d] ->
+    ([B, Nv, Hkv, D], [B, Nv, Hkv, D]). The serving path never calls it
+    (it has no vision input); the tests use it to give the cross layer
+    K/V that are not zero."""
+    b, nv = vision_embeds.shape[:2]
+    shape = (b, nv, cfg.n_kv_heads, cfg.head_dim)
+    return ((vision_embeds @ block.attn.wk).reshape(shape),
+            (vision_embeds @ block.attn.wv).reshape(shape))
 
 
 def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,

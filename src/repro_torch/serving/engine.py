@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged, tiered KV cache.
 
 The port of the reference's ``repro.serving.engine`` for the dense, MoE,
-audio and hybrid families:
+audio, hybrid, VLM and xLSTM families:
 same surface (``Request``, ``RequestHandle``, ``HostPageStore``,
 ``ServingEngine`` with ``submit`` / ``step`` / ``run`` / ``advance_time``
 / ``stats``), same scheduler hooks, and the same CXL-timed tier charges, so
@@ -16,16 +16,20 @@ traffic.
    flusher (deterministic store) into the host-side page store, keyed by
    request id; prefix reuse fetches them back instead of re-prefilling.
    With a ``CxlTier`` attached every page movement is charged against the
-   simulated endpoints. The hybrid family flushes its shared-block pages
-   too, but is never restored from them: its Mamba2 state is not in the
-   pages (as in the reference).
+   simulated endpoints. The hybrid and VLM families flush their
+   attention pages too, but are never restored from them: the Mamba2
+   state, or the vision K/V, is not in the pages (as in the reference).
+   xLSTM has no pages at all: nothing is staged, flushed or restored.
  * hot path — chunked prefill (one ``prefill_step_cached`` per chunk on a
    view of the slot's cache row, through the flash-prefill kernel and,
-   for the hybrid, the SSD-scan kernel) and one
-   decode tick for every slot with on-device sampling (through the
-   paged-decode kernel). The cache is updated in place where the
-   reference donates it; sampled tokens stay on the device until a slot
-   retires.
+   for the hybrid, the SSD-scan kernel; xLSTM steps its recurrent layers
+   token by token, on no kernel) and one decode tick for every slot with
+   on-device sampling (through the paged-decode kernel). The cache is
+   updated in place where the reference donates it; sampled tokens stay
+   on the device until a slot retires. As in the reference, no slot state
+   is reset at admission (the Mamba2 and xLSTM states, the int8 scales),
+   and the VLM's vision K/V stay at the cache's zeros: the serving path
+   has no vision input.
 
 With ``kv_quant="int8"`` the pages are int8 codes with per-(page, head)
 f32 scales: flush, restore, swap and prefix entries carry both, and every
@@ -366,11 +370,12 @@ class ServingEngine:
         """One prefill chunk for one slot, in place on its pages.
 
         Runs the chunked prefill on views of the slot's row of every cache
-        leaf (pages, and the hybrid's Mamba2 states) with the slot position
-        pinned to the chunk start (a reused slot's device pos is stale —
-        decode advances every row each tick). As in the reference, the
-        Mamba2 states are not reset at admission: the scan starts from
-        whatever the slot's previous tenant and the idle ticks left there.
+        leaf (pages, the hybrid's Mamba2 states, the VLM's vision K/V,
+        xLSTM's states) with the slot position pinned to the chunk start
+        (a reused slot's device pos is stale — decode advances every row
+        each tick). As in the reference, the recurrent states are not
+        reset at admission: the scan starts from whatever the slot's
+        previous tenant and the idle ticks left there.
         Only the final chunk samples the last-position token. Other slots
         never observe the prefill."""
         cache1 = M.slot_view(self.cache, slot)
@@ -516,17 +521,22 @@ class ServingEngine:
             req.first_token_ns = self.clock_ns
 
     # -------------------------------------------------- preemption state
-    def _capture_slot_kv(self, slot: int) -> Dict[str, torch.Tensor]:
+    def _capture_slot_kv(self, slot: int
+                         ) -> Optional[Dict[str, torch.Tensor]]:
         """A copy of this slot's KV pages ([L, P, page, Hkv, D] each), on
-        the device: the cache itself keeps changing in place."""
+        the device: the cache itself keeps changing in place. None for a
+        cache without pages (xLSTM), as in the reference."""
+        if "kv" not in self.cache:
+            return None
         return {name: a[:, slot].clone() for name, a in
                 self.cache["kv"].items()}
 
     def _capture_swap_entry(self, req: Request, slot: int) -> Dict:
         """Snapshot a running slot's mid-decode state for swap-out:
-        pages (on the host), current position and the last sampled
-        token."""
-        return {"kv": _to_host(self._capture_slot_kv(slot)),
+        pages (on the host; None without pages), current position and the
+        last sampled token."""
+        kv = self._capture_slot_kv(slot)
+        return {"kv": None if kv is None else _to_host(kv),
                 "pos": self._pos_host[slot],
                 "last_token": req.generated[-1] if req.generated else 0,
                 "prompt": tuple(req.prompt)}
@@ -597,12 +607,13 @@ class ServingEngine:
         req.state = sched.RETIRED
         req.finish_ns = self.clock_ns
         self._materialize_tokens(req, slot)
-        if req.generated:
+        kv_slot = self._capture_slot_kv(slot)
+        if kv_slot is not None and req.generated:
             # snapshot the post-prefill state: pages + the prompt's first
             # sampled token at pos=len(prompt). Pages beyond the prompt
             # are masked by pos and overwritten as a restored slot decodes.
             self.flusher.stage(req.rid, {
-                "kv": self._capture_slot_kv(slot), "pos": len(req.prompt),
+                "kv": kv_slot, "pos": len(req.prompt),
                 "first_token": req.generated[0],
                 "prompt": tuple(req.prompt)})
         self.finished.append(req)

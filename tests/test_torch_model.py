@@ -166,9 +166,30 @@ def test_cache_layout_matches_reference():
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "xlstm-125m"])
 def test_unported_families_raise(arch):
+    """A family outside ``PORTED_FAMILIES`` still raises at every entry
+    point; the VLM and xLSTM families, refused until they were ported, now
+    init and lay out their caches as the reference does."""
     cfg = treg.smoke(arch)
-    with pytest.raises(NotImplementedError):
-        TM.init_model(cfg, device="cpu")
+    rc = TRunConfig(model=cfg, shape=TSHAPES["decode_32k"],
+                    mesh=TMeshConfig(), kv_page_size=PAGE)
+    other = dataclasses.replace(cfg, family="unported")
+    for entry in (lambda c: TM.init_model(c, device="cpu"),
+                  lambda c: TM.cache_init(c, rc, 3, MAX_SEQ, device="cpu")):
+        with pytest.raises(NotImplementedError):
+            entry(other)
+    assert cfg.family in TM.PORTED_FAMILIES
+    params = TM.init_model(cfg, device="cpu")
+    assert TM.n_groups(cfg) == 2 and len(list(params.children())) == 4
+    jcfg = jreg.smoke(arch)
+    jrc = RunConfig(model=jcfg, shape=SHAPES["decode_32k"], mesh=MeshConfig(),
+                    kv_page_size=PAGE)
+    want = jax.tree_util.tree_map(
+        lambda a: (a.shape, str(a.dtype)),
+        JM.cache_init(jcfg, jrc, 3, max_seq=MAX_SEQ, as_shape=True))
+    got = jax.tree_util.tree_map(
+        lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+        TM.cache_init(cfg, rc, 3, MAX_SEQ, device="cpu"))
+    assert got == want
 
 
 def test_init_model_is_seeded():
