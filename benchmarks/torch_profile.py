@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's serving steps, on the card.
+"""Where the time goes in the port's serving and training steps, on the
+card.
 
     python3 benchmarks/torch_profile.py [--arch qwen3-1.7b] [--ticks 5]
         [--chunks 2] [--kv-quant int8]
+    python3 benchmarks/torch_profile.py --train [--arch qwen3-1.7b]
+        [--steps 1]
 
 Builds the full-width engine of ``chip_smoke.py`` for ``--arch``
 (qwen3-1.7b, zamba2-2.7b or gemma-2b; 8 slots, 2048-token slots, bf16
@@ -16,7 +19,12 @@ each step kind, the wall time per step, the summed device-kernel time
 per step, the device idle share and the top device ops, then the
 host-clock cost of one slot's retire -> flush -> restore page path;
 writes the chrome traces and a JSON record under
-``chiprun_out/``. Needs one CUDA card; imports no JAX.
+``chiprun_out/``. With ``--train`` it instead traces ``--steps`` full
+training steps of ``--arch`` at full width (``launch/steps.py``: forward
+with remat, backward, AdamW with f32 masters; 8 sequences of 4096 tokens
+from the port's ``SyntheticLM``, random bf16 weights from a seed, one
+untraced step first) and prints the same step record. Needs one CUDA
+card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -103,17 +111,74 @@ def host_phases(engine) -> dict:
     return rec
 
 
+def print_step(kind: str, r: dict) -> None:
+    print(f"[profile] {kind}: wall {r['wall_ms']:.3f} ms/step, device "
+          f"{r['device_ms']:.3f} ms/step, idle share "
+          f"{r['device_idle_share']}, runtime launches/step "
+          f"{r['runtime_launches_per_step']:.0f}")
+    for key, ms, count in r["top"]:
+        print(f"[profile]   {ms:9.4f} ms  x{count:<5d} {key}")
+
+
+def profile_train(arch: str, n_steps: int) -> None:
+    """Trace full-width training steps of ``arch`` (see the module
+    docstring)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda", 0)
+    cfg = registry.get(arch)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=8)
+    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    opt_cfg = adamw.AdamWConfig(learning_rate=3e-4, warmup_steps=0)
+    state = steps_lib.init_state(M.init_model(cfg, seed=0, device=dev), rc,
+                                 opt_cfg)
+    batch = to_device(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=shape.global_batch,
+        seq_len=shape.seq_len, seed=0)).batch(0), dev)
+    step = steps_lib.build_train_step(cfg, rc, opt_cfg)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], metrics = step(holder["state"], batch)
+        return float(metrics["loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"card": torch.cuda.get_device_name(0), "arch": arch,
+           "batch": shape.global_batch, "seq_len": shape.seq_len,
+           "train_step": profile(one_step, n_steps, f"{arch}_train_step"),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print_step("train_step", rec["train_step"])
+    print(f"[profile] peak memory {rec['peak_gib']:.2f} GiB")
+    with open(os.path.join(OUT_DIR, f"torch_profile_{arch}_train.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--ticks", type=int, default=5)
     ap.add_argument("--chunks", type=int, default=2)
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
+    ap.add_argument("--train", action="store_true",
+                    help="trace full-width training steps instead")
+    ap.add_argument("--steps", type=int, default=1,
+                    help="training steps traced with --train")
     args = ap.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch.cuda is not available: this profile needs the card")
+    if args.train:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        profile_train(args.arch, args.steps)
+        return
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.models import model as M
@@ -154,13 +219,7 @@ def main() -> None:
                                     f"{label}_prefill_chunk"),
            "host_phases": host_phases(engine)}
     for kind in ("decode_tick", "prefill_chunk"):
-        r = rec[kind]
-        print(f"[profile] {kind}: wall {r['wall_ms']:.3f} ms/step, device "
-              f"{r['device_ms']:.3f} ms/step, idle share "
-              f"{r['device_idle_share']}, runtime launches/step "
-              f"{r['runtime_launches_per_step']:.0f}")
-        for key, ms, count in r["top"]:
-            print(f"[profile]   {ms:9.4f} ms  x{count:<5d} {key}")
+        print_step(kind, rec[kind])
     print(f"[profile] page path, one slot (host clock): "
           f"{rec['host_phases']}")
     with open(os.path.join(OUT_DIR, f"torch_profile_{label}.json"),

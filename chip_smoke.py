@@ -149,7 +149,26 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    check that every request finished, no kernel launched (the family has
    none) and nothing was flushed (its cache has no pages); print the
    tick's ms and the prefill's ms per token;
-12. print the measured numbers, the seconds of each phase, one
+12. train: flash_prefill at the training loss's shape (one layer's 4096-
+   token sequence as one chunk at position 0 against its own K/V; bf16
+   2e-2) against its plain version, timed beside causal SDPA; one
+   training step of the smoke-size qwen3-1.7b, granite-moe-1b-a400m,
+   musicgen-large, zamba2-2.7b and llama-3.2-vision-11b in f32 on the
+   card and on the CPU (loss and gradients 3e-5, the hybrid's 1e-4;
+   masters within 2 lr); ``launch/train.py`` at smoke size on the card
+   with its checkpoint written from CUDA tensors, restored equal and
+   resumed; then qwen3-1.7b at full width (random bf16 weights from the
+   seed, f32 master, m and v; 8 sequences of train_4k's 4096 tokens from
+   the port's ``SyntheticLM``, the batch cut from 256 for one card): the
+   forward loss under ``no_grad`` with ``use_pallas`` (flash_prefill once
+   a layer, 28 launches, no other kernel) within 2e-3 of the plain
+   ``chunked_attention`` loss, a step with ``use_pallas`` refused (the
+   kernel has no backward), then 5 steps on the repeated batch at lr 3e-4
+   without warmup: every loss finite, the first within 1.5 of ln V, the
+   last below the first, no kernel launched under grad; prints the step
+   ms (CUDA events), tokens/s, the MFU against 989 TFLOP/s (6 x active
+   params x tokens, remat's recompute not counted) and the peak memory;
+13. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -195,6 +214,24 @@ XLSTM_TIMED_TOKENS = 32
 # section 5) and the eager steps do. Widths, heads, vocabularies and
 # traffic stay the full models'.
 CUT_LAYERS = {HYBRID: 24, GRANITE: 12, MUSICGEN: 24}
+# the training phase: full-width qwen3-1.7b on train_4k's 4096-token
+# sequences, its batch cut from 256 to 8 for one card; 5 steps on one
+# repeated batch at AdamWConfig(learning_rate=3e-4, warmup_steps=0) (the
+# form of tests/test_models.py:55), then the smoke families' steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 5
+# launch/train.py's own loop at the same width, a batch from its pipeline
+# each step
+TRAIN_DRIVER_STEPS = 2
+TRAIN_LR = 3e-4
+TRAIN_SMALL = (ARCH, GRANITE, MUSICGEN, HYBRID, VLM)
+TRAIN_PATH = f"{ARCH} train"
+# the use_pallas loss against the plain one (tests/test_models.py:154)
+PALLAS_LOSS_TOL = 2e-3
+# flash_prefill at the loss shape: row n of a causal 4096-key attention over
+# random values averages n of them, so late rows are ~sqrt(e / n) ~ 0.03 in
+# size and TOL's atol would hide a lost key tile there; bf16 rounding of
+# such an output is ~1e-4, and rtol keeps TOL's 2e-2 for the early rows
+TRAIN_PREFILL_TOL = dict(atol=2e-3, rtol=2e-2)
 # an int8 entry over a bf16 one: the reference's gate is 1/itemsize + 0.05
 # (tests/test_kv_quant.py:233)
 INT8_ENTRY_RATIO = 0.55
@@ -2162,6 +2199,290 @@ def serve_xlstm(dev):
     return xl
 
 
+def check_train_prefill(dev):
+    """flash_prefill at the training loss's shape (TRAIN_PREFILL_TOL): one
+    layer's whole 4096-token sequence as one chunk at position 0, its own
+    K/V the cache (q [8, 4096, 16, 128], K/V [8, 4096, 8, 128]), against
+    its plain version (run a batch row at a time: the whole batch's
+    [C, Smax] scores in f32 would take 8.6 GB), timed beside causal SDPA
+    and at the other plans of the tensor-core kernel (rows per CTA x
+    stages). The bound must see a lost key tile: the last 64 rows computed
+    without the last 64 keys have to miss it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, c, hkv, g, d = TRAIN_BATCH, TRAIN_SEQ, 8, 2, 128
+    h = hkv * g
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((b, c, h, d), generator=gen, device=dev).bfloat16()
+    kc = torch.randn((b, c, hkv, d), generator=gen, device=dev).bfloat16()
+    vc = torch.randn((b, c, hkv, d), generator=gen, device=dev).bfloat16()
+    pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+    p = ops.plan(b, c, h, hkv, d, torch.bfloat16)
+
+    def plain():
+        return torch.cat([ref.flash_prefill_ref(q[i:i + 1], kc[i:i + 1],
+                                                vc[i:i + 1], pos[i:i + 1])
+                          for i in range(b)])
+    got = ops.flash_prefill(q, kc, vc, pos)
+    want = plain()
+    res = {"plan": str(p),
+           "max_abs_err": check_close("flash_prefill train shape", got,
+                                      want, TRAIN_PREFILL_TOL)}
+    tail = c - 64
+    dropped = ref.flash_prefill_ref(q[:, tail:], kc[:, :tail], vc[:, :tail],
+                                    torch.full_like(pos, tail))
+    res["dropped_tile_err"] = float((dropped.float()
+                                     - want[:, tail:].float()).abs().max())
+    if torch.allclose(dropped.float(), want[:, tail:].float(),
+                      **TRAIN_PREFILL_TOL):
+        fail(f"flash_prefill train shape: {TRAIN_PREFILL_TOL} cannot see "
+             f"the last key tile (off by {res['dropped_tile_err']})")
+    qs = q.transpose(1, 2)
+    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1)
+              for t in (kc, vc))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    res["library_err"] = float((sdpa().transpose(1, 2).float()
+                                - got.float()).abs().max())
+    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 10)
+    res["plain_ms"] = time_ms(plain, 2, warmup=1)
+    res["library_ms"] = device_ms(sdpa, 10)
+    # the other plans of the tensor-core kernel at this shape (the plan
+    # was chosen on 256-row chunks): rows per CTA x ring depth
+    res["plans_ms"] = {}
+    for rows, stages in ((16, 3), (32, 3), (64, 2), (64, 4)):
+        alt = ops.mma_plan(b, c, h, hkv, d, rows, stages)
+        check_close(f"flash_prefill train shape rows={rows} "
+                    f"stages={stages}", ops.launch(q, kc, vc, pos, 0.0, alt),
+                    want, TRAIN_PREFILL_TOL)
+        res["plans_ms"][f"rows{rows} stages{stages}"] = device_ms(
+            lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 10)
+    visible = b * c * (c + 1) // 2                   # (query, key) pairs
+    n_bytes = 2 * q.numel() * 2 + 2 * kc.numel() * 2 + 4 * b
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d)
+    res["shape"] = (f"q [{b},{c},{h},{d}] bf16, cache = its own K/V "
+                    f"[{b},{c},{hkv},{d}], pos 0 (the use_pallas loss of "
+                    f"full-width {ARCH})")
+    return res
+
+
+def train_small(dev, arch):
+    """One training step of the smoke-size ``arch`` in f32 on the card and
+    on the CPU from the same weights and batch (the CPU tests hold the CPU
+    path to the JAX reference): loss and every gradient within the f32
+    tolerance (F32_TOL; the training forward runs no kernel of the port,
+    the hybrid's SSD included), and the f32 masters after the AdamW update
+    within 2 lr (a near-zero gradient's sign may differ between the two
+    devices)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
+    rc = RunConfig(model=cfg, shape=SHAPES["train_4k"], mesh=MeshConfig())
+    opt_cfg = adamw.AdamWConfig(learning_rate=1e-2, warmup_steps=0)
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=2, seq_len=32, seed=SEED,
+        n_codebooks=cfg.n_codebooks if cfg.family == "audio" else 0,
+        vision_tokens=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
+        d_model=cfg.d_model)).batch(0)
+    cpu = torch.device("cpu")
+    params = {cpu: M.init_model(cfg, seed=SEED, device=cpu)}
+    params[dev] = copy.deepcopy(params[cpu]).to(dev)
+    out, masters = {}, {}
+    for d, model in params.items():
+        state = steps_lib.init_state(model, rc, opt_cfg)
+        b = to_device(batch, d)
+        loss, grads = steps_lib.loss_and_grads(model, cfg, rc, b)
+        state, metrics = steps_lib.build_train_step(cfg, rc, opt_cfg)(
+            state, b)
+        out[d] = (loss, grads, metrics["loss"])
+        masters[d] = state.opt.master
+    (l_dev, g_dev, ml_dev), (l_cpu, g_cpu, ml_cpu) = out[dev], out[cpu]
+    res = {"loss": float(l_cpu), "loss_err": abs(float(l_dev) - float(l_cpu)),
+           "grad_max_abs_err": max(float((a.cpu() - b).abs().max())
+                                   for a, b in zip(g_dev, g_cpu)),
+           "master_max_abs_err": max(
+               float((a.cpu() - b).abs().max())
+               for a, b in zip(masters[dev], masters[cpu]))}
+    if (not torch.allclose(l_dev.cpu(), l_cpu, **F32_TOL)
+            or not torch.allclose(ml_dev.cpu(), ml_cpu, **F32_TOL)):
+        fail(f"small {arch} train: card loss {float(l_dev)} vs CPU "
+             f"{float(l_cpu)}")
+    for a, b in zip(g_dev, g_cpu):
+        if not torch.isfinite(a).all() or not torch.allclose(
+                a.cpu(), b, **F32_TOL):
+            fail(f"small {arch} train: card gradients differ from the CPU "
+                 f"by {res['grad_max_abs_err']}")
+    if res["master_max_abs_err"] > 2 * opt_cfg.learning_rate:
+        fail(f"small {arch} train: masters differ by "
+             f"{res['master_max_abs_err']}")
+    return res
+
+
+def train_checkpoint(dev):
+    """``launch/train.py`` at smoke size on the card (2 steps), its
+    asynchronous checkpoint written from CUDA tensors, restored onto the
+    card equal to the state it saved, and a resumed run from it."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch import train
+    path = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    run = train.train(ARCH, smoke=True, steps=2, device=dev, ckpt_dir=path)
+    step, flat, extra = Checkpointer(path).restore(device=dev)
+    want = train.state_dict(run["state"])
+    if step != 1 or sorted(flat) != sorted(want) or any(
+            not torch.equal(flat[k], v.detach()) for k, v in want.items()):
+        fail("the smoke checkpoint did not restore the state it saved")
+    again = train.train(ARCH, smoke=True, steps=1, device=dev, ckpt_dir=path,
+                        resume=True)
+    shutil.rmtree(path, ignore_errors=True)
+    return {"leaves": len(flat), "step": step, "extra": extra,
+            "losses": [h["loss"] for h in run["history"]],
+            "resumed_loss": again["final_loss"],
+            "bytes": sum(t.numel() * t.element_size() for t in flat.values()
+                         if t is not None)}
+
+
+def train_full(dev):
+    """Train full-width qwen3-1.7b on the card (see ``TRAIN_*``): first the
+    forward loss under ``no_grad`` with ``use_pallas`` (flash_prefill 28
+    times, once a layer, and no other kernel) against the plain one; a
+    step with ``use_pallas`` refused; then the 5 steps (no kernel of the
+    port runs under grad, as none of the reference's does), timed by CUDA
+    events."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import PEAK_FLOPS_BF16
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = registry.get(ARCH)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ)
+    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    rc_pallas = dataclasses.replace(rc, use_pallas=True)
+    t0 = time.time()
+    params = M.init_model(cfg, seed=SEED, device=dev)
+    batch = to_device(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, seed=SEED)).batch(0), dev)
+    torch.cuda.synchronize()
+    res = {"init_s": time.time() - t0, "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "ln_vocab": math.log(cfg.vocab_size)}
+    with torch.no_grad():
+        zero_counters()
+        loss_pallas = float(M.loss_fn(params, cfg, rc_pallas, batch))
+        counts = read_counters()
+        loss_plain = float(M.loss_fn(params, cfg, rc, batch))
+    launches, off = split_counts(TRAIN_PATH, counts, ("flash_prefill",))
+    res.update(loss_pallas=loss_pallas, loss_plain=loss_plain,
+               launches=launches, off_path_launches=off)
+    log(f"{TRAIN_PATH}: forward loss use_pallas {loss_pallas:.6f}, plain "
+        f"{loss_plain:.6f}; launches {launches}")
+    if abs(loss_pallas - loss_plain) > PALLAS_LOSS_TOL * (
+            1 + abs(loss_plain)):
+        fail(f"{TRAIN_PATH}: the use_pallas loss {loss_pallas} is not "
+             f"within {PALLAS_LOSS_TOL} of the plain one {loss_plain}")
+    if launches["flash_prefill"] != cfg.n_layers:
+        fail(f"{TRAIN_PATH}: flash_prefill launched "
+             f"{launches['flash_prefill']} times, not once a layer")
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    state = steps_lib.init_state(params, rc, opt_cfg)
+    try:
+        steps_lib.build_train_step(cfg, rc_pallas, opt_cfg)(state, batch)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        res["pallas_step_refused"] = str(e)
+    else:
+        fail(f"{TRAIN_PATH}: a step under grad with use_pallas ran")
+    free_card()
+    step = steps_lib.build_train_step(cfg, rc, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))
+        step_ms.append(start.elapsed_time(end))
+    counts = read_counters()
+    if any(counts.values()):
+        fail(f"{TRAIN_PATH}: a kernel launched under grad: {counts}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]   # median after the 1st
+    flops = 6 * cfg.n_active_params() * tokens
+    res.update(losses=losses, step_ms=step_ms, step_ms_median=ms,
+               tokens_per_s=tokens / (ms / 1e3),
+               mfu=flops / (ms / 1e3) / PEAK_FLOPS_BF16,
+               model_flops_per_step=flops,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               kernel_launches_per_step=sum(counts.values()) / TRAIN_STEPS,
+               grad_norm=float(metrics["grad_norm"]),
+               n_params=sum(p.numel() for p in params.parameters()))
+    log(f"{TRAIN_PATH}: losses {losses}; step ms {step_ms} (median after "
+        f"the first {ms:.1f}); {res['tokens_per_s']:.0f} tokens/s; MFU "
+        f"{res['mfu']:.4f} (6 x {cfg.n_active_params()} active params x "
+        f"{tokens} tokens a step over {PEAK_FLOPS_BF16:.0e} flop/s; remat's "
+        f"recompute not counted); peak {res['peak_gib']:.2f} GiB; port "
+        f"kernel launches per step {res['kernel_launches_per_step']}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{TRAIN_PATH}: non-finite loss {losses}")
+    if abs(losses[0] - res["ln_vocab"]) > 1.5:
+        fail(f"{TRAIN_PATH}: first loss {losses[0]} not within 1.5 of "
+             f"ln V = {res['ln_vocab']}")
+    if not losses[-1] < losses[0]:
+        fail(f"{TRAIN_PATH}: the loss did not decrease: {losses}")
+    return res
+
+
+def train_driver(dev):
+    """``launch/train.py`` as its CLI drives it on the card
+    (``python -m repro_torch.launch.train --arch qwen3-1.7b``): full-width
+    qwen3-1.7b for TRAIN_DRIVER_STEPS steps of 8 x 4096 tokens from its
+    ``Pipeline`` (pinned host batches copied non-blocking), through the
+    variant ladder, RuntimeQoS and the heartbeat, with no checkpoint. Every
+    loss is finite and the first lies within 1.5 of ln V."""
+    import math
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    run = train.train(ARCH, smoke=False, steps=TRAIN_DRIVER_STEPS,
+                      device=dev, log_every=1)
+    losses = [h["loss"] for h in run["history"]]
+    res = {"wall_s": time.time() - t0, "losses": losses,
+           "step_s": [h["dt"] for h in run["history"]],
+           "variants": [list(h["variant"]) for h in run["history"]],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del run
+    ln_v = math.log(registry.get(ARCH).vocab_size)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{TRAIN_PATH} driver: non-finite loss {losses}")
+    if abs(losses[0] - ln_v) > 1.5:
+        fail(f"{TRAIN_PATH} driver: first loss {losses[0]} not within 1.5 "
+             f"of ln V = {ln_v}")
+    return res
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2318,9 +2639,25 @@ def main() -> None:
         xl = serve_xlstm(dev)
     free_card()
 
+    with phase(TRAIN_PATH):
+        pre_train = check_train_prefill(dev)
+        log(f"flash_prefill ok: {pre_train['shape']}; {pre_train}")
+        free_card()
+        small_train = {arch: train_small(dev, arch) for arch in TRAIN_SMALL}
+        for arch, res in small_train.items():
+            log(f"small {arch} train step (f32) on the card agrees with "
+                f"the CPU: {res}")
+        ckpt = train_checkpoint(dev)
+        log(f"smoke {ARCH} checkpoint round trip on the card: {ckpt}")
+        trained = train_full(dev)
+        free_card()
+        driver = train_driver(dev)
+        log(f"{TRAIN_PATH} through launch/train.py: {driver}")
+    free_card()
+
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
-            XLSTM: xl}
+            XLSTM: xl, TRAIN_PATH: trained}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -2351,6 +2688,8 @@ def main() -> None:
              pre64[MUSICGEN], prefill_src, prefill_tpu, (MUSICGEN,)),
             ("flash_prefill_g4_vlm", "flash_prefill", pre_g4, prefill_src,
              prefill_tpu, (VLM,)),
+            ("flash_prefill_train", "flash_prefill", pre_train, prefill_src,
+             prefill_tpu, (TRAIN_PATH,)),
             ("flash_prefill_tf32", "flash_prefill_tf32", pre32, prefill_src,
              prefill_tpu, None),
             ("flash_prefill_d256", "flash_prefill_d256", pre256, prefill_src,
@@ -2394,6 +2733,13 @@ def main() -> None:
                            "padding): the same kernel and count as the row "
                            "without the suffix, whose launches on this "
                            "path are this row's")
+        if name == "flash_prefill_train":
+            row["note"] = ("the bf16 instance at D 128 on the use_pallas "
+                           "training loss of full-width qwen3-1.7b (a 4096-"
+                           "token sequence as one chunk at position 0; "
+                           "forward only, no backward): the same kernel and "
+                           "count as the row without the suffix, whose "
+                           "launches on this path are this row's")
         if name == "paged_decode_int8_d256":
             row["note"] = ("the int8 mode at gemma-2b's shape (one kv head "
                            "of 8 query heads, D 256): the same kernel and "
@@ -2442,6 +2788,9 @@ def main() -> None:
                    "serve_granite": gran, "serve_musicgen": mus,
                    "decode_g4": dec_g4, "prefill_g4": pre_g4,
                    "serve_vlm": vlm, "serve_xlstm": xl,
+                   "prefill_train": pre_train, "train_small": small_train,
+                   "train_checkpoint": ckpt, "train": trained,
+                   "train_driver": driver,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

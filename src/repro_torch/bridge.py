@@ -16,10 +16,16 @@ and xLSTM's ``groups.mlstm`` ([g, slstm_every - 1, ...]) and
 ``groups.slstm`` ([g, ...]) into ``MLSTM``s and ``SLSTM``s. The audio
 family's embedding crosses as it is: K codebook tables stacked into [K·V,
 d], and its untied [d, K·V] unembed.
+
+For training, ``params_to_numpy`` turns the port's parameters (or any
+tensors aligned with ``model.parameters()``: gradients, f32 masters) back
+into the reference's pytree layout, so a step's result can be compared;
+``adamw_state_from_jax`` carries the reference's ``AdamWState`` over as
+the port's, its moments and masters aligned with ``model.parameters()``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +39,7 @@ from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Block, CrossBlock, MoEBlock
 from repro_torch.models.xlstm import MLSTM, SLSTM
+from repro_torch.optim.adamw import AdamWState
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float16): torch.float16,
@@ -176,3 +183,127 @@ def cache_to_numpy(cache: Dict) -> Dict:
     """The port's cache as numpy arrays (bf16 widened to f32)."""
     return {name: ({n: to_numpy(t) for n, t in a.items()} if name == "kv"
                    else to_numpy(a)) for name, a in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# back to the reference's layout (training)
+# ---------------------------------------------------------------------------
+
+
+def _stack(trees):
+    """Leaf-wise ``np.stack`` of equally shaped trees (a new leading axis)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _np_mlp(m: MLP, leaf) -> Dict:
+    out = {"w_up": leaf(m.w_up), "w_down": leaf(m.w_down)}
+    if m.w_gate is not None:
+        out["w_gate"] = leaf(m.w_gate)
+    return out
+
+
+def _np_block(blk, leaf) -> Dict:
+    a = blk.attn
+    attn = {n: leaf(getattr(a, n)) for n in ("wq", "wk", "wv", "wo")}
+    for n in ("q_norm", "k_norm"):
+        if getattr(a, n) is not None:
+            attn[n] = leaf(getattr(a, n))
+    out = {"ln_attn": {"scale": leaf(blk.ln_attn.scale)}, "attn": attn,
+           "ln_mlp": {"scale": leaf(blk.ln_mlp.scale)}}
+    if isinstance(blk, MoEBlock):
+        out["moe"] = {n: leaf(getattr(blk.moe, n))
+                      for n in ("router", "e_gate", "e_up", "e_down")}
+    else:
+        out["mlp"] = _np_mlp(blk.mlp, leaf)
+    if isinstance(blk, CrossBlock):
+        out["attn_gate"] = leaf(blk.attn_gate)
+        out["mlp_gate"] = leaf(blk.mlp_gate)
+    return out
+
+
+def _np_mamba(m: Mamba2, leaf) -> Dict:
+    out = {n: leaf(getattr(m, n)) for n in ("in_proj", "bc_proj", "dt_proj",
+                                           "dt_bias", "A_log", "D",
+                                           "conv_w", "out_proj")}
+    out["ln_out"] = {"scale": leaf(m.ln_out.scale)}
+    return out
+
+
+def _np_mlstm(m: MLSTM, leaf) -> Dict:
+    out = {n: leaf(getattr(m, n)) for n in ("w_up1", "w_up2", "conv_w",
+                                           "w_qkv", "w_gates", "gate_bias",
+                                           "w_down2")}
+    out["ln"] = {"scale": leaf(m.ln.scale)}
+    out["ln_head"] = {"scale": leaf(m.ln_head.scale)}
+    return out
+
+
+def _np_slstm(m: SLSTM, leaf) -> Dict:
+    out = {n: leaf(getattr(m, n)) for n in ("conv_w", "w_gates", "r_gates",
+                                           "gate_bias", "w_out")}
+    out["ln"] = {"scale": leaf(m.ln.scale)}
+    out["ln_ff"] = {"scale": leaf(m.ln_ff.scale)}
+    out["ffn"] = _np_mlp(m.ffn, leaf)
+    return out
+
+
+def params_to_numpy(model: torch.nn.Module, cfg: ModelConfig,
+                    tensors: Optional[Sequence[torch.Tensor]] = None
+                    ) -> Dict:
+    """The reference's parameter pytree (numpy leaves, stacked layer axes;
+    bf16 widened to f32) of ``model``'s parameters or, with ``tensors``
+    (aligned with ``model.parameters()``: gradients, masters), of those
+    tensors in the parameters' places. The inverse of
+    ``params_from_jax``."""
+    sub = None
+    if tensors is not None:
+        sub = {id(p): t for p, t in zip(model.parameters(), tensors)}
+
+    def leaf(p):
+        return to_numpy(sub[id(p)] if sub is not None else p)
+
+    emb = {"embedding": leaf(model.embed.embedding)}
+    if model.embed.unembed is not None:
+        emb["unembed"] = leaf(model.embed.unembed)
+    out = {"embed": emb, "ln_f": {"scale": leaf(model.ln_f.scale)}}
+    if isinstance(model, M.HybridModel):
+        out["groups"] = _stack([_stack([_np_mamba(m, leaf) for m in g])
+                                for g in model.groups])
+        sp = model.shared
+        out["shared"] = {"in_map": leaf(sp.in_map),
+                         "block": _np_block(sp.block, leaf),
+                         "out_map": leaf(sp.out_map)}
+    elif isinstance(model, M.VLMModel):
+        out["groups"] = {
+            "self_blocks": _stack([_stack([_np_block(b, leaf) for b in g])
+                                   for g in model.self_blocks]),
+            "cross": _stack([_np_block(c, leaf) for c in model.cross])}
+    elif isinstance(model, M.XLSTMModel):
+        out["groups"] = {
+            "mlstm": _stack([_stack([_np_mlstm(m, leaf) for m in g])
+                             for g in model.mlstm]),
+            "slstm": _stack([_np_slstm(m, leaf) for m in model.slstm])}
+    else:
+        out["blocks"] = _stack([_np_block(b, leaf) for b in model.blocks])
+    return out
+
+
+def adamw_state_from_jax(np_state, cfg: ModelConfig,
+                         device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, the f32
+    ``m`` / ``v`` / ``master`` trees, ``master`` possibly None) as the
+    port's, each list aligned with the parameters of
+    ``params_from_jax(params, cfg)``."""
+    dev = resolve_device(device)
+
+    def flat(tree):
+        if tree is None:
+            return None
+        return [p.detach() for p in params_from_jax(tree, cfg,
+                                                    device=dev).parameters()]
+
+    step = to_tensor(np.asarray(np_state.step, np.int32), dev)
+    return AdamWState(step=step, m=flat(np_state.m), v=flat(np_state.v),
+                      master=flat(np_state.master))

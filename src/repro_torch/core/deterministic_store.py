@@ -1,4 +1,4 @@
-"""Deterministic store — the host-side staging flusher.
+"""Deterministic store — fire-and-forget writes with staged writeback.
 
 Paper mechanism (Fig. 8): a store to a slow EP completes immediately by
 writing concurrently to GPU memory (a reserved, stack-organized staging
@@ -6,15 +6,120 @@ region indexed from SRAM) and the EP; under tail latency (GC) the write is
 diverted to the staging region only and flushed in the background; reads
 consult the staging index first.
 
-Only the serving half is ported: ``StagingFlusher``, copied line for line
-from the reference package. The in-graph staging ring and the gradient
-specs serve training and come with the training slice.
+* Training gradients: the reference pins the gradients to the pool
+  sharding so that its backward emits a reduce-scatter (``ds_grad_specs``,
+  ``apply_ds``). On one rank the gradient is already whole and nothing is
+  sharded: both pass their input through.
+* The staging ring (``RingState``, ``ring_init``, ``ring_write``,
+  ``ring_lookup``, ``read_through``, ``ring_occupancy``): bounded slots on
+  the device, written at the head, read through before the backing tier;
+  tensors, each write returning a new state, as the reference's.
+* ``StagingFlusher``, copied line for line from the reference package:
+  drains staged items between steps while QoS allows.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.core.qos import QoSController
+
+
+# ---------------------------------------------------------------------------
+# Gradient path (training)
+# ---------------------------------------------------------------------------
+
+
+def ds_grad_specs(param_specs: Any, enabled: bool) -> Any:
+    """The placement the backward delivers gradients in: the pool's
+    (reduce-scatter) when enabled, else the gathered one (all-reduce). One
+    rank has one placement, so the specs pass through either way."""
+    del enabled
+    return param_specs
+
+
+def apply_ds(grads: Any, param_specs: Any = None, enabled: bool = True) -> Any:
+    """Gradients in their deterministic-store placement: on one rank the
+    gradient is whole already and passes through unchanged."""
+    del param_specs, enabled
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# Staging ring
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RingState:
+    """Fixed slot buffers and their metadata, all tensors."""
+
+    slots: Dict[str, torch.Tensor]   # each [n_slots, ...]
+    keys: torch.Tensor               # [n_slots] int32 address, -1 = empty
+    head: torch.Tensor               # 0-d int32: next write position
+    count: torch.Tensor              # 0-d int32: occupied slots
+
+
+def ring_init(n_slots: int, item: Dict[str, torch.Tensor]) -> RingState:
+    """A fresh ring of ``n_slots`` zeroed slots shaped like ``item``'s
+    tensors (on their device)."""
+    dev = next(iter(item.values())).device
+    slots = {k: torch.zeros((n_slots,) + tuple(t.shape), dtype=t.dtype,
+                            device=t.device) for k, t in item.items()}
+    i32 = dict(dtype=torch.int32, device=dev)
+    return RingState(slots=slots, keys=torch.full((n_slots,), -1, **i32),
+                     head=torch.zeros((), **i32),
+                     count=torch.zeros((), **i32))
+
+
+def ring_write(state: RingState, key, item: Dict[str, torch.Tensor]
+               ) -> RingState:
+    """Fire-and-forget store: an O(1) write at the head (a stack push)."""
+    i = state.head.long()
+    slots = {}
+    for k, buf in state.slots.items():
+        buf = buf.clone()
+        buf[i] = item[k].to(buf.dtype).reshape(buf.shape[1:])
+        slots[k] = buf
+    keys = state.keys.clone()
+    keys[i] = torch.as_tensor(key, dtype=torch.int32, device=keys.device)
+    n = keys.shape[0]
+    return RingState(slots=slots, keys=keys,
+                     head=torch.remainder(state.head + 1, n).to(torch.int32),
+                     count=torch.clamp(state.count + 1, max=n).to(
+                         torch.int32))
+
+
+def ring_lookup(state: RingState, key) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The staging-index probe: (hit, slot). The latest write wins."""
+    key = torch.as_tensor(key, dtype=torch.int32, device=state.keys.device)
+    matches = state.keys == key
+    n = state.keys.shape[0]
+    # recency rank: distance behind the head (smaller = newer)
+    age = torch.remainder(state.head - 1 - torch.arange(
+        n, device=state.keys.device), n)
+    slot = torch.argmin(torch.where(matches, age, n + 1))
+    return matches.any(), slot
+
+
+def read_through(state: RingState, key,
+                 backing: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The read path: the staging ring first, else the backing value."""
+    hit, slot = ring_lookup(state, key)
+    return {k: torch.where(hit, state.slots[k][slot].to(b.dtype), b)
+            for k, b in backing.items()}
+
+
+def ring_occupancy(state: RingState) -> torch.Tensor:
+    """The ring's fill fraction in [0, 1] (the QoS occupancy signal)."""
+    return state.count.float() / state.keys.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Host-side flusher (between steps)
+# ---------------------------------------------------------------------------
 
 
 class StagingFlusher:

@@ -130,3 +130,14 @@ def check(rc: int, name: str) -> None:
 def stream_ptr(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the C entries take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if grad is enabled and any of ``tensors`` requires it: a
+    kernel wrapper allocates its outputs outside autograd, so a backward
+    through it would drop the gradient silently."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           f"torch.no_grad() or on tensors that do not "
+                           f"require grad")

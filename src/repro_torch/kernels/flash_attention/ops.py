@@ -198,7 +198,11 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
 
     Query i of row b attends to cache positions ``<= pos[b] + i``; the
     chunk's own K/V must already be written at ``[pos[b], pos[b] + C)``.
+    The kernel has no backward: under grad, inputs that require grad are
+    refused on both devices (the reference cannot differentiate through
+    its Pallas kernel either).
     """
+    build.refuse_grad("flash_prefill", q, k_cache, v_cache)
     if q.dim() != 4 or k_cache.dim() != 4:
         raise ValueError(f"expected q [B,C,H,D] and caches [B,Smax,Hkv,D], "
                          f"got {tuple(q.shape)} / {tuple(k_cache.shape)}")

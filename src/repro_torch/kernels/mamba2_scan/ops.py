@@ -105,7 +105,10 @@ def ssd(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """xdt [B,S,H,P] f32; b/c [B,S,N] f32; log_a [B,S,H] f32 (per-step log
     decay); h0 [B,H,P,N] f32 or None (zero) -> (y [B,S,H,P] f32, h_last
-    [B,H,P,N] f32), any S >= 1."""
+    [B,H,P,N] f32), any S >= 1. No backward: inputs that require grad are
+    refused under grad on both devices (the training forward runs the
+    plain ``models.mamba2.mamba_apply``)."""
+    build.refuse_grad("ssd", xdt, bmat, cmat, log_a, h0)
     if xdt.dim() != 4 or bmat.dim() != 3 or log_a.dim() != 3:
         raise ValueError(f"expected xdt [B,S,H,P], b/c [B,S,N], log_a "
                          f"[B,S,H], got {tuple(xdt.shape)} / "

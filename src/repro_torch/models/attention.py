@@ -1,6 +1,7 @@
-"""Attention for the serving path: QKV projection, chunked-prefill attention,
-the single-rank paged decode, and the VLM's cross attention over a
-contiguous cache of vision K/V.
+"""Attention: QKV projection, chunked-prefill attention, the single-rank
+paged decode, the VLM's cross attention over a contiguous cache of vision
+K/V, and the training path's plain, differentiable blockwise
+``chunked_attention``.
 
 The paged attentions run the port's kernels (``repro_torch.kernels``): on a
 CUDA tensor the hand-written CUDA kernel, on a CPU tensor its plain
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -70,6 +72,67 @@ def qkv_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+NEG_INF = -1e30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, kv_block: int = 512,
+                      logit_softcap: float = 0.0) -> torch.Tensor:
+    """Blockwise (flash-style) attention in plain, differentiable PyTorch:
+    the reference's ``chunked_attention``, an online softmax over key
+    blocks of ``kv_block`` in f32. q: [B,Sq,H,D], k/v: [B,Skv,Hkv,D] (H a
+    multiple of Hkv) -> [B,Sq,H,D] in q's dtype.
+
+    Causal masking assumes q and k cover the same [0, S) positions. A key
+    length no block divides (the VLM's 1601 vision tokens) is padded and
+    the padding masked. The reference scans its query blocks (its
+    ``q_block``) side by side; here every query row of a key block is one
+    product, [B, Hkv, Sq·G, D]
+    against the block, which runs each row's online softmax through the
+    same steps. The running max is held without gradient: the result does
+    not depend on it, so its gradient is zero in exact arithmetic."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kv_block = min(kv_block, skv)
+    kv_valid = skv
+    if skv % kv_block:
+        pad = kv_block - skv % kv_block
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+        skv += pad
+    scale = 1.0 / (d ** 0.5)
+    # rows (position, group member) of each kv head: [B, Hkv, Sq·G, D]
+    qh = q.float().reshape(b, sq, hkv, g, d).transpose(1, 2).reshape(
+        b, hkv, sq * g, d)
+    kh, vh = (t.float().transpose(1, 2) for t in (k, v))    # [B,Hkv,Skv,D]
+    row_pos = torch.arange(sq, device=q.device).repeat_interleave(g)
+    acc = torch.zeros((b, hkv, sq * g, d), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, hkv, sq * g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for j in range(skv // kv_block):
+        keys = slice(j * kv_block, (j + 1) * kv_block)
+        s = (qh @ kh[:, :, keys].transpose(-1, -2)) * scale
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        kv_pos = torch.arange(j * kv_block, (j + 1) * kv_block,
+                              device=q.device)
+        if causal:
+            s = torch.where(row_pos[:, None] >= kv_pos[None], s, NEG_INF)
+        if kv_valid != skv:
+            s = torch.where(kv_pos < kv_valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.detach().amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ vh[:, :, keys]
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, hkv, sq, g, d).transpose(1, 2).reshape(
+        b, sq, h, d).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor,

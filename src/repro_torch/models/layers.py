@@ -1,5 +1,6 @@
 """Common layer primitives: norms, RoPE and sinusoidal positions,
-embeddings (musicgen's K codebook tables too), MLP variants.
+embeddings (musicgen's K codebook tables too), MLP variants, the
+cross-entropy loss.
 
 Parameters are ``nn.Module``s holding tensors in ``cfg.dtype`` (bf16 by
 default); normalization and softmax statistics accumulate in float32.
@@ -191,3 +192,17 @@ def unembed_apply(embed: Embed, cfg: ModelConfig, x: torch.Tensor):
         logits = logits.view(b, s, cfg.n_codebooks,
                              cfg.vocab_size).movedim(2, 1)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in f32: ``logsumexp`` minus the gold logit.
+    logits [..., V]; labels [...] int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

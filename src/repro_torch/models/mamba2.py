@@ -1,11 +1,13 @@
-"""Mamba2 (SSD) blocks: chunked scan for a sequence or a serving prefill
-chunk, recurrent step for decode. Used inside the zamba2 hybrid.
+"""Mamba2 (SSD) blocks: chunked scan for a training sequence or a serving
+prefill chunk, recurrent step for decode. Used inside the zamba2 hybrid.
 
 State per head: h in R^{P x N} (head_dim x state), per-step decay
 a_t = exp(dt_t * A_h); h_t = a_t h_{t-1} + dt_t x_t (x) B_t; y_t = h_t C_t
-+ D_h x_t. The chunked forms run the SSD scan kernel
++ D_h x_t. The serving prefill chunk runs the SSD scan kernel
 (``repro_torch.kernels.mamba2_scan``); the step is plain PyTorch, as the
-reference's ``mamba_step`` is plain jnp.
+reference's ``mamba_step`` is plain jnp, and so is the full-sequence
+training form (``mamba_apply``), the reference's jnp chunked SSD: the
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -106,15 +108,52 @@ def _finish(m: Mamba2, cfg: ModelConfig, u: torch.Tensor, y: torch.Tensor,
     return y @ m.out_proj
 
 
+def _ssd_train(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+               log_a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The reference's chunked SSD from a zero state (``mamba_apply``'s
+    ``chunk_step``), differentiable. xdt [B,S,nh,P]; b/c [B,S,N]; log_a
+    [B,S,nh] (f32) -> y [B,S,nh,P] f32. The log decays above the diagonal
+    are masked before ``exp``: masking after it would give ``inf * 0``,
+    NaN gradients."""
+    b, s, nh, p = xdt.shape
+    n = bmat.shape[2]
+    nc = s // chunk
+    xc = xdt.reshape(b, nc, chunk, nh, p)
+    bc, cc = (t.reshape(b, nc, chunk, n) for t in (bmat, cmat))
+    la = torch.cumsum(log_a.reshape(b, nc, chunk, nh), dim=2)
+    idx = torch.arange(chunk, device=xdt.device)
+    causal = idx[:, None] >= idx[None, :]                     # [Q, Q]
+    h = torch.zeros((b, nh, p, n), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for ci in range(nc):
+        xq, bq, cq, laq = xc[:, ci], bc[:, ci], cc[:, ci], la[:, ci]
+        g = torch.einsum("bqn,bmn->bqm", cq, bq)              # [B,Q,Q]
+        logdec = laq[:, :, None, :] - laq[:, None, :, :]
+        logdec = torch.where(causal[None, :, :, None], logdec, -1e30)
+        y = torch.einsum("bqm,bqmh,bmhp->bqhp", g, torch.exp(logdec), xq)
+        y = y + torch.einsum("bqn,bhpn,bqh->bqhp", cq, h, torch.exp(laq))
+        la_last = laq[:, -1:, :]                              # [B,1,nh]
+        w = torch.exp(la_last - laq)                          # [B,Q,nh]
+        h = (torch.einsum("bh,bhpn->bhpn", torch.exp(la_last[:, 0, :]), h)
+             + torch.einsum("bqhp,bqn,bqh->bhpn", xq, bq, w))
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(b, s, nh, p)
+
+
 def mamba_apply(m: Mamba2, cfg: ModelConfig, u: torch.Tensor,
                 chunk: int = 256) -> torch.Tensor:
-    """Full-sequence SSD from a zero state. u: [B, S, d] -> [B, S, d].
-
-    As the reference: the conv runs in the model dtype."""
+    """The full-sequence forward of one layer (training; the reference's
+    ``mamba_apply``): the SSD from a zero state in plain, differentiable
+    PyTorch, the conv in the model dtype. u: [B, S, d] -> [B, S, d]; S a
+    multiple of ``min(chunk, S)``."""
+    s = u.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide {s} tokens")
     z, x, bc, dt = _project(m, cfg, u)
     conv = F.silu(_causal_conv(torch.cat([x, bc], dim=-1), m.conv_w))
     xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, conv, dt)
-    y, _ = ssd(xdt, bmat, cmat, log_a, chunk=chunk)
+    y = _ssd_train(xdt, bmat, cmat, log_a, chunk)
     return _finish(m, cfg, u, y, xh, z)
 
 

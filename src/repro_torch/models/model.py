@@ -1,9 +1,11 @@
 """Model assembly for the dense, MoE, audio, hybrid, VLM and xLSTM
 families: init, paged cache, decode and chunked prefill steps, on-device
-sampling.
+sampling, and the training loss (every family but xLSTM).
 
 The reference streams a stacked layer axis through its speculative-read
-scan; here the layers are a plain loop over ``DenseModel.blocks``,
+scan; the training loss streams the layers through the port's
+``core.speculative_read.stream_layers`` (a loop on one rank, with remat),
+and the serving steps are a plain loop over ``DenseModel.blocks``,
 ``HybridModel.groups``, ``VLMModel.self_blocks`` / ``cross`` or
 ``XLSTMModel.mlstm`` / ``slstm`` (the reference's serving engine drops the
 prefetch for a single device too). The MoE family (granite) is a
@@ -47,16 +49,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import speculative_read as sr
 from repro_torch.device import resolve_device
-from repro_torch.models import kv_quant, mamba2, transformer, xlstm
+from repro_torch.models import kv_quant, mamba2, moe, transformer, xlstm
 from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        embed_init, frozen_param, pdtype,
                                        rmsnorm, sinusoidal_positions,
-                                       unembed_apply)
+                                       softmax_xent, unembed_apply)
 
 PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm", "ssm")
+# families with a training forward (``loss_fn``); xLSTM's training forms
+# (the reference's chunkwise ``mlstm_apply`` and ``slstm_apply``) are the
+# next slice's
+TRAINED_FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -345,6 +353,127 @@ def _embed(params: nn.Module, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.family == "audio" or not cfg.use_rope:
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
+
+
+# ---------------------------------------------------------------------------
+# train forward + loss
+# ---------------------------------------------------------------------------
+
+
+def _shared_block_apply(sp: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
+                        emb: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """zamba2's shared block over a sequence: concat(x, emb) -> in_map ->
+    the dense block -> out_map, added to x."""
+    z = transformer.block_apply(sp.block, cfg, _shared_in(sp, x, emb),
+                                positions)
+    return x + z @ sp.out_map
+
+
+def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
+                shared=None, vision=None):
+    """The layer stream's body for one stacked step of ``cfg``'s family:
+    ``body((x, aux), layer) -> (x, aux)``; ``aux`` sums the MoE layers'
+    load-balance losses."""
+    fam = cfg.family
+
+    def body(carry, layer):
+        x, aux = carry
+        if fam in ("dense", "audio"):
+            return transformer.block_apply(layer, cfg, x, positions,
+                                           use_pallas=rc.use_pallas), aux
+        if fam == "moe":
+            x, a = moe.moe_block_apply(layer, cfg, x, positions)
+            return x, aux + a
+        if fam == "vlm":
+            self_blocks, cross = layer
+            for blk in self_blocks:
+                x = transformer.block_apply(blk, cfg, x, positions)
+            k, v = transformer.vision_kv(cross, cfg, vision)
+            return transformer.cross_block_apply(cross, cfg, x, k, v,
+                                                 chunked=True), aux
+        if fam == "hybrid":
+            for m in layer:
+                x = x + mamba2.mamba_apply(m, cfg, x)
+            return _shared_block_apply(shared["params"], cfg, x,
+                                       shared["emb"], positions), aux
+        raise ValueError(fam)
+
+    return body
+
+
+def _stacked_layers(params: nn.Module, cfg: ModelConfig):
+    """The layer stream's steps: a block (dense, MoE, audio), a group of
+    Mamba2 layers (hybrid), or a group's self-attention blocks with its
+    cross layer (VLM)."""
+    if cfg.family == "vlm":
+        return list(zip(params.self_blocks, params.cross))
+    if cfg.family == "hybrid":
+        return params.groups
+    return params.blocks
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a family whose training forms are not ported yet."""
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet: its "
+            f"training forms (the reference's mlstm_apply / slstm_apply) "
+            f"are the next slice's (trained: {TRAINED_FAMILIES})")
+
+
+def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training loss: mean next-token cross-entropy (plus the MoE
+    layers' load-balance loss). batch: ``tokens`` and ``labels`` [B, S]
+    (audio [B, K, S]) and, for the VLM, ``vision_embeds`` [B, Nv, d].
+
+    The layers run through the speculative-read stream
+    (``rc.sr_prefetch_depth``, ``rc.sr_granularity``) with ``rc.remat`` and
+    ``rc.remat_policy``; with ``rc.use_pallas`` the dense and audio blocks'
+    attention runs the flash-prefill kernel, which has no backward (a
+    forward under ``torch.no_grad`` only)."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    bsz, seq = tokens.shape[0], tokens.shape[-1]
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device=tokens.device)[None].expand(bsz, seq)
+    x = _embed(params, cfg, tokens, positions)
+    shared = ({"params": params.shared, "emb": x}
+              if cfg.family == "hybrid" else None)
+    body = _body_train(cfg, rc, positions, shared=shared,
+                       vision=batch.get("vision_embeds"))
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = sr.stream_layers(
+        body, (x, aux0), _stacked_layers(params, cfg),
+        prefetch_depth=rc.sr_prefetch_depth, granularity=rc.sr_granularity,
+        mode="train", remat=rc.remat, remat_policy=rc.remat_policy)
+    x = rmsnorm(params.ln_f, x, cfg.norm_eps)
+    return _chunked_xent(params, cfg, x, batch["labels"]) + aux
+
+
+def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+                  labels: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
+    """Cross-entropy over ``n_chunks`` slices of the sequence (one when S
+    does not divide), so the [T, V] logits are never whole; audio labels
+    keep their [B, K, S] layout. Under grad each chunk is recomputed in
+    the backward pass, so no chunk's logits are held across the loss."""
+    b, s, _ = x.shape
+    if s % n_chunks or s // n_chunks == 0:
+        n_chunks = 1
+    cs = s // n_chunks
+
+    def chunk(xc, lc):
+        return softmax_xent(unembed_apply(params.embed, cfg, xc), lc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xc, lc = x[:, i * cs:(i + 1) * cs], labels[..., i * cs:(i + 1) * cs]
+        if torch.is_grad_enabled() and xc.requires_grad:
+            total = total + checkpoint(chunk, xc, lc, use_reentrant=False)
+        else:
+            total = total + chunk(xc, lc)
+    return total / n_chunks
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ drop (token, expert) pairs past each expert's capacity
 ``round(capacity_factor · t · k / E)`` -- at decode too, where t counts
 every slot of the tick, idle ones included. The expert-parallel forms
 (all_to_all dispatch, psum combine) are not ported: they raise for more
-than one rank, as the page-sharded decode does.
+than one rank, as the page-sharded decode does. ``moe_block_apply`` is the
+training forward of a whole MoE block; ``moe_apply`` returns the
+load-balance aux loss the training loss adds.
 
 Routing is f32 (router weight, softmax); the experts' products run in the
 model dtype as batched matmuls. The dispatch buffer is written without
@@ -24,7 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, frozen_param, pdtype
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, frozen_param, pdtype,
+                                       rmsnorm)
 
 
 class MoE(nn.Module):
@@ -141,3 +145,20 @@ def moe_apply_ep_decode(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     (the reference's "no drops" holds only for its multi-rank form)."""
     _one_rank(n_ranks)
     return moe_apply(moe, cfg, x)[0]
+
+
+def moe_block_apply(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    kv_block: int = 512, n_ranks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence forward of an MoE block (``ln_attn``, ``attn``,
+    ``ln_mlp``, ``moe``; training). x: [B, S, d] -> (x, the load-balance
+    aux loss). The attention is the plain ``chunked_attention`` (the
+    reference passes no softcap and no kernel route here)."""
+    h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
+    q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
+    o = attn.chunked_attention(q, k, v, causal=causal, kv_block=kv_block)
+    b, s = x.shape[0], x.shape[1]
+    x = x + o.reshape(b, s, cfg.q_dim) @ block.attn.wo
+    h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
+    y, aux = moe_apply_ep(block.moe, cfg, h, n_ranks=n_ranks)
+    return x + y, aux

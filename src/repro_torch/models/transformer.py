@@ -1,5 +1,5 @@
-"""Transformer blocks: paged decode and chunked prefill steps, and the
-VLM's gated cross-attention layer.
+"""Transformer blocks: paged decode and chunked prefill steps, the
+full-sequence training forward, and the VLM's gated cross-attention layer.
 
 A block is an ``nn.Module`` of one layer's weights; the model holds one per
 layer (the reference stacks them on a leading axis for its layer scan).
@@ -115,15 +115,23 @@ def _gate(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def cross_block_apply(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
-                      k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+                      k: torch.Tensor, v: torch.Tensor, *,
+                      chunked: bool = False) -> torch.Tensor:
     """The gated cross-attention layer over vision K/V. x: [B, S, d]; k/v:
     [B, Nv, Hkv, D]. Every query attends to all Nv keys (no RoPE, no
     mask): the reference's ``cross_block_apply`` for a sequence and its
-    ``_decode_vlm`` cross layer for one token, as one function."""
+    ``_decode_vlm`` cross layer for one token, as one function. With
+    ``chunked`` (the training forward) the attention is the reference's
+    ``chunked_attention`` over key blocks of up to 512 (the last one
+    padded); else one f32 softmax over every key."""
     b, s = x.shape[0], x.shape[1]
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q, _, _ = attn.qkv_project(block.attn, cfg, h, None, rope=False)
-    o = attn.decode_attention(q, k, v)
+    if chunked:
+        o = attn.chunked_attention(q, k, v, causal=False,
+                                   kv_block=min(512, k.shape[1]))
+    else:
+        o = attn.decode_attention(q, k, v)
     x = x + _gate(block.attn_gate, x) * (o.reshape(b, s, cfg.q_dim)
                                          @ block.attn.wo)
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
@@ -135,12 +143,17 @@ def vision_kv(block: CrossBlock, cfg: ModelConfig,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of (stubbed) vision embeddings [B, Nv, d] ->
     ([B, Nv, Hkv, D], [B, Nv, Hkv, D]). The serving path never calls it
-    (it has no vision input); the tests use it to give the cross layer
-    K/V that are not zero."""
+    (it has no vision input); the training forward takes them from the
+    batch's embeddings, and the tests use it to give the cross layer K/V
+    that are not zero."""
     b, nv = vision_embeds.shape[:2]
     shape = (b, nv, cfg.n_kv_heads, cfg.head_dim)
-    return ((vision_embeds @ block.attn.wk).reshape(shape),
-            (vision_embeds @ block.attn.wv).reshape(shape))
+    # f32 embeddings (the data pipeline's) against bf16 weights promote to
+    # f32, as the reference's jnp product does
+    dt = torch.promote_types(vision_embeds.dtype, block.attn.wk.dtype)
+    e = vision_embeds.to(dt)
+    return ((e @ block.attn.wk.to(dt)).reshape(shape),
+            (e @ block.attn.wv.to(dt)).reshape(shape))
 
 
 def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
@@ -151,6 +164,32 @@ def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
     x = x + o.reshape(b, s, cfg.q_dim) @ block.attn.wo
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
     return x + block.ffn(cfg, h, decode=decode)
+
+
+def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, causal: bool = True,
+                kv_block: int = 512, use_pallas: bool = False) -> torch.Tensor:
+    """The full-sequence forward of a dense block (training). x: [B, S, d];
+    positions [B, S]. The attention is the plain ``chunked_attention``, or
+    with ``use_pallas`` the flash-prefill kernel: the whole sequence one
+    chunk at position 0 with its own K/V as the cache (Smax = S). The
+    kernel has no backward, so its wrapper refuses inputs that require
+    grad, as the reference cannot differentiate through its Pallas
+    kernel."""
+    h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
+    q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
+    cap = cfg.attn_logit_softcap
+    if not use_pallas:
+        o = attn.chunked_attention(q, k, v, causal=causal,
+                                   kv_block=kv_block, logit_softcap=cap)
+    elif causal:
+        pos = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+        o = attn.chunk_prefill_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), pos,
+                                         logit_softcap=cap)
+    else:
+        raise NotImplementedError("the flash-prefill kernel is causal only")
+    return _finish(block, cfg, x, o)
 
 
 def block_decode_paged(block: Block | MoEBlock, cfg: ModelConfig,

@@ -3,7 +3,8 @@
 * No file of ``src/repro_torch``, ``chip_smoke.py`` or
   ``benchmarks/torch_profile.py`` imports ``jax`` or the JAX package
   ``repro`` (the machine with the card has no JAX).
-* Importing the port's serving engine pulls in no JAX.
+* Importing the port's serving engine, or its training driver, pulls in
+  no JAX.
 * Entry points default to the card and raise without one; they never fall
   back to the CPU unless asked.
 """
@@ -59,12 +60,26 @@ def test_engine_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_training_import_pulls_in_no_jax():
+    code = ("import sys; import repro_torch.launch.train, "
+            "repro_torch.launch.steps, repro_torch.core.speculative_read, "
+            "repro_torch.core.hdm, repro_torch.optim.compression, "
+            "repro_torch.checkpoint.checkpointer; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _default_device_calls():
     from repro_torch import bridge
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
 
@@ -97,6 +112,13 @@ def _default_device_calls():
                                                     kv_quant="int8"),
         "int8_cli": lambda: serve.main(["--arch", "qwen3-1.7b", "--smoke",
                                         "--kv-quant", "int8"]),
+        "train": lambda: train.train("qwen3-1.7b", smoke=True, steps=1),
+        "train_cli": lambda: train.main(["--arch", "qwen3-1.7b", "--smoke",
+                                         "--steps", "1"]),
+        "Pipeline": lambda: Pipeline(DataConfig(vocab_size=16,
+                                                global_batch=2, seq_len=4)),
+        "adamw_state_from_jax": lambda: bridge.adamw_state_from_jax(
+            None, cfg),
     }
 
 
@@ -108,7 +130,9 @@ def _default_device_calls():
                                    "hybrid_params_from_jax",
                                    "hybrid_ServingEngine", "hybrid_serve",
                                    "hybrid_cli", "int8_cache_init",
-                                   "int8_ServingEngine", "int8_cli"])
+                                   "int8_ServingEngine", "int8_cli",
+                                   "train", "train_cli", "Pipeline",
+                                   "adamw_state_from_jax"])
 def test_default_device_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
