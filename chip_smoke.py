@@ -33,7 +33,14 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    llama-3.2-vision-11b's (Hkv 8, 4 query heads each, D 128; the decode
    runs its 8-row instance, half of whose rows are padding, recorded)
    and, the decode kernel, at gemma-2b's (one kv head of 8 query heads,
-   D 256);
+   D 256); both kernels at glm4-9b's heads (Hkv 2 of 16 query heads
+   each) and starcoder2-15b's (Hkv 4 of 12), D 128, the decode in both
+   modes, its group split over two CTAs per kv head; the decode's m / l
+   output (``return_ml``: f32 o, base-2 m, l) in both modes on each of
+   two ranks' views of a cache (a rank with no token: m -inf, l 0) at
+   qwen3's heads and at G 16 and 12, against the plain versions (f32
+   1e-4), the two ranks combined against the one-rank decode (TOL), timed
+   at a rank's view of the tp path;
    the decode kernel's int8 mode at qwen3's heads and at gemma-2b's (bf16
    2e-2, int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
@@ -41,7 +48,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    the cache's end, G = 1, 2, 4 and 8, D 64 and 256, softcap 30, in bf16
    and in f32 (the 3xTF32 kernels: at D 80, 128 and 64, and at 256);
    paged_decode, both modes, at lengths 1, 255, 256, 257 and Smax around
-   a split, G = 1, 4 and 8, the int8 fresh row on a tile's first and last
+   a split, G = 1, 4, 8, 12 and 16, the int8 fresh row on a tile's first and last
    row and past the cache; the f32 flash_prefill instance (3xTF32 tensor
    cores) at the int8 path's chunk, timed beside f32 SDPA; the bf16 D 256
    instance (tensor cores, two warps per 16 rows) at gemma-2b's chunk,
@@ -149,7 +156,23 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    check that every request finished, no kernel launched (the family has
    none) and nothing was flushed (its cache has no pages); print the
    tick's ms and the prefill's ms per token;
-12. train: flash_prefill at the training loss's shape (one layer's 4096-
+12. serve glm4-9b (40 layers, 32 query heads over 2 kv heads, d_ff 13696,
+   vocab 151552; ~9.4 B random bf16 weights) and starcoder2-15b (40
+   layers, d_model 6144, 48 over 4, tanh-gelu d_ff 24576, vocab 49152;
+   ~16 B) at full width on phase 3's engine: 4 requests and 2 prefix
+   restores each; phase 3's gates, and flash_prefill once per layer per
+   chunk and the bf16 paged_decode (two CTAs per kv head) once per layer
+   per tick;
+13. serve qwen3-1.7b (cut to ``TP_LAYERS`` layers) on two ranks: two
+   processes on the one card joined by gloo (``launch.mesh.spawn``), each
+   holding half of every slot's pages, with bf16 and with int8 pages, 4
+   requests and 2 restores (through the ShardedTier's peer lanes); every
+   rank's greedy tokens must equal the one-rank engine's on the card over
+   the same traffic, the decode (its m / l output) and the prefill run
+   once per layer per step on each rank and no other kernel; a rank that
+   fails or outlives ``TP_TIMEOUT_S`` fails the script; print the
+   ShardedTier counters;
+14. train: flash_prefill at the training loss's shape (one layer's 4096-
    token sequence as one chunk at position 0 against its own K/V; bf16
    2e-2) against its plain version, timed beside causal SDPA; one
    training step of the smoke-size qwen3-1.7b, granite-moe-1b-a400m,
@@ -168,7 +191,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    last below the first, no kernel launched under grad; prints the step
    ms (CUDA events), tokens/s, the MFU against 989 TFLOP/s (6 x active
    params x tokens, remat's recompute not counted) and the peak memory;
-13. print the measured numbers, the seconds of each phase, one
+15. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -193,6 +216,9 @@ GRANITE = "granite-moe-1b-a400m"
 MUSICGEN = "musicgen-large"
 VLM = "llama-3.2-vision-11b"
 XLSTM = "xlstm-125m"
+GLM4 = "glm4-9b"               # 32 query heads over 2 kv heads: G 16
+STARCODER2 = "starcoder2-15b"  # 48 over 4: G 12
+TP_PATH, TP8_PATH = f"{ARCH} tp2", f"{ARCH} tp2 int8"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
@@ -205,6 +231,14 @@ N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT = 3, 2
 # by-token prefill (its reference's form): fewer VLM requests than phase
 # 3's, never resubmitted (neither family is restored from the tier)
 N_VLM_REQUESTS, N_XLSTM_REQUESTS = 4, 8
+# glm4-9b's 80 MiB and starcoder2-15b's 160 MiB entries: 4 requests and 2
+# restores each
+N_GROUP_REQUESTS, N_GROUP_RESUBMIT = 4, 2
+# the tp phase: two ranks (processes) on the one card, qwen3-1.7b in bf16
+# and with int8 pages, 4 requests and 2 restores, against the one-rank
+# engine on the same traffic
+TP_RANKS, N_TP_REQUESTS, N_TP_RESUBMIT = 2, 4, 2
+TP_TIMEOUT_S = 600.0
 # xLSTM's prefill (a recurrence a token in every layer) is timed over a
 # chunk of this many tokens
 XLSTM_TIMED_TOKENS = 32
@@ -214,6 +248,10 @@ XLSTM_TIMED_TOKENS = 32
 # section 5) and the eager steps do. Widths, heads, vocabularies and
 # traffic stay the full models'.
 CUT_LAYERS = {HYBRID: 24, GRANITE: 12, MUSICGEN: 24}
+# the tp phase's qwen3-1.7b, cut to 4 of 28 layers for the same reason:
+# each rank charges its replica of the tier with the whole entry, and the
+# phase runs the one-rank engine and the two ranks in both page formats
+TP_LAYERS = 4
 # the training phase: full-width qwen3-1.7b on train_4k's 4096-token
 # sequences, its batch cut from 256 to 8 for one card; 5 steps on one
 # repeated batch at AdamWConfig(learning_rate=3e-4, warmup_steps=0) (the
@@ -401,6 +439,15 @@ def launch_plans():
             1, CHUNK, h, hkv, d, torch.bfloat16)
     plans[f"paged_decode {ARCH} int8"] = dops.plan(
         N_SLOTS, 16, 8, MAX_SEQ, 256, 128, torch.int8)
+    for arch, h, hkv in ((GLM4, 32, 2), (STARCODER2, 48, 4)):
+        for dt in (torch.bfloat16, torch.int8):
+            plans[f"paged_decode {arch} {str(dt)[6:]}"] = dops.plan(
+                N_SLOTS, h, hkv, MAX_SEQ, 256, 128, dt)
+        plans[f"flash_prefill {arch} bf16"] = fops.plan(
+            1, CHUNK, h, hkv, 128, torch.bfloat16)
+    # the tp phase's decode: each rank's 1024 tokens of a slot
+    plans[f"paged_decode {TP_PATH} rank"] = dops.plan(
+        N_SLOTS, 16, 8, MAX_SEQ // TP_RANKS, 256, 128, torch.bfloat16)
     plans[f"flash_prefill {ARCH} f32"] = fops.plan(
         1, CHUNK, 16, 8, 128, torch.float32)
     plans[f"ssd_scan {HYBRID}"] = sops.plan(1, CHUNK, 80, 64, 64)
@@ -507,11 +554,12 @@ def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
                + kv_len.numel() * 4)
     res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * tokens * h * d)
     res["max_abs_err"] = res["err_softcap0"]
-    # the instance runs ``group_pad`` query rows per kv head: g of them
-    # real, the rest padding (G 4 runs the 8-row instance)
-    res["group_pad"] = ops.plan(b, h, hkv, smax, page, d,
-                                torch.bfloat16).group_pad
-    res["padded_rows_share"] = 1 - g / res["group_pad"]
+    # the instance runs ``group_pad`` query rows per CTA, ``group_chunks``
+    # CTAs per kv head: g of those rows real, the rest padding (G 4 runs
+    # the 8-row instance; G 12 two CTAs of 6 rows on it)
+    pl = ops.plan(b, h, hkv, smax, page, d, torch.bfloat16)
+    res["group_pad"], res["group_chunks"] = pl.group_pad, pl.group_chunks
+    res["padded_rows_share"] = 1 - g / (pl.group_pad * pl.group_chunks)
     res["shape"] = (f"q [{b},1,{h},{d}] bf16, pages [{b},{p},{page},{hkv},"
                     f"{d}], kv_len {lens}")
     return res
@@ -608,6 +656,168 @@ def check_decode_int8(dev, hkv, g, d):
     return res
 
 
+def rank_views(pos, n_ranks, span):
+    """Each rank's ``(kv_len, fresh)`` for per-slot ``pos`` over pages of
+    ``span`` tokens a rank, as ``models.attention``'s page-sharded decode
+    gives them to the kernel."""
+    import torch
+    out = []
+    for r in range(n_ranks):
+        off = pos.long() - r * span
+        out.append(((off + 1).clamp(0, span).to(torch.int32),
+                    torch.where((off >= 0) & (off < span), off, -1)
+                    .to(torch.int32)))
+    return out
+
+
+def check_decode_ml(dev):
+    """paged_decode's ``return_ml`` output (f32 o, base-2 m, l), both
+    modes, against the plain versions' on each rank's view of a cache
+    split over two ranks (its pages, its local length, 0 after the owner;
+    the int8 new row only on the owner): at the tp path's heads (Hkv 8,
+    G 2, D 128) and at G 16 and G 12; o at f32's 1e-4, m and l at 1e-4
+    relative (m = -inf and l = 0 where a rank sees no token). The two
+    ranks' partials combined as ``models.attention.combine_partials``
+    does must give the one-rank decode (bf16 TOL). Timed at the tp path's
+    shape (a rank's 1024 tokens of 8 slots), beside SDPA over the same
+    keys (output only: no PyTorch call returns m and l)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models import kv_quant
+    b, p, page, d = N_SLOTS, MAX_SEQ // 256, 256, 128
+    smax, span = p * page, p * page // TP_RANKS
+    local = slice(0, p // TP_RANKS)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pos = torch.tensor([0, 1, 300, 1023, 1024, 1500, smax - 2, smax - 1],
+                       dtype=torch.int32, device=dev)
+    f32_tol = dict(atol=1e-4, rtol=1e-4)
+    res = {"pos": pos.tolist(), "errs": {}}
+    for hkv, g in ((8, 2), (2, 16), (4, 12)):
+        h = hkv * g
+        q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
+        kp, vp = (torch.randn((b, p, page, hkv, d), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        nk, nv = (torch.randn((b, 1, hkv, d), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        init = torch.full((b, p, hkv), kv_quant.INIT_SCALE, device=dev)
+        (kc, ks), (vc, vs) = (kv_quant.requantize_pages(x, init)
+                              for x in (kp, vp))
+        views = rank_views(pos, TP_RANKS, span)
+        for mode in ("bf16", "int8"):
+            parts = []
+            for r, (kv_len, fresh) in enumerate(views):
+                pages = slice(r * p // TP_RANKS, (r + 1) * p // TP_RANKS)
+                if mode == "bf16":
+                    args = (q, kp[:, pages].contiguous(),
+                            vp[:, pages].contiguous(), kv_len)
+                    got = ops.paged_decode(*args, return_ml=True)
+                    want = ref.paged_decode_ref(*args, return_ml=True)
+                else:
+                    cut = [t[:, pages].contiguous() for t in (kc, vc, ks, vs)]
+                    got = ops.paged_decode(
+                        q, cut[0], cut[1], kv_len, k_scale=cut[2],
+                        v_scale=cut[3], new_k=nk, new_v=nv, fresh=fresh,
+                        return_ml=True)
+                    want = ref.paged_decode_int8_ref(
+                        q, cut[0], cut[1], cut[2], cut[3], nk, nv, None,
+                        kv_len=kv_len, fresh=fresh, return_ml=True)
+                torch.cuda.synchronize()
+                name = f"g{g} {mode} rank {r}"
+                (o, m, l), (wo, wm, wl) = got, want
+                live = torch.isfinite(wm)
+                if not (torch.equal(torch.isfinite(m), live)
+                        and not l[~live].any()
+                        and not o.reshape(b, h, d)[~live].any()):
+                    fail(f"paged_decode ml {name}: a rank without a token "
+                         f"must give m -inf, l 0, o 0")
+                res["errs"][name] = check_close(f"paged_decode ml {name} o",
+                                                o, wo, f32_tol)
+                check_close(f"paged_decode ml {name} m", m[live], wm[live],
+                            f32_tol)
+                check_close(f"paged_decode ml {name} l", l[live] / wl[live],
+                            torch.ones_like(wl[live]), f32_tol)
+                parts.append(got)
+            m_g = torch.maximum(parts[0][1], parts[1][1])
+            w = [pl_ * torch.exp2(pm - m_g) for _, pm, pl_ in parts]
+            comb = (sum(po * wi[:, None, :, None] for (po, _, _), wi
+                        in zip(parts, w)) / sum(w)[:, None, :, None])
+            one = (ops.paged_decode(q, kp, vp, (pos + 1).to(torch.int32))
+                   if mode == "bf16" else
+                   ops.paged_decode(q, kc, vc, k_scale=ks, v_scale=vs,
+                                    new_k=nk, new_v=nv, pos=pos))
+            res["errs"][f"g{g} {mode} combined"] = check_close(
+                f"paged_decode ml g{g} {mode}: two ranks combined vs one",
+                comb.to(one.dtype), one)
+        if (hkv, g) != (8, 2):
+            continue
+        # timings at the tp path's shape: rank 0's pages
+        kv_len, fresh = views[0]
+        mask = (torch.arange(span, device=dev)[None]
+                < kv_len[:, None].long())[:, None, None, :]
+        qs = q.transpose(1, 2)
+        for mode in ("bf16", "int8"):
+            if mode == "bf16":
+                kl, vl = (t[:, local].contiguous() for t in (kp, vp))
+
+                def call():
+                    return ops.paged_decode(q, kl, vl, kv_len,
+                                            return_ml=True)
+
+                def plain():
+                    return ref.paged_decode_ref(q, kl, vl, kv_len,
+                                                return_ml=True)
+                ks_, vs_ = (t.view(b, span, hkv, d).transpose(1, 2)
+                            .repeat_interleave(g, dim=1) for t in (kl, vl))
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qs, ks_, vs_, attn_mask=mask)
+                kv_bytes = 2
+            else:
+                cut = [t[:, local].contiguous() for t in (kc, vc, ks, vs)]
+
+                def call():
+                    return ops.paged_decode(
+                        q, cut[0], cut[1], kv_len, k_scale=cut[2],
+                        v_scale=cut[3], new_k=nk, new_v=nv, fresh=fresh,
+                        return_ml=True)
+
+                def plain():
+                    return ref.paged_decode_int8_ref(
+                        q, cut[0], cut[1], cut[2], cut[3], nk, nv, None,
+                        kv_len=kv_len, fresh=fresh, return_ml=True)
+
+                def library():
+                    kv = [kv_quant.dequantize_pages(c, sc, torch.bfloat16)
+                          .view(b, span, hkv, d).transpose(1, 2)
+                          for c, sc in ((cut[0], cut[2]), (cut[1], cut[3]))]
+                    return F.scaled_dot_product_attention(
+                        qs, kv[0], kv[1], attn_mask=mask, enable_gqa=True)
+                kv_bytes = 1
+            tokens = int(kv_len.sum())
+            n_bytes = (2 * tokens * hkv * d * kv_bytes + q.numel() * 2
+                       + q.numel() * 4 + b * h * 8 + 2 * b * 4)
+            if mode == "int8":
+                n_bytes += (2 * nk.numel() * 2 + 2 * sum(
+                    -(-int(n) // page) for n in kv_len) * hkv * 4)
+            out = {"ms": device_ms(call, 50), "plain_ms": time_ms(plain, 10),
+                   "library_ms": device_ms(library, 20),
+                   "library": ("SDPA" if mode == "bf16" else
+                               "dequantize_pages + SDPA (two calls)")
+                   + " over the rank's keys, output only"}
+            out["bound_ms"], out["bound_by"] = bound(n_bytes,
+                                                     4 * tokens * h * d)
+            out["max_abs_err"] = max(v for k, v in res["errs"].items()
+                                     if k.startswith(f"g2 {mode} rank"))
+            out["shape"] = (f"q [{b},1,{h},{d}] bf16, a rank's pages "
+                            f"[{b},{p // TP_RANKS},{page},{hkv},{d}] "
+                            f"{'int8' if mode == 'int8' else 'bf16'}, "
+                            f"kv_len {kv_len.tolist()}; out f32 + m, l")
+            res[mode] = out
+    return res
+
+
 def check_prefill(dev, hkv, g, d, smax=MAX_SEQ):
     """flash_prefill at ``hkv`` kv heads of ``g`` query heads, head_dim
     ``d``: one 256-token chunk against an ``smax``-token cache."""
@@ -683,7 +893,8 @@ def check_decode_edges(dev):
     TOL and f32 at 1e-4. The int8 mode also puts the fresh row on the
     first and the last row of a tile (the plan's tile) and past the cache
     (pos >= Smax, clamped to its last row). Also G = 4 (the VLM's group,
-    on the 8-row instance with half its rows padding)."""
+    on the 8-row instance with half its rows padding), and G 12 and 16
+    (starcoder2-15b's and glm4-9b's groups, split over two CTAs)."""
     import torch
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.models import kv_quant
@@ -693,7 +904,7 @@ def check_decode_edges(dev):
     f32_tol = dict(atol=1e-4, rtol=1e-4)
     res = {}
     lens = [1, 255, 256, 257, smax]
-    for hkv, g in ((8, 1), (8, 4), (2, ops.MAX_GROUP)):
+    for hkv, g in ((8, 1), (8, 4), (2, ops.MAX_GROUP), (4, 12), (2, 16)):
         h = hkv * g
         tile = ops.plan(1, h, hkv, smax, page, d, torch.int8).tile
         pos8 = [0, 254, 255, 256, smax - 1, 3 * tile, 3 * tile - 1, smax,
@@ -1860,10 +2071,13 @@ def serve(dev, kv_quant="none", arch=ARCH):
     import torch
     from repro_torch.serving.engine import Request
 
-    n_req, n_again, lens, max_seq = (
-        (N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT, MUSICGEN_PROMPT_LENS,
-         MUSICGEN_MAX_SEQ) if arch == MUSICGEN
-        else (N_REQUESTS, N_RESUBMIT, PROMPT_LENS, MAX_SEQ))
+    n_req, n_again, lens, max_seq = {
+        MUSICGEN: (N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT,
+                   MUSICGEN_PROMPT_LENS, MUSICGEN_MAX_SEQ),
+        GLM4: (N_GROUP_REQUESTS, N_GROUP_RESUBMIT, PROMPT_LENS, MAX_SEQ),
+        STARCODER2: (N_GROUP_REQUESTS, N_GROUP_RESUBMIT, PROMPT_LENS,
+                     MAX_SEQ)}.get(arch, (N_REQUESTS, N_RESUBMIT,
+                                          PROMPT_LENS, MAX_SEQ))
     cfg, rc, params, engine, init_s = build_engine(dev, arch, kv_quant,
                                                    max_seq)
     rng = np.random.default_rng(SEED)
@@ -1895,6 +2109,8 @@ def serve(dev, kv_quant="none", arch=ARCH):
                (GEMMA, False): "flash_prefill_d256",
                (GRANITE, False): "flash_prefill",
                (MUSICGEN, False): "flash_prefill",
+               (GLM4, False): "flash_prefill",
+               (STARCODER2, False): "flash_prefill",
                (ARCH, True): "flash_prefill_tf32",
                (GEMMA, True): "flash_prefill_tf32_256"}[arch, int8]
     launches, off_path = split_counts(
@@ -2197,6 +2413,164 @@ def serve_xlstm(dev):
             or xl["tier_write_ns"] or xl["stored_rids"]:
         fail(f"{XLSTM}: pages flushed from a cache without pages")
     return xl
+
+
+def check_group_kernels(dev):
+    """Both attention kernels at glm4-9b's heads (Hkv 2 of 16 query heads
+    each) and starcoder2-15b's (Hkv 4 of 12), D 128, over the serving
+    path's slots and chunk: the decode in both modes, split over two CTAs
+    per kv head."""
+    dec, dec8, pre = {}, {}, {}
+    for arch, hkv, g in ((GLM4, 2, 16), (STARCODER2, 4, 12)):
+        dec[arch] = check_decode(dev, hkv, g, 128)
+        log(f"paged_decode ok: {dec[arch]['shape']}; {dec[arch]}")
+        dec8[arch] = check_decode_int8(dev, hkv, g, 128)
+        log(f"paged_decode int8 ok: {dec8[arch]['shape']}; {dec8[arch]}")
+        pre[arch] = check_prefill(dev, hkv, g, 128)
+        log(f"flash_prefill ok: {pre[arch]['shape']}; {pre[arch]}")
+    return dec, dec8, pre
+
+
+def serve_group(dev, arch):
+    """Serve full-width glm4-9b or starcoder2-15b (query-head groups of 16
+    and 12: the decode split over two CTAs per kv head) with bf16 pages:
+    4 requests, then 2 of them again (prefix restores); phase 3's gates,
+    and the bf16 decode and prefill once per layer per step."""
+    run = serve(dev, arch=arch)
+    report(arch, run)
+    check_restores(arch, run)
+    check_per_step(arch, run, "flash_prefill", "paged_decode")
+    return run
+
+
+def tp_traffic(vocab):
+    """The tp phase's waves: 4 prompts of 300-1000 tokens, then the first
+    2 again under new rids (restores)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    first = [(i, rng.integers(1, vocab, int(n)).tolist(), MAX_NEW)
+             for i, n in enumerate(rng.integers(*PROMPT_LENS,
+                                                N_TP_REQUESTS))]
+    return [first, [(1000 + i, prompt, MAX_NEW)
+                    for i, prompt, _ in first[:N_TP_RESUBMIT]]]
+
+
+def tp_model(dev):
+    """qwen3-1.7b at full width, cut to ``TP_LAYERS`` layers, random bf16
+    weights from the seed on ``dev``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(registry.get(ARCH), n_layers=TP_LAYERS)
+    rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
+    return cfg, rc, M.init_model(cfg, seed=SEED, device=dev)
+
+
+def tp_serve(group, params, cfg, rc, kv_quant, dev):
+    """One engine's run of the tp traffic (one rank when ``group`` is
+    None): its report with the kernels' launch counts and the wall."""
+    import torch
+    from repro_torch.launch.serve import serve_waves
+    from repro_torch.serving.config import ServeConfig
+    config = ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                         prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
+                         store_budget_bytes=16 << 30, seed=SEED,
+                         kv_quant=kv_quant,
+                         tp=1 if group is None else group.size)
+    # the main path: counts from 0 just before, read just after
+    zero_counters()
+    t0 = time.time()
+    out = serve_waves(group, params, cfg, rc, config,
+                      tp_traffic(cfg.vocab_size), dev)
+    torch.cuda.synchronize(dev)
+    out["wall_s"] = time.time() - t0
+    out["launches"] = read_counters()
+    tier = out.pop("tier")               # the counters, not the traces
+    out["shard_counters"] = tier.get("shard_counters")
+    return out
+
+
+def tp_rank(group):
+    """One rank of the tp phase (a process of its own, on the card it
+    shares): both page formats in turn."""
+    cfg, rc, params = tp_model(group.device)
+    return {kv_quant: tp_serve(group, params, cfg, rc, kv_quant,
+                               group.device)
+            for kv_quant in ("none", "int8")}
+
+
+def serve_tp(dev):
+    """qwen3-1.7b (``TP_LAYERS`` layers) on two ranks, two processes on
+    the one card joined by gloo (``launch.mesh.spawn``, a file rendezvous
+    under build/), bf16 and int8 pages: every rank's greedy tokens equal
+    the one-rank engine's on the card over the same traffic, the restores
+    happened, the peer lanes carried shards, and the decode (its m / l
+    output) and the prefill ran on each rank's main path and no other
+    kernel. A rank that fails or outlives ``TP_TIMEOUT_S`` fails."""
+    import torch
+    from repro_torch.launch import mesh
+    cfg, rc, params = tp_model(dev)
+    one = {kv_quant: tp_serve(None, params, cfg, rc, kv_quant, dev)
+           for kv_quant in ("none", "int8")}
+    del params
+    free_card()
+    t0 = time.time()
+    ranks = mesh.spawn(tp_rank, TP_RANKS, (),
+                       rendezvous_dir=os.path.join(ROOT, "build", "tp"),
+                       device="cuda", timeout_s=TP_TIMEOUT_S)
+    spawn_s = time.time() - t0
+    out = {}
+    for kv_quant, path in (("none", TP_PATH), ("int8", TP8_PATH)):
+        decode = "paged_decode" if kv_quant == "none" else \
+            "paged_decode_int8"
+        prefill = "flash_prefill" if kv_quant == "none" else \
+            "flash_prefill_tf32"
+        runs = [r[kv_quant] for r in ranks]
+        for r, run in enumerate(runs):
+            launches, off_path = split_counts(f"{path} rank {r}",
+                                              run["launches"],
+                                              (decode, prefill))
+            if min(launches.values()) <= 0:
+                fail(f"{path} rank {r}: a kernel of the path never "
+                     f"launched: {launches}")
+            if run["tokens"] != one[kv_quant]["tokens"]:
+                fail(f"{path} rank {r}: greedy tokens differ from the "
+                     f"one-rank engine's: {run['tokens']} against "
+                     f"{one[kv_quant]['tokens']}")
+            if run["restored"] != [1000 + i for i in range(N_TP_RESUBMIT)]:
+                fail(f"{path} rank {r}: restores {run['restored']}")
+            st = run["stats"]
+            want = {decode: TP_LAYERS * st["decode_dispatches"],
+                    prefill: TP_LAYERS * st["prefill_dispatches"]}
+            if launches != want:
+                fail(f"{path} rank {r}: launches {launches}, want one per "
+                     f"layer per step {want}")
+        first = runs[0]
+        stats = first["stats"]
+        if stats["mesh_ranks"] != TP_RANKS or \
+                stats["tier_peer_fetches"] < N_TP_RESUBMIT:
+            fail(f"{path}: mesh_ranks {stats['mesh_ranks']}, peer fetches "
+                 f"{stats['tier_peer_fetches']}")
+        log(f"{path}: tokens equal to the one-rank engine's on "
+            f"{TP_RANKS} ranks; walls {[r['wall_s'] for r in runs]} s "
+            f"(one rank {one[kv_quant]['wall_s']:.2f} s); ShardedTier "
+            f"counters {first['shard_counters']}; restore_stall_ns "
+            f"{stats['restore_stall_ns']} (one rank "
+            f"{one[kv_quant]['stats']['restore_stall_ns']}); launches "
+            f"{launches}")
+        out[path] = {"launches": launches, "off_path_launches": off_path,
+                     "wall_s": [r["wall_s"] for r in runs],
+                     "one_rank_wall_s": one[kv_quant]["wall_s"],
+                     "shard_counters": first["shard_counters"],
+                     "restored": first["restored"],
+                     "decode_ticks": stats["decode_dispatches"],
+                     "prefill_chunks": stats["prefill_dispatches"],
+                     "restore_stall_ns": stats["restore_stall_ns"],
+                     "tier_write_ns": stats["tier_write_ns"],
+                     "one_rank_launches": one[kv_quant]["launches"],
+                     "n_layers": TP_LAYERS, "spawn_s": spawn_s}
+    return out
 
 
 def check_train_prefill(dev):
@@ -2546,6 +2920,10 @@ def main() -> None:
             log(f"paged_decode ok: {dec64[arch]['shape']}; {dec64[arch]}")
             log(f"flash_prefill ok: {pre64[arch]['shape']}; {pre64[arch]}")
         dec_g4, pre_g4 = check_vlm_kernels(dev)
+        dec_g, dec8_g, pre_g = check_group_kernels(dev)
+        dec_ml = check_decode_ml(dev)
+        log(f"paged_decode m / l output ok (both modes, two ranks' views, "
+            f"combined): {dec_ml}")
         dec8 = check_decode_int8(dev, 8, 2, 128)
         log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
         dec8_256 = check_decode_int8(dev, 1, 8, 256)
@@ -2639,6 +3017,16 @@ def main() -> None:
         xl = serve_xlstm(dev)
     free_card()
 
+    groups = {}
+    for arch in (GLM4, STARCODER2):
+        with phase(arch):
+            groups[arch] = serve_group(dev, arch)
+        free_card()
+
+    with phase("qwen3-1.7b tp2"):
+        tp = serve_tp(dev)
+    free_card()
+
     with phase(TRAIN_PATH):
         pre_train = check_train_prefill(dev)
         log(f"flash_prefill ok: {pre_train['shape']}; {pre_train}")
@@ -2657,7 +3045,7 @@ def main() -> None:
 
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
-            XLSTM: xl, TRAIN_PATH: trained}
+            XLSTM: xl, **groups, **tp, TRAIN_PATH: trained}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -2680,8 +3068,24 @@ def main() -> None:
              decode_tpu, (int8_name,)),
             ("paged_decode_int8_d256", "paged_decode_int8", dec8_256,
              decode_src, decode_tpu, (gem8_name,)),
+            ("paged_decode_g16_glm4", "paged_decode", dec_g[GLM4],
+             decode_src, decode_tpu, (GLM4,)),
+            ("paged_decode_g12_starcoder2", "paged_decode",
+             dec_g[STARCODER2], decode_src, decode_tpu, (STARCODER2,)),
+            ("paged_decode_int8_g16", "paged_decode_int8", dec8_g[GLM4],
+             decode_src, decode_tpu, ()),
+            ("paged_decode_int8_g12", "paged_decode_int8",
+             dec8_g[STARCODER2], decode_src, decode_tpu, ()),
+            ("paged_decode_ml_tp2", "paged_decode", dec_ml["bf16"],
+             decode_src, decode_tpu, (TP_PATH,)),
+            ("paged_decode_int8_ml_tp2", "paged_decode_int8",
+             dec_ml["int8"], decode_src, decode_tpu, (TP8_PATH,)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
-             (ARCH, HYBRID)),
+             (ARCH, HYBRID, TP_PATH)),
+            ("flash_prefill_g16_glm4", "flash_prefill", pre_g[GLM4],
+             prefill_src, prefill_tpu, (GLM4,)),
+            ("flash_prefill_g12_starcoder2", "flash_prefill",
+             pre_g[STARCODER2], prefill_src, prefill_tpu, (STARCODER2,)),
             ("flash_prefill_d64_granite", "flash_prefill", pre64[GRANITE],
              prefill_src, prefill_tpu, (GRANITE,)),
             ("flash_prefill_d64_musicgen", "flash_prefill",
@@ -2718,7 +3122,8 @@ def main() -> None:
                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                "shape": res["shape"]}
-        for key in ("parent_ms", "plans_ms", "padded_rows_share"):
+        for key in ("parent_ms", "plans_ms", "padded_rows_share",
+                    "group_chunks"):
             if key in res:
                 row[key] = res[key]
         if name.endswith(("_granite", "_musicgen")):
@@ -2733,6 +3138,25 @@ def main() -> None:
                            "padding): the same kernel and count as the row "
                            "without the suffix, whose launches on this "
                            "path are this row's")
+        if name.endswith(("_glm4", "_starcoder2")):
+            row["note"] = ("the bf16 instance at D 128 on the path of "
+                           + name.split("_")[-1] + " (its query-head group "
+                           "of 16 or 12; the decode splits it over two "
+                           "CTAs per kv head): the same kernel and count as "
+                           "the row without the suffix, whose launches on "
+                           "this path are this row's")
+        if name in ("paged_decode_int8_g16", "paged_decode_int8_g12"):
+            row["note"] = ("the int8 mode at glm4-9b's / starcoder2-15b's "
+                           "heads (split over two CTAs per kv head): held "
+                           "and timed here; no path serves these configs "
+                           "with int8 pages")
+        if name.endswith("_ml_tp2"):
+            row["note"] = ("the same kernel with its f32 output and m / l "
+                           "(the return_ml partials) at a rank's view on "
+                           "the tp 2 path (qwen3-1.7b heads, 1024 of a "
+                           "slot's 2048 tokens): its count is the row's "
+                           "counter, read in each rank's process, rank 0's "
+                           "here; library: output only")
         if name == "flash_prefill_train":
             row["note"] = ("the bf16 instance at D 128 on the use_pallas "
                            "training loss of full-width qwen3-1.7b (a 4096-"
@@ -2788,6 +3212,9 @@ def main() -> None:
                    "serve_granite": gran, "serve_musicgen": mus,
                    "decode_g4": dec_g4, "prefill_g4": pre_g4,
                    "serve_vlm": vlm, "serve_xlstm": xl,
+                   "decode_groups": dec_g, "decode_int8_groups": dec8_g,
+                   "prefill_groups": pre_g, "decode_ml": dec_ml,
+                   "serve_groups": groups, "serve_tp": tp,
                    "prefill_train": pre_train, "train_small": small_train,
                    "train_checkpoint": ckpt, "train": trained,
                    "train_driver": driver,

@@ -29,8 +29,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "repro_paged_decode": [_P] * 8 + [_I] * 14 + [_F, _F, _P],
-    "repro_paged_decode_int8": [_P] * 12 + [_I] * 14 + [_F, _F, _P],
+    "repro_paged_decode": [_P] * 10 + [_I] * 15 + [_F, _F, _P],
+    "repro_paged_decode_int8": [_P] * 15 + [_I] * 15 + [_F, _F, _P],
     "repro_flash_prefill": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P],
     "repro_ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
     "repro_paged_matmul": [_P] * 6 + [_I] * 13 + [_P],

@@ -6,14 +6,20 @@ CPU tensor it runs the plain version (``ref.paged_decode_ref``, or
 one to the other. ``launches`` counts launches of the bf16/f32 mode,
 ``int8_launches`` those of the int8 mode; each call is one launch.
 
-The launch plan (split and tile sizes, stages, shared memory, the
-workspace's shapes) is ``plan()``, a pure function of the shapes that the
-CPU tests check; the C entries take it as given and reject a plan that
-does not match the kernel. The workspace (per-split partials and the
-counters that find each (slot, kv head)'s last split) is allocated once
-per device and plan by ``_workspace`` and reused by every call: the
-kernel leaves the counters at zero. Calls that share it run on one
-stream, as the serving path's do.
+The launch plan (split and tile sizes, stages, the cut of the query-head
+group over CTAs, shared memory, the workspace's shapes) is ``plan()``, a
+pure function of the shapes that the CPU tests check; the C entries take it
+as given and reject a plan that does not match the kernel. The workspace
+(per-split partials and the counters that find each (slot, kv head, group
+chunk)'s last split) is allocated once per device and plan by
+``_workspace`` and reused by every call: the kernel leaves the counters at
+zero. Calls that share it run on one stream, as the serving path's do.
+
+With ``return_ml`` a call returns ``(o, m, l)``: the output in f32 and each
+(slot, query head)'s softmax max ``m`` (base 2: the log2 e-scaled logit)
+and sum ``l``, [B, H] f32; a slot with no visible token gives m = -inf,
+l = 0 and o = 0. These are a rank's partials for the cross-rank combine of
+a page-sharded cache (``models.attention``).
 """
 from __future__ import annotations
 
@@ -23,12 +29,14 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import (paged_decode_int8_ref,
+from repro_torch.kernels.decode_attention.ref import (int8_rows,
+                                                      paged_decode_int8_ref,
                                                       paged_decode_ref)
 
 SPLIT_TOKENS = 256   # tokens per split, rounded to whole pages (one page
                      # at the path's shapes)
-MAX_GROUP = 8        # query heads per kv head the kernel takes
+MAX_GROUP = 8        # query heads of one kv head a CTA takes; a larger
+                     # group is split over CTAs
 THREADS, WARPS = 128, 4
 ROWS_PER_THREAD = 4  # tile rows a thread scores per tile
 STAGES = 4           # cp.async ring depth
@@ -42,12 +50,13 @@ _WORKSPACE = {}
 @dataclasses.dataclass(frozen=True)
 class Plan:
     split: int         # tokens per split, a whole number of pages
-    n_splits: int      # grid (n_splits, kv heads, slots) of THREADS each
+    n_splits: int      # grid (n_splits, kv heads x group_chunks, slots)
     tile: int          # tokens per K/V tile; divides the page
     stages: int
     lanes: int         # lanes that share one token row
-    group_pad: int     # query heads per kv head, padded (2 or 8): the
-                       # kernel instance
+    group_rows: int    # query heads of one kv head a CTA takes
+    group_chunks: int  # CTAs over one kv head's group
+    group_pad: int     # group_rows padded (2 or 8): the kernel instance
     smem_bytes: int
     part_acc: tuple    # workspace shapes (f32, f32, int32)
     part_ml: tuple
@@ -71,11 +80,13 @@ def plan(b: int, h: int, hkv: int, smax: int, page: int, d: int,
     pages [b, smax/page, page, hkv, d] of ``kv_dtype`` (int8: the int8
     mode). A token row is read as 16-byte chunks, one per lane of a group
     of ``lanes`` (a power of two); a tile is ``ROWS_PER_THREAD`` rows per
-    row slot, cut to the largest power of two that divides the page."""
+    row slot, cut to the largest power of two that divides the page. A
+    group of more than ``MAX_GROUP`` query heads per kv head is split over
+    ``ceil(G / MAX_GROUP)`` CTAs of equal rows (G 12: 6 + 6, G 16: 8 + 8),
+    each of which reads the split's K/V."""
     g = h // hkv
-    if g < 1 or h % hkv or g > MAX_GROUP:
-        raise ValueError(f"{h} query heads over {hkv} kv heads: the kernel "
-                         f"takes 1..{MAX_GROUP} per kv head")
+    if g < 1 or h % hkv:
+        raise ValueError(f"{h} query heads over {hkv} kv heads")
     if page < 1 or smax % page:
         raise ValueError(f"cache of {smax} tokens in pages of {page}")
     kv_bytes = kv_dtype.itemsize
@@ -87,15 +98,18 @@ def plan(b: int, h: int, hkv: int, smax: int, page: int, d: int,
     split = split_tokens(page)
     n_splits = split_count(smax, page)
     tile = min(ROWS_PER_THREAD * (THREADS // lanes), page & -page)
-    gm = 2 if g <= 2 else MAX_GROUP
+    chunks = -(-g // MAX_GROUP)
+    rows = -(-g // chunks)
+    gm = 2 if rows <= 2 else MAX_GROUP
     ring = STAGES * 2 * tile * d * kv_bytes
     merge = WARPS * gm * (d + 2) * 4
     q_smem = gm * d * 4 if gm * elems > 32 else 0
     return Plan(split=split, n_splits=n_splits, tile=tile, stages=STAGES,
-                lanes=lanes, group_pad=gm,
-                smem_bytes=q_smem + max(ring, merge),
+                lanes=lanes, group_rows=rows, group_chunks=chunks,
+                group_pad=gm, smem_bytes=q_smem + max(ring, merge),
                 part_acc=(b, hkv, n_splits, g, d),
-                part_ml=(b, hkv, n_splits, g, 2), counters=(b, hkv))
+                part_ml=(b, hkv, n_splits, g, 2),
+                counters=(b, hkv, chunks))
 
 
 def _workspace(device: torch.device, p: Plan):
@@ -118,23 +132,44 @@ def _launch_plan(b, h, hkv, smax, page, d, kv_dtype, device):
     return p, _workspace(device, p)
 
 
+def _outputs(q: torch.Tensor, return_ml: bool):
+    """(out, out_f32, out_ml) for one call: out in q's dtype, or the f32
+    output with its [B, H, 2] m and l."""
+    if not return_ml:
+        return torch.empty_like(q), None, None
+    b, _, h, _ = q.shape
+    return (None, torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty((b, h, 2), dtype=torch.float32, device=q.device))
+
+
+def _result(out, out_f32, out_ml):
+    if out_f32 is None:
+        return out
+    return out_f32, out_ml[..., 0], out_ml[..., 1]
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, kv_len: torch.Tensor = None, *,
                  logit_softcap: float = 0.0, k_scale: torch.Tensor = None,
                  v_scale: torch.Tensor = None, new_k: torch.Tensor = None,
-                 new_v: torch.Tensor = None,
-                 pos: torch.Tensor = None) -> torch.Tensor:
-    """q: [B,1,H,D]; pages [B,P,page,Hkv,D]; kv_len int32 [B] -> [B,1,H,D].
+                 new_v: torch.Tensor = None, pos: torch.Tensor = None,
+                 fresh: torch.Tensor = None, return_ml: bool = False):
+    """q: [B,1,H,D]; pages [B,P,page,Hkv,D]; kv_len int32 [B] -> [B,1,H,D]
+    (with ``return_ml``: ``(o f32, m, l)``, see the module).
 
     Row b attends to its first ``min(kv_len[b], P*page)`` positions.
-    With ``k_scale`` the int8 mode runs instead (``_paged_decode_int8``).
+    With ``k_scale`` the int8 mode runs instead (``_paged_decode_int8``):
+    it takes ``pos``, or ``kv_len`` with ``fresh``.
     """
     global launches
     if k_scale is not None:
-        if kv_len is not None:
-            raise ValueError("the int8 mode takes pos, not kv_len")
         return _paged_decode_int8(q, k_pages, v_pages, k_scale, v_scale,
-                                  new_k, new_v, pos, logit_softcap)
+                                  new_k, new_v, pos, kv_len, fresh,
+                                  logit_softcap, return_ml)
     if q.dim() != 4 or q.shape[1] != 1 or k_pages.dim() != 5:
         raise ValueError(f"expected q [B,1,H,D] and pages [B,P,page,Hkv,D], "
                          f"got {tuple(q.shape)} / {tuple(k_pages.shape)}")
@@ -151,7 +186,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"inputs span devices {devices}")
     if q.device.type == "cpu":
-        return paged_decode_ref(q, k_pages, v_pages, kv_len, logit_softcap)
+        return paged_decode_ref(q, k_pages, v_pages, kv_len, logit_softcap,
+                                return_ml=return_ml)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in build.DTYPE_CODES:
@@ -165,28 +201,30 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     smax = p * page
     pl, (part_acc, part_ml, counters) = _launch_plan(
         b, h, hkv, smax, page, d, k_pages.dtype, q.device)
-    out = torch.empty_like(q)
+    outs = _outputs(q, return_ml)
     lib = build.library()
     rc = lib.repro_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        kv_len.data_ptr(), *map(_ptr, outs), part_acc.data_ptr(),
         part_ml.data_ptr(), counters.data_ptr(), b, h, hkv, smax, page, d,
         pl.split, pl.n_splits, pl.tile, pl.stages, pl.lanes, pl.group_pad,
-        pl.smem_bytes,
+        pl.group_rows, pl.smem_bytes,
         build.DTYPE_CODES[q.dtype], 1.0 / (d ** 0.5), float(logit_softcap),
         build.stream_ptr(q.device))
     launches += 1
     build.check(rc, "paged_decode")
-    return out
+    return _result(*outs)
 
 
 def _paged_decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v,
-                       pos, logit_softcap):
+                       pos, kv_len, fresh, logit_softcap, return_ml):
     """The int8 mode. Codes int8 [B,P,page,Hkv,D] and f32 scales
     [B,P,Hkv] are read in place (code x its page's scale); the new token's
-    K/V [B,1,Hkv,D] (q's dtype) stands at ``min(pos[b], P*page - 1)`` in
-    place of that row's code, at full precision, and row b attends over
-    ``[0, pos[b]]``. Nothing is written to the pages: the caller
+    K/V [B,1,Hkv,D] (q's dtype) stands at row ``fresh[b]`` in place of that
+    row's code, at full precision (none where ``fresh[b] < 0``), and row b
+    attends over ``[0, kv_len[b])``. One rank passes ``pos`` instead
+    (``int8_rows``); a rank of a page-sharded cache passes its local
+    ``kv_len`` and ``fresh``. Nothing is written to the pages: the caller
     requantizes the page it wrote (``models.attention``)."""
     global int8_launches
     if q.dim() != 4 or q.shape[1] != 1 or k_codes.dim() != 5:
@@ -194,20 +232,29 @@ def _paged_decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v,
                          f", got {tuple(q.shape)} / {tuple(k_codes.shape)}")
     b, _, h, d = q.shape
     _, p, page, hkv, dk = k_codes.shape
-    if any(t is None for t in (v_scale, new_k, new_v, pos)):
-        raise ValueError("the int8 mode needs k_scale, v_scale, new_k, "
-                         "new_v and pos")
+    if any(t is None for t in (v_scale, new_k, new_v)):
+        raise ValueError("the int8 mode needs k_scale, v_scale, new_k and "
+                         "new_v")
+    if (pos is None) == (kv_len is None) or (kv_len is None) != (
+            fresh is None):
+        raise ValueError("the int8 mode takes pos, or kv_len with fresh")
+    if pos is not None:
+        if pos.shape != (b,):
+            raise ValueError(f"pos {tuple(pos.shape)} for {b} slots")
+        kv_len, fresh = int8_rows(pos, p * page)
     if (k_codes.shape != v_codes.shape or k_codes.shape[0] != b or dk != d
             or h % hkv or k_scale.shape != (b, p, hkv)
             or v_scale.shape != (b, p, hkv)
             or new_k.shape != (b, 1, hkv, d)
-            or new_v.shape != (b, 1, hkv, d) or pos.shape != (b,)):
+            or new_v.shape != (b, 1, hkv, d) or kv_len.shape != (b,)
+            or fresh.shape != (b,)):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, codes "
                          f"{tuple(k_codes.shape)}/{tuple(v_codes.shape)}, "
                          f"scales {tuple(k_scale.shape)}/"
                          f"{tuple(v_scale.shape)}, new "
-                         f"{tuple(new_k.shape)}/{tuple(new_v.shape)}, pos "
-                         f"{tuple(pos.shape)}")
+                         f"{tuple(new_k.shape)}/{tuple(new_v.shape)}, "
+                         f"kv_len {tuple(kv_len.shape)}, fresh "
+                         f"{tuple(fresh.shape)}")
     if not (k_codes.dtype == v_codes.dtype == torch.int8):
         raise TypeError("the int8 mode takes int8 codes")
     if not (k_scale.dtype == v_scale.dtype == torch.float32):
@@ -216,36 +263,39 @@ def _paged_decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v,
         raise TypeError("q and the new K/V must share one dtype")
     inputs = (("q", q), ("k_codes", k_codes), ("v_codes", v_codes),
               ("k_scale", k_scale), ("v_scale", v_scale), ("new_k", new_k),
-              ("new_v", new_v), ("pos", pos))
+              ("new_v", new_v), ("kv_len", kv_len), ("fresh", fresh))
     devices = {t.device for _, t in inputs}
     if len(devices) != 1:
         raise ValueError(f"inputs span devices {devices}")
     if q.device.type == "cpu":
         return paged_decode_int8_ref(q, k_codes, v_codes, k_scale, v_scale,
-                                     new_k, new_v, pos, logit_softcap)
+                                     new_k, new_v, None, logit_softcap,
+                                     kv_len=kv_len, fresh=fresh,
+                                     return_ml=return_ml)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in build.DTYPE_CODES:
         raise TypeError(f"unsupported dtype {q.dtype}")
-    if pos.dtype != torch.int32:
-        raise TypeError("pos must be int32")
+    if kv_len.dtype != torch.int32 or fresh.dtype != torch.int32:
+        raise TypeError("kv_len and fresh must be int32")
     for name, t in inputs:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     smax = p * page
     pl, (part_acc, part_ml, counters) = _launch_plan(
         b, h, hkv, smax, page, d, torch.int8, q.device)
-    out = torch.empty_like(q)
+    outs = _outputs(q, return_ml)
     lib = build.library()
     rc = lib.repro_paged_decode_int8(
         q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), new_k.data_ptr(),
-        new_v.data_ptr(), pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), counters.data_ptr(), b, h, hkv, smax, page, d,
-        pl.split, pl.n_splits, pl.tile, pl.stages, pl.lanes, pl.group_pad,
-        pl.smem_bytes,
+        new_v.data_ptr(), kv_len.data_ptr(), fresh.data_ptr(),
+        *map(_ptr, outs), part_acc.data_ptr(), part_ml.data_ptr(),
+        counters.data_ptr(), b, h, hkv, smax, page, d, pl.split,
+        pl.n_splits, pl.tile, pl.stages, pl.lanes, pl.group_pad,
+        pl.group_rows, pl.smem_bytes,
         build.DTYPE_CODES[q.dtype], 1.0 / (d ** 0.5), float(logit_softcap),
         build.stream_ptr(q.device))
     int8_launches += 1
     build.check(rc, "paged_decode_int8")
-    return out
+    return _result(*outs)

@@ -17,11 +17,14 @@ NEG_INF = -1e30
 
 def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, kv_len: torch.Tensor,
-                     logit_softcap: float = 0.0) -> torch.Tensor:
+                     logit_softcap: float = 0.0, *, return_ml: bool = False):
     """q: [B,1,H,D]; pages [B,P,page,Hkv,D]; kv_len int [B] -> [B,1,H,D].
 
     Row b attends to its first ``kv_len[b]`` cache positions (all of them
-    when ``kv_len[b]`` exceeds the cache).
+    when ``kv_len[b]`` exceeds the cache). With ``return_ml`` returns
+    ``(o f32, m, l)`` as the kernel does: each (slot, query head)'s max
+    ``m`` of the log2 e-scaled logits and sum ``l = sum 2^(s - m)``, [B,
+    H]; a row with no visible position gives m = -inf, l = 0, o = 0.
     """
     b, _, h, d = q.shape
     _, p, page, hkv, _ = k_pages.shape
@@ -35,40 +38,67 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
         s = logit_softcap * torch.tanh(s / logit_softcap)
     kv_pos = torch.arange(smax, device=q.device)
     visible = kv_pos[None, :] < kv_len.to(q.device)[:, None].long()
+    if return_ml:
+        s = torch.where(visible[:, None, None, :], s / math.log(2.0),
+                        -math.inf)
+        m = s.amax(dim=-1)
+        e = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        l = e.sum(dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", e, v) / torch.clamp(
+            l, min=1e-30)[..., None]
+        return o.reshape(b, 1, h, d), m.reshape(b, h), l.reshape(b, h)
     s = torch.where(visible[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", w, v)
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def int8_rows(pos: torch.Tensor, smax: int):
+    """The one-rank int8 mode's ``(kv_len, fresh)`` for per-slot ``pos``:
+    row b attends over ``[0, min(pos+1, Smax))`` with the new token at
+    ``min(pos, Smax - 1)`` (clamped, like ``write_rows``)."""
+    return ((pos + 1).clamp(max=smax).to(torch.int32),
+            pos.clamp(max=smax - 1).to(torch.int32))
+
+
 def paged_decode_int8_ref(q: torch.Tensor, k_codes: torch.Tensor,
                           v_codes: torch.Tensor, k_scale: torch.Tensor,
                           v_scale: torch.Tensor, new_k: torch.Tensor,
-                          new_v: torch.Tensor, pos: torch.Tensor,
-                          logit_softcap: float = 0.0) -> torch.Tensor:
+                          new_v: torch.Tensor, pos: torch.Tensor = None,
+                          logit_softcap: float = 0.0, *,
+                          kv_len: torch.Tensor = None,
+                          fresh: torch.Tensor = None,
+                          return_ml: bool = False):
     """The int8 mode. q: [B,1,H,D]; codes int8 [B,P,page,Hkv,D]; scales
     f32 [B,P,Hkv]; new_k/new_v [B,1,Hkv,D]; pos int [B] -> [B,1,H,D].
 
-    What the reference's single-rank decode computes before it
-    requantizes (``repro.models.attention.paged_decode_attention``):
-    dequantize every page in f32, put the new token's K/V at ``pos[b]``
-    (clamped to the last position, like ``write_rows``) at full
-    precision, and attend over ``[0, pos[b]]``. The codes are not
-    written.
+    What the reference's decode computes before it requantizes
+    (``repro.models.attention.paged_decode_attention``): dequantize every
+    page in f32, put the new token's K/V at row ``fresh[b]`` at full
+    precision (no row where ``fresh[b] < 0``), and attend over ``[0,
+    kv_len[b])``. One rank gives ``pos`` (``int8_rows``: the row at
+    ``pos[b]`` clamped to the last position, like ``write_rows``, over
+    ``[0, pos[b]]``); a rank of a page-sharded cache its local ``kv_len``
+    and ``fresh``. The codes are not written. ``return_ml`` as in
+    ``paged_decode_ref``.
     """
     b, p, page, hkv, d = k_codes.shape
     smax = p * page
+    if pos is not None:
+        kv_len, fresh = int8_rows(pos, smax)
     rows = torch.arange(b, device=q.device)
-    at = pos.long().clamp(0, smax - 1)
+    own = fresh >= 0
+    at = fresh.long().clamp(min=0)
     kv = []
     for codes, scale, new in ((k_codes, k_scale, new_k),
                               (v_codes, v_scale, new_v)):
         x = (codes.float() * scale.float()[:, :, None, :, None]).reshape(
             b, smax, hkv, d)
-        x[rows, at] = new[:, 0].float()
+        x[rows, at] = torch.where(own[:, None, None], new[:, 0].float(),
+                                  x[rows, at])
         kv.append(x.reshape(b, p, page, hkv, d))
-    kv_len = (pos.long() + 1).clamp(max=smax)
-    return paged_decode_ref(q, kv[0], kv[1], kv_len, logit_softcap)
+    return paged_decode_ref(q, kv[0], kv[1], kv_len, logit_softcap,
+                            return_ml=return_ml)
 
 
 def paged_decode_split_ref(q: torch.Tensor, k_pages: torch.Tensor,

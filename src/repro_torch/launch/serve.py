@@ -16,12 +16,15 @@
       --cxl-topology dram,ssd-fast          # the xLSTM family, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu --requests 4     # smoke size, on the CPU
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --tp 2 \
+      --cxl-topology dram,ssd-fast          # two ranks (processes)
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
 that this port supports: every family (dense, MoE, audio, hybrid, VLM
-and xLSTM), one rank,
-bf16/f32 or int8 (``--kv-quant int8``) pages and the closed
-submit-then-run loop. Every engine default
+and xLSTM) on one rank, the dense family on ``--tp N`` ranks (N
+processes, rank 0 prints; on one card they share it, see
+``launch.mesh``), bf16/f32 or int8 (``--kv-quant int8``) pages and the
+closed submit-then-run loop. Every engine default
 comes from :class:`~repro_torch.serving.config.ServeConfig`.
 ``--cxl-media`` / ``--cxl-topology`` attach the CXL-timed tier;
 ``--cxl-async`` and ``--preempt-policy`` drive the scheduler;
@@ -33,6 +36,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 if __package__ in (None, ""):         # run as a file: put src/ on the path
@@ -45,6 +49,7 @@ import torch  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -153,15 +158,19 @@ def _print_tier(engine, config):
 
 def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           max_new: int = 12, prompt_len: int = 6,
-          config: ServeConfig = _DEF, device="cuda"):
+          config: ServeConfig = _DEF, device="cuda", verbose: bool = True,
+          group=None):
     """Serve ``n_requests`` random prompts through the engine built from
-    ``config`` on ``device``; prints throughput and tier stats and returns
-    ``(engine, finished_requests)``. ``smoke`` picks the reduced config."""
+    ``config`` on ``device``; prints throughput and tier stats (unless not
+    ``verbose``) and returns ``(engine, finished_requests)``. ``smoke``
+    picks the reduced config. With ``config.tp > 1`` it serves as
+    ``group``'s rank (``serve_ranks``)."""
     dev = resolve_device(device)
     cfg = registry.smoke(arch) if smoke else registry.get(arch)
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     params = M.init_model(cfg, seed=config.seed, device=dev)
-    engine = ServingEngine(params, cfg, rc, config=config, device=dev)
+    engine = ServingEngine(params, cfg, rc, config=config, device=dev,
+                           group=group)
     rng = np.random.default_rng(config.seed)
     handles = []
     for rid in range(n_requests):
@@ -173,6 +182,8 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
+    if not verbose:
+        return engine, finished
     _print_closed(engine, finished, n_requests, dt)
     ttfts = [h.ttft_ns for h in handles if h.ttft_ns is not None]
     if ttfts:
@@ -182,6 +193,65 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     if engine.tier is not None:
         _print_tier(engine, config)
     return engine, finished
+
+
+def _serve_rank(group, arch, kwargs):
+    """One rank of ``serve_ranks``: rank 0 prints; returns the tokens."""
+    _, finished = serve(arch, device=group.device,
+                        verbose=group.rank == 0, group=group, **kwargs)
+    return {r.rid: list(r.generated) for r in finished}
+
+
+def serve_ranks(arch: str, *, timeout_s: float = 3600.0, **kwargs):
+    """``serve`` on ``kwargs["config"].tp`` rank processes (spawned, with a
+    ``file://`` rendezvous in a new temporary directory); rank 0 prints.
+    Returns each rank's ``{rid: tokens}``."""
+    config, device = kwargs.pop("config"), kwargs.pop("device", "cuda")
+    with tempfile.TemporaryDirectory() as rendezvous:
+        return mesh.spawn(_serve_rank, config.tp,
+                          (arch, dict(kwargs, config=config)),
+                          rendezvous_dir=rendezvous,
+                          device=resolve_device(device).type,
+                          timeout_s=timeout_s)
+
+
+def serve_waves(group, params, cfg, rc, config: ServeConfig, waves,
+                device="cuda", keep_cache: bool = False) -> dict:
+    """Serve ``waves`` (lists of ``(rid, prompt, max_new_tokens)``), each
+    submitted then run to the end, on the engine built from ``config`` (as
+    ``group``'s rank when ``config.tp > 1``, else ``group`` is None);
+    returns what the run left,
+    as plain data: every finished request's tokens, the restored rids, the
+    stats, and the tier's op traces (one ``CxlTier``: ``ops`` / ``op_ns``;
+    a ``ShardedTier``: every rank's and every peer lane's, and its
+    counters), and with ``keep_cache`` the cache's pages (this rank's) on
+    the CPU. The tests and ``chip_smoke.py`` hold ranks and engines to one
+    another with it."""
+    engine = ServingEngine(params, cfg, rc, config=config, device=device,
+                           group=group)
+    for wave in waves:
+        for rid, prompt, n in wave:
+            engine.submit(Request(rid=rid, prompt=list(prompt),
+                                  max_new_tokens=n))
+        engine.run(max_ticks=10_000)
+    out = {"tokens": {r.rid: list(r.generated) for r in engine.finished},
+           "restored": sorted(r.rid for r in engine.finished if r.restored),
+           "stats": engine.stats.as_dict()}
+    if keep_cache:
+        out["cache"] = {name: t.cpu() for name, t in
+                        engine.cache["kv"].items()}
+    tier = getattr(engine.tier, "inner", engine.tier)
+    if tier is None:
+        return out
+    if hasattr(tier, "ranks"):
+        out["tier"] = {"ranks": [(t.ops, t.op_ns) for t in tier.ranks],
+                       "peer": [(o, n) for o, n in zip(tier.peer_ops,
+                                                       tier.peer_op_ns)],
+                       "shard_counters": dict(tier.shard_counters)}
+    else:
+        out["tier"] = {"ops": tier.ops, "op_ns": tier.op_ns}
+    out["tier"]["snapshot"] = tier.snapshot()
+    return out
 
 
 def main(argv=None) -> None:
@@ -227,6 +297,11 @@ def main(argv=None) -> None:
                     help="inject a named endpoint-fault preset into the "
                          "attached tier")
     ap.add_argument("--fault-seed", type=int, default=_DEF.fault_seed)
+    ap.add_argument("--tp", type=int, default=_DEF.tp,
+                    help="ranks of the model axis: the paged KV cache's "
+                         "pages are split over N processes (the dense "
+                         "family); the tier gets one root-port set per "
+                         "rank")
     args = ap.parse_args(argv)
     topology = tuple(m.strip() for m in
                      args.cxl_topology.split(",") if m.strip())
@@ -244,9 +319,10 @@ def main(argv=None) -> None:
         tier_placement=args.cxl_placement,
         tier_heat_half_life_ns=args.cxl_heat_half_life_ns,
         tier_sr=not args.cxl_sr_off,
-        tier_faults=tier_faults, fault_seed=args.fault_seed)
-    serve(args.arch, smoke=args.smoke, n_requests=args.requests,
-          max_new=args.max_new, config=config, device=args.device)
+        tier_faults=tier_faults, fault_seed=args.fault_seed, tp=args.tp)
+    run = serve_ranks if config.tp > 1 else serve
+    run(args.arch, smoke=args.smoke, n_requests=args.requests,
+        max_new=args.max_new, config=config, device=args.device)
 
 
 if __name__ == "__main__":

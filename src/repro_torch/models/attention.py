@@ -14,6 +14,12 @@ The cache is written in place where the reference writes a new array.
 With int8 pages (``models.kv_quant``) the decode kernel reads the codes in
 place and only the page a row wrote is requantized; the reference
 requantizes every page, which leaves the others bit for bit unchanged.
+
+The page-sharded decode (a rank group of more than one rank,
+``launch.mesh``) is the reference's shard_map body: the owner of each
+slot's position writes its new K/V, every rank decodes over its own pages
+(the kernel's ``return_ml`` partials) and the partials combine across the
+ranks with one max and one sum all-reduce.
 """
 from __future__ import annotations
 
@@ -184,6 +190,25 @@ def write_rows(buf: torch.Tensor, new: torch.Tensor,
     buf[rows, idx] = new.to(buf.dtype)
 
 
+def _requantize_row(k_codes, v_codes, k_scale, v_scale, new_k, new_v, at,
+                    own=None):
+    """The page holding row ``at[b]`` of every slot is dequantized, takes
+    the new row (where ``own[b]``, when given; else the page comes back
+    unchanged, bit for bit) and is requantized, in place."""
+    b, _, page = k_codes.shape[:3]
+    rows = torch.arange(b, device=at.device)
+    idx = (rows[:, None], (at // page)[:, None])     # [B, 1] pages
+    for codes, scale, new in ((k_codes, k_scale, new_k),
+                              (v_codes, v_scale, new_v)):
+        prev = scale[idx]
+        x = kv_quant.dequantize_pages(codes[idx], prev)
+        row = new[:, 0].float()
+        if own is not None:
+            row = torch.where(own[:, None, None], row, x[rows, 0, at % page])
+        x[rows, 0, at % page] = row
+        codes[idx], scale[idx] = kv_quant.requantize_pages(x, prev)
+
+
 def _decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v, pos,
                  logit_softcap):
     """The int8 decode: the kernel attends over the codes with the new
@@ -192,23 +217,63 @@ def _decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v, pos,
     o = paged_decode(q, k_codes, v_codes, k_scale=k_scale, v_scale=v_scale,
                      new_k=new_k, new_v=new_v, pos=pos,
                      logit_softcap=logit_softcap)
-    b, _, page = k_codes.shape[:3]
-    at = pos.long().clamp(0, k_codes.shape[1] * page - 1)
-    rows = torch.arange(b, device=q.device)
-    idx = (rows[:, None], (at // page)[:, None])     # [B, 1] pages
-    for codes, scale, new in ((k_codes, k_scale, new_k),
-                              (v_codes, v_scale, new_v)):
-        prev = scale[idx]
-        x = kv_quant.dequantize_pages(codes[idx], prev)
-        x[rows, 0, at % page] = new[:, 0].float()
-        codes[idx], scale[idx] = kv_quant.requantize_pages(x, prev)
+    at = pos.long().clamp(0, k_codes.shape[1] * k_codes.shape[2] - 1)
+    _requantize_row(k_codes, v_codes, k_scale, v_scale, new_k, new_v, at)
     return o
+
+
+def combine_partials(group, o: torch.Tensor, m: torch.Tensor,
+                     l: torch.Tensor) -> torch.Tensor:
+    """The cross-rank combine of the reference's page-sharded decode
+    (``m_g = pmax(m)``, ``l_g = psum(l e^(m - m_g))``, ``acc_g = psum(acc
+    e^(m - m_g))``), in base 2 as the kernel's ``m`` is. o: f32 [B,1,H,D]
+    (normalised: acc = o l); m, l: [B,H]. A rank with no visible token
+    (m = -inf, l = 0) weighs 0. Returns f32 [B,1,H,D], equal on every
+    rank."""
+    b, _, h, d = o.shape
+    m_g = group.all_reduce(m.clone(), "max")
+    w = l * torch.exp2(m - torch.where(torch.isfinite(m_g), m_g, 0.0))
+    packed = torch.cat([o.reshape(b, h, d) * w[..., None], w[..., None]],
+                       dim=-1)
+    packed = group.all_reduce(packed, "sum")
+    out = packed[..., :d] / torch.clamp(packed[..., d:], min=1e-30)
+    return out.reshape(b, 1, h, d)
+
+
+def _sharded_decode(group, q, k_pages, v_pages, new_k, new_v, pos,
+                    logit_softcap, k_scale, v_scale):
+    """This rank's part of the page-sharded decode over its pages
+    ``[start, start + L)`` of every slot, then the combine."""
+    b, n_local, page, hkv, d = k_pages.shape
+    span = n_local * page
+    off = pos.long() - group.rank * span
+    own = (off >= 0) & (off < span)
+    at = off.clamp(0, span - 1)
+    kv_len = (off + 1).clamp(0, span).to(torch.int32)
+    if k_scale is None:
+        rows = torch.arange(b, device=q.device)
+        for buf, new in ((k_pages, new_k), (v_pages, new_v)):
+            flat = buf.view(b, span, hkv, d)
+            flat[rows, at] = torch.where(own[:, None, None],
+                                         new[:, 0].to(buf.dtype),
+                                         flat[rows, at])
+        o, m, l = paged_decode(q, k_pages, v_pages, kv_len,
+                               logit_softcap=logit_softcap, return_ml=True)
+    else:
+        fresh = torch.where(own, off, -1).to(torch.int32)
+        o, m, l = paged_decode(q, k_pages, v_pages, kv_len,
+                               logit_softcap=logit_softcap, k_scale=k_scale,
+                               v_scale=v_scale, new_k=new_k, new_v=new_v,
+                               fresh=fresh, return_ml=True)
+        _requantize_row(k_pages, v_pages, k_scale, v_scale, new_k, new_v,
+                        at, own)
+    return combine_partials(group, o, m, l).to(q.dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, new_k: torch.Tensor,
                            new_v: torch.Tensor, pos: torch.Tensor, *,
-                           n_ranks: int = 1,
+                           group=None,
                            logit_softcap: float = 0.0,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None
@@ -222,12 +287,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     attends to positions [0, pos[b]]. Returns o [B,1,H,D]; the pages are
     updated in place. With ``k_scale``/``v_scale`` (f32 [B,P,Hkv]) the
     pages are int8 codes: the new row is attended at full precision, then
-    its page is requantized and the scales grow in place. Only the
-    single-rank path is ported; the page-sharded path raises.
+    its page is requantized and the scales grow in place.
+
+    With a rank ``group`` of more than one rank the pages are this rank's
+    shard of every slot (``parallel.sharding``): only the rank that holds
+    ``pos[b]`` writes it (nothing is written past the last rank's pages,
+    as in the reference's shard_map body), each rank decodes over its own
+    pages and the partials combine across the ranks.
     """
-    if n_ranks > 1:
-        raise NotImplementedError("page-sharded (multi-rank) decode is not "
-                                  "ported yet")
+    if group is not None and group.size > 1:
+        return _sharded_decode(group, q, k_pages, v_pages, new_k, new_v, pos,
+                               logit_softcap, k_scale, v_scale)
     if k_scale is not None:
         return _decode_int8(q, k_pages, v_pages, k_scale, v_scale, new_k,
                             new_v, pos, logit_softcap)

@@ -481,16 +481,26 @@ def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def check_ranks(cfg: ModelConfig, n_ranks: int) -> None:
+    """Only the dense family runs over a page-sharded cache yet."""
+    if n_ranks > 1 and cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family over more than "
+                                  f"one rank is not ported yet")
+
+
 @torch.no_grad()
 def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
-                tokens: torch.Tensor, cache: Dict
+                tokens: torch.Tensor, cache: Dict, *, group=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode for every row. tokens: [B, 1] -> logits [B, 1, V]
     (audio: [B, K, 1] -> [B, K, 1, V]).
 
     Writes each row's new K/V at its ``cache["pos"]`` and advances every
-    row's position by one, in place."""
+    row's position by one, in place. With a rank ``group`` (the dense
+    family only) the cache's pages are this rank's shard
+    (``parallel.sharding``) and the attention is the page-sharded decode."""
     check_family(cfg)
+    check_ranks(cfg, 1 if group is None else group.size)
     pos = cache["pos"]
     x = _embed(params, cfg, tokens, pos.reshape(-1, 1).to(torch.int32))
     if cfg.family == "hybrid":
@@ -510,7 +520,8 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     else:
         for i, block in enumerate(params.blocks):
             x = transformer.block_decode_paged(block, cfg, x, pos,
-                                               _layer_kv(cache, i))
+                                               _layer_kv(cache, i),
+                                               group=group)
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
     logits = unembed_apply(params.embed, cfg, x)
     cache["pos"] += 1
@@ -520,16 +531,18 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
 @torch.no_grad()
 def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
                         rc: RunConfig, tokens: torch.Tensor, cache: Dict, *,
-                        last_only: bool = False
+                        last_only: bool = False, group=None
                         ) -> Tuple[torch.Tensor, Dict]:
     """Chunked multi-token prefill that writes the paged KV cache in place.
 
     tokens: [B, C] int (audio: [B, K, C]). Every row ingests its C tokens
     starting at its own ``cache["pos"]``; returns (logits [B, C, V] — or
     only the last position's, [B, 1, V], with ``last_only``; audio [B, K,
-    C or 1, V] — and the cache with pos advanced by C).
+    C or 1, V] — and the cache with pos advanced by C). With a rank
+    ``group``, as in ``decode_step``.
     """
     check_family(cfg)
+    check_ranks(cfg, 1 if group is None else group.size)
     pos = cache["pos"]
     c = tokens.shape[-1]
     positions = (pos.reshape(-1, 1).to(torch.int32)
@@ -554,7 +567,8 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     else:
         for i, block in enumerate(params.blocks):
             x = transformer.block_prefill_cached(block, cfg, x, positions,
-                                                 pos, _layer_kv(cache, i))
+                                                 pos, _layer_kv(cache, i),
+                                                 group=group)
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)

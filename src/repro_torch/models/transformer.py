@@ -21,6 +21,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import kv_quant, moe
 from repro_torch.models.layers import (MLP, RMSNorm, frozen_param,
                                        mlp_apply, mlp_init, pdtype, rmsnorm)
+from repro_torch.parallel import sharding
 
 
 class Block(nn.Module):
@@ -195,18 +196,19 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
 def block_decode_paged(block: Block | MoEBlock, cfg: ModelConfig,
                        x: torch.Tensor, pos: torch.Tensor,
                        kv: Dict[str, torch.Tensor], *,
-                       n_ranks: int = 1) -> torch.Tensor:
+                       group=None) -> torch.Tensor:
     """Single-token decode against one layer's pages.
 
     x: [B, 1, d]; pos: int32 [B]; kv: {"k","v"} each [B, n_pages, page,
     Hkv, D] (int8 pages add f32 "k_scale"/"v_scale" [B, n_pages, Hkv]),
-    written in place. Returns the block output [B, 1, d].
+    written in place; with a rank ``group``, this rank's pages. Returns the
+    block output [B, 1, d].
     """
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     positions = pos.reshape(-1, 1).to(torch.int32)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
     o = attn.paged_decode_attention(q, kv["k"], kv["v"], k, v, pos,
-                                    n_ranks=n_ranks,
+                                    group=group,
                                     logit_softcap=cfg.attn_logit_softcap,
                                     k_scale=kv.get("k_scale"),
                                     v_scale=kv.get("v_scale"))
@@ -249,7 +251,8 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
                          x: torch.Tensor, positions: torch.Tensor,
                          pos: torch.Tensor,
                          kv: Dict[str, torch.Tensor], *,
-                         stepwise: bool = False) -> torch.Tensor:
+                         stepwise: bool = False,
+                         group=None) -> torch.Tensor:
     """One block over a C-token chunk, writing its K/V into the pages.
 
     x: [B, C, d]; positions: [B, C]; pos: int32 [B] per-row start
@@ -263,7 +266,22 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
     reference prefill is a scan of ``decode_step``) each token is a
     decode step that attends to the chunk's earlier tokens through their
     codes and requantizes its page.
+
+    With a rank ``group`` of more than one rank, ``kv`` holds this rank's
+    pages: the slot's pages of every rank are gathered (the reference
+    leaves the chunk's attention to XLA over the sharded cache, one
+    softmax over every visible key), the chunk runs on the whole cache as
+    on one rank, and this rank keeps its own pages of the result.
     """
+    if group is not None and group.size > 1:
+        whole = sharding.gather_pages(group, kv)
+        out = block_prefill_cached(block, cfg, x, positions, pos, whole,
+                                   stepwise=stepwise)
+        n_pages = next(iter(whole.values())).shape[sharding.LAYER_PAGE_AXIS]
+        lo, hi = sharding.page_range(n_pages, group.rank, group.size)
+        for name, t in kv.items():
+            t.copy_(whole[name][:, lo:hi])
+        return out
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
     if "k_scale" in kv and stepwise:

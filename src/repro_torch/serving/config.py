@@ -16,7 +16,7 @@ touches torch.
 
 This is the reference package's ``ServeConfig`` with the same fields and
 validation; options this port does not implement yet (the legacy host
-path, multi-rank serving) raise ``NotImplementedError``.
+path) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -238,8 +238,9 @@ class ServeConfig:
     def make_tier(self):
         """Build the declared tier (or None without one).
 
-        Single-rank configs get a ``CxlTier``; ``n_ranks > 1`` raises
-        until ``ShardedTier`` is ported. Lazy-imports ``repro_torch.core.tier`` so config
+        Single-rank configs get a ``CxlTier``; ``n_ranks > 1`` gets a
+        ``ShardedTier`` with one port set per rank (fault schedule on
+        rank 0). Lazy-imports ``repro_torch.core.tier`` so config
         construction and validation stay torch-free; callers that inject
         a prebuilt tier (tests, benches) simply never call this.
         """
@@ -247,8 +248,9 @@ class ServeConfig:
             return None
         faults = self.make_fault_schedule()
         if self.n_ranks > 1:
-            raise NotImplementedError("ShardedTier (n_ranks > 1) is not "
-                                      "ported yet")
+            from repro_torch.core.sharded_tier import ShardedTier
+            return ShardedTier(self.n_ranks, self._tier_config(),
+                               faults=faults, fault_rank=0)
         from repro_torch.core.tier import CxlTier
         return CxlTier(self._tier_config(faults))
 

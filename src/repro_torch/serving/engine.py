@@ -35,8 +35,20 @@ With ``kv_quant="int8"`` the pages are int8 codes with per-(page, head)
 f32 scales: flush, restore, swap and prefix entries carry both, and every
 tier charge and store budget counts their bytes.
 
-Not ported: the legacy host path and multi-rank serving (``ServeConfig``
-raises for them).
+Multi-rank serving (``ServeConfig(tp=N)``, the dense family): one engine
+per rank process, each given its rank group (``launch.mesh``).
+Every rank runs the same scheduler on the same traffic with the whole
+weights; its cache holds its own page range of every slot
+(``parallel.sharding``), so the decode is the page-sharded one and a
+prefill chunk gathers its slot's pages. A retired entry in a rank's
+``HostPageStore`` is that rank's shard, and a restore writes each rank's
+shard into its pages. Each rank holds a replica of the ``ShardedTier``,
+charged once per operation with the whole entry's bytes
+(``_WholeEntryCharges``), so the tier, the stats and the scheduling are
+those of the reference's one process, on every rank.
+
+Not ported: the legacy host path (``ServeConfig`` raises for it), and
+more than one rank for the MoE, audio, hybrid, VLM and xLSTM families.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ from repro_torch.core.qos import QoSController
 from repro_torch.core.tier import CxlTier
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.parallel import sharding
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.stats import EngineStats
@@ -186,19 +199,24 @@ class HostPageStore:
     without freeing the pages a replacement just rewrote. ``put`` reports
     whether the entry survived admission: budget pressure can evict an
     entry during its own insert, and indexing such an entry would leak.
+    A rank of a multi-rank engine stores its shard of each entry, one of
+    ``shards``, and accounts the whole entry's bytes.
     """
 
-    def __init__(self, budget_bytes: Optional[int] = None, on_evict=None):
+    def __init__(self, budget_bytes: Optional[int] = None, on_evict=None,
+                 shards: int = 1):
         self.pages: "collections.OrderedDict[int, Dict]" = \
             collections.OrderedDict()
         self.budget_bytes = budget_bytes
         self.on_evict = on_evict
+        self.shards = shards
         self.bytes = 0
         self.evictions = 0
 
-    # one canonical entry-size helper for the whole page path: the tier
-    # charges the same byte counts this budget is accounted in
-    _entry_bytes = staticmethod(CxlTier.entry_bytes)
+    def _entry_bytes(self, entry) -> int:
+        # one canonical entry-size helper for the whole page path: the
+        # tier charges the same byte counts this budget is accounted in
+        return CxlTier.entry_bytes(entry) * self.shards
 
     def put(self, rid: int, entry) -> bool:
         """Insert/replace an entry (a dict whose ``"kv"`` pages are copied
@@ -246,13 +264,47 @@ class HostPageStore:
                 self.on_evict(rid, old, "evict")
 
 
+class _WholeEntryCharges:
+    """A rank's replica of the tier, charged with the whole entry's bytes.
+
+    Each rank holds ``1 / n_ranks`` of every entry, and the engine and
+    scheduler size each charge from the rank's own entry; the five calls
+    that take a byte count scale it to the whole entry's (the shards are
+    equal), so each operation is charged once, as the reference's one
+    process charges its ``ShardedTier``. Every other attribute is the
+    tier's own."""
+
+    def __init__(self, tier, n_ranks: int):
+        self.inner = tier
+        self.n_ranks = n_ranks
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def write_entry(self, key, nbytes: int) -> float:
+        return self.inner.write_entry(key, nbytes * self.n_ranks)
+
+    def write_entry_async(self, key, nbytes: int):
+        return self.inner.write_entry_async(key, nbytes * self.n_ranks)
+
+    def read_entry(self, key, nbytes: int, req_rank=None) -> float:
+        return self.inner.read_entry(key, nbytes * self.n_ranks, req_rank)
+
+    def read_entry_async(self, key, nbytes: int, req_rank=None):
+        return self.inner.read_entry_async(key, nbytes * self.n_ranks,
+                                           req_rank)
+
+    def speculative_read(self, key, nbytes: int) -> None:
+        return self.inner.speculative_read(key, nbytes * self.n_ranks)
+
+
 class ServingEngine:
     """Fixed-batch continuous batching with tiered page lifecycle."""
 
     def __init__(self, params: M.DenseModel, cfg: ModelConfig,
                  rc: RunConfig, *, config: Optional[ServeConfig] = None,
                  cxl_tier: Optional[CxlTier] = None, device="cuda",
-                 **knobs):
+                 group=None, **knobs):
         """Build the engine from a :class:`ServeConfig` on ``device``.
 
         ``params`` must already live on ``device`` (``init_model`` /
@@ -260,7 +312,8 @@ class ServingEngine:
         knob; passing the keyword knobs directly (``n_slots=...``) builds
         the ServeConfig with the same validation. ``cxl_tier`` injects a
         prebuilt tier; otherwise ``config.make_tier()`` builds whatever the
-        config declares.
+        config declares. With ``n_ranks > 1`` the engine serves as
+        ``group``'s rank (a ``launch.mesh.RankGroup`` of that size).
         """
         if config is not None and knobs:
             raise TypeError("pass either config=ServeConfig(...) or the "
@@ -268,9 +321,7 @@ class ServingEngine:
                             f"{sorted(knobs)}")
         if config is None:
             config = ServeConfig(**knobs)
-        if config.n_ranks > 1:
-            raise NotImplementedError("multi-rank serving (tp > 1) is not "
-                                      "ported yet")
+        self.group = self._rank_group(config, cfg, rc, group)
         self.device = resolve_device(device)
         p_dev = next(params.parameters()).device
         if p_dev.type != self.device.type or (
@@ -299,6 +350,10 @@ class ServingEngine:
         n_slots = config.n_slots
         self.cache = M.cache_init(cfg, rc, n_slots, config.max_seq,
                                   device=self.device)
+        n_ranks = config.n_ranks
+        if self.group is not None:
+            self.cache = sharding.shard_cache(self.cache, self.group.rank,
+                                              n_ranks)
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
         self.finished: List[Request] = []
@@ -307,6 +362,8 @@ class ServingEngine:
         # simulated endpoint (restore stall, flush cost, SR prefetch), and
         # the EP's announced state gates the flusher's admission window.
         self.tier = cxl_tier if cxl_tier is not None else config.make_tier()
+        if self.group is not None and self.tier is not None:
+            self.tier = _WholeEntryCharges(self.tier, n_ranks)
         self.tier_step_ns = config.tier_step_ns
         self.cxl_async = bool(config.cxl_async)
         self._restorable = cfg.family in _RESTORABLE_FAMILIES
@@ -317,7 +374,8 @@ class ServingEngine:
             preempt_policy=config.preempt_policy,
             admit_mode=config.admit_mode)
         self.store = HostPageStore(budget_bytes=config.store_budget_bytes,
-                                   on_evict=self._drop_prompt_alias)
+                                   on_evict=self._drop_prompt_alias,
+                                   shards=n_ranks)
         self._prompt_index: Dict[Tuple[int, ...], int] = {}
         self.flusher = ds.StagingFlusher(
             sink=self._store_sink, qos=self.qos,
@@ -332,7 +390,33 @@ class ServingEngine:
         self._trace: Dict[int, torch.Tensor] = {}   # tick -> [n_slots] toks
         self._trace_np: Dict[int, np.ndarray] = {}  # memoized transfers
         self.stats = EngineStats()
-        self.stats["mesh_ranks"] = 1
+        self.stats["mesh_ranks"] = n_ranks
+
+    @staticmethod
+    def _rank_group(config: ServeConfig, cfg: ModelConfig, rc: RunConfig,
+                    group):
+        """``group`` checked against ``config.n_ranks`` (None for one
+        rank), with the reference's check that the page axis divides by
+        the ranks."""
+        n_ranks = config.n_ranks
+        if n_ranks == 1:
+            if group is not None and group.size != 1:
+                raise ValueError(f"a rank group of {group.size} for tp=1")
+            return None
+        if any(n != 1 for n in config.resolved_mesh_shape[:-1]):
+            raise NotImplementedError(
+                f"mesh_shape {config.resolved_mesh_shape}: only the model "
+                f"axis (tp) is ported, not data or pod axes")
+        M.check_ranks(cfg, n_ranks)
+        if group is None or group.size != n_ranks:
+            raise ValueError(
+                f"tp={n_ranks} needs the rank group of this process, of "
+                f"{n_ranks} ranks (launch.mesh.init_group or spawn); got "
+                f"{'none' if group is None else group.size}")
+        page = min(rc.kv_page_size, config.max_seq)
+        sharding.check_pages(max(config.max_seq // page, 1), n_ranks,
+                             config.max_seq, rc.kv_page_size)
+        return group
 
     # ----------------------------------------------------------- step fns
     def _uniform(self, n: int) -> torch.Tensor:
@@ -362,7 +446,8 @@ class ServingEngine:
         """One decode tick: step every slot + sample on device."""
         logits, self.cache = M.decode_step(
             self.params, self.cfg, self.rc,
-            self._codebooks(self.last_tokens[:, None]), self.cache)
+            self._codebooks(self.last_tokens[:, None]), self.cache,
+            group=self.group)
         return self._sample(M.last_token_logits(logits))
 
     def _prefill_chunk(self, tokens: torch.Tensor, slot: int, pos0: int,
@@ -382,7 +467,8 @@ class ServingEngine:
         cache1["pos"] = torch.full((1,), pos0, dtype=torch.int32,
                                    device=self.device)
         logits, _ = M.prefill_step_cached(self.params, self.cfg, self.rc,
-                                          tokens, cache1, last_only=sample)
+                                          tokens, cache1, last_only=sample,
+                                          group=self.group)
         self.cache["pos"][slot] = new_pos
         if not sample:
             return None

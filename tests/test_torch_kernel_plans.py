@@ -36,11 +36,14 @@ N_SMS = 132
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 
 # (b, h, hkv, smax, page, d): the serving paths at full width (8 slots x
-# 2048 tokens in pages of 256), chip_smoke.py's edge shapes (G = 1 and
+# 2048 tokens in pages of 256; glm4-9b's G 16 and starcoder2-15b's G 12
+# split over two CTAs each), chip_smoke.py's edge shapes (G = 1 and
 # G = 8 at D 128, up to 9 slots), and the smoke models (2 slots x 64 tokens
 # in pages of 8, D 16)
 DECODE_SHAPES = {
     "qwen3-1.7b": (8, 16, 8, 2048, 256, 128),
+    "glm4-9b": (8, 32, 2, 2048, 256, 128),
+    "starcoder2-15b": (8, 48, 4, 2048, 256, 128),
     "zamba2-2.7b": (8, 32, 32, 2048, 256, 80),
     "edges G=1": (9, 8, 8, 2048, 256, 128),
     "edges G=8": (9, 16, 2, 2048, 256, 128),
@@ -84,11 +87,17 @@ def test_decode_plan_splits_tiles_and_fits(shape, kv_dtype):
     row_bytes = d * kv_dtype.itemsize
     assert row_bytes % 16 == 0 and p.lanes * 16 >= row_bytes
     assert p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
+    # the group: CTAs of equal rows (at most MAX_GROUP, none empty) that
+    # cover it once, on the smallest instance that holds the rows
     g = h // hkv
-    assert p.group_pad >= g
+    assert p.group_rows <= dops.MAX_GROUP and p.group_rows <= p.group_pad
+    assert p.group_chunks == -(-g // dops.MAX_GROUP)
+    assert (p.group_chunks - 1) * p.group_rows < g
+    assert g <= p.group_chunks * p.group_rows
+    assert p.group_pad == (2 if p.group_rows <= 2 else 8)
     assert p.part_acc == (b, hkv, p.n_splits, g, d)
     assert p.part_ml == (b, hkv, p.n_splits, g, 2)
-    assert p.counters == (b, hkv)
+    assert p.counters == (b, hkv, p.group_chunks)
 
 
 def test_decode_plan_main_path_numbers():
@@ -103,7 +112,7 @@ def test_decode_plan_main_path_numbers():
 
 
 @pytest.mark.parametrize("args", [
-    (8, 72, 8, 2048, 256, 128, BF16),    # G = 9 > MAX_GROUP
+    (8, 20, 8, 2048, 256, 128, BF16),    # 20 query heads over 8 kv heads
     (8, 16, 8, 2048, 256, 256, F32),     # a row of 64 chunks
     (8, 16, 8, 2000, 256, 128, BF16),    # cache not whole pages
 ])
@@ -284,6 +293,106 @@ def test_split_merge_matches_plain_at_main_path(softcap):
     split = dops.plan(b, h, hkv, smax, page, d, F32).split
     got = dref.paged_decode_split_ref(q, k, v, kv_len, split, softcap)
     want = dref.paged_decode_ref(q, k, v, kv_len, softcap)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("kv_dtype", [BF16, I8], ids=str)
+@pytest.mark.parametrize("name", ["glm4-9b", "starcoder2-15b"])
+def test_decode_plan_splits_the_group(name, kv_dtype):
+    """G 16 (glm4-9b) and G 12 (starcoder2-15b) at full width, both modes:
+    two CTAs per kv head of 8 + 8 and 6 + 6 query heads on the 8-row
+    instance, q staged in shared memory, and the same shared memory as
+    qwen3-1.7b's G 2 ... 8 plans of the 8-row instance."""
+    b, h, hkv, smax, page, d = DECODE_SHAPES[name]
+    p = dops.plan(b, h, hkv, smax, page, d, kv_dtype)
+    rows = {"glm4-9b": 8, "starcoder2-15b": 6}[name]
+    assert (p.group_chunks, p.group_rows, p.group_pad) == (2, rows, 8)
+    g8 = dops.plan(b, 8 * hkv, hkv, smax, page, d, kv_dtype)
+    assert p.smem_bytes == g8.smem_bytes <= MAX_SMEM
+    assert p.counters == (b, hkv, 2)
+    assert (p.split, p.n_splits, p.stages) == (256, 8, 4)
+
+
+def _ml_case(rng, b, hkv, g, d, p, page, dtype):
+    q_j, q_t = _pair(rng, (b, 1, hkv * g, d), dtype)
+    k_j, k_t = _pair(rng, (b, p, page, hkv, d), dtype)
+    v_j, v_t = _pair(rng, (b, p, page, hkv, d), dtype)
+    return (q_j, k_j, v_j), (q_t, k_t, v_t)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=str)
+@pytest.mark.parametrize("g", [1, 2, 12, 16])
+def test_decode_ml_matches_reference_partials(dtype, g):
+    """``return_ml``'s (o, m, l) against the reference's
+    ``_flash_decode_partial`` (acc, m, l) on the same inputs: o = acc / l,
+    m in base 2 (the reference's natural-log max times log2 e), the same
+    l; a slot with no visible token gives m = -inf, l = 0, o = 0 (the
+    reference leaves its padding there, which the combine weighs by 0)."""
+    rng = np.random.default_rng(5)
+    b, p, page, hkv, d = 5, 4, 16, 2, 16
+    (q_j, k_j, v_j), (q_t, k_t, v_t) = _ml_case(rng, b, hkv, g, d, p, page,
+                                                dtype)
+    kv_len = np.array([0, 1, 17, 63, 64], np.int32)
+    o, m, l = dops.paged_decode(q_t, k_t, v_t, torch.from_numpy(kv_len),
+                                return_ml=True)
+    assert o.dtype == m.dtype == l.dtype == F32
+    acc, jm, jl = jattn._flash_decode_partial(
+        q_j, k_j.reshape(b, p * page, hkv, d), v_j.reshape(b, p * page, hkv,
+                                                           d),
+        jnp.asarray(kv_len))
+    live = kv_len > 0
+    want_o = (_np(acc) / _np(jl)[..., None]).reshape(b, 1, hkv * g, d)
+    tol = dict(atol=3e-5, rtol=3e-5)       # both in f32 from equal inputs
+    np.testing.assert_allclose(o.numpy()[live], want_o[live], **tol)
+    np.testing.assert_allclose(m.numpy()[live], (_np(jm) / np.log(2.0))
+                               .reshape(b, -1)[live], **tol)
+    np.testing.assert_allclose(l.numpy()[live], _np(jl).reshape(b, -1)[live],
+                               **tol)
+    assert np.all(np.isneginf(m.numpy()[~live]))
+    assert not l.numpy()[~live].any() and not o.numpy()[~live].any()
+
+
+@pytest.mark.parametrize("g", [2, 12])
+def test_decode_int8_ml_rank_view(g):
+    """The int8 mode's (o, m, l) with an explicit local length and fresh
+    row: two halves of the cache, each a rank's pages with its own
+    ``kv_len`` (0 after the owner) and ``fresh`` (-1 where the new row is
+    not its), combined as the cross-rank combine does (base 2), equal the
+    one-rank int8 decode at ``pos`` (f32, 3e-5)."""
+    from repro_torch.models import kv_quant
+    rng = np.random.default_rng(7)
+    b, p, page, hkv, d = 4, 4, 16, 2, 16
+    smax, half = p * page, p * page // 2
+    q = torch.from_numpy(rng.standard_normal((b, 1, hkv * g, d),
+                                             dtype=np.float32))
+    init = torch.full((b, p, hkv), kv_quant.INIT_SCALE)
+    codes = [kv_quant.requantize_pages(torch.from_numpy(rng.standard_normal(
+        (b, p, page, hkv, d), dtype=np.float32)), init) for _ in range(2)]
+    (kc, ks), (vc, vs) = codes
+    nk, nv = (torch.from_numpy(rng.standard_normal((b, 1, hkv, d),
+                                                   dtype=np.float32))
+              for _ in range(2))
+    pos = torch.tensor([0, 20, 32, 63], dtype=torch.int32)
+    want = dops.paged_decode(q, kc, vc, k_scale=ks, v_scale=vs, new_k=nk,
+                             new_v=nv, pos=pos)
+    parts = []
+    for r in range(2):
+        pages = slice(r * p // 2, (r + 1) * p // 2)
+        off = pos - r * half
+        kv_len = (off + 1).clamp(0, half).to(torch.int32)
+        fresh = torch.where((off >= 0) & (off < half), off, -1).to(
+            torch.int32)
+        parts.append(dops.paged_decode(
+            q, kc[:, pages].contiguous(), vc[:, pages].contiguous(),
+            kv_len, k_scale=ks[:, pages].contiguous(),
+            v_scale=vs[:, pages].contiguous(), new_k=nk, new_v=nv,
+            fresh=fresh, return_ml=True))
+    m_g = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp2(m - m_g) for _, m, _ in parts]
+    l_g = sum(l * wi for (_, _, l), wi in zip(parts, w))
+    acc = sum(o * (l * wi)[:, None, :, None] for (o, _, l), wi in
+              zip(parts, w))
+    got = acc / l_g[:, None, :, None]
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
 
 

@@ -199,12 +199,24 @@ def test_serve_config_unported_options_raise(knobs, exc):
 
 
 def test_sharded_options_raise():
-    with pytest.raises(NotImplementedError):
-        TServeConfig(tp=2, tier_media="dram").make_tier()
-    cfg = treg.smoke("qwen3-1.7b")
-    rc = TRunConfig(model=cfg, shape=TSHAPES["decode_32k"],
-                    mesh=TMeshConfig())
+    """Multi-rank serving is ported for the dense family over the model
+    axis (``tests/test_torch_sharded.py``); what is not raises: another
+    family, a data axis, an engine without a rank group of its size, and
+    a page axis the ranks do not divide (the reference's ValueError)."""
+    from repro_torch.core.sharded_tier import ShardedTier
+    tier = TServeConfig(tp=2, tier_media="dram").make_tier()
+    assert isinstance(tier, ShardedTier) and tier.n_ranks == 2
     from repro_torch.models import model as TM
-    params = TM.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TEngine(params, cfg, rc, device="cpu", tp=2)
+    for arch, knobs, exc in (
+            ("zamba2-2.7b", dict(tp=2), NotImplementedError),
+            ("qwen3-1.7b", dict(mesh_shape=(2, 2)), NotImplementedError),
+            ("qwen3-1.7b", dict(tp=2), ValueError)):
+        cfg = treg.smoke(arch)
+        rc = TRunConfig(model=cfg, shape=TSHAPES["decode_32k"],
+                        mesh=TMeshConfig())
+        params = TM.init_model(cfg, device="cpu")
+        with pytest.raises(exc):
+            TEngine(params, cfg, rc, device="cpu", **knobs)
+    from repro_torch.parallel import sharding
+    with pytest.raises(ValueError, match="divisible by the model axis"):
+        sharding.check_pages(1, 2, 64, 256)
