@@ -83,7 +83,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    kernels ran on that path and no other kernel did, the restores
    happened and stalled on the tier, and each restored request's greedy
    tokens equal its first run's;
-4. zamba2-2.7b at full width, cut to 24 of its 54 layers (4 groups of 6
+4. zamba2-2.7b at full width, cut to 12 of its 54 layers (2 groups of 6
    Mamba2 layers; random bf16 weights from the same seed): one 256-token
    prompt through one chunked prefill against 256
    ``decode_step`` calls -- with the weights widened to f32, logits within
@@ -127,21 +127,22 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    D 64) ran once per layer per chunk and the bf16 paged_decode once per
    layer per tick, and no other kernel ran; print the share of (token,
    expert) pairs dropped at decode and at prefill;
-9. serve musicgen-large at full width, cut to 24 of its 48 layers (32 kv
+9. serve musicgen-large at full width, cut to 12 of its 48 layers (32 kv
    heads = heads, D 64, 4 codebooks fed one token, sinusoidal positions;
-   a 192 MiB entry) on phase 3's
+   a 96 MiB entry) on phase 3's
    engine with 1024-token slots: 3 requests of 300-600 prompt tokens and
    32 new tokens, then 2 of them again (prefix restores); phase 3's gates
    (restored greedy tokens equal the first run's) and phase 8's kernels,
    once per layer per step;
-10. serve llama-3.2-vision-11b at full width (40 layers: 8 groups of 4
-   self-attention layers and one gated cross-attention layer over 1601
-   vision tokens; 32 query heads over 8 kv heads, D 128, SwiGLU d_ff
-   14336, vocab 128256; ~9.8 B random bf16 weights drawn on the card) on
+10. serve llama-3.2-vision-11b at full width, cut to 20 of its 40 layers
+   (4 groups of 4 self-attention layers and one gated cross-attention
+   layer over 1601 vision tokens; 32 query heads over 8 kv heads, D 128,
+   SwiGLU d_ff 14336, vocab 128256; ~5.4 B random bf16 weights drawn on
+   the card) on
    phase 3's engine: 4 requests of 300-1000 prompt tokens and 32 new
    tokens, none resubmitted (the family is never restored, as in the
    reference); check that every request finished and its pages were
-   flushed as one entry of the 32 self-attention layers (256 MiB),
+   flushed as one entry of the 16 self-attention layers (128 MiB),
    flash_prefill ran once per self-attention layer per chunk and the
    bf16 paged_decode once per self-attention layer per tick, no other
    kernel ran, and the vision K/V are still the cache's zeros (the
@@ -156,22 +157,45 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    check that every request finished, no kernel launched (the family has
    none) and nothing was flushed (its cache has no pages); print the
    tick's ms and the prefill's ms per token;
-12. serve glm4-9b (40 layers, 32 query heads over 2 kv heads, d_ff 13696,
-   vocab 151552; ~9.4 B random bf16 weights) and starcoder2-15b (40
-   layers, d_model 6144, 48 over 4, tanh-gelu d_ff 24576, vocab 49152;
-   ~16 B) at full width on phase 3's engine: 4 requests and 2 prefix
+12. serve glm4-9b (cut to 20 of its 40 layers, 32 query heads over 2 kv
+   heads, d_ff 13696, vocab 151552; ~4.9 B random bf16 weights) and
+   starcoder2-15b (20 of 40 layers, d_model 6144, 48 over 4, tanh-gelu
+   d_ff 24576, vocab 49152; ~8.3 B) at full width on phase 3's engine: 4
+   requests and 2 prefix
    restores each; phase 3's gates, and flash_prefill once per layer per
    chunk and the bf16 paged_decode (two CTAs per kv head) once per layer
    per tick;
-13. serve qwen3-1.7b (cut to ``TP_LAYERS`` layers) on two ranks: two
-   processes on the one card joined by gloo (``launch.mesh.spawn``), each
-   holding half of every slot's pages, with bf16 and with int8 pages, 4
-   requests and 2 restores (through the ShardedTier's peer lanes); every
-   rank's greedy tokens must equal the one-rank engine's on the card over
-   the same traffic, the decode (its m / l output) and the prefill run
-   once per layer per step on each rank and no other kernel; a rank that
-   fails or outlives ``TP_TIMEOUT_S`` fails the script; print the
-   ShardedTier counters;
+13. serve on two ranks: two processes on the one card joined by gloo
+   (``launch.mesh.spawn``, started once), each holding its shard of the
+   weights (``parallel.sharding.param_specs``: attention and MLP columns
+   / rows, the vocabulary, the experts) and half of every slot's pages,
+   4 requests of 300-1000 tokens and 2 restores (through the
+   ShardedTier's peer lanes): first qwen3-1.7b (cut to ``TP_LAYERS``
+   layers, bf16 weights) with bf16 and with int8 pages, held step by step
+   to the one-rank engine on the card over the same traffic: every
+   greedy step's logits within a bound of the one-rank engine's (and of
+   its f32 twin's, the same weights widened), the bound ``TP_NOISE_X``
+   times the one-rank engine's own distance from that twin plus TOL's
+   atol; the tokens equal but where the two argmaxes part at a near tie
+   (the one-rank logits of the two tokens within the bound; the gap
+   printed); its
+   bf16 tick and chunk timed again with the row-parallel products taken
+   from f32 copies; then granite-moe-1b-a400m at full width (cut to its
+   ``CUT_LAYERS``; bf16 pages), its MoE expert-parallel (``all_to_all``
+   dispatch at prefill, the last prompt's odd final chunk on the
+   one-device fallback, a sum all-reduce at decode): the ranks' tokens,
+   stats and tier traces equal, layer 0's MoE on each rank within TOL of
+   ``moe_apply_ep_ref`` and of ``moe_apply_ep_loop`` (whole experts, on
+   the card; the loop shares no helper with the form under test, and
+   their dropped pairs must agree) at every prefill chunk and the first
+   tick, 2 ``all_to_all``s per MoE layer per even chunk and none at
+   decode. On every path: each rank holds the whole
+   model's bytes less half of its split leaves', the decode (its m / l
+   output) and the prefill run once per layer per step and no other
+   kernel; a rank that fails or outlives ``TP_TIMEOUT_S`` fails the
+   script; print each rank's parameter bytes, peak memory, wall, tick and
+   chunk ms (CUDA events) and collectives per step beside one rank's, and
+   the ShardedTier counters;
 14. train: flash_prefill at the training loss's shape (one layer's 4096-
    token sequence as one chunk at position 0 against its own K/V; bf16
    2e-2) against its plain version, timed beside causal SDPA; one
@@ -219,6 +243,7 @@ XLSTM = "xlstm-125m"
 GLM4 = "glm4-9b"               # 32 query heads over 2 kv heads: G 16
 STARCODER2 = "starcoder2-15b"  # 48 over 4: G 12
 TP_PATH, TP8_PATH = f"{ARCH} tp2", f"{ARCH} tp2 int8"
+TPG_PATH = f"{GRANITE} tp2"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
@@ -227,7 +252,7 @@ N_HYBRID_REQUESTS = 8
 # requests and shorter slots than phase 3's, for the script's time limit
 MUSICGEN_MAX_SEQ, MUSICGEN_PROMPT_LENS = 1024, (300, 601)
 N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT = 3, 2
-# the VLM's 256 MiB entries (32 self-attention layers) and xLSTM's token-
+# the VLM's 128 MiB entries (16 self-attention layers) and xLSTM's token-
 # by-token prefill (its reference's form): fewer VLM requests than phase
 # 3's, never resubmitted (neither family is restored from the tier)
 N_VLM_REQUESTS, N_XLSTM_REQUESTS = 4, 8
@@ -235,10 +260,15 @@ N_VLM_REQUESTS, N_XLSTM_REQUESTS = 4, 8
 # restores each
 N_GROUP_REQUESTS, N_GROUP_RESUBMIT = 4, 2
 # the tp phase: two ranks (processes) on the one card, qwen3-1.7b in bf16
-# and with int8 pages, 4 requests and 2 restores, against the one-rank
-# engine on the same traffic
+# and with int8 pages against the one-rank engine on the same traffic,
+# then granite-moe-1b-a400m; 4 requests and 2 restores each
 TP_RANKS, N_TP_REQUESTS, N_TP_RESUBMIT = 2, 4, 2
 TP_TIMEOUT_S = 600.0
+# qwen3's tp gate holds the ranks' bf16 logits to the one-rank engine's
+# within this many times the one-rank engine's own distance from its f32
+# twin (the same weights widened), plus TOL's atol: the multiple the
+# training gate allows a bf16 gradient over the reference's own error
+TP_NOISE_X = 3.0
 # xLSTM's prefill (a recurrence a token in every layer) is timed over a
 # chunk of this many tokens
 XLSTM_TIMED_TOKENS = 32
@@ -246,8 +276,11 @@ XLSTM_TIMED_TOKENS = 32
 # per-layer gates do not depend on depth, the Python tier's charge (~24-32
 # ms per MiB of entry on the host of an H100 80GB HBM3 at 700 W, PERF.md
 # section 5) and the eager steps do. Widths, heads, vocabularies and
-# traffic stay the full models'.
-CUT_LAYERS = {HYBRID: 24, GRANITE: 12, MUSICGEN: 24}
+# traffic stay the full models'. zamba2, musicgen, the VLM, glm4-9b and
+# starcoder2-15b run at half depth to make room for the tp phase's
+# granite path (PERF.md section 4)
+CUT_LAYERS = {HYBRID: 12, GRANITE: 12, MUSICGEN: 12, VLM: 20, GLM4: 20,
+              STARCODER2: 20}
 # the tp phase's qwen3-1.7b, cut to 4 of 28 layers for the same reason:
 # each rank charges its replica of the tier with the whole entry, and the
 # phase runs the one-rank engine and the two ranks in both page formats
@@ -674,18 +707,20 @@ def check_decode_ml(dev):
     """paged_decode's ``return_ml`` output (f32 o, base-2 m, l), both
     modes, against the plain versions' on each rank's view of a cache
     split over two ranks (its pages, its local length, 0 after the owner;
-    the int8 new row only on the owner): at the tp path's heads (Hkv 8,
-    G 2, D 128) and at G 16 and G 12; o at f32's 1e-4, m and l at 1e-4
+    the int8 new row only on the owner): at the tp paths' heads (qwen3's
+    Hkv 8, G 2, D 128; granite's D 64) and at G 16 and G 12, bf16 q; o at
+    f32's 1e-4, m and l at 1e-4
     relative (m = -inf and l = 0 where a rank sees no token). The two
     ranks' partials combined as ``models.attention.combine_partials``
-    does must give the one-rank decode (bf16 TOL). Timed at the tp path's
-    shape (a rank's 1024 tokens of 8 slots), beside SDPA over the same
-    keys (output only: no PyTorch call returns m and l)."""
+    does must give the one-rank decode (TOL). Timed at the tp paths'
+    shapes (a rank's 1024 tokens of 8 slots: qwen3's heads in both modes,
+    granite's in bf16), beside SDPA over the same keys (output only: no
+    PyTorch call returns m and l)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.models import kv_quant
-    b, p, page, d = N_SLOTS, MAX_SEQ // 256, 256, 128
+    b, p, page = N_SLOTS, MAX_SEQ // 256, 256
     smax, span = p * page, p * page // TP_RANKS
     local = slice(0, p // TP_RANKS)
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -693,8 +728,9 @@ def check_decode_ml(dev):
                        dtype=torch.int32, device=dev)
     f32_tol = dict(atol=1e-4, rtol=1e-4)
     res = {"pos": pos.tolist(), "errs": {}}
-    for hkv, g in ((8, 2), (2, 16), (4, 12)):
+    for hkv, g, d in ((8, 2, 128), (2, 16, 128), (4, 12, 128), (8, 2, 64)):
         h = hkv * g
+        tag = f"g{g}" if d == 128 else f"g{g} d{d}"
         q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
         kp, vp = (torch.randn((b, p, page, hkv, d), generator=gen,
                               device=dev).bfloat16() for _ in range(2))
@@ -723,7 +759,7 @@ def check_decode_ml(dev):
                         q, cut[0], cut[1], cut[2], cut[3], nk, nv, None,
                         kv_len=kv_len, fresh=fresh, return_ml=True)
                 torch.cuda.synchronize()
-                name = f"g{g} {mode} rank {r}"
+                name = f"{tag} {mode} rank {r}"
                 (o, m, l), (wo, wm, wl) = got, want
                 live = torch.isfinite(wm)
                 if not (torch.equal(torch.isfinite(m), live)
@@ -746,17 +782,17 @@ def check_decode_ml(dev):
                    if mode == "bf16" else
                    ops.paged_decode(q, kc, vc, k_scale=ks, v_scale=vs,
                                     new_k=nk, new_v=nv, pos=pos))
-            res["errs"][f"g{g} {mode} combined"] = check_close(
-                f"paged_decode ml g{g} {mode}: two ranks combined vs one",
+            res["errs"][f"{tag} {mode} combined"] = check_close(
+                f"paged_decode ml {tag} {mode}: two ranks combined vs one",
                 comb.to(one.dtype), one)
         if (hkv, g) != (8, 2):
             continue
-        # timings at the tp path's shape: rank 0's pages
+        # timings at the tp paths' shapes: rank 0's pages
         kv_len, fresh = views[0]
         mask = (torch.arange(span, device=dev)[None]
                 < kv_len[:, None].long())[:, None, None, :]
         qs = q.transpose(1, 2)
-        for mode in ("bf16", "int8"):
+        for mode in ("bf16", "int8") if d == 128 else ("bf16",):
             if mode == "bf16":
                 kl, vl = (t[:, local].contiguous() for t in (kp, vp))
 
@@ -773,7 +809,7 @@ def check_decode_ml(dev):
                 def library():
                     return F.scaled_dot_product_attention(
                         qs, ks_, vs_, attn_mask=mask)
-                kv_bytes = 2
+                kv_bytes = kp.element_size()
             else:
                 cut = [t[:, local].contiguous() for t in (kc, vc, ks, vs)]
 
@@ -789,17 +825,18 @@ def check_decode_ml(dev):
                         kv_len=kv_len, fresh=fresh, return_ml=True)
 
                 def library():
-                    kv = [kv_quant.dequantize_pages(c, sc, torch.bfloat16)
+                    kv = [kv_quant.dequantize_pages(c, sc, q.dtype)
                           .view(b, span, hkv, d).transpose(1, 2)
                           for c, sc in ((cut[0], cut[2]), (cut[1], cut[3]))]
                     return F.scaled_dot_product_attention(
                         qs, kv[0], kv[1], attn_mask=mask, enable_gqa=True)
                 kv_bytes = 1
             tokens = int(kv_len.sum())
-            n_bytes = (2 * tokens * hkv * d * kv_bytes + q.numel() * 2
-                       + q.numel() * 4 + b * h * 8 + 2 * b * 4)
+            n_bytes = (2 * tokens * hkv * d * kv_bytes
+                       + q.numel() * q.element_size() + q.numel() * 4
+                       + b * h * 8 + 2 * b * 4)
             if mode == "int8":
-                n_bytes += (2 * nk.numel() * 2 + 2 * sum(
+                n_bytes += (2 * nk.numel() * nk.element_size() + 2 * sum(
                     -(-int(n) // page) for n in kv_len) * hkv * 4)
             out = {"ms": device_ms(call, 50), "plain_ms": time_ms(plain, 10),
                    "library_ms": device_ms(library, 20),
@@ -809,12 +846,12 @@ def check_decode_ml(dev):
             out["bound_ms"], out["bound_by"] = bound(n_bytes,
                                                      4 * tokens * h * d)
             out["max_abs_err"] = max(v for k, v in res["errs"].items()
-                                     if k.startswith(f"g2 {mode} rank"))
+                                     if k.startswith(f"{tag} {mode} rank"))
             out["shape"] = (f"q [{b},1,{h},{d}] bf16, a rank's pages "
                             f"[{b},{p // TP_RANKS},{page},{hkv},{d}] "
-                            f"{'int8' if mode == 'int8' else 'bf16'}, "
-                            f"kv_len {kv_len.tolist()}; out f32 + m, l")
-            res[mode] = out
+                            f"{mode}, kv_len {kv_len.tolist()}; out f32 + "
+                            f"m, l")
+            res[mode if d == 128 else f"{mode} d{d}"] = out
     return res
 
 
@@ -2373,15 +2410,16 @@ def check_vlm_kernels(dev):
 
 
 def serve_vlm(dev):
-    """Serve full-width llama-3.2-vision-11b; its gates: every request
-    finished and its pages were flushed as one entry of the 32 self-
-    attention layers' pages, flash_prefill ran once per self-attention
+    """Serve full-width llama-3.2-vision-11b (``CUT_LAYERS``); its gates:
+    every request finished and its pages were flushed as one entry of the
+    self-attention layers' pages, flash_prefill ran once per self-attention
     layer per chunk and the bf16 paged_decode once per self-attention
     layer per tick, no other kernel ran, and the vision K/V are still
     the cache's zeros (the serving path never writes them, as in the
     reference)."""
+    import dataclasses
     from repro_torch.configs import registry
-    cfg = registry.get(VLM)
+    cfg = dataclasses.replace(registry.get(VLM), n_layers=CUT_LAYERS[VLM])
     vlm = serve_fresh(dev, VLM, N_VLM_REQUESTS,
                       ("paged_decode", "flash_prefill"))
     report(VLM, vlm)
@@ -2445,7 +2483,9 @@ def serve_group(dev, arch):
 
 def tp_traffic(vocab):
     """The tp phase's waves: 4 prompts of 300-1000 tokens, then the first
-    2 again under new rids (restores)."""
+    2 again under new rids (restores). With the seed's lengths (896, 746,
+    658, 489) the last prompt's final chunk is odd (233 tokens): granite's
+    prefill MoE takes its one-device fallback there."""
     import numpy as np
     rng = np.random.default_rng(SEED)
     first = [(i, rng.integers(1, vocab, int(n)).tolist(), MAX_NEW)
@@ -2455,22 +2495,54 @@ def tp_traffic(vocab):
                     for i, prompt, _ in first[:N_TP_RESUBMIT]]]
 
 
-def tp_model(dev):
-    """qwen3-1.7b at full width, cut to ``TP_LAYERS`` layers, random bf16
-    weights from the seed on ``dev``."""
+def tp_chunks(waves):
+    """The prefill chunks' lengths of the first wave (the second restores
+    every prompt and prefills nothing)."""
+    return [min(CHUNK, len(prompt) - at) for _, prompt, _ in waves[0]
+            for at in range(0, len(prompt), CHUNK)]
+
+
+def tp_model(dev, arch=ARCH):
+    """qwen3-1.7b at full width cut to ``TP_LAYERS`` layers, or granite
+    cut to its ``CUT_LAYERS``, random bf16 weights from the seed on
+    ``dev``."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(registry.get(ARCH), n_layers=TP_LAYERS)
+    cfg = dataclasses.replace(registry.get(arch), n_layers=(
+        TP_LAYERS if arch == ARCH else CUT_LAYERS[arch]))
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     return cfg, rc, M.init_model(cfg, seed=SEED, device=dev)
 
 
-def tp_serve(group, params, cfg, rc, kv_quant, dev):
-    """One engine's run of the tp traffic (one rank when ``group`` is
-    None): its report with the kernels' launch counts and the wall."""
+def param_bytes(params, leaves=None):
+    """Bytes of ``params``' leaves (those named in ``leaves``, if
+    given)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in params.named_parameters()
+               if leaves is None or name in leaves)
+
+
+def tp_shard(group, whole):
+    """This rank's shard of the whole model, the whole one's bytes and
+    those of its split leaves; the whole model is dropped from the
+    card."""
+    from repro_torch.parallel import sharding
+    specs = sharding.param_specs(whole)
+    sizes = {"whole_param_bytes": param_bytes(whole),
+             "split_param_bytes": param_bytes(
+                 whole, {n for n, sp in specs.items() if "model" in sp})}
+    params = sharding.shard_params(whole, group.rank, group.size, specs)
+    return params, sizes
+
+
+def tp_serve(group, params, cfg, rc, kv_quant, dev, waves):
+    """One engine's run of ``waves`` (one rank when ``group`` is None):
+    its report with the kernels' launch counts, the collectives, the
+    peak memory and the wall."""
     import torch
+    from repro_torch.launch import mesh
     from repro_torch.launch.serve import serve_waves
     from repro_torch.serving.config import ServeConfig
     config = ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
@@ -2478,42 +2550,422 @@ def tp_serve(group, params, cfg, rc, kv_quant, dev):
                          store_budget_bytes=16 << 30, seed=SEED,
                          kv_quant=kv_quant,
                          tp=1 if group is None else group.size)
+    torch.cuda.reset_peak_memory_stats(dev)
     # the main path: counts from 0 just before, read just after
     zero_counters()
+    mesh.COLLECTIVES.clear()
     t0 = time.time()
-    out = serve_waves(group, params, cfg, rc, config,
-                      tp_traffic(cfg.vocab_size), dev)
+    out = serve_waves(group, params, cfg, rc, config, waves, dev)
     torch.cuda.synchronize(dev)
     out["wall_s"] = time.time() - t0
     out["launches"] = read_counters()
-    tier = out.pop("tier")               # the counters, not the traces
-    out["shard_counters"] = tier.get("shard_counters")
+    out["collectives"] = dict(mesh.COLLECTIVES)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["shard_counters"] = out["tier"].get("shard_counters")
     return out
+
+
+def tp_steps(group, params, cfg, rc, kv_quant, dev, prompt,
+             steps=("decode_tick", "prefill_chunk")):
+    """Tick and chunk ms of the path's two steps (CUDA events; a rank's
+    waits on its collectives included) on a cache of 8 slots at position
+    1024 (a rank's pages of it), and the collectives each step runs; only
+    those of ``steps``. Both ranks run the same steps, so their
+    collectives pair up."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    rc = dataclasses.replace(rc, kv_quant=kv_quant)
+    cache = M.cache_init(cfg, rc, N_SLOTS, MAX_SEQ, device=dev)
+    if group is not None:
+        cache = sharding.shard_cache(cache, group.rank, group.size)
+    tokens = torch.tensor(prompt[:N_SLOTS], dtype=torch.int32,
+                          device=dev)[:, None]
+    chunk = torch.tensor([prompt[:CHUNK]], dtype=torch.int32, device=dev)
+
+    def tick():
+        cache["pos"].fill_(MAX_SEQ // 2)
+        M.decode_step(params, cfg, rc, tokens, cache, group=group)
+
+    def prefill():
+        cache1 = M.slot_view(cache, 0)
+        cache1["pos"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        M.prefill_step_cached(params, cfg, rc, chunk, cache1,
+                              last_only=True, group=group)
+    out = {}
+    for name, fn, iters in (("decode_tick", tick, 10),
+                            ("prefill_chunk", prefill, 5)):
+        if name not in steps:
+            continue
+        mesh.COLLECTIVES.clear()
+        out[f"{name}_ms"] = time_ms(fn, iters)
+        out[f"{name}_collectives"] = {
+            op: n / (iters + 2) for op, n in mesh.COLLECTIVES.items()}
+    return out
+
+
+@contextlib.contextmanager
+def capturing_logits():
+    """Keeps the logits row of every greedy step of each request, in
+    order: its prefill's last row (a restored request has none), then one
+    row a decode tick. Yields ``{rid: [row [V], ...]}`` (clones on the
+    card)."""
+    from repro_torch.serving.engine import ServingEngine
+    prefill, sample = ServingEngine._prefill_slot, ServingEngine._sample
+    rows, admitting = {}, []
+
+    def _prefill_slot(self, req, slot, tokens=None):
+        admitting.append(req.rid)
+        try:
+            return prefill(self, req, slot, tokens)
+        finally:
+            admitting.pop()
+
+    def _sample(self, row):
+        if admitting:
+            rows.setdefault(admitting[-1], []).append(row[0].clone())
+        else:
+            for slot, req in enumerate(self.slots):
+                if req is not None:
+                    rows.setdefault(req.rid, []).append(row[slot].clone())
+        return sample(self, row)
+    ServingEngine._prefill_slot, ServingEngine._sample = _prefill_slot, _sample
+    try:
+        yield rows
+    finally:
+        ServingEngine._prefill_slot, ServingEngine._sample = prefill, sample
+
+
+def logits_file(kv_quant):
+    return os.path.join(ROOT, "build", "tp", f"one_rank_logits_{kv_quant}.pt")
+
+
+def comparable_steps(a_rows, b_rows):
+    """How many steps of one request two engines' logits rows can be
+    compared at: every step up to and including the first whose argmaxes
+    part (later steps are conditioned on other tokens)."""
+    n = 0
+    for a, b in zip(a_rows, b_rows):
+        n += 1
+        if int(a.float().argmax()) != int(b.float().argmax()):
+            break
+    return n
+
+
+def tp_logits_bound(one, wide):
+    """The tp gate's bound on the logits, measured on the one-rank engine
+    before the ranks run: ``TP_NOISE_X`` times its bf16 logits' largest
+    distance from those of the same weights widened to f32 (``one`` /
+    ``wide``: ``{rid: [V] rows}``, at the comparable steps), plus TOL's
+    atol. Returns (bound, that distance)."""
+    noise = 0.0
+    for rid, rows in one.items():
+        for a, b in list(zip(rows, wide[rid]))[:comparable_steps(
+                rows, wide[rid])]:
+            noise = max(noise, float((a.float() - b.float()).abs().max()))
+    return TP_NOISE_X * noise + TOL["atol"], noise
+
+
+def tp_logits_gate(path, got, ref):
+    """The ranks' greedy steps against the one-rank engine's, request by
+    request and step by step (``got``: ``{rid: [V] rows}``; ``ref``: the
+    one-rank engine's rows ``one``, its f32 twin's ``f32`` and the
+    ``bound`` of ``tp_logits_bound``): every logits row within the bound
+    of the one-rank row, and of the f32 twin's while that one's tokens
+    agree, until the ranks' and the one-rank argmaxes part; where they
+    part, the one-rank logits of the two tokens must lie within the bound
+    of each other (a near tie), and the request's later steps, conditioned
+    on other tokens, are not held. Returns per request the steps held,
+    the max abs errors against both and, where the tokens parted, the
+    step, the two tokens and that gap."""
+    import torch
+    bound, out = ref["bound"], {}
+    for rid, rows in ref["one"].items():
+        mine, wide = got.get(rid, []), ref["f32"][rid]
+        if len(mine) != len(rows):
+            fail(f"{path}: rid {rid} took {len(mine)} greedy steps, the "
+                 f"one-rank engine {len(rows)}")
+        exact = comparable_steps(rows, wide)
+        res = {"steps": 0, "max_abs_err": 0.0, "max_abs_err_f32": 0.0,
+               "parted_at": None}
+        for j, (a, b) in enumerate(zip(rows, mine)):
+            a, b = a.float(), b.float()
+            err = float((a - b).abs().max())
+            e32 = float((b - wide[j].float()).abs().max()) if j < exact \
+                else 0.0
+            res["steps"] = j + 1
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_abs_err_f32"] = max(res["max_abs_err_f32"], e32)
+            if not torch.isfinite(b).all() or max(err, e32) > bound:
+                fail(f"{path}: rid {rid} step {j}: logits {err} off the "
+                     f"one-rank engine's and {e32} off its f32 twin's, "
+                     f"beyond {bound}")
+            top, theirs = int(a.argmax()), int(b.argmax())
+            if top != theirs:
+                gap = float(a[top] - a[theirs])
+                res.update(parted_at=j, tokens=[top, theirs], gap=gap)
+                if gap > bound:
+                    fail(f"{path}: rid {rid} step {j}: token {theirs} "
+                         f"against the one-rank engine's {top}, whose "
+                         f"logits are {gap} apart there: not a near tie")
+                break
+        out[rid] = res
+    return out
+
+
+def f32_copy_product(x, w):
+    """The f32-copy form of ``parallel.sharding.product_f32`` (both
+    operands widened, an f32 GEMM), timed against it on the card."""
+    return x.float() @ w.float()
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` set to ``value`` for the block: the steps timed
+    again in an earlier form, in the same process."""
+    before = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
+
+
+@contextlib.contextmanager
+def capturing_ffn(block):
+    """Keeps the input and output of ``block``'s feed-forward half: every
+    prefill chunk's, and the first decode tick's. Yields the list of
+    ``(decode, h, y)``."""
+    inner = block.ffn
+    seen = []
+
+    def ffn(cfg, h, *, decode, group=None):
+        y = inner(cfg, h, decode=decode, group=group)
+        if not decode or not any(d for d, _, _ in seen):
+            seen.append((decode, h.clone(), y.clone()))
+        return y
+    block.ffn = ffn
+    try:
+        yield seen
+    finally:
+        del block.ffn
 
 
 def tp_rank(group):
     """One rank of the tp phase (a process of its own, on the card it
-    shares): both page formats in turn."""
-    cfg, rc, params = tp_model(group.device)
-    return {kv_quant: tp_serve(group, params, cfg, rc, kv_quant,
-                               group.device)
-            for kv_quant in ("none", "int8")}
+    shares): qwen3-1.7b on its shard of the weights in both page formats,
+    its greedy steps held to the one-rank engine's logits, then
+    granite-moe-1b-a400m, each timed after its run."""
+    import gc
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+    dev = group.device
+    cfg, rc, whole = tp_model(dev)
+    params, out = tp_shard(group, whole)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    waves = tp_traffic(cfg.vocab_size)
+    for kv_quant, path in (("none", TP_PATH), ("int8", TP8_PATH)):
+        with capturing_logits() as rows:
+            out[kv_quant] = tp_serve(group, params, cfg, rc, kv_quant, dev,
+                                     waves)
+        ref = torch.load(logits_file(kv_quant))
+        for side in ("one", "f32"):
+            ref[side] = {rid: list(t.to(dev)) for rid, t in
+                         ref[side].items()}
+        out[kv_quant]["logits_vs_one_rank"] = tp_logits_gate(
+            f"{path} rank {group.rank}", rows, ref)
+        del rows, ref
+        out[kv_quant].update(tp_steps(group, params, cfg, rc, kv_quant,
+                                      dev, waves[0][0][1]))
+    # the bf16 tick and chunk again with the row-parallel products taken
+    # from f32 copies of both operands
+    with patched(sharding, "product_f32", f32_copy_product):
+        out["none"]["f32_copy"] = tp_steps(group, params, cfg, rc, "none",
+                                           dev, waves[0][0][1])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, rc, whole = tp_model(dev, GRANITE)
+    moe0 = whole.blocks[0].moe              # layer 0's whole experts
+    params, sizes = tp_shard(group, whole)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    waves = tp_traffic(cfg.vocab_size)
+    with capturing_ffn(params.blocks[0]) as seen:
+        run = tp_serve(group, params, cfg, rc, "none", dev, waves)
+    run.update(sizes)
+    # layer 0's MoE on this rank against the two plain versions on the
+    # card (every rank in this process, whole experts, no collective):
+    # moe_apply_ep_ref, built from the helpers of the form under test, and
+    # moe_apply_ep_loop, a per-pair loop that shares none of them
+    errs = {"prefill": [], "decode": [], "loop_prefill": [],
+            "loop_decode": [], "drops": [], "odd_chunks": 0}
+    for decode, h, y in seen:
+        kind = "decode" if decode else "prefill"
+        step = "decode" if decode else f"chunk of {h.shape[1]}"
+        want, drops = moe.moe_apply_ep_ref(moe0, cfg, h, group.size,
+                                           decode=decode)
+        loop, loop_drops = moe.moe_apply_ep_loop(moe0, cfg, h, group.size,
+                                                 decode=decode)
+        name = f"{GRANITE} tp2 rank {group.rank} layer-0 MoE ({step})"
+        errs[kind].append(check_close(name, y, want))
+        errs[f"loop_{kind}"].append(check_close(f"{name} vs the loop", y,
+                                                loop))
+        if drops != loop_drops:
+            fail(f"{name}: dropped pairs {drops}, the loop's {loop_drops}")
+        errs["drops"].append(drops)
+        errs["odd_chunks"] += (not decode) and h.shape[1] % group.size
+    run["moe_vs_ref"] = errs
+    run.update(tp_steps(group, params, cfg, rc, "none", dev,
+                        waves[0][0][1]))
+    # the same steps with the row-parallel products from f32 copies, and
+    # the chunk with the MoE's aux loss (and its all-reduce) computed
+    ep = moe.moe_apply_ep
+
+    def with_aux(*args, **kwargs):
+        return ep(*args, **dict(kwargs, aux=True))
+    with patched(sharding, "product_f32", f32_copy_product):
+        run["f32_copy"] = tp_steps(group, params, cfg, rc, "none", dev,
+                                   waves[0][0][1])
+    with patched(moe, "moe_apply_ep", with_aux):
+        run["with_aux"] = tp_steps(group, params, cfg, rc, "none", dev,
+                                   waves[0][0][1], ("prefill_chunk",))
+    out[GRANITE] = run
+    return out
+
+
+def check_tp_run(path, r, run, decode, prefill, n_layers):
+    """A rank's main path: the path's two kernels once per layer per step
+    and no other kernel; the resubmits restored, the peer lanes used.
+    Returns the path's launches and the others (all 0)."""
+    launches, off_path = split_counts(f"{path} rank {r}", run["launches"],
+                                      (decode, prefill))
+    if min(launches.values()) <= 0:
+        fail(f"{path} rank {r}: a kernel of the path never launched: "
+             f"{launches}")
+    st = run["stats"]
+    want = {decode: n_layers * st["decode_dispatches"],
+            prefill: n_layers * st["prefill_dispatches"]}
+    if launches != want:
+        fail(f"{path} rank {r}: launches {launches}, want one per layer "
+             f"per step {want}")
+    if run["restored"] != [1000 + i for i in range(N_TP_RESUBMIT)]:
+        fail(f"{path} rank {r}: restores {run['restored']}")
+    if st["mesh_ranks"] != TP_RANKS or \
+            st["tier_peer_fetches"] < N_TP_RESUBMIT:
+        fail(f"{path} rank {r}: mesh_ranks {st['mesh_ranks']}, peer "
+             f"fetches {st['tier_peer_fetches']}")
+    return launches, off_path
+
+
+def check_tp_shard(path, r, run, sizes):
+    """A rank holds the whole model's bytes less (N-1)/N of its split
+    leaves', which are over half of them."""
+    whole, split = sizes["whole_param_bytes"], sizes["split_param_bytes"]
+    want = whole - split + split // TP_RANKS
+    if run["param_bytes"] != want or split <= whole // 2:
+        fail(f"{path} rank {r}: {run['param_bytes']} parameter bytes, want "
+             f"{want} (whole {whole}, split {split})")
+
+
+def tp_record(path, runs, one, extra):
+    """The path's numbers for the JSON record, rank 0's launches."""
+    first = runs[0]
+    stats = first["stats"]
+    launches, off_path = first["on_path"]
+    out = {"launches": launches, "off_path_launches": off_path,
+           "wall_s": [r["wall_s"] for r in runs],
+           "param_bytes": [r["param_bytes"] for r in runs],
+           "max_memory_allocated": [r["max_memory_allocated"] for r in runs],
+           "decode_tick_ms": [r["decode_tick_ms"] for r in runs],
+           "prefill_chunk_ms": [r["prefill_chunk_ms"] for r in runs],
+           "decode_tick_collectives": first["decode_tick_collectives"],
+           "prefill_chunk_collectives": first["prefill_chunk_collectives"],
+           "collectives": [r["collectives"] for r in runs],
+           "shard_counters": first["shard_counters"],
+           "restored": first["restored"],
+           "decode_ticks": stats["decode_dispatches"],
+           "prefill_chunks": stats["prefill_dispatches"],
+           "restore_stall_ns": stats["restore_stall_ns"],
+           "tier_write_ns": stats["tier_write_ns"]}
+    if one is not None:
+        out.update({f"one_rank_{k}": one[k] for k in (
+            "wall_s", "param_bytes", "max_memory_allocated",
+            "decode_tick_ms", "prefill_chunk_ms", "launches")})
+    out.update(extra)
+    log(f"{path}: walls {out['wall_s']} s; parameter bytes "
+        f"{out['param_bytes']}; peak {out['max_memory_allocated']} bytes; "
+        f"tick {out['decode_tick_ms']} ms, chunk {out['prefill_chunk_ms']} "
+        f"ms; collectives a tick {out['decode_tick_collectives']}, a chunk "
+        f"{out['prefill_chunk_collectives']}; on the run "
+        f"{out['collectives']}; ShardedTier counters "
+        f"{out['shard_counters']}; launches {out['launches']}"
+        + (f"; one rank: wall {one['wall_s']:.2f} s, "
+           f"{one['param_bytes']} parameter bytes, peak "
+           f"{one['max_memory_allocated']} bytes, tick "
+           f"{one['decode_tick_ms']:.3f} ms, chunk "
+           f"{one['prefill_chunk_ms']:.3f} ms" if one is not None else ""))
+    return out
 
 
 def serve_tp(dev):
-    """qwen3-1.7b (``TP_LAYERS`` layers) on two ranks, two processes on
-    the one card joined by gloo (``launch.mesh.spawn``, a file rendezvous
-    under build/), bf16 and int8 pages: every rank's greedy tokens equal
-    the one-rank engine's on the card over the same traffic, the restores
-    happened, the peer lanes carried shards, and the decode (its m / l
-    output) and the prefill ran on each rank's main path and no other
-    kernel. A rank that fails or outlives ``TP_TIMEOUT_S`` fails."""
-    import torch
+    """The tp phase: one spawn of two rank processes on the one card
+    joined by gloo (``launch.mesh.spawn``, a file rendezvous under
+    build/), each holding its shard of the weights
+    (``parallel.sharding``) and half of every slot's pages, serving in
+    turn qwen3-1.7b (``TP_LAYERS`` layers) in bf16 and int8 pages and
+    granite-moe-1b-a400m (``CUT_LAYERS``, bf16 pages; the expert-parallel
+    MoE). qwen3: every rank's greedy steps held to the one-rank engine's
+    on the card over the same traffic (``tp_logits_gate``: logits within
+    ``tp_logits_bound``, measured on the one-rank engine and its f32
+    twin first; tokens equal but where they part at a near tie).
+    granite: the ranks' tokens, stats and tier traces equal one another;
+    layer 0's MoE on each rank within TOL of ``moe_apply_ep_ref`` and of
+    ``moe_apply_ep_loop`` at every prefill chunk (the odd final one too:
+    the fallback) and the first decode tick; 2 all_to_alls per MoE
+    layer per even chunk and none at decode. Both: the restores
+    happened, the peer lanes carried shards, each rank holds its share of
+    the weights, and the decode (its m / l output) and the prefill ran
+    once per layer per step and no other kernel. A rank that fails or
+    outlives ``TP_TIMEOUT_S`` fails."""
+    from repro_torch.configs import registry
     from repro_torch.launch import mesh
+    import copy
+    import dataclasses
+    import torch
     cfg, rc, params = tp_model(dev)
-    one = {kv_quant: tp_serve(None, params, cfg, rc, kv_quant, dev)
-           for kv_quant in ("none", "int8")}
-    del params
+    # the same weights widened to f32: the one-rank engine's own bf16
+    # rounding, measured, sets the ranks' bound
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rc32 = dataclasses.replace(rc, model=cfg32)
+    wide = copy.deepcopy(params).float()
+    waves = tp_traffic(cfg.vocab_size)
+    one, bounds = {}, {}
+    os.makedirs(os.path.dirname(logits_file("none")), exist_ok=True)
+    for kv_quant in ("none", "int8"):
+        with capturing_logits() as rows:
+            one[kv_quant] = tp_serve(None, params, cfg, rc, kv_quant, dev,
+                                     waves)
+        with capturing_logits() as rows32:
+            tp_serve(None, wide, cfg32, rc32, kv_quant, dev, waves)
+        bound, noise = tp_logits_bound(rows, rows32)
+        bounds[kv_quant] = {"bound": bound, "one_rank_vs_f32": noise}
+        torch.save({"one": {rid: torch.stack(r).cpu()
+                            for rid, r in rows.items()},
+                    "f32": {rid: torch.stack(r).cpu()
+                            for rid, r in rows32.items()},
+                    "bound": bound}, logits_file(kv_quant))
+        del rows, rows32
+        one[kv_quant].update(tp_steps(None, params, cfg, rc, kv_quant, dev,
+                                      waves[0][0][1]))
+    del params, wide
     free_card()
     t0 = time.time()
     ranks = mesh.spawn(tp_rank, TP_RANKS, (),
@@ -2528,49 +2980,123 @@ def serve_tp(dev):
             "flash_prefill_tf32"
         runs = [r[kv_quant] for r in ranks]
         for r, run in enumerate(runs):
-            launches, off_path = split_counts(f"{path} rank {r}",
-                                              run["launches"],
-                                              (decode, prefill))
-            if min(launches.values()) <= 0:
-                fail(f"{path} rank {r}: a kernel of the path never "
-                     f"launched: {launches}")
-            if run["tokens"] != one[kv_quant]["tokens"]:
-                fail(f"{path} rank {r}: greedy tokens differ from the "
-                     f"one-rank engine's: {run['tokens']} against "
-                     f"{one[kv_quant]['tokens']}")
-            if run["restored"] != [1000 + i for i in range(N_TP_RESUBMIT)]:
-                fail(f"{path} rank {r}: restores {run['restored']}")
-            st = run["stats"]
-            want = {decode: TP_LAYERS * st["decode_dispatches"],
-                    prefill: TP_LAYERS * st["prefill_dispatches"]}
-            if launches != want:
-                fail(f"{path} rank {r}: launches {launches}, want one per "
-                     f"layer per step {want}")
-        first = runs[0]
-        stats = first["stats"]
-        if stats["mesh_ranks"] != TP_RANKS or \
-                stats["tier_peer_fetches"] < N_TP_RESUBMIT:
-            fail(f"{path}: mesh_ranks {stats['mesh_ranks']}, peer fetches "
-                 f"{stats['tier_peer_fetches']}")
-        log(f"{path}: tokens equal to the one-rank engine's on "
-            f"{TP_RANKS} ranks; walls {[r['wall_s'] for r in runs]} s "
-            f"(one rank {one[kv_quant]['wall_s']:.2f} s); ShardedTier "
-            f"counters {first['shard_counters']}; restore_stall_ns "
-            f"{stats['restore_stall_ns']} (one rank "
-            f"{one[kv_quant]['stats']['restore_stall_ns']}); launches "
-            f"{launches}")
-        out[path] = {"launches": launches, "off_path_launches": off_path,
-                     "wall_s": [r["wall_s"] for r in runs],
-                     "one_rank_wall_s": one[kv_quant]["wall_s"],
-                     "shard_counters": first["shard_counters"],
-                     "restored": first["restored"],
-                     "decode_ticks": stats["decode_dispatches"],
-                     "prefill_chunks": stats["prefill_dispatches"],
-                     "restore_stall_ns": stats["restore_stall_ns"],
-                     "tier_write_ns": stats["tier_write_ns"],
-                     "one_rank_launches": one[kv_quant]["launches"],
-                     "n_layers": TP_LAYERS, "spawn_s": spawn_s}
+            run["on_path"] = check_tp_run(path, r, run, decode, prefill,
+                                          TP_LAYERS)
+            check_tp_shard(path, r, run, ranks[r])
+            if run["tokens"] != runs[0]["tokens"] or run[
+                    "logits_vs_one_rank"] != runs[0]["logits_vs_one_rank"]:
+                fail(f"{path} rank {r}: greedy tokens or logits differ from "
+                     f"rank 0's")
+        gate = runs[0]["logits_vs_one_rank"]
+        equal = tp_tokens_check(path, runs[0]["tokens"],
+                                one[kv_quant]["tokens"], gate,
+                                runs[0]["restored"], bounds[kv_quant])
+        extra = {}
+        if kv_quant == "none":
+            extra = {f"f32_copy_{k}": [r["f32_copy"][k] for r in runs]
+                     for k in ("decode_tick_ms", "prefill_chunk_ms")}
+        if extra:
+            log(f"{path}: with the row-parallel products from f32 copies: "
+                f"tick {extra['f32_copy_decode_tick_ms']} ms, chunk "
+                f"{extra['f32_copy_prefill_chunk_ms']} ms")
+        out[path] = tp_record(path, runs, one[kv_quant], {
+            "tokens_equal_leading": equal, "logits_vs_one_rank": gate,
+            "logits_bound": bounds[kv_quant],
+            **extra,
+            "n_layers": TP_LAYERS, "spawn_s": spawn_s,
+            "whole_param_bytes": ranks[0]["whole_param_bytes"],
+            "split_param_bytes": ranks[0]["split_param_bytes"]})
+
+    path = TPG_PATH
+    runs = [r[GRANITE] for r in ranks]
+    chunks = tp_chunks(tp_traffic(registry.get(GRANITE).vocab_size))
+    n_layers = CUT_LAYERS[GRANITE]
+    even = sum(1 for c in chunks if c % TP_RANKS == 0)
+    for r, run in enumerate(runs):
+        run["on_path"] = check_tp_run(path, r, run, "paged_decode",
+                                      "flash_prefill", n_layers)
+        check_tp_shard(path, r, run, run)
+        if (run["tokens"], stats_but_wall(run), run["tier"]) != (
+                runs[0]["tokens"], stats_but_wall(runs[0]), runs[0]["tier"]):
+            fail(f"{path} rank {r}: tokens, stats or tier traces differ "
+                 f"from rank 0's")
+        if run["stats"]["prefill_dispatches"] != len(chunks):
+            fail(f"{path} rank {r}: {run['stats']['prefill_dispatches']} "
+                 f"prefill chunks, the traffic has {len(chunks)}")
+        a2a = run["collectives"].get("all_to_all", 0)
+        if a2a != 2 * n_layers * even or run["decode_tick_collectives"].get(
+                "all_to_all", 0):
+            fail(f"{path} rank {r}: {a2a} all_to_alls on the run, want 2 "
+                 f"per MoE layer per even chunk ({2 * n_layers * even}); "
+                 f"a tick's: {run['decode_tick_collectives']}")
+        errs = run["moe_vs_ref"]
+        if len(errs["prefill"]) != len(chunks) or len(errs["decode"]) != 1 \
+                or errs["odd_chunks"] != len(chunks) - even or not (
+                    0 < even < len(chunks)):
+            fail(f"{path} rank {r}: layer-0 MoE checked at "
+                 f"{len(errs['prefill'])} chunks ({errs['odd_chunks']} "
+                 f"odd) and {len(errs['decode'])} ticks; the traffic has "
+                 f"{len(chunks)} chunks, {even} even")
+    log(f"{path}: ranks agree (tokens, stats, tier traces); layer-0 MoE "
+        f"within TOL of moe_apply_ep_ref and moe_apply_ep_loop at "
+        f"{len(chunks)} chunks ({len(chunks) - even} odd: the fallback) and "
+        f"the first tick, max abs err "
+        f"{[max(r['moe_vs_ref']['prefill']) for r in runs]} / "
+        f"{[r['moe_vs_ref']['decode'] for r in runs]} (the loop: "
+        f"{[max(r['moe_vs_ref']['loop_prefill']) for r in runs]} / "
+        f"{[r['moe_vs_ref']['loop_decode'] for r in runs]}); dropped pairs "
+        f"{runs[0]['moe_vs_ref']['drops']}; all_to_alls "
+        f"{2 * n_layers * even} a rank")
+    extra = {f"{form}_{k}": [r[form][k] for r in runs]
+             for form, keys in (("f32_copy", ("decode_tick_ms",
+                                              "prefill_chunk_ms")),
+                                ("with_aux", ("prefill_chunk_ms",
+                                              "prefill_chunk_collectives")))
+             for k in keys}
+    log(f"{path}: with the row-parallel products from f32 copies: tick "
+        f"{extra['f32_copy_decode_tick_ms']} ms, chunk "
+        f"{extra['f32_copy_prefill_chunk_ms']} ms; with the MoE's aux "
+        f"loss: chunk {extra['with_aux_prefill_chunk_ms']} ms, collectives "
+        f"{extra['with_aux_prefill_chunk_collectives'][0]}")
+    out[path] = tp_record(path, runs, None, {
+        **extra, "n_layers": n_layers, "spawn_s": spawn_s,
+        "whole_param_bytes": runs[0]["whole_param_bytes"],
+        "split_param_bytes": runs[0]["split_param_bytes"],
+        "chunks": chunks, "moe_vs_ref": runs[0]["moe_vs_ref"]})
     return out
+
+
+def tp_tokens_check(path, got, want, gate, restored, bound):
+    """The ranks' greedy tokens against the one-rank engine's: a request
+    whose steps never parted (``gate``, ``tp_logits_gate``'s) has every
+    token equal; one that parted at step j has its tokens equal up to
+    that step's token and not at it (a restored request's first token,
+    from its entry, takes no step). Returns each request's equal leading
+    tokens."""
+    leading = {rid: next((i for i, (a, b) in enumerate(zip(got.get(rid, ()),
+                                                          t)) if a != b),
+                         len(t)) for rid, t in want.items()}
+    for rid, t in want.items():
+        parted = gate[rid]["parted_at"]
+        at = len(t) if parted is None else parted + (rid in restored)
+        if leading[rid] != at or len(got.get(rid, ())) != len(t):
+            fail(f"{path}: rid {rid}: {leading[rid]} leading tokens equal "
+                 f"to the one-rank engine's, the logits parted at "
+                 f"{parted}: {got.get(rid)} against {t}")
+    parted = {rid: g for rid, g in gate.items() if g["parted_at"] is not None}
+    log(f"{path}: greedy steps held to the one-rank engine's on "
+        f"{TP_RANKS} ranks, each on its shard of the weights: logits max "
+        f"abs err {max(g['max_abs_err'] for g in gate.values())} (against "
+        f"the f32 twin {max(g['max_abs_err_f32'] for g in gate.values())})"
+        f" within {bound['bound']} ({TP_NOISE_X} x the one-rank engine's "
+        f"own {bound['one_rank_vs_f32']} from its f32 twin, + "
+        f"{TOL['atol']}); tokens equal"
+        + (f" but at near ties {parted}" if parted else " throughout"))
+    return leading
+
+
+def stats_but_wall(run):
+    return {k: v for k, v in run["stats"].items() if k != "prefill_time_s"}
 
 
 def check_train_prefill(dev):
@@ -3023,7 +3549,7 @@ def main() -> None:
             groups[arch] = serve_group(dev, arch)
         free_card()
 
-    with phase("qwen3-1.7b tp2"):
+    with phase("tp2"):
         tp = serve_tp(dev)
     free_card()
 
@@ -3080,6 +3606,8 @@ def main() -> None:
              decode_src, decode_tpu, (TP_PATH,)),
             ("paged_decode_int8_ml_tp2", "paged_decode_int8",
              dec_ml["int8"], decode_src, decode_tpu, (TP8_PATH,)),
+            ("paged_decode_ml_tp2_granite", "paged_decode",
+             dec_ml["bf16 d64"], decode_src, decode_tpu, (TPG_PATH,)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
              (ARCH, HYBRID, TP_PATH)),
             ("flash_prefill_g16_glm4", "flash_prefill", pre_g[GLM4],
@@ -3087,7 +3615,7 @@ def main() -> None:
             ("flash_prefill_g12_starcoder2", "flash_prefill",
              pre_g[STARCODER2], prefill_src, prefill_tpu, (STARCODER2,)),
             ("flash_prefill_d64_granite", "flash_prefill", pre64[GRANITE],
-             prefill_src, prefill_tpu, (GRANITE,)),
+             prefill_src, prefill_tpu, (GRANITE, TPG_PATH)),
             ("flash_prefill_d64_musicgen", "flash_prefill",
              pre64[MUSICGEN], prefill_src, prefill_tpu, (MUSICGEN,)),
             ("flash_prefill_g4_vlm", "flash_prefill", pre_g4, prefill_src,
@@ -3150,10 +3678,13 @@ def main() -> None:
                            "heads (split over two CTAs per kv head): held "
                            "and timed here; no path serves these configs "
                            "with int8 pages")
-        if name.endswith("_ml_tp2"):
+        if "_ml_tp2" in name:
             row["note"] = ("the same kernel with its f32 output and m / l "
                            "(the return_ml partials) at a rank's view on "
-                           "the tp 2 path (qwen3-1.7b heads, 1024 of a "
+                           "the tp 2 path ("
+                           + ("granite-moe-1b-a400m's heads, D 64, bf16" if
+                              name.endswith("_granite") else
+                              "qwen3-1.7b heads, bf16") + ", 1024 of a "
                            "slot's 2048 tokens): its count is the row's "
                            "counter, read in each rank's process, rank 0's "
                            "here; library: output only")

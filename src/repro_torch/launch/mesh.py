@@ -1,4 +1,5 @@
-"""The rank group of multi-rank (page-sharded) serving: the port's
+"""The rank group of multi-rank serving (weights split by
+``param_specs``, pages sharded, expert-parallel MoE): the port's
 counterpart of the reference's JAX mesh (``repro.launch.mesh``).
 
 The reference runs one process over a (data, model) mesh of devices; the
@@ -11,20 +12,27 @@ port runs one process per rank of the model axis, joined by a
    machine with one H100: NCCL refuses two ranks on one device.
 
 Every collective of the port goes through :class:`RankGroup`:
-``all_reduce`` (max or sum) and ``all_gather``. Gloo carries all three for
-CUDA tensors on the H100 (it stages them through host memory itself), so
-no collective is staged by hand (``chip_smoke.py``'s tp phase).
+``all_reduce`` (max or sum), ``all_gather`` and ``all_to_all`` (equal
+splits, ``all_to_all_single``). Gloo carries each of them for CUDA tensors
+on the H100 with torch 2.11 (it stages them through host memory itself),
+so no collective is staged by hand or built from another
+(``chip_smoke.py``'s tp phase). ``COLLECTIVES`` counts the calls of each
+in this process, for the collectives per step that ``chip_smoke.py``
+reports.
 
 ``spawn`` starts the ranks (``torch.multiprocessing``, spawn context) with
 a ``file://`` rendezvous, runs one function on each with its group and
-returns what each returned; a rank that fails or outlives the timeout
-fails the call, and every process it started is stopped.
+returns what each returned, pickled by value in the rank (tensors
+included); a rank that fails or outlives the timeout fails the call, and
+every process it started is stopped.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import os
+import pickle
 import queue as queue_mod
 import time
 import traceback
@@ -32,6 +40,10 @@ from typing import Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+# calls of each collective in this process (read and reset by callers)
+COLLECTIVES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +60,7 @@ class RankGroup:
         """In place over the ranks: ``op`` "max" or "sum"; returns ``t``.
         Every rank gets the same bits."""
         red = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
+        COLLECTIVES["all_reduce"] += 1
         dist.all_reduce(t, op=red)
         return t
 
@@ -57,9 +70,22 @@ class RankGroup:
         t = t.contiguous()
         flat = t.reshape(-1).view(torch.uint8)
         parts = [torch.empty_like(flat) for _ in range(self.size)]
+        COLLECTIVES["all_gather"] += 1
         dist.all_gather(parts, flat)
         return torch.stack(parts).view(t.dtype).reshape(
             (self.size,) + t.shape)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [size, ...] split equally over the ranks: slice j goes to
+        rank j, and row i of the result is what rank i sent this rank
+        (the reference's tiled ``all_to_all`` over axis 0). The bytes
+        travel as uint8, as in ``all_gather``."""
+        t = t.contiguous()
+        flat = t.view(torch.uint8).reshape(self.size, -1)
+        out = torch.empty_like(flat)
+        COLLECTIVES["all_to_all"] += 1
+        dist.all_to_all_single(out, flat)
+        return out.view(t.dtype).reshape(t.shape)
 
 
 def init_group(rank: int, size: int, init_method: str,
@@ -97,7 +123,10 @@ def _rank_main(rank: int, size: int, init_method: str, device: str,
         torch.set_num_threads(1)      # ranks share the host's cores
     try:
         group = init_group(rank, size, init_method, device, timeout_s)
-        out = fn(group, *args)
+        # by value: a queue would share a tensor's storage by file
+        # descriptor, which the parent can open only while this process
+        # is alive, and the rank exits right after
+        out = pickle.dumps(fn(group, *args))
         results.put((rank, True, out))
     except Exception:                 # reported to the parent, which fails
         results.put((rank, False, traceback.format_exc()))
@@ -146,7 +175,7 @@ def spawn(fn: Callable, size: int, args: Sequence = (), *,
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{out}")
-            got[rank] = out
+            got[rank] = pickle.loads(out)
         for p in procs:
             p.join(max(1.0, deadline - time.monotonic()))
     finally:

@@ -18,12 +18,16 @@
       --smoke --device cpu --requests 4     # smoke size, on the CPU
   python -m repro_torch.launch.serve --arch qwen3-1.7b --tp 2 \
       --cxl-topology dram,ssd-fast          # two ranks (processes)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --smoke --device cpu --tp 2
+                                            # expert-parallel MoE, CPU
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
 that this port supports: every family (dense, MoE, audio, hybrid, VLM
-and xLSTM) on one rank, the dense family on ``--tp N`` ranks (N
-processes, rank 0 prints; on one card they share it, see
-``launch.mesh``), bf16/f32 or int8 (``--kv-quant int8``) pages and the
+and xLSTM) on one rank, the dense and MoE families on ``--tp N`` ranks
+(N processes, each on its shard of the weights; rank 0 prints; on one
+card they share it, see ``launch.mesh``), bf16/f32 or int8
+(``--kv-quant int8``) pages and the
 closed submit-then-run loop. Every engine default
 comes from :class:`~repro_torch.serving.config.ServeConfig`.
 ``--cxl-media`` / ``--cxl-topology`` attach the CXL-timed tier;
@@ -222,7 +226,8 @@ def serve_waves(group, params, cfg, rc, config: ServeConfig, waves,
     ``group``'s rank when ``config.tp > 1``, else ``group`` is None);
     returns what the run left,
     as plain data: every finished request's tokens, the restored rids, the
-    stats, and the tier's op traces (one ``CxlTier``: ``ops`` / ``op_ns``;
+    stats, the bytes of the weights the engine holds (a rank's shard), and
+    the tier's op traces (one ``CxlTier``: ``ops`` / ``op_ns``;
     a ``ShardedTier``: every rank's and every peer lane's, and its
     counters), and with ``keep_cache`` the cache's pages (this rank's) on
     the CPU. The tests and ``chip_smoke.py`` hold ranks and engines to one
@@ -236,7 +241,9 @@ def serve_waves(group, params, cfg, rc, config: ServeConfig, waves,
         engine.run(max_ticks=10_000)
     out = {"tokens": {r.rid: list(r.generated) for r in engine.finished},
            "restored": sorted(r.rid for r in engine.finished if r.restored),
-           "stats": engine.stats.as_dict()}
+           "stats": engine.stats.as_dict(),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in engine.params.parameters())}
     if keep_cache:
         out["cache"] = {name: t.cpu() for name, t in
                         engine.cache["kv"].items()}
@@ -298,10 +305,11 @@ def main(argv=None) -> None:
                          "attached tier")
     ap.add_argument("--fault-seed", type=int, default=_DEF.fault_seed)
     ap.add_argument("--tp", type=int, default=_DEF.tp,
-                    help="ranks of the model axis: the paged KV cache's "
-                         "pages are split over N processes (the dense "
-                         "family); the tier gets one root-port set per "
-                         "rank")
+                    help="ranks of the model axis: the weights (by "
+                         "param_specs) and the paged KV cache's pages are "
+                         "split over N processes, the MoE is expert-"
+                         "parallel (the dense and MoE families); the tier "
+                         "gets one root-port set per rank")
     args = ap.parse_args(argv)
     topology = tuple(m.strip() for m in
                      args.cxl_topology.split(",") if m.strip())

@@ -63,14 +63,42 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> Attention:
     return Attention(*ws, *norms)
 
 
+def _whole_columns(group, parts, widths):
+    """Column-parallel products put together: each of ``parts`` whose last
+    axis is short of its ``widths`` entry (its weight split over the rank
+    ``group``, ``parallel.sharding``) is gathered from every rank, all of
+    them in one all-gather; the others pass as they are."""
+    cut = [p.shape[-1] != w for p, w in zip(parts, widths)]
+    if not any(cut):
+        return parts
+    every = group.all_gather(torch.cat([p for p, c in zip(parts, cut) if c],
+                                       dim=-1))        # [N, ..., sum n/N]
+    out, at = [], 0
+    for p, c in zip(parts, cut):
+        if c:
+            n = p.shape[-1]
+            p = torch.cat(list(every[..., at:at + n]), dim=-1)
+            at += n
+        out.append(p)
+    return out
+
+
 def qkv_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, rope: bool = True
+                positions: torch.Tensor, rope: bool = True, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> q [B,S,H,D], k/v [B,S,Hkv,D] with qk-norm + RoPE."""
+    """x: [B, S, d] -> q [B,S,H,D], k/v [B,S,Hkv,D] with qk-norm + RoPE.
+    With ``wq``/``wk``/``wv`` split over a rank ``group`` on their
+    columns, every rank projects its columns and one all-gather gives
+    every rank all the heads, before the per-head norms and RoPE (a split
+    need not fall on a head's edge: gemma-2b's one kv head of 256)."""
     b, s, _ = x.shape
-    q = (x @ attn.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ attn.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ attn.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = (x @ attn.wq, x @ attn.wk, x @ attn.wv)
+    if group is not None:
+        q, k, v = _whole_columns(group, (q, k, v),
+                                 (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = head_rmsnorm(attn.q_norm, q, cfg.norm_eps)
         k = head_rmsnorm(attn.k_norm, k, cfg.norm_eps)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import sharding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -131,14 +132,20 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> MLP:
     return MLP(w_up, dense_init(gen, cfg.d_ff, d, dt, device))
 
 
-def mlp_apply(mlp: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` is the tanh form, hence ``approximate="tanh"``."""
+def mlp_apply(mlp: MLP, cfg: ModelConfig, x: torch.Tensor,
+              group=None) -> torch.Tensor:
+    """``jax.nn.gelu`` is the tanh form, hence ``approximate="tanh"``.
+    With the weights of a rank ``group`` split on d_ff
+    (``parallel.sharding``): the gate / up products column-parallel, the
+    down product row-parallel (``parallel.sharding.row_parallel``)."""
     if cfg.activation == "swiglu":
         h = F.silu(x @ mlp.w_gate) * (x @ mlp.w_up)
     elif cfg.activation == "geglu":
         h = F.gelu(x @ mlp.w_gate, approximate="tanh") * (x @ mlp.w_up)
     else:
         h = F.gelu(x @ mlp.w_up, approximate="tanh")
+    if group is not None and mlp.w_down.shape[0] != cfg.d_ff:
+        return sharding.row_parallel(group, h, mlp.w_down)
     return h @ mlp.w_down
 
 
@@ -170,23 +177,43 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> Embed:
     return Embed(table, unembed)
 
 
-def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor):
+def _table_rows(cfg: ModelConfig) -> int:
+    return (cfg.n_codebooks if cfg.family == "audio" else 1) * cfg.vocab_size
+
+
+def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
+                group=None):
     """tokens: [B, S] int -> [B, S, d]. Audio: tokens [B, K, S], codebook
-    k's ids offset by ``k · vocab``, the K rows summed -> [B, S, d]."""
+    k's ids offset by ``k · vocab``, the K rows summed -> [B, S, d].
+    With the table of a rank ``group`` split on its rows
+    (``parallel.sharding``), an id this rank does not hold gives 0 and a
+    sum across the ranks puts the rows together."""
+    ids = tokens.long()
     if cfg.family == "audio":
-        offsets = (torch.arange(cfg.n_codebooks, device=tokens.device)
-                   * cfg.vocab_size)[None, :, None]
-        return embed.embedding[tokens.long() + offsets].sum(dim=1)
-    return embed.embedding[tokens.long()]
+        ids = ids + (torch.arange(cfg.n_codebooks, device=tokens.device)
+                     * cfg.vocab_size)[None, :, None]
+    table = embed.embedding
+    if group is None or table.shape[0] == _table_rows(cfg):
+        x = table[ids]
+    else:
+        local = ids - group.rank * table.shape[0]
+        held = (local >= 0) & (local < table.shape[0])
+        x = sharding.reduce_sum(group, torch.where(
+            held[..., None], table[local.clamp(0, table.shape[0] - 1)], 0))
+    return x.sum(dim=1) if cfg.family == "audio" else x
 
 
-def unembed_apply(embed: Embed, cfg: ModelConfig, x: torch.Tensor):
+def unembed_apply(embed: Embed, cfg: ModelConfig, x: torch.Tensor,
+                  group=None):
     """x: [B, S, d] -> logits [B, S, V] (tied table transposed); audio
-    -> [B, K, S, V], one slice of V per codebook."""
+    -> [B, K, S, V], one slice of V per codebook. With the table of a rank
+    ``group`` split on the vocabulary, the ranks' logits are gathered."""
     if cfg.tie_embeddings:
         logits = x @ embed.embedding.T
     else:
         logits = x @ embed.unembed
+    if group is not None and logits.shape[-1] != _table_rows(cfg):
+        logits = sharding.gather_columns(group, logits)
     if cfg.family == "audio":
         b, s, _ = logits.shape
         logits = logits.view(b, s, cfg.n_codebooks,

@@ -346,10 +346,11 @@ def _shared_in(sp: SharedBlock, x: torch.Tensor,
 
 
 def _embed(params: nn.Module, cfg: ModelConfig, tokens: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """The token embedding, plus the sinusoidal positions (positions
-    [B, S]) for a model without rope (musicgen, xLSTM)."""
-    x = embed_apply(params.embed, cfg, tokens)
+           positions: torch.Tensor, group=None) -> torch.Tensor:
+    """The token embedding (over a rank ``group`` where its table is
+    split), plus the sinusoidal positions (positions [B, S]) for a model
+    without rope (musicgen, xLSTM)."""
+    x = embed_apply(params.embed, cfg, tokens, group)
     if cfg.family == "audio" or not cfg.use_rope:
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -481,9 +482,14 @@ def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# families served over more than one rank (page-sharded cache, weights
+# split by ``parallel.sharding.param_specs``, expert-parallel MoE)
+RANKED_FAMILIES = ("dense", "moe")
+
+
 def check_ranks(cfg: ModelConfig, n_ranks: int) -> None:
-    """Only the dense family runs over a page-sharded cache yet."""
-    if n_ranks > 1 and cfg.family != "dense":
+    """Only the dense and MoE families run over more than one rank yet."""
+    if n_ranks > 1 and cfg.family not in RANKED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family over more than "
                                   f"one rank is not ported yet")
 
@@ -496,13 +502,15 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     (audio: [B, K, 1] -> [B, K, 1, V]).
 
     Writes each row's new K/V at its ``cache["pos"]`` and advances every
-    row's position by one, in place. With a rank ``group`` (the dense
-    family only) the cache's pages are this rank's shard
-    (``parallel.sharding``) and the attention is the page-sharded decode."""
+    row's position by one, in place. With a rank ``group`` (the dense and
+    MoE families) the cache's pages are this rank's shard and the weights
+    this rank's (``parallel.sharding``): the attention is the page-sharded
+    decode, the MoE the expert-parallel one."""
     check_family(cfg)
     check_ranks(cfg, 1 if group is None else group.size)
     pos = cache["pos"]
-    x = _embed(params, cfg, tokens, pos.reshape(-1, 1).to(torch.int32))
+    x = _embed(params, cfg, tokens, pos.reshape(-1, 1).to(torch.int32),
+               group)
     if cfg.family == "hybrid":
         emb, sp = x, params.shared
         for gi in range(len(params.groups)):
@@ -523,7 +531,7 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
                                                _layer_kv(cache, i),
                                                group=group)
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
-    logits = unembed_apply(params.embed, cfg, x)
+    logits = unembed_apply(params.embed, cfg, x, group)
     cache["pos"] += 1
     return logits, cache
 
@@ -548,7 +556,7 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     positions = (pos.reshape(-1, 1).to(torch.int32)
                  + torch.arange(c, dtype=torch.int32,
                                 device=tokens.device)[None])
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, group)
     if cfg.family == "hybrid":
         emb, sp = x, params.shared
         for gi in range(len(params.groups)):
@@ -572,7 +580,7 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
-    logits = unembed_apply(params.embed, cfg, x)
+    logits = unembed_apply(params.embed, cfg, x, group)
     cache["pos"] += c
     return logits, cache
 

@@ -35,10 +35,11 @@ class Block(nn.Module):
         self.ln_mlp = ln_mlp
         self.mlp = mlp
 
-    def ffn(self, cfg: ModelConfig, h: torch.Tensor, *,
-            decode: bool) -> torch.Tensor:
-        """The feed-forward half on the normed ``h``: the MLP."""
-        return mlp_apply(self.mlp, cfg, h)
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor, *, decode: bool,
+            group=None) -> torch.Tensor:
+        """The feed-forward half on the normed ``h``: the MLP (over a rank
+        ``group`` where its weights are split)."""
+        return mlp_apply(self.mlp, cfg, h, group)
 
 
 class MoEBlock(nn.Module):
@@ -52,14 +53,15 @@ class MoEBlock(nn.Module):
         self.ln_mlp = ln_mlp
         self.moe = experts
 
-    def ffn(self, cfg: ModelConfig, h: torch.Tensor, *,
-            decode: bool) -> torch.Tensor:
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor, *, decode: bool,
+            group=None) -> torch.Tensor:
         """The feed-forward half on the normed ``h``: the routed experts,
         ``moe_apply_ep_decode`` on a decode tick, else ``moe_apply_ep``
-        (both ``moe_apply`` on one rank, drops included)."""
+        (both ``moe_apply`` on one rank, drops included; expert-parallel
+        over a rank ``group``; no aux loss, which serving does not use)."""
         if decode:
-            return moe.moe_apply_ep_decode(self.moe, cfg, h)
-        return moe.moe_apply_ep(self.moe, cfg, h)[0]
+            return moe.moe_apply_ep_decode(self.moe, cfg, h, group=group)
+        return moe.moe_apply_ep(self.moe, cfg, h, group=group, aux=False)[0]
 
 
 class CrossBlock(nn.Module):
@@ -158,13 +160,22 @@ def vision_kv(block: CrossBlock, cfg: ModelConfig,
 
 
 def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
-            o: torch.Tensor, *, decode: bool = False) -> torch.Tensor:
+            o: torch.Tensor, *, decode: bool = False,
+            group=None) -> torch.Tensor:
     """Attention output projection + residual, then the block's
-    feed-forward half (``block.ffn``) + residual."""
+    feed-forward half (``block.ffn``) + residual. With ``wo`` split over a
+    rank ``group`` on its rows, each rank projects its slice of the heads'
+    output (``parallel.sharding.row_parallel``)."""
     b, s = x.shape[0], x.shape[1]
-    x = x + o.reshape(b, s, cfg.q_dim) @ block.attn.wo
+    o = o.reshape(b, s, cfg.q_dim)
+    wo = block.attn.wo
+    if group is not None and wo.shape[0] != cfg.q_dim:
+        lo = group.rank * wo.shape[0]
+        x = x + sharding.row_parallel(group, o[..., lo:lo + wo.shape[0]], wo)
+    else:
+        x = x + o @ wo
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
-    return x + block.ffn(cfg, h, decode=decode)
+    return x + block.ffn(cfg, h, decode=decode, group=group)
 
 
 def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -206,13 +217,13 @@ def block_decode_paged(block: Block | MoEBlock, cfg: ModelConfig,
     """
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     positions = pos.reshape(-1, 1).to(torch.int32)
-    q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
+    q, k, v = attn.qkv_project(block.attn, cfg, h, positions, group=group)
     o = attn.paged_decode_attention(q, kv["k"], kv["v"], k, v, pos,
                                     group=group,
                                     logit_softcap=cfg.attn_logit_softcap,
                                     k_scale=kv.get("k_scale"),
                                     v_scale=kv.get("v_scale"))
-    return _finish(block, cfg, x, o, decode=True)
+    return _finish(block, cfg, x, o, decode=True, group=group)
 
 
 def _prefill_attention_int8(cfg: ModelConfig, q: torch.Tensor,
@@ -271,19 +282,29 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
     pages: the slot's pages of every rank are gathered (the reference
     leaves the chunk's attention to XLA over the sharded cache, one
     softmax over every visible key), the chunk runs on the whole cache as
-    on one rank, and this rank keeps its own pages of the result.
+    on one rank (the weights' collectives over ``group``), and this rank
+    keeps its own pages of the result.
     """
     if group is not None and group.size > 1:
         whole = sharding.gather_pages(group, kv)
-        out = block_prefill_cached(block, cfg, x, positions, pos, whole,
-                                   stepwise=stepwise)
+        out = _prefill_block(block, cfg, x, positions, pos, whole,
+                             stepwise, group)
         n_pages = next(iter(whole.values())).shape[sharding.LAYER_PAGE_AXIS]
         lo, hi = sharding.page_range(n_pages, group.rank, group.size)
         for name, t in kv.items():
             t.copy_(whole[name][:, lo:hi])
         return out
+    return _prefill_block(block, cfg, x, positions, pos, kv, stepwise, None)
+
+
+def _prefill_block(block: Block | MoEBlock, cfg: ModelConfig,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   pos: torch.Tensor, kv: Dict[str, torch.Tensor],
+                   stepwise: bool, group) -> torch.Tensor:
+    """``block_prefill_cached`` over whole pages ``kv``; ``group`` only
+    for the weights' collectives."""
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
-    q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
+    q, k, v = attn.qkv_project(block.attn, cfg, h, positions, group=group)
     if "k_scale" in kv and stepwise:
         o = torch.cat([attn.paged_decode_attention(
             q[:, i:i + 1].contiguous(), kv["k"], kv["v"],
@@ -291,10 +312,11 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
             (pos + i).to(torch.int32), logit_softcap=cfg.attn_logit_softcap,
             k_scale=kv["k_scale"], v_scale=kv["v_scale"])
             for i in range(q.shape[1])], dim=1)
-        return _finish(block, cfg, x, o)
+        return _finish(block, cfg, x, o, group=group)
     if "k_scale" in kv:
         return _finish(block, cfg, x,
-                       _prefill_attention_int8(cfg, q, k, v, pos, kv))
+                       _prefill_attention_int8(cfg, q, k, v, pos, kv),
+                       group=group)
     bsz, n_pages, page = kv["k"].shape[:3]
     flat = (bsz, n_pages * page, cfg.n_kv_heads, cfg.head_dim)
     kf, vf = kv["k"].view(flat), kv["v"].view(flat)
@@ -302,4 +324,4 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
     attn.write_rows(vf, v, pos)
     o = attn.chunk_prefill_attention(q, kf, vf, pos,
                                      logit_softcap=cfg.attn_logit_softcap)
-    return _finish(block, cfg, x, o)
+    return _finish(block, cfg, x, o, group=group)

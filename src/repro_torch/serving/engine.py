@@ -35,12 +35,15 @@ With ``kv_quant="int8"`` the pages are int8 codes with per-(page, head)
 f32 scales: flush, restore, swap and prefix entries carry both, and every
 tier charge and store budget counts their bytes.
 
-Multi-rank serving (``ServeConfig(tp=N)``, the dense family): one engine
-per rank process, each given its rank group (``launch.mesh``).
-Every rank runs the same scheduler on the same traffic with the whole
-weights; its cache holds its own page range of every slot
-(``parallel.sharding``), so the decode is the page-sharded one and a
-prefill chunk gathers its slot's pages. A retired entry in a rank's
+Multi-rank serving (``ServeConfig(tp=N)``, the dense and MoE families):
+one engine per rank process, each given its rank group
+(``launch.mesh``). Every rank runs the same scheduler on the same
+traffic. It holds its shard of the weights, split by the reference's
+``param_specs`` (``parallel.sharding``: the attention's and MLP's
+columns / rows, the vocabulary, the experts), and its cache holds its own
+page range of every slot, so the decode is the page-sharded one, a
+prefill chunk gathers its slot's pages and the MoE is expert-parallel.
+A retired entry in a rank's
 ``HostPageStore`` is that rank's shard, and a restore writes each rank's
 shard into its pages. Each rank holds a replica of the ``ShardedTier``,
 charged once per operation with the whole entry's bytes
@@ -48,7 +51,7 @@ charged once per operation with the whole entry's bytes
 those of the reference's one process, on every rank.
 
 Not ported: the legacy host path (``ServeConfig`` raises for it), and
-more than one rank for the MoE, audio, hybrid, VLM and xLSTM families.
+more than one rank for the audio, hybrid, VLM and xLSTM families.
 """
 from __future__ import annotations
 
@@ -313,7 +316,11 @@ class ServingEngine:
         the ServeConfig with the same validation. ``cxl_tier`` injects a
         prebuilt tier; otherwise ``config.make_tier()`` builds whatever the
         config declares. With ``n_ranks > 1`` the engine serves as
-        ``group``'s rank (a ``launch.mesh.RankGroup`` of that size).
+        ``group``'s rank (a ``launch.mesh.RankGroup`` of that size), on
+        its shard of ``params``: whole weights are cut to it
+        (``parallel.sharding.shard_params``, as the reference places its
+        parameters by ``param_specs``); a shard already cut for this rank
+        is taken as it is.
         """
         if config is not None and knobs:
             raise TypeError("pass either config=ServeConfig(...) or the "
@@ -334,6 +341,8 @@ class ServingEngine:
         # quantized byte counts
         if config.kv_quant != "none" and rc.kv_quant != config.kv_quant:
             rc = dataclasses.replace(rc, kv_quant=config.kv_quant)
+        if self.group is not None:
+            params = self._rank_params(params)
         self.params = params
         self.cfg = cfg
         self.rc = rc
@@ -417,6 +426,19 @@ class ServingEngine:
         sharding.check_pages(max(config.max_seq // page, 1), n_ranks,
                              config.max_seq, rc.kv_page_size)
         return group
+
+    def _rank_params(self, params):
+        """This rank's shard of ``params``: cut from whole weights, or
+        checked to be this rank's."""
+        mine = (self.group.rank, self.group.size)
+        held = getattr(params, "shard", None)
+        if held is None:
+            return sharding.shard_params(params, *mine)
+        if tuple(held) != mine:
+            raise ValueError(f"params are the shard of rank {held[0]} of "
+                             f"{held[1]}; this engine is rank {mine[0]} "
+                             f"of {mine[1]}")
+        return params
 
     # ----------------------------------------------------------- step fns
     def _uniform(self, n: int) -> torch.Tensor:

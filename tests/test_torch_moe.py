@@ -107,13 +107,15 @@ def test_moe_apply_matches_reference(name, t):
         assert int(dropped) > 0
     if t == 1:
         assert int(dropped) == 0
-    # the one-rank entry points are moe_apply; more ranks raise
+    # the one-rank entry points and the plain version on one rank are
+    # moe_apply (more ranks: tests/test_torch_ep.py)
     torch.testing.assert_close(tmoe.moe_apply_ep_decode(moe, tcfg, tx), got,
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        tmoe.moe_apply_ep(moe, tcfg, tx, n_ranks=2)
-    with pytest.raises(NotImplementedError):
-        tmoe.moe_apply_ep_decode(moe, tcfg, tx, n_ranks=2)
+    torch.testing.assert_close(tmoe.moe_apply_ep(moe, tcfg, tx)[0], got,
+                               rtol=0, atol=0)
+    ref, drops = tmoe.moe_apply_ep_ref(moe, tcfg, tx, 1)
+    torch.testing.assert_close(ref, got, rtol=0, atol=0)
+    assert drops == {"dispatch": 0, "expert": int(dropped)}
 
 
 @pytest.mark.parametrize("tokens,k,experts,want", [

@@ -11,7 +11,8 @@ TCP port, and a timeout on every spawn). Held here:
    every peer lane's, the counters and the snapshot equal (``got ==
    want``);
  * the port's engine at tp 2 (bf16 and int8 pages) and tp 4 (bf16) on
-   smoke qwen3-1.7b, weights carried over from the reference's: greedy
+   smoke qwen3-1.7b, weights carried over from the reference's and each
+   rank holding its shard of them (``parallel.sharding``): greedy
    tokens equal to the port's one-rank engine's and to the JAX one-rank
    engine's, every rank's stats and tier traces equal, and the ranks'
    pages put together equal to the one-rank cache (bf16, 2e-2);
@@ -50,6 +51,7 @@ from repro_torch.core.sharded_tier import ShardedTier as TShardedTier
 from repro_torch.core.tier import TierConfig as TTierConfig
 from repro_torch.launch import mesh
 from repro_torch.launch.serve import serve_waves
+from repro_torch.parallel import sharding as tsharding
 from repro_torch.serving.config import ServeConfig as TServeConfig
 from repro_torch.sim import engine as tsim
 
@@ -227,6 +229,22 @@ def test_sharded_engine_pages_match_one_rank(tp, ranks, one_rank):
         got = torch.cat(parts, dim=2)
         assert float(want.float().abs().max()) > 0.1
         torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_engine_holds_its_shard(tp, ranks, one_rank, models):
+    """Each rank served on its shard of the weights (``parallel.sharding``:
+    the leaves whose spec has a model axis cut to 1/N), the one-rank engine
+    on the whole weights."""
+    tparams = models[5]
+    _, one = one_rank["none"]
+    specs = tsharding.param_specs(tparams)
+    split = sum(p.numel() * p.element_size()
+                for name, p in tparams.named_parameters()
+                if "model" in specs[name])
+    assert split > one["param_bytes"] // 2
+    for run in ranks(tp, "none"):
+        assert run["param_bytes"] == one["param_bytes"] - split + split // tp
 
 
 def _stats(run):
