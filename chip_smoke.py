@@ -38,9 +38,11 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    modes, its group split over two CTAs per kv head; the decode's m / l
    output (``return_ml``: f32 o, base-2 m, l) in both modes on each of
    two ranks' views of a cache (a rank with no token: m -inf, l 0) at
-   qwen3's heads and at G 16 and 12, against the plain versions (f32
+   qwen3's heads, at G 16 and 12 and at the tp paths' other heads
+   (granite's D 64; zamba2's D 80 / G 1; musicgen's D 64 / G 1 over
+   1024-token slots; the VLM's G 4), against the plain versions (f32
    1e-4), the two ranks combined against the one-rank decode (TOL), timed
-   at a rank's view of the tp path;
+   at a rank's view of each tp path (bf16; qwen3's int8 too);
    the decode kernel's int8 mode at qwen3's heads and at gemma-2b's (bf16
    2e-2, int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
@@ -56,7 +58,8 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    four warps on the head dim's quarters) there in f32 (1e-4), timed
    beside f32 SDPA and the parent's scalar kernel; the scalar instance
    (D 16 and 32 only) at that chunk's geometry with D 32; the SSD scan in
-   f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at zamba2's 80 heads,
+   f32 (atol = rtol = 1e-4, ``y`` and ``h_last``) at zamba2's 80 heads
+   and at a rank's 40 (the tp path's),
    P = N = 64, from a nonzero and a zero state, over a 256-token chunk
    and a ragged 44-token one; the C entries of the three refusing, before
    any launch, each plan that ``check_plan`` refuses (rows, stages,
@@ -75,8 +78,8 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    through chunked prefill and ragged decode on the card and on the CPU
    from the same weights, and hold logits and caches together (int8
    codes equal but for steps of one, counted);
-3. serve qwen3-1.7b at full width (random bf16 weights drawn on the card
-   from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
+3. serve qwen3-1.7b at full width, cut to 14 of its 28 layers (random
+   bf16 weights drawn on the card from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
    32 new tokens, then 4 of the same prompts again under new rids, served
    by prefix restore; check that every request finished, both attention
@@ -93,7 +96,8 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    from the tier, as in the reference) and check that every request
    finished, pages were flushed, and all three kernels ran on that path
    and no other kernel did;
-5. serve qwen3-1.7b at full width with int8 KV pages on the engine and
+5. serve qwen3-1.7b at full width (14 of 28 layers) with int8 KV pages
+   on the engine and
    traffic of phase 3; check that every request finished, the int8 decode
    kernel ran once per layer per tick and flash_prefill ran, every
    resubmit was restored with its first token and its prompt's full pages
@@ -102,13 +106,15 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    and no other kernel ran;
    then restore the same prompts from entries stored right after prefill
    and check that their greedy tokens equal the first run's;
-6. serve gemma-2b at full width (MQA with one kv head, head_dim 256,
-   geglu, tied embeddings; random bf16 weights from the seed) on the
+6. serve gemma-2b at full width, cut to 9 of its 18 layers (MQA with one
+   kv head, head_dim 256, geglu, tied embeddings; random bf16 weights
+   from the seed) on the
    engine and traffic of phase 3; check that every request finished, the
    restores stalled on the tier and gave their first run's greedy tokens,
    the D 256 flash_prefill instance ran once per layer per chunk and the
    bf16 paged_decode once per layer per tick, and no other kernel ran;
-7. serve gemma-2b at full width with int8 KV pages on the engine and
+7. serve gemma-2b at full width (9 of 18 layers) with int8 KV pages on
+   the engine and
    traffic of phase 3, with phase 5's gates at gemma's shape: every
    request finished, the int8 decode ran once per layer per tick and the
    f32 D 256 flash_prefill instance once per layer per chunk, no other
@@ -134,21 +140,22 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    32 new tokens, then 2 of them again (prefix restores); phase 3's gates
    (restored greedy tokens equal the first run's) and phase 8's kernels,
    once per layer per step;
-10. serve llama-3.2-vision-11b at full width, cut to 20 of its 40 layers
-   (4 groups of 4 self-attention layers and one gated cross-attention
+10. serve llama-3.2-vision-11b at full width, cut to 10 of its 40 layers
+   (2 groups of 4 self-attention layers and one gated cross-attention
    layer over 1601 vision tokens; 32 query heads over 8 kv heads, D 128,
-   SwiGLU d_ff 14336, vocab 128256; ~5.4 B random bf16 weights drawn on
+   SwiGLU d_ff 14336, vocab 128256; ~3.2 B random bf16 weights drawn on
    the card) on
    phase 3's engine: 4 requests of 300-1000 prompt tokens and 32 new
    tokens, none resubmitted (the family is never restored, as in the
    reference); check that every request finished and its pages were
-   flushed as one entry of the 16 self-attention layers (128 MiB),
+   flushed as one entry of the 8 self-attention layers (64 MiB),
    flash_prefill ran once per self-attention layer per chunk and the
    bf16 paged_decode once per self-attention layer per tick, no other
    kernel ran, and the vision K/V are still the cache's zeros (the
    serving path has no vision input; the reference's engine never
    writes them either);
-11. serve xlstm-125m at full width (12 layers in 2 groups of 5 mLSTM
+11. serve xlstm-125m at full width, cut to 6 of its 12 layers (one group
+   of 5 mLSTM
    layers and one sLSTM layer, d_model 768, 4 heads, vocab 50304) on
    phase 3's engine: 8 requests of 300-1000 prompt tokens and 32 new
    tokens, its prefill each layer over the whole chunk (memory updates and
@@ -157,10 +164,10 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    check that every request finished, no kernel launched (the family has
    none) and nothing was flushed (its cache has no pages); print the
    tick's ms and the prefill's ms per token;
-12. serve glm4-9b (cut to 20 of its 40 layers, 32 query heads over 2 kv
-   heads, d_ff 13696, vocab 151552; ~4.9 B random bf16 weights) and
-   starcoder2-15b (20 of 40 layers, d_model 6144, 48 over 4, tanh-gelu
-   d_ff 24576, vocab 49152; ~8.3 B) at full width on phase 3's engine: 4
+12. serve glm4-9b (cut to 10 of its 40 layers, 32 query heads over 2 kv
+   heads, d_ff 13696, vocab 151552; ~3.1 B random bf16 weights) and
+   starcoder2-15b (10 of 40 layers, d_model 6144, 48 over 4, tanh-gelu
+   d_ff 24576, vocab 49152; ~4.5 B) at full width on phase 3's engine: 4
    requests and 2 prefix
    restores each; phase 3's gates, and flash_prefill once per layer per
    chunk and the bf16 paged_decode (two CTAs per kv head) once per layer
@@ -189,10 +196,21 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    the card; the loop shares no helper with the form under test, and
    their dropped pairs must agree) at every prefill chunk and the first
    tick, 2 ``all_to_all``s per MoE layer per even chunk and none at
-   decode. On every path: each rank holds the whole
+   decode; then the families of ``TP_FAMILIES`` at full width, cut to
+   ``TP_CUT`` (zamba2-2.7b 6 of 54 layers: one group with its shared
+   block; musicgen-large 6 of 48 with 1024-token slots and 2 restores;
+   llama-3.2-vision-11b 5 of 40: four self-attention layers and a cross
+   layer; xlstm-125m whole), each held as qwen3 is to its one-rank engine
+   and f32 twin run first (per-slot states whole on every rank; Mamba2's
+   scan at a rank's 40 heads), and the VLM also on a direct prefill chunk
+   and tick with vision K/V written from random embeddings and both
+   cross gates away from 0, within the bound measured on the one-rank
+   calls and their f32 twins (its served cross layers add 0). On every
+   path: each rank holds the whole
    model's bytes less half of its split leaves', the decode (its m / l
-   output) and the prefill run once per layer per step and no other
-   kernel; a rank that fails or outlives ``TP_TIMEOUT_S`` fails the
+   output), the prefill and the SSD scan run once per attention or
+   Mamba2 layer per step and no other kernel (xLSTM: none); a rank that
+   fails or outlives ``TP_TIMEOUT_S`` fails the
    script; print each rank's parameter bytes, peak memory, wall, tick and
    chunk ms (CUDA events) and collectives per step beside one rank's, and
    the ShardedTier counters;
@@ -252,11 +270,11 @@ N_HYBRID_REQUESTS = 8
 # requests and shorter slots than phase 3's, for the script's time limit
 MUSICGEN_MAX_SEQ, MUSICGEN_PROMPT_LENS = 1024, (300, 601)
 N_MUSICGEN_REQUESTS, N_MUSICGEN_RESUBMIT = 3, 2
-# the VLM's 128 MiB entries (16 self-attention layers) and xLSTM's token-
+# the VLM's 64 MiB entries (8 self-attention layers) and xLSTM's token-
 # by-token prefill (its reference's form): fewer VLM requests than phase
 # 3's, never resubmitted (neither family is restored from the tier)
 N_VLM_REQUESTS, N_XLSTM_REQUESTS = 4, 8
-# glm4-9b's 80 MiB and starcoder2-15b's 160 MiB entries: 4 requests and 2
+# glm4-9b's 20 MiB and starcoder2-15b's 40 MiB entries: 4 requests and 2
 # restores each
 N_GROUP_REQUESTS, N_GROUP_RESUBMIT = 4, 2
 # the tp phase: two ranks (processes) on the one card, qwen3-1.7b in bf16
@@ -276,15 +294,28 @@ XLSTM_TIMED_TOKENS = 32
 # per-layer gates do not depend on depth, the Python tier's charge (~24-32
 # ms per MiB of entry on the host of an H100 80GB HBM3 at 700 W, PERF.md
 # section 5) and the eager steps do. Widths, heads, vocabularies and
-# traffic stay the full models'. zamba2, musicgen, the VLM, glm4-9b and
-# starcoder2-15b run at half depth to make room for the tp phase's
-# granite path (PERF.md section 4)
-CUT_LAYERS = {HYBRID: 12, GRANITE: 12, MUSICGEN: 12, VLM: 20, GLM4: 20,
-              STARCODER2: 20}
+# traffic stay the full models'. zamba2, musicgen and granite run at a
+# quarter or half depth to make room for the tp phase's granite path, the
+# VLM, glm4-9b and starcoder2-15b at a quarter and qwen3-1.7b and
+# gemma-2b (both page formats: the int8 entry is held to the bf16 one)
+# and xLSTM at half for its other families' (PERF.md section 4)
+CUT_LAYERS = {ARCH: 14, HYBRID: 12, GRANITE: 12, MUSICGEN: 12, VLM: 10,
+              GLM4: 10, STARCODER2: 10, GEMMA: 9, XLSTM: 6}
 # the tp phase's qwen3-1.7b, cut to 4 of 28 layers for the same reason:
 # each rank charges its replica of the tier with the whole entry, and the
 # phase runs the one-rank engine and the two ranks in both page formats
 TP_LAYERS = 4
+# the tp phase's other families, each beside its one-rank engine and f32
+# twin: zamba2 at one group of 6 Mamba2 layers with its shared block,
+# musicgen at 6 of 48 layers (1024-token slots), the VLM at 5 of 40 (4
+# self-attention layers and one cross layer), xLSTM whole
+TP_FAMILIES = (HYBRID, MUSICGEN, VLM, XLSTM)
+TP_CUT = {HYBRID: 6, MUSICGEN: 6, VLM: 5, XLSTM: 12}
+TPF_PATHS = {arch: f"{arch} tp2" for arch in TP_FAMILIES}
+# the VLM's direct tp gate: 2 rows, one prefill chunk then one tick, the
+# cross gates set to these values and the vision K/V written by each
+# cross layer from random embeddings
+VLM_GATES = {"attn_gate": 0.7, "mlp_gate": -0.4}
 # the training phase: full-width qwen3-1.7b on train_4k's 4096-token
 # sequences, its batch cut from 256 to 8 for one card; 5 steps on one
 # repeated batch at AdamWConfig(learning_rate=3e-4, warmup_steps=0) (the
@@ -703,32 +734,49 @@ def rank_views(pos, n_ranks, span):
     return out
 
 
+# the rank views check_decode_ml times (Hkv, G, D, slot tokens) -> the
+# key of their result: the tp paths' heads (qwen3; granite; zamba2's
+# shared block; musicgen over 1024-token slots; the VLM at G 4)
+ML_TIMED = {(8, 2, 128, MAX_SEQ): "", (8, 2, 64, MAX_SEQ): " d64",
+            (32, 1, 80, MAX_SEQ): " d80",
+            (32, 1, 64, MUSICGEN_MAX_SEQ): " d64 s1024",
+            (8, 4, 128, MAX_SEQ): " g4"}
+
+
 def check_decode_ml(dev):
     """paged_decode's ``return_ml`` output (f32 o, base-2 m, l), both
     modes, against the plain versions' on each rank's view of a cache
     split over two ranks (its pages, its local length, 0 after the owner;
     the int8 new row only on the owner): at the tp paths' heads (qwen3's
-    Hkv 8, G 2, D 128; granite's D 64) and at G 16 and G 12, bf16 q; o at
-    f32's 1e-4, m and l at 1e-4
+    Hkv 8, G 2, D 128; granite's D 64; zamba2's Hkv 32, G 1, D 80;
+    musicgen's D 64, G 1 over 1024-token slots; the VLM's G 4) and at G
+    16 and G 12, bf16 q; o at f32's 1e-4, m and l at 1e-4
     relative (m = -inf and l = 0 where a rank sees no token). The two
     ranks' partials combined as ``models.attention.combine_partials``
     does must give the one-rank decode (TOL). Timed at the tp paths'
-    shapes (a rank's 1024 tokens of 8 slots: qwen3's heads in both modes,
-    granite's in bf16), beside SDPA over the same keys (output only: no
-    PyTorch call returns m and l)."""
+    shapes (``ML_TIMED``: a rank's half of 8 slots; qwen3's heads in both
+    modes, the others in bf16), beside SDPA over the same keys (output
+    only: no PyTorch call returns m and l)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.models import kv_quant
-    b, p, page = N_SLOTS, MAX_SEQ // 256, 256
-    smax, span = p * page, p * page // TP_RANKS
-    local = slice(0, p // TP_RANKS)
+    b, page = N_SLOTS, 256
     gen = torch.Generator(device=dev).manual_seed(9)
-    pos = torch.tensor([0, 1, 300, 1023, 1024, 1500, smax - 2, smax - 1],
-                       dtype=torch.int32, device=dev)
     f32_tol = dict(atol=1e-4, rtol=1e-4)
-    res = {"pos": pos.tolist(), "errs": {}}
-    for hkv, g, d in ((8, 2, 128), (2, 16, 128), (4, 12, 128), (8, 2, 64)):
+    res = {"errs": {}}
+    for hkv, g, d, smax in ((8, 2, 128, MAX_SEQ), (2, 16, 128, MAX_SEQ),
+                            (4, 12, 128, MAX_SEQ), (8, 2, 64, MAX_SEQ),
+                            (32, 1, 80, MAX_SEQ),
+                            (32, 1, 64, MUSICGEN_MAX_SEQ),
+                            (8, 4, 128, MAX_SEQ)):
+        p = smax // page
+        span = smax // TP_RANKS
+        local = slice(0, p // TP_RANKS)
+        pos = torch.tensor([0, 1, 300, span - 1, span, span + 476,
+                            smax - 2, smax - 1], dtype=torch.int32,
+                           device=dev)
+        res.setdefault("pos", {})[smax] = pos.tolist()
         h = hkv * g
         tag = f"g{g}" if d == 128 else f"g{g} d{d}"
         q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
@@ -785,14 +833,15 @@ def check_decode_ml(dev):
             res["errs"][f"{tag} {mode} combined"] = check_close(
                 f"paged_decode ml {tag} {mode}: two ranks combined vs one",
                 comb.to(one.dtype), one)
-        if (hkv, g) != (8, 2):
+        key = ML_TIMED.get((hkv, g, d, smax))
+        if key is None:
             continue
         # timings at the tp paths' shapes: rank 0's pages
         kv_len, fresh = views[0]
         mask = (torch.arange(span, device=dev)[None]
                 < kv_len[:, None].long())[:, None, None, :]
         qs = q.transpose(1, 2)
-        for mode in ("bf16", "int8") if d == 128 else ("bf16",):
+        for mode in ("bf16", "int8") if key == "" else ("bf16",):
             if mode == "bf16":
                 kl, vl = (t[:, local].contiguous() for t in (kp, vp))
 
@@ -851,7 +900,7 @@ def check_decode_ml(dev):
                             f"[{b},{p // TP_RANKS},{page},{hkv},{d}] "
                             f"{mode}, kv_len {kv_len.tolist()}; out f32 + "
                             f"m, l")
-            res[mode if d == 128 else f"{mode} d{d}"] = out
+            res[mode + key] = out
     return res
 
 
@@ -1357,16 +1406,18 @@ def check_prefill_scalar(dev):
     return res
 
 
-def check_ssd(dev):
-    """ssd_scan at zamba2-2.7b's widths (B 1, H 80, P = N = 64) from a
+def check_ssd(dev, h=80, sweep=True):
+    """ssd_scan at zamba2-2.7b's widths (B 1, H 80, P = N = 64; H 40 is a
+    rank's heads on the tp 2 path) from a
     nonzero state: a 256-token prefill chunk and a ragged 44-token one,
     ``y`` and ``h_last`` against the plain chunked form at the kernel's
-    own sub-chunk (f32, 1e-4); the chain bit-identical over 50 repeats;
-    timed at the plan and at the other split counts of the sweep. No
+    own sub-chunk (f32, 1e-4), and from a zero state; the chain
+    bit-identical over 50 repeats; timed at the plan and, with ``sweep``,
+    at the other split counts. No
     single PyTorch call computes the SSD, so there is no library time."""
     import torch
     from repro_torch.kernels.mamba2_scan import ops, ref
-    b, h, p, n = 1, 80, 64, 64
+    b, p, n = 1, 64, 64
     gen = torch.Generator(device=dev).manual_seed(3)
     h0 = torch.randn((b, h, p, n), generator=gen, device=dev)
     res, inputs = {"plan": str(ops.plan(b, CHUNK, h, p, n))}, {}
@@ -1404,7 +1455,7 @@ def check_ssd(dev):
         xdt, bm, cm, la, h0, chunk=ops.KERNEL_CHUNK), 10)
     res["library_ms"] = None
     res["plans_ms"] = {}
-    for splits in (1, 2, 4):
+    for splits in (1, 2, 4) if sweep else ():
         alt = ops.split_plan(b, CHUNK, h, p, n, splits)
         y, h_last = ops.launch(xdt, bm, cm, la, h0, alt)
         check_close(f"ssd_scan y splits={splits}", y, y_ref, SSD_TOL)
@@ -2481,16 +2532,20 @@ def serve_group(dev, arch):
     return run
 
 
-def tp_traffic(vocab):
-    """The tp phase's waves: 4 prompts of 300-1000 tokens, then the first
-    2 again under new rids (restores). With the seed's lengths (896, 746,
-    658, 489) the last prompt's final chunk is odd (233 tokens): granite's
-    prefill MoE takes its one-device fallback there."""
+def tp_traffic(vocab, arch=ARCH):
+    """The tp phase's waves: 4 prompts of 300-1000 tokens (musicgen's
+    1024-token slots: 300-600), then, for a family the engine restores,
+    the first 2 again under new rids (restores). With the seed's lengths
+    (896, 746, 658, 489) the last prompt's final chunk is odd (233
+    tokens): granite's prefill MoE takes its one-device fallback
+    there."""
     import numpy as np
     rng = np.random.default_rng(SEED)
+    lens = MUSICGEN_PROMPT_LENS if arch == MUSICGEN else PROMPT_LENS
     first = [(i, rng.integers(1, vocab, int(n)).tolist(), MAX_NEW)
-             for i, n in enumerate(rng.integers(*PROMPT_LENS,
-                                                N_TP_REQUESTS))]
+             for i, n in enumerate(rng.integers(*lens, N_TP_REQUESTS))]
+    if arch in (HYBRID, VLM, XLSTM):
+        return [first]
     return [first, [(1000 + i, prompt, MAX_NEW)
                     for i, prompt, _ in first[:N_TP_RESUBMIT]]]
 
@@ -2503,15 +2558,16 @@ def tp_chunks(waves):
 
 
 def tp_model(dev, arch=ARCH):
-    """qwen3-1.7b at full width cut to ``TP_LAYERS`` layers, or granite
-    cut to its ``CUT_LAYERS``, random bf16 weights from the seed on
-    ``dev``."""
+    """qwen3-1.7b at full width cut to ``TP_LAYERS`` layers, granite cut
+    to its ``CUT_LAYERS``, or a family of ``TP_FAMILIES`` cut to its
+    ``TP_CUT``, random bf16 weights from the seed on ``dev``."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.models import model as M
     cfg = dataclasses.replace(registry.get(arch), n_layers=(
-        TP_LAYERS if arch == ARCH else CUT_LAYERS[arch]))
+        TP_LAYERS if arch == ARCH else TP_CUT.get(arch, CUT_LAYERS.get(
+            arch))))
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
     return cfg, rc, M.init_model(cfg, seed=SEED, device=dev)
 
@@ -2545,7 +2601,8 @@ def tp_serve(group, params, cfg, rc, kv_quant, dev, waves):
     from repro_torch.launch import mesh
     from repro_torch.launch.serve import serve_waves
     from repro_torch.serving.config import ServeConfig
-    config = ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
+    max_seq = MUSICGEN_MAX_SEQ if cfg.family == "audio" else MAX_SEQ
+    config = ServeConfig(n_slots=N_SLOTS, max_seq=max_seq,
                          prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
                          store_budget_bytes=16 << 30, seed=SEED,
                          kv_quant=kv_quant,
@@ -2568,25 +2625,32 @@ def tp_serve(group, params, cfg, rc, kv_quant, dev, waves):
 def tp_steps(group, params, cfg, rc, kv_quant, dev, prompt,
              steps=("decode_tick", "prefill_chunk")):
     """Tick and chunk ms of the path's two steps (CUDA events; a rank's
-    waits on its collectives included) on a cache of 8 slots at position
-    1024 (a rank's pages of it), and the collectives each step runs; only
-    those of ``steps``. Both ranks run the same steps, so their
-    collectives pair up."""
+    waits on its collectives included) on a cache of 8 slots at half
+    their length (a rank's pages of it), and the collectives each step
+    runs; only those of ``steps``. Both ranks run the same steps, so their
+    collectives pair up. xLSTM's chunk is ``XLSTM_TIMED_TOKENS`` tokens;
+    musicgen's tokens go to every codebook."""
     import dataclasses
     import torch
     from repro_torch.launch import mesh
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding
     rc = dataclasses.replace(rc, kv_quant=kv_quant)
-    cache = M.cache_init(cfg, rc, N_SLOTS, MAX_SEQ, device=dev)
+    max_seq = MUSICGEN_MAX_SEQ if cfg.family == "audio" else MAX_SEQ
+    cache = M.cache_init(cfg, rc, N_SLOTS, max_seq, device=dev)
     if group is not None:
         cache = sharding.shard_cache(cache, group.rank, group.size)
+    n_chunk = XLSTM_TIMED_TOKENS if cfg.family == "ssm" else CHUNK
     tokens = torch.tensor(prompt[:N_SLOTS], dtype=torch.int32,
                           device=dev)[:, None]
-    chunk = torch.tensor([prompt[:CHUNK]], dtype=torch.int32, device=dev)
+    chunk = torch.tensor([prompt[:n_chunk]], dtype=torch.int32, device=dev)
+    if cfg.family == "audio":
+        tokens, chunk = (t[:, None].expand(t.shape[0], cfg.n_codebooks,
+                                           t.shape[1]) for t in (tokens,
+                                                                 chunk))
 
     def tick():
-        cache["pos"].fill_(MAX_SEQ // 2)
+        cache["pos"].fill_(max_seq // 2)
         M.decode_step(params, cfg, rc, tokens, cache, group=group)
 
     def prefill():
@@ -2638,8 +2702,10 @@ def capturing_logits():
         ServingEngine._prefill_slot, ServingEngine._sample = prefill, sample
 
 
-def logits_file(kv_quant):
-    return os.path.join(ROOT, "build", "tp", f"one_rank_logits_{kv_quant}.pt")
+def logits_file(name):
+    """The one-rank engine's logits file of a tp path: ``name`` a page
+    format (qwen3) or an arch."""
+    return os.path.join(ROOT, "build", "tp", f"one_rank_logits_{name}.pt")
 
 
 def comparable_steps(a_rows, b_rows):
@@ -2838,28 +2904,140 @@ def tp_rank(group):
         run["with_aux"] = tp_steps(group, params, cfg, rc, "none", dev,
                                    waves[0][0][1], ("prefill_chunk",))
     out[GRANITE] = run
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in TP_FAMILIES:
+        out[arch] = tp_family_rank(group, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
-def check_tp_run(path, r, run, decode, prefill, n_layers):
-    """A rank's main path: the path's two kernels once per layer per step
-    and no other kernel; the resubmits restored, the peer lanes used.
-    Returns the path's launches and the others (all 0)."""
+def tp_family_rank(group, arch):
+    """One rank's run of a family of ``TP_FAMILIES`` on its shard: its
+    traffic with every greedy step held to the one-rank engine's logits
+    (``tp_logits_gate``), the steps timed, and for the VLM the direct
+    steps with vision K/V (``tp_vlm_direct``)."""
+    import gc
+    import torch
+    dev = group.device
+    cfg, rc, whole = tp_model(dev, arch)
+    params, sizes = tp_shard(group, whole)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    waves = tp_traffic(cfg.vocab_size, arch)
+    with capturing_logits() as rows:
+        run = tp_serve(group, params, cfg, rc, "none", dev, waves)
+    run.update(sizes)
+    ref = torch.load(logits_file(arch))
+    for side in ("one", "f32"):
+        ref[side] = {rid: list(t.to(dev)) for rid, t in ref[side].items()}
+    run["logits_vs_one_rank"] = tp_logits_gate(
+        f"{TPF_PATHS[arch]} rank {group.rank}", rows, ref)
+    del rows, ref
+    run.update(tp_steps(group, params, cfg, rc, "none", dev,
+                        waves[0][0][1]))
+    if arch == VLM:
+        run["direct"] = tp_vlm_direct(group, params, cfg, rc)
+    return run
+
+
+def vlm_direct_inputs(dev, cfg):
+    """The VLM's direct steps' inputs: 2 rows of a ``CHUNK``-token prompt
+    and a tick's tokens, and vision embeddings [2, Nv, d] (f32), from the
+    seed."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    toks = torch.randint(1, cfg.vocab_size, (2, CHUNK + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    emb = torch.randn((2, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                      device=dev)
+    return toks, emb
+
+
+def vlm_direct_steps(params, cfg, rc, dev, group=None):
+    """The VLM's direct steps on ``params`` (whole, or this rank's shard
+    over ``group``) with both cross gates at ``VLM_GATES``: every cross
+    layer writes its vision K/V from ``vlm_direct_inputs``' embeddings
+    (``vision_kv``, over ``group``), then a prefill chunk (last row) and
+    a tick over a 2-row cache (a rank's pages of it). Returns the two
+    logits rows [2, V] of each step (f32) and the vision K/V."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    from repro_torch.parallel import sharding
+    for cross in params.cross:
+        for name, g in VLM_GATES.items():
+            getattr(cross, name).fill_(g)
+    toks, emb = vlm_direct_inputs(dev, cfg)
+    cache = M.cache_init(cfg, rc, 2, MAX_SEQ, device=dev)
+    if group is not None:
+        cache = sharding.shard_cache(cache, group.rank, group.size)
+    for gi, cross in enumerate(params.cross):
+        k, v = transformer.vision_kv(cross, cfg, emb.to(cache["cross_k"].dtype),
+                                     group)
+        cache["cross_k"][gi].copy_(k)
+        cache["cross_v"][gi].copy_(v)
+    pre, _ = M.prefill_step_cached(params, cfg, rc, toks[:, :CHUNK], cache,
+                                   last_only=True, group=group)
+    tick, _ = M.decode_step(params, cfg, rc, toks[:, CHUNK:], cache,
+                            group=group)
+    for cross in params.cross:
+        for name in VLM_GATES:
+            getattr(cross, name).zero_()
+    return ({"prefill": pre[:, -1].float(), "decode": tick[:, -1].float()},
+            {"k": cache["cross_k"].clone(), "v": cache["cross_v"].clone()})
+
+
+def tp_vlm_direct(group, params, cfg, rc):
+    """The VLM's direct steps on this rank (``vlm_direct_steps``) against
+    the one-rank call's logits, within the bound measured on the one-rank
+    call and its f32 twin; this rank's vision K/V (from its split wk /
+    wv, gathered) against the one-rank call's within TOL. Returns the
+    max abs errors."""
+    import torch
+    dev = group.device
+    ref = torch.load(logits_file(f"{VLM}_direct"))
+    got, vision = vlm_direct_steps(params, cfg, rc, dev, group)
+    out = {"bound": ref["bound"]}
+    for step, rows in got.items():
+        err = float((rows - ref["one"][step].to(dev)).abs().max())
+        e32 = float((rows - ref["f32"][step].to(dev)).abs().max())
+        out[step] = {"max_abs_err": err, "max_abs_err_f32": e32}
+        if not torch.isfinite(rows).all() or max(err, e32) > ref["bound"]:
+            fail(f"{TPF_PATHS[VLM]} rank {group.rank}: the direct {step} "
+                 f"with vision K/V is {err} off the one-rank call's and "
+                 f"{e32} off its f32 twin's, beyond {ref['bound']}")
+    for name, t in vision.items():
+        out[f"vision_{name}_err"] = check_close(
+            f"{TPF_PATHS[VLM]} rank {group.rank} vision {name}", t,
+            ref["vision"][name].to(dev))
+    return out
+
+
+def check_tp_run(path, r, run, per_step, restores=N_TP_RESUBMIT):
+    """A rank's main path: each kernel of ``per_step`` (``{kernel:
+    (layers, "decode" or "prefill")}``) once per such layer per tick or
+    chunk, and no other kernel; ``restores`` resubmits restored through
+    the peer lanes. Returns the path's launches and the others (all
+    0)."""
     launches, off_path = split_counts(f"{path} rank {r}", run["launches"],
-                                      (decode, prefill))
-    if min(launches.values()) <= 0:
+                                      tuple(per_step))
+    if launches and min(launches.values()) <= 0:
         fail(f"{path} rank {r}: a kernel of the path never launched: "
              f"{launches}")
     st = run["stats"]
-    want = {decode: n_layers * st["decode_dispatches"],
-            prefill: n_layers * st["prefill_dispatches"]}
+    want = {k: n * st[f"{step}_dispatches"]
+            for k, (n, step) in per_step.items()}
     if launches != want:
         fail(f"{path} rank {r}: launches {launches}, want one per layer "
              f"per step {want}")
-    if run["restored"] != [1000 + i for i in range(N_TP_RESUBMIT)]:
+    if run["restored"] != [1000 + i for i in range(restores)]:
         fail(f"{path} rank {r}: restores {run['restored']}")
     if st["mesh_ranks"] != TP_RANKS or \
-            st["tier_peer_fetches"] < N_TP_RESUBMIT:
+            st["tier_peer_fetches"] < restores:
         fail(f"{path} rank {r}: mesh_ranks {st['mesh_ranks']}, peer "
              f"fetches {st['tier_peer_fetches']}")
     return launches, off_path
@@ -2967,6 +3145,9 @@ def serve_tp(dev):
                                       waves[0][0][1]))
     del params, wide
     free_card()
+    for arch in TP_FAMILIES:
+        one[arch] = tp_family_one_rank(dev, arch)
+        free_card()
     t0 = time.time()
     ranks = mesh.spawn(tp_rank, TP_RANKS, (),
                        rendezvous_dir=os.path.join(ROOT, "build", "tp"),
@@ -2980,8 +3161,9 @@ def serve_tp(dev):
             "flash_prefill_tf32"
         runs = [r[kv_quant] for r in ranks]
         for r, run in enumerate(runs):
-            run["on_path"] = check_tp_run(path, r, run, decode, prefill,
-                                          TP_LAYERS)
+            run["on_path"] = check_tp_run(
+                path, r, run, {decode: (TP_LAYERS, "decode"),
+                               prefill: (TP_LAYERS, "prefill")})
             check_tp_shard(path, r, run, ranks[r])
             if run["tokens"] != runs[0]["tokens"] or run[
                     "logits_vs_one_rank"] != runs[0]["logits_vs_one_rank"]:
@@ -3013,8 +3195,9 @@ def serve_tp(dev):
     n_layers = CUT_LAYERS[GRANITE]
     even = sum(1 for c in chunks if c % TP_RANKS == 0)
     for r, run in enumerate(runs):
-        run["on_path"] = check_tp_run(path, r, run, "paged_decode",
-                                      "flash_prefill", n_layers)
+        run["on_path"] = check_tp_run(
+            path, r, run, {"paged_decode": (n_layers, "decode"),
+                           "flash_prefill": (n_layers, "prefill")})
         check_tp_shard(path, r, run, run)
         if (run["tokens"], stats_but_wall(run), run["tier"]) != (
                 runs[0]["tokens"], stats_but_wall(runs[0]), runs[0]["tier"]):
@@ -3063,7 +3246,99 @@ def serve_tp(dev):
         "whole_param_bytes": runs[0]["whole_param_bytes"],
         "split_param_bytes": runs[0]["split_param_bytes"],
         "chunks": chunks, "moe_vs_ref": runs[0]["moe_vs_ref"]})
+    for arch in TP_FAMILIES:
+        out[TPF_PATHS[arch]] = check_tp_family(
+            arch, [r[arch] for r in ranks], one[arch], spawn_s)
     return out
+
+
+def tp_family_one_rank(dev, arch):
+    """A family of ``TP_FAMILIES`` on one rank before the ranks run: its
+    traffic on the one-rank engine and on the same weights widened to f32
+    (every greedy step's logits kept, the bound measured from them and
+    saved for the ranks), its steps timed; for the VLM, the direct steps
+    with vision K/V in both widths too."""
+    import copy
+    import dataclasses
+    import torch
+    cfg, rc, params = tp_model(dev, arch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rc32 = dataclasses.replace(rc, model=cfg32)
+    wide = copy.deepcopy(params).float()
+    waves = tp_traffic(cfg.vocab_size, arch)
+    with capturing_logits() as rows:
+        one = tp_serve(None, params, cfg, rc, "none", dev, waves)
+    with capturing_logits() as rows32:
+        tp_serve(None, wide, cfg32, rc32, "none", dev, waves)
+    bound, noise = tp_logits_bound(rows, rows32)
+    one["bound"] = {"bound": bound, "one_rank_vs_f32": noise}
+    torch.save({"one": {rid: torch.stack(r).cpu() for rid, r in rows.items()},
+                "f32": {rid: torch.stack(r).cpu()
+                        for rid, r in rows32.items()},
+                "bound": bound}, logits_file(arch))
+    del rows, rows32
+    one.update(tp_steps(None, params, cfg, rc, "none", dev, waves[0][0][1]))
+    if arch == VLM:
+        got, vision = vlm_direct_steps(params, cfg, rc, dev)
+        got32, _ = vlm_direct_steps(wide, cfg32, rc32, dev)
+        noise = max(float((got[k] - got32[k]).abs().max()) for k in got)
+        bound = TP_NOISE_X * noise + TOL["atol"]
+        torch.save({"one": {k: t.cpu() for k, t in got.items()},
+                    "f32": {k: t.cpu() for k, t in got32.items()},
+                    "vision": {k: t.cpu() for k, t in vision.items()},
+                    "bound": bound}, logits_file(f"{VLM}_direct"))
+        one["direct_bound"] = {"bound": bound, "one_rank_vs_f32": noise}
+    return one
+
+
+def check_tp_family(arch, runs, one, spawn_s):
+    """A family's tp path from its ranks' reports: each rank ran the
+    path's kernels once per attention or Mamba2 layer per step and no
+    other (xLSTM: none), holds its share of the weights, agrees with the
+    other rank (tokens, stats, tier traces, the logits gate), and its
+    greedy tokens equal the one-rank engine's but at near ties; musicgen
+    restored its resubmits; the VLM's direct steps with vision K/V passed
+    on every rank. Returns the path's record."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    path = TPF_PATHS[arch]
+    cfg = dataclasses.replace(registry.get(arch), n_layers=TP_CUT[arch])
+    attn = {HYBRID: M.n_groups(cfg) if cfg.family == "hybrid" else 0,
+            MUSICGEN: cfg.n_layers, XLSTM: 0,
+            VLM: cfg.n_layers - cfg.n_layers // max(cfg.cross_attn_period,
+                                                    1)}[arch]
+    per_step = {}
+    if attn:
+        per_step = {"paged_decode": (attn, "decode"),
+                    "flash_prefill": (attn, "prefill")}
+    if arch == HYBRID:
+        per_step["ssd_scan"] = (cfg.n_layers, "prefill")
+    restores = N_TP_RESUBMIT if arch == MUSICGEN else 0
+    for r, run in enumerate(runs):
+        run["on_path"] = check_tp_run(path, r, run, per_step, restores)
+        check_tp_shard(path, r, run, run)
+        if (run["tokens"], stats_but_wall(run), run.get("tier"),
+                run["logits_vs_one_rank"]) != (
+                runs[0]["tokens"], stats_but_wall(runs[0]),
+                runs[0].get("tier"), runs[0]["logits_vs_one_rank"]):
+            fail(f"{path} rank {r}: tokens, stats, tier traces or logits "
+                 f"differ from rank 0's")
+    gate = runs[0]["logits_vs_one_rank"]
+    equal = tp_tokens_check(path, runs[0]["tokens"], one["tokens"], gate,
+                            runs[0]["restored"], one["bound"])
+    extra = {"tokens_equal_leading": equal, "logits_vs_one_rank": gate,
+             "logits_bound": one["bound"], "n_layers": cfg.n_layers,
+             "spawn_s": spawn_s,
+             "whole_param_bytes": runs[0]["whole_param_bytes"],
+             "split_param_bytes": runs[0]["split_param_bytes"]}
+    if arch == VLM:
+        extra["direct"] = [r["direct"] for r in runs]
+        extra["direct_bound"] = one["direct_bound"]
+        log(f"{path}: direct prefill chunk and tick with vision K/V and "
+            f"cross gates {VLM_GATES} within {one['direct_bound']} of the "
+            f"one-rank calls on every rank: {extra['direct']}")
+    return tp_record(path, runs, one, extra)
 
 
 def tp_tokens_check(path, got, want, gate, restored, bound):
@@ -3468,6 +3743,8 @@ def main() -> None:
         log(f"flash_prefill scalar ok: {pre_sc['shape']}; {pre_sc}")
         ssd = check_ssd(dev)
         log(f"ssd_scan ok: {ssd['shape']}; {ssd}")
+        ssd40 = check_ssd(dev, 40, sweep=False)
+        log(f"ssd_scan at a rank's 40 heads ok: {ssd40['shape']}; {ssd40}")
         refused = check_refusals(dev)
         log(f"C entries refuse what check_plan refuses (rc): {refused}")
         mm = check_paged_matmul(dev)
@@ -3608,8 +3885,16 @@ def main() -> None:
              dec_ml["int8"], decode_src, decode_tpu, (TP8_PATH,)),
             ("paged_decode_ml_tp2_granite", "paged_decode",
              dec_ml["bf16 d64"], decode_src, decode_tpu, (TPG_PATH,)),
+            ("paged_decode_ml_tp2_zamba2", "paged_decode",
+             dec_ml["bf16 d80"], decode_src, decode_tpu,
+             (TPF_PATHS[HYBRID],)),
+            ("paged_decode_ml_tp2_musicgen", "paged_decode",
+             dec_ml["bf16 d64 s1024"], decode_src, decode_tpu,
+             (TPF_PATHS[MUSICGEN],)),
+            ("paged_decode_ml_tp2_vlm", "paged_decode", dec_ml["bf16 g4"],
+             decode_src, decode_tpu, (TPF_PATHS[VLM],)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
-             (ARCH, HYBRID, TP_PATH)),
+             (ARCH, HYBRID, TP_PATH, TPF_PATHS[HYBRID])),
             ("flash_prefill_g16_glm4", "flash_prefill", pre_g[GLM4],
              prefill_src, prefill_tpu, (GLM4,)),
             ("flash_prefill_g12_starcoder2", "flash_prefill",
@@ -3617,9 +3902,10 @@ def main() -> None:
             ("flash_prefill_d64_granite", "flash_prefill", pre64[GRANITE],
              prefill_src, prefill_tpu, (GRANITE, TPG_PATH)),
             ("flash_prefill_d64_musicgen", "flash_prefill",
-             pre64[MUSICGEN], prefill_src, prefill_tpu, (MUSICGEN,)),
+             pre64[MUSICGEN], prefill_src, prefill_tpu,
+             (MUSICGEN, TPF_PATHS[MUSICGEN])),
             ("flash_prefill_g4_vlm", "flash_prefill", pre_g4, prefill_src,
-             prefill_tpu, (VLM,)),
+             prefill_tpu, (VLM, TPF_PATHS[VLM])),
             ("flash_prefill_train", "flash_prefill", pre_train, prefill_src,
              prefill_tpu, (TRAIN_PATH,)),
             ("flash_prefill_tf32", "flash_prefill_tf32", pre32, prefill_src,
@@ -3631,7 +3917,11 @@ def main() -> None:
             ("flash_prefill_scalar", "flash_prefill_scalar", pre_sc,
              prefill_src, prefill_tpu, None),
             ("ssd_scan", "ssd_scan", ssd, "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/mamba2_scan/kernel.py:68", None),
+             "src/repro/kernels/mamba2_scan/kernel.py:68", (HYBRID,)),
+            ("ssd_scan_tp2", "ssd_scan", ssd40,
+             "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/mamba2_scan/kernel.py:68",
+             (TPF_PATHS[HYBRID],)),
             ("paged_matmul", "paged_matmul", mm, matmul_src, matmul_tpu,
              None),
             ("paged_matmul_skinny_f32", "paged_matmul_skinny_f32",
@@ -3679,15 +3969,28 @@ def main() -> None:
                            "and timed here; no path serves these configs "
                            "with int8 pages")
         if "_ml_tp2" in name:
+            view = {"_granite": "granite-moe-1b-a400m's heads, D 64, bf16",
+                    "_zamba2": "zamba2-2.7b's shared block, Hkv 32, G 1, "
+                               "D 80, bf16",
+                    "_musicgen": "musicgen-large's heads, Hkv 32, G 1, D "
+                                 "64, bf16, 512 of a slot's 1024 tokens",
+                    "_vlm": "llama-3.2-vision-11b's heads, Hkv 8, G 4, D "
+                            "128, bf16"}
             row["note"] = ("the same kernel with its f32 output and m / l "
                            "(the return_ml partials) at a rank's view on "
                            "the tp 2 path ("
-                           + ("granite-moe-1b-a400m's heads, D 64, bf16" if
-                              name.endswith("_granite") else
-                              "qwen3-1.7b heads, bf16") + ", 1024 of a "
-                           "slot's 2048 tokens): its count is the row's "
+                           + next((v for k, v in view.items()
+                                   if name.endswith(k)),
+                                  "qwen3-1.7b heads, bf16")
+                           + ("" if name.endswith("_musicgen") else
+                              ", 1024 of a slot's 2048 tokens")
+                           + "): its count is the row's "
                            "counter, read in each rank's process, rank 0's "
                            "here; library: output only")
+        if name == "ssd_scan_tp2":
+            row["note"] = ("the same kernel at a rank's 40 of zamba2-2.7b's "
+                           "80 heads on the tp 2 path (its count read in "
+                           "rank 0's process)")
         if name == "flash_prefill_train":
             row["note"] = ("the bf16 instance at D 128 on the use_pallas "
                            "training loss of full-width qwen3-1.7b (a 4096-"
@@ -3734,6 +4037,7 @@ def main() -> None:
                    "prefill_f32_d256": pre32_256,
                    "prefill_scalar": pre_sc,
                    "ptxas": ptxas, "plans": plans, "ssd_scan": ssd,
+                   "ssd_scan_40_heads": ssd40,
                    "refused_plans": refused,
                    "paged_matmul": mm, "paged_matmul_f32": mm32,
                    "small_model": small, "serve": run,

@@ -21,12 +21,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-1b-a400m --smoke --device cpu --tp 2
                                             # expert-parallel MoE, CPU
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --tp 2 \
+      --cxl-topology dram,ssd-fast          # the hybrid on two ranks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --smoke --device cpu --tp 2           # (also musicgen-large,
+                                            # llama-3.2-vision-11b)
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
 that this port supports: every family (dense, MoE, audio, hybrid, VLM
-and xLSTM) on one rank, the dense and MoE families on ``--tp N`` ranks
-(N processes, each on its shard of the weights; rank 0 prints; on one
-card they share it, see ``launch.mesh``), bf16/f32 or int8
+and xLSTM) on one rank or on ``--tp N`` ranks (N processes, each on its
+shard of the weights; rank 0 prints; on one card they share it, see
+``launch.mesh``), bf16/f32 or int8
 (``--kv-quant int8``) pages and the
 closed submit-then-run loop. Every engine default
 comes from :class:`~repro_torch.serving.config.ServeConfig`.

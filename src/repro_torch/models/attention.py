@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention.ops import flash_prefill
 from repro_torch.models import kv_quant
 from repro_torch.models.layers import (apply_rope, dense_init, frozen_param,
                                        head_rmsnorm, pdtype)
+from repro_torch.parallel import sharding
 
 
 class Attention(nn.Module):
@@ -106,6 +107,19 @@ def qkv_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def q_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
+              group=None) -> torch.Tensor:
+    """The query alone, without RoPE (the cross layer's): x: [B, S, d] ->
+    q [B, S, H, D] with qk-norm; with ``wq`` split over a rank ``group``
+    on its columns, gathered whole first."""
+    b, s, _ = x.shape
+    q = sharding.whole_columns(group, x @ attn.wq, cfg.q_dim)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rmsnorm(attn.q_norm, q, cfg.norm_eps)
+    return q
 
 
 NEG_INF = -1e30

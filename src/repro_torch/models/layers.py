@@ -144,9 +144,7 @@ def mlp_apply(mlp: MLP, cfg: ModelConfig, x: torch.Tensor,
         h = F.gelu(x @ mlp.w_gate, approximate="tanh") * (x @ mlp.w_up)
     else:
         h = F.gelu(x @ mlp.w_up, approximate="tanh")
-    if group is not None and mlp.w_down.shape[0] != cfg.d_ff:
-        return sharding.row_parallel(group, h, mlp.w_down)
-    return h @ mlp.w_down
+    return sharding.row_product(group, h, mlp.w_down, cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,20 @@ a_t = exp(dt_t * A_h); h_t = a_t h_{t-1} + dt_t x_t (x) B_t; y_t = h_t C_t
 reference's ``mamba_step`` is plain jnp, and so is the full-sequence
 training form (``mamba_apply``), the reference's jnp chunked SSD: the
 kernel has no backward.
+
+Over a rank ``group`` (serving at tp > 1) each rank holds its shard of
+the weights (``parallel.sharding``): ``in_proj``'s columns, ``conv_w``'s
+channels, ``out_proj``'s rows and, where 16 divides the head count,
+``A_log`` / ``D`` / ``dt_bias``. Neither column split falls on a segment
+(zamba2's [z | x] splits at z's end, [x | B | C] inside x), so both
+products are gathered whole before they are cut into their parts. Each
+rank then runs the heads whose ``out_proj`` rows it holds: the scan (or
+the step) over them, the skip term and the gate, the gated RMSNorm with
+its sum of squares added across the ranks, and its rows of ``out_proj``
+summed across the ranks in f32. The states stay whole on every rank, as
+the reference's ``cache_specs`` leaves them: the conv window is taken
+from the gathered products, and the ranks' heads of ``h`` are gathered
+after every step.
 """
 from __future__ import annotations
 
@@ -20,7 +34,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_scan.ops import ssd
 from repro_torch.models.layers import (RMSNorm, dense_init, frozen_param,
-                                       pdtype, rmsnorm)
+                                       pdtype)
+from repro_torch.parallel import sharding
 
 
 def _dims(cfg: ModelConfig):
@@ -75,37 +90,88 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _project(m: Mamba2, cfg: ModelConfig, u: torch.Tensor):
-    """u: [B,S,d] -> z, x ([B,S,d_in], model dtype), bc ([B,S,2N]) and
-    dt ([B,S,nh] f32, softplus, clipped to [1e-4, 10])."""
-    z, x = (u @ m.in_proj).chunk(2, dim=-1)
+def _heads(m: Mamba2, cfg: ModelConfig, group=None) -> Tuple[int, int]:
+    """This rank's heads ``[h0, h0 + n)``: those whose ``out_proj`` rows
+    it holds (all of them on one rank)."""
+    d_in, _, p, _ = _dims(cfg)
+    lo, n = sharding.held_range(group, m.out_proj.shape[0], d_in)
+    if lo % p or n % p:
+        raise ValueError(f"out_proj rows [{lo}, {lo + n}) split a head of "
+                         f"{p}")
+    return lo // p, n // p
+
+
+def _head_leaf(t: torch.Tensor, heads: Tuple[int, int]) -> torch.Tensor:
+    """A per-head leaf ([nh], or the rank's shard of it) at ``heads``."""
+    h0, n = heads
+    return t if t.shape[0] == n else t[h0:h0 + n]
+
+
+def _project(m: Mamba2, cfg: ModelConfig, u: torch.Tensor, heads,
+             group=None):
+    """u: [B,S,d] -> z, x ([B,S,d_in], model dtype, whole), bc ([B,S,2N])
+    and dt at ``heads`` ([B,S,n] f32, softplus, clipped to [1e-4, 10]).
+    ``in_proj``'s product is gathered whole over a rank ``group`` that
+    splits it."""
+    d_in, nh, _, _ = _dims(cfg)
+    z, x = sharding.whole_columns(group, u @ m.in_proj,
+                                  2 * d_in).chunk(2, dim=-1)
     bc = u @ m.bc_proj
-    dt = F.softplus((u @ m.dt_proj).float() + m.dt_bias)
+    h0, n = heads
+    dt = F.softplus((u @ m.dt_proj).float()[..., h0:h0 + n]
+                    + _head_leaf(m.dt_bias, heads))
     return z, x, bc, dt.clamp(1e-4, 10.0)
 
 
+def _conv_out(m: Mamba2, cfg: ModelConfig, full: torch.Tensor, c: int,
+              group=None, step: bool = False) -> torch.Tensor:
+    """The depthwise causal conv of the last ``c`` positions of ``full``
+    ([B, W-1+c, C] f32: the carried window, then the new inputs) in f32,
+    silu applied (the decode ``step``'s one window as one contraction);
+    over a rank ``group`` that splits ``conv_w`` each rank
+    convolves its channels and the outputs are gathered whole."""
+    width = full.shape[-1]
+    lo, n = sharding.held_range(group, m.conv_w.shape[1], width)
+    part = full[..., lo:lo + n].float()
+    wf = m.conv_w.float()
+    if step:
+        conv = torch.einsum("bwc,wc->bc", part, wf)[:, None]
+    else:
+        conv = sum(part[:, k:k + c] * wf[k] for k in range(cfg.ssm_conv))
+    return sharding.whole_columns(group, F.silu(conv), width)
+
+
 def _ssd_inputs(m: Mamba2, cfg: ModelConfig, conv: torch.Tensor,
-                dt: torch.Tensor):
-    """Split the conv output into the scan's f32 inputs: xh [B,S,nh,P],
-    xdt, B, C (contiguous) and the per-step log decay [B,S,nh]."""
+                dt: torch.Tensor, heads):
+    """Split the conv output into the scan's f32 inputs at ``heads``: xh
+    [B,S,n,P], xdt, B, C (contiguous) and the per-step log decay
+    [B,S,n]."""
     d_in, nh, p, n = _dims(cfg)
     b, s = conv.shape[:2]
     x, bmat, cmat = conv.split([d_in, n, n], dim=-1)
-    xh = x.reshape(b, s, nh, p).float()
-    log_a = dt * (-torch.exp(m.A_log))[None, None, :]
+    h0, nh_r = heads
+    xh = x.reshape(b, s, nh, p)[:, :, h0:h0 + nh_r].float()
+    log_a = dt * (-torch.exp(_head_leaf(m.A_log, heads)))[None, None, :]
     xdt = xh * dt[..., None]
     return (xh, xdt, bmat.float().contiguous(), cmat.float().contiguous(),
             log_a)
 
 
 def _finish(m: Mamba2, cfg: ModelConfig, u: torch.Tensor, y: torch.Tensor,
-            xh: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """Skip term, gate, norm and output projection: y [B,S,nh,P] f32."""
+            xh: torch.Tensor, z: torch.Tensor, heads,
+            group=None) -> torch.Tensor:
+    """Skip term, gate, norm and output projection: y [B,S,n,P] f32 at
+    ``heads``; over a rank ``group``, the norm's squares and the
+    projection's partial sums added across the ranks."""
+    d_in, _, p, _ = _dims(cfg)
     b, s = y.shape[:2]
-    y = y + xh * m.D[None, None, :, None]
+    h0, n = heads
+    y = y + xh * _head_leaf(m.D, heads)[None, None, :, None]
     y = y.reshape(b, s, -1).to(u.dtype)
-    y = rmsnorm(m.ln_out, y * F.silu(z), cfg.norm_eps)
-    return y @ m.out_proj
+    y = sharding.split_rmsnorm(group, m.ln_out.scale,
+                               y * F.silu(z[..., h0 * p:(h0 + n) * p]),
+                               d_in, cfg.norm_eps)
+    return sharding.row_product(group, y, m.out_proj, d_in)
 
 
 def _ssd_train(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
@@ -150,11 +216,12 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, u: torch.Tensor,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunk {chunk} does not divide {s} tokens")
-    z, x, bc, dt = _project(m, cfg, u)
+    heads = _heads(m, cfg)
+    z, x, bc, dt = _project(m, cfg, u, heads)
     conv = F.silu(_causal_conv(torch.cat([x, bc], dim=-1), m.conv_w))
-    xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, conv, dt)
+    xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, conv, dt, heads)
     y = _ssd_train(xdt, bmat, cmat, log_a, chunk)
-    return _finish(m, cfg, u, y, xh, z)
+    return _finish(m, cfg, u, y, xh, z, heads)
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, *, device,
@@ -166,50 +233,63 @@ def mamba_state_init(cfg: ModelConfig, batch: int, *, device,
                                 dtype=dtype, device=device)}
 
 
+def _whole_state(group, h: torch.Tensor, nh: int) -> torch.Tensor:
+    """The rank's heads of a state [B, n, P, N] gathered whole over a rank
+    ``group`` (as they are on one rank)."""
+    if h.shape[1] == nh:
+        return h
+    return sharding.gather_columns(group, h, dim=1)
+
+
 def mamba_step(m: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-               state: Dict[str, torch.Tensor]
+               state: Dict[str, torch.Tensor], group=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Recurrent decode step. u: [B, 1, d] -> ([B, 1, d], new state); the
-    conv window and the state update run in f32."""
+    conv window and the state update run in f32. Over a rank ``group``,
+    the step runs this rank's heads (module docstring)."""
     d_in, nh, p, n = _dims(cfg)
     b = u.shape[0]
-    z, x, bc, dt = _project(m, cfg, u)
+    heads = _heads(m, cfg, group)
+    h0, nh_r = heads
+    z, x, bc, dt = _project(m, cfg, u, heads, group)
     conv_in = torch.cat([x, bc], dim=-1)[:, 0]                 # [B, C]
     window = torch.cat([state["conv"],
                         conv_in[:, None].to(state["conv"].dtype)], dim=1)
-    conv = F.silu(torch.einsum("bwc,wc->bc", window.float(),
-                               m.conv_w.float()))
+    conv = _conv_out(m, cfg, window, 1, group, step=True)[:, 0]
     x1, b1, c1 = conv.split([d_in, n, n], dim=-1)
-    xh = x1.reshape(b, nh, p)
-    dt1 = dt[:, 0]                                             # [B, nh]
-    a = torch.exp(dt1 * (-torch.exp(m.A_log))[None, :])
-    h = (state["h"] * a[..., None, None]
+    xh = x1.reshape(b, nh, p)[:, h0:h0 + nh_r]
+    dt1 = dt[:, 0]                                             # [B, n]
+    a = torch.exp(dt1 * (-torch.exp(_head_leaf(m.A_log, heads)))[None, :])
+    h = (state["h"][:, h0:h0 + nh_r] * a[..., None, None]
          + torch.einsum("bhp,bn,bh->bhpn", xh, b1, dt1))
-    y = torch.einsum("bhpn,bn->bhp", h, c1) + xh * m.D[None, :, None]
-    y = y.reshape(b, 1, d_in).to(u.dtype)
-    y = rmsnorm(m.ln_out, y * F.silu(z), cfg.norm_eps)
-    return y @ m.out_proj, {"h": h, "conv": window[:, 1:]}
+    y = torch.einsum("bhpn,bn->bhp", h, c1)
+    out = _finish(m, cfg, u, y[:, None], xh[:, None], z, heads, group)
+    return out, {"h": _whole_state(group, h, nh), "conv": window[:, 1:]}
 
 
 def mamba_prefill_chunk(m: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-                        state: Dict[str, torch.Tensor]
+                        state: Dict[str, torch.Tensor], group=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The serving prefill of a C-token chunk from a carried state.
 
     u: [B, C, d]; state {"h": [B,nh,P,N], "conv": [B,W-1,C]} (f32). The
     conv runs over ``[state conv; chunk]`` in f32 and the scan starts from
     ``h0 = state["h"]``, so this equals C calls of :func:`mamba_step` (what
-    the reference engine's prefill scan computes). Returns ([B, C, d], the
-    new state)."""
+    the reference engine's prefill scan computes). Over a rank ``group``
+    the scan runs this rank's heads (module docstring). Returns ([B, C,
+    d], the new state)."""
     w = cfg.ssm_conv
     c = u.shape[1]
-    z, x, bc, dt = _project(m, cfg, u)
+    nh = _dims(cfg)[1]
+    heads = _heads(m, cfg, group)
+    h0, nh_r = heads
+    z, x, bc, dt = _project(m, cfg, u, heads, group)
     conv_in = torch.cat([x, bc], dim=-1).to(state["conv"].dtype)
     full = torch.cat([state["conv"], conv_in], dim=1)          # [B,W-1+C,C]
-    wf = m.conv_w.float()
-    conv = sum(full[:, k:k + c].float() * wf[k] for k in range(w))
-    xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, F.silu(conv), dt)
-    y, h = ssd(xdt, bmat, cmat, log_a, h0=state["h"].float().contiguous())
-    return (_finish(m, cfg, u, y, xh, z),
-            {"h": h, "conv": full[:, full.shape[1] - (w - 1):]})
-
+    conv = _conv_out(m, cfg, full, c, group)
+    xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, conv, dt, heads)
+    y, h = ssd(xdt, bmat, cmat, log_a,
+               h0=state["h"][:, h0:h0 + nh_r].float().contiguous())
+    return (_finish(m, cfg, u, y, xh, z, heads, group),
+            {"h": _whole_state(group, h, nh),
+             "conv": full[:, full.shape[1] - (w - 1):]})

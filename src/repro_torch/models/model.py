@@ -284,12 +284,13 @@ def _layer_kv(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
 
 
 def _mamba_layers(params: HybridModel, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Dict, gi: int, step) -> torch.Tensor:
+                  cache: Dict, gi: int, step, group=None) -> torch.Tensor:
     """Group ``gi``'s Mamba2 layers through ``step`` (``mamba_step`` or
-    ``mamba_prefill_chunk``), residual added, states written in place."""
+    ``mamba_prefill_chunk``, over a rank ``group``), residual added,
+    states written in place."""
     for i, layer in enumerate(params.groups[gi]):
         state = {name: cache[name][gi, i] for name in ("h", "conv")}
-        y, new = step(layer, cfg, x, state)
+        y, new = step(layer, cfg, x, state, group)
         x = x + y
         for name in ("h", "conv"):
             state[name].copy_(new[name])
@@ -297,17 +298,18 @@ def _mamba_layers(params: HybridModel, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _vlm_layers(params: VLMModel, cfg: ModelConfig, x: torch.Tensor,
-                cache: Dict, self_block) -> torch.Tensor:
+                cache: Dict, self_block, group=None) -> torch.Tensor:
     """Every group's self-attention blocks through ``self_block(block, x,
     kv)`` (the paged decode or the chunked prefill, on the group-major
-    K/V layer), then its cross layer over the group's vision K/V."""
+    K/V layer), then its cross layer over the group's vision K/V (over a
+    rank ``group``)."""
     per = cfg.cross_attn_period - 1
-    for gi, group in enumerate(params.self_blocks):
-        for i, block in enumerate(group):
+    for gi, blocks in enumerate(params.self_blocks):
+        for i, block in enumerate(blocks):
             x = self_block(block, x, _layer_kv(cache, gi * per + i))
         x = transformer.cross_block_apply(params.cross[gi], cfg, x,
                                           cache["cross_k"][gi],
-                                          cache["cross_v"][gi])
+                                          cache["cross_v"][gi], group=group)
     return x
 
 
@@ -317,26 +319,26 @@ _SLSTM_STATE = {"h": "sh", "c": "sc", "n": "sn", "m": "sm", "conv": "sconv"}
 
 
 def _state_step(fn, layer, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
-                names: Dict[str, str], idx) -> torch.Tensor:
-    """``x, new = fn(layer, cfg, x, state)`` on the state held in the
-    cache leaves ``names`` at ``idx``, which take ``new`` in place."""
+                names: Dict[str, str], idx, group=None) -> torch.Tensor:
+    """``x, new = fn(layer, cfg, x, state, group)`` on the state held in
+    the cache leaves ``names`` at ``idx``, which take ``new`` in place."""
     state = {k: cache[n][idx] for k, n in names.items()}
-    x, new = fn(layer, cfg, x, state)
+    x, new = fn(layer, cfg, x, state, group)
     for k, t in state.items():
         t.copy_(new[k])
     return x
 
 
 def _xlstm_layers(params: XLSTMModel, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Dict) -> torch.Tensor:
+                  cache: Dict, group=None) -> torch.Tensor:
     """S tokens ([B, S, d]) through every group's mLSTM layers and its
-    sLSTM layer, the states written in place."""
-    for gi, group in enumerate(params.mlstm):
-        for i, layer in enumerate(group):
+    sLSTM layer (over a rank ``group``), the states written in place."""
+    for gi, layers in enumerate(params.mlstm):
+        for i, layer in enumerate(layers):
             x = _state_step(xlstm.mlstm_step, layer, cfg, x, cache,
-                            _MLSTM_STATE, (gi, i))
+                            _MLSTM_STATE, (gi, i), group)
         x = _state_step(xlstm.slstm_step, params.slstm[gi], cfg, x, cache,
-                        _SLSTM_STATE, gi)
+                        _SLSTM_STATE, gi, group)
     return x
 
 
@@ -482,16 +484,15 @@ def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-# families served over more than one rank (page-sharded cache, weights
-# split by ``parallel.sharding.param_specs``, expert-parallel MoE)
-RANKED_FAMILIES = ("dense", "moe")
-
-
-def check_ranks(cfg: ModelConfig, n_ranks: int) -> None:
-    """Only the dense and MoE families run over more than one rank yet."""
-    if n_ranks > 1 and cfg.family not in RANKED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family over more than "
-                                  f"one rank is not ported yet")
+def check_ranks(mesh_shape) -> None:
+    """Raise for a mesh with more than one rank off the model axis: every
+    family serves over the model axis (tp: a page-sharded cache, weights
+    split by ``parallel.sharding.param_specs``, expert-parallel MoE, whole
+    per-slot states); the data and pod axes are not ported yet."""
+    if mesh_shape and any(n != 1 for n in mesh_shape[:-1]):
+        raise NotImplementedError(
+            f"mesh_shape {mesh_shape}: only the model axis (tp) is ported, "
+            f"not data or pod axes")
 
 
 @torch.no_grad()
@@ -502,29 +503,32 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     (audio: [B, K, 1] -> [B, K, 1, V]).
 
     Writes each row's new K/V at its ``cache["pos"]`` and advances every
-    row's position by one, in place. With a rank ``group`` (the dense and
-    MoE families) the cache's pages are this rank's shard and the weights
-    this rank's (``parallel.sharding``): the attention is the page-sharded
-    decode, the MoE the expert-parallel one."""
+    row's position by one, in place. With a rank ``group`` the cache's
+    pages are this rank's shard and the weights this rank's
+    (``parallel.sharding``): the attention is the page-sharded decode, the
+    MoE the expert-parallel one, the Mamba2 layers run this rank's heads;
+    the recurrent states and the vision K/V are whole on every rank and
+    stay equal there."""
     check_family(cfg)
-    check_ranks(cfg, 1 if group is None else group.size)
     pos = cache["pos"]
     x = _embed(params, cfg, tokens, pos.reshape(-1, 1).to(torch.int32),
                group)
     if cfg.family == "hybrid":
         emb, sp = x, params.shared
         for gi in range(len(params.groups)):
-            x = _mamba_layers(params, cfg, x, cache, gi, mamba2.mamba_step)
+            x = _mamba_layers(params, cfg, x, cache, gi, mamba2.mamba_step,
+                              group)
             z = transformer.block_decode_paged(sp.block, cfg,
                                                _shared_in(sp, x, emb), pos,
-                                               _layer_kv(cache, gi))
+                                               _layer_kv(cache, gi),
+                                               group=group)
             x = x + z @ sp.out_map
     elif cfg.family == "vlm":
         x = _vlm_layers(params, cfg, x, cache,
                         lambda blk, x, kv: transformer.block_decode_paged(
-                            blk, cfg, x, pos, kv))
+                            blk, cfg, x, pos, kv, group=group), group)
     elif cfg.family == "ssm":
-        x = _xlstm_layers(params, cfg, x, cache)
+        x = _xlstm_layers(params, cfg, x, cache, group)
     else:
         for i, block in enumerate(params.blocks):
             x = transformer.block_decode_paged(block, cfg, x, pos,
@@ -550,7 +554,6 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     ``group``, as in ``decode_step``.
     """
     check_family(cfg)
-    check_ranks(cfg, 1 if group is None else group.size)
     pos = cache["pos"]
     c = tokens.shape[-1]
     positions = (pos.reshape(-1, 1).to(torch.int32)
@@ -561,17 +564,18 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
         emb, sp = x, params.shared
         for gi in range(len(params.groups)):
             x = _mamba_layers(params, cfg, x, cache, gi,
-                              mamba2.mamba_prefill_chunk)
+                              mamba2.mamba_prefill_chunk, group)
             z = transformer.block_prefill_cached(
                 sp.block, cfg, _shared_in(sp, x, emb), positions, pos,
-                _layer_kv(cache, gi), stepwise=True)
+                _layer_kv(cache, gi), stepwise=True, group=group)
             x = x + z @ sp.out_map
     elif cfg.family == "vlm":
         x = _vlm_layers(params, cfg, x, cache,
                         lambda blk, x, kv: transformer.block_prefill_cached(
-                            blk, cfg, x, positions, pos, kv, stepwise=True))
+                            blk, cfg, x, positions, pos, kv, stepwise=True,
+                            group=group), group)
     elif cfg.family == "ssm":
-        x = _xlstm_layers(params, cfg, x, cache)
+        x = _xlstm_layers(params, cfg, x, cache, group)
     else:
         for i, block in enumerate(params.blocks):
             x = transformer.block_prefill_cached(block, cfg, x, positions,

@@ -7,7 +7,8 @@ The dense ``Block`` and the ``MoEBlock`` share the attention half; each
 brings its own feed-forward half (``ffn``): the MLP, or the routed experts.
 The ``CrossBlock`` (llama-3.2-vision) attends over vision K/V that no step
 writes: the serving engine leaves them at the cache's zeros, as the
-reference's does.
+reference's does. Every block takes a rank ``group`` (serving at tp > 1)
+and then runs on this rank's shard of the weights (``parallel.sharding``).
 """
 from __future__ import annotations
 
@@ -119,44 +120,53 @@ def _gate(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def cross_block_apply(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
                       k: torch.Tensor, v: torch.Tensor, *,
-                      chunked: bool = False) -> torch.Tensor:
+                      chunked: bool = False, group=None) -> torch.Tensor:
     """The gated cross-attention layer over vision K/V. x: [B, S, d]; k/v:
     [B, Nv, Hkv, D]. Every query attends to all Nv keys (no RoPE, no
     mask): the reference's ``cross_block_apply`` for a sequence and its
     ``_decode_vlm`` cross layer for one token, as one function. With
     ``chunked`` (the training forward) the attention is the reference's
     ``chunked_attention`` over key blocks of up to 512 (the last one
-    padded); else one f32 softmax over every key."""
+    padded); else one f32 softmax over every key.
+
+    Over a rank ``group`` the projections are this rank's shard, as the
+    self-attention's are (``wq`` gathered whole, ``wo`` and the MLP's
+    down product row-parallel), and the vision K/V and both gates are
+    whole on every rank."""
     b, s = x.shape[0], x.shape[1]
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
-    q, _, _ = attn.qkv_project(block.attn, cfg, h, None, rope=False)
+    q = attn.q_project(block.attn, cfg, h, group=group)
     if chunked:
         o = attn.chunked_attention(q, k, v, causal=False,
                                    kv_block=min(512, k.shape[1]))
     else:
         o = attn.decode_attention(q, k, v)
-    x = x + _gate(block.attn_gate, x) * (o.reshape(b, s, cfg.q_dim)
-                                         @ block.attn.wo)
+    o = sharding.row_product(group, o.reshape(b, s, cfg.q_dim),
+                             block.attn.wo, cfg.q_dim)
+    x = x + _gate(block.attn_gate, x) * o
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
-    return x + _gate(block.mlp_gate, x) * mlp_apply(block.mlp, cfg, h)
+    return x + _gate(block.mlp_gate, x) * mlp_apply(block.mlp, cfg, h,
+                                                    group)
 
 
 def vision_kv(block: CrossBlock, cfg: ModelConfig,
-              vision_embeds: torch.Tensor
+              vision_embeds: torch.Tensor, group=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of (stubbed) vision embeddings [B, Nv, d] ->
     ([B, Nv, Hkv, D], [B, Nv, Hkv, D]). The serving path never calls it
     (it has no vision input); the training forward takes them from the
     batch's embeddings, and the tests use it to give the cross layer K/V
-    that are not zero."""
+    that are not zero. With ``wk``/``wv`` split over a rank ``group`` on
+    their columns, the products are gathered whole."""
     b, nv = vision_embeds.shape[:2]
     shape = (b, nv, cfg.n_kv_heads, cfg.head_dim)
     # f32 embeddings (the data pipeline's) against bf16 weights promote to
     # f32, as the reference's jnp product does
     dt = torch.promote_types(vision_embeds.dtype, block.attn.wk.dtype)
     e = vision_embeds.to(dt)
-    return ((e @ block.attn.wk.to(dt)).reshape(shape),
-            (e @ block.attn.wv.to(dt)).reshape(shape))
+    return tuple(sharding.whole_columns(group, e @ w.to(dt),
+                                        cfg.kv_dim).reshape(shape)
+                 for w in (block.attn.wk, block.attn.wv))
 
 
 def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
@@ -167,13 +177,8 @@ def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
     rank ``group`` on its rows, each rank projects its slice of the heads'
     output (``parallel.sharding.row_parallel``)."""
     b, s = x.shape[0], x.shape[1]
-    o = o.reshape(b, s, cfg.q_dim)
-    wo = block.attn.wo
-    if group is not None and wo.shape[0] != cfg.q_dim:
-        lo = group.rank * wo.shape[0]
-        x = x + sharding.row_parallel(group, o[..., lo:lo + wo.shape[0]], wo)
-    else:
-        x = x + o @ wo
+    x = x + sharding.row_product(group, o.reshape(b, s, cfg.q_dim),
+                                 block.attn.wo, cfg.q_dim)
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
     return x + block.ffn(cfg, h, decode=decode, group=group)
 

@@ -17,6 +17,17 @@ are plain PyTorch, as the reference's are plain jnp. The states and the
 conv windows are f32; every product keeps the reference's dtypes (the
 gate weights ``w_gates`` (mLSTM) and ``r_gates`` (sLSTM) are f32, as are
 the operands they meet).
+
+Over a rank ``group`` (serving at tp > 1) each rank holds its shard of
+the weights (``parallel.sharding``): the columns of ``w_up1`` /
+``w_up2`` / ``w_qkv`` and the sLSTM's ``w_gates``, the channels of
+``conv_w``, the rows of ``w_down2``, ``w_out`` and the FFN's ``w_down``;
+the mLSTM's ``w_gates`` and both ``r_gates`` stay whole (16 divides
+neither gate axis), and so do the cells, which every rank runs whole on
+its whole states, as the reference's ``cache_specs`` leaves them. The
+column products are gathered whole before they are cut (``w_qkv``'s
+split falls inside k), each rank convolves its channels and the outputs
+are gathered, and the row-split products sum across the ranks in f32.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (MLP, RMSNorm, dense_init,
                                        frozen_param, pdtype, rmsnorm)
+from repro_torch.parallel import sharding
 
 # the conv window both blocks carry: 4 taps, 3 past inputs in the state
 CONV = 4
@@ -86,13 +98,19 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> MLSTM:
                  w_gates, gate_bias, RMSNorm.ones(d_in, dt, device), w_down2)
 
 
-def _conv(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor):
+def _conv(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+          group=None):
     """The causal conv over S new inputs in f32. conv: [B, 3, C] (the
     carried inputs); x: [B, S, C]; w: [4, C] -> (silu of each token's
-    window of 4 taps [B, S, C], the last 3 inputs as the new ``conv``)."""
+    window of 4 taps [B, S, C], the last 3 inputs as the new ``conv``).
+    With ``w`` split over a rank ``group`` on its channels, each rank
+    convolves its channels and the outputs are gathered whole."""
     full = torch.cat([conv, x.float()], dim=1)                # [B, 3+S, C]
-    windows = full.unfold(1, CONV, 1)                         # [B, S, C, 4]
-    return (F.silu(torch.einsum("bscw,wc->bsc", windows, w.float())),
+    width = full.shape[-1]
+    lo, n = sharding.held_range(group, w.shape[1], width)
+    windows = full[..., lo:lo + n].unfold(1, CONV, 1)         # [B, S, n, 4]
+    out = F.silu(torch.einsum("bscw,wc->bsc", windows, w.float()))
+    return (sharding.whole_columns(group, out, width),
             full[:, full.shape[1] - (CONV - 1):])
 
 
@@ -113,22 +131,25 @@ def _mlstm_cell(q, k, v, ig, fg, state: Dict[str, torch.Tensor]):
 
 
 def mlstm_step(m: MLSTM, cfg: ModelConfig, x: torch.Tensor,
-               state: Dict[str, torch.Tensor]
+               state: Dict[str, torch.Tensor], group=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Recurrent steps over S tokens, with the residual. x: [B, S, d];
     state ``C`` [B, nh, dh, dh], ``n`` [B, nh, dh], ``m`` [B, nh],
     ``conv`` [B, 3, d_in] (f32) -> ([B, S, d], the state after the last
     token). S = 1 is the reference's ``mlstm_step``; S > 1 equals S calls
     of it (the prefill scan): the memory updates token by token, the
-    projections once for the S tokens."""
+    projections once for the S tokens. Over a rank ``group``, on this
+    rank's shard of the weights (module docstring)."""
     d_in, nh, dh = _dims(cfg)
     b, s = x.shape[:2]
     h = rmsnorm(m.ln, x, cfg.norm_eps)
-    u = h @ m.w_up1
+    u = sharding.whole_columns(group, h @ m.w_up1, d_in)
     zg = h @ m.w_up2
-    c, conv = _conv(state["conv"], u, m.conv_w)
-    q, k, _ = (c.to(x.dtype) @ m.w_qkv).chunk(3, dim=-1)
-    ig, fg = (c @ m.w_gates + m.gate_bias).chunk(2, dim=-1)  # [B, S, nh]
+    c, conv = _conv(state["conv"], u, m.conv_w, group)
+    q, k, _ = sharding.whole_columns(group, c.to(x.dtype) @ m.w_qkv,
+                                     3 * d_in).chunk(3, dim=-1)
+    gates = sharding.whole_columns(group, c @ m.w_gates, 2 * nh)
+    ig, fg = (gates + m.gate_bias).chunk(2, dim=-1)          # [B, S, nh]
     fg = F.logsigmoid(fg)
     q = q.reshape(b, s, nh, dh).float() / (dh ** 0.5)
     k = k.reshape(b, s, nh, dh).float()
@@ -140,8 +161,11 @@ def mlstm_step(m: MLSTM, cfg: ModelConfig, x: torch.Tensor,
                                fg[:, t], cell)
         hs.append(ht)
     hq = torch.stack(hs, dim=1).reshape(b, s, d_in).to(x.dtype)
-    hq = rmsnorm(m.ln_head, hq, cfg.norm_eps) * F.silu(zg)
-    return x + hq @ m.w_down2, {**cell, "conv": conv}
+    # this rank's channels of the gated output against its w_down2 rows
+    lo, n = sharding.held_range(group, zg.shape[-1], d_in)
+    hq = rmsnorm(m.ln_head, hq, cfg.norm_eps)[..., lo:lo + n] * F.silu(zg)
+    return (x + sharding.row_product(group, hq, m.w_down2, d_in),
+            {**cell, "conv": conv})
 
 
 # ---------------------------------------------------------------------------
@@ -205,21 +229,23 @@ def _slstm_cell(gates: torch.Tensor, state: Dict[str, torch.Tensor],
 
 
 def slstm_step(s: SLSTM, cfg: ModelConfig, x: torch.Tensor,
-               state: Dict[str, torch.Tensor]
+               state: Dict[str, torch.Tensor], group=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Recurrent steps over S tokens, with the residual and the FFN. x:
     [B, S, d]; state ``h`` / ``c`` / ``n`` / ``m`` [B, nh, dh] and
     ``conv`` [B, 3, d] (f32) -> ([B, S, d], the state after the last
     token). S = 1 is the reference's ``slstm_step``; S > 1 equals S calls
     of it: the cells (and their recurrent gates) token by token, the
-    projections and the FFN once for the S tokens."""
+    projections and the FFN once for the S tokens. Over a rank
+    ``group``, on this rank's shard of the weights (module docstring)."""
     d = cfg.d_model
     nh = cfg.n_heads
     dh = d // nh
     b, n_tok = x.shape[:2]
     hpre = rmsnorm(s.ln, x, cfg.norm_eps)
-    c_in, conv = _conv(state["conv"], hpre, s.conv_w)
-    wx = (c_in.to(x.dtype) @ s.w_gates).float() + s.gate_bias  # [B, S, 4d]
+    c_in, conv = _conv(state["conv"], hpre, s.conv_w, group)
+    wx = sharding.whole_columns(group, c_in.to(x.dtype) @ s.w_gates, 4 * d)
+    wx = wx.float() + s.gate_bias                              # [B, S, 4d]
     cell = {n: state[n] for n in ("h", "c", "n", "m")}
     hs = []
     for t in range(n_tok):
@@ -228,7 +254,9 @@ def slstm_step(s: SLSTM, cfg: ModelConfig, x: torch.Tensor,
         ht, cell = _slstm_cell(wx[:, t] + rec, cell, nh, dh)
         hs.append(ht)
     h = torch.stack(hs, dim=1).reshape(b, n_tok, d)
-    x = x + h.to(x.dtype) @ s.w_out
+    x = x + sharding.row_product(group, h.to(x.dtype), s.w_out, d)
     h2 = rmsnorm(s.ln_ff, x, cfg.norm_eps)
     y = F.silu(h2 @ s.ffn.w_gate) * (h2 @ s.ffn.w_up)
-    return x + y @ s.ffn.w_down, {**cell, "conv": conv}
+    return (x + sharding.row_product(group, y, s.ffn.w_down,
+                                     _ffn_width(d)),
+            {**cell, "conv": conv})

@@ -195,8 +195,12 @@ def page_range(n_pages: int, rank: int, n_ranks: int) -> Tuple[int, int]:
 
 def shard_cache(cache: Dict, rank: int, n_ranks: int) -> Dict:
     """``cache`` with every "kv" leaf cut to ``rank``'s pages (new,
-    contiguous tensors); the other leaves (``pos``) stay whole."""
+    contiguous tensors); the other leaves (``pos``, the recurrent states,
+    the vision K/V) stay whole, as the reference's ``cache_specs`` leaves
+    them on the model axis. A cache without pages (xLSTM) stays whole."""
     out = dict(cache)
+    if "kv" not in cache:
+        return out
     n_pages = next(iter(cache["kv"].values())).shape[PAGE_AXIS]
     lo, hi = page_range(n_pages, rank, n_ranks)
     out["kv"] = {name: t.narrow(PAGE_AXIS, lo, hi - lo).clone()
@@ -215,10 +219,32 @@ def gather_pages(group, kv: Dict[str, torch.Tensor]
     return out
 
 
-def gather_columns(group, t: torch.Tensor) -> torch.Tensor:
+def gather_columns(group, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """A column-parallel product ([..., n/N] on each rank) put together:
-    [..., n] on every rank, columns in rank order."""
-    return torch.cat(list(group.all_gather(t)), dim=-1)
+    [..., n] on every rank, columns in rank order (or the parts along
+    ``dim``: a state split on its heads)."""
+    return torch.cat(list(group.all_gather(t)), dim=dim)
+
+
+def whole_columns(group, t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t``, a product over a weight that may be split on its columns:
+    gathered to its ``width`` columns where it is short of them (the
+    weight split over the rank ``group``), else as it is."""
+    if group is None or t.shape[-1] == width:
+        return t
+    return gather_columns(group, t)
+
+
+def held_range(group, held: int, whole: int) -> Tuple[int, int]:
+    """The ``[lo, lo + held)`` of an axis of ``whole`` entries that this
+    rank holds: all of it, or the rank's contiguous 1/N where ``held`` is
+    short of ``whole`` (``shard_params``'s cut)."""
+    if group is None or held == whole:
+        return 0, whole
+    if held * group.size != whole:
+        raise ValueError(f"{held} of {whole} entries is no 1/{group.size} "
+                         f"share")
+    return group.rank * held, held
 
 
 def reduce_sum(group, t: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -248,3 +274,35 @@ def row_parallel(group, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rounds once."""
     return reduce_sum(group, product_f32(x, w), x.dtype)
 
+
+def row_product(group, x: torch.Tensor, w: torch.Tensor,
+                width: int) -> torch.Tensor:
+    """``x @ w`` over ``width`` input channels. Where ``w`` is split over
+    the rank ``group`` on its rows, ``x`` is whole (its rank's columns are
+    taken) or already this rank's columns, and the products are summed
+    across the ranks (``row_parallel``); else one product."""
+    if w.shape[0] == width:
+        return x @ w
+    if x.shape[-1] == width:
+        lo, n = held_range(group, w.shape[0], width)
+        x = x[..., lo:lo + n]
+    return row_parallel(group, x, w)
+
+
+def split_rmsnorm(group, scale: torch.Tensor, x: torch.Tensor, width: int,
+                  eps: float) -> torch.Tensor:
+    """RMSNorm over ``width`` channels of which ``x`` holds this rank's
+    contiguous share ([..., width/N], at ``held_range``): the squares
+    summed in f32 on each rank and across the ranks, then each rank's
+    channels scaled by their slice of the whole ``scale`` [width] -- the
+    whole norm's result, but for the order of its f32 additions. Without
+    a split, the plain RMSNorm."""
+    lo, n = held_range(group, x.shape[-1], width)
+    xf = x.float()
+    if n == width:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = group.all_reduce((xf * xf).sum(dim=-1, keepdim=True),
+                               "sum") / width
+    return (xf * torch.rsqrt(var + eps)
+            * scale[lo:lo + n].float()).to(x.dtype)

@@ -35,14 +35,18 @@ With ``kv_quant="int8"`` the pages are int8 codes with per-(page, head)
 f32 scales: flush, restore, swap and prefix entries carry both, and every
 tier charge and store budget counts their bytes.
 
-Multi-rank serving (``ServeConfig(tp=N)``, the dense and MoE families):
-one engine per rank process, each given its rank group
-(``launch.mesh``). Every rank runs the same scheduler on the same
-traffic. It holds its shard of the weights, split by the reference's
-``param_specs`` (``parallel.sharding``: the attention's and MLP's
-columns / rows, the vocabulary, the experts), and its cache holds its own
-page range of every slot, so the decode is the page-sharded one, a
-prefill chunk gathers its slot's pages and the MoE is expert-parallel.
+Multi-rank serving (``ServeConfig(tp=N)``, every family): one engine per
+rank process, each given its rank group (``launch.mesh``). Every rank
+runs the same scheduler on the same traffic. It holds its shard of the
+weights, split by the reference's ``param_specs`` (``parallel.sharding``:
+the attention's and MLP's columns / rows, the vocabulary, the experts,
+the Mamba2 and xLSTM projections), and its cache holds its own page
+range of every slot, so the decode is the page-sharded one, a prefill
+chunk gathers its slot's pages, the MoE is expert-parallel and the
+Mamba2 layers run the rank's heads. The per-slot states (Mamba2 ``h`` /
+``conv``, xLSTM's cells and conv windows, the vision K/V) are whole on
+every rank and stay equal there, as the reference's ``cache_specs``
+leaves them at tp.
 A retired entry in a rank's
 ``HostPageStore`` is that rank's shard, and a restore writes each rank's
 shard into its pages. Each rank holds a replica of the ``ShardedTier``,
@@ -51,7 +55,8 @@ charged once per operation with the whole entry's bytes
 those of the reference's one process, on every rank.
 
 Not ported: the legacy host path (``ServeConfig`` raises for it), and
-more than one rank for the audio, hybrid, VLM and xLSTM families.
+the data and pod mesh axes (``mesh_shape`` with more than one rank off
+the model axis raises).
 """
 from __future__ import annotations
 
@@ -328,7 +333,7 @@ class ServingEngine:
                             f"{sorted(knobs)}")
         if config is None:
             config = ServeConfig(**knobs)
-        self.group = self._rank_group(config, cfg, rc, group)
+        self.group = self._rank_group(config, rc, group)
         self.device = resolve_device(device)
         p_dev = next(params.parameters()).device
         if p_dev.type != self.device.type or (
@@ -402,8 +407,7 @@ class ServingEngine:
         self.stats["mesh_ranks"] = n_ranks
 
     @staticmethod
-    def _rank_group(config: ServeConfig, cfg: ModelConfig, rc: RunConfig,
-                    group):
+    def _rank_group(config: ServeConfig, rc: RunConfig, group):
         """``group`` checked against ``config.n_ranks`` (None for one
         rank), with the reference's check that the page axis divides by
         the ranks."""
@@ -412,11 +416,7 @@ class ServingEngine:
             if group is not None and group.size != 1:
                 raise ValueError(f"a rank group of {group.size} for tp=1")
             return None
-        if any(n != 1 for n in config.resolved_mesh_shape[:-1]):
-            raise NotImplementedError(
-                f"mesh_shape {config.resolved_mesh_shape}: only the model "
-                f"axis (tp) is ported, not data or pod axes")
-        M.check_ranks(cfg, n_ranks)
+        M.check_ranks(config.resolved_mesh_shape)
         if group is None or group.size != n_ranks:
             raise ValueError(
                 f"tp={n_ranks} needs the rank group of this process, of "

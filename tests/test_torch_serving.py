@@ -199,16 +199,17 @@ def test_serve_config_unported_options_raise(knobs, exc):
 
 
 def test_sharded_options_raise():
-    """Multi-rank serving is ported for the dense family over the model
-    axis (``tests/test_torch_sharded.py``); what is not raises: another
-    family, a data axis, an engine without a rank group of its size, and
-    a page axis the ranks do not divide (the reference's ValueError)."""
+    """Multi-rank serving is ported for every family over the model axis
+    (``tests/test_torch_sharded.py``, ``tests/test_torch_sharded_*.py``);
+    what is not raises: a data axis, an engine without a rank group of
+    its size (the hybrid's too), and a page axis the ranks do not divide
+    (the reference's ValueError)."""
     from repro_torch.core.sharded_tier import ShardedTier
     tier = TServeConfig(tp=2, tier_media="dram").make_tier()
     assert isinstance(tier, ShardedTier) and tier.n_ranks == 2
     from repro_torch.models import model as TM
     for arch, knobs, exc in (
-            ("zamba2-2.7b", dict(tp=2), NotImplementedError),
+            ("zamba2-2.7b", dict(tp=2), ValueError),
             ("qwen3-1.7b", dict(mesh_shape=(2, 2)), NotImplementedError),
             ("qwen3-1.7b", dict(tp=2), ValueError)):
         cfg = treg.smoke(arch)
