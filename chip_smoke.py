@@ -42,7 +42,8 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    (granite's D 64; zamba2's D 80 / G 1; musicgen's D 64 / G 1 over
    1024-token slots; the VLM's G 4), against the plain versions (f32
    1e-4), the two ranks combined against the one-rank decode (TOL), timed
-   at a rank's view of each tp path (bf16; qwen3's int8 too);
+   at a rank's view of each tp path (bf16; qwen3's int8 too), and at the
+   dp path's rank view (mesh (2, 2): 4 of 8 slots, 1024 of 2048 tokens);
    the decode kernel's int8 mode at qwen3's heads and at gemma-2b's (bf16
    2e-2, int8 pages with their scales, the new row at full precision; its
    yardstick is dequantize + SDPA); the attention kernels' edge shapes
@@ -78,7 +79,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    through chunked prefill and ragged decode on the card and on the CPU
    from the same weights, and hold logits and caches together (int8
    codes equal but for steps of one, counted);
-3. serve qwen3-1.7b at full width, cut to 14 of its 28 layers (random
+3. serve qwen3-1.7b at full width, cut to 7 of its 28 layers (random
    bf16 weights drawn on the card from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
    32 new tokens, then 4 of the same prompts again under new rids, served
@@ -96,7 +97,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    from the tier, as in the reference) and check that every request
    finished, pages were flushed, and all three kernels ran on that path
    and no other kernel did;
-5. serve qwen3-1.7b at full width (14 of 28 layers) with int8 KV pages
+5. serve qwen3-1.7b at full width (7 of 28 layers) with int8 KV pages
    on the engine and
    traffic of phase 3; check that every request finished, the int8 decode
    kernel ran once per layer per tick and flash_prefill ran, every
@@ -122,7 +123,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    prompt's full pages bit for bit, restores from post-prefill entries
    gave the first run's tokens, and the entry is under 0.55 of phase 6's
    bf16 entry;
-8. serve granite-moe-1b-a400m at full width, cut to 12 of its 24 MoE
+8. serve granite-moe-1b-a400m at full width, cut to 6 of its 24 MoE
    layers (32 experts top-8 at capacity ``round(1.25 t k / E)``, which
    drops pairs at decode too on one device, as the reference does; 8 kv
    heads of 2 query heads, D 64) on the engine and traffic of phase 3; check that every request
@@ -133,9 +134,9 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    D 64) ran once per layer per chunk and the bf16 paged_decode once per
    layer per tick, and no other kernel ran; print the share of (token,
    expert) pairs dropped at decode and at prefill;
-9. serve musicgen-large at full width, cut to 12 of its 48 layers (32 kv
+9. serve musicgen-large at full width, cut to 6 of its 48 layers (32 kv
    heads = heads, D 64, 4 codebooks fed one token, sinusoidal positions;
-   a 96 MiB entry) on phase 3's
+   a 48 MiB entry) on phase 3's
    engine with 1024-token slots: 3 requests of 300-600 prompt tokens and
    32 new tokens, then 2 of them again (prefix restores); phase 3's gates
    (restored greedy tokens equal the first run's) and phase 8's kernels,
@@ -214,7 +215,29 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    script; print each rank's parameter bytes, peak memory, wall, tick and
    chunk ms (CUDA events) and collectives per step beside one rank's, and
    the ShardedTier counters;
-14. train: flash_prefill at the training loss's shape (one layer's 4096-
+14. serve over the data and model axes, mesh (2, 2): four processes on
+   the one card joined by gloo (``launch.mesh.spawn`` with
+   ``mesh_shape``, started once), each holding its shard of qwen3-1.7b's
+   weights (``TP_LAYERS`` layers) on the POOL tier (``core.hdm.HDMStore``:
+   its model-axis shard cut again on the data axis), its data row's 4
+   slots and its half of their pages; every step gathers each layer over
+   the data axis (the speculative read, one layer ahead) and the
+   embedding once. 6 requests of 300-1000 tokens (4 on data row 0, 2 on
+   row 1) and 2 restores, one of them into the other row, held step by
+   step to the one-rank engine on the same traffic as the tp phase holds
+   its ranks (the bound from the one-rank engine and its f32 twin; each
+   request's steps on the ranks of the row that serves it); layer 0
+   gathered equal bit for bit to the whole model's model-axis shard of
+   it; every rank's tokens, stats and tier traces alike; the decode once
+   per layer per tick and the prefill once per layer per chunk of the
+   rank's row, no other kernel; each rank's bytes its share by the
+   specs. Prints the parameter bytes against the whole, the gathered
+   layer's bytes, the tick and chunk ms at SR depth 1 and 0 (in turns:
+   1 0, 0 1, 1 0), a gather's ms alone (a layer, the embedding), the collectives
+   per step by axis, the rank walls and peaks; the decode kernel at this
+   rank view (4 of 8 slots, 1024 of 2048 tokens, m / l) is checked and
+   timed beside SDPA in phase 2;
+15. train: flash_prefill at the training loss's shape (one layer's 4096-
    token sequence as one chunk at position 0 against its own K/V; bf16
    2e-2) against its plain version, timed beside causal SDPA; one
    training step of the smoke-size qwen3-1.7b, granite-moe-1b-a400m,
@@ -233,7 +256,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    last below the first, no kernel launched under grad; prints the step
    ms (CUDA events), tokens/s, the MFU against 989 TFLOP/s (6 x active
    params x tokens, remat's recompute not counted) and the peak memory;
-15. print the measured numbers, the seconds of each phase, one
+16. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -262,6 +285,7 @@ GLM4 = "glm4-9b"               # 32 query heads over 2 kv heads: G 16
 STARCODER2 = "starcoder2-15b"  # 48 over 4: G 12
 TP_PATH, TP8_PATH = f"{ARCH} tp2", f"{ARCH} tp2 int8"
 TPG_PATH = f"{GRANITE} tp2"
+DP_PATH = f"{ARCH} dp2xtp2"
 N_SLOTS, MAX_SEQ, CHUNK = 8, 2048, 256
 N_REQUESTS, N_RESUBMIT, MAX_NEW = 8, 4, 32
 N_HYBRID_REQUESTS = 8
@@ -282,6 +306,15 @@ N_GROUP_REQUESTS, N_GROUP_RESUBMIT = 4, 2
 # then granite-moe-1b-a400m; 4 requests and 2 restores each
 TP_RANKS, N_TP_REQUESTS, N_TP_RESUBMIT = 2, 4, 2
 TP_TIMEOUT_S = 600.0
+# the dp phase: mesh (2, 2), four ranks (processes) on the one card,
+# qwen3-1.7b's weights on the POOL tier; 6 requests (the first 4 fill
+# data row 0's slots, the next 2 row 1's) and 2 restores (the last
+# request's first: it crosses from row 1 to row 0), 8 new tokens each;
+# the tick and chunk timed at SR depth 1 and 0 in DP_ORDERS' turns (the
+# first set a rank times runs slow, PERF.md section 7)
+DP_MESH, N_DP_REQUESTS, DP_MAX_NEW = (2, 2), 6, 8
+DP_ORDERS = ((1, 0), (0, 1), (1, 0))
+DP_TIMEOUT_S = 600.0
 # qwen3's tp gate holds the ranks' bf16 logits to the one-rank engine's
 # within this many times the one-rank engine's own distance from its f32
 # twin (the same weights widened), plus TOL's atol: the multiple the
@@ -294,12 +327,14 @@ XLSTM_TIMED_TOKENS = 32
 # per-layer gates do not depend on depth, the Python tier's charge (~24-32
 # ms per MiB of entry on the host of an H100 80GB HBM3 at 700 W, PERF.md
 # section 5) and the eager steps do. Widths, heads, vocabularies and
-# traffic stay the full models'. zamba2, musicgen and granite run at a
-# quarter or half depth to make room for the tp phase's granite path, the
-# VLM, glm4-9b and starcoder2-15b at a quarter and qwen3-1.7b and
-# gemma-2b (both page formats: the int8 entry is held to the bf16 one)
-# and xLSTM at half for its other families' (PERF.md section 4)
-CUT_LAYERS = {ARCH: 14, HYBRID: 12, GRANITE: 12, MUSICGEN: 12, VLM: 10,
+# traffic stay the full models'. zamba2 runs at two of its nine groups,
+# granite at a quarter and musicgen at an eighth of their depth (for the
+# tp phase's granite path and the dp phase), the VLM, glm4-9b and
+# starcoder2-15b at a quarter and gemma-2b (both page formats: the int8
+# entry is held to the bf16 one) and xLSTM at half for the tp phase's
+# other families, qwen3-1.7b (both page formats) at a quarter for the dp
+# phase (PERF.md section 4)
+CUT_LAYERS = {ARCH: 7, HYBRID: 12, GRANITE: 6, MUSICGEN: 6, VLM: 10,
               GLM4: 10, STARCODER2: 10, GEMMA: 9, XLSTM: 6}
 # the tp phase's qwen3-1.7b, cut to 4 of 28 layers for the same reason:
 # each rank charges its replica of the tier with the whole entry, and the
@@ -902,6 +937,79 @@ def check_decode_ml(dev):
                             f"m, l")
             res[mode + key] = out
     return res
+
+
+def check_decode_dp_view(dev):
+    """paged_decode's ``return_ml`` output at a rank's view of the dp
+    path, mesh (2, 2): its data row's 4 of the 8 slots and its model
+    rank's half of their pages (qwen3's Hkv 8, G 2, D 128, 1024 of 2048
+    tokens), bf16 q, against the plain version (o at f32's 1e-4, m and l
+    at 1e-4 relative); the two model ranks' partials combined as
+    ``models.attention.combine_partials`` does give the one-rank decode
+    of the row's slots (TOL). Timed beside SDPA over the same keys
+    (output only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    hkv, g, d, page = 8, 2, 128, 256
+    b, h, p = N_SLOTS // DP_MESH[0], hkv * g, MAX_SEQ // page
+    span, n = MAX_SEQ // DP_MESH[1], DP_MESH[1]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    f32_tol = dict(atol=1e-4, rtol=1e-4)
+    pos = torch.tensor([1, 300, span + 476, MAX_SEQ - 1], dtype=torch.int32,
+                       device=dev)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
+    kp, vp = (torch.randn((b, p, page, hkv, d), generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    views, parts, errs = rank_views(pos, n, span), [], []
+    for r, (kv_len, _) in enumerate(views):
+        pages = slice(r * p // n, (r + 1) * p // n)
+        args = (q, kp[:, pages].contiguous(), vp[:, pages].contiguous(),
+                kv_len)
+        got = ops.paged_decode(*args, return_ml=True)
+        (o, m, l), (wo, wm, wl) = got, ref.paged_decode_ref(
+            *args, return_ml=True)
+        live = torch.isfinite(wm)
+        if not torch.equal(torch.isfinite(m), live):
+            fail(f"paged_decode dp view rank {r}: m's dead rows differ")
+        errs.append(check_close(f"paged_decode dp view rank {r} o", o, wo,
+                                f32_tol))
+        check_close(f"paged_decode dp view rank {r} m", m[live], wm[live],
+                    f32_tol)
+        check_close(f"paged_decode dp view rank {r} l", l[live] / wl[live],
+                    torch.ones_like(wl[live]), f32_tol)
+        parts.append(got)
+    m_g = torch.maximum(parts[0][1], parts[1][1])
+    w = [pl_ * torch.exp2(pm - m_g) for _, pm, pl_ in parts]
+    comb = (sum(po * wi[:, None, :, None] for (po, _, _), wi
+                in zip(parts, w)) / sum(w)[:, None, :, None])
+    one = ops.paged_decode(q, kp, vp, (pos + 1).to(torch.int32))
+    combined = check_close("paged_decode dp view: two ranks combined vs one",
+                           comb.to(one.dtype), one)
+    kv_len = views[0][0]
+    kl, vl = (t[:, :p // n].contiguous() for t in (kp, vp))
+    mask = (torch.arange(span, device=dev)[None]
+            < kv_len[:, None].long())[:, None, None, :]
+    qs = q.transpose(1, 2)
+    ks_, vs_ = (t.view(b, span, hkv, d).transpose(1, 2)
+                .repeat_interleave(g, dim=1) for t in (kl, vl))
+    tokens = int(kv_len.sum())
+    n_bytes = (2 * tokens * hkv * d * kp.element_size()
+               + q.numel() * q.element_size() + q.numel() * 4 + b * h * 8
+               + b * 4)
+    out = {"ms": device_ms(lambda: ops.paged_decode(q, kl, vl, kv_len,
+                                                    return_ml=True), 50),
+           "plain_ms": time_ms(lambda: ref.paged_decode_ref(
+               q, kl, vl, kv_len, return_ml=True), 10),
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               qs, ks_, vs_, attn_mask=mask), 20),
+           "library": "SDPA over the rank's keys, output only",
+           "max_abs_err": max(errs), "combined_err": combined,
+           "shape": (f"q [{b},1,{h},{d}] bf16, a rank's pages "
+                     f"[{b},{p // n},{page},{hkv},{d}] bf16, kv_len "
+                     f"{kv_len.tolist()}; out f32 + m, l")}
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, 4 * tokens * h * d)
+    return out
 
 
 def check_prefill(dev, hkv, g, d, smax=MAX_SEQ):
@@ -2593,10 +2701,11 @@ def tp_shard(group, whole):
     return params, sizes
 
 
-def tp_serve(group, params, cfg, rc, kv_quant, dev, waves):
-    """One engine's run of ``waves`` (one rank when ``group`` is None):
-    its report with the kernels' launch counts, the collectives, the
-    peak memory and the wall."""
+def tp_serve(group, params, cfg, rc, kv_quant, dev, waves, mesh_shape=()):
+    """One engine's run of ``waves`` (one rank when ``group`` is None; a
+    rank of ``mesh_shape`` when given, ``group`` its ``RankMesh``): its
+    report with the kernels' launch counts, the collectives, the peak
+    memory and the wall."""
     import torch
     from repro_torch.launch import mesh
     from repro_torch.launch.serve import serve_waves
@@ -2605,8 +2714,8 @@ def tp_serve(group, params, cfg, rc, kv_quant, dev, waves):
     config = ServeConfig(n_slots=N_SLOTS, max_seq=max_seq,
                          prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
                          store_budget_bytes=16 << 30, seed=SEED,
-                         kv_quant=kv_quant,
-                         tp=1 if group is None else group.size)
+                         kv_quant=kv_quant, mesh_shape=mesh_shape,
+                         tp=1 if group is None or mesh_shape else group.size)
     torch.cuda.reset_peak_memory_stats(dev)
     # the main path: counts from 0 just before, read just after
     zero_counters()
@@ -2672,10 +2781,10 @@ def tp_steps(group, params, cfg, rc, kv_quant, dev, prompt,
 
 @contextlib.contextmanager
 def capturing_logits():
-    """Keeps the logits row of every greedy step of each request, in
-    order: its prefill's last row (a restored request has none), then one
-    row a decode tick. Yields ``{rid: [row [V], ...]}`` (clones on the
-    card)."""
+    """Keeps the logits row of every greedy step of each request this
+    rank samples, in order: its prefill's last row (a restored request
+    has none), then one row a decode tick. Yields ``{rid: [row [V],
+    ...]}`` (clones on the card)."""
     from repro_torch.serving.engine import ServingEngine
     prefill, sample = ServingEngine._prefill_slot, ServingEngine._sample
     rows, admitting = {}, []
@@ -2687,14 +2796,17 @@ def capturing_logits():
         finally:
             admitting.pop()
 
-    def _sample(self, row):
+    def _sample(self, row, *args):
         if admitting:
             rows.setdefault(admitting[-1], []).append(row[0].clone())
         else:
-            for slot, req in enumerate(self.slots):
+            # this rank's row of slots (every slot on one rank or at tp)
+            first = self._rows[0] * row.shape[0]
+            for i in range(row.shape[0]):
+                req = self.slots[first + i]
                 if req is not None:
-                    rows.setdefault(req.rid, []).append(row[slot].clone())
-        return sample(self, row)
+                    rows.setdefault(req.rid, []).append(row[i].clone())
+        return sample(self, row, *args)
     ServingEngine._prefill_slot, ServingEngine._sample = _prefill_slot, _sample
     try:
         yield rows
@@ -2807,8 +2919,8 @@ def capturing_ffn(block):
     inner = block.ffn
     seen = []
 
-    def ffn(cfg, h, *, decode, group=None):
-        y = inner(cfg, h, decode=decode, group=group)
+    def ffn(cfg, h, *, decode, **kw):
+        y = inner(cfg, h, decode=decode, **kw)
         if not decode or not any(d for d, _, _ in seen):
             seen.append((decode, h.clone(), y.clone()))
         return y
@@ -3374,6 +3486,295 @@ def stats_but_wall(run):
     return {k: v for k, v in run["stats"].items() if k != "prefill_time_s"}
 
 
+def dp_traffic(vocab):
+    """The dp phase's waves: ``N_DP_REQUESTS`` prompts of 300-1000 tokens
+    (the first 4 take data row 0's slots 0-3, the others row 1's 4-5),
+    ``DP_MAX_NEW`` new tokens each, then the last and the first prompt
+    again under new rids: restores into slots 0 and 1, the first from
+    row 1's slot 5."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    first = [(i, rng.integers(1, vocab, int(n)).tolist(), DP_MAX_NEW)
+             for i, n in enumerate(rng.integers(*PROMPT_LENS,
+                                                N_DP_REQUESTS))]
+    return [first, [(1000 + i, first[i][1], DP_MAX_NEW)
+                    for i in (N_DP_REQUESTS - 1, 0)]]
+
+
+@contextlib.contextmanager
+def recording_slots():
+    """The slot each request was prefilled in (and its prompt's length),
+    retired from and restored into, in this rank's engine."""
+    from repro_torch.serving.engine import ServingEngine as E
+    saved = {n: getattr(E, n) for n in ("_prefill_slot", "_retire",
+                                        "_apply_restore")}
+    rec = {"prefilled": [], "retired": {}, "restored": {}}
+
+    def _prefill_slot(self, req, slot, tokens=None):
+        n = len(req.prompt if tokens is None else tokens)
+        rec["prefilled"].append((req.rid, slot, n,
+                                 self._local(slot) is not None))
+        return saved["_prefill_slot"](self, req, slot, tokens)
+
+    def _retire(self, slot):
+        rec["retired"][self.slots[slot].rid] = slot
+        return saved["_retire"](self, slot)
+
+    def _apply_restore(self, req, slot, entry):
+        rec["restored"][req.rid] = slot
+        return saved["_apply_restore"](self, req, slot, entry)
+    for n, f in (("_prefill_slot", _prefill_slot), ("_retire", _retire),
+                 ("_apply_restore", _apply_restore)):
+        setattr(E, n, f)
+    try:
+        yield rec
+    finally:
+        for n, f in saved.items():
+            setattr(E, n, f)
+
+
+def dp_one_rank(dev):
+    """qwen3-1.7b (``TP_LAYERS``) on one rank before the mesh's ranks run:
+    the dp traffic on the one-rank engine and on the same weights widened
+    to f32 (every greedy step's logits kept, the bound measured from
+    them and saved for the ranks), its steps timed."""
+    import copy
+    import dataclasses
+    import torch
+    cfg, rc, params = tp_model(dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rc32 = dataclasses.replace(rc, model=cfg32)
+    wide = copy.deepcopy(params).float()
+    waves = dp_traffic(cfg.vocab_size)
+    with capturing_logits() as rows:
+        one = tp_serve(None, params, cfg, rc, "none", dev, waves)
+    with capturing_logits() as rows32:
+        tp_serve(None, wide, cfg32, rc32, "none", dev, waves)
+    bound, noise = tp_logits_bound(rows, rows32)
+    one["bound"] = {"bound": bound, "one_rank_vs_f32": noise}
+    os.makedirs(os.path.dirname(logits_file("dp")), exist_ok=True)
+    torch.save({"one": {rid: torch.stack(r).cpu() for rid, r in rows.items()},
+                "f32": {rid: torch.stack(r).cpu()
+                        for rid, r in rows32.items()},
+                "bound": bound}, logits_file("dp"))
+    del rows, rows32, wide
+    one.update(tp_steps(None, params, cfg, rc, "none", dev, waves[0][0][1]))
+    return one
+
+
+def dp_steps(rank_mesh, params, cfg, rc, dev, prompt):
+    """Tick and chunk ms on this rank (CUDA events, the waits on its
+    collectives included) at SR depth 1 and 0 in ``DP_ORDERS``' turns,
+    and the collectives each step runs by axis: a tick of the
+    row's 4 slots at half their length (its pages of them), a chunk
+    into the row's first slot (both rows prefill at once, so their
+    gathers pair up), on a cache of 8 slots cut by ``shard_cache``; then
+    a data-axis gather alone, of a layer and of the embedding."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    _, d, m = rank_mesh.coords
+    data, model = rank_mesh.data, rank_mesh.model
+    cache = sharding.shard_cache(
+        M.cache_init(cfg, rc, N_SLOTS, MAX_SEQ, device=dev), model.rank,
+        model.size, (data.rank, data.size))
+    per = N_SLOTS // data.size
+    ranks = M.Ranks(model=model, pages=model, fsdp=data, batch=data)
+    tokens = torch.tensor(prompt[d * per:(d + 1) * per], dtype=torch.int32,
+                          device=dev)[:, None]
+    chunk = torch.tensor([prompt[:CHUNK]], dtype=torch.int32, device=dev)
+    out = {f"depth{k}": {} for k in (1, 0)}
+    for order in DP_ORDERS:
+        for depth in order:
+            rcd = dataclasses.replace(rc, sr_prefetch_depth=depth)
+
+            def tick():
+                cache["pos"].fill_(MAX_SEQ // 2)
+                M.decode_step(params, cfg, rcd, tokens, cache, ranks=ranks)
+
+            def prefill():
+                cache1 = M.slot_view(cache, 0)
+                cache1["pos"] = torch.zeros(1, dtype=torch.int32, device=dev)
+                M.prefill_step_cached(params, cfg, rcd, chunk, cache1,
+                                      last_only=True,
+                                      ranks=dataclasses.replace(
+                                          ranks, batch=None))
+            for name, fn, iters in (("decode_tick", tick, 3),
+                                    ("prefill_chunk", prefill, 2)):
+                mesh.COLLECTIVES.clear()
+                res = out[f"depth{depth}"]
+                res.setdefault(f"{name}_ms", []).append(time_ms(fn, iters))
+                res[f"{name}_collectives"] = {
+                    op: n / (iters + 2)
+                    for op, n in mesh.COLLECTIVES.items()}
+    for name, unit, iters in (("layer", params.blocks[0], 10),
+                              ("embedding", (params.embed,), 5)):
+        out[f"gather_{name}_ms"] = time_ms(
+            lambda: sharding.FsdpRead(unit, data).wait(), iters)
+    return out
+
+
+def dp_rank(rank_mesh):
+    """One rank of the dp phase (a process of its own, on the card it
+    shares with three others): qwen3-1.7b's whole weights made on the
+    card and placed on the POOL tier (``core.hdm.HDMStore``: the rank's
+    model-axis shard, cut again on the FSDP axes), layer 0 gathered and
+    held bit for bit to the whole model's model-axis shard of it, the dp
+    traffic served with every greedy step held to the one-rank engine's
+    logits, then the steps timed."""
+    import gc
+    import torch
+    from repro_torch.core import hdm
+    from repro_torch.parallel import sharding
+    dev = rank_mesh.device
+    _, d, m = rank_mesh.coords
+    cfg, rc, whole = tp_model(dev)
+    store = hdm.HDMStore(rank_mesh)
+    specs = store.specs(whole)
+    want0 = {n: p.clone() for n, p in sharding.shard_params(
+        whole, m, rank_mesh.model.size, specs).blocks[0].named_parameters()}
+    params = store.place(whole)
+    out = {"whole_param_bytes": param_bytes(whole),
+           "resident_bytes": hdm.bytes_per_device(whole, store),
+           "coords": rank_mesh.coords}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    got0 = dict(sharding.gather_fsdp(params.blocks[0], rank_mesh.data)
+                .named_parameters())
+    out["layer0"] = {
+        "gathered_bytes": sum(t.numel() * t.element_size()
+                              for t in got0.values()),
+        "shard_bytes": param_bytes(params.blocks[0]),
+        "bit_equal": all(torch.equal(got0[n], t) for n, t in want0.items())
+        and sorted(got0) == sorted(want0)}
+    del got0, want0
+    waves = dp_traffic(cfg.vocab_size)
+    with capturing_logits() as rows, recording_slots() as slots:
+        run = tp_serve(rank_mesh, params, cfg, rc, "none", dev, waves,
+                       mesh_shape=DP_MESH)
+    run.update(out)
+    run["slots"] = slots
+    ref = torch.load(logits_file("dp"))
+    for side in ("one", "f32"):
+        ref[side] = {rid: list(t.to(dev)) for rid, t in ref[side].items()
+                     if rid in rows}
+    run["logits_vs_one_rank"] = tp_logits_gate(
+        f"{DP_PATH} rank {rank_mesh.rank}", rows, ref)
+    del rows, ref
+    gc.collect()
+    run["steps"] = dp_steps(rank_mesh, params, cfg, rc, dev, waves[0][0][1])
+    return run
+
+
+def serve_dp(dev, one):
+    """The dp phase: four rank processes of mesh (2, 2) on the one card
+    joined by gloo (``launch.mesh.spawn`` with ``mesh_shape``), spawned
+    once, each on its POOL shard of qwen3-1.7b's weights (``TP_LAYERS``)
+    with its row's 4 slots and its half of their pages; every layer
+    gathered over the data axis by the speculative read. Held: layer 0
+    gathered equals the model-axis shard bit for bit; every greedy step's
+    logits within the bound of the one-rank engine's (``one``:
+    ``dp_one_rank``) and tokens equal but at near ties, on the rank that
+    samples them; every rank's tokens, stats and tier traces alike; a
+    restore crossed data rows; the decode kernel once per layer per tick
+    and the prefill once per layer per chunk of the rank's row, no other
+    kernel; the rank's bytes its share by the specs. A rank that fails or
+    outlives ``DP_TIMEOUT_S`` fails."""
+    import math
+    from repro_torch.launch import mesh
+    t0 = time.time()
+    ranks = mesh.spawn(dp_rank, math.prod(DP_MESH), (),
+                       rendezvous_dir=os.path.join(ROOT, "build", "dp"),
+                       device="cuda", timeout_s=DP_TIMEOUT_S,
+                       mesh_shape=DP_MESH)
+    spawn_s = time.time() - t0
+    path, first = DP_PATH, ranks[0]
+    for r, run in enumerate(ranks):
+        if (run["tokens"], stats_but_wall(run), run["tier"]) != (
+                first["tokens"], stats_but_wall(first), first["tier"]):
+            fail(f"{path} rank {r}: tokens, stats or tier traces differ "
+                 f"from rank 0's")
+        if not run["layer0"]["bit_equal"]:
+            fail(f"{path} rank {r}: layer 0 gathered over the data axis is "
+                 f"not the model-axis shard bit for bit")
+        if run["param_bytes"] != run["resident_bytes"] or \
+                4 * run["param_bytes"] > 1.05 * run["whole_param_bytes"]:
+            fail(f"{path} rank {r}: {run['param_bytes']} parameter bytes, "
+                 f"want {run['resident_bytes']} of "
+                 f"{run['whole_param_bytes']}")
+        sl = run["slots"]
+        owned = sum(-(-n // CHUNK) for _, _, n, mine in sl["prefilled"]
+                    if mine)
+        run["on_path"] = split_counts(f"{path} rank {r}", run["launches"],
+                                      ("paged_decode", "flash_prefill"))
+        want = {"paged_decode": TP_LAYERS * run["stats"]["decode_dispatches"],
+                "flash_prefill": TP_LAYERS * owned}
+        if run["on_path"][0] != want or not owned:
+            fail(f"{path} rank {r}: launches {run['on_path'][0]}, want one "
+                 f"per layer per tick and per chunk of its row {want}")
+    sl, per = first["slots"], N_SLOTS // DP_MESH[0]
+    crossed = [rid for rid, slot in sl["restored"].items()
+               if sl["retired"][rid - 1000] // per != slot // per]
+    if first["restored"] != [1000, 1000 + N_DP_REQUESTS - 1] or not crossed:
+        fail(f"{path}: restores {first['restored']} into slots "
+             f"{sl['restored']} (retired from {sl['retired']}): none "
+             f"crossed data rows")
+    # the two data rows' ranks sample the requests of their own slots
+    gate = {}
+    for r in range(0, len(ranks), DP_MESH[1]):
+        gate.update(ranks[r]["logits_vs_one_rank"])
+    if sorted(gate) != sorted(one["tokens"]):
+        fail(f"{path}: the data rows sampled {sorted(gate)}, the traffic "
+             f"has {sorted(one['tokens'])}")
+    equal = tp_tokens_check(path, first["tokens"], one["tokens"], gate,
+                            first["restored"], one["bound"])
+    steps = [r["steps"] for r in ranks]
+    out = {"spawn_s": spawn_s, "n_layers": TP_LAYERS, "mesh": DP_MESH,
+           "launches": first["on_path"][0],
+           "off_path_launches": first["on_path"][1],
+           "wall_s": [r["wall_s"] for r in ranks],
+           "param_bytes": [r["param_bytes"] for r in ranks],
+           "whole_param_bytes": first["whole_param_bytes"],
+           "layer0": [r["layer0"] for r in ranks],
+           "max_memory_allocated": [r["max_memory_allocated"]
+                                    for r in ranks],
+           "collectives": [r["collectives"] for r in ranks],
+           "steps": steps, "restored_into": sl["restored"],
+           "retired_from": sl["retired"], "crossed_rows": crossed,
+           "decode_ticks": first["stats"]["decode_dispatches"],
+           "prefill_chunks": first["stats"]["prefill_dispatches"],
+           "tokens_equal_leading": equal, "logits_vs_one_rank": gate,
+           "logits_bound": one["bound"],
+           "one_rank_wall_s": one["wall_s"],
+           "one_rank_param_bytes": one["param_bytes"],
+           "one_rank_max_memory_allocated": one["max_memory_allocated"],
+           "one_rank_decode_tick_ms": one["decode_tick_ms"],
+           "one_rank_prefill_chunk_ms": one["prefill_chunk_ms"]}
+    log(f"{path}: walls {out['wall_s']} s (one rank {one['wall_s']:.2f}); "
+        f"parameter bytes {out['param_bytes']} of "
+        f"{out['whole_param_bytes']}; layer 0 gathered "
+        f"{[x['gathered_bytes'] for x in out['layer0']]} bytes from shards "
+        f"of {[x['shard_bytes'] for x in out['layer0']]}, bit-equal to the "
+        f"model-axis shard; peak {out['max_memory_allocated']} bytes (one "
+        f"rank {one['max_memory_allocated']}); collectives on the run "
+        f"{out['collectives'][0]}; restores {sl['restored']} from "
+        f"{sl['retired']} ({crossed} crossed rows)")
+    for k in ("depth1", "depth0"):
+        log(f"{path}: SR {k}: tick {[s[k]['decode_tick_ms'] for s in steps]}"
+            f" ms, chunk {[s[k]['prefill_chunk_ms'] for s in steps]} ms "
+            f"(one rank: {one['decode_tick_ms']:.3f} / "
+            f"{one['prefill_chunk_ms']:.3f}); a tick's collectives "
+            f"{steps[0][k]['decode_tick_collectives']}, a chunk's "
+            f"{steps[0][k]['prefill_chunk_collectives']}")
+    log(f"{path}: a data-axis gather alone: layer "
+        f"{[s['gather_layer_ms'] for s in steps]} ms, embedding "
+        f"{[s['gather_embedding_ms'] for s in steps]} ms")
+    return out
+
+
 def check_train_prefill(dev):
     """flash_prefill at the training loss's shape (TRAIN_PREFILL_TOL): one
     layer's whole 4096-token sequence as one chunk at position 0, its own
@@ -3725,6 +4126,9 @@ def main() -> None:
         dec_ml = check_decode_ml(dev)
         log(f"paged_decode m / l output ok (both modes, two ranks' views, "
             f"combined): {dec_ml}")
+        dec_dp = check_decode_dp_view(dev)
+        log(f"paged_decode m / l at the dp path's rank view ok: "
+            f"{dec_dp['shape']}; {dec_dp}")
         dec8 = check_decode_int8(dev, 8, 2, 128)
         log(f"paged_decode int8 ok: {dec8['shape']}; {dec8}")
         dec8_256 = check_decode_int8(dev, 1, 8, 256)
@@ -3830,6 +4234,12 @@ def main() -> None:
         tp = serve_tp(dev)
     free_card()
 
+    with phase("dp2xtp2"):
+        dp_one = dp_one_rank(dev)
+        free_card()
+        dp = serve_dp(dev, dp_one)
+    free_card()
+
     with phase(TRAIN_PATH):
         pre_train = check_train_prefill(dev)
         log(f"flash_prefill ok: {pre_train['shape']}; {pre_train}")
@@ -3848,7 +4258,7 @@ def main() -> None:
 
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
-            XLSTM: xl, **groups, **tp, TRAIN_PATH: trained}
+            XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -3893,8 +4303,10 @@ def main() -> None:
              (TPF_PATHS[MUSICGEN],)),
             ("paged_decode_ml_tp2_vlm", "paged_decode", dec_ml["bf16 g4"],
              decode_src, decode_tpu, (TPF_PATHS[VLM],)),
+            ("paged_decode_ml_dp2xtp2", "paged_decode", dec_dp, decode_src,
+             decode_tpu, (DP_PATH,)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
-             (ARCH, HYBRID, TP_PATH, TPF_PATHS[HYBRID])),
+             (ARCH, HYBRID, TP_PATH, TPF_PATHS[HYBRID], DP_PATH)),
             ("flash_prefill_g16_glm4", "flash_prefill", pre_g[GLM4],
              prefill_src, prefill_tpu, (GLM4,)),
             ("flash_prefill_g12_starcoder2", "flash_prefill",
@@ -3987,6 +4399,14 @@ def main() -> None:
                            + "): its count is the row's "
                            "counter, read in each rank's process, rank 0's "
                            "here; library: output only")
+        if name == "paged_decode_ml_dp2xtp2":
+            row["note"] = ("the same kernel with its f32 output and m / l "
+                           "at a rank's view on the dp path, mesh (2, 2): "
+                           "its data row's 4 of 8 slots, its model rank's "
+                           "1024 of a slot's 2048 tokens (qwen3-1.7b's "
+                           "heads, bf16); its count is the row's counter, "
+                           "read in rank 0's process; library: output "
+                           "only")
         if name == "ssd_scan_tp2":
             row["note"] = ("the same kernel at a rank's 40 of zamba2-2.7b's "
                            "80 heads on the tp 2 path (its count read in "
@@ -4050,6 +4470,7 @@ def main() -> None:
                    "decode_groups": dec_g, "decode_int8_groups": dec8_g,
                    "prefill_groups": pre_g, "decode_ml": dec_ml,
                    "serve_groups": groups, "serve_tp": tp,
+                   "decode_dp_view": dec_dp, "serve_dp": dp,
                    "prefill_train": pre_train, "train_small": small_train,
                    "train_checkpoint": ckpt, "train": trained,
                    "train_driver": driver,

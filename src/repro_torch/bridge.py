@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, RMSNorm
@@ -128,16 +129,34 @@ def _mamba(grp: Dict, t, idx) -> Mamba2:
 
 
 def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda", *,
-                    rank: int = 0, n_ranks: int = 1) -> torch.nn.Module:
+                    rank: int = 0, n_ranks: int = 1, mesh_shape=(),
+                    multi_pod_fsdp: bool = False) -> torch.nn.Module:
     """The reference's parameter pytree (numpy leaves) as a
     ``DenseModel`` (dense, MoE or audio), ``HybridModel``, ``VLMModel`` or
     ``XLSTMModel`` on ``device``. With ``n_ranks > 1``, rank ``rank``'s
-    shard of it (``parallel.sharding.shard_params``): the whole model is
-    built on ``device`` first and cut there, a transient whole copy on
-    each rank (3.4 GB of bf16 weights at qwen3-1.7b's width)."""
-    if n_ranks > 1:
+    shard of it on the model axis (``parallel.sharding.shard_params``).
+    With ``mesh_shape`` ((data, model) or (pod, data, model)), ``rank``
+    is the world rank of that mesh (row-major, ``launch.mesh``) and the
+    shard is its model rank's, cut again to its FSDP rank's part on the
+    POOL tier (the data axis, or pod and data with ``multi_pod_fsdp``).
+    The whole model is built on ``device`` first and cut there: a
+    transient whole copy on each rank (3.4 GB of bf16 weights at
+    qwen3-1.7b's width), released to the card before this returns."""
+    fsdp = (0, 1)
+    if mesh_shape:
+        p_n, d_n, n_ranks = mesh_lib.mesh_shape3(mesh_shape)
+        p, d, rank = mesh_lib.coords(rank, mesh_shape)
+        fsdp = (p * d_n + d, p_n * d_n) if multi_pod_fsdp else (d, d_n)
+    if n_ranks > 1 or fsdp[1] > 1:
         whole = params_from_jax(np_tree, cfg, device)
-        return sharding.shard_params(whole, rank, n_ranks)
+        out = sharding.shard_params(
+            whole, rank, n_ranks,
+            sharding.param_specs(whole, multi_pod_fsdp=multi_pod_fsdp),
+            fsdp=fsdp)
+        del whole
+        if resolve_device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        return out
     M.check_family(cfg)
     dev = resolve_device(device)
 

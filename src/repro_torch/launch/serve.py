@@ -172,8 +172,9 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     """Serve ``n_requests`` random prompts through the engine built from
     ``config`` on ``device``; prints throughput and tier stats (unless not
     ``verbose``) and returns ``(engine, finished_requests)``. ``smoke``
-    picks the reduced config. With ``config.tp > 1`` it serves as
-    ``group``'s rank (``serve_ranks``)."""
+    picks the reduced config. With a mesh of more than one rank
+    (``config.tp > 1`` or ``config.mesh_shape``) it serves as ``group``'s
+    rank (``serve_ranks``)."""
     dev = resolve_device(device)
     cfg = registry.smoke(arch) if smoke else registry.get(arch)
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
@@ -212,23 +213,28 @@ def _serve_rank(group, arch, kwargs):
 
 
 def serve_ranks(arch: str, *, timeout_s: float = 3600.0, **kwargs):
-    """``serve`` on ``kwargs["config"].tp`` rank processes (spawned, with a
-    ``file://`` rendezvous in a new temporary directory); rank 0 prints.
-    Returns each rank's ``{rid: tokens}``."""
+    """``serve`` on the ``kwargs["config"].n_world`` rank processes of its
+    mesh (``tp=N``, or ``mesh_shape`` given through the Python API;
+    spawned, with a ``file://`` rendezvous in a new temporary directory,
+    each rank given its ``RankMesh``); rank 0 prints. Returns each rank's
+    ``{rid: tokens}``."""
     config, device = kwargs.pop("config"), kwargs.pop("device", "cuda")
     with tempfile.TemporaryDirectory() as rendezvous:
-        return mesh.spawn(_serve_rank, config.tp,
+        return mesh.spawn(_serve_rank, config.n_world,
                           (arch, dict(kwargs, config=config)),
                           rendezvous_dir=rendezvous,
                           device=resolve_device(device).type,
-                          timeout_s=timeout_s)
+                          timeout_s=timeout_s,
+                          mesh_shape=config.resolved_mesh_shape)
 
 
 def serve_waves(group, params, cfg, rc, config: ServeConfig, waves,
                 device="cuda", keep_cache: bool = False) -> dict:
     """Serve ``waves`` (lists of ``(rid, prompt, max_new_tokens)``), each
     submitted then run to the end, on the engine built from ``config`` (as
-    ``group``'s rank when ``config.tp > 1``, else ``group`` is None);
+    the rank of ``group`` -- a ``RankGroup`` of the model axis or a
+    ``RankMesh`` -- when its mesh has more than one rank, else ``group``
+    is None);
     returns what the run left,
     as plain data: every finished request's tokens, the restored rids, the
     stats, the bytes of the weights the engine holds (a rank's shard), and
@@ -333,7 +339,7 @@ def main(argv=None) -> None:
         tier_heat_half_life_ns=args.cxl_heat_half_life_ns,
         tier_sr=not args.cxl_sr_off,
         tier_faults=tier_faults, fault_seed=args.fault_seed, tp=args.tp)
-    run = serve_ranks if config.tp > 1 else serve
+    run = serve_ranks if config.n_world > 1 else serve
     run(args.arch, smoke=args.smoke, n_requests=args.requests,
         max_new=args.max_new, config=config, device=args.device)
 

@@ -3,16 +3,20 @@ families: init, paged cache, decode and chunked prefill steps, on-device
 sampling, and the training loss (every family but xLSTM).
 
 The reference streams a stacked layer axis through its speculative-read
-scan; the training loss streams the layers through the port's
-``core.speculative_read.stream_layers`` (a loop on one rank, with remat),
-and the serving steps are a plain loop over ``DenseModel.blocks``,
-``HybridModel.groups``, ``VLMModel.self_blocks`` / ``cross`` or
-``XLSTMModel.mlstm`` / ``slstm`` (the reference's serving engine drops the
-prefetch for a single device too). The MoE family (granite) is a
-``DenseModel`` of ``MoEBlock``s; the audio family (musicgen) a
-``DenseModel`` of dense blocks over K codebook tables: its tokens are [B,
-K, S], their K rows summed, sinusoidal positions added at each row's own
-positions, and its logits [B, K, S, V]. All three share the dense cache
+scan; the port streams its per-layer modules through
+``core.speculative_read.stream_layers``: the training loss with remat,
+the serving steps in ``mode="infer"`` over ``DenseModel.blocks``,
+``HybridModel.groups``, ``VLMModel.self_blocks`` with ``cross`` or
+``XLSTMModel.mlstm`` with ``slstm``, each step's slice of the cache beside
+it. With POOL-tier weights (``Ranks.fsdp``) each layer's FSDP shards are
+gathered there, ``rc.sr_prefetch_depth`` layers ahead (the serving
+engine sets the depth to 0 where the FSDP axes have one rank, as the
+reference's does); the leaves outside the stream (the embedding, the
+hybrid's shared block) are gathered once a step, first. The MoE family
+(granite) is a ``DenseModel`` of ``MoEBlock``s; the audio family
+(musicgen) a ``DenseModel`` of dense blocks over K codebook tables: its
+tokens are [B, K, S], their K rows summed, sinusoidal positions added at
+each row's own positions, and its logits [B, K, S, V]. All three share the dense cache
 layout and the chunked prefill, one parallel chunk forward per layer.
 Caches keep the reference's layout -- dense
 ``{"kv": {"k","v"}: [L, B, P, page, Hkv, D], "pos": [B]}``, with int8
@@ -45,6 +49,7 @@ chunk (``models/xlstm.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -55,6 +60,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import speculative_read as sr
 from repro_torch.device import resolve_device
 from repro_torch.models import kv_quant, mamba2, moe, transformer, xlstm
+from repro_torch.parallel import sharding
 from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        embed_init, frozen_param, pdtype,
                                        rmsnorm, sinusoidal_positions,
@@ -262,9 +268,7 @@ def cache_init(cfg: ModelConfig, rc: RunConfig, batch: int, max_seq: int,
 
 
 # batch axis of each cache leaf ("kv" leaves: 1)
-_BATCH_AXIS = {"pos": 0, "h": 2, "conv": 2, "cross_k": 1, "cross_v": 1,
-               "mC": 2, "mn": 2, "mm": 2, "mconv": 2, "sh": 1, "sc": 1,
-               "sn": 1, "sm": 1, "sconv": 1}
+_BATCH_AXIS = sharding.CACHE_BATCH_AXIS
 
 
 def slot_view(cache: Dict, slot: int) -> Dict:
@@ -283,33 +287,18 @@ def _layer_kv(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
     return {name: a[i] for name, a in cache["kv"].items()}
 
 
-def _mamba_layers(params: HybridModel, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Dict, gi: int, step, group=None) -> torch.Tensor:
-    """Group ``gi``'s Mamba2 layers through ``step`` (``mamba_step`` or
-    ``mamba_prefill_chunk``, over a rank ``group``), residual added,
-    states written in place."""
-    for i, layer in enumerate(params.groups[gi]):
-        state = {name: cache[name][gi, i] for name in ("h", "conv")}
-        y, new = step(layer, cfg, x, state, group)
+def _mamba_layers(layers, cfg: ModelConfig, x: torch.Tensor, state: Dict,
+                  step, group=None) -> torch.Tensor:
+    """One group's Mamba2 ``layers`` through ``step`` (``mamba_step`` or
+    ``mamba_prefill_chunk``, over a rank ``group``), residual added; the
+    group's states (``state["h"]`` / ``["conv"]`` [period, B, ...]) are
+    written in place."""
+    for i, layer in enumerate(layers):
+        st = {name: state[name][i] for name in ("h", "conv")}
+        y, new = step(layer, cfg, x, st, group)
         x = x + y
         for name in ("h", "conv"):
-            state[name].copy_(new[name])
-    return x
-
-
-def _vlm_layers(params: VLMModel, cfg: ModelConfig, x: torch.Tensor,
-                cache: Dict, self_block, group=None) -> torch.Tensor:
-    """Every group's self-attention blocks through ``self_block(block, x,
-    kv)`` (the paged decode or the chunked prefill, on the group-major
-    K/V layer), then its cross layer over the group's vision K/V (over a
-    rank ``group``)."""
-    per = cfg.cross_attn_period - 1
-    for gi, blocks in enumerate(params.self_blocks):
-        for i, block in enumerate(blocks):
-            x = self_block(block, x, _layer_kv(cache, gi * per + i))
-        x = transformer.cross_block_apply(params.cross[gi], cfg, x,
-                                          cache["cross_k"][gi],
-                                          cache["cross_v"][gi], group=group)
+            st[name].copy_(new[name])
     return x
 
 
@@ -318,27 +307,15 @@ _MLSTM_STATE = {"C": "mC", "n": "mn", "m": "mm", "conv": "mconv"}
 _SLSTM_STATE = {"h": "sh", "c": "sc", "n": "sn", "m": "sm", "conv": "sconv"}
 
 
-def _state_step(fn, layer, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+def _state_step(fn, layer, cfg: ModelConfig, x: torch.Tensor, leaves: Dict,
                 names: Dict[str, str], idx, group=None) -> torch.Tensor:
     """``x, new = fn(layer, cfg, x, state, group)`` on the state held in
-    the cache leaves ``names`` at ``idx``, which take ``new`` in place."""
-    state = {k: cache[n][idx] for k, n in names.items()}
+    the cache leaves ``names`` (of ``leaves``) at ``idx``, which take
+    ``new`` in place."""
+    state = {k: leaves[n][idx] for k, n in names.items()}
     x, new = fn(layer, cfg, x, state, group)
     for k, t in state.items():
         t.copy_(new[k])
-    return x
-
-
-def _xlstm_layers(params: XLSTMModel, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Dict, group=None) -> torch.Tensor:
-    """S tokens ([B, S, d]) through every group's mLSTM layers and its
-    sLSTM layer (over a rank ``group``), the states written in place."""
-    for gi, layers in enumerate(params.mlstm):
-        for i, layer in enumerate(layers):
-            x = _state_step(xlstm.mlstm_step, layer, cfg, x, cache,
-                            _MLSTM_STATE, (gi, i), group)
-        x = _state_step(xlstm.slstm_step, params.slstm[gi], cfg, x, cache,
-                        _SLSTM_STATE, gi, group)
     return x
 
 
@@ -347,12 +324,12 @@ def _shared_in(sp: SharedBlock, x: torch.Tensor,
     return torch.cat([x, emb], dim=-1) @ sp.in_map
 
 
-def _embed(params: nn.Module, cfg: ModelConfig, tokens: torch.Tensor,
+def _embed(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor, group=None) -> torch.Tensor:
     """The token embedding (over a rank ``group`` where its table is
     split), plus the sinusoidal positions (positions [B, S]) for a model
     without rope (musicgen, xLSTM)."""
-    x = embed_apply(params.embed, cfg, tokens, group)
+    x = embed_apply(embed, cfg, tokens, group)
     if cfg.family == "audio" or not cfg.use_rope:
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -441,7 +418,7 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     bsz, seq = tokens.shape[0], tokens.shape[-1]
     positions = torch.arange(seq, dtype=torch.int32,
                              device=tokens.device)[None].expand(bsz, seq)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params.embed, cfg, tokens, positions)
     shared = ({"params": params.shared, "emb": x}
               if cfg.family == "hybrid" else None)
     body = _body_train(cfg, rc, positions, shared=shared,
@@ -484,58 +461,178 @@ def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def check_ranks(mesh_shape) -> None:
-    """Raise for a mesh with more than one rank off the model axis: every
-    family serves over the model axis (tp: a page-sharded cache, weights
-    split by ``parallel.sharding.param_specs``, expert-parallel MoE, whole
-    per-slot states); the data and pod axes are not ported yet."""
-    if mesh_shape and any(n != 1 for n in mesh_shape[:-1]):
-        raise NotImplementedError(
-            f"mesh_shape {mesh_shape}: only the model axis (tp) is ported, "
-            f"not data or pod axes")
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """The rank groups (``launch.mesh.RankGroup``; None: one rank) a
+    serving step runs over: ``model`` for the weights split on the model
+    axis, ``pages`` for the cache's page axis, ``fsdp`` for the POOL
+    tier's gathers (the speculative read), ``batch`` for the rows of slots
+    the decode batch is split into (the MoE routes the whole batch)."""
+
+    model: Optional[object] = None
+    pages: Optional[object] = None
+    fsdp: Optional[object] = None
+    batch: Optional[object] = None
+
+
+def _ranks(group, ranks: Optional[Ranks]) -> Ranks:
+    """``ranks``, or the model axis alone: a rank ``group`` for the
+    weights and the pages."""
+    return ranks if ranks is not None else Ranks(model=group, pages=group)
+
+
+def check_ranks(cfg: ModelConfig, mesh_shape, multi_pod: bool = False
+                ) -> None:
+    """Raise for a mesh this family does not serve on. Every family
+    serves over the model axis (tp: a page-sharded cache, weights split
+    by ``parallel.sharding.param_specs``, expert-parallel MoE, whole
+    per-slot states) and over the data and pod axes (POOL-tier weights
+    gathered by the speculative read, slots split over the batch axes);
+    the MoE family not over both at once, as the reference's does not
+    (``moe.check_mesh``)."""
+    if not mesh_shape:
+        return
+    p_n, d_n, n = (1,) * (3 - len(mesh_shape)) + tuple(mesh_shape)
+    if cfg.family == "moe":
+        moe.check_mesh(d_n * (p_n if multi_pod else 1), n)
+
+
+def _serving_units(params: nn.Module, cfg: ModelConfig):
+    """The layer stream's steps in serving: a block (dense, MoE, audio),
+    a group of Mamba2 layers (hybrid), a group's self-attention blocks
+    with its cross layer (VLM), or a group's mLSTM layers with its sLSTM
+    layer (xLSTM) -- the reference's stacked axis."""
+    if cfg.family == "vlm":
+        return list(zip(params.self_blocks, params.cross))
+    if cfg.family == "ssm":
+        return list(zip(params.mlstm, params.slstm))
+    if cfg.family == "hybrid":
+        return params.groups
+    return params.blocks
+
+
+def _outside(params: nn.Module, cfg: ModelConfig) -> tuple:
+    """The leaves a step uses outside the layer stream: the embedding
+    (and unembedding), and the hybrid's shared block."""
+    if cfg.family == "hybrid":
+        return (params.embed, params.shared)
+    return (params.embed,)
+
+
+def _unit_extras(cfg: ModelConfig, cache: Dict, n: int):
+    """Each stream step's slice of the cache (updated in place): a
+    block's pages; a hybrid group's shared-block pages and Mamba2
+    states; a VLM group's self-attention pages and vision K/V; an xLSTM
+    group's states."""
+    fam = cfg.family
+    if fam == "ssm":
+        return [{name: cache[name][gi] for name in
+                 (*_MLSTM_STATE.values(), *_SLSTM_STATE.values())}
+                for gi in range(n)]
+    if fam == "hybrid":
+        return [{"kv": _layer_kv(cache, gi), "h": cache["h"][gi],
+                 "conv": cache["conv"][gi]} for gi in range(n)]
+    if fam == "vlm":
+        per = cfg.cross_attn_period - 1
+        return [{"kv": [_layer_kv(cache, gi * per + i) for i in range(per)],
+                 "cross_k": cache["cross_k"][gi],
+                 "cross_v": cache["cross_v"][gi]} for gi in range(n)]
+    return [_layer_kv(cache, i) for i in range(n)]
+
+
+def _stream(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
+            x: torch.Tensor, cache: Dict, r: Ranks, shared, attend,
+            mamba_step) -> torch.Tensor:
+    """``x`` through every layer on the speculative-read stream
+    (``rc.sr_prefetch_depth`` layers in flight, their FSDP axes gathered
+    over ``r.fsdp``); ``attend(block, x, kv)`` is the attention block's
+    step (decode or chunked prefill), ``mamba_step`` the Mamba2 layers',
+    ``shared`` the gathered leaves outside the stream but the embedding
+    (the hybrid's shared block)."""
+    fam, g = cfg.family, r.model
+    units = _serving_units(params, cfg)
+    if fam == "hybrid":
+        emb, (shared,) = x, shared
+
+        def body(x, layers, st):
+            x = _mamba_layers(layers, cfg, x, st, mamba_step, g)
+            z = attend(shared.block, _shared_in(shared, x, emb), st["kv"])
+            return x + z @ shared.out_map
+    elif fam == "vlm":
+        def body(x, unit, st):
+            blocks, cross = unit
+            for blk, kv in zip(blocks, st["kv"]):
+                x = attend(blk, x, kv)
+            return transformer.cross_block_apply(cross, cfg, x,
+                                                 st["cross_k"],
+                                                 st["cross_v"], group=g)
+    elif fam == "ssm":
+        def body(x, unit, st):
+            mlstm, slstm = unit
+            for i, layer in enumerate(mlstm):
+                x = _state_step(xlstm.mlstm_step, layer, cfg, x, st,
+                                _MLSTM_STATE, i, g)
+            return _state_step(xlstm.slstm_step, slstm, cfg, x, st,
+                               _SLSTM_STATE, slice(None), g)
+    else:
+        def body(x, block, kv):
+            return attend(block, x, kv)
+    return sr.stream_layers(body, x, units,
+                            prefetch_depth=rc.sr_prefetch_depth,
+                            granularity=rc.sr_granularity, mode="infer",
+                            remat=False, group=r.fsdp,
+                            extras=_unit_extras(cfg, cache, len(units)))
+
+
+def join_fsdp_reads(params: nn.Module, cfg: ModelConfig, rc: RunConfig, *,
+                    ranks: Ranks) -> None:
+    """A step's POOL-tier gathers over ``ranks.fsdp``, in the step's order
+    (the leaves outside the stream, then the stream's), and nothing
+    else: what a rank of the data axis runs while another row prefills
+    one of its own slots, so that every rank of the group enters the
+    same gathers."""
+    sr.materialize(_outside(params, cfg), rc.sr_granularity, ranks.fsdp)
+    sr.stream_layers(lambda x, layer: x, None, _serving_units(params, cfg),
+                     prefetch_depth=rc.sr_prefetch_depth,
+                     granularity=rc.sr_granularity, mode="infer",
+                     remat=False, group=ranks.fsdp)
 
 
 @torch.no_grad()
 def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
-                tokens: torch.Tensor, cache: Dict, *, group=None
+                tokens: torch.Tensor, cache: Dict, *, group=None,
+                ranks: Optional[Ranks] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode for every row. tokens: [B, 1] -> logits [B, 1, V]
     (audio: [B, K, 1] -> [B, K, 1, V]).
 
     Writes each row's new K/V at its ``cache["pos"]`` and advances every
-    row's position by one, in place. With a rank ``group`` the cache's
-    pages are this rank's shard and the weights this rank's
-    (``parallel.sharding``): the attention is the page-sharded decode, the
-    MoE the expert-parallel one, the Mamba2 layers run this rank's heads;
-    the recurrent states and the vision K/V are whole on every rank and
-    stay equal there."""
+    row's position by one, in place. The layers stream through the
+    speculative read (``core.speculative_read.stream_layers``,
+    ``mode="infer"``). With a rank ``group`` (the model axis) or
+    ``ranks``, the cache's pages are this rank's shard and the weights
+    this rank's (``parallel.sharding``): the attention is the page-sharded
+    decode, the MoE the expert-parallel one, the Mamba2 layers run this
+    rank's heads; the recurrent states and the vision K/V are whole on
+    every rank of the model axis and stay equal there. With POOL-tier
+    weights (``ranks.fsdp``) each layer's FSDP axes are gathered before
+    use; the leaves outside the stream once, first. With the batch split
+    (``ranks.batch``) the rows are this rank's slots."""
     check_family(cfg)
+    r = _ranks(group, ranks)
+    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp)
     pos = cache["pos"]
-    x = _embed(params, cfg, tokens, pos.reshape(-1, 1).to(torch.int32),
-               group)
-    if cfg.family == "hybrid":
-        emb, sp = x, params.shared
-        for gi in range(len(params.groups)):
-            x = _mamba_layers(params, cfg, x, cache, gi, mamba2.mamba_step,
-                              group)
-            z = transformer.block_decode_paged(sp.block, cfg,
-                                               _shared_in(sp, x, emb), pos,
-                                               _layer_kv(cache, gi),
-                                               group=group)
-            x = x + z @ sp.out_map
-    elif cfg.family == "vlm":
-        x = _vlm_layers(params, cfg, x, cache,
-                        lambda blk, x, kv: transformer.block_decode_paged(
-                            blk, cfg, x, pos, kv, group=group), group)
-    elif cfg.family == "ssm":
-        x = _xlstm_layers(params, cfg, x, cache, group)
-    else:
-        for i, block in enumerate(params.blocks):
-            x = transformer.block_decode_paged(block, cfg, x, pos,
-                                               _layer_kv(cache, i),
-                                               group=group)
+    x = _embed(top[0], cfg, tokens, pos.reshape(-1, 1).to(torch.int32),
+               r.model)
+
+    def attend(block, x, kv):
+        return transformer.block_decode_paged(block, cfg, x, pos, kv,
+                                              group=r.model, pages=r.pages,
+                                              batch=r.batch)
+    x = _stream(params, cfg, rc, x, cache, r, top[1:], attend,
+                mamba2.mamba_step)
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
-    logits = unembed_apply(params.embed, cfg, x, group)
+    logits = unembed_apply(top[0], cfg, x, r.model)
     cache["pos"] += 1
     return logits, cache
 
@@ -543,7 +640,8 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
 @torch.no_grad()
 def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
                         rc: RunConfig, tokens: torch.Tensor, cache: Dict, *,
-                        last_only: bool = False, group=None
+                        last_only: bool = False, group=None,
+                        ranks: Optional[Ranks] = None
                         ) -> Tuple[torch.Tensor, Dict]:
     """Chunked multi-token prefill that writes the paged KV cache in place.
 
@@ -551,40 +649,29 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     starting at its own ``cache["pos"]``; returns (logits [B, C, V] — or
     only the last position's, [B, 1, V], with ``last_only``; audio [B, K,
     C or 1, V] — and the cache with pos advanced by C). With a rank
-    ``group``, as in ``decode_step``.
+    ``group`` or ``ranks``, as in ``decode_step``.
     """
     check_family(cfg)
+    r = _ranks(group, ranks)
+    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp)
     pos = cache["pos"]
     c = tokens.shape[-1]
     positions = (pos.reshape(-1, 1).to(torch.int32)
                  + torch.arange(c, dtype=torch.int32,
                                 device=tokens.device)[None])
-    x = _embed(params, cfg, tokens, positions, group)
-    if cfg.family == "hybrid":
-        emb, sp = x, params.shared
-        for gi in range(len(params.groups)):
-            x = _mamba_layers(params, cfg, x, cache, gi,
-                              mamba2.mamba_prefill_chunk, group)
-            z = transformer.block_prefill_cached(
-                sp.block, cfg, _shared_in(sp, x, emb), positions, pos,
-                _layer_kv(cache, gi), stepwise=True, group=group)
-            x = x + z @ sp.out_map
-    elif cfg.family == "vlm":
-        x = _vlm_layers(params, cfg, x, cache,
-                        lambda blk, x, kv: transformer.block_prefill_cached(
-                            blk, cfg, x, positions, pos, kv, stepwise=True,
-                            group=group), group)
-    elif cfg.family == "ssm":
-        x = _xlstm_layers(params, cfg, x, cache, group)
-    else:
-        for i, block in enumerate(params.blocks):
-            x = transformer.block_prefill_cached(block, cfg, x, positions,
-                                                 pos, _layer_kv(cache, i),
-                                                 group=group)
+    x = _embed(top[0], cfg, tokens, positions, r.model)
+    stepwise = cfg.family in ("hybrid", "vlm")
+
+    def attend(block, x, kv):
+        return transformer.block_prefill_cached(block, cfg, x, positions,
+                                                pos, kv, stepwise=stepwise,
+                                                group=r.model, pages=r.pages)
+    x = _stream(params, cfg, rc, x, cache, r, top[1:], attend,
+                mamba2.mamba_prefill_chunk)
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
-    logits = unembed_apply(params.embed, cfg, x, group)
+    logits = unembed_apply(top[0], cfg, x, r.model)
     cache["pos"] += c
     return logits, cache
 

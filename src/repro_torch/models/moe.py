@@ -357,15 +357,40 @@ def moe_apply_ep(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     return y, cfg.router_aux_coef * cfg.n_experts * torch.sum(me * ce)
 
 
+def check_mesh(dp: int, n: int) -> None:
+    """Raise for the MoE family on ``dp`` ranks of the batch axes and
+    ``n`` of the model axis at once: the reference's ``moe_apply_ep``
+    splits the tokens over both in one ``shard_map``, which the one-slot
+    prefill batch cannot take (it raises there), so the port refuses the
+    mesh too."""
+    if dp > 1 and n > 1:
+        raise NotImplementedError(
+            f"the MoE family on {dp} data ranks and {n} model ranks: the "
+            f"reference's moe_apply_ep shards the tokens over (data, "
+            f"model) in one shard_map and refuses the one-slot prefill "
+            f"batch there; serve MoE over the data axis (model axis 1) or "
+            f"the model axis (data axis 1)")
+
+
 def moe_apply_ep_decode(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-                        group=None) -> torch.Tensor:
+                        group=None, batch=None) -> torch.Tensor:
     """The decode MoE over a rank ``group``'s model axis. x [B, 1, d],
     whole on every rank. On one rank, or where the ranks do not divide E,
     ``moe_apply``'s output, drops included (the reference's "no drops"
     holds only for its multi-rank form); else each rank runs its own
     experts' pairs, none dropped, and one sum all-reduce in f32
-    combines."""
+    combines. With the decode batch's rows split over ``batch`` (a model
+    axis of one rank; ``check_mesh``), x is this rank's rows: the whole
+    batch is gathered and routed at once, as the reference's
+    ``moe_apply`` routes it (one capacity over every token), and this
+    rank keeps its rows."""
     rank, n = _rank(group)
+    if batch is not None and batch.size > 1:
+        check_mesh(batch.size, n)
+        b = x.shape[0]
+        whole = batch.all_gather(x).reshape((-1,) + x.shape[1:])
+        return moe_apply(moe, cfg, whole)[0][batch.rank * b:
+                                             (batch.rank + 1) * b]
     if n == 1 or cfg.n_experts % n:
         return moe_apply(moe, cfg, x)[0]
     b, s, d = x.shape

@@ -37,9 +37,10 @@ class Block(nn.Module):
         self.mlp = mlp
 
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, *, decode: bool,
-            group=None) -> torch.Tensor:
+            group=None, batch=None) -> torch.Tensor:
         """The feed-forward half on the normed ``h``: the MLP (over a rank
-        ``group`` where its weights are split)."""
+        ``group`` where its weights are split), row by row (``batch`` is
+        not needed)."""
         return mlp_apply(self.mlp, cfg, h, group)
 
 
@@ -55,13 +56,16 @@ class MoEBlock(nn.Module):
         self.moe = experts
 
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, *, decode: bool,
-            group=None) -> torch.Tensor:
+            group=None, batch=None) -> torch.Tensor:
         """The feed-forward half on the normed ``h``: the routed experts,
         ``moe_apply_ep_decode`` on a decode tick, else ``moe_apply_ep``
         (both ``moe_apply`` on one rank, drops included; expert-parallel
-        over a rank ``group``; no aux loss, which serving does not use)."""
+        over a rank ``group``; over the whole decode batch where its rows
+        are split over ``batch``; no aux loss, which serving does not
+        use)."""
         if decode:
-            return moe.moe_apply_ep_decode(self.moe, cfg, h, group=group)
+            return moe.moe_apply_ep_decode(self.moe, cfg, h, group=group,
+                                           batch=batch)
         return moe.moe_apply_ep(self.moe, cfg, h, group=group, aux=False)[0]
 
 
@@ -171,7 +175,7 @@ def vision_kv(block: CrossBlock, cfg: ModelConfig,
 
 def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
             o: torch.Tensor, *, decode: bool = False,
-            group=None) -> torch.Tensor:
+            group=None, batch=None) -> torch.Tensor:
     """Attention output projection + residual, then the block's
     feed-forward half (``block.ffn``) + residual. With ``wo`` split over a
     rank ``group`` on its rows, each rank projects its slice of the heads'
@@ -180,7 +184,7 @@ def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
     x = x + sharding.row_product(group, o.reshape(b, s, cfg.q_dim),
                                  block.attn.wo, cfg.q_dim)
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
-    return x + block.ffn(cfg, h, decode=decode, group=group)
+    return x + block.ffn(cfg, h, decode=decode, group=group, batch=batch)
 
 
 def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -212,23 +216,28 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
 def block_decode_paged(block: Block | MoEBlock, cfg: ModelConfig,
                        x: torch.Tensor, pos: torch.Tensor,
                        kv: Dict[str, torch.Tensor], *,
-                       group=None) -> torch.Tensor:
+                       group=None, pages=None,
+                       batch=None) -> torch.Tensor:
     """Single-token decode against one layer's pages.
 
     x: [B, 1, d]; pos: int32 [B]; kv: {"k","v"} each [B, n_pages, page,
     Hkv, D] (int8 pages add f32 "k_scale"/"v_scale" [B, n_pages, Hkv]),
-    written in place; with a rank ``group``, this rank's pages. Returns the
-    block output [B, 1, d].
+    written in place; with a rank ``group``, the weights' collectives run
+    over it and ``kv`` holds this rank's pages of the ``pages`` group
+    (default: ``group``). ``batch``: the group the decode batch's rows
+    are split over (the MoE routes them whole). Returns the block output
+    [B, 1, d].
     """
+    pages = group if pages is None else pages
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     positions = pos.reshape(-1, 1).to(torch.int32)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions, group=group)
     o = attn.paged_decode_attention(q, kv["k"], kv["v"], k, v, pos,
-                                    group=group,
+                                    group=pages,
                                     logit_softcap=cfg.attn_logit_softcap,
                                     k_scale=kv.get("k_scale"),
                                     v_scale=kv.get("v_scale"))
-    return _finish(block, cfg, x, o, decode=True, group=group)
+    return _finish(block, cfg, x, o, decode=True, group=group, batch=batch)
 
 
 def _prefill_attention_int8(cfg: ModelConfig, q: torch.Tensor,
@@ -268,7 +277,7 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
                          pos: torch.Tensor,
                          kv: Dict[str, torch.Tensor], *,
                          stepwise: bool = False,
-                         group=None) -> torch.Tensor:
+                         group=None, pages=None) -> torch.Tensor:
     """One block over a C-token chunk, writing its K/V into the pages.
 
     x: [B, C, d]; positions: [B, C]; pos: int32 [B] per-row start
@@ -283,19 +292,20 @@ def block_prefill_cached(block: Block | MoEBlock, cfg: ModelConfig,
     decode step that attends to the chunk's earlier tokens through their
     codes and requantizes its page.
 
-    With a rank ``group`` of more than one rank, ``kv`` holds this rank's
-    pages: the slot's pages of every rank are gathered (the reference
-    leaves the chunk's attention to XLA over the sharded cache, one
-    softmax over every visible key), the chunk runs on the whole cache as
-    on one rank (the weights' collectives over ``group``), and this rank
-    keeps its own pages of the result.
+    With a ``pages`` group (default: the rank ``group``) of more than one
+    rank, ``kv`` holds this rank's pages: the slot's pages of every rank
+    are gathered (the reference leaves the chunk's attention to XLA over
+    the sharded cache, one softmax over every visible key), the chunk runs
+    on the whole cache as on one rank (the weights' collectives over
+    ``group``), and this rank keeps its own pages of the result.
     """
-    if group is not None and group.size > 1:
-        whole = sharding.gather_pages(group, kv)
+    pages = group if pages is None else pages
+    if pages is not None and pages.size > 1:
+        whole = sharding.gather_pages(pages, kv)
         out = _prefill_block(block, cfg, x, positions, pos, whole,
                              stepwise, group)
         n_pages = next(iter(whole.values())).shape[sharding.LAYER_PAGE_AXIS]
-        lo, hi = sharding.page_range(n_pages, group.rank, group.size)
+        lo, hi = sharding.page_range(n_pages, pages.rank, pages.size)
         for name, t in kv.items():
             t.copy_(whole[name][:, lo:hi])
         return out

@@ -1,30 +1,38 @@
-"""Sharding over the ranks of one model axis: the parameters by the
-reference's rules (``repro.parallel.sharding``: ``_RULES``, ``AXIS_SIZES``,
-``_divisible``, ``spec_for``, ``param_specs``) and the page axis of the
-paged KV cache (the reference's ``models.model.cache_specs``).
+"""Sharding over the ranks of a mesh: the parameters by the reference's
+rules (``repro.parallel.sharding``: ``_RULES``, ``AXIS_SIZES``,
+``_divisible``, ``spec_for``, ``param_specs``), the POOL tier's FSDP
+gathers, and the slot and page axes of the paged KV cache (the
+reference's ``models.model.decode_axes`` / ``cache_specs``).
 
 A spec is a tuple with one entry per axis of a leaf -- ``"model"``, the
-FSDP axis ``"data"`` or None -- in place of the reference's
-``PartitionSpec``, resolved for the port's per-layer leaves (the
-reference's specs without their leading stacked axes). Serving runs the
-model axis only: ``"data"`` has one rank there, so ``shard_params`` cuts
-each leaf on its ``"model"`` axis alone, rank r taking the contiguous
-``[r n/N, (r+1) n/N)`` of it. The divisibility guard tests the production
-axis sizes, not N, as the reference's does, so a leaf that 16 does not
-divide stays whole (granite's vocabulary of 49155; smoke granite's 8
-experts, which ``models.moe``'s expert-parallel forms split themselves,
-as the reference's ``shard_map`` does).
+FSDP axis (``"data"``, or ``("pod", "data")`` with ``multi_pod_fsdp``)
+or None -- in place of the reference's ``PartitionSpec``, resolved for
+the port's per-layer leaves (the reference's specs without their leading
+stacked axes). ``shard_params`` cuts each leaf on its ``"model"`` axis,
+model rank m taking the contiguous ``[m n/N, (m+1) n/N)`` of it, then on
+its FSDP axis, FSDP rank f of F taking the contiguous 1/F of that: the
+POOL tier's placement, on which a layer is gathered before use
+(``FsdpRead``, the speculative read's load). The divisibility guard tests
+the production axis sizes, not the mesh's, as the reference's does, so a
+leaf that 16 does not divide stays whole on that axis (granite's
+vocabulary of 49155; smoke granite's 8 experts, which ``models.moe``'s
+expert-parallel forms split themselves, as the reference's ``shard_map``
+does).
 
-The reference's ``cache_specs`` puts the model axis on the page axis of
-every paged leaf: the pages [L, B, P, page, Hkv, D] and the int8 scales
-[L, B, P, Hkv] alike, so rank r holds pages ``[r P/N, (r+1) P/N)`` with
-their scales and a contiguous token range of every slot.
+The reference's ``cache_specs`` puts the batch axes (data, or pod and
+data) on the slot axis of every leaf and the model axis on the page axis
+of every paged leaf: the pages [L, B, P, page, Hkv, D] and the int8
+scales [L, B, P, Hkv] alike, so model rank m holds pages ``[m P/N, (m+1)
+P/N)`` with their scales and a contiguous token range of every slot it
+holds. With one slot the batch is not split: the pages spread over the
+data and model axes together (``decode_axes``' batch-1 branch).
 """
 from __future__ import annotations
 
+import collections
 import copy
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +42,12 @@ Spec = Tuple[Optional[str], ...]
 # the page axis of a cache "kv" leaf [L, B, P, ...] and of one layer's
 # leaf [B, P, ...]
 PAGE_AXIS, LAYER_PAGE_AXIS = 2, 1
+# the batch (slot) axis of each cache leaf ("kv" leaves: 1)
+CACHE_BATCH_AXIS = {"pos": 0, "h": 2, "conv": 2, "cross_k": 1,
+                    "cross_v": 1, "mC": 2, "mn": 2, "mm": 2, "mconv": 2,
+                    "sh": 1, "sc": 1, "sn": 1, "sm": 1, "sconv": 1}
+# on a module of a POOL-tier shard: {parameter name: its FSDP axis}
+FSDP_ATTR = "_fsdp_axes"
 
 # (regex over param path, spec WITHOUT the leading layer-stack axis)
 # "F" marks the FSDP-shardable axis (replaced by fsdp axis for POOL tier,
@@ -132,12 +146,16 @@ def ref_path(name: str) -> Tuple[str, int]:
     return "/".join([head] + parts[1 + n_idx:]), n_idx
 
 
-def param_specs(params: nn.Module, *, tier: str = "pool") -> Dict[str, Spec]:
+def param_specs(params: nn.Module, *, tier: str = "pool",
+                multi_pod_fsdp: bool = False) -> Dict[str, Spec]:
     """``{name: spec}`` for every parameter of the port's model: the
-    reference's ``param_specs(..., tier)`` of the same leaf, without its
-    stacked axes. ``tier`` "device" has no FSDP axis; "pool" / "host" put
-    "data" there (the reference's single-pod mesh)."""
-    fsdp_axis = "data" if tier in ("pool", "host") else None
+    reference's ``param_specs(..., tier, multi_pod_fsdp)`` of the same
+    leaf, without its stacked axes. ``tier`` "device" has no FSDP axis;
+    "pool" / "host" put "data" there, or ("pod", "data") with
+    ``multi_pod_fsdp``."""
+    fsdp_axis = None
+    if tier in ("pool", "host"):
+        fsdp_axis = ("pod", "data") if multi_pod_fsdp else "data"
     return {name: spec_for(ref_path(name)[0], tuple(p.shape),
                            fsdp_axis=fsdp_axis, stacked=False)
             for name, p in params.named_parameters()}
@@ -151,28 +169,141 @@ def _owner(root: nn.Module, name: str) -> Tuple[nn.Module, str]:
     return mod, attr
 
 
+def _fsdp_axis(spec: Spec) -> Optional[int]:
+    """The axis of ``spec`` that carries the FSDP axis, if any."""
+    for i, a in enumerate(spec):
+        if a == "data" or (isinstance(a, tuple) and "data" in a):
+            return i
+    return None
+
+
 def shard_params(params: nn.Module, rank: int, n_ranks: int,
-                 specs: Optional[Dict[str, Spec]] = None) -> nn.Module:
-    """Rank ``rank``'s shard of the whole ``params``: a new model whose
-    leaves with a ``"model"`` axis in their spec (``param_specs`` of the
-    whole model, or ``specs``) hold the rank's contiguous 1/N of that axis
-    in new tensors; every other leaf is the same tensor as in ``params``,
-    which is left whole. The result carries ``shard = (rank, n_ranks)``."""
+                 specs: Optional[Dict[str, Spec]] = None, *,
+                 fsdp: Tuple[int, int] = (0, 1)) -> nn.Module:
+    """Rank ``rank``'s (of ``n_ranks`` on the model axis) shard of the
+    whole ``params``: a new model whose leaves with a ``"model"`` axis in
+    their spec (``param_specs`` of the whole model, or ``specs``) hold the
+    rank's contiguous 1/N of that axis in new tensors; with ``fsdp = (f,
+    F)``, F > 1, the leaves whose spec has an FSDP axis then hold FSDP
+    rank f's contiguous 1/F of it, each owning module listing them under
+    ``FSDP_ATTR`` (the POOL tier). Every other leaf is the same tensor as
+    in ``params``, which is left whole. The result carries ``shard =
+    (rank, n_ranks)``, or ``(rank, n_ranks, f, F)`` with FSDP shards."""
     if specs is None:
         specs = param_specs(params)
+    f_rank, f_size = fsdp
     shared = {id(p): p for p in params.parameters()}
     out = copy.deepcopy(params, memo=shared)
     for name, p in params.named_parameters():
-        if "model" not in specs[name]:
+        spec = specs[name]
+        cut = p.detach()
+        if "model" in spec:
+            axis = spec.index("model")
+            n = p.shape[axis] // n_ranks
+            cut = cut.narrow(axis, rank * n, n)
+        f_axis = _fsdp_axis(spec) if f_size > 1 else None
+        if f_axis is not None:
+            if cut.shape[f_axis] % f_size:
+                raise ValueError(f"{name}: axis {f_axis} of {tuple(cut.shape)}"
+                                 f" does not split over {f_size} FSDP ranks")
+            n = cut.shape[f_axis] // f_size
+            cut = cut.narrow(f_axis, f_rank * n, n)
+        if "model" not in spec and f_axis is None:
             continue
-        axis = specs[name].index("model")
-        n = p.shape[axis] // n_ranks
         mod, attr = _owner(out, name)
-        setattr(mod, attr, nn.Parameter(
-            p.detach().narrow(axis, rank * n, n).clone(),
-            requires_grad=False))
-    out.shard = (rank, n_ranks)
+        setattr(mod, attr, nn.Parameter(cut.clone(), requires_grad=False))
+        if f_axis is not None:
+            mod.__dict__.setdefault(FSDP_ATTR, {})[attr] = f_axis
+    out.shard = (rank, n_ranks) if f_size == 1 else (rank, n_ranks, f_rank,
+                                                     f_size)
     return out
+
+
+def _pool_leaves(unit) -> List[Tuple[nn.Module, str, int]]:
+    """(module, parameter name, FSDP axis) of every POOL-tier leaf of a
+    layer, a model, or a tuple of them."""
+    roots = unit if isinstance(unit, tuple) else (unit,)
+    return [(mod, attr, axis) for root in roots for mod in root.modules()
+            for attr, axis in mod.__dict__.get(FSDP_ATTR, {}).items()]
+
+
+def _twin(mod: nn.Module, got: Dict) -> nn.Module:
+    """A structural copy of ``mod`` (its own module and parameter dicts;
+    the same tensors) with the gathered leaves ``got`` in place of its
+    shards and no FSDP leaves left."""
+    new = object.__new__(type(mod))
+    new.__dict__ = dict(mod.__dict__)
+    new.__dict__.pop(FSDP_ATTR, None)
+    new._parameters = {k: got.get((id(mod), k), p)
+                       for k, p in mod._parameters.items()}
+    new._modules = {k: None if m is None else _twin(m, got)
+                    for k, m in mod._modules.items()}
+    return new
+
+
+class FsdpRead:
+    """The gathers of one layer's (or model's, or tuple of layers') POOL-
+    tier leaves over the FSDP ``group``, issued at construction without
+    waiting: ``wait()`` returns the unit with every FSDP axis whole, the
+    leaves in new tensors (the shards they came from are left as they
+    are). The unit's leaves travel packed as bytes, one ``all_gather`` per
+    piece: with ``granularity`` g, a leaf whose first axis g divides goes
+    in g contiguous pieces along it, one to each gather (the reference's
+    ``gather_leaf``), any other leaf in the first. Without a group of
+    more than one rank, or without FSDP leaves, nothing is gathered and
+    ``wait()`` returns the unit itself."""
+
+    def __init__(self, unit, group=None, granularity: int = 1):
+        self.unit = unit
+        self.leaves = (_pool_leaves(unit)
+                       if group is not None and group.size > 1 else [])
+        self.gathers = []
+        g = max(1, int(granularity))
+        pieces: List[List] = [[] for _ in range(g)]
+        for i, (mod, attr, _) in enumerate(self.leaves):
+            t = mod._parameters[attr].detach()
+            if g > 1 and t.ndim and t.shape[0] % g == 0:
+                for j, c in enumerate(t.chunk(g, 0)):
+                    pieces[j].append((i, c))
+            else:
+                pieces[0].append((i, t))
+        for items in pieces:
+            if items:
+                flat = torch.cat([c.contiguous().reshape(-1).view(torch.uint8)
+                                  for _, c in items])
+                self.gathers.append((items, group.all_gather_async(flat)))
+
+    def wait(self):
+        if not self.leaves:
+            return self.unit
+        parts = collections.defaultdict(list)
+        for items, pending in self.gathers:
+            recv = pending.wait()                     # [F, nbytes] uint8
+            off = 0
+            for i, c in items:
+                nb = c.numel() * c.element_size()
+                parts[i].append(recv[:, off:off + nb].contiguous()
+                                .view(c.dtype).reshape((-1,) + c.shape))
+                off += nb
+        got = {}
+        for i, (mod, attr, axis) in enumerate(self.leaves):
+            shards = torch.cat(parts[i], dim=1)       # [F, *shard]
+            shape = list(shards.shape[1:])
+            shape[axis] *= shards.shape[0]
+            got[id(mod), attr] = shards.movedim(0, axis).reshape(shape)
+        if isinstance(self.unit, tuple):
+            return tuple(_twin(m, got) for m in self.unit)
+        out = _twin(self.unit, got)
+        if len(getattr(self.unit, "shard", ())) == 4:
+            out.shard = self.unit.shard[:2]
+        return out
+
+
+def gather_fsdp(params, group, granularity: int = 1):
+    """``params`` (a POOL-tier shard, or one layer of it) with every FSDP
+    axis gathered over ``group``: exactly the leaves ``shard_params``
+    cut, put back together."""
+    return FsdpRead(params, group, granularity).wait()
 
 
 def check_pages(n_pages: int, n_ranks: int, max_seq: int,
@@ -193,18 +324,35 @@ def page_range(n_pages: int, rank: int, n_ranks: int) -> Tuple[int, int]:
     return rank * per, (rank + 1) * per
 
 
-def shard_cache(cache: Dict, rank: int, n_ranks: int) -> Dict:
-    """``cache`` with every "kv" leaf cut to ``rank``'s pages (new,
-    contiguous tensors); the other leaves (``pos``, the recurrent states,
-    the vision K/V) stay whole, as the reference's ``cache_specs`` leaves
-    them on the model axis. A cache without pages (xLSTM) stays whole."""
+def shard_cache(cache: Dict, rank: int, n_ranks: int,
+                rows: Tuple[int, int] = (0, 1)) -> Dict:
+    """``cache`` cut to one rank's part (new, contiguous tensors): with
+    ``rows = (r, R)``, R > 1, every leaf to slot row r's contiguous 1/R of
+    the slots (along its own batch axis, ``CACHE_BATCH_AXIS``), then
+    every "kv" leaf to ``rank``'s pages of ``n_ranks``. The other leaves
+    (``pos``, the recurrent states, the vision K/V) are not cut on pages,
+    as the reference's ``cache_specs`` leaves them whole on the model
+    axis. A cache without pages (xLSTM) is cut on slots only."""
     out = dict(cache)
+    row, n_rows = rows
+    if n_rows > 1:
+        b = cache["pos"].shape[0]
+        if b % n_rows:
+            raise ValueError(f"{b} slots do not split over {n_rows} rows")
+        per = b // n_rows
+        for name, a in cache.items():
+            if name == "kv":
+                out["kv"] = {n: t.narrow(1, row * per, per)
+                             for n, t in a.items()}
+            else:
+                out[name] = a.narrow(CACHE_BATCH_AXIS[name], row * per,
+                                     per).clone()
     if "kv" not in cache:
         return out
-    n_pages = next(iter(cache["kv"].values())).shape[PAGE_AXIS]
+    n_pages = next(iter(out["kv"].values())).shape[PAGE_AXIS]
     lo, hi = page_range(n_pages, rank, n_ranks)
     out["kv"] = {name: t.narrow(PAGE_AXIS, lo, hi - lo).clone()
-                 for name, t in cache["kv"].items()}
+                 for name, t in out["kv"].items()}
     return out
 
 

@@ -15,8 +15,9 @@ tier attachment (:meth:`ServeConfig.make_tier`) imports
 touches torch.
 
 This is the reference package's ``ServeConfig`` with the same fields and
-validation; options this port does not implement yet (the legacy host
-path) raise ``NotImplementedError``.
+validation, and ``n_world`` (the mesh's rank count) beside ``n_ranks``;
+options this port does not implement yet (the legacy host path) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -223,6 +224,15 @@ class ServeConfig:
         """Model-axis size: tensor-parallel rank count (1 = unsharded)."""
         shape = self.mesh_shape or ((1, self.tp) if self.tp > 1 else ())
         return int(shape[-1]) if shape else 1
+
+    @property
+    def n_world(self) -> int:
+        """Ranks of the whole mesh (every axis): the processes a port
+        engine runs on (1 = unsharded)."""
+        n = 1
+        for s in self.resolved_mesh_shape:
+            n *= int(s)
+        return n
 
     def _tier_config(self, faults=None):
         """The per-tier ``TierConfig`` this config declares."""

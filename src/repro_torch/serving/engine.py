@@ -35,28 +35,40 @@ With ``kv_quant="int8"`` the pages are int8 codes with per-(page, head)
 f32 scales: flush, restore, swap and prefix entries carry both, and every
 tier charge and store budget counts their bytes.
 
-Multi-rank serving (``ServeConfig(tp=N)``, every family): one engine per
-rank process, each given its rank group (``launch.mesh``). Every rank
-runs the same scheduler on the same traffic. It holds its shard of the
-weights, split by the reference's ``param_specs`` (``parallel.sharding``:
-the attention's and MLP's columns / rows, the vocabulary, the experts,
-the Mamba2 and xLSTM projections), and its cache holds its own page
-range of every slot, so the decode is the page-sharded one, a prefill
-chunk gathers its slot's pages, the MoE is expert-parallel and the
-Mamba2 layers run the rank's heads. The per-slot states (Mamba2 ``h`` /
-``conv``, xLSTM's cells and conv windows, the vision K/V) are whole on
-every rank and stay equal there, as the reference's ``cache_specs``
-leaves them at tp.
-A retired entry in a rank's
-``HostPageStore`` is that rank's shard, and a restore writes each rank's
-shard into its pages. Each rank holds a replica of the ``ShardedTier``,
-charged once per operation with the whole entry's bytes
-(``_WholeEntryCharges``), so the tier, the stats and the scheduling are
-those of the reference's one process, on every rank.
+Multi-rank serving (``ServeConfig(tp=N)`` or ``mesh_shape=(D, N)`` /
+``(P, D, N)``, every family): one engine per rank process, each given its
+place in the rank mesh (``launch.mesh``: a ``RankGroup`` for the model
+axis alone, else a ``RankMesh``). Every rank runs the same scheduler on
+the same traffic. It holds its shard of the weights, split by the
+reference's ``param_specs`` (``parallel.sharding``: the attention's and
+MLP's columns / rows, the vocabulary, the experts, the Mamba2 and xLSTM
+projections) and, at ``param_tier="pool"`` over a data axis, cut again on
+their FSDP axes (``core.hdm.HDMStore``): each step gathers a layer's FSDP
+shards over the data group on the speculative read's schedule, one layer
+ahead at ``sr_prefetch_depth`` 1 (``core.speculative_read``). Its cache
+holds its own page range of every slot it holds: the slots split over
+the batch axes (data, or pod and data with ``multi_pod``) and the pages
+over the model axis, or, with one slot, the pages over the data and model
+axes together (the reference's ``decode_axes``). So the decode is the
+page-sharded one on each rank's slots, a prefill chunk runs on the row
+that holds its slot and gathers the slot's pages there (the other rows
+join its FSDP gathers), the MoE is expert-parallel and the Mamba2 layers
+run the rank's heads. Every sampled token reaches every rank: a tick's
+tokens are gathered over the batch axes, a prefill's first token is
+broadcast from its row. The per-slot states (Mamba2 ``h`` / ``conv``,
+xLSTM's cells and conv windows, the vision K/V, ``pos``, the int8
+scales) go with their slot and are whole on every rank of the model axis,
+as the reference's ``cache_specs`` leaves them.
+A retired entry in a rank's ``HostPageStore`` is that rank's page shard,
+sent to every row by the row that held the slot, so a restore can land on
+any row, which writes each rank's shard into its pages. Each rank holds a
+replica of the tier, charged once per operation with the whole entry's
+bytes (``_WholeEntryCharges``), so the tier, the stats and the
+scheduling are those of the reference's one process, on every rank.
 
 Not ported: the legacy host path (``ServeConfig`` raises for it), and
-the data and pod mesh axes (``mesh_shape`` with more than one rank off
-the model axis raises).
+the MoE family over the data and model axes at once (the reference's
+raises too).
 """
 from __future__ import annotations
 
@@ -69,9 +81,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import deterministic_store as ds
+from repro_torch.core.hdm import HDMStore
 from repro_torch.core.qos import QoSController
 from repro_torch.core.tier import CxlTier
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 from repro_torch.parallel import sharding
 from repro_torch.serving import scheduler as sched
@@ -272,6 +286,16 @@ class HostPageStore:
                 self.on_evict(rid, old, "evict")
 
 
+def _rank_arg(req_rank) -> tuple:
+    # a ``CxlTier`` (one model rank) takes no requesting rank
+    return () if req_rank is None else (req_rank,)
+
+
+def _real(group):
+    """``group`` where it has more than one rank, else None."""
+    return group if group is not None and group.size > 1 else None
+
+
 class _WholeEntryCharges:
     """A rank's replica of the tier, charged with the whole entry's bytes.
 
@@ -296,11 +320,12 @@ class _WholeEntryCharges:
         return self.inner.write_entry_async(key, nbytes * self.n_ranks)
 
     def read_entry(self, key, nbytes: int, req_rank=None) -> float:
-        return self.inner.read_entry(key, nbytes * self.n_ranks, req_rank)
+        return self.inner.read_entry(key, nbytes * self.n_ranks,
+                                     *_rank_arg(req_rank))
 
     def read_entry_async(self, key, nbytes: int, req_rank=None):
         return self.inner.read_entry_async(key, nbytes * self.n_ranks,
-                                           req_rank)
+                                           *_rank_arg(req_rank))
 
     def speculative_read(self, key, nbytes: int) -> None:
         return self.inner.speculative_read(key, nbytes * self.n_ranks)
@@ -320,12 +345,14 @@ class ServingEngine:
         knob; passing the keyword knobs directly (``n_slots=...``) builds
         the ServeConfig with the same validation. ``cxl_tier`` injects a
         prebuilt tier; otherwise ``config.make_tier()`` builds whatever the
-        config declares. With ``n_ranks > 1`` the engine serves as
-        ``group``'s rank (a ``launch.mesh.RankGroup`` of that size), on
-        its shard of ``params``: whole weights are cut to it
-        (``parallel.sharding.shard_params``, as the reference places its
-        parameters by ``param_specs``); a shard already cut for this rank
-        is taken as it is.
+        config declares. With a mesh of more than one rank
+        (``config.n_world``) the engine serves as this process's rank of
+        it: ``group`` is its ``launch.mesh.RankMesh`` (``spawn`` with
+        ``mesh_shape``, ``init_mesh``), or for the model axis alone its
+        ``RankGroup`` (``init_group``). Whole weights are cut to the
+        rank's shard (``core.hdm.HDMStore.place``, as the reference places
+        its parameters by ``param_specs``); a shard already cut for this
+        rank is taken as it is.
         """
         if config is not None and knobs:
             raise TypeError("pass either config=ServeConfig(...) or the "
@@ -333,7 +360,7 @@ class ServingEngine:
                             f"{sorted(knobs)}")
         if config is None:
             config = ServeConfig(**knobs)
-        self.group = self._rank_group(config, rc, group)
+        self.mesh = self._rank_mesh(config, rc, cfg, group)
         self.device = resolve_device(device)
         p_dev = next(params.parameters()).device
         if p_dev.type != self.device.type or (
@@ -346,12 +373,42 @@ class ServingEngine:
         # quantized byte counts
         if config.kv_quant != "none" and rc.kv_quant != config.kv_quant:
             rc = dataclasses.replace(rc, kv_quant=config.kv_quant)
-        if self.group is not None:
-            params = self._rank_params(params)
+        n_slots = config.n_slots
+        # the rank groups of the steps, the slot rows and the page shards
+        self.ranks = M.Ranks()
+        self._rows, self._dp, page_shards = (0, 1), None, 1
+        if self.mesh is not None:
+            mp = rc.mesh.multi_pod
+            store = HDMStore(self.mesh, tier=rc.param_tier,
+                             multi_pod_fsdp=mp)
+            params = self._rank_params(params, store)
+            dp = self.mesh.dp(mp)
+            if n_slots == 1:       # no batch to split: pages over all axes
+                pages = self.mesh.all_axes(mp)
+            else:
+                pages = self.mesh.model
+                self._rows, self._dp = (dp.rank, dp.size), _real(dp)
+                if n_slots % dp.size:
+                    raise ValueError(f"{n_slots} slots do not split over "
+                                     f"{dp.size} rows of the batch axes")
+            page = min(rc.kv_page_size, config.max_seq)
+            sharding.check_pages(max(config.max_seq // page, 1), pages.size,
+                                 config.max_seq, rc.kv_page_size)
+            page_shards = pages.size
+            self.ranks = M.Ranks(model=_real(self.mesh.model),
+                                 pages=_real(pages),
+                                 fsdp=store.fsdp_group(), batch=self._dp)
         self.params = params
         self.cfg = cfg
         self.rc = rc
-        self.n_slots = config.n_slots
+        # as the reference's engine: where the FSDP axes have one rank the
+        # stream's prefetch slots gather nothing, and it runs without them
+        self._hot_rc = rc
+        fsdp_size = 1 if self.mesh is None else (self.mesh.shape[0]
+                                                 * self.mesh.shape[1])
+        if rc.sr_prefetch_depth and fsdp_size == 1:
+            self._hot_rc = dataclasses.replace(rc, sr_prefetch_depth=0)
+        self.n_slots = n_slots
         self.max_seq = config.max_seq
         self.temperature = config.temperature
         self.prefill_chunk = max(1, min(config.prefill_chunk,
@@ -361,13 +418,12 @@ class ServingEngine:
         # on-device sampling draws its uniforms from this generator
         self.gen = torch.Generator(device=self.device).manual_seed(
             config.seed)
-        n_slots = config.n_slots
         self.cache = M.cache_init(cfg, rc, n_slots, config.max_seq,
                                   device=self.device)
-        n_ranks = config.n_ranks
-        if self.group is not None:
-            self.cache = sharding.shard_cache(self.cache, self.group.rank,
-                                              n_ranks)
+        if self.mesh is not None:
+            self.cache = sharding.shard_cache(
+                self.cache, 0 if page_shards == 1 else pages.rank,
+                page_shards, self._rows)
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
         self.finished: List[Request] = []
@@ -376,8 +432,8 @@ class ServingEngine:
         # simulated endpoint (restore stall, flush cost, SR prefetch), and
         # the EP's announced state gates the flusher's admission window.
         self.tier = cxl_tier if cxl_tier is not None else config.make_tier()
-        if self.group is not None and self.tier is not None:
-            self.tier = _WholeEntryCharges(self.tier, n_ranks)
+        if page_shards > 1 and self.tier is not None:
+            self.tier = _WholeEntryCharges(self.tier, page_shards)
         self.tier_step_ns = config.tier_step_ns
         self.cxl_async = bool(config.cxl_async)
         self._restorable = cfg.family in _RESTORABLE_FAMILIES
@@ -389,14 +445,14 @@ class ServingEngine:
             admit_mode=config.admit_mode)
         self.store = HostPageStore(budget_bytes=config.store_budget_bytes,
                                    on_evict=self._drop_prompt_alias,
-                                   shards=n_ranks)
+                                   shards=page_shards)
         self._prompt_index: Dict[Tuple[int, ...], int] = {}
         self.flusher = ds.StagingFlusher(
             sink=self._store_sink, qos=self.qos,
             admit=self.tier.admit_store if self.tier is not None else None)
-        # device-resident tick state. ``last_tokens`` is replaced, never
-        # written in place: the trace keeps each tick's tensor until the
-        # requests that sampled it retire.
+        # device-resident tick state. ``last_tokens`` (every slot's, on
+        # every rank) is replaced, never written in place: the trace keeps
+        # each tick's tensor until the requests that sampled it retire.
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32,
                                        device=self.device)
         self._pos_host = [0] * n_slots      # mirror of cache["pos"]
@@ -404,50 +460,81 @@ class ServingEngine:
         self._trace: Dict[int, torch.Tensor] = {}   # tick -> [n_slots] toks
         self._trace_np: Dict[int, np.ndarray] = {}  # memoized transfers
         self.stats = EngineStats()
-        self.stats["mesh_ranks"] = n_ranks
+        self.stats["mesh_ranks"] = config.n_ranks
 
     @staticmethod
-    def _rank_group(config: ServeConfig, rc: RunConfig, group):
-        """``group`` checked against ``config.n_ranks`` (None for one
-        rank), with the reference's check that the page axis divides by
-        the ranks."""
-        n_ranks = config.n_ranks
-        if n_ranks == 1:
-            if group is not None and group.size != 1:
-                raise ValueError(f"a rank group of {group.size} for tp=1")
+    def _rank_mesh(config: ServeConfig, rc: RunConfig, cfg: ModelConfig,
+                   group):
+        """This process's ``RankMesh`` for ``config``'s mesh (None for one
+        rank), checked against the mesh's shape; a ``RankGroup`` stands
+        for a mesh of the model axis alone."""
+        shape = config.resolved_mesh_shape
+        if isinstance(group, mesh_lib.RankMesh):
+            group_size = group.world.size
+        else:
+            group_size = 1 if group is None else group.size
+        if config.n_world == 1:
+            if group_size != 1:
+                raise ValueError(f"a rank group of {group_size} for one "
+                                 f"rank")
             return None
-        M.check_ranks(config.resolved_mesh_shape)
-        if group is None or group.size != n_ranks:
+        M.check_ranks(cfg, shape, rc.mesh.multi_pod)
+        want = mesh_lib.mesh_shape3(shape)
+        if isinstance(group, mesh_lib.RankGroup) and want[:2] == (1, 1):
+            group = mesh_lib.RankMesh.of_group(group)
+        if (not isinstance(group, mesh_lib.RankMesh)
+                or group.shape != want):
             raise ValueError(
-                f"tp={n_ranks} needs the rank group of this process, of "
-                f"{n_ranks} ranks (launch.mesh.init_group or spawn); got "
-                f"{'none' if group is None else group.size}")
-        page = min(rc.kv_page_size, config.max_seq)
-        sharding.check_pages(max(config.max_seq // page, 1), n_ranks,
-                             config.max_seq, rc.kv_page_size)
+                f"mesh {shape} needs this process's rank mesh of "
+                f"{config.n_world} ranks (launch.mesh.init_mesh or spawn "
+                f"with mesh_shape; a RankGroup for the model axis alone); "
+                f"got {'none' if group is None else group_size}")
         return group
 
-    def _rank_params(self, params):
+    def _rank_params(self, params, store: HDMStore):
         """This rank's shard of ``params``: cut from whole weights, or
         checked to be this rank's."""
-        mine = (self.group.rank, self.group.size)
+        fsdp = store.fsdp_group()
+        mine = (self.mesh.model.rank, self.mesh.model.size)
+        if fsdp is not None:
+            mine += (fsdp.rank, fsdp.size)
         held = getattr(params, "shard", None)
         if held is None:
-            return sharding.shard_params(params, *mine)
+            return store.place(params)
         if tuple(held) != mine:
-            raise ValueError(f"params are the shard of rank {held[0]} of "
-                             f"{held[1]}; this engine is rank {mine[0]} "
-                             f"of {mine[1]}")
+            raise ValueError(f"params are the shard {tuple(held)}; this "
+                             f"engine's is {mine} (model rank, ranks, "
+                             f"and FSDP rank, ranks on the POOL tier)")
         return params
+
+    # ------------------------------------------------------- slot rows
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's cache, or None where another row
+        of the batch axes holds it."""
+        row, n_rows = self._rows
+        per = self.n_slots // n_rows
+        return slot - row * per if slot // per == row else None
+
+    def _row_of(self, slot: int) -> int:
+        return slot // (self.n_slots // self._rows[1])
+
+    def _set_pos(self, slot: int, pos: int) -> None:
+        local = self._local(slot)
+        if local is not None:
+            self.cache["pos"][local] = pos
 
     # ----------------------------------------------------------- step fns
     def _uniform(self, n: int) -> torch.Tensor:
         return torch.rand((n,), generator=self.gen, device=self.device)
 
-    def _sample(self, row: torch.Tensor) -> torch.Tensor:
+    def _sample(self, row: torch.Tensor,
+                u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sample ``row`` [b, V]; temperature sampling takes the uniforms
+        ``u`` [b], by default b drawn from the engine's generator."""
         if self.temperature > 0:
-            return M.sample_tokens(row, self._uniform(row.shape[0]),
-                                   self.temperature)
+            return M.sample_tokens(
+                row, self._uniform(row.shape[0]) if u is None else u,
+                self.temperature)
         return M.sample_tokens(row, None, 0.0)
 
     def _with_token(self, slot: int, tok) -> torch.Tensor:
@@ -465,12 +552,23 @@ class ServingEngine:
         return tokens[:, None].expand(b, self.cfg.n_codebooks, s)
 
     def _decode_sample(self) -> torch.Tensor:
-        """One decode tick: step every slot + sample on device."""
+        """One decode tick: step this rank's slots + sample on device;
+        every slot's token, gathered over the batch axes."""
+        row, n_rows = self._rows
+        per = self.n_slots // n_rows
+        lo = row * per
         logits, self.cache = M.decode_step(
-            self.params, self.cfg, self.rc,
-            self._codebooks(self.last_tokens[:, None]), self.cache,
-            group=self.group)
-        return self._sample(M.last_token_logits(logits))
+            self.params, self.cfg, self._hot_rc,
+            self._codebooks(self.last_tokens[lo:lo + per, None]),
+            self.cache, ranks=self.ranks)
+        last = M.last_token_logits(logits)
+        if self._dp is None:
+            return self._sample(last)
+        # every slot's uniform drawn on every rank, as one process draws
+        # them, and this row's taken
+        tok = (self._sample(last, self._uniform(self.n_slots)[lo:lo + per])
+               if self.temperature > 0 else self._sample(last))
+        return self._dp.all_gather(tok).reshape(-1)
 
     def _prefill_chunk(self, tokens: torch.Tensor, slot: int, pos0: int,
                        new_pos: int, sample: bool):
@@ -484,17 +582,34 @@ class ServingEngine:
         reset at admission: the scan starts from whatever the slot's
         previous tenant and the idle ticks left there.
         Only the final chunk samples the last-position token. Other slots
-        never observe the prefill."""
-        cache1 = M.slot_view(self.cache, slot)
-        cache1["pos"] = torch.full((1,), pos0, dtype=torch.int32,
-                                   device=self.device)
-        logits, _ = M.prefill_step_cached(self.params, self.cfg, self.rc,
-                                          tokens, cache1, last_only=sample,
-                                          group=self.group)
-        self.cache["pos"][slot] = new_pos
+        never observe the prefill. With the slots split over the batch
+        axes, the row that holds the slot runs the chunk while every other
+        row joins its POOL-tier gathers, and the token is broadcast from
+        that row."""
+        local = self._local(slot)
+        ranks = dataclasses.replace(self.ranks, batch=None)
+        if local is None:
+            M.join_fsdp_reads(self.params, self.cfg, self._hot_rc,
+                              ranks=ranks)
+        else:
+            cache1 = M.slot_view(self.cache, local)
+            cache1["pos"] = torch.full((1,), pos0, dtype=torch.int32,
+                                       device=self.device)
+            logits, _ = M.prefill_step_cached(
+                self.params, self.cfg, self._hot_rc, tokens, cache1,
+                last_only=sample, ranks=ranks)
+            self.cache["pos"][local] = new_pos
         if not sample:
             return None
-        tok = self._sample(M.last_token_logits(logits))[0]
+        if local is None:
+            tok = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            if self.temperature > 0:
+                self._uniform(1)          # keep the generator in step
+        else:
+            tok = self._sample(M.last_token_logits(logits))
+        if self._dp is not None:
+            tok = self._dp.broadcast(tok.contiguous(), self._row_of(slot))
+        tok = tok[0]
         self.last_tokens = self._with_token(slot, tok)
         return tok
 
@@ -607,8 +722,13 @@ class ServingEngine:
         return entry, key, source
 
     def _load_slot_kv(self, slot: int, kv: Dict[str, torch.Tensor]) -> None:
+        """This rank's pages of an entry into ``slot``, on the row that
+        holds it."""
+        local = self._local(slot)
+        if local is None:
+            return
         for name, a in self.cache["kv"].items():
-            a[:, slot].copy_(kv[name])
+            a[:, local].copy_(kv[name])
 
     def _apply_restore(self, req: Request, slot: int, entry) -> None:
         """Rebuild the slot from a retired entry: its post-prefill pages
@@ -616,7 +736,7 @@ class ServingEngine:
         restored request reproduces the prompt-conditioned continuation."""
         first = int(entry["first_token"])
         self._load_slot_kv(slot, entry["kv"])
-        self.cache["pos"][slot] = int(entry["pos"])
+        self._set_pos(slot, int(entry["pos"]))
         self.last_tokens = self._with_token(slot, first)
         self._pos_host[slot] = int(entry["pos"])
         req.restored = True
@@ -631,13 +751,21 @@ class ServingEngine:
     # -------------------------------------------------- preemption state
     def _capture_slot_kv(self, slot: int
                          ) -> Optional[Dict[str, torch.Tensor]]:
-        """A copy of this slot's KV pages ([L, P, page, Hkv, D] each), on
-        the device: the cache itself keeps changing in place. None for a
-        cache without pages (xLSTM), as in the reference."""
+        """A copy of this slot's KV pages ([L, P, page, Hkv, D] each, this
+        rank's page shard), on the device: the cache itself keeps changing
+        in place. With the slots split over the batch axes, the row that
+        holds the slot sends its copy to every row. None for a cache
+        without pages (xLSTM), as in the reference."""
         if "kv" not in self.cache:
             return None
-        return {name: a[:, slot].clone() for name, a in
-                self.cache["kv"].items()}
+        local = self._local(slot)
+        if self._dp is None:
+            return {name: a[:, local].clone() for name, a in
+                    self.cache["kv"].items()}
+        return {name: self._dp.broadcast(
+                    a[:, local].clone() if local is not None
+                    else torch.empty_like(a[:, 0]), self._row_of(slot))
+                for name, a in self.cache["kv"].items()}
 
     def _capture_swap_entry(self, req: Request, slot: int) -> Dict:
         """Snapshot a running slot's mid-decode state for swap-out:
@@ -654,7 +782,7 @@ class ServingEngine:
         back into the slot; decode continues where it was preempted."""
         self._load_slot_kv(slot, entry["kv"])
         pos = int(entry["pos"])
-        self.cache["pos"][slot] = pos
+        self._set_pos(slot, pos)
         self.last_tokens = self._with_token(slot, int(entry["last_token"]))
         self._pos_host[slot] = pos
         req._first_tok = None

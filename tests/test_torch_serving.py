@@ -200,8 +200,10 @@ def test_serve_config_unported_options_raise(knobs, exc):
 
 def test_sharded_options_raise():
     """Multi-rank serving is ported for every family over the model axis
-    (``tests/test_torch_sharded.py``, ``tests/test_torch_sharded_*.py``);
-    what is not raises: a data axis, an engine without a rank group of
+    (``tests/test_torch_sharded.py``, ``tests/test_torch_sharded_*.py``)
+    and the data and pod axes (``tests/test_torch_data_axis*.py``); what
+    is not raises: the MoE family over the data and model axes at once
+    (as the reference's does), an engine without a rank group or mesh of
     its size (the hybrid's too), and a page axis the ranks do not divide
     (the reference's ValueError)."""
     from repro_torch.core.sharded_tier import ShardedTier
@@ -210,7 +212,9 @@ def test_sharded_options_raise():
     from repro_torch.models import model as TM
     for arch, knobs, exc in (
             ("zamba2-2.7b", dict(tp=2), ValueError),
-            ("qwen3-1.7b", dict(mesh_shape=(2, 2)), NotImplementedError),
+            ("granite-moe-1b-a400m", dict(mesh_shape=(2, 2)),
+             NotImplementedError),
+            ("qwen3-1.7b", dict(mesh_shape=(2, 2)), ValueError),
             ("qwen3-1.7b", dict(tp=2), ValueError)):
         cfg = treg.smoke(arch)
         rc = TRunConfig(model=cfg, shape=TSHAPES["decode_32k"],
