@@ -256,7 +256,33 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    last below the first, no kernel launched under grad; prints the step
    ms (CUDA events), tokens/s, the MFU against 989 TFLOP/s (6 x active
    params x tokens, remat's recompute not counted) and the peak memory;
-16. print the measured numbers, the seconds of each phase, one
+16. train xlstm-125m at full width (12 layers; random bf16 weights from
+   the seed; 8 sequences of 512 tokens, ``XLSTM_TRAIN_*``): the training
+   form ``mlstm_apply`` against a loop of the serving form ``mlstm_step``
+   over the same 512 tokens in f32 (``XLSTM_FORMS_TOL``); the bf16 leaf
+   rule (``bf16_limit``) on the first 6 layers at 2 x 256 tokens and
+   numpy weights, where the reference's own bf16 errors were measured on
+   the CPU (``XLSTM_GATE_*``); the first step's bf16 loss (TOL) against
+   an f32 twin at the same weights, each gradient's distance from the
+   twin's reported; then 3 steps:
+   every loss finite, the first within 1.5 of ln V, no kernel launched (the
+   family has none); prints the step ms and the peak memory;
+17. train qwen3-1.7b at full width cut to 4 layers on a (2, 1) mesh: two
+   rank processes on the one card joined by gloo, each holding its POOL
+   shard of the weights and of m, v and the f32 master (``steps.
+   init_state(mesh=)``) and 2 of the global batch's 4 sequences of 1024
+   tokens; each layer gathered in its remat'd body, its gradients
+   reduce-scattered by the deterministic store. Held: the ranks' loss and
+   gradients (shards put together) within ``TP_NOISE_X`` times the
+   one-rank port's own distance from its f32 twin on the same global
+   batch (the loss plus TOL's atol), a whole step with the deterministic
+   store off bit for bit the step with it on, the ranks' losses alike, no
+   kernel launched. Prints the step ms with the store on and off in
+   turns, the collectives of a step by axis, a layer's gather ms, a
+   layer's and the embedding's f32 gradient reduce-scattered (DS on) and
+   all-reduced (DS off) ms, the bytes of params, m, v and master a rank
+   against one rank's, and the peak memory;
+18. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -362,6 +388,86 @@ TRAIN_DRIVER_STEPS = 2
 TRAIN_LR = 3e-4
 TRAIN_SMALL = (ARCH, GRANITE, MUSICGEN, HYBRID, VLM)
 TRAIN_PATH = f"{ARCH} train"
+# the xLSTM training phase: full-width xlstm-125m (12 layers: 2 groups of
+# 5 mLSTM layers and an sLSTM layer) on one rank, train_4k's 4096-token
+# sequences cut to 512 (its sLSTM cells run token by token, as the
+# reference's scan does: a Python loop of 512 cells a layer, recomputed
+# and differentiated) and its batch from 256 to 8; a few steps at
+# TRAIN_LR without warmup
+XLSTM_TRAIN_PATH = f"{XLSTM} train"
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 512, 3
+# mlstm_apply (chunkwise) against a loop of mlstm_step (recurrent) in f32
+# at full width: two 256-token chunks of 2 sequences, the forms' f32 sums
+# taken in other orders over d_in 1536 and 384-wide heads
+XLSTM_FORMS_TOKENS = 512
+XLSTM_FORMS_TOL = dict(atol=1e-4, rtol=1e-4)
+# the bf16 leaf rule of tests/test_torch_train.py (PR 20's): each bf16
+# gradient leaf, against the f32 twin's (the same weights widened),
+# within 2e-2 of the leaf's norm plus three times the reference's own
+# bf16 error there (bf16_limit). The card has no reference, so the rule
+# runs at inputs the reference can run at on the CPU, where
+# tests/test_torch_xlstm_card_gate.py measures its errors (run it as a
+# script to print them) and holds them to XLSTM_GATE_REF_ERR: xlstm-125m
+# at full width cut to its first group (6 layers: 5 mLSTM, 1 sLSTM), its
+# drawn leaves redrawn by numpy from SEED (xlstm_gate_model; the sha256
+# of their bf16 bytes is XLSTM_GATE_SHA on both), a batch of 2 x 256
+# tokens from the pipeline. A zeroed, mis-cast or wrong leaf is off by
+# about its whole norm.
+XLSTM_GATE_LAYERS, XLSTM_GATE_BATCH, XLSTM_GATE_SEQ = 6, 2, 256
+XLSTM_GATE_SHA = ("f51fbe4549daeaee28bec931534b1a5c"
+                  "9435de4fa5508d7bd58227a89c062ec7")
+# the reference's bf16 gradient, leaf by leaf, off its f32 one in that
+# leaf's norm
+XLSTM_GATE_REF_ERR = {
+    "embed.embedding": 0.005627, "mlstm.0.0.w_up1": 0.01747,
+    "mlstm.0.0.w_up2": 0.01323, "mlstm.0.0.conv_w": 0.01974,
+    "mlstm.0.0.w_qkv": 0.01824, "mlstm.0.0.w_gates": 0.01398,
+    "mlstm.0.0.gate_bias": 0.01185, "mlstm.0.0.w_down2": 0.01265,
+    "mlstm.0.0.ln.scale": 0.01695, "mlstm.0.0.ln_head.scale": 0.01264,
+    "mlstm.0.1.w_up1": 0.01073, "mlstm.0.1.w_up2": 0.01224,
+    "mlstm.0.1.conv_w": 0.01342, "mlstm.0.1.w_qkv": 0.01087,
+    "mlstm.0.1.w_gates": 0.01559, "mlstm.0.1.gate_bias": 0.01508,
+    "mlstm.0.1.w_down2": 0.01181, "mlstm.0.1.ln.scale": 0.01163,
+    "mlstm.0.1.ln_head.scale": 0.01344, "mlstm.0.2.w_up1": 0.01487,
+    "mlstm.0.2.w_up2": 0.01308, "mlstm.0.2.conv_w": 0.01804,
+    "mlstm.0.2.w_qkv": 0.01494, "mlstm.0.2.w_gates": 0.009831,
+    "mlstm.0.2.gate_bias": 0.007189, "mlstm.0.2.w_down2": 0.01311,
+    "mlstm.0.2.ln.scale": 0.01338, "mlstm.0.2.ln_head.scale": 0.01364,
+    "mlstm.0.3.w_up1": 0.01094, "mlstm.0.3.w_up2": 0.01217,
+    "mlstm.0.3.conv_w": 0.01265, "mlstm.0.3.w_qkv": 0.01095,
+    "mlstm.0.3.w_gates": 0.01281, "mlstm.0.3.gate_bias": 0.01041,
+    "mlstm.0.3.w_down2": 0.01215, "mlstm.0.3.ln.scale": 0.01008,
+    "mlstm.0.3.ln_head.scale": 0.01268, "mlstm.0.4.w_up1": 0.01526,
+    "mlstm.0.4.w_up2": 0.01226, "mlstm.0.4.conv_w": 0.01882,
+    "mlstm.0.4.w_qkv": 0.0168, "mlstm.0.4.w_gates": 0.01899,
+    "mlstm.0.4.gate_bias": 0.02174, "mlstm.0.4.w_down2": 0.01135,
+    "mlstm.0.4.ln.scale": 0.01572, "mlstm.0.4.ln_head.scale": 0.01275,
+    "slstm.0.conv_w": 0.006899, "slstm.0.w_gates": 0.003041,
+    "slstm.0.r_gates": 0.002651, "slstm.0.gate_bias": 0.001627,
+    "slstm.0.w_out": 0.002739, "slstm.0.ln.scale": 0.002801,
+    "slstm.0.ln_ff.scale": 0.008738, "slstm.0.ffn.w_up": 0.008254,
+    "slstm.0.ffn.w_down": 0.008036, "slstm.0.ffn.w_gate": 0.008511,
+    "ln_f.scale": 0.004116}
+
+
+def bf16_limit(leaf: str) -> float:
+    """The bf16 leaf rule's bound on ``leaf``'s distance from the f32
+    twin, over that leaf's norm."""
+    return 2e-2 + 3 * XLSTM_GATE_REF_ERR[leaf]
+
+
+# the dp-train phase: qwen3-1.7b at full width cut to 4 of its 28 layers
+# on a (2, 1) mesh, two rank processes sharing the card over gloo, the
+# weights and AdamW state on the POOL tier; a global batch of 4
+# sequences of 1024 tokens (train_4k's 256 x 4096 cut for one card and
+# the phase's time), 2 rows a rank; the steps timed with the
+# deterministic store on and off in DP_TRAIN_ORDERS' turns (the first
+# step a rank times runs slow, PERF.md section 7)
+DP_TRAIN_PATH = f"{ARCH} dp2 train"
+DP_TRAIN_MESH, DP_TRAIN_LAYERS = (2, 1), 4
+DP_TRAIN_BATCH, DP_TRAIN_SEQ = 4, 1024
+DP_TRAIN_ORDERS = ((True, False), (False, True))
+DP_TRAIN_TIMEOUT_S = 600.0
 # the use_pallas loss against the plain one (tests/test_models.py:154)
 PALLAS_LOSS_TOL = 2e-3
 # flash_prefill at the loss shape: row n of a causal 4096-key attention over
@@ -4059,6 +4165,514 @@ def train_driver(dev):
     return res
 
 
+def xlstm_forms(dev, params, cfg):
+    """``mlstm_apply`` (chunkwise, from the zero state) at full width in
+    f32 against ``mlstm_step`` run over the same tokens from the state
+    initialisers' state (C, n 0; m -1e9; an empty conv window): the
+    training form against the serving one (XLSTM_FORMS_TOL)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.models import xlstm
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    layer = copy.deepcopy(params.mlstm[0][0]).float()
+    d_in, nh = cfg.mlstm_expand * cfg.d_model, cfg.n_heads
+    dh, b = d_in // nh, 2
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((b, XLSTM_FORMS_TOKENS, cfg.d_model), generator=gen,
+                    device=dev) * 0.5
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = {"C": torch.zeros((b, nh, dh, dh), **f32),
+             "n": torch.zeros((b, nh, dh), **f32),
+             "m": torch.full((b, nh), -1e9, **f32),
+             "conv": torch.zeros((b, xlstm.CONV - 1, d_in), **f32)}
+    with torch.no_grad():
+        got = xlstm.mlstm_apply(layer, cfg32, x)
+        want, _ = xlstm.mlstm_step(layer, cfg32, x, state)
+    err = check_close(f"{XLSTM_TRAIN_PATH}: mlstm_apply vs mlstm_step",
+                      got - x, want - x, XLSTM_FORMS_TOL)
+    return {"tokens": XLSTM_FORMS_TOKENS, "max_abs_err": err,
+            "block_out_max": float((want - x).abs().max())}
+
+
+def bf16_shares(names, g16, g32):
+    """Each bf16 gradient leaf's distance from the f32 twin's, over the
+    twin's norm."""
+    import torch
+    share = {}
+    for n, a, b in zip(names, g16, g32):
+        norm = float(torch.linalg.vector_norm(b.float()))
+        dist = float(torch.linalg.vector_norm(a.float() - b.float()))
+        share[n] = dist / max(norm, 1e-30)
+    return share
+
+
+def xlstm_gate_model(dev):
+    """The bf16 gate's model and batch (``XLSTM_GATE_*``): xlstm-125m at
+    full width cut to ``XLSTM_GATE_LAYERS``, made by ``init_model`` and
+    every drawn leaf redrawn by numpy from SEED in ``named_parameters``
+    order, N(0, 0.1^2) for the convolutions and N(0, 0.02^2) for the rest
+    as ``init_model`` draws them (the norm scales and gate biases keep
+    their fixed values), so that the CPU and the card hold the same bits;
+    returns (cfg, params on ``dev``, the batch in numpy)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(registry.get(XLSTM),
+                              n_layers=XLSTM_GATE_LAYERS)
+    params = M.init_model(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            if n.endswith(("gate_bias", "scale")):
+                continue
+            std = np.float32(0.1 if n.endswith("conv_w") else 0.02)
+            p.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(p.shape), dtype=np.float32) * std))
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=XLSTM_GATE_BATCH,
+        seq_len=XLSTM_GATE_SEQ, seed=SEED)).batch(0)
+    return cfg, params, batch
+
+
+def weights_sha(params) -> str:
+    """sha256 of every parameter's bytes, in order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for p in params.parameters():
+        h.update(p.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def xlstm_bf16_gate(dev):
+    """The bf16 leaf rule on the card at the gate's inputs
+    (``xlstm_gate_model``, the weights' sha256 checked): the loss (TOL)
+    and each gradient leaf of the bf16 model against its f32 twin, each
+    leaf within ``bf16_limit``; returns each leaf's distance over its
+    norm."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps as steps_lib
+    path = f"{XLSTM_TRAIN_PATH} bf16 gate"
+    cfg, params, batch = xlstm_gate_model(dev)
+    sha = weights_sha(params)
+    if sha != XLSTM_GATE_SHA:
+        fail(f"{path}: the gate's weights hash to {sha}, not the "
+             f"{XLSTM_GATE_SHA} the reference's errors were measured on")
+    rc = RunConfig(model=cfg, shape=SHAPES["train_4k"], mesh=MeshConfig())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b = to_device(batch, dev)
+    wide = copy.deepcopy(params).float().requires_grad_(True)
+    params.requires_grad_(True)
+    l16, g16 = steps_lib.loss_and_grads(params, cfg, rc, b)
+    l32, g32 = steps_lib.loss_and_grads(
+        wide, cfg32, dataclasses.replace(rc, model=cfg32), b)
+    names = [n for n, _ in params.named_parameters()]
+    bad = [n for n, g in zip(names, g16) if not torch.isfinite(g).all()]
+    if bad:
+        fail(f"{path}: non-finite bf16 gradients {bad}")
+    share = bf16_shares(names, g16, g32)
+    over = {n: (x, bf16_limit(n)) for n, x in share.items()
+            if x > bf16_limit(n)}
+    if over:
+        fail(f"{path}: bf16 gradients off the f32 twin's beyond the bf16 "
+             f"leaf rule (leaf: (distance, bound) over its norm): {over}")
+    if abs(float(l16) - float(l32)) > TOL["atol"] + TOL["rtol"] * abs(
+            float(l32)):
+        fail(f"{path}: bf16 loss {float(l16)} vs the f32 twin's "
+             f"{float(l32)}")
+    return {"n_layers": XLSTM_GATE_LAYERS, "batch": XLSTM_GATE_BATCH,
+            "seq_len": XLSTM_GATE_SEQ, "loss_bf16": float(l16),
+            "loss_f32": float(l32), "share": share,
+            "share_over_bound_max": max(x / bf16_limit(n)
+                                        for n, x in share.items())}
+
+
+def train_xlstm(dev):
+    """Train full-width xlstm-125m on one rank (XLSTM_TRAIN_*): first the
+    training form against the serving one in f32 (``xlstm_forms``), the
+    bf16 leaf rule at the gate's inputs (``xlstm_bf16_gate``), the first
+    step's bf16 loss against an f32 twin at the same weights (TOL; each
+    gradient leaf's distance from the twin's reported), then the steps,
+    timed by CUDA events: every loss finite, the first within 1.5 of ln
+    V; no kernel launched (the family has none)."""
+    import copy
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = registry.get(XLSTM)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=XLSTM_TRAIN_BATCH,
+                                seq_len=XLSTM_TRAIN_SEQ)
+    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    params = M.init_model(cfg, seed=SEED, device=dev)
+    res = {"forms": xlstm_forms(dev, params, cfg),
+           "batch": XLSTM_TRAIN_BATCH, "seq_len": XLSTM_TRAIN_SEQ,
+           "n_layers": cfg.n_layers, "ln_vocab": math.log(cfg.vocab_size)}
+    log(f"{XLSTM_TRAIN_PATH}: mlstm_apply vs mlstm_step in f32 "
+        f"{res['forms']}")
+    res["bf16_gate"] = gate = xlstm_bf16_gate(dev)
+    worst = sorted(gate["share"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"{XLSTM_TRAIN_PATH}: bf16 leaf rule at {XLSTM_GATE_LAYERS} layers, "
+        f"{XLSTM_GATE_BATCH} x {XLSTM_GATE_SEQ} tokens: loss bf16 "
+        f"{gate['loss_bf16']:.6f} vs f32 twin {gate['loss_f32']:.6f}; each "
+        f"leaf within {gate['share_over_bound_max']:.3f} of its bound (the "
+        f"farthest from the twin {worst})")
+    free_card()
+    batch = to_device(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=XLSTM_TRAIN_BATCH,
+        seq_len=XLSTM_TRAIN_SEQ, seed=SEED)).batch(0), dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rc32 = dataclasses.replace(rc, model=cfg32)
+    wide = copy.deepcopy(params).float().requires_grad_(True)
+    params.requires_grad_(True)
+    zero_counters()
+    l16, g16 = steps_lib.loss_and_grads(params, cfg, rc, batch)
+    l32, g32 = steps_lib.loss_and_grads(wide, cfg32, rc32, batch)
+    names = [n for n, _ in params.named_parameters()]
+    bad = [n for n, g in zip(names, g16) if not torch.isfinite(g).all()]
+    if bad:
+        fail(f"{XLSTM_TRAIN_PATH}: non-finite bf16 gradients {bad}")
+    share = bf16_shares(names, g16, g32)
+    res.update(loss_bf16=float(l16), loss_f32=float(l32),
+               grad_share_max=max(share.values()), grad_share=share)
+    if abs(float(l16) - float(l32)) > TOL["atol"] + TOL["rtol"] * abs(
+            float(l32)):
+        fail(f"{XLSTM_TRAIN_PATH}: bf16 loss {float(l16)} vs the f32 "
+             f"twin's {float(l32)}")
+    del wide, g16, g32
+    free_card()
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    state = steps_lib.init_state(params, rc, opt_cfg)
+    step = steps_lib.build_train_step(cfg, rc, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(XLSTM_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))
+        step_ms.append(start.elapsed_time(end))
+    launches, off = split_counts(XLSTM_TRAIN_PATH, read_counters(), ())
+    tokens = XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ
+    res.update(losses=losses, step_ms=step_ms, launches=launches,
+               off_path_launches=off, tokens_per_step=tokens,
+               tokens_per_s=tokens / (min(step_ms[1:]) / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    worst = sorted(share.items(), key=lambda kv: -kv[1])[:4]
+    log(f"{XLSTM_TRAIN_PATH}: first step's loss bf16 {res['loss_bf16']:.6f} "
+        f"vs f32 twin {res['loss_f32']:.6f}; bf16 gradients within "
+        f"{res['grad_share_max']:.4f} of each leaf's norm (not gated: the "
+        f"reference's error is not known here; the farthest {worst}); "
+        f"losses {losses};"
+        f" step ms {step_ms} ({tokens} tokens a step); peak "
+        f"{res['peak_gib']:.2f} GiB; no kernel launched")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{XLSTM_TRAIN_PATH}: non-finite loss {losses}")
+    if abs(losses[0] - res["ln_vocab"]) > 1.5:
+        fail(f"{XLSTM_TRAIN_PATH}: first loss {losses[0]} not within 1.5 of "
+             f"ln V = {res['ln_vocab']}")
+    return res
+
+
+def dp_train_model(dev):
+    """The dp-train phase's model (qwen3-1.7b at full width cut to
+    ``DP_TRAIN_LAYERS``, random bf16 weights from the seed on ``dev``),
+    its run config and its global batch (numpy)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(registry.get(ARCH), n_layers=DP_TRAIN_LAYERS)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=DP_TRAIN_BATCH,
+                                seq_len=DP_TRAIN_SEQ)
+    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=DP_TRAIN_BATCH,
+        seq_len=DP_TRAIN_SEQ, seed=SEED)).batch(0)
+    return cfg, rc, M.init_model(cfg, seed=SEED, device=dev), batch
+
+
+def dp_train_file():
+    return os.path.join(ROOT, "build", "dp_train", "one_rank.pt")
+
+
+def dp_train_one_rank(dev):
+    """The one-rank port's loss and gradients on the dp-train phase's
+    global batch, and its f32 twin's (the same weights widened): the
+    gradients and, per leaf, the one rank's own distance from the twin,
+    saved for the ranks; then its step timed (the bytes of the whole
+    state, its peak)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    cfg, rc, params, batch = dp_train_model(dev)
+    b = to_device(batch, dev)
+    params.requires_grad_(True)
+    l1, g1 = steps_lib.loss_and_grads(params, cfg, rc, b)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    wide = copy.deepcopy(params).float()
+    l32, g32 = steps_lib.loss_and_grads(
+        wide, cfg32, dataclasses.replace(rc, model=cfg32), b)
+    names = [n for n, _ in params.named_parameters()]
+    noise = {n: float(torch.linalg.vector_norm(a.float() - c))
+             for n, a, c in zip(names, g1, g32)}
+    norms = {n: float(torch.linalg.vector_norm(c))
+             for n, c in zip(names, g32)}
+    os.makedirs(os.path.dirname(dp_train_file()), exist_ok=True)
+    torch.save({"loss": float(l1), "loss_f32": float(l32),
+                "grads": {n: g.cpu() for n, g in zip(names, g1)}},
+               dp_train_file())
+    del wide, g1, g32
+    free_card()
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    state = steps_lib.init_state(params, rc, opt_cfg)
+    step = steps_lib.build_train_step(cfg, rc, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    opt = state.opt
+    out = {"loss": float(l1), "loss_f32": float(l32), "noise": noise,
+           "norms": norms, "step_ms": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bytes": {k: sum(t.numel() * t.element_size() for t in ts)
+                     for k, ts in (("params", list(params.parameters())),
+                                   ("m", opt.m), ("v", opt.v),
+                                   ("master", opt.master))}}
+    return out
+
+
+def dp_train_rank(rank_mesh):
+    """One rank of the dp-train phase (a process of its own, on the card
+    it shares with the other): the whole model made on the card and
+    placed on the POOL tier with its AdamW state (``steps.init_state(
+    mesh=)``), its rows of the global batch; the loss and gradients, its
+    shard's distance from the one-rank gradients, a whole step on and off from
+    copies of the state (bit for bit equal), then the steps timed in
+    turns, a layer's gather alone, a layer's and the embedding's gradient
+    reduced as DS on and as DS off does it, bytes and peak. The
+    kernel counts run from before the first loss to after the last step
+    (the main path: no kernel runs under grad)."""
+    import copy
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.core import deterministic_store as ds
+    from repro_torch.data.pipeline import rows_of, to_device
+    from repro_torch.launch import mesh
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    dev = rank_mesh.device
+    cfg, rc, whole, batch = dp_train_model(dev)
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    state = steps_lib.init_state(whole, rc, opt_cfg, mesh=rank_mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    group = rank_mesh.data
+    b = to_device(rows_of(batch, group.rank, group.size), dev)
+    specs = steps_lib.param_spec_list(state.params, rc)
+    names = [n for n, _ in state.params.named_parameters()]
+    axes = sharding.fsdp_axes(state.params)
+    zero_counters()
+    loss, g_on = steps_lib.loss_and_grads(state.params, cfg, rc, b,
+                                          group=group,
+                                          reducer=ds.GradReducer(group))
+    g_on = ds.apply_ds(g_on, specs, group=group)
+    out = {"coords": rank_mesh.coords, "loss": float(loss), "axes": axes}
+    ref = torch.load(dp_train_file())
+    sq = {}
+    for n, a, g in zip(names, axes, g_on):
+        want = ref["grads"][n].to(dev)
+        if a is not None:
+            want = want.narrow(a, group.rank * g.shape[a], g.shape[a])
+        sq[n] = float(((g.float() - want.float()) ** 2).sum())
+    out["sq_dist"] = sq
+    del g_on, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the timed steps, DS on and off in DP_TRAIN_ORDERS' turns; the first
+    # turn's two steps start from the same state (the second from a copy
+    # taken before the first, which works in place), and their results
+    # must be equal bit for bit
+    steps_of = {on: steps_lib.build_train_step(
+        cfg, dataclasses.replace(rc, ds_enabled=on), opt_cfg,
+        mesh=rank_mesh) for on in (True, False)}
+    times = {True: [], False: []}
+    colls, after = {}, {}
+    spare = copy.deepcopy(state)
+    for turn, order in enumerate(DP_TRAIN_ORDERS):
+        for on in order:
+            if turn == 0 and on != order[0]:
+                state = spare
+            mesh.COLLECTIVES.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = steps_of[on](state, b)
+            end.record()
+            torch.cuda.synchronize()
+            times[on].append(start.elapsed_time(end))
+            colls["ds_on" if on else "ds_off"] = dict(mesh.COLLECTIVES)
+            out.setdefault("losses", []).append(float(metrics["loss"]))
+            if turn == 0:
+                after[on] = (state, metrics["loss"])
+        if turn == 0:
+            (a, la), (o, lo) = after[True], after[False]
+            out["step_ds_off_bit_equal"] = bool(torch.equal(la, lo) and all(
+                torch.equal(x, y) for x, y in zip(
+                    list(a.params.parameters()) + a.opt.m + a.opt.v
+                    + a.opt.master, list(o.params.parameters()) + o.opt.m
+                    + o.opt.v + o.opt.master)))
+            state = after[order[0]][0]
+            del after, spare, a, o
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["counts"] = read_counters()
+    out["step_ms"] = {"ds_on": times[True], "ds_off": times[False]}
+    out["collectives"] = colls
+    layer = state.params.blocks[0]
+    out["gather_layer_ms"] = time_ms(
+        lambda: sharding.FsdpRead(layer, group).wait(), 5)
+    # a unit's f32 gradient reduced as DS on does it (reduce-scatter) and
+    # as DS off does it (all-reduce of the whole buffer), in alternated
+    # turns: a layer, and the tied embedding (gathered once a step)
+    for unit, obj, turns, iters in (("layer", layer, 2, 3),
+                                    ("embed", state.params.embed, 1, 2)):
+        shards = [p for p in obj.parameters() if p.shape]
+        buf = torch.zeros((group.size, sum(p.numel() for p in shards)),
+                          dtype=torch.float32, device=dev)
+        rs, ar = [], []
+        for _ in range(turns):
+            rs.append(time_ms(lambda: group.reduce_scatter(buf, 0), iters,
+                              warmup=1))
+            ar.append(time_ms(lambda: group.all_reduce(buf, "sum"), iters,
+                              warmup=1))
+        out[f"reduce_scatter_{unit}_ms"] = rs
+        out[f"all_reduce_{unit}_ms"] = ar
+        out[f"{unit}_grad_bytes_f32"] = buf.numel() * 4
+        del buf
+    opt = state.opt
+    out["bytes"] = {k: sum(t.numel() * t.element_size() for t in ts)
+                    for k, ts in (("params", list(state.params.parameters())),
+                                  ("m", opt.m), ("v", opt.v),
+                                  ("master", opt.master))}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def train_dp(dev, one):
+    """The dp-train phase: two rank processes of mesh (2, 1) on the one
+    card joined by gloo (``launch.mesh.spawn``), each on its POOL shard
+    of qwen3-1.7b's weights and AdamW state (``DP_TRAIN_LAYERS``) and its
+    rows of the global batch; every layer gathered in its remat'd body
+    and its gradients reduce-scattered by the deterministic store. Held:
+    the ranks' loss and gradients (their shards put together; the whole
+    leaves all-reduced) within ``TP_NOISE_X`` times the one-rank port's
+    own distance from its f32 twin (``one``: ``dp_train_one_rank``), the
+    loss plus TOL's atol; a whole step with DS off bit for bit the step
+    with DS on; the ranks' losses alike; no kernel launched (the training
+    forward runs none); the collectives of a step by axis."""
+    import math
+    from repro_torch.launch import mesh
+    t0 = time.time()
+    ranks = mesh.spawn(dp_train_rank, math.prod(DP_TRAIN_MESH), (),
+                       rendezvous_dir=os.path.join(ROOT, "build", "dp_train"),
+                       device="cuda", timeout_s=DP_TRAIN_TIMEOUT_S,
+                       mesh_shape=DP_TRAIN_MESH)
+    spawn_s = time.time() - t0
+    path, first = DP_TRAIN_PATH, ranks[0]
+    noise_loss = abs(one["loss"] - one["loss_f32"])
+    for r, run in enumerate(ranks):
+        if run["losses"] != first["losses"] or run["loss"] != first["loss"]:
+            fail(f"{path} rank {r}: losses {run['losses']} differ from "
+                 f"rank 0's {first['losses']}")
+        if not run["step_ds_off_bit_equal"]:
+            fail(f"{path} rank {r}: a step with the deterministic store off "
+                 f"is not bit for bit the step with it on")
+    if abs(first["loss"] - one["loss"]) > TP_NOISE_X * noise_loss + \
+            TOL["atol"]:
+        fail(f"{path}: loss {first['loss']} vs one rank's {one['loss']}, "
+             f"beyond {TP_NOISE_X} x {noise_loss} + {TOL['atol']}")
+    dist = {}
+    for i, (n, a) in enumerate(zip(first["sq_dist"], first["axes"])):
+        sq = (sum(run["sq_dist"][n] for run in ranks) if a is not None
+              else first["sq_dist"][n])
+        dist[n] = math.sqrt(sq)
+        if dist[n] > TP_NOISE_X * one["noise"][n] + 1e-6 * one["norms"][n]:
+            fail(f"{path}: gradient {n} off the one rank's by {dist[n]}, "
+                 f"beyond {TP_NOISE_X} x its own {one['noise'][n]} from the "
+                 f"f32 twin")
+    launches, off = split_counts(path, first["counts"], ())
+    out = {"spawn_s": spawn_s, "mesh": DP_TRAIN_MESH,
+           "n_layers": DP_TRAIN_LAYERS, "batch": DP_TRAIN_BATCH,
+           "seq_len": DP_TRAIN_SEQ, "launches": launches,
+           "off_path_launches": off, "loss": first["loss"],
+           "one_rank_loss": one["loss"], "one_rank_loss_f32": one["loss_f32"],
+           "grad_dist_over_noise_max": max(
+               dist[n] / max(one["noise"][n], 1e-30) for n in dist),
+           "losses": first["losses"],
+           "step_ms": [r["step_ms"] for r in ranks],
+           "collectives": first["collectives"],
+           "gather_layer_ms": [r["gather_layer_ms"] for r in ranks],
+           **{f"{op}_{unit}_ms": [r[f"{op}_{unit}_ms"] for r in ranks]
+              for op in ("reduce_scatter", "all_reduce")
+              for unit in ("layer", "embed")},
+           "layer_grad_bytes_f32": first["layer_grad_bytes_f32"],
+           "embed_grad_bytes_f32": first["embed_grad_bytes_f32"],
+           "bytes": [r["bytes"] for r in ranks],
+           "one_rank_bytes": one["bytes"],
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "one_rank_peak_gib": one["peak_gib"],
+           "one_rank_step_ms": one["step_ms"]}
+    log(f"{path}: loss {first['loss']:.6f} on both ranks (one rank "
+        f"{one['loss']:.6f}, its f32 twin {one['loss_f32']:.6f}); "
+        f"gradients within {out['grad_dist_over_noise_max']:.3f} x the one "
+        f"rank's own distance from its f32 twin; a step with DS off bit for "
+        f"bit DS on's; step ms {out['step_ms']} (one rank "
+        f"{one['step_ms']}); collectives a step {out['collectives']}; a "
+        f"layer's gather {out['gather_layer_ms']} ms; a layer's f32 "
+        f"gradient ({out['layer_grad_bytes_f32']} bytes) reduce-scattered "
+        f"(DS on) {out['reduce_scatter_layer_ms']} ms, all-reduced (DS "
+        f"off) {out['all_reduce_layer_ms']} ms; the embedding's "
+        f"({out['embed_grad_bytes_f32']} bytes) "
+        f"{out['reduce_scatter_embed_ms']} / {out['all_reduce_embed_ms']} "
+        f"ms; bytes a rank {out['bytes']} "
+        f"(one rank {one['bytes']}); peak GiB {out['peak_gib']} (one rank "
+        f"{one['peak_gib']:.2f}); spawn {spawn_s:.1f} s")
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4256,9 +4870,20 @@ def main() -> None:
         log(f"{TRAIN_PATH} through launch/train.py: {driver}")
     free_card()
 
+    with phase(XLSTM_TRAIN_PATH):
+        xl_train = train_xlstm(dev)
+    free_card()
+
+    with phase(DP_TRAIN_PATH):
+        dpt_one = dp_train_one_rank(dev)
+        free_card()
+        dp_train = train_dp(dev, dpt_one)
+    free_card()
+
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
-            XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained}
+            XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained,
+            XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -4473,7 +5098,8 @@ def main() -> None:
                    "decode_dp_view": dec_dp, "serve_dp": dp,
                    "prefill_train": pre_train, "train_small": small_train,
                    "train_checkpoint": ckpt, "train": trained,
-                   "train_driver": driver,
+                   "train_driver": driver, "train_xlstm": xl_train,
+                   "train_dp": dp_train,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,6 +22,10 @@ tensors aligned with ``model.parameters()``: gradients, f32 masters) back
 into the reference's pytree layout, so a step's result can be compared;
 ``adamw_state_from_jax`` carries the reference's ``AdamWState`` over as
 the port's, its moments and masters aligned with ``model.parameters()``.
+``train_state_from_jax`` carries a whole ``TrainState`` (params, m, v,
+master, int8-EF residuals) into one rank's shards of a mesh, and
+``train_state_to_numpy`` puts a rank's state back together over its FSDP
+group as the reference's whole numpy trees.
 """
 from __future__ import annotations
 
@@ -333,3 +337,59 @@ def adamw_state_from_jax(np_state, cfg: ModelConfig,
     step = to_tensor(np.asarray(np_state.step, np.int32), dev)
     return AdamWState(step=step, m=flat(np_state.m), v=flat(np_state.v),
                       master=flat(np_state.master))
+
+
+def train_state_from_jax(np_state, cfg: ModelConfig, device="cuda", *,
+                         rank: int = 0, mesh_shape=(),
+                         multi_pod_fsdp: bool = False):
+    """The reference's ``TrainState`` (numpy leaves: ``params``, ``opt``
+    with ``step`` and the f32 ``m`` / ``v`` / ``master`` trees, ``master``
+    possibly None, and ``residuals`` or None) as world rank ``rank``'s
+    ``launch.steps.TrainState`` of a POOL-tier mesh of ``mesh_shape``
+    (``params_from_jax``: every tree cut alike, so m, v, the masters and
+    the residuals are the shards of the parameters they belong to);
+    gradients on for the parameters."""
+    from repro_torch.launch.steps import TrainState
+    dev = resolve_device(device)
+    kw = dict(rank=rank, mesh_shape=mesh_shape,
+              multi_pod_fsdp=multi_pod_fsdp)
+
+    def flat(tree):
+        if tree is None:
+            return None
+        return [p.detach() for p in params_from_jax(
+            tree, cfg, device=dev, **kw).parameters()]
+
+    params = params_from_jax(np_state.params, cfg, device=dev, **kw)
+    params.requires_grad_(True)
+    opt = np_state.opt
+    state = AdamWState(step=to_tensor(np.asarray(opt.step, np.int32), dev),
+                       m=flat(opt.m), v=flat(opt.v), master=flat(opt.master))
+    return TrainState(params, state, flat(np_state.residuals))
+
+
+def train_state_to_numpy(state, cfg: ModelConfig, group=None) -> Dict:
+    """A rank's training state put back together: every FSDP shard
+    gathered over ``group`` (its FSDP group; None: the state is whole),
+    as the reference's whole numpy trees ``{"params", "m", "v",
+    "master", "residuals"}`` (bf16 widened to f32; ``master`` and
+    ``residuals`` None where the state has none) and ``"step"``."""
+    model = state.params
+    axes = sharding.fsdp_axes(model)
+
+    def whole(tensors):
+        if tensors is None:
+            return None
+        tensors = [t.detach() for t in tensors]
+        if group is not None and group.size > 1:
+            moved = [i for i, a in enumerate(axes) if a is not None]
+            got = sharding._Gathers([tensors[i] for i in moved],
+                                    [axes[i] for i in moved], group).wait()
+            for i, t in zip(moved, got):
+                tensors[i] = t
+        return params_to_numpy(model, cfg, tensors)
+
+    opt = state.opt
+    return {"params": whole(list(model.parameters())), "m": whole(opt.m),
+            "v": whole(opt.v), "master": whole(opt.master),
+            "residuals": whole(state.residuals), "step": int(opt.step)}

@@ -8,8 +8,18 @@ consult the staging index first.
 
 * Training gradients: the reference pins the gradients to the pool
   sharding so that its backward emits a reduce-scatter (``ds_grad_specs``,
-  ``apply_ds``). On one rank the gradient is already whole and nothing is
-  sharded: both pass their input through.
+  ``apply_ds``). Over a rank mesh the port's backward does the same: each
+  POOL-tier layer is gathered differentiably (``parallel.sharding.
+  gather_train``) and the transpose of that gather is the
+  ``GradReducer``, which reduce-scatters the layer's gradients in f32
+  (one ``reduce_scatter`` a layer) so that each rank completes its shard
+  and no whole gradient outlives its layer's backward; disabled, it is
+  the baseline's all-reduce of the whole gradient, then the rank's slice.
+  ``apply_ds`` then all-reduces the leaves that have no FSDP axis (norm
+  scales, leaves the divisibility guard leaves whole, every leaf on the
+  DEVICE tier), packed into one all-reduce. At a data axis of 2 both
+  modes give the same bits (each sum is one f32 addition, a + b on one
+  rank, b + a on the other). On one rank both pass their input through.
 * The staging ring (``RingState``, ``ring_init``, ``ring_write``,
   ``ring_lookup``, ``read_through``, ``ring_occupancy``): bounded slots on
   the device, written at the head, read through before the backing tier;
@@ -33,18 +43,92 @@ from repro_torch.core.qos import QoSController
 
 
 def ds_grad_specs(param_specs: Any, enabled: bool) -> Any:
-    """The placement the backward delivers gradients in: the pool's
-    (reduce-scatter) when enabled, else the gathered one (all-reduce). One
-    rank has one placement, so the specs pass through either way."""
-    del enabled
-    return param_specs
+    """The placement the backward delivers gradients in (``{name: spec}``
+    or a list of specs): the pool's (reduce-scatter; deterministic store)
+    when enabled, else the gathered one (all-reduce of the whole gradient,
+    the baseline a conventional data-parallel step uses)."""
+    if enabled:
+        return param_specs
+    if isinstance(param_specs, dict):
+        return {k: gathered_spec(s) for k, s in param_specs.items()}
+    return [gathered_spec(s) for s in param_specs]
 
 
-def apply_ds(grads: Any, param_specs: Any = None, enabled: bool = True) -> Any:
-    """Gradients in their deterministic-store placement: on one rank the
-    gradient is whole already and passes through unchanged."""
-    del param_specs, enabled
-    return grads
+def gathered_spec(spec: Tuple) -> Tuple:
+    """``spec`` with its FSDP axis dropped (the reference's
+    ``gathered_specs`` of one leaf)."""
+    def keep(a):
+        if a == "data" or a == "pod":
+            return None
+        if isinstance(a, tuple):
+            rest = tuple(x for x in a if x not in ("pod", "data"))
+            return rest[0] if len(rest) == 1 else (rest or None)
+        return a
+    return tuple(keep(a) for a in spec)
+
+
+def has_fsdp(spec: Tuple) -> bool:
+    """Whether ``spec`` puts an FSDP axis (data, or pod and data) on the
+    leaf."""
+    return any(a == "data" or (isinstance(a, tuple) and "data" in a)
+               for a in spec)
+
+
+class GradReducer:
+    """The deterministic store of one training step over the FSDP
+    ``group``: the transpose of a POOL-tier unit's gather
+    (``parallel.sharding.gather_train``). ``reduce(buf, key)`` takes the
+    unit's whole gradients packed in f32 as [size, total] (row f: what
+    FSDP rank f keeps) and returns this rank's row summed over the ranks
+    -- one ``reduce_scatter`` when ``enabled``, else one all-reduce of the
+    whole buffer and the rank's row. With ``final`` False (a microbatch
+    before the last) the buffer is added to the unit's accumulator under
+    ``key`` and zeros are returned; the last microbatch's call adds the
+    accumulator first, so a unit is reduced once a step however many
+    microbatches it has."""
+
+    def __init__(self, group, enabled: bool = True):
+        self.group, self.enabled = group, enabled
+        self.final = True
+        self.acc: Dict[Any, torch.Tensor] = {}
+
+    def reduce(self, buf: torch.Tensor, key) -> torch.Tensor:
+        if not self.final:
+            if key in self.acc:
+                self.acc[key] += buf
+            else:
+                self.acc[key] = buf
+            return torch.zeros(buf.shape[1:], dtype=buf.dtype,
+                               device=buf.device)
+        if key in self.acc:
+            buf = buf + self.acc.pop(key)
+        if self.enabled:
+            return self.group.reduce_scatter(buf, 0)[0]
+        return self.group.all_reduce(buf, "sum")[self.group.rank]
+
+
+def apply_ds(grads: Any, param_specs: Any = None, group=None) -> Any:
+    """Gradients in their deterministic-store placement. ``grads`` and
+    ``param_specs`` are aligned lists. Over a rank ``group`` (the FSDP and
+    batch axes) the leaves whose spec has an FSDP axis arrive as this
+    rank's shard already, reduced in the backward by the step's
+    ``GradReducer`` (which holds the DS mode); the others are summed over
+    the group here, in f32, packed into one all-reduce, each cast back to
+    its dtype. On one rank the gradients are whole and pass through
+    unchanged."""
+    if group is None or group.size == 1:
+        return grads
+    whole = [i for i, s in enumerate(param_specs) if not has_fsdp(s)]
+    if not whole:
+        return list(grads)
+    flat = torch.cat([grads[i].float().reshape(-1) for i in whole])
+    flat = group.all_reduce(flat, "sum")
+    out, off = list(grads), 0
+    for i in whole:
+        g = grads[i]
+        out[i] = flat[off:off + g.numel()].reshape(g.shape).to(g.dtype)
+        off += g.numel()
+    return out
 
 
 # ---------------------------------------------------------------------------

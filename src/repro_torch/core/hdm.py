@@ -16,9 +16,13 @@ as a sharding on the TPU mesh; the port realizes it over a mesh of ranks
 
 Both tiers also split the model axis (``parallel.sharding.param_specs``).
 Without a mesh, or on a data axis of one rank, POOL is resident like
-DEVICE. ``HOST`` raises, as the reference's ``enable_host_tier=False``
-leaves it unusable off a TPU; its GPU counterpart (pinned host memory
-streamed in by SR on a side stream) is not built yet.
+DEVICE. The optimizer state (m, v, the f32 master) and the int8-EF
+residuals take the placement of the parameters they belong to, under the
+optimizer tier (``launch.steps.init_state``: training needs the two tiers
+equal), so on POOL each rank holds their FSDP shards too. ``HOST``
+raises, as the reference's ``enable_host_tier=False`` leaves it unusable
+off a TPU; its GPU counterpart (pinned host memory streamed in by SR on a
+side stream) is not built yet.
 """
 from __future__ import annotations
 
@@ -84,7 +88,16 @@ def bytes_per_device(params: Union[nn.Module, Iterable[torch.Tensor]],
     the store's mesh counts each leaf's share by its spec (the product of
     the sizes of the mesh axes it is split on, as the reference's does);
     tensors, a shard (``shard_params``' result) or a model without a mesh
-    count every byte they hold."""
+    count every byte they hold. A training state (``launch.steps.
+    TrainState``: this rank's parameters, m, v, masters and residuals)
+    counts every byte of each; the AdamW step counter is left out, as the
+    reference's ``bytes_per_device`` over ``state_specs`` counts the
+    parameter-shaped trees."""
+    if hasattr(params, "opt"):
+        opt = params.opt
+        return sum(bytes_per_device(part, store) for part in (
+            params.params, opt.m, opt.v, opt.master or (),
+            params.residuals or ()))
     if (not isinstance(params, nn.Module) or store.mesh is None
             or hasattr(params, "shard")):
         tensors = (params.parameters() if isinstance(params, nn.Module)

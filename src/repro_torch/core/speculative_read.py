@@ -22,7 +22,15 @@ waiting, before layer i computes, and waited for before its first use
 work). The reference's reads past the last layer wrap to the first ones
 and are idle; the port leaves them out, on every rank alike.
 ``prefetch_depth`` 0 (and ``mode="train"``) gathers each layer in line,
-as the reference's other branch does. ``mode="train"`` rematerializes
+as the reference's other branch does. ``mode="train"`` gathers each
+layer inside the function it rematerializes (``sharding.gather_train``:
+differentiable, its backward the deterministic store's ``reducer``), as
+the reference's ``materialize`` runs inside ``jax.checkpoint``: the
+gathered layer is not saved for the backward pass, whose recompute
+gathers it again (two all-gathers and one reduce-scatter a layer a
+step), so the saved residuals stay sharded. Issuing layer i + depth's
+gathers ahead in training is left to the HOST tier's stream; here the
+depth changes nothing. ``mode="train"`` rematerializes
 each layer's body for the backward pass with ``remat``
 (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="none"``
 saves nothing of the body, ``"dots"`` saves the outputs of its matrix
@@ -45,7 +53,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.parallel.sharding import FsdpRead
+from repro_torch.parallel.sharding import FsdpRead, gather_train
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -85,19 +93,27 @@ def stream_layers(body: Callable, x0: Any, layers: Sequence[Any], *,
                   prefetch_depth: int = 1, granularity: int = 1,
                   mode: str = "train", remat: bool = True,
                   remat_policy: str = "none", group=None,
-                  extras: Optional[Sequence[Any]] = None) -> Any:
+                  extras: Optional[Sequence[Any]] = None,
+                  reducer=None) -> Any:
     """Run ``layers`` under the SR schedule, their FSDP axes gathered
-    over ``group``; returns the final carry."""
+    over ``group``; returns the final carry. In ``mode="train"`` the
+    gathers are differentiable, their gradients reduced by ``reducer``
+    (``core.deterministic_store.GradReducer``)."""
     if mode == "infer" and prefetch_depth > 0:
         return _stream_infer(body, x0, layers, depth=prefetch_depth,
                              granularity=granularity, group=group,
                              extras=extras)
     x = x0
     for i, layer in enumerate(layers):
-        layer = materialize(layer, granularity, group)
+        if mode == "train":
+            def step(c, layer=layer, i=i):
+                whole = gather_train(layer, group, granularity, reducer)
+                return _call(body, c, whole, extras, i)
+        else:
+            layer = materialize(layer, granularity, group)
 
-        def step(c, layer=layer, i=i):
-            return _call(body, c, layer, extras, i)
+            def step(c, layer=layer, i=i):
+                return _call(body, c, layer, extras, i)
         x = _remat(step, x, remat_policy) if remat else step(x)
     return x
 

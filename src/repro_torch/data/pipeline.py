@@ -9,7 +9,11 @@ Design constraints from the runtime:
     input never sits on the step's critical path (the data-loading face of
     the paper's speculative read);
   * placement: each batch crosses to the explicit ``device`` from pinned
-    host memory with a non-blocking copy (plain tensors on the CPU).
+    host memory with a non-blocking copy (plain tensors on the CPU);
+  * sharding: on a rank mesh each rank takes its rows of the global batch
+    (``rows=(r, R)``: the contiguous r-th 1/R of the leading axis), as the
+    reference's ``batch_specs`` places them over the data axis (or pod and
+    data); the global stream is the same whatever the mesh.
 
 Sources: ``SyntheticLM`` (seeded zipfian tokens -- the default for the
 smoke runs and tests) or a binary int32 token file (``FileLM``, np.memmap).
@@ -81,6 +85,19 @@ class FileLM:
         return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
 
 
+def rows_of(batch: Dict, rank: int, n: int) -> Dict:
+    """Rank ``rank``'s rows of a global ``batch`` split over ``n`` ranks:
+    the contiguous ``rank``-th 1/n of every leaf's leading axis."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"{k}: {v.shape[0]} rows do not split over "
+                             f"{n} ranks")
+        per = v.shape[0] // n
+        out[k] = v[rank * per:(rank + 1) * per]
+    return out
+
+
 def to_device(batch: Dict[str, np.ndarray],
               device: torch.device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device``: through pinned host memory
@@ -96,12 +113,13 @@ def to_device(batch: Dict[str, np.ndarray],
 
 class Pipeline:
     """Background-prefetching iterator over a deterministic source; its
-    batches land on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    batches (this rank's ``rows`` of them) land on ``device`` (the card
+    unless the caller asks for the CPU)."""
 
     def __init__(self, cfg: DataConfig, *, start_step: int = 0,
-                 depth: int = 2, device="cuda"):
+                 depth: int = 2, device="cuda", rows=(0, 1)):
         self.device = resolve_device(device)
+        self.rows = rows
         self.cfg = cfg
         self.source = FileLM(cfg) if cfg.token_file else SyntheticLM(cfg)
         self.step = start_step
@@ -114,7 +132,7 @@ class Pipeline:
     def _worker(self):
         step = self.step
         while not self._stop.is_set():
-            batch = self.source.batch(step)
+            batch = rows_of(self.source.batch(step), *self.rows)
             try:
                 self._q.put((step, batch), timeout=0.5)
                 step += 1

@@ -1,5 +1,5 @@
-"""The rank mesh of multi-rank serving: the port's counterpart of the
-reference's JAX mesh (``repro.launch.mesh``).
+"""The rank mesh of multi-rank serving and training: the port's
+counterpart of the reference's JAX mesh (``repro.launch.mesh``).
 
 The reference runs one process over a (data, model) or (pod, data,
 model) mesh of devices; the port runs one process per rank, joined by a
@@ -17,10 +17,12 @@ Every collective of the port goes through a :class:`RankGroup`, one axis
 (or a product of axes) of the mesh: ``all_reduce`` (max or sum),
 ``all_gather`` (also issued asynchronously, for the speculative read's
 gathers one layer ahead), ``all_to_all`` (equal splits,
-``all_to_all_single``) and ``broadcast``. Gloo carries each of them for
-CUDA tensors on the H100 with torch 2.11 (it stages them through host
-memory itself), so no collective is staged by hand or built from another
-(``chip_smoke.py``'s tp and dp phases). A group of one rank runs no
+``all_to_all_single``), ``broadcast`` and ``reduce_scatter`` (the
+deterministic store's gradients in training). Gloo carries the first
+four for CUDA tensors on the H100 with torch 2.11 (it stages them
+through host memory itself; ``chip_smoke.py``'s tp and dp phases); the
+reduce-scatter is built from one ``all_to_all`` and a sum in rank order
+on every backend (``RankGroup.reduce_scatter``). A group of one rank runs no
 collective. ``COLLECTIVES`` counts the calls of each in this process, by
 axis: ``"all_reduce"`` on the model axis, ``"data:all_gather"`` on the
 data axis and so on, for the collectives per step that ``chip_smoke.py``
@@ -134,6 +136,32 @@ class RankGroup:
         self._count("all_to_all")
         dist.all_to_all_single(out, flat, group=self.pg)
         return out.view(t.dtype).reshape(t.shape)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum of every rank's ``t``, cut into ``size`` contiguous
+        parts along ``dim``: this rank's part (``t.shape[dim]`` must
+        divide by ``size``), in ``t``'s dtype. One ``all_to_all`` (part j
+        to rank j) and the received parts added in rank order, on every
+        backend: the path the CPU tests and the shared card run, with one
+        summation order. NCCL's own ``reduce_scatter_tensor`` waits for a
+        run on cards of their own that can time it against this."""
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: axis {dim} of "
+                             f"{tuple(t.shape)} does not split over "
+                             f"{self.size} ranks")
+        parts = t.movedim(dim, 0).reshape((self.size, -1) + tuple(
+            t.movedim(dim, 0).shape[1:]))
+        self._count("reduce_scatter")
+        flat = parts.contiguous().view(torch.uint8).reshape(self.size, -1)
+        recv = torch.empty_like(flat)
+        dist.all_to_all_single(recv, flat, group=self.pg)
+        got = recv.view(t.dtype).reshape(parts.shape)
+        out = got[0].clone()
+        for i in range(1, self.size):
+            out += got[i]
+        return out.movedim(0, dim)
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """``t`` of the group's rank ``src`` on every rank, in place;

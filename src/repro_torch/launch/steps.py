@@ -2,13 +2,28 @@
 optional int8 error feedback, then AdamW.
 
 The paper's mechanisms appear as in the reference's ``launch/steps.py``:
-the layers stream through the speculative-read pipeline inside
-``loss_fn``, the gradients are placed by the deterministic store
-(``core.deterministic_store.apply_ds``; whole on one rank) and the
-optimizer updates them where they lie. One rank has no shardings: the
-reference's ``state_specs`` / ``shardings`` and its serve and prefill
-builders stay with the multi-rank slice. The step works in place on the
-model, the moments and the masters, and returns the same state.
+
+* the parameters and the optimizer state are placed by their tiers
+  (``core.hdm.HDMStore``): on the POOL tier of a rank mesh each rank
+  holds the FSDP shards of the weights and of m, v and the f32 master
+  (``init_state``, ``state_specs``);
+* the layers stream through the speculative read inside ``loss_fn``,
+  each gathered in its remat'd body, the leaves outside the stream once a
+  step;
+* the gradients complete as shards: the backward of each gather is the
+  deterministic store's reduce-scatter (``core.deterministic_store``),
+  never a whole gradient past its layer, and AdamW updates the shards.
+
+One process is one rank of a ``launch.mesh.RankMesh`` of shape (D, 1) or
+(P, D, 1) (``mesh``; None: one rank). Its batch is its rows of the
+global batch, as the reference's ``batch_specs`` places them: over the
+data axis, or the (pod, data) product with ``rc.mesh.multi_pod`` -- the
+FSDP axes too; without ``multi_pod`` the pod ranks are replicas. With both
+tiers "device" the step is plain data parallel: whole weights, whole
+gradients all-reduced. A model axis of more than one rank and a mixed
+tier pair raise (``models.model.check_trainable``). The step works in
+place on the model, the moments and the masters, and returns the same
+state.
 """
 from __future__ import annotations
 
@@ -19,13 +34,15 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core import deterministic_store as ds
+from repro_torch.core import hdm
 from repro_torch.models import model as M
 from repro_torch.models.layers import pdtype
 from repro_torch.optim import adamw, compression
+from repro_torch.parallel import sharding
 
 
 class TrainState(NamedTuple):
-    params: nn.Module                       # the model, grads enabled
+    params: nn.Module                       # the model (a rank's shard)
     opt: adamw.AdamWState
     residuals: Optional[List[torch.Tensor]]  # int8-EF residuals
 
@@ -45,13 +62,56 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
     return out
 
 
+def batch_group(rc: RunConfig, mesh):
+    """The rank group the batch's rows and the FSDP shards split over:
+    (pod, data) with ``rc.mesh.multi_pod``, else data (None: one rank)."""
+    return None if mesh is None else mesh.dp(rc.mesh.multi_pod)
+
+
+def param_spec_list(params: nn.Module, rc: RunConfig) -> List[Tuple]:
+    """The spec of each of ``params.parameters()``: the specs a shard was
+    cut by (``sharding.shard_params`` keeps them), else those of the
+    whole model under ``rc.param_tier``."""
+    specs = getattr(params, "specs", None)
+    if specs is None:
+        specs = sharding.param_specs(params, tier=rc.param_tier,
+                                     multi_pod_fsdp=rc.mesh.multi_pod)
+    return [specs[n] for n, _ in params.named_parameters()]
+
+
+def state_specs(params: nn.Module, rc: RunConfig,
+                state: Optional[TrainState] = None) -> TrainState:
+    """The training state's placement (the reference's ``state_specs``):
+    the parameters' specs under ``rc.param_tier``, the optimizer state
+    mirroring them under ``rc.optimizer_tier`` (``adamw.opt_specs``), the
+    residuals the parameters'. Lists aligned with ``params.parameters()``
+    of the whole model (or of a shard, by the specs it was cut by)."""
+    pspecs = param_spec_list(params, rc)
+    if getattr(params, "specs", None) is None:
+        whole = sharding.param_specs(params, tier=rc.optimizer_tier,
+                                     multi_pod_fsdp=rc.mesh.multi_pod)
+        ospecs = [whole[n] for n, _ in params.named_parameters()]
+    else:                   # a shard: one tier for both (check_trainable)
+        ospecs = pspecs
+    opt = adamw.opt_specs(ospecs, None if state is None else state.opt)
+    residuals = (pspecs if state is not None and state.residuals is not None
+                 else None)
+    return TrainState(params=pspecs, opt=opt, residuals=residuals)
+
+
 def init_state(params: nn.Module, rc: RunConfig,
-               opt_cfg: adamw.AdamWConfig) -> TrainState:
-    """A training state over ``params``: grads turned on for every
-    parameter (the port builds them frozen for serving), zero moments, f32
-    masters and, with ``rc.grad_compression == "int8_ef"``, zero
-    residuals."""
-    M.check_trainable(rc.model)
+               opt_cfg: adamw.AdamWConfig, mesh=None) -> TrainState:
+    """A training state over ``params``: on a rank ``mesh`` the whole
+    model is placed first (``HDMStore.place`` under ``rc.param_tier``:
+    this rank's FSDP shards on POOL; a shard already placed is kept);
+    grads turned on for every parameter (the port builds them frozen for
+    serving), zero moments, f32 masters and, with ``rc.grad_compression
+    == "int8_ef"``, zero residuals, all on the parameters' placement --
+    the optimizer tier's, which ``check_trainable`` holds equal."""
+    M.check_trainable(rc.model, mesh.shape if mesh is not None else (), rc)
+    if mesh is not None and not hasattr(params, "shard"):
+        params = hdm.HDMStore(mesh, tier=rc.param_tier,
+                              multi_pod_fsdp=rc.mesh.multi_pod).place(params)
     params.requires_grad_(True)
     flat = list(params.parameters())
     residuals = (compression.init_residuals(flat)
@@ -60,22 +120,31 @@ def init_state(params: nn.Module, rc: RunConfig,
 
 
 def loss_and_grads(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
-                   batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                   batch: Dict[str, torch.Tensor], *, group=None,
+                   reducer=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(loss, gradients aligned with ``params.parameters()``, in the
-    parameters' dtypes; zeros for a parameter the loss does not reach)."""
+    parameters' dtypes; zeros for a parameter the loss does not reach).
+    Over a rank ``group`` the loss is the global mean and each FSDP
+    leaf's gradient the rank's shard, reduced in the backward by
+    ``reducer``; the whole leaves' gradients are still this rank's part
+    (``ds.apply_ds`` sums them)."""
     flat = list(params.parameters())
     with torch.enable_grad():
-        loss = M.loss_fn(params, cfg, rc, batch)
+        loss = M.loss_fn(params, cfg, rc, batch, group=group,
+                         reducer=reducer)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(flat, grads)]
 
 
-def _accumulated_grads(params, cfg, rc, batch, n_micro: int):
+def _accumulated_grads(params, cfg, rc, batch, n_micro: int, group=None,
+                       reducer=None):
     """Gradient accumulation over ``n_micro`` splits of the leading batch
     axis: the f32 sums scaled by ``1 / n_micro`` and cast to the
-    parameters' dtypes, and the mean loss."""
+    parameters' dtypes, and the mean loss. Over a rank group the FSDP
+    leaves' whole gradients accumulate in the ``reducer`` (f32, a layer's
+    whole size each) and are reduce-scattered once, in the last
+    microbatch's backward."""
     def split(x):
         return x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:])
 
@@ -85,8 +154,11 @@ def _accumulated_grads(params, cfg, rc, batch, n_micro: int):
     g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for p in flat]
     for i in range(n_micro):
+        if reducer is not None:
+            reducer.final = i == n_micro - 1
         loss, g = loss_and_grads(params, cfg, rc,
-                                 {k: v[i] for k, v in micro.items()})
+                                 {k: v[i] for k, v in micro.items()},
+                                 group=group, reducer=reducer)
         loss_acc = loss_acc + loss
         for a, b in zip(g_acc, g):
             a.add_(b.float())
@@ -96,26 +168,50 @@ def _accumulated_grads(params, cfg, rc, batch, n_micro: int):
 
 
 def build_train_step(cfg: ModelConfig, rc: RunConfig,
-                     opt_cfg: adamw.AdamWConfig):
+                     opt_cfg: adamw.AdamWConfig, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``: loss and grads
-    (accumulated over ``rc.microbatches``), the deterministic store, the
-    optional int8 error feedback, then AdamW, in place."""
+    (accumulated over ``rc.microbatches``), the deterministic store
+    (``rc.ds_enabled``: the reduce-scatter, else the all-reduce-then-slice
+    baseline), the optional int8 error feedback, then AdamW, in place. On
+    a rank ``mesh`` the state is this rank's (``init_state(mesh=)``) and
+    ``batch`` its rows of the global batch."""
+    M.check_trainable(cfg, mesh.shape if mesh is not None else (), rc)
+    group = batch_group(rc, mesh)
+    if group is not None and group.size == 1:
+        group = None
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = state.params
+        reducer = (None if group is None
+                   else ds.GradReducer(group, rc.ds_enabled))
         if rc.microbatches > 1:
             loss, grads = _accumulated_grads(params, cfg, rc, batch,
-                                             rc.microbatches)
+                                             rc.microbatches, group, reducer)
         else:
-            loss, grads = loss_and_grads(params, cfg, rc, batch)
-        # deterministic store: the gradients complete where they lie
-        grads = ds.apply_ds(grads, None, enabled=rc.ds_enabled)
+            loss, grads = loss_and_grads(params, cfg, rc, batch, group=group,
+                                         reducer=reducer)
+        # deterministic store: the gradients complete as pool shards
+        grads = ds.apply_ds(grads, param_spec_list(params, rc),
+                            group=group)
+        axes = sharding.fsdp_axes(params) if group is not None else None
         residuals = state.residuals
         if residuals is not None:
-            grads, residuals = compression.compress_grads(grads, residuals)
-        _, opt, om = adamw.update(grads, state.opt,
-                                  list(params.parameters()), opt_cfg)
+            layouts = None if axes is None else [
+                None if a is None else (_whole_shape(g, a, group.size), a)
+                for g, a in zip(grads, axes)]
+            grads, residuals = compression.compress_grads(
+                grads, residuals, group=group, layouts=layouts)
+        _, opt, om = adamw.update(
+            grads, state.opt, list(params.parameters()), opt_cfg,
+            group=group,
+            sharded=None if axes is None else [a is not None for a in axes])
         return TrainState(params, opt, residuals), {"loss": loss, **om}
 
     return step
+
+
+def _whole_shape(shard: torch.Tensor, axis: int, n: int) -> Tuple[int, ...]:
+    shape = list(shard.shape)
+    shape[axis] *= n
+    return tuple(shape)

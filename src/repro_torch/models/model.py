@@ -1,6 +1,7 @@
 """Model assembly for the dense, MoE, audio, hybrid, VLM and xLSTM
 families: init, paged cache, decode and chunked prefill steps, on-device
-sampling, and the training loss (every family but xLSTM).
+sampling, and the training loss (every family; on one rank or over the
+data and pod mesh axes).
 
 The reference streams a stacked layer axis through its speculative-read
 scan; the port streams its per-layer modules through
@@ -67,10 +68,8 @@ from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        softmax_xent, unembed_apply)
 
 PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm", "ssm")
-# families with a training forward (``loss_fn``); xLSTM's training forms
-# (the reference's chunkwise ``mlstm_apply`` and ``slstm_apply``) are the
-# next slice's
-TRAINED_FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm")
+# families with a training forward (``loss_fn``)
+TRAINED_FAMILIES = PORTED_FAMILIES
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -351,10 +350,11 @@ def _shared_block_apply(sp: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
-                shared=None, vision=None):
+                shared=None, vision=None, batch=None):
     """The layer stream's body for one stacked step of ``cfg``'s family:
     ``body((x, aux), layer) -> (x, aux)``; ``aux`` sums the MoE layers'
-    load-balance losses."""
+    load-balance losses. ``batch``: the rank group the batch's rows are
+    split over (the MoE routes the whole batch)."""
     fam = cfg.family
 
     def body(carry, layer):
@@ -363,7 +363,7 @@ def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
             return transformer.block_apply(layer, cfg, x, positions,
                                            use_pallas=rc.use_pallas), aux
         if fam == "moe":
-            x, a = moe.moe_block_apply(layer, cfg, x, positions)
+            x, a = moe.moe_block_apply(layer, cfg, x, positions, batch=batch)
             return x, aux + a
         if fam == "vlm":
             self_blocks, cross = layer
@@ -377,33 +377,42 @@ def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
                 x = x + mamba2.mamba_apply(m, cfg, x)
             return _shared_block_apply(shared["params"], cfg, x,
                                        shared["emb"], positions), aux
+        if fam == "ssm":
+            mlstm, slstm = layer
+            for m in mlstm:
+                x = xlstm.mlstm_apply(m, cfg, x)
+            return xlstm.slstm_apply(slstm, cfg, x), aux
         raise ValueError(fam)
 
     return body
 
 
-def _stacked_layers(params: nn.Module, cfg: ModelConfig):
-    """The layer stream's steps: a block (dense, MoE, audio), a group of
-    Mamba2 layers (hybrid), or a group's self-attention blocks with its
-    cross layer (VLM)."""
-    if cfg.family == "vlm":
-        return list(zip(params.self_blocks, params.cross))
-    if cfg.family == "hybrid":
-        return params.groups
-    return params.blocks
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family whose training forms are not ported yet."""
+def check_trainable(cfg: ModelConfig, mesh_shape=(),
+                    rc: Optional[RunConfig] = None) -> None:
+    """Raise for what the port does not train yet: a family without
+    training forms, a mesh with a model axis of more than one rank, or
+    parameters and optimizer state on different tiers (ROADMAP Queue 1
+    item 4, each)."""
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet: its "
-            f"training forms (the reference's mlstm_apply / slstm_apply) "
-            f"are the next slice's (trained: {TRAINED_FAMILIES})")
+            f"training the {cfg.family!r} family is not ported "
+            f"(trained: {TRAINED_FAMILIES})")
+    if mesh_shape and tuple(mesh_shape)[-1] > 1:
+        raise NotImplementedError(
+            f"training on mesh {tuple(mesh_shape)}: a model axis of "
+            f"{tuple(mesh_shape)[-1]} ranks in training (weights split on "
+            f"the model axis in the train step) is ROADMAP Queue 1 item "
+            f"4's; train over the data and pod axes (model axis 1)")
+    if rc is not None and rc.param_tier != rc.optimizer_tier:
+        raise NotImplementedError(
+            f"param_tier {rc.param_tier!r} with optimizer_tier "
+            f"{rc.optimizer_tier!r}: a mixed tier pair is ROADMAP Queue 1 "
+            f"item 4's; train with both on one tier")
 
 
 def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], *, group=None,
+            reducer=None) -> torch.Tensor:
     """The training loss: mean next-token cross-entropy (plus the MoE
     layers' load-balance loss). batch: ``tokens`` and ``labels`` [B, S]
     (audio [B, K, S]) and, for the VLM, ``vision_embeds`` [B, Nv, d].
@@ -412,27 +421,42 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     (``rc.sr_prefetch_depth``, ``rc.sr_granularity``) with ``rc.remat`` and
     ``rc.remat_policy``; with ``rc.use_pallas`` the dense and audio blocks'
     attention runs the flash-prefill kernel, which has no backward (a
-    forward under ``torch.no_grad`` only)."""
+    forward under ``torch.no_grad`` only).
+
+    Over a rank ``group`` (the data axis, or pod and data: the FSDP and
+    batch axes), ``params`` is this rank's POOL-tier shard and ``batch``
+    its rows of the global batch: the leaves outside the stream (the
+    embedding, tied or not, and the hybrid's shared block) are gathered
+    once, differentiably, the stream's layers each in its remat'd body
+    (``core.speculative_read``), their gradients reduced to the shards by
+    ``reducer`` (the deterministic store). The loss returned is the global
+    mean: each rank's mean averaged over the group (``sharding.
+    mean_over``), each rank's gradient its share of it; the MoE routes the
+    whole batch, so its aux loss counts once."""
     check_trainable(cfg)
     tokens = batch["tokens"]
     bsz, seq = tokens.shape[0], tokens.shape[-1]
     positions = torch.arange(seq, dtype=torch.int32,
                              device=tokens.device)[None].expand(bsz, seq)
-    x = _embed(params.embed, cfg, tokens, positions)
-    shared = ({"params": params.shared, "emb": x}
+    top = sharding.gather_train(_outside(params, cfg), group,
+                                rc.sr_granularity, reducer)
+    x = _embed(top[0], cfg, tokens, positions)
+    shared = ({"params": top[1], "emb": x}
               if cfg.family == "hybrid" else None)
     body = _body_train(cfg, rc, positions, shared=shared,
-                       vision=batch.get("vision_embeds"))
+                       vision=batch.get("vision_embeds"), batch=group)
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = sr.stream_layers(
-        body, (x, aux0), _stacked_layers(params, cfg),
+        body, (x, aux0), _units(params, cfg),
         prefetch_depth=rc.sr_prefetch_depth, granularity=rc.sr_granularity,
-        mode="train", remat=rc.remat, remat_policy=rc.remat_policy)
+        mode="train", remat=rc.remat, remat_policy=rc.remat_policy,
+        group=group, reducer=reducer)
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
-    return _chunked_xent(params, cfg, x, batch["labels"]) + aux
+    loss = _chunked_xent(top[0], cfg, x, batch["labels"]) + aux
+    return sharding.mean_over(group, loss)
 
 
-def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+def _chunked_xent(embed: Embed, cfg: ModelConfig, x: torch.Tensor,
                   labels: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
     """Cross-entropy over ``n_chunks`` slices of the sequence (one when S
     does not divide), so the [T, V] logits are never whole; audio labels
@@ -444,7 +468,7 @@ def _chunked_xent(params: nn.Module, cfg: ModelConfig, x: torch.Tensor,
     cs = s // n_chunks
 
     def chunk(xc, lc):
-        return softmax_xent(unembed_apply(params.embed, cfg, xc), lc)
+        return softmax_xent(unembed_apply(embed, cfg, xc), lc)
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
@@ -497,11 +521,12 @@ def check_ranks(cfg: ModelConfig, mesh_shape, multi_pod: bool = False
         moe.check_mesh(d_n * (p_n if multi_pod else 1), n)
 
 
-def _serving_units(params: nn.Module, cfg: ModelConfig):
-    """The layer stream's steps in serving: a block (dense, MoE, audio),
-    a group of Mamba2 layers (hybrid), a group's self-attention blocks
-    with its cross layer (VLM), or a group's mLSTM layers with its sLSTM
-    layer (xLSTM) -- the reference's stacked axis."""
+def _units(params: nn.Module, cfg: ModelConfig):
+    """The layer stream's steps, in training and serving: a block (dense,
+    MoE, audio), a group of Mamba2 layers (hybrid), a group's
+    self-attention blocks with its cross layer (VLM), or a group's mLSTM
+    layers with its sLSTM layer (xLSTM) -- the reference's stacked
+    axis."""
     if cfg.family == "vlm":
         return list(zip(params.self_blocks, params.cross))
     if cfg.family == "ssm":
@@ -550,7 +575,7 @@ def _stream(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     ``shared`` the gathered leaves outside the stream but the embedding
     (the hybrid's shared block)."""
     fam, g = cfg.family, r.model
-    units = _serving_units(params, cfg)
+    units = _units(params, cfg)
     if fam == "hybrid":
         emb, (shared,) = x, shared
 
@@ -592,7 +617,7 @@ def join_fsdp_reads(params: nn.Module, cfg: ModelConfig, rc: RunConfig, *,
     one of its own slots, so that every rank of the group enters the
     same gathers."""
     sr.materialize(_outside(params, cfg), rc.sr_granularity, ranks.fsdp)
-    sr.stream_layers(lambda x, layer: x, None, _serving_units(params, cfg),
+    sr.stream_layers(lambda x, layer: x, None, _units(params, cfg),
                      prefetch_depth=rc.sr_prefetch_depth,
                      granularity=rc.sr_granularity, mode="infer",
                      remat=False, group=ranks.fsdp)

@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, frozen_param, pdtype,
                                        rmsnorm)
+from repro_torch.parallel import sharding
 
 
 class MoE(nn.Module):
@@ -515,16 +516,28 @@ def moe_apply_ep_loop(moe: MoE, cfg: ModelConfig, x: torch.Tensor,
 
 def moe_block_apply(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    kv_block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+                    kv_block: int = 512, batch=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward of an MoE block (``ln_attn``, ``attn``,
     ``ln_mlp``, ``moe``; training). x: [B, S, d] -> (x, the load-balance
     aux loss). The attention is the plain ``chunked_attention`` (the
-    reference passes no softcap and no kernel route here)."""
+    reference passes no softcap and no kernel route here). With the
+    batch's rows split over a rank group ``batch`` (training at (D, 1)),
+    x is this rank's rows: the MoE input is gathered over the group
+    (``sharding.gather_rows``, whose backward sums each rank's rows'
+    gradients back to it) and the whole batch routed at once, as the
+    reference's ``moe_apply`` routes its global batch on a model axis of
+    one -- one capacity over every token, positions in global token order
+    -- and this rank keeps its rows; the aux loss is the whole batch's,
+    the same on every rank."""
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
     o = attn.chunked_attention(q, k, v, causal=causal, kv_block=kv_block)
     b, s = x.shape[0], x.shape[1]
     x = x + o.reshape(b, s, cfg.q_dim) @ block.attn.wo
     h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
+    if batch is not None and batch.size > 1:
+        y, aux = moe_apply(block.moe, cfg, sharding.gather_rows(batch, h))
+        return x + y[batch.rank * b:(batch.rank + 1) * b], aux
     y, aux = moe_apply_ep(block.moe, cfg, h)
     return x + y, aux

@@ -1,22 +1,31 @@
-"""xLSTM blocks for serving: the recurrent mLSTM and sLSTM steps.
+"""xLSTM blocks: the recurrent mLSTM and sLSTM steps (serving) and their
+training forms.
 
 mLSTM per head: C_t = f_t C_{t-1} + i_t v_t k_t^T, n_t = f_t n_{t-1} + i_t
 k_t, h_t = (C_t q_t) / max(|n_t.q_t|, exp(-m_t)) with exponential gates
 stabilized by m_t; its output is gated by the block's silu branch. sLSTM:
 scalar cells with a per-head recurrent gate matrix, then a SwiGLU FFN.
 
-Only the recurrent steps are ported (the reference's ``mlstm_step`` and
-``slstm_step``), taken over S tokens at once: the reference's prefill
-scans ``decode_step`` over a chunk, and S steps here compute what S of its
+The recurrent steps (the reference's ``mlstm_step`` and ``slstm_step``)
+are taken over S tokens at once: the reference's prefill scans
+``decode_step`` over a chunk, and S steps here compute what S of its
 calls do -- each memory update and each sLSTM cell token by token, from
 the state the previous token left -- with the projections, the conv and
-the FFN once for the S tokens. The training forms (``mlstm_apply``,
-``slstm_apply``, which start from a zero state and carry no conv window)
-are not needed here. No Pallas kernel exists for either block: the steps
-are plain PyTorch, as the reference's are plain jnp. The states and the
-conv windows are f32; every product keeps the reference's dtypes (the
-gate weights ``w_gates`` (mLSTM) and ``r_gates`` (sLSTM) are f32, as are
-the operands they meet).
+the FFN once for the S tokens. The states and the conv windows are f32;
+every product keeps the reference's dtypes (the gate weights ``w_gates``
+(mLSTM) and ``r_gates`` (sLSTM) are f32, as are the operands they meet).
+
+The training forms (``mlstm_apply``, ``slstm_apply``) start from the
+state initialisers' zero state (m -1e9, the sLSTM's n 1e-6) and carry no
+conv window: their conv pads the sequence with zeros and runs in the
+model dtype, as the reference's ``_causal_conv``. ``mlstm_apply`` is the
+reference's chunkwise form (an intra-chunk quadratic part and an
+inter-chunk state carry, chunks of ``min(256, S)`` tokens; its
+stabilizers ``m_loc`` and ``m_new`` are detached, as the reference's
+``stop_gradient`` leaves them); ``slstm_apply`` the sequential scan of
+the cells. No Pallas kernel exists for either block: both are plain
+PyTorch, as the reference's are plain jnp, and take whole weights (the
+training path gathers them before use).
 
 Over a rank ``group`` (serving at tp > 1) each rank holds its shard of
 the weights (``parallel.sharding``): the columns of ``w_up1`` /
@@ -168,6 +177,98 @@ def mlstm_step(m: MLSTM, cfg: ModelConfig, x: torch.Tensor,
             {**cell, "conv": conv})
 
 
+# the reference's mask value for the intra-chunk log weights past the
+# diagonal
+NEG = -1e30
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The training forms' causal conv from zeros, in ``x``'s dtype (the
+    reference's ``_causal_conv``). x: [B, S, C]; w: [4, C]."""
+    width = w.shape[0]
+    out = x * w[-1]
+    for j in range(1, width):
+        shifted = F.pad(x, (0, 0, j, 0))[:, :-j]
+        out = out + shifted * w[width - 1 - j]
+    return out
+
+
+def _mlstm_chunk(carry, qq, kk, vv, ii, ff, causal):
+    """One chunk of the chunkwise mLSTM, f32. carry: C [B, nh, dh, dh], n
+    [B, nh, dh], m [B, nh]; qq / kk / vv [B, Q, nh, dh] (qq scaled); ii /
+    ff [B, Q, nh] (ff in log space) -> (h [B, Q, nh, dh], the carry at the
+    chunk's end)."""
+    C, n, m = carry
+    Fc = torch.cumsum(ff, dim=1)                              # [B, Q, nh]
+    # intra-chunk log weights D[t, s] = F[t] - F[s] + i[s]
+    logd = Fc[:, :, None, :] - Fc[:, None, :, :] + ii[:, None, :, :]
+    logd = torch.where(causal[None, :, :, None], logd,
+                       torch.full_like(logd, NEG))            # [B, Q, Q, nh]
+    b_inter = Fc + m[:, None, :]                              # [B, Q, nh]
+    m_loc = torch.maximum(logd.amax(dim=2), b_inter).detach()
+    dmat = torch.exp(logd - m_loc[:, :, None, :])
+    sc = torch.einsum("bqhd,bshd->bqsh", qq, kk)
+    w_inter = torch.exp(b_inter - m_loc)
+    num = (torch.einsum("bqsh,bqsh,bshd->bqhd", sc, dmat, vv)
+           + torch.einsum("bqh,bhde,bqhe->bqhd", w_inter, C, qq))
+    den_vec = torch.einsum("bqsh,bshd->bqhd", dmat, kk)
+    den = (torch.einsum("bqhd,bqhd->bqh", den_vec, qq)
+           + w_inter * torch.einsum("bhd,bqhd->bqh", n, qq))
+    den = torch.maximum(den.abs(), torch.exp(-m_loc))
+    hq = num / den[..., None]
+    # the state at the chunk's end
+    f_last = Fc[:, -1, :]                                     # [B, nh]
+    tail = f_last[:, None, :] - Fc + ii                       # [B, Q, nh]
+    m_new = torch.maximum(f_last + m, tail.amax(dim=1)).detach()
+    r = torch.exp(f_last + m - m_new)
+    w_end = torch.exp(tail - m_new[:, None, :])
+    C_new = (r[..., None, None] * C
+             + torch.einsum("bqh,bqhd,bqhe->bhde", w_end, vv, kk))
+    n_new = r[..., None] * n + torch.einsum("bqh,bqhd->bhd", w_end, kk)
+    return hq, (C_new, n_new, m_new)
+
+
+def mlstm_apply(m: MLSTM, cfg: ModelConfig, x: torch.Tensor,
+                chunk: int = 256) -> torch.Tensor:
+    """The chunkwise-parallel mLSTM over a whole sequence from a zero
+    state, with the residual (training). x: [B, S, d] -> [B, S, d]; S must
+    be a multiple of ``min(chunk, S)``, as the reference asserts."""
+    d_in, nh, dh = _dims(cfg)
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mlstm_apply: sequence {s} is no multiple of "
+                         f"its chunk {chunk}")
+    nc = s // chunk
+    h = rmsnorm(m.ln, x, cfg.norm_eps)
+    u = h @ m.w_up1
+    zg = h @ m.w_up2
+    c = F.silu(_causal_conv(u, m.conv_w))
+    q, k, _ = (c @ m.w_qkv).chunk(3, dim=-1)
+    gates = c.float() @ m.w_gates + m.gate_bias
+    ig, fg = gates.chunk(2, dim=-1)                           # [B, S, nh]
+    fg = F.logsigmoid(fg)
+    shape = (b, nc, chunk, nh, dh)
+    qc = q.float().reshape(shape) * (1.0 / dh ** 0.5)
+    kc = k.float().reshape(shape)
+    vc = u.float().reshape(shape)    # the value branch: pre-conv u
+    igc, fgc = (t.reshape(b, nc, chunk, nh) for t in (ig, fg))
+    idx = torch.arange(chunk, device=x.device)
+    causal = idx[:, None] >= idx[None, :]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    carry = (torch.zeros((b, nh, dh, dh), **f32),
+             torch.zeros((b, nh, dh), **f32),
+             torch.full((b, nh), -1e9, **f32))
+    hs = []
+    for i in range(nc):
+        hq, carry = _mlstm_chunk(carry, qc[:, i], kc[:, i], vc[:, i],
+                                 igc[:, i], fgc[:, i], causal)
+        hs.append(hq)
+    hq = torch.stack(hs, dim=1).reshape(b, s, d_in).to(x.dtype)
+    hq = rmsnorm(m.ln_head, hq, cfg.norm_eps) * F.silu(zg)
+    return x + hq @ m.w_down2
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -260,3 +361,31 @@ def slstm_step(s: SLSTM, cfg: ModelConfig, x: torch.Tensor,
     return (x + sharding.row_product(group, y, s.ffn.w_down,
                                      _ffn_width(d)),
             {**cell, "conv": conv})
+
+
+def slstm_apply(s: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The sLSTM over a whole sequence from the state initialisers' state
+    (h, c 0; n 1e-6; m -1e9), the cells token by token, with the residual
+    and the FFN (training). x: [B, S, d] -> [B, S, d]."""
+    d = cfg.d_model
+    nh = cfg.n_heads
+    dh = d // nh
+    b, n_tok, _ = x.shape
+    hpre = rmsnorm(s.ln, x, cfg.norm_eps)
+    c_in = F.silu(_causal_conv(hpre, s.conv_w))
+    wx = (c_in @ s.w_gates).float() + s.gate_bias             # [B, S, 4d]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    zero = torch.zeros((b, nh, dh), **f32)
+    cell = {"h": zero, "c": zero, "n": zero + 1e-6,
+            "m": torch.full((b, nh, dh), -1e9, **f32)}
+    hs = []
+    for t in range(n_tok):
+        rec = torch.einsum("bhd,hde->bhe", cell["h"],
+                           s.r_gates).reshape(b, 4 * d)
+        ht, cell = _slstm_cell(wx[:, t] + rec, cell, nh, dh)
+        hs.append(ht)
+    h = torch.stack(hs, dim=1).reshape(b, n_tok, d).to(x.dtype)
+    x = x + h @ s.w_out
+    h2 = rmsnorm(s.ln_ff, x, cfg.norm_eps)
+    y = F.silu(h2 @ s.ffn.w_gate) * (h2 @ s.ffn.w_up)
+    return x + y @ s.ffn.w_down

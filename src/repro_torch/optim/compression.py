@@ -7,9 +7,23 @@ the optimizer loop (the residual restores unbiasedness over steps). The
 arithmetic is the reference's (``repro/optim/compression.py``): f32
 division, round half to even and the clip to [-127, 127] give the same
 codes and scales bit for bit. Works leaf by leaf on a list of tensors.
+
+The reference quantizes blocks of 256 over the whole leaf's flattened
+(row-major) order. Over a rank mesh a rank holds an FSDP shard of the
+gradient (and of its residual): a contiguous 1/F along one axis, which
+along an inner axis (the embedding's ``("M", "F")``) is not contiguous in
+that order, and whose start need not be a multiple of 256. So a shard is
+quantized in the whole leaf's blocks: each of its elements finds its
+block from its index in the whole leaf, each rank takes the absmax of its
+elements of every block, and one max all-reduce over the FSDP group (the
+blocks of every sharded leaf packed together) gives every block's absmax
+-- the reference's scales exactly, since a max does not depend on the
+order it is taken in; each rank then codes its own elements. A whole
+leaf is quantized as it is.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -54,12 +68,76 @@ def init_residuals(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             for p in params]
 
 
+def block_ids(shape, axis: int, rank: int, n: int,
+              device=None) -> torch.Tensor:
+    """The block of 256 (in the whole leaf's flattened order) of every
+    element of FSDP rank ``rank``'s shard (the contiguous 1/n along
+    ``axis``) of a leaf of whole ``shape``: int64, the shard's shape."""
+    shape = tuple(shape)
+    part = list(shape)
+    part[axis] //= n
+    stride, strides = 1, []
+    for dim in reversed(shape):
+        strides.append(stride)
+        stride *= dim
+    strides.reverse()
+    idx = torch.zeros(part, dtype=torch.int64, device=device)
+    for d, size in enumerate(part):
+        off = rank * size if d == axis else 0
+        view = [1] * len(part)
+        view[d] = size
+        idx = idx + ((torch.arange(size, device=device) + off)
+                     * strides[d]).view(view)
+    return idx // BLOCK
+
+
+def quantize_shards(xs: Sequence[torch.Tensor], layouts, group
+                    ) -> List[Tuple[torch.Tensor, ...]]:
+    """The reference's ``_quantize`` of whole leaves, for shards: per
+    tensor of ``xs`` (f32), whose layout is ``(whole shape, axis)``, (its
+    elements' int8 codes, shaped as the shard; every block's f32 scale
+    [n_blocks] of the whole leaf; its elements' blocks, ``block_ids``).
+    One max all-reduce over ``group`` for them all."""
+    ids, maxes = [], []
+    for x, (shape, axis) in zip(xs, layouts):
+        b = block_ids(shape, axis, group.rank, group.size, x.device)
+        n_blocks = -(-math.prod(shape) // BLOCK)
+        m = torch.zeros(n_blocks, dtype=torch.float32, device=x.device)
+        m.scatter_reduce_(0, b.reshape(-1), x.abs().reshape(-1), "amax")
+        ids.append(b)
+        maxes.append(m)
+    flat = group.all_reduce(torch.cat(maxes), "max")
+    out, off = [], 0
+    for x, b, m in zip(xs, ids, maxes):
+        scale = torch.clamp(flat[off:off + m.numel()] / 127.0, min=1e-12)
+        off += m.numel()
+        q = torch.clamp(torch.round(x / scale[b]), -127, 127).to(torch.int8)
+        out.append((q, scale, b))
+    return out
+
+
 def compress_grads(grads: Sequence[torch.Tensor],
-                   residuals: Sequence[torch.Tensor]
+                   residuals: Sequence[torch.Tensor], *, group=None,
+                   layouts=None
                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """int8-EF compression leaf by leaf: (grads', residuals')."""
-    out = [compress_leaf(g, r) for g, r in zip(grads, residuals)]
-    return [o[0] for o in out], [o[1] for o in out]
+    """int8-EF compression leaf by leaf: (grads', residuals'). Over a
+    rank ``group``, ``layouts`` (aligned with ``grads``) gives each FSDP
+    shard's whole shape and axis, None for a whole leaf: the shards are
+    quantized in their whole leaves' blocks (``quantize_shards``)."""
+    if group is None or group.size == 1 or layouts is None or not any(
+            lay is not None for lay in layouts):
+        out = [compress_leaf(g, r) for g, r in zip(grads, residuals)]
+        return [o[0] for o in out], [o[1] for o in out]
+    new_g, new_r = list(grads), list(residuals)
+    idx = [i for i, lay in enumerate(layouts) if lay is not None]
+    for i in (i for i, lay in enumerate(layouts) if lay is None):
+        new_g[i], new_r[i] = compress_leaf(grads[i], residuals[i])
+    g32 = [grads[i].float() + residuals[i] for i in idx]
+    coded = quantize_shards(g32, [layouts[i] for i in idx], group)
+    for i, x, (q, scale, b) in zip(idx, g32, coded):
+        deq = q.float() * scale[b]
+        new_g[i], new_r[i] = deq.to(grads[i].dtype), x - deq
+    return new_g, new_r
 
 
 def compressed_bytes(tensors: Sequence[torch.Tensor]) -> int:

@@ -12,7 +12,9 @@ stacked axes). ``shard_params`` cuts each leaf on its ``"model"`` axis,
 model rank m taking the contiguous ``[m n/N, (m+1) n/N)`` of it, then on
 its FSDP axis, FSDP rank f of F taking the contiguous 1/F of that: the
 POOL tier's placement, on which a layer is gathered before use
-(``FsdpRead``, the speculative read's load). The divisibility guard tests
+(``FsdpRead``, the speculative read's load; in training ``gather_train``,
+whose backward returns each gathered leaf's gradient to its shard through
+the deterministic store's reduce-scatter). The divisibility guard tests
 the production axis sizes, not the mesh's, as the reference's does, so a
 leaf that 16 does not divide stays whole on that axis (granite's
 vocabulary of 49155; smoke granite's 8 experts, which ``models.moe``'s
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import math
 import re
 from typing import Dict, List, Optional, Tuple
 
@@ -216,6 +219,7 @@ def shard_params(params: nn.Module, rank: int, n_ranks: int,
             mod.__dict__.setdefault(FSDP_ATTR, {})[attr] = f_axis
     out.shard = (rank, n_ranks) if f_size == 1 else (rank, n_ranks, f_rank,
                                                      f_size)
+    out.specs = dict(specs)
     return out
 
 
@@ -225,6 +229,14 @@ def _pool_leaves(unit) -> List[Tuple[nn.Module, str, int]]:
     roots = unit if isinstance(unit, tuple) else (unit,)
     return [(mod, attr, axis) for root in roots for mod in root.modules()
             for attr, axis in mod.__dict__.get(FSDP_ATTR, {}).items()]
+
+
+def fsdp_axes(params: nn.Module) -> List[Optional[int]]:
+    """The FSDP axis of each of ``params.parameters()`` (a POOL-tier
+    shard), None for a leaf held whole."""
+    by_id = {id(mod._parameters[attr]): axis
+             for mod, attr, axis in _pool_leaves(params)}
+    return [by_id.get(id(p)) for p in params.parameters()]
 
 
 def _twin(mod: nn.Module, got: Dict) -> nn.Module:
@@ -241,27 +253,20 @@ def _twin(mod: nn.Module, got: Dict) -> nn.Module:
     return new
 
 
-class FsdpRead:
-    """The gathers of one layer's (or model's, or tuple of layers') POOL-
-    tier leaves over the FSDP ``group``, issued at construction without
-    waiting: ``wait()`` returns the unit with every FSDP axis whole, the
-    leaves in new tensors (the shards they came from are left as they
-    are). The unit's leaves travel packed as bytes, one ``all_gather`` per
-    piece: with ``granularity`` g, a leaf whose first axis g divides goes
-    in g contiguous pieces along it, one to each gather (the reference's
-    ``gather_leaf``), any other leaf in the first. Without a group of
-    more than one rank, or without FSDP leaves, nothing is gathered and
-    ``wait()`` returns the unit itself."""
+class _Gathers:
+    """The all-gathers of ``tensors`` (FSDP shards, each along its axis of
+    ``axes``) over ``group``, issued at construction without waiting; the
+    leaves travel packed as bytes, one ``all_gather`` per piece: with
+    ``granularity`` g, a leaf whose first axis g divides goes in g
+    contiguous pieces along it, one to each gather (the reference's
+    ``gather_leaf``), any other leaf in the first."""
 
-    def __init__(self, unit, group=None, granularity: int = 1):
-        self.unit = unit
-        self.leaves = (_pool_leaves(unit)
-                       if group is not None and group.size > 1 else [])
+    def __init__(self, tensors, axes, group, granularity: int = 1):
+        self.tensors, self.axes = tensors, axes
         self.gathers = []
         g = max(1, int(granularity))
         pieces: List[List] = [[] for _ in range(g)]
-        for i, (mod, attr, _) in enumerate(self.leaves):
-            t = mod._parameters[attr].detach()
+        for i, t in enumerate(tensors):
             if g > 1 and t.ndim and t.shape[0] % g == 0:
                 for j, c in enumerate(t.chunk(g, 0)):
                     pieces[j].append((i, c))
@@ -273,9 +278,8 @@ class FsdpRead:
                                   for _, c in items])
                 self.gathers.append((items, group.all_gather_async(flat)))
 
-    def wait(self):
-        if not self.leaves:
-            return self.unit
+    def wait(self) -> List[torch.Tensor]:
+        """Every leaf whole along its FSDP axis, in new tensors."""
         parts = collections.defaultdict(list)
         for items, pending in self.gathers:
             recv = pending.wait()                     # [F, nbytes] uint8
@@ -285,18 +289,49 @@ class FsdpRead:
                 parts[i].append(recv[:, off:off + nb].contiguous()
                                 .view(c.dtype).reshape((-1,) + c.shape))
                 off += nb
-        got = {}
-        for i, (mod, attr, axis) in enumerate(self.leaves):
+        out = []
+        for i, axis in enumerate(self.axes):
             shards = torch.cat(parts[i], dim=1)       # [F, *shard]
             shape = list(shards.shape[1:])
             shape[axis] *= shards.shape[0]
-            got[id(mod), attr] = shards.movedim(0, axis).reshape(shape)
-        if isinstance(self.unit, tuple):
-            return tuple(_twin(m, got) for m in self.unit)
-        out = _twin(self.unit, got)
-        if len(getattr(self.unit, "shard", ())) == 4:
-            out.shard = self.unit.shard[:2]
+            out.append(shards.movedim(0, axis).reshape(shape))
         return out
+
+
+def _with_leaves(unit, leaves, tensors):
+    """``unit`` (a layer, a model or a tuple of them) as a structural twin
+    with ``tensors`` in place of its POOL-tier ``leaves``."""
+    got = {(id(mod), attr): t for (mod, attr, _), t in zip(leaves, tensors)}
+    if isinstance(unit, tuple):
+        return tuple(_twin(m, got) for m in unit)
+    out = _twin(unit, got)
+    if len(getattr(unit, "shard", ())) == 4:
+        out.shard = unit.shard[:2]
+    return out
+
+
+class FsdpRead:
+    """The gathers of one layer's (or model's, or tuple of layers') POOL-
+    tier leaves over the FSDP ``group``, issued at construction without
+    waiting: ``wait()`` returns the unit with every FSDP axis whole, the
+    leaves in new tensors (the shards they came from are left as they
+    are), gathered in ``granularity`` pieces (``_Gathers``). Without a
+    group of more than one rank, or without FSDP leaves, nothing is
+    gathered and ``wait()`` returns the unit itself. No gradient flows
+    through it: the serving steps' read (``gather_train`` is training's)."""
+
+    def __init__(self, unit, group=None, granularity: int = 1):
+        self.unit = unit
+        self.leaves = (_pool_leaves(unit)
+                       if group is not None and group.size > 1 else [])
+        self.pending = _Gathers(
+            [mod._parameters[attr].detach() for mod, attr, _ in self.leaves],
+            [axis for *_, axis in self.leaves], group, granularity)
+
+    def wait(self):
+        if not self.leaves:
+            return self.unit
+        return _with_leaves(self.unit, self.leaves, self.pending.wait())
 
 
 def gather_fsdp(params, group, granularity: int = 1):
@@ -304,6 +339,122 @@ def gather_fsdp(params, group, granularity: int = 1):
     axis gathered over ``group``: exactly the leaves ``shard_params``
     cut, put back together."""
     return FsdpRead(params, group, granularity).wait()
+
+
+def _pack_shard_grads(grads, axes, n: int) -> torch.Tensor:
+    """Whole-leaf gradients as one f32 buffer [n, total]: row f holds
+    every leaf's f-th contiguous 1/n along its FSDP axis (of ``axes``),
+    flattened, leaf after leaf -- what FSDP rank f of n keeps."""
+    rows = []
+    for g, axis in zip(grads, axes):
+        shape = tuple(g.shape)
+        rows.append(g.float().reshape(
+            shape[:axis] + (n, shape[axis] // n) + shape[axis + 1:])
+            .movedim(axis, 0).reshape(n, -1))
+    return torch.cat(rows, dim=1)
+
+
+def _unpack_shard_grads(flat: torch.Tensor, metas) -> List[torch.Tensor]:
+    """One rank's row of ``_pack_shard_grads`` ([total]) as tensors of the
+    shards' ``metas`` (shape, dtype)."""
+    out, off = [], 0
+    for shape, dtype in metas:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].reshape(shape).to(dtype))
+        off += n
+    return out
+
+
+class _GatherFn(torch.autograd.Function):
+    """FSDP shards -> whole leaves (the gather of ``_Gathers``); backward:
+    the whole leaves' gradients -> this rank's shards, reduced over the
+    group by the deterministic store's ``reducer`` (a reduce-scatter, or
+    an all-reduce then this rank's slice). The sum is taken in f32 and
+    cast once to each shard's dtype, as ``product_f32`` sums row-parallel
+    products: a bf16 sum of the ranks' bf16 gradients would round once
+    more per rank than one rank's gradient does."""
+
+    @staticmethod
+    def forward(ctx, spec, *shards):
+        group, axes, granularity, reducer, key = spec
+        ctx.spec = spec
+        ctx.shapes = [(t.shape, t.dtype) for t in shards]
+        return tuple(_Gathers(list(shards), axes, group, granularity).wait())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, axes, _, reducer, key = ctx.spec
+        buf = _pack_shard_grads(grads, axes, group.size)
+        mine = reducer.reduce(buf, key)
+        return (None, *_unpack_shard_grads(mine, ctx.shapes))
+
+
+def gather_train(unit, group, granularity: int, reducer):
+    """``unit`` with its FSDP axes gathered over ``group`` as in
+    ``FsdpRead``, differentiably: the gradient of each gathered leaf
+    returns to its shard through ``reducer`` (the step's
+    ``core.deterministic_store.GradReducer``), one reduction for the
+    unit. Without a group of more than one rank, or without FSDP leaves,
+    the unit itself (``reducer`` may then be None)."""
+    leaves = (_pool_leaves(unit)
+              if group is not None and group.size > 1 else [])
+    if not leaves:
+        return unit
+    if reducer is None:
+        raise ValueError(f"gather_train over {group.size} ranks needs the "
+                         f"step's GradReducer")
+    key = tuple((id(mod), attr) for mod, attr, _ in leaves)
+    spec = (group, [axis for *_, axis in leaves], granularity, reducer, key)
+    whole = _GatherFn.apply(spec, *[mod._parameters[attr]
+                                    for mod, attr, _ in leaves])
+    return _with_leaves(unit, leaves, whole)
+
+
+class _RowsFn(torch.autograd.Function):
+    """Every rank's rows of ``x`` stacked in rank order along axis 0;
+    backward: the sum over the ranks of the gradient's rows of this rank
+    (a reduce-scatter in f32, cast back to the gradient's dtype)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group.all_gather(x).reshape((-1,) + x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.group.reduce_scatter(grad.float(), 0).to(grad.dtype)
+
+
+def gather_rows(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [b, ...] of every rank of ``group`` as [size b, ...], rank
+    order, differentiably (``_RowsFn``); ``x`` itself on one rank."""
+    if group is None or group.size == 1:
+        return x
+    return _RowsFn.apply(group, x)
+
+
+class _MeanFn(torch.autograd.Function):
+    """The mean of a scalar over the ranks (a sum all-reduce in f32 over
+    the group's size); backward: this rank's share, ``grad / size`` --
+    the ranks' gradients then sum to the mean's."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.size = group.size
+        total = group.all_reduce(t.detach().float().clone(), "sum")
+        return (total / group.size).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad / ctx.size
+
+
+def mean_over(group, t: torch.Tensor) -> torch.Tensor:
+    """The mean of the scalar ``t`` over ``group``'s ranks, each rank's
+    gradient its 1/size share; ``t`` itself on one rank."""
+    if group is None or group.size == 1:
+        return t
+    return _MeanFn.apply(group, t)
 
 
 def check_pages(n_pages: int, n_ranks: int, max_seq: int,

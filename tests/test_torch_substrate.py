@@ -285,12 +285,14 @@ def test_ring_occupancy_bounded(n_writes):
 
 
 def test_ds_grads_pass_through_on_one_rank():
+    """On one rank the gradients pass through; the placement is the pool
+    specs with DS on, the gathered ones (no FSDP axis) off."""
     grads = [torch.ones(3), torch.zeros(2, 2)]
-    assert ds.apply_ds(grads, None, enabled=True) is grads
-    assert ds.apply_ds(grads, None, enabled=False) is grads
+    assert ds.apply_ds(grads, None) is grads
+    assert ds.apply_ds(grads, [("data",), (None, None)]) is grads
     specs = {"w": ("data", "model")}
     assert ds.ds_grad_specs(specs, True) is specs
-    assert ds.ds_grad_specs(specs, False) is specs
+    assert ds.ds_grad_specs(specs, False) == {"w": (None, "model")}
 
 
 # --------------------------------------------------------------- tier map

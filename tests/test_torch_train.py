@@ -2,15 +2,16 @@
 
 ``softmax_xent``, ``chunked_attention`` (causal; and non-causal over 1601
 keys, padded to whole blocks and masked), ``block_apply``, then
-``loss_fn`` and its gradients for the dense, MoE, audio, hybrid and VLM
-families at ``registry.smoke`` sizes (reference weights carried across by
-``repro_torch.bridge``, gradients carried back by
+``loss_fn`` and its gradients for the dense, MoE, audio, hybrid, VLM and
+xLSTM families at ``registry.smoke`` sizes (reference weights carried
+across by ``repro_torch.bridge``, gradients carried back by
 ``bridge.params_to_numpy``); the layer stream (``stream_layers``) against
 a direct loop, with and without remat, for forward and gradient; the
 flash-prefill route of the loss (``use_pallas``) equal to the plain one
 and refused under grad (both kernel wrappers refuse inputs that require
-grad); the train step's input shapes; the xLSTM family refused; the loss
-decreasing over five steps. Tolerances: f32 3e-5, bf16 2e-2
+grad); the train step's input shapes; the loss decreasing over five
+steps (``tests/test_models.py``'s four architectures). Tolerances: f32
+3e-5, bf16 2e-2
 (``tests/test_kernel_parity.py``); the ``use_pallas`` loss 2e-3
 (``tests/test_models.py:154``).
 """
@@ -43,7 +44,7 @@ from repro_torch.models import transformer as ttransformer
 from repro_torch.optim import adamw as tadamw
 
 FAMILIES = ["qwen3-1.7b", "granite-moe-1b-a400m", "musicgen-large",
-            "zamba2-2.7b", "llama-3.2-vision-11b"]
+            "zamba2-2.7b", "llama-3.2-vision-11b", "xlstm-125m"]
 NAMES = ["float32", "bfloat16"]
 B, S = 2, 32
 
@@ -391,21 +392,10 @@ def test_train_input_specs_match_reference(arch):
         assert str(dt).removeprefix("torch.") == str(want[k].dtype)
 
 
-def test_xlstm_training_is_refused():
-    cfg = treg.smoke("xlstm-125m")
-    rc = TRunConfig(model=cfg, shape=TSHAPES["train_4k"], mesh=TMeshConfig())
-    params = TM.init_model(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.loss_fn(params, cfg, rc, _torch_batch(_batch(cfg)))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tsteps.init_state(params, rc, tadamw.AdamWConfig())
-
-
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "xlstm-125m"])
 def test_train_step_decreases_loss(arch):
-    """``tests/test_models.py``'s five steps (less xlstm-125m, whose
-    training forms are the next slice's) on the port."""
+    """``tests/test_models.py``'s five steps on the port."""
     cfg = treg.smoke(arch)
     rc = TRunConfig(model=cfg, shape=TSHAPES["train_4k"], mesh=TMeshConfig())
     opt_cfg = tadamw.AdamWConfig(learning_rate=1e-2, warmup_steps=0)
