@@ -79,7 +79,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    through chunked prefill and ragged decode on the card and on the CPU
    from the same weights, and hold logits and caches together (int8
    codes equal but for steps of one, counted);
-3. serve qwen3-1.7b at full width, cut to 7 of its 28 layers (random
+3. serve qwen3-1.7b at full width, cut to 6 of its 28 layers (random
    bf16 weights drawn on the card from a seed; 8 slots, 2048-token slots, 256-token prefill chunks, a
    DRAM + SSD CXL tier, greedy): 8 requests of 300-1000 prompt tokens and
    32 new tokens, then 4 of the same prompts again under new rids, served
@@ -97,7 +97,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    from the tier, as in the reference) and check that every request
    finished, pages were flushed, and all three kernels ran on that path
    and no other kernel did;
-5. serve qwen3-1.7b at full width (7 of 28 layers) with int8 KV pages
+5. serve qwen3-1.7b at full width (6 of 28 layers) with int8 KV pages
    on the engine and
    traffic of phase 3; check that every request finished, the int8 decode
    kernel ran once per layer per tick and flash_prefill ran, every
@@ -199,9 +199,10 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    tick, 2 ``all_to_all``s per MoE layer per even chunk and none at
    decode; then the families of ``TP_FAMILIES`` at full width, cut to
    ``TP_CUT`` (zamba2-2.7b 6 of 54 layers: one group with its shared
-   block; musicgen-large 6 of 48 with 1024-token slots and 2 restores;
+   block; musicgen-large 4 of 48 with 1024-token slots and 2 restores;
    llama-3.2-vision-11b 5 of 40: four self-attention layers and a cross
-   layer; xlstm-125m whole), each held as qwen3 is to its one-rank engine
+   layer; xlstm-125m 6 of 12: one group), each held as qwen3 is to its
+   one-rank engine
    and f32 twin run first (per-slot states whole on every rank; Mamba2's
    scan at a rank's 40 heads), and the VLM also on a direct prefill chunk
    and tick with vision K/V written from random embeddings and both
@@ -233,7 +234,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    rank's row, no other kernel; each rank's bytes its share by the
    specs. Prints the parameter bytes against the whole, the gathered
    layer's bytes, the tick and chunk ms at SR depth 1 and 0 (in turns:
-   1 0, 0 1, 1 0), a gather's ms alone (a layer, the embedding), the collectives
+   1 0, 0 1), a gather's ms alone (a layer, the embedding), the collectives
    per step by axis, the rank walls and peaks; the decode kernel at this
    rank view (4 of 8 slots, 1024 of 2048 tokens, m / l) is checked and
    timed beside SDPA in phase 2;
@@ -251,7 +252,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    forward loss under ``no_grad`` with ``use_pallas`` (flash_prefill once
    a layer, 28 launches, no other kernel) within 2e-3 of the plain
    ``chunked_attention`` loss, a step with ``use_pallas`` refused (the
-   kernel has no backward), then 5 steps on the repeated batch at lr 3e-4
+   kernel has no backward), then 4 steps on the repeated batch at lr 3e-4
    without warmup: every loss finite, the first within 1.5 of ln V, the
    last below the first, no kernel launched under grad; prints the step
    ms (CUDA events), tokens/s, the MFU against 989 TFLOP/s (6 x active
@@ -282,7 +283,34 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    layer's and the embedding's f32 gradient reduce-scattered (DS on) and
    all-reduced (DS off) ms, the bytes of params, m, v and master a rank
    against one rank's, and the peak memory;
-18. print the measured numbers, the seconds of each phase, one
+18. serve qwen3-1.7b (7 of 28 layers, ``HOST_SERVE_LAYERS``) with its
+   weights on the HOST tier
+   (``param_tier="host"``, ``enable_host_tier``: every leaf in pinned
+   host memory, each step's reads copied onto the card on a side stream,
+   ``sr_prefetch_depth`` layers ahead) beside the DEVICE engine on the
+   same traffic (4 requests, 2 restores, 8 new tokens): every HOST leaf
+   pinned, the greedy tokens, the restores and the tier's ops and op_ns
+   equal, no weight left on the card between steps and no more than the
+   stream's window (the leaves outside the stream and two layers) during
+   one, both kernels launched, a pageable leaf's copy refused; prints
+   the tick and chunk ms at SR depth 1 and 0 in turns (1 0, 0 1, 1 0),
+   the copies of a tick alone and the share of them the prefetch hides;
+19. train glm4-9b at full width on one rank with its weights, m, v and
+   master on the HOST tier: (a) 4 layers, 2 steps of 2 x 1024 tokens,
+   then the DEVICE twin from the same weights and batch, the card freed
+   between: every parameter, moment and master equal bit for bit, the
+   losses and gradient norms equal, the forward loss at depth 0 and 1
+   equal bit for bit; (b) as deep as the host can pin (the full 40
+   layers if ~132 GB is at most 60% of the smaller of MemAvailable and
+   the cgroup's limit, else the deepest cut that leaves 16 GiB of
+   MemAvailable, reported against the 21 layers whose state at 16 bytes a
+   parameter passes the card's memory): 3 steps at SR depths 1, 0, 1,
+   every loss finite, the first within 0.5 of ln V + d (0.02)^2 / 2, the
+   card's peak under its total, no kernel launched; prints the step and
+   optimizer ms, the bytes copied each way, the copy rates, the share of
+   the layer copies the prefetch hides, the pinned bytes against the
+   bytes held;
+20. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -339,7 +367,7 @@ TP_TIMEOUT_S = 600.0
 # the tick and chunk timed at SR depth 1 and 0 in DP_ORDERS' turns (the
 # first set a rank times runs slow, PERF.md section 7)
 DP_MESH, N_DP_REQUESTS, DP_MAX_NEW = (2, 2), 6, 8
-DP_ORDERS = ((1, 0), (0, 1), (1, 0))
+DP_ORDERS = ((1, 0), (0, 1))
 DP_TIMEOUT_S = 600.0
 # qwen3's tp gate holds the ranks' bf16 logits to the one-rank engine's
 # within this many times the one-rank engine's own distance from its f32
@@ -358,9 +386,9 @@ XLSTM_TIMED_TOKENS = 32
 # tp phase's granite path and the dp phase), the VLM, glm4-9b and
 # starcoder2-15b at a quarter and gemma-2b (both page formats: the int8
 # entry is held to the bf16 one) and xLSTM at half for the tp phase's
-# other families, qwen3-1.7b (both page formats) at a quarter for the dp
-# phase (PERF.md section 4)
-CUT_LAYERS = {ARCH: 7, HYBRID: 12, GRANITE: 6, MUSICGEN: 6, VLM: 10,
+# other families, qwen3-1.7b (both page formats) at 6 of 28 for the time
+# of the dp and HOST phases (PERF.md section 4)
+CUT_LAYERS = {ARCH: 6, HYBRID: 12, GRANITE: 6, MUSICGEN: 6, VLM: 10,
               GLM4: 10, STARCODER2: 10, GEMMA: 9, XLSTM: 6}
 # the tp phase's qwen3-1.7b, cut to 4 of 28 layers for the same reason:
 # each rank charges its replica of the tier with the whole entry, and the
@@ -368,20 +396,22 @@ CUT_LAYERS = {ARCH: 7, HYBRID: 12, GRANITE: 6, MUSICGEN: 6, VLM: 10,
 TP_LAYERS = 4
 # the tp phase's other families, each beside its one-rank engine and f32
 # twin: zamba2 at one group of 6 Mamba2 layers with its shared block,
-# musicgen at 6 of 48 layers (1024-token slots), the VLM at 5 of 40 (4
-# self-attention layers and one cross layer), xLSTM whole
+# musicgen at 4 of 48 layers (1024-token slots), the VLM at 5 of 40 (4
+# self-attention layers and one cross layer), xLSTM at one group of 6 of
+# its 12 layers (5 mLSTM layers and an sLSTM layer), the last two cut for
+# the HOST phases
 TP_FAMILIES = (HYBRID, MUSICGEN, VLM, XLSTM)
-TP_CUT = {HYBRID: 6, MUSICGEN: 6, VLM: 5, XLSTM: 12}
+TP_CUT = {HYBRID: 6, MUSICGEN: 4, VLM: 5, XLSTM: 6}
 TPF_PATHS = {arch: f"{arch} tp2" for arch in TP_FAMILIES}
 # the VLM's direct tp gate: 2 rows, one prefill chunk then one tick, the
 # cross gates set to these values and the vision K/V written by each
 # cross layer from random embeddings
 VLM_GATES = {"attn_gate": 0.7, "mlp_gate": -0.4}
 # the training phase: full-width qwen3-1.7b on train_4k's 4096-token
-# sequences, its batch cut from 256 to 8 for one card; 5 steps on one
+# sequences, its batch cut from 256 to 8 for one card; 4 steps on one
 # repeated batch at AdamWConfig(learning_rate=3e-4, warmup_steps=0) (the
 # form of tests/test_models.py:55), then the smoke families' steps
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 4
 # launch/train.py's own loop at the same width, a batch from its pipeline
 # each step
 TRAIN_DRIVER_STEPS = 2
@@ -468,6 +498,29 @@ DP_TRAIN_MESH, DP_TRAIN_LAYERS = (2, 1), 4
 DP_TRAIN_BATCH, DP_TRAIN_SEQ = 4, 1024
 DP_TRAIN_ORDERS = ((True, False), (False, True))
 DP_TRAIN_TIMEOUT_S = 600.0
+# the HOST tier (pinned host memory streamed onto the card by the
+# speculative read): "host-serve" serves qwen3-1.7b (HOST_SERVE_LAYERS)
+# with its weights on the HOST tier beside the same traffic on the DEVICE
+# engine, 4 requests and 2 restores of 8 new tokens each, the tick and
+# chunk timed at SR depth 1 and 0 in HOST_ORDERS' turns (the first
+# timed set runs slow, PERF.md section 7); "host-train" trains glm4-9b at
+# full width on one rank with its weights, m, v and master on the HOST
+# tier: (a) HOST_GATE_LAYERS layers, HOST_GATE_STEPS steps bit for bit
+# against the DEVICE twin; (b) as deep as the host's memory can pin (at
+# least HOST_MIN_LAYERS, where the state at 16 bytes a parameter passes
+# the card's memory), a step at each SR depth of HOST_TRAIN_DEPTHS, a
+# batch of 2 x 1024 tokens
+HOST_SERVE_PATH, HOST_TRAIN_PATH = f"{ARCH} host", f"{GLM4} host train"
+HOST_SERVE_LAYERS = 7
+N_HOST_REQUESTS, N_HOST_RESUBMIT, HOST_MAX_NEW = 4, 2, 8
+HOST_ORDERS = ((1, 0), (0, 1), (1, 0))
+HOST_BATCH, HOST_SEQ = 2, 1024
+HOST_GATE_LAYERS, HOST_GATE_STEPS = 4, 2
+HOST_MIN_LAYERS, HOST_TRAIN_DEPTHS = 21, (1, 0, 1)
+# the full depth runs if its pinned bytes are at most this share of the
+# smaller of MemAvailable and the cgroup's limit; a cut must leave this
+# much of MemAvailable unpinned for the rest of the process
+HOST_FULL_SHARE, HOST_HEADROOM = 0.6, 16 << 30
 # the use_pallas loss against the plain one (tests/test_models.py:154)
 PALLAS_LOSS_TOL = 2e-3
 # flash_prefill at the loss shape: row n of a causal 4096-key attention over
@@ -4039,7 +4092,7 @@ def train_full(dev):
     """Train full-width qwen3-1.7b on the card (see ``TRAIN_*``): first the
     forward loss under ``no_grad`` with ``use_pallas`` (flash_prefill 28
     times, once a layer, and no other kernel) against the plain one; a
-    step with ``use_pallas`` refused; then the 5 steps (no kernel of the
+    step with ``use_pallas`` refused; then the 4 steps (no kernel of the
     port runs under grad, as none of the reference's does), timed by CUDA
     events."""
     import dataclasses
@@ -4673,6 +4726,522 @@ def train_dp(dev, one):
     return out
 
 
+def host_pinned_check(path, tensors):
+    """Every tensor of ``tensors`` (name -> tensor) is a pinned host
+    tensor on the HOST tier: none on the card, none pageable."""
+    from repro_torch.core import hdm
+    bad = [n for n, t in tensors.items()
+           if t.is_cuda or not t.is_pinned() or hdm.host_target(t) is None]
+    if bad:
+        fail(f"{path}: HOST leaves on the card or not pinned: {bad[:5]} "
+             f"(of {len(bad)})")
+    return len(tensors)
+
+
+def unit_bytes(unit) -> int:
+    roots = unit if isinstance(unit, tuple) else (unit,)
+    return sum(p.numel() * p.element_size() for r in roots
+               for p in r.parameters())
+
+
+def copy_rates(dev, n_bytes=1 << 30):
+    """The HOST tier's link: the GB/s of ``hdm.host_empty`` pinning two
+    buffers of ``n_bytes`` (host clock), and of one pinned host -> card
+    and card -> host copy of ``n_bytes`` on the tier's side streams, each
+    alone and both at once (their total; CUDA events, best of 3)."""
+    import torch
+    from repro_torch.core import hdm
+    from repro_torch.parallel import sharding
+    t0 = time.perf_counter()
+    host, back = hdm.host_empty([((n_bytes,), torch.uint8)] * 2, dev)
+    out = {"pin": 2 * n_bytes / (time.perf_counter() - t0) / 1e9}
+    card, card2 = (torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+                   for _ in range(2))
+    cur = torch.cuda.current_stream(dev)
+    streams = {"h2d": sharding.copy_stream(dev, "h2d"),
+               "d2h": sharding.copy_stream(dev, "d2h")}
+    pairs = {"h2d": (card, host), "d2h": (back, card2)}
+    for kind, kinds in (("h2d", ("h2d",)), ("d2h", ("d2h",)),
+                        ("both", ("h2d", "d2h"))):
+        ms = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(cur)
+            for k in kinds:
+                streams[k].wait_stream(cur)
+                with torch.cuda.stream(streams[k]):
+                    pairs[k][0].copy_(pairs[k][1], non_blocking=True)
+            for k in kinds:     # both issued before either is waited for
+                cur.wait_stream(streams[k])
+            end.record(cur)
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[kind] = len(kinds) * n_bytes / (min(ms) / 1e3) / 1e9
+    return out
+
+
+def host_serve(dev):
+    """``HOST_SERVE_PATH``: full-width qwen3-1.7b (``HOST_SERVE_LAYERS``) on
+    the DEVICE engine, then from the same weights on the HOST tier
+    (``param_tier="host"``, ``enable_host_tier``, SR depth 1) on the same
+    traffic: every HOST leaf pinned; greedy tokens, restores and the
+    tier's ops and op_ns equal to the DEVICE engine's; no weight left on
+    the card between steps, and no more than the stream's window (the
+    leaves outside the stream and depth + 1 layers) on it during one;
+    both kernels launched once per layer per tick and per chunk, as many
+    times as on the DEVICE engine. Then the tick and the chunk timed at SR depth
+    1 and 0 in ``HOST_ORDERS``' turns, the copies of one tick alone, and
+    the share of them the prefetch hides."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.core import hdm
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.engine import Request, ServingEngine
+    path = HOST_SERVE_PATH
+    cfg = dataclasses.replace(registry.get(ARCH), n_layers=HOST_SERVE_LAYERS)
+    rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
+    rc_host = dataclasses.replace(rc, param_tier="host",
+                                  enable_host_tier=True, sr_prefetch_depth=1)
+    config = ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                         prefill_chunk=CHUNK, tier_topology=TOPOLOGY,
+                         store_budget_bytes=16 << 30, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(*PROMPT_LENS, N_HOST_REQUESTS)]
+
+    def run(engine):
+        t0 = time.time()
+        first = [engine.submit(Request(rid=i, prompt=p,
+                                       max_new_tokens=HOST_MAX_NEW))
+                 for i, p in enumerate(prompts)]
+        engine.run(max_ticks=10_000)
+        again = [engine.submit(Request(rid=1000 + i, prompt=prompts[i],
+                                       max_new_tokens=HOST_MAX_NEW))
+                 for i in range(N_HOST_RESUBMIT)]
+        engine.run(max_ticks=10_000)
+        torch.cuda.synchronize()
+        return {"wall_s": time.time() - t0,
+                "tokens": [h.result() for h in first + again],
+                "restored": [h.request.restored for h in again],
+                "ops": engine.tier.ops, "op_ns": engine.tier.op_ns,
+                "per_layer_step": {
+                    "paged_decode": cfg.n_layers
+                    * engine.stats["decode_dispatches"],
+                    "flash_prefill": cfg.n_layers
+                    * engine.stats["prefill_dispatches"]}}
+
+    on_path = ("paged_decode", "flash_prefill")
+    params = M.init_model(cfg, seed=SEED, device=dev)
+    engine = ServingEngine(params, cfg, rc, config=config, device=dev)
+    zero_counters()
+    want = run(engine)
+    device_launches, _ = split_counts(f"{path} DEVICE", read_counters(),
+                                      on_path)
+    del engine
+    free_card()
+    t0 = time.time()
+    engine = ServingEngine(params, cfg, rc_host, config=config, device=dev)
+    place_s = time.time() - t0
+    del params
+    free_card()
+    n_pinned = host_pinned_check(path, dict(engine.params.named_parameters()))
+    outside = sum(unit_bytes(u) for u in M._outside(engine.params, cfg))
+    layer = max(unit_bytes(u) for u in M._units(engine.params, cfg))
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sharding.HOST_COPIED.update(h2d=0, d2h=0)
+    zero_counters()             # the main path: counts from 0, read after
+    got = run(engine)
+    counts = read_counters()
+    launches, off_path = split_counts(path, counts, on_path)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    left = torch.cuda.memory_allocated(dev) - base
+    h2d_bytes = sharding.HOST_COPIED["h2d"]
+    window = outside + 2 * layer + (128 << 20)
+    res = {"n_layers": cfg.n_layers, "place_s": place_s,
+           "host_leaves_pinned": n_pinned, "weight_bytes": outside + sum(
+               unit_bytes(u) for u in M._units(engine.params, cfg)),
+           "outside_bytes": outside, "layer_bytes": layer,
+           "card_peak_over_base": peak, "card_left_over_base": left,
+           "window_bytes": window, "h2d_bytes_run": h2d_bytes,
+           "launches": launches, "off_path_launches": off_path,
+           "device_launches": device_launches,
+           "launches_per_layer_step": got["per_layer_step"],
+           "wall_s": got["wall_s"], "device_wall_s": want["wall_s"],
+           "tokens_equal": got["tokens"] == want["tokens"],
+           "restored": got["restored"],
+           "ops_equal": got["ops"] == want["ops"],
+           "op_ns_equal": got["op_ns"] == want["op_ns"],
+           "host_bytes": hdm.host_bytes()}
+    log(f"{path}: {res}")
+    if not res["tokens_equal"]:
+        fail(f"{path}: greedy tokens differ from the DEVICE engine's: "
+             f"{got['tokens']} vs {want['tokens']}")
+    if not (res["ops_equal"] and res["op_ns_equal"]):
+        fail(f"{path}: the tier's ops / op_ns differ from the DEVICE "
+             f"engine's")
+    if not all(got["restored"]):
+        fail(f"{path}: a resubmitted request was not restored")
+    if min(launches.values()) <= 0:
+        fail(f"{path}: a kernel of the path never launched: {launches}")
+    if launches != got["per_layer_step"] or launches != device_launches:
+        fail(f"{path}: launches {launches}, want one per layer per tick "
+             f"and per chunk {got['per_layer_step']}, as the DEVICE "
+             f"engine's {device_launches}")
+    if left > layer:
+        fail(f"{path}: {left} bytes stay on the card after the run, more "
+             f"than a layer's {layer}")
+    if peak > window:
+        fail(f"{path}: {peak} bytes on the card during a step, beyond the "
+             f"stream's window of {window}")
+    # a pageable leaf marked for the HOST tier: its copy must raise, not
+    # run in line
+    probe = torch.nn.Linear(4, 4, bias=False)
+    setattr(probe.weight, sharding.HOST_TARGET, dev)
+    try:
+        sharding.HostRead(probe).wait()
+    except RuntimeError as e:
+        res["pageable_leaf_refused"] = str(e)
+    else:
+        fail(f"{path}: a pageable HOST leaf was copied")
+    chunk = torch.tensor([prompts[0][:CHUNK]], dtype=torch.int32,
+                         device=dev)
+
+    def prefill_chunk():
+        cache1 = M.slot_view(engine.cache, 0)
+        cache1["pos"] = torch.zeros(1, dtype=torch.int32, device=dev)
+        M.prefill_step_cached(engine.params, cfg, engine._hot_rc, chunk,
+                              cache1, last_only=True)
+    times = {0: {"tick": [], "chunk": []}, 1: {"tick": [], "chunk": []}}
+    for order in HOST_ORDERS:
+        for depth in order:
+            engine._hot_rc = dataclasses.replace(rc_host,
+                                                 sr_prefetch_depth=depth)
+            times[depth]["tick"].append(time_ms(engine._decode_sample, 5))
+            times[depth]["chunk"].append(time_ms(prefill_chunk, 3))
+    engine._hot_rc = rc_host
+    units = [*M._outside(engine.params, cfg), *M._units(engine.params, cfg)]
+    h2d_ms = time_ms(lambda: [sharding.HostRead(u).wait() for u in units], 3)
+    tick = {d: min(t["tick"]) for d, t in times.items()}
+    chunk_ms = {d: min(t["chunk"]) for d, t in times.items()}
+    res.update(turns=[list(o) for o in HOST_ORDERS], times_ms=times,
+               tick_ms=tick, chunk_ms=chunk_ms, h2d_ms_tick=h2d_ms,
+               h2d_gb_s=res["weight_bytes"] / (h2d_ms / 1e3) / 1e9,
+               hidden_share_tick=(tick[0] - tick[1]) / h2d_ms,
+               hidden_share_chunk=(chunk_ms[0] - chunk_ms[1]) / h2d_ms)
+    log(f"{path}: tick ms by depth {times_ms_line(times, 'tick')}, chunk "
+        f"ms {times_ms_line(times, 'chunk')}; the copies of a tick alone "
+        f"{h2d_ms:.3f} ms ({res['h2d_gb_s']:.1f} GB/s); hidden by the "
+        f"prefetch: tick {res['hidden_share_tick']:.3f}, chunk "
+        f"{res['hidden_share_chunk']:.3f}")
+    del engine
+    return res
+
+
+def times_ms_line(times, key):
+    return {d: [round(x, 3) for x in t[key]] for d, t in times.items()}
+
+
+def host_train_rc(cfg, tier, depth):
+    import dataclasses
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=HOST_BATCH,
+                                seq_len=HOST_SEQ)
+    return RunConfig(model=cfg, shape=shape, mesh=MeshConfig(),
+                     param_tier=tier, optimizer_tier=tier,
+                     enable_host_tier=tier == "host",
+                     sr_prefetch_depth=depth)
+
+
+def host_batch(cfg, dev):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    return to_device(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=HOST_BATCH,
+        seq_len=HOST_SEQ, seed=SEED)).batch(0), dev)
+
+
+def state_leaves(state):
+    """name -> tensor of every parameter, moment and master of a training
+    state."""
+    names = [n for n, _ in state.params.named_parameters()]
+    out = {f"params/{n}": p for n, p in state.params.named_parameters()}
+    for key in ("m", "v", "master"):
+        out.update({f"{key}/{n}": t for n, t in
+                    zip(names, getattr(state.opt, key))})
+    return out
+
+
+def host_train_gate(dev):
+    """``HOST_TRAIN_PATH`` (a): glm4-9b cut to ``HOST_GATE_LAYERS``
+    layers, ``HOST_GATE_STEPS`` steps on the HOST tier (every leaf of the
+    state pinned; the forward loss at SR depth 0 and 1 equal bit for
+    bit), then as many on the DEVICE twin from the same weights and
+    batch, the card freed in between: every parameter, moment and master
+    equal bit for bit (each HOST leaf copied onto the card and its bytes
+    compared with the twin's there), the losses and gradient norms
+    equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    path = f"{HOST_TRAIN_PATH} gate"
+    cfg = dataclasses.replace(registry.get(GLM4), n_layers=HOST_GATE_LAYERS)
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    batch = host_batch(cfg, dev)
+    runs, states = {}, {}
+    for tier in ("host", "device"):
+        rc = host_train_rc(cfg, tier, 1)
+        params = M.init_model(cfg, seed=SEED, device=dev)
+        state = steps_lib.init_state(params, rc, opt_cfg)
+        del params
+        free_card()
+        res = {}
+        if tier == "host":
+            res["pinned"] = host_pinned_check(path, state_leaves(state))
+            with torch.no_grad():
+                losses = [M.loss_fn(state.params, cfg, dataclasses.replace(
+                    rc, sr_prefetch_depth=d), batch,
+                    host_grads=sharding.HostGrads()) for d in (0, 1)]
+            res["forward_loss_d0_d1"] = [float(x) for x in losses]
+            if not torch.equal(losses[0].view(torch.int32),
+                               losses[1].view(torch.int32)):
+                fail(f"{path}: the forward loss at depth 0 and 1 differ: "
+                     f"{res['forward_loss_d0_d1']}")
+        step = steps_lib.build_train_step(cfg, rc, opt_cfg)
+        res["losses"], res["grad_norms"] = [], []
+        for _ in range(HOST_GATE_STEPS):
+            state, metrics = step(state, batch)
+            res["losses"].append(float(metrics["loss"]))
+            res["grad_norms"].append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        runs[tier], states[tier] = res, state
+        del state, step
+        free_card()
+    host, card = (state_leaves(states[t]) for t in ("host", "device"))
+    differ = [n for n, t in host.items() if not torch.equal(
+        t.detach().to(dev).reshape(-1).view(torch.uint8),
+        card[n].detach().reshape(-1).view(torch.uint8))]
+    out = {"n_layers": cfg.n_layers, "steps": HOST_GATE_STEPS,
+           "leaves_compared": len(host), "leaves_differing": differ,
+           "host": runs["host"], "device": runs["device"]}
+    log(f"{path}: {out}")
+    if differ:
+        fail(f"{path}: {len(differ)} leaves differ from the DEVICE twin's "
+             f"bits: {differ[:5]}")
+    if (runs["host"]["losses"] != runs["device"]["losses"]
+            or runs["host"]["grad_norms"] != runs["device"]["grad_norms"]):
+        fail(f"{path}: losses or gradient norms differ from the DEVICE "
+             f"twin's")
+    del states, host, card
+    free_card()
+    return out
+
+
+def host_memory_readings():
+    """(MemAvailable, the cgroup's memory limit) in bytes: cgroup v2's
+    ``memory.max`` or v1's ``memory.limit_in_bytes`` (None where neither
+    is readable or it is unlimited)."""
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    limit = None
+    for name in ("/sys/fs/cgroup/memory.max",
+                 "/sys/fs/cgroup/memory/memory.limit_in_bytes"):
+        try:
+            with open(name) as f:
+                text = f.read().strip()
+        except OSError:
+            continue
+        if text != "max" and int(text) < 1 << 60:
+            limit = int(text)
+        break
+    return avail, limit
+
+
+def settled_memory(tries=30, step_s=0.5, close=256 << 20):
+    """``host_memory_readings`` once MemAvailable stops rising (memory an
+    earlier phase unmapped comes back to it seconds later on the card's
+    machine), and the seconds and bytes that return took."""
+    t0 = time.perf_counter()
+    first, limit = host_memory_readings()
+    avail = first
+    for _ in range(tries):
+        time.sleep(step_s)
+        again, limit = host_memory_readings()
+        if again - avail < close:
+            avail = max(avail, again)
+            break
+        avail = again
+    return avail, limit, {"settle_s": time.perf_counter() - t0,
+                          "settle_rise": avail - first}
+
+
+def host_train_depth(cfg):
+    """The depth ``HOST_TRAIN_PATH`` (b) trains at and why: the full
+    depth if its pinned bytes (2 + 12 bytes a parameter: bf16 weights,
+    f32 m, v and master) are at most ``HOST_FULL_SHARE`` of the smaller
+    reading of ``host_memory_readings``; else the deepest cut of at least
+    ``HOST_MIN_LAYERS`` layers that leaves ``HOST_HEADROOM`` of
+    MemAvailable unpinned; else the deepest cut that does."""
+    import dataclasses
+    avail, limit, settle = settled_memory()
+    smaller = min(x for x in (avail, limit) if x is not None)
+
+    def pinned(n):
+        return 14 * dataclasses.replace(cfg, n_layers=n).n_params()
+    info = {"mem_available": avail, "cgroup_limit": limit,
+            "pinned_full": pinned(cfg.n_layers), **settle}
+    if pinned(cfg.n_layers) <= HOST_FULL_SHARE * smaller:
+        return cfg.n_layers, dict(info, rule="full depth")
+    fits = [n for n in range(1, cfg.n_layers + 1)
+            if pinned(n) + HOST_HEADROOM <= avail]
+    if not fits:
+        fail(f"{HOST_TRAIN_PATH}: not one layer's state fits in "
+             f"{avail} bytes of host memory")
+    n = max(fits)
+    rule = ("the deepest cut leaving the headroom" if n >= HOST_MIN_LAYERS
+            else f"the deepest cut that fits, under {HOST_MIN_LAYERS}: "
+                 f"the state does not pass the card's memory")
+    return n, dict(info, rule=rule, pinned=pinned(n))
+
+
+def first_loss(cfg) -> float:
+    """The expected cross-entropy of random weights: the final norm's
+    unit-variance output times an N(0, 0.02^2) unembedding gives logits
+    of variance d (0.02)^2, whose log-sum-exp over V tokens averages ln V
+    + d (0.02)^2 / 2 (qwen3-1.7b, d 2048: 12.34; PERF.md section 7 has
+    12.31 for its first step)."""
+    import math
+    return math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+
+
+def host_train(dev):
+    """``HOST_TRAIN_PATH`` (b): glm4-9b at full width, one rank, weights,
+    m, v and master on the HOST tier (pinned host memory), at
+    ``host_train_depth``'s depth; a step of ``HOST_BATCH`` x
+    ``HOST_SEQ`` tokens at each SR depth of ``HOST_TRAIN_DEPTHS`` (CUDA
+    events), each step's optimizer timed
+    alone; the bytes copied each way a step, the copy rates, the card's
+    peak (under its total), the pinned bytes against the bytes held, the
+    state at 16 bytes a parameter against the card's memory; the loss
+    finite, the first within 0.5 of ``first_loss``; no kernel
+    launched."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import hdm
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    path = HOST_TRAIN_PATH
+    full = registry.get(GLM4)
+    n_layers, why = host_train_depth(full)
+    why["host_bytes_before"] = hdm.host_bytes()
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    log(f"{path}: {n_layers} of {full.n_layers} layers ({why})")
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    rc = host_train_rc(cfg, "host", 1)
+    batch = host_batch(cfg, dev)
+    t0 = time.time()
+    params = M.init_model(cfg, seed=SEED, device=dev)
+    state = steps_lib.init_state(params, rc, opt_cfg)
+    del params
+    free_card()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    pinned = host_pinned_check(path, state_leaves(state))
+    steps = {d: steps_lib.build_train_step(
+        cfg, dataclasses.replace(rc, sr_prefetch_depth=d), opt_cfg)
+        for d in set(HOST_TRAIN_DEPTHS)}
+    update, opt_ms = adamw.update, []
+
+    def timed_update(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = update(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        opt_ms.append(start.elapsed_time(end))
+        return out
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    losses, step_ms, copied = [], [], []
+    steps_lib.adamw.update = timed_update
+    try:
+        for depth in HOST_TRAIN_DEPTHS:
+            sharding.HOST_COPIED.update(h2d=0, d2h=0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = steps[depth](state, batch)
+            end.record()
+            losses.append(float(metrics["loss"]))
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            copied.append(dict(sharding.HOST_COPIED))
+    finally:
+        steps_lib.adamw.update = update
+    counts = read_counters()
+    if any(counts.values()):
+        fail(f"{path}: a kernel launched under grad: {counts}")
+    launches, off_path = split_counts(path, counts, ())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rates = copy_rates(dev)
+    by_depth = {d: [ms for dd, ms in zip(HOST_TRAIN_DEPTHS, step_ms)
+                    if dd == d] for d in set(HOST_TRAIN_DEPTHS)}
+    weights_ms = (sum(unit_bytes(u) for u in M._outside(state.params, cfg))
+                  + 2 * sum(unit_bytes(u) for u in M._units(state.params,
+                                                             cfg))) / (
+        rates["h2d"] * 1e6)
+    res = {"n_layers": n_layers, "depth_rule": why, "init_s": init_s,
+           "launches": launches, "off_path_launches": off_path,
+           "n_params": n_params, "state_bytes_16": 16 * n_params,
+           "card_total": total,
+           "state_passes_card": 16 * n_params > total,
+           "host_leaves_pinned": pinned, "host_bytes": hdm.host_bytes(),
+           "batch": HOST_BATCH, "seq_len": HOST_SEQ,
+           "depths": list(HOST_TRAIN_DEPTHS), "losses": losses,
+           "ln_vocab": math.log(cfg.vocab_size),
+           "first_loss_expected": first_loss(cfg), "step_ms": step_ms,
+           "step_ms_by_depth": by_depth, "optimizer_ms": opt_ms,
+           "optimizer_share": [o / s for o, s in zip(opt_ms, step_ms)],
+           "copied_bytes": copied, "copy_gb_s": rates,
+           "h2d_ms_step": [c["h2d"] / (rates["h2d"] * 1e6) for c in copied],
+           "d2h_ms_step": [c["d2h"] / (rates["d2h"] * 1e6) for c in copied],
+           "layer_copies_ms_step": weights_ms,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "grad_norm": float(metrics["grad_norm"])}
+    d0, d1 = min(by_depth[0]), min(by_depth[1])
+    res["hidden_share"] = (d0 - d1) / weights_ms
+    log(f"{path}: {res}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{path}: non-finite loss {losses}")
+    if abs(losses[0] - res["first_loss_expected"]) > 0.5:
+        fail(f"{path}: first loss {losses[0]} not within 0.5 of ln V + "
+             f"d (0.02)^2 / 2 = {res['first_loss_expected']}")
+    if torch.cuda.max_memory_allocated(dev) >= total:
+        fail(f"{path}: peak card memory {res['peak_gib']} GiB at the "
+             f"card's total")
+    del state, steps
+    free_card()
+    res["host_bytes_after"] = hdm.host_bytes()
+    return res
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4880,10 +5449,20 @@ def main() -> None:
         dp_train = train_dp(dev, dpt_one)
     free_card()
 
+    with phase(HOST_SERVE_PATH):
+        host_sv = host_serve(dev)
+    free_card()
+
+    with phase(HOST_TRAIN_PATH):
+        host_tr = {"gate": host_train_gate(dev)}
+        host_tr.update(host_train(dev))
+    free_card()
+
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
             XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained,
-            XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train}
+            XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train,
+            HOST_SERVE_PATH: host_sv, HOST_TRAIN_PATH: host_tr}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -4895,7 +5474,7 @@ def main() -> None:
     # launches are this row's: None for all of them)
     for name, counter, res, src, replaces, paths in (
             ("paged_decode", "paged_decode", dec, decode_src, decode_tpu,
-             (ARCH, HYBRID, GEMMA)),
+             (ARCH, HYBRID, GEMMA, HOST_SERVE_PATH)),
             ("paged_decode_d64_granite", "paged_decode", dec64[GRANITE],
              decode_src, decode_tpu, (GRANITE,)),
             ("paged_decode_d64_musicgen", "paged_decode", dec64[MUSICGEN],
@@ -4931,7 +5510,8 @@ def main() -> None:
             ("paged_decode_ml_dp2xtp2", "paged_decode", dec_dp, decode_src,
              decode_tpu, (DP_PATH,)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
-             (ARCH, HYBRID, TP_PATH, TPF_PATHS[HYBRID], DP_PATH)),
+             (ARCH, HYBRID, TP_PATH, TPF_PATHS[HYBRID], DP_PATH,
+              HOST_SERVE_PATH)),
             ("flash_prefill_g16_glm4", "flash_prefill", pre_g[GLM4],
              prefill_src, prefill_tpu, (GLM4,)),
             ("flash_prefill_g12_starcoder2", "flash_prefill",
@@ -5099,7 +5679,8 @@ def main() -> None:
                    "prefill_train": pre_train, "train_small": small_train,
                    "train_checkpoint": ckpt, "train": trained,
                    "train_driver": driver, "train_xlstm": xl_train,
-                   "train_dp": dp_train,
+                   "train_dp": dp_train, "serve_host": host_sv,
+                   "train_host": host_tr,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

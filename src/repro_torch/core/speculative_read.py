@@ -10,28 +10,41 @@ In the port the pool tier is a layer's FSDP shards (``parallel.sharding``:
 each rank of the FSDP ``group`` holds a contiguous part of every leaf's
 FSDP axis), and ``materialize`` all-gathers them over the group
 (``sharding.FsdpRead``: ``granularity`` gathers a layer, each a piece of
-every leaf, as the reference's ``gather_leaf`` splits them). Without a
-group of more than one rank nothing is sharded, and ``materialize`` is the
-identity.
+every leaf, as the reference's ``gather_leaf`` splits them). On the HOST
+tier (``core.hdm``, ``enable_host_tier``) a layer's leaves live in pinned
+host memory: its read first copies them onto the card on a side stream
+(``sharding.HostRead``), then gathers the copied shards. Without a group
+of more than one rank nothing is gathered, and without HOST leaves
+nothing is copied: ``materialize`` is then the identity.
 
 ``mode="infer"`` with ``prefetch_depth`` > 0 runs the reference's
-prefetch slots: slot 0 computes while the gathers of the next ``depth``
-layers are in flight. Layer i + depth's gathers are issued, without
-waiting, before layer i computes, and waited for before its first use
-(on the card, gloo orders their result before the current stream's later
-work). The reference's reads past the last layer wrap to the first ones
-and are idle; the port leaves them out, on every rank alike.
-``prefetch_depth`` 0 (and ``mode="train"``) gathers each layer in line,
-as the reference's other branch does. ``mode="train"`` gathers each
-layer inside the function it rematerializes (``sharding.gather_train``:
-differentiable, its backward the deterministic store's ``reducer``), as
-the reference's ``materialize`` runs inside ``jax.checkpoint``: the
-gathered layer is not saved for the backward pass, whose recompute
-gathers it again (two all-gathers and one reduce-scatter a layer a
-step), so the saved residuals stay sharded. Issuing layer i + depth's
-gathers ahead in training is left to the HOST tier's stream; here the
-depth changes nothing. ``mode="train"`` rematerializes
-each layer's body for the backward pass with ``remat``
+prefetch slots: slot 0 computes while the reads of the next ``depth``
+layers are in flight. Layer i + depth's read (its copies, or its POOL
+gathers) is issued, without waiting, before layer i computes, and waited
+for before its first use (the current stream waits for the copies; on the
+card gloo orders the gathers' result before the stream's later work).
+The reference's reads past the last layer wrap to the first ones and are
+idle; the port leaves them out, on every rank alike. ``prefetch_depth``
+0 reads each layer in line, as the reference's other branch does.
+
+``mode="train"`` reads each layer inside the function it rematerializes
+(``sharding.gather_train``: differentiable, its backward the deterministic
+store's ``reducer``), as the reference's ``materialize`` runs inside
+``jax.checkpoint``: the gathered (or copied) layer is not saved for the
+backward pass, whose recompute reads it again (two all-gathers and one
+reduce-scatter a layer a step on POOL), so the saved residuals stay
+sharded and on the HOST tier no layer stays on the card. POOL gathers
+run in line. On the HOST tier the depth moves the copies: in the forward
+pass layer i + depth's copy is issued before layer i's body runs; in the
+backward pass the copy of layer i - depth is issued when layer i's
+backward begins (a hook on layer i's output gradient, which fires before
+the non-reentrant checkpoint unpacks the layer's first saved tensor and
+so recomputes it), so that at most depth + 1 copied layers are alive
+besides the graph's saved tensors; at depth 0 every copy runs in line,
+inside the body. The reference overlaps its training gathers by unrolling
+the scan ``depth + 1`` layers instead. The copied leaves' gradients go to
+the step's ``host_grads`` (``sharding.HostGrads``). ``mode="train"``
+rematerializes each layer's body for the backward pass with ``remat``
 (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="none"``
 saves nothing of the body, ``"dots"`` saves the outputs of its matrix
 products without batch dimensions (``aten.mm`` / ``aten.addmm``: the
@@ -53,16 +66,18 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.parallel.sharding import FsdpRead, gather_train
+from repro_torch.parallel.sharding import (FsdpRead, HostRead,
+                                          gather_train, on_host)
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def materialize(layer: Any, granularity: int = 1, group=None) -> Any:
-    """One layer's parameters with their FSDP axes gathered over
-    ``group`` (in ``granularity`` pieces): the speculative read's load,
-    in line."""
-    return FsdpRead(layer, group, granularity).wait()
+def materialize(layer: Any, granularity: int = 1, group=None,
+                label=None) -> Any:
+    """One layer's parameters on the card (HOST leaves copied), their
+    FSDP axes gathered over ``group`` (in ``granularity`` pieces): the
+    speculative read's load, in line."""
+    return FsdpRead(layer, group, granularity, label).wait()
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -89,32 +104,86 @@ def _call(body: Callable, x: Any, layer: Any, extras, i: int) -> Any:
     return body(x, layer) if extras is None else body(x, layer, extras[i])
 
 
+class _TrainReads:
+    """The HOST tier's copies of a train-mode stream's ``layers``: issued
+    ``depth`` layers ahead in the forward pass (``ahead``), and in the
+    backward pass from ``hook``s on the layers' outputs; ``take(i)`` hands
+    the body layer i's read, issued now if none is pending (depth 0, or
+    without a hook's)."""
+
+    def __init__(self, layers, depth):
+        self.layers, self.depth = layers, depth
+        self.pending, self.back = {}, set()
+
+    def issue(self, i: int) -> None:
+        if 0 <= i < len(self.layers) and i not in self.pending:
+            self.pending[i] = HostRead(self.layers[i], label=i)
+
+    def ahead(self, i: int) -> None:
+        """Before layer i's body in the forward pass: the copies of
+        layers up to i + depth (at depth 0, none: ``take`` copies)."""
+        if self.depth:
+            for j in range(i, i + self.depth + 1):
+                self.issue(j)
+
+    def take(self, i: int) -> HostRead:
+        self.issue(i)
+        return self.pending.pop(i)
+
+    def hook(self, i: int, outputs, inputs) -> None:
+        """When layer i's backward begins: the copies of layers i down to
+        i - depth that its backward pass has not issued yet."""
+        def issue_back(grad):
+            for j in range(i, i - self.depth - 1, -1):
+                if j >= 0 and j not in self.back:
+                    self.back.add(j)
+                    self.issue(j)
+        seen = {id(t) for t in inputs}
+        for t in outputs:
+            if t.requires_grad and id(t) not in seen:
+                t.register_hook(issue_back)
+
+
+def _tensors(carry) -> tuple:
+    return carry if isinstance(carry, tuple) else (carry,)
+
+
 def stream_layers(body: Callable, x0: Any, layers: Sequence[Any], *,
                   prefetch_depth: int = 1, granularity: int = 1,
                   mode: str = "train", remat: bool = True,
                   remat_policy: str = "none", group=None,
                   extras: Optional[Sequence[Any]] = None,
-                  reducer=None) -> Any:
-    """Run ``layers`` under the SR schedule, their FSDP axes gathered
-    over ``group``; returns the final carry. In ``mode="train"`` the
-    gathers are differentiable, their gradients reduced by ``reducer``
-    (``core.deterministic_store.GradReducer``)."""
+                  reducer=None, host_grads=None) -> Any:
+    """Run ``layers`` under the SR schedule, their HOST leaves copied and
+    their FSDP axes gathered over ``group``; returns the final carry. In
+    ``mode="train"`` the reads are differentiable, their gradients reduced
+    by ``reducer`` (``core.deterministic_store.GradReducer``), the HOST
+    leaves' handed to ``host_grads`` (``sharding.HostGrads``)."""
     if mode == "infer" and prefetch_depth > 0:
         return _stream_infer(body, x0, layers, depth=prefetch_depth,
                              granularity=granularity, group=group,
                              extras=extras)
+    host = mode == "train" and len(layers) > 0 and on_host(layers[0])
+    reads = _TrainReads(layers, prefetch_depth if host else 0)
     x = x0
     for i, layer in enumerate(layers):
         if mode == "train":
+            reads.ahead(i)
+
             def step(c, layer=layer, i=i):
-                whole = gather_train(layer, group, granularity, reducer)
+                whole = gather_train(layer, group, granularity, reducer,
+                                     read=reads.take(i) if host else None,
+                                     sink=host_grads)
                 return _call(body, c, whole, extras, i)
         else:
-            layer = materialize(layer, granularity, group)
+            layer = materialize(layer, granularity, group, label=i)
 
             def step(c, layer=layer, i=i):
                 return _call(body, c, layer, extras, i)
-        x = _remat(step, x, remat_policy) if remat else step(x)
+        y = _remat(step, x, remat_policy) if remat else step(x)
+        if reads.depth and remat and torch.is_grad_enabled():
+            reads.hook(i, _tensors(y), _tensors(x))
+        x = y
     return x
 
 
@@ -124,10 +193,12 @@ def _stream_infer(body, x0, layers, *, depth, granularity, group, extras):
     into the last slot."""
     n = len(layers)
     depth = min(depth, n)
-    reads = [FsdpRead(layers[i], group, granularity) for i in range(depth)]
+    reads = [FsdpRead(layers[i], group, granularity, label=i)
+             for i in range(depth)]
     x = x0
     for i in range(n):
         if i + depth < n:
-            reads.append(FsdpRead(layers[i + depth], group, granularity))
+            reads.append(FsdpRead(layers[i + depth], group, granularity,
+                                  label=i + depth))
         x = _call(body, x, reads.pop(0).wait(), extras, i)
     return x

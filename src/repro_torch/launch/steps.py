@@ -6,7 +6,11 @@ The paper's mechanisms appear as in the reference's ``launch/steps.py``:
 * the parameters and the optimizer state are placed by their tiers
   (``core.hdm.HDMStore``): on the POOL tier of a rank mesh each rank
   holds the FSDP shards of the weights and of m, v and the f32 master
-  (``init_state``, ``state_specs``);
+  (``init_state``, ``state_specs``); on the HOST tier with
+  ``rc.enable_host_tier`` the same shards live in pinned host memory,
+  the weights copied onto the card by the speculative read, m, v and the
+  master streamed through the card by AdamW (``optim.adamw``), while the
+  gradients stay on the card;
 * the layers stream through the speculative read inside ``loss_fn``,
   each gathered in its remat'd body, the leaves outside the stream once a
   step;
@@ -20,10 +24,11 @@ global batch, as the reference's ``batch_specs`` places them: over the
 data axis, or the (pod, data) product with ``rc.mesh.multi_pod`` -- the
 FSDP axes too; without ``multi_pod`` the pod ranks are replicas. With both
 tiers "device" the step is plain data parallel: whole weights, whole
-gradients all-reduced. A model axis of more than one rank and a mixed
-tier pair raise (``models.model.check_trainable``). The step works in
-place on the model, the moments and the masters, and returns the same
-state.
+gradients all-reduced. A model axis of more than one rank, and DEVICE
+beside POOL or HOST on more than one FSDP rank, raise
+(``models.model.check_trainable``). The step works in place on the
+model, the moments and the masters (wherever they live), and returns the
+same state.
 """
 from __future__ import annotations
 
@@ -87,12 +92,14 @@ def state_specs(params: nn.Module, rc: RunConfig,
     residuals the parameters'. Lists aligned with ``params.parameters()``
     of the whole model (or of a shard, by the specs it was cut by)."""
     pspecs = param_spec_list(params, rc)
-    if getattr(params, "specs", None) is None:
+    alike = (rc.optimizer_tier == rc.param_tier
+             or {rc.param_tier, rc.optimizer_tier} <= {"pool", "host"})
+    if alike and getattr(params, "specs", None) is not None:
+        ospecs = pspecs     # a shard, cut alike under both tiers
+    else:                   # the whole model, or one FSDP rank's (uncut)
         whole = sharding.param_specs(params, tier=rc.optimizer_tier,
                                      multi_pod_fsdp=rc.mesh.multi_pod)
         ospecs = [whole[n] for n, _ in params.named_parameters()]
-    else:                   # a shard: one tier for both (check_trainable)
-        ospecs = pspecs
     opt = adamw.opt_specs(ospecs, None if state is None else state.opt)
     residuals = (pspecs if state is not None and state.residuals is not None
                  else None)
@@ -101,40 +108,59 @@ def state_specs(params: nn.Module, rc: RunConfig,
 
 def init_state(params: nn.Module, rc: RunConfig,
                opt_cfg: adamw.AdamWConfig, mesh=None) -> TrainState:
-    """A training state over ``params``: on a rank ``mesh`` the whole
-    model is placed first (``HDMStore.place`` under ``rc.param_tier``:
-    this rank's FSDP shards on POOL; a shard already placed is kept);
-    grads turned on for every parameter (the port builds them frozen for
-    serving), zero moments, f32 masters and, with ``rc.grad_compression
-    == "int8_ef"``, zero residuals, all on the parameters' placement --
-    the optimizer tier's, which ``check_trainable`` holds equal."""
+    """A training state over ``params``: the whole model placed first
+    under ``rc.param_tier`` (``HDMStore.place``: on a rank ``mesh`` this
+    rank's FSDP shards on POOL and HOST, a shard already placed kept; on
+    HOST with ``rc.enable_host_tier`` every leaf in pinned host memory,
+    on one rank too); grads turned on for every parameter (the port
+    builds them frozen for serving), zero moments, f32 masters and, with
+    ``rc.grad_compression == "int8_ef"``, zero residuals, placed under
+    ``rc.optimizer_tier``: on HOST with ``rc.enable_host_tier`` in pinned
+    host memory, m and v created there and each master cast on the card
+    one leaf at a time and copied out."""
     M.check_trainable(rc.model, mesh.shape if mesh is not None else (), rc)
-    if mesh is not None and not hasattr(params, "shard"):
-        params = hdm.HDMStore(mesh, tier=rc.param_tier,
-                              multi_pod_fsdp=rc.mesh.multi_pod).place(params)
+    store = hdm.HDMStore(mesh, tier=rc.param_tier,
+                         enable_host_tier=rc.enable_host_tier,
+                         multi_pod_fsdp=rc.mesh.multi_pod)
+    if not hasattr(params, "shard") and (mesh is not None or store.pinned):
+        params = store.place(params)
     params.requires_grad_(True)
     flat = list(params.parameters())
-    residuals = (compression.init_residuals(flat)
-                 if rc.grad_compression == "int8_ef" else None)
-    return TrainState(params, adamw.init(flat, opt_cfg), residuals)
+    host = (hdm.compute_device(flat[0])
+            if rc.optimizer_tier == hdm.HOST and rc.enable_host_tier
+            else None)
+    residuals = None
+    if rc.grad_compression == "int8_ef":
+        residuals = (compression.init_residuals(flat) if host is None
+                     else hdm.host_like(flat, host, torch.float32))
+    return TrainState(params, adamw.init(flat, opt_cfg, host=host),
+                      residuals)
 
 
 def loss_and_grads(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
                    batch: Dict[str, torch.Tensor], *, group=None,
                    reducer=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(loss, gradients aligned with ``params.parameters()``, in the
-    parameters' dtypes; zeros for a parameter the loss does not reach).
-    Over a rank ``group`` the loss is the global mean and each FSDP
-    leaf's gradient the rank's shard, reduced in the backward by
+    parameters' dtypes, on the card; zeros for a parameter the loss does
+    not reach). Over a rank ``group`` the loss is the global mean and each
+    FSDP leaf's gradient the rank's shard, reduced in the backward by
     ``reducer``; the whole leaves' gradients are still this rank's part
-    (``ds.apply_ds`` sums them)."""
+    (``ds.apply_ds`` sums them). A HOST-tier leaf's gradient is collected
+    on the card from the step's ``sharding.HostGrads``."""
     flat = list(params.parameters())
+    sink = sharding.HostGrads()
     with torch.enable_grad():
         loss = M.loss_fn(params, cfg, rc, batch, group=group,
-                         reducer=reducer)
+                         reducer=reducer, host_grads=sink)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for p, g in zip(flat, grads)]
+    out = []
+    for p, g in zip(flat, grads):
+        if g is None:
+            g = sink.pop(p)
+        out.append(torch.zeros(p.shape, dtype=p.dtype,
+                               device=hdm.compute_device(p))
+                   if g is None else g)
+    return loss.detach(), out
 
 
 def _accumulated_grads(params, cfg, rc, batch, n_micro: int, group=None,
@@ -151,8 +177,8 @@ def _accumulated_grads(params, cfg, rc, batch, n_micro: int, group=None,
     micro = {k: split(v) for k, v in batch.items()}
     flat = list(params.parameters())
     loss_acc = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-    g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in flat]
+    g_acc = [torch.zeros(p.shape, dtype=torch.float32,
+                         device=hdm.compute_device(p)) for p in flat]
     for i in range(n_micro):
         if reducer is not None:
             reducer.final = i == n_micro - 1

@@ -60,12 +60,13 @@ def build_variants(cfg: ModelConfig, rc: RunConfig,
                    opt_cfg: adamw.AdamWConfig, ladder=None,
                    mesh=None) -> Dict:
     """Step variants keyed by (depth, granularity), a step built for each
-    rung. The depth changes nothing in training (each layer is gathered
-    in line, in its remat'd body; issuing the gathers ahead is left to a
-    HOST tier's stream, not built); the granularity splits each layer's
-    gathers into that many all-gathers over the FSDP axes of a ``mesh``
-    -- the same numbers on another schedule. On one rank neither moves
-    any weight."""
+    rung: the same numbers on other schedules. On the HOST tier the depth
+    is how many layers ahead of use each layer is copied onto the card
+    (in the forward pass, and in the backward pass ahead of each
+    recompute); the POOL tier's gathers run in line, in each remat'd
+    body, whatever the depth. The granularity splits each layer's gathers
+    into that many all-gathers over the FSDP axes of a ``mesh``. On one
+    rank with the weights on the card neither moves any weight."""
     ladder = ladder or [(0, 1), (1, 1), (2, 1), (1, 2)]
     return {(d, g): steps_lib.build_train_step(
         cfg, dataclasses.replace(rc, sr_prefetch_depth=d, sr_granularity=g),
@@ -91,7 +92,9 @@ def state_dict(state: steps_lib.TrainState) -> Dict:
 @torch.no_grad()
 def load_state_dict(state: steps_lib.TrainState,
                     flat: Dict) -> steps_lib.TrainState:
-    """Copy a checkpointed flat map into ``state`` (in place)."""
+    """Copy a checkpointed flat map into ``state`` (in place: a HOST-tier
+    tensor keeps its pinned host memory, a card tensor its card
+    memory)."""
     names = [n for n, _ in state.params.named_parameters()]
     for n, p in state.params.named_parameters():
         p.copy_(flat[f"params/{n}"])
@@ -108,7 +111,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
           shape_name: str = "train_4k", ckpt_dir: Optional[str] = None,
           global_batch: int = 8, seq_len: Optional[int] = None,
           log_every: int = 5, resume: bool = False,
-          device="cuda", mesh=None) -> Dict:
+          device="cuda", mesh=None, param_tier: str = "pool",
+          optimizer_tier: str = "pool",
+          enable_host_tier: bool = False) -> Dict:
     """Train ``arch`` (its smoke config with ``smoke``) for ``steps``
     steps on ``device``. The batch is
     ``global_batch`` sequences of ``seq_len`` tokens (default 64 at smoke
@@ -117,14 +122,21 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     (``launch.mesh.RankMesh``, model axis 1) this process is one rank:
     its shard of the state, its rows of each batch over the data axis
     (the reference's ``MeshConfig()``: pod ranks are replicas); rank 0
-    prints."""
+    prints. ``param_tier`` / ``optimizer_tier`` place the weights and the
+    optimizer state (``core.hdm``); with ``enable_host_tier`` a "host"
+    tier keeps them in pinned host memory, streamed through the card.
+    A resume restores the checkpoint to host memory and copies it into
+    the state in place, so no HOST-tier leaf passes through the card
+    whole."""
     dev = resolve_device(device)
     cfg = registry.smoke(arch) if smoke else registry.get(arch)
     base_shape = SHAPES[shape_name]
     seq_len = seq_len or (64 if smoke else base_shape.seq_len)
     shape = dataclasses.replace(base_shape, global_batch=global_batch,
                                 seq_len=seq_len)
-    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig(),
+                   param_tier=param_tier, optimizer_tier=optimizer_tier,
+                   enable_host_tier=enable_host_tier)
     M.check_trainable(cfg, mesh.shape if mesh is not None else (), rc)
     opt_cfg = adamw.AdamWConfig(learning_rate=rc.learning_rate,
                                 total_steps=max(steps, 10))
@@ -147,7 +159,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if ckpt and resume and ckpt.latest_step() is not None:
-        start_step, flat, _ = ckpt.restore(device=dev)
+        start_step, flat, _ = ckpt.restore(device="cpu")
         state = load_state_dict(state, flat)
         if verbose:
             print(f"[train] resumed from step {start_step}")

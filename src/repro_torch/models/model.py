@@ -391,8 +391,10 @@ def check_trainable(cfg: ModelConfig, mesh_shape=(),
                     rc: Optional[RunConfig] = None) -> None:
     """Raise for what the port does not train yet: a family without
     training forms, a mesh with a model axis of more than one rank, or
-    parameters and optimizer state on different tiers (ROADMAP Queue 1
-    item 4, each)."""
+    parameters and optimizer state on tiers that shard the data axis
+    apart -- DEVICE beside POOL or HOST on more than one FSDP rank
+    (ROADMAP Queue 1 item 4, each). Any pair trains on one rank, and POOL
+    beside HOST (both sharded alike) on any data axis."""
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported "
@@ -403,16 +405,24 @@ def check_trainable(cfg: ModelConfig, mesh_shape=(),
             f"{tuple(mesh_shape)[-1]} ranks in training (weights split on "
             f"the model axis in the train step) is ROADMAP Queue 1 item "
             f"4's; train over the data and pod axes (model axis 1)")
-    if rc is not None and rc.param_tier != rc.optimizer_tier:
+    if rc is None or {rc.param_tier, rc.optimizer_tier} <= {"pool",
+                                                            "host"}:
+        return
+    shape = tuple(mesh_shape) or (1,)
+    p_n, d_n, _ = (1,) * (3 - len(shape)) + shape
+    if (rc.param_tier != rc.optimizer_tier
+            and d_n * (p_n if rc.mesh.multi_pod else 1) > 1):
         raise NotImplementedError(
             f"param_tier {rc.param_tier!r} with optimizer_tier "
-            f"{rc.optimizer_tier!r}: a mixed tier pair is ROADMAP Queue 1 "
-            f"item 4's; train with both on one tier")
+            f"{rc.optimizer_tier!r} on mesh {tuple(mesh_shape)}: a pair of "
+            f"tiers that shard the data axis apart is ROADMAP Queue 1 item "
+            f"4's; train with both on one tier, POOL beside HOST, or on "
+            f"one rank")
 
 
 def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
             batch: Dict[str, torch.Tensor], *, group=None,
-            reducer=None) -> torch.Tensor:
+            reducer=None, host_grads=None) -> torch.Tensor:
     """The training loss: mean next-token cross-entropy (plus the MoE
     layers' load-balance loss). batch: ``tokens`` and ``labels`` [B, S]
     (audio [B, K, S]) and, for the VLM, ``vision_embeds`` [B, Nv, d].
@@ -432,16 +442,20 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     ``reducer`` (the deterministic store). The loss returned is the global
     mean: each rank's mean averaged over the group (``sharding.
     mean_over``), each rank's gradient its share of it; the MoE routes the
-    whole batch, so its aux loss counts once."""
+    whole batch, so its aux loss counts once. With the weights on the
+    HOST tier every read copies its leaves onto the card first (the
+    leaves outside the stream once a step, the final norm among them),
+    the layers ``rc.sr_prefetch_depth`` ahead, and the leaves' card
+    gradients go to ``host_grads`` (``sharding.HostGrads``)."""
     check_trainable(cfg)
     tokens = batch["tokens"]
     bsz, seq = tokens.shape[0], tokens.shape[-1]
     positions = torch.arange(seq, dtype=torch.int32,
                              device=tokens.device)[None].expand(bsz, seq)
     top = sharding.gather_train(_outside(params, cfg), group,
-                                rc.sr_granularity, reducer)
+                                rc.sr_granularity, reducer, sink=host_grads)
     x = _embed(top[0], cfg, tokens, positions)
-    shared = ({"params": top[1], "emb": x}
+    shared = ({"params": top[2], "emb": x}
               if cfg.family == "hybrid" else None)
     body = _body_train(cfg, rc, positions, shared=shared,
                        vision=batch.get("vision_embeds"), batch=group)
@@ -450,8 +464,8 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
         body, (x, aux0), _units(params, cfg),
         prefetch_depth=rc.sr_prefetch_depth, granularity=rc.sr_granularity,
         mode="train", remat=rc.remat, remat_policy=rc.remat_policy,
-        group=group, reducer=reducer)
-    x = rmsnorm(params.ln_f, x, cfg.norm_eps)
+        group=group, reducer=reducer, host_grads=host_grads)
+    x = rmsnorm(top[1], x, cfg.norm_eps)
     loss = _chunked_xent(top[0], cfg, x, batch["labels"]) + aux
     return sharding.mean_over(group, loss)
 
@@ -537,11 +551,12 @@ def _units(params: nn.Module, cfg: ModelConfig):
 
 
 def _outside(params: nn.Module, cfg: ModelConfig) -> tuple:
-    """The leaves a step uses outside the layer stream: the embedding
-    (and unembedding), and the hybrid's shared block."""
+    """The leaves a step uses outside the layer stream, read once a step:
+    the embedding (and unembedding), the final norm, and the hybrid's
+    shared block."""
     if cfg.family == "hybrid":
-        return (params.embed, params.shared)
-    return (params.embed,)
+        return (params.embed, params.ln_f, params.shared)
+    return (params.embed, params.ln_f)
 
 
 def _unit_extras(cfg: ModelConfig, cache: Dict, n: int):
@@ -616,7 +631,8 @@ def join_fsdp_reads(params: nn.Module, cfg: ModelConfig, rc: RunConfig, *,
     else: what a rank of the data axis runs while another row prefills
     one of its own slots, so that every rank of the group enters the
     same gathers."""
-    sr.materialize(_outside(params, cfg), rc.sr_granularity, ranks.fsdp)
+    sr.materialize(_outside(params, cfg), rc.sr_granularity, ranks.fsdp,
+                   label="outside")
     sr.stream_layers(lambda x, layer: x, None, _units(params, cfg),
                      prefetch_depth=rc.sr_prefetch_depth,
                      granularity=rc.sr_granularity, mode="infer",
@@ -645,7 +661,8 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     (``ranks.batch``) the rows are this rank's slots."""
     check_family(cfg)
     r = _ranks(group, ranks)
-    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp)
+    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp,
+                         label="outside")
     pos = cache["pos"]
     x = _embed(top[0], cfg, tokens, pos.reshape(-1, 1).to(torch.int32),
                r.model)
@@ -654,9 +671,9 @@ def decode_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
         return transformer.block_decode_paged(block, cfg, x, pos, kv,
                                               group=r.model, pages=r.pages,
                                               batch=r.batch)
-    x = _stream(params, cfg, rc, x, cache, r, top[1:], attend,
+    x = _stream(params, cfg, rc, x, cache, r, top[2:], attend,
                 mamba2.mamba_step)
-    x = rmsnorm(params.ln_f, x, cfg.norm_eps)
+    x = rmsnorm(top[1], x, cfg.norm_eps)
     logits = unembed_apply(top[0], cfg, x, r.model)
     cache["pos"] += 1
     return logits, cache
@@ -678,7 +695,8 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     """
     check_family(cfg)
     r = _ranks(group, ranks)
-    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp)
+    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp,
+                         label="outside")
     pos = cache["pos"]
     c = tokens.shape[-1]
     positions = (pos.reshape(-1, 1).to(torch.int32)
@@ -691,11 +709,11 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
         return transformer.block_prefill_cached(block, cfg, x, positions,
                                                 pos, kv, stepwise=stepwise,
                                                 group=r.model, pages=r.pages)
-    x = _stream(params, cfg, rc, x, cache, r, top[1:], attend,
+    x = _stream(params, cfg, rc, x, cache, r, top[2:], attend,
                 mamba2.mamba_prefill_chunk)
     if last_only:
         x = x[:, -1:]
-    x = rmsnorm(params.ln_f, x, cfg.norm_eps)
+    x = rmsnorm(top[1], x, cfg.norm_eps)
     logits = unembed_apply(top[0], cfg, x, r.model)
     cache["pos"] += c
     return logits, cache

@@ -7,7 +7,15 @@ the optimizer tier with the parameters' layout: on the POOL tier of a
 rank mesh each rank holds m, v and the master of its FSDP shards only,
 and ``update`` runs on those shards (the deterministic store's
 reduce-scattered gradients), so no optimizer-state collective is issued.
-The clip is global, as the reference's: over a rank ``group`` the
+On the HOST tier (``init(host=)``) the state lives in pinned host memory
+(``core.hdm``): ``update`` streams each leaf through the card in pieces
+of at most ``CHUNK_BYTES`` -- copied in on a side stream into one of two
+card buffers, updated on the card against the card's gradient, copied
+back on another stream -- so that a piece's copies overlap its
+neighbours' arithmetic; a parameter on the HOST tier gets its new value
+the same way. The arithmetic is the same whichever tier a tensor lives
+on, so a HOST step gives a DEVICE step's bits. The clip is global, as the
+reference's: over a rank ``group`` the
 squares of the FSDP shards are summed across the ranks (one all-reduce)
 and each whole leaf counted once. The arithmetic is the reference's
 (``repro/optim/adamw.py``), step for step in f32: global-norm clipping,
@@ -22,6 +30,12 @@ import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.core import hdm
+from repro_torch.parallel.sharding import HOST_COPIED, copy_stream, host_target
+
+# the largest piece of a HOST-tier leaf streamed through the card at once
+CHUNK_BYTES = 256 << 20
 
 
 class AdamWState(NamedTuple):
@@ -45,16 +59,30 @@ class AdamWConfig:
     use_master: bool = True  # keep an f32 master of every parameter
 
 
-def init(params: Sequence[torch.Tensor], cfg: AdamWConfig) -> AdamWState:
+def init(params: Sequence[torch.Tensor], cfg: AdamWConfig,
+         host: Optional[torch.device] = None) -> AdamWState:
     """Zero moments and (with ``use_master``) f32 masters of ``params``,
-    on their devices."""
+    on the devices they are computed on (``hdm.compute_device``); with
+    ``host`` (a card), in pinned host arenas streamed to it: m and v
+    created there, each master cast on the card one leaf at a time and
+    copied out. The step counter lives on the card."""
+    dev = (host or hdm.compute_device(params[0]) if params
+           else torch.device("cpu"))
     with torch.no_grad():
-        m = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in params]
-        v = [torch.zeros_like(t) for t in m]
-        master = ([p.detach().float().clone() for p in params]
-                  if cfg.use_master else None)
-    dev = params[0].device if params else torch.device("cpu")
+        if host is None:
+            m = [torch.zeros(p.shape, dtype=torch.float32,
+                             device=hdm.compute_device(p)) for p in params]
+            v = [torch.zeros_like(t) for t in m]
+            master = ([p.detach().to(hdm.compute_device(p)).float().clone()
+                       for p in params] if cfg.use_master else None)
+        else:
+            m = hdm.host_like(params, host, torch.float32)
+            v = hdm.host_like(params, host, torch.float32)
+            master = None
+            if cfg.use_master:
+                master = hdm.host_like(params, host, torch.float32)
+                for mp, p in zip(master, params):
+                    mp.copy_(p.detach().to(host).float())
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=m, v=v, master=master)
 
@@ -114,27 +142,117 @@ def update(grads: Sequence[torch.Tensor], state: AdamWState,
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, group, sharded)
     step = state.step + 1
     lr = schedule(step, cfg)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(b1, step.float())
-    bc2 = 1 - torch.pow(b2, step.float())
+    bc1 = 1 - torch.pow(cfg.b1, step.float())
+    bc2 = 1 - torch.pow(cfg.b2, step.float())
     masters = state.master or [None] * len(params)
+    streamed = []
     for p, g, m, v, mp in zip(params, grads, state.m, state.v, masters):
-        g32 = g.float()
-        m2 = b1 * m + (1 - b1) * g32
-        v2 = b2 * v + (1 - b2) * torch.square(g32)
-        mhat = m2 / bc1
-        vhat = v2 / bc2
-        base = mp if mp is not None else p.float()
-        new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                           + cfg.weight_decay * base)
+        if any(t is not None and host_target(t) is not None
+               for t in (p, m, v, mp)):
+            streamed.append((p, g, m, v, mp))
+            continue
+        m2, v2, new = _adamw(g, m, v, mp if mp is not None else p.float(),
+                             lr, bc1, bc2, cfg)
         m.copy_(m2)
         v.copy_(v2)
         if mp is not None:
             mp.copy_(new)
         p.copy_(new.to(p.dtype))
+    if streamed:
+        _stream_update(streamed, lr, bc1, bc2, cfg)
     new_state = AdamWState(step=step, m=state.m, v=state.v,
                            master=state.master)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _adamw(g, m, v, base, lr, bc1, bc2, cfg: AdamWConfig):
+    """One leaf's (or piece's) new m, v and f32 value, from its gradient
+    ``g``, moments and ``base`` (the master, or the parameter in f32)."""
+    g32 = g.float()
+    m2 = cfg.b1 * m + (1 - cfg.b1) * g32
+    v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+    mhat = m2 / bc1
+    vhat = v2 / bc2
+    new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                       + cfg.weight_decay * base)
+    return m2, v2, new
+
+
+def _stream_update(items, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """``update``'s arithmetic for the leaves ``(p, g, m, v, master)``
+    with a tensor on the HOST tier, piece by piece on the card: each
+    host tensor's piece copied into one of two card slots on the h2d
+    stream (after the slot's last copy out), updated on the current
+    stream, copied back on the d2h stream; the card's tensors are used in
+    place. Returns once every copy back has landed. On the CPU the same
+    pieces and slots, copied in line."""
+    dev = items[0][1].device
+    cuda = dev.type == "cuda"
+    per = CHUNK_BYTES // 4
+    most = min(per, max(p.numel() for p, *_ in items))
+    names = ("m", "v", "mp", "p")
+    slots = [{"buf": {n: torch.empty(most * 4, dtype=torch.uint8,
+                                     device=dev) for n in names},
+              "free": None} for _ in range(2)]
+    if cuda:
+        comp = torch.cuda.current_stream(dev)
+        h2d, d2h = copy_stream(dev, "h2d"), copy_stream(dev, "d2h")
+        h2d.wait_stream(comp)       # the slots' memory, free on comp
+    k = 0
+    for p, g, m, v, mp in items:
+        flat = {"m": m, "v": v, "mp": mp, "p": p}
+        host = {n for n, t in flat.items()
+                if t is not None and host_target(t) is not None}
+        wanted = {"m", "v"} | ({"mp"} if mp is not None else {"p"})
+        gflat = g.reshape(-1)
+        for lo in range(0, p.numel(), per):
+            hi = min(p.numel(), lo + per)
+            slot = slots[k % 2]
+            k += 1
+            view = {n: t.view(-1)[lo:hi] for n, t in flat.items()
+                    if t is not None}
+            card = {n: (slot["buf"][n][:(hi - lo) * view[n].element_size()]
+                        .view(view[n].dtype) if n in host else view[n])
+                    for n in view}
+            ins = [(card[n], view[n]) for n in host & wanted]
+            if cuda:
+                with torch.cuda.stream(h2d):
+                    if slot["free"] is not None:
+                        h2d.wait_event(slot["free"])
+                    for dst, src in ins:
+                        dst.copy_(src, non_blocking=True)
+                        HOST_COPIED["h2d"] += src.numel() * src.element_size()
+                    ready = torch.cuda.Event()
+                    ready.record(h2d)
+                comp.wait_event(ready)
+            else:
+                for dst, src in ins:
+                    dst.copy_(src)
+            base = card["mp"] if mp is not None else card["p"].float()
+            m2, v2, new = _adamw(gflat[lo:hi], card["m"], card["v"], base,
+                                 lr, bc1, bc2, cfg)
+            card["m"].copy_(m2)
+            card["v"].copy_(v2)
+            if mp is not None:
+                card["mp"].copy_(new)
+            card["p"].copy_(new.to(p.dtype))
+            outs = [(view[n], card[n]) for n in host]
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(comp)
+                with torch.cuda.stream(d2h):
+                    d2h.wait_event(done)
+                    for dst, src in outs:
+                        dst.copy_(src, non_blocking=True)
+                        HOST_COPIED["d2h"] += dst.numel() * dst.element_size()
+                    slot["free"] = torch.cuda.Event()
+                    slot["free"].record(d2h)
+            else:
+                for dst, src in outs:
+                    dst.copy_(src)
+    if cuda:
+        comp.wait_stream(d2h)
+        d2h.synchronize()
 
 
 def opt_specs(param_specs: Sequence,

@@ -29,6 +29,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import HOST_COPIED, host_target
+
 BLOCK = 256
 
 
@@ -91,6 +93,30 @@ def block_ids(shape, axis: int, rank: int, n: int,
     return idx // BLOCK
 
 
+def _shard_blocks(x: torch.Tensor, layout, group):
+    """(the whole leaf's block of each element of the shard ``x``, whose
+    layout is ``(whole shape, axis)``; this rank's absmax of every block
+    [n_blocks])."""
+    shape, axis = layout
+    b = block_ids(shape, axis, group.rank, group.size, x.device)
+    m = torch.zeros(-(-math.prod(shape) // BLOCK), dtype=torch.float32,
+                    device=x.device)
+    m.scatter_reduce_(0, b.reshape(-1), x.abs().reshape(-1), "amax")
+    return b, m
+
+
+def _scales(maxes: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Every block's f32 scale, from the ranks' ``maxes`` (one tensor a
+    leaf): one max all-reduce over ``group`` for them all."""
+    flat = group.all_reduce(torch.cat(list(maxes)), "max")
+    return [torch.clamp(c / 127.0, min=1e-12)
+            for c in flat.split([m.numel() for m in maxes])]
+
+
+def _codes(x: torch.Tensor, scale: torch.Tensor, b: torch.Tensor):
+    return torch.clamp(torch.round(x / scale[b]), -127, 127).to(torch.int8)
+
+
 def quantize_shards(xs: Sequence[torch.Tensor], layouts, group
                     ) -> List[Tuple[torch.Tensor, ...]]:
     """The reference's ``_quantize`` of whole leaves, for shards: per
@@ -98,22 +124,29 @@ def quantize_shards(xs: Sequence[torch.Tensor], layouts, group
     elements' int8 codes, shaped as the shard; every block's f32 scale
     [n_blocks] of the whole leaf; its elements' blocks, ``block_ids``).
     One max all-reduce over ``group`` for them all."""
-    ids, maxes = [], []
-    for x, (shape, axis) in zip(xs, layouts):
-        b = block_ids(shape, axis, group.rank, group.size, x.device)
-        n_blocks = -(-math.prod(shape) // BLOCK)
-        m = torch.zeros(n_blocks, dtype=torch.float32, device=x.device)
-        m.scatter_reduce_(0, b.reshape(-1), x.abs().reshape(-1), "amax")
-        ids.append(b)
-        maxes.append(m)
-    flat = group.all_reduce(torch.cat(maxes), "max")
-    out, off = [], 0
-    for x, b, m in zip(xs, ids, maxes):
-        scale = torch.clamp(flat[off:off + m.numel()] / 127.0, min=1e-12)
-        off += m.numel()
-        q = torch.clamp(torch.round(x / scale[b]), -127, 127).to(torch.int8)
-        out.append((q, scale, b))
-    return out
+    blocks = [_shard_blocks(x, lay, group) for x, lay in zip(xs, layouts)]
+    scales = _scales([m for _, m in blocks], group)
+    return [(_codes(x, s, b), s, b)
+            for x, (b, _), s in zip(xs, blocks, scales)]
+
+
+def _load(r: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The residual ``r`` on its gradient's card: a HOST-tier one copied
+    there (``r`` itself on the CPU)."""
+    if host_target(r) is None:
+        return r
+    HOST_COPIED["h2d"] += r.numel() * r.element_size()
+    return r.to(g.device, non_blocking=True)
+
+
+def _keep(r: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """The new residual where ``r`` lives: written into a HOST-tier ``r``
+    in place (which is kept), else ``new`` itself."""
+    if host_target(r) is None:
+        return new
+    HOST_COPIED["d2h"] += r.numel() * r.element_size()
+    r.copy_(new)
+    return r
 
 
 def compress_grads(grads: Sequence[torch.Tensor],
@@ -123,20 +156,37 @@ def compress_grads(grads: Sequence[torch.Tensor],
     """int8-EF compression leaf by leaf: (grads', residuals'). Over a
     rank ``group``, ``layouts`` (aligned with ``grads``) gives each FSDP
     shard's whole shape and axis, None for a whole leaf: the shards are
-    quantized in their whole leaves' blocks (``quantize_shards``)."""
-    if group is None or group.size == 1 or layouts is None or not any(
-            lay is not None for lay in layouts):
-        out = [compress_leaf(g, r) for g, r in zip(grads, residuals)]
-        return [o[0] for o in out], [o[1] for o in out]
+    quantized in their whole leaves' blocks (``quantize_shards``). A
+    residual on the HOST tier (``core.hdm``, pinned host memory) is copied
+    onto the card for its own leaf only -- over a group twice, once for
+    the blocks' absmax and once for the codes -- and its new value
+    written back into it in place, so that at most one leaf's residual is
+    on the card at a time."""
+    if group is None or group.size == 1 or layouts is None:
+        layouts = [None] * len(grads)
     new_g, new_r = list(grads), list(residuals)
     idx = [i for i, lay in enumerate(layouts) if lay is not None]
     for i in (i for i, lay in enumerate(layouts) if lay is None):
-        new_g[i], new_r[i] = compress_leaf(grads[i], residuals[i])
-    g32 = [grads[i].float() + residuals[i] for i in idx]
-    coded = quantize_shards(g32, [layouts[i] for i in idx], group)
-    for i, x, (q, scale, b) in zip(idx, g32, coded):
-        deq = q.float() * scale[b]
-        new_g[i], new_r[i] = deq.to(grads[i].dtype), x - deq
+        new_g[i], r = compress_leaf(grads[i], _load(residuals[i], grads[i]))
+        new_r[i] = _keep(residuals[i], r)
+    if not idx:
+        return new_g, new_r
+
+    def g32(i):
+        return grads[i].float() + _load(residuals[i], grads[i])
+    held, maxes = {}, []
+    for i in idx:
+        x = g32(i)
+        b, m = _shard_blocks(x, layouts[i], group)
+        maxes.append(m)
+        if host_target(residuals[i]) is None:
+            held[i] = (x, b)
+    for i, scale in zip(idx, _scales(maxes, group)):
+        x, b = held.pop(i) if i in held else (g32(i), block_ids(
+            *layouts[i], group.rank, group.size, grads[i].device))
+        deq = _codes(x, scale, b).float() * scale[b]
+        new_g[i], new_r[i] = deq.to(grads[i].dtype), _keep(residuals[i],
+                                                          x - deq)
     return new_g, new_r
 
 

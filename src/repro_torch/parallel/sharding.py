@@ -51,6 +51,12 @@ CACHE_BATCH_AXIS = {"pos": 0, "h": 2, "conv": 2, "cross_k": 1,
                     "sh": 1, "sc": 1, "sn": 1, "sm": 1, "sconv": 1}
 # on a module of a POOL-tier shard: {parameter name: its FSDP axis}
 FSDP_ATTR = "_fsdp_axes"
+# on a HOST-tier tensor: the device it is copied onto for use
+HOST_TARGET = "_hdm_streams_to"
+# while a list: ("issue" | "wait", label) of every HostRead's copies
+HOST_TRACE: Optional[List] = None
+# bytes the HOST tier has copied onto ("h2d") and off ("d2h") the card
+HOST_COPIED = {"h2d": 0, "d2h": 0}
 
 # (regex over param path, spec WITHOUT the leading layer-stack axis)
 # "F" marks the FSDP-shardable axis (replaced by fsdp axis for POOL tier,
@@ -239,16 +245,17 @@ def fsdp_axes(params: nn.Module) -> List[Optional[int]]:
     return [by_id.get(id(p)) for p in params.parameters()]
 
 
-def _twin(mod: nn.Module, got: Dict) -> nn.Module:
+def _twin(mod: nn.Module, got: Dict, keep_fsdp: bool = False) -> nn.Module:
     """A structural copy of ``mod`` (its own module and parameter dicts;
     the same tensors) with the gathered leaves ``got`` in place of its
-    shards and no FSDP leaves left."""
+    shards and no FSDP leaves left (with ``keep_fsdp``, still marked)."""
     new = object.__new__(type(mod))
     new.__dict__ = dict(mod.__dict__)
-    new.__dict__.pop(FSDP_ATTR, None)
+    if not keep_fsdp:
+        new.__dict__.pop(FSDP_ATTR, None)
     new._parameters = {k: got.get((id(mod), k), p)
                        for k, p in mod._parameters.items()}
-    new._modules = {k: None if m is None else _twin(m, got)
+    new._modules = {k: None if m is None else _twin(m, got, keep_fsdp)
                     for k, m in mod._modules.items()}
     return new
 
@@ -301,11 +308,18 @@ class _Gathers:
 def _with_leaves(unit, leaves, tensors):
     """``unit`` (a layer, a model or a tuple of them) as a structural twin
     with ``tensors`` in place of its POOL-tier ``leaves``."""
-    got = {(id(mod), attr): t for (mod, attr, _), t in zip(leaves, tensors)}
+    return _with_got(unit, {(id(mod), attr): t for (mod, attr, _), t
+                            in zip(leaves, tensors)})
+
+
+def _with_got(unit, got, keep_fsdp: bool = False):
+    """``unit`` as a structural twin with ``got[(id(module), name)]`` in
+    place of those leaves and no FSDP leaves left (with ``keep_fsdp``,
+    its FSDP leaves still marked)."""
     if isinstance(unit, tuple):
-        return tuple(_twin(m, got) for m in unit)
-    out = _twin(unit, got)
-    if len(getattr(unit, "shard", ())) == 4:
+        return tuple(_twin(m, got, keep_fsdp) for m in unit)
+    out = _twin(unit, got, keep_fsdp)
+    if not keep_fsdp and len(getattr(unit, "shard", ())) == 4:
         out.shard = unit.shard[:2]
     return out
 
@@ -318,20 +332,31 @@ class FsdpRead:
     are), gathered in ``granularity`` pieces (``_Gathers``). Without a
     group of more than one rank, or without FSDP leaves, nothing is
     gathered and ``wait()`` returns the unit itself. No gradient flows
-    through it: the serving steps' read (``gather_train`` is training's)."""
+    through it: the serving steps' read (``gather_train`` is training's).
+    A unit with HOST-tier leaves is copied onto the card first: the copies
+    (``HostRead``) are issued at construction, the gathers of the copied
+    shards in ``wait()``."""
 
-    def __init__(self, unit, group=None, granularity: int = 1):
-        self.unit = unit
-        self.leaves = (_pool_leaves(unit)
-                       if group is not None and group.size > 1 else [])
-        self.pending = _Gathers(
+    def __init__(self, unit, group=None, granularity: int = 1, label=None):
+        self.unit, self.group, self.granularity = unit, group, granularity
+        self.copy = HostRead(unit, label) if on_host(unit) else None
+        self.pending = None if self.copy else self._gather(unit)
+
+    def _gather(self, unit):
+        self.leaves = (_pool_leaves(unit) if self.group is not None
+                       and self.group.size > 1 else [])
+        return _Gathers(
             [mod._parameters[attr].detach() for mod, attr, _ in self.leaves],
-            [axis for *_, axis in self.leaves], group, granularity)
+            [axis for *_, axis in self.leaves], self.group, self.granularity)
 
     def wait(self):
+        unit = self.unit
+        if self.copy:
+            unit = self.copy.wait()
+            self.pending = self._gather(unit)
         if not self.leaves:
-            return self.unit
-        return _with_leaves(self.unit, self.leaves, self.pending.wait())
+            return unit
+        return _with_leaves(unit, self.leaves, self.pending.wait())
 
 
 def gather_fsdp(params, group, granularity: int = 1):
@@ -339,6 +364,152 @@ def gather_fsdp(params, group, granularity: int = 1):
     axis gathered over ``group``: exactly the leaves ``shard_params``
     cut, put back together."""
     return FsdpRead(params, group, granularity).wait()
+
+
+def host_target(t: torch.Tensor) -> Optional[torch.device]:
+    """The device a HOST-tier tensor (``core.hdm.host_empty``) is copied
+    onto for use (None: not on the HOST tier)."""
+    return getattr(t, HOST_TARGET, None)
+
+
+def _host_leaves(unit) -> List[Tuple[nn.Module, str, torch.Tensor]]:
+    """(module, parameter name, tensor) of every HOST-tier leaf of a
+    layer, a model, or a tuple of them (none for a plain tensor)."""
+    roots = unit if isinstance(unit, tuple) else (unit,)
+    if not all(isinstance(r, nn.Module) for r in roots):
+        return []
+    return [(mod, attr, p) for root in roots for mod in root.modules()
+            for attr, p in mod._parameters.items()
+            if p is not None and host_target(p) is not None]
+
+
+def on_host(unit) -> bool:
+    """Whether a unit has leaves on the HOST tier."""
+    return bool(_host_leaves(unit))
+
+
+_COPY_STREAMS: Dict = {}
+
+
+def copy_stream(device: torch.device, kind: str = "h2d"):
+    """The side stream of ``kind`` ("h2d" or "d2h") that the HOST tier's
+    copies to or from ``device`` run on, one per device."""
+    key = (kind, device.index)
+    if key not in _COPY_STREAMS:
+        _COPY_STREAMS[key] = torch.cuda.Stream(device)
+    return _COPY_STREAMS[key]
+
+
+def _trace(event: str, label) -> None:
+    if HOST_TRACE is not None:
+        HOST_TRACE.append((event, label))
+
+
+class HostRead:
+    """The copy of a unit's (a layer's, a model's or a tuple's) HOST-tier
+    leaves onto their card, issued at construction without waiting: on a
+    side stream, after the work already queued on the current one, into
+    fresh card tensors (``record_stream`` keeps the allocator from handing
+    them out while the copy runs). A host leaf that is not pinned raises:
+    a copy from pageable memory would run in line. On the CPU the copies
+    are clones. ``copies()`` makes the current stream wait for them and
+    hands them over (once); ``wait()`` returns the unit's card twin, the
+    copies in place of its host leaves and its FSDP axes kept, which
+    ``FsdpRead`` and ``gather_train`` then gather as a POOL unit. Each read
+    is recorded in ``HOST_TRACE`` (while it is a list) as ``("issue",
+    label)`` and ``("wait", label)``."""
+
+    def __init__(self, unit, label=None):
+        self.unit, self.label = unit, label
+        self.leaves = _host_leaves(unit)
+        self.params, self.index = [], {}
+        for _, _, p in self.leaves:
+            if id(p) not in self.index:
+                self.index[id(p)] = len(self.params)
+                self.params.append(p)
+        _trace("issue", label)
+        self.pending, self.event = _issue_copies(self.params)
+
+    def copies(self) -> List[torch.Tensor]:
+        """The card copies of ``self.params``, once the current stream
+        waits for them; a read is taken once."""
+        if self.event is not None:
+            torch.cuda.current_stream(self.pending[0].device).wait_event(
+                self.event)
+        _trace("wait", self.label)
+        out, self.pending = self.pending, None
+        return out
+
+    def wait(self):
+        return self.twin(self.copies())
+
+    def twin(self, copies):
+        """The unit with ``copies`` (aligned with ``self.params``) in
+        place of its host leaves, its FSDP axes kept."""
+        return _with_got(self.unit, {
+            (id(mod), attr): copies[self.index[id(p)]]
+            for mod, attr, p in self.leaves}, keep_fsdp=True)
+
+
+def _issue_copies(params: List[torch.Tensor]):
+    """(card copies of the host ``params``, the event their copy records)
+    -- clones and no event on the CPU."""
+    device = host_target(params[0])
+    if device.type != "cuda":
+        return [p.detach().clone() for p in params], None
+    cur = torch.cuda.current_stream(device)
+    side = copy_stream(device)
+    dst = [torch.empty(p.shape, dtype=p.dtype, device=device)
+           for p in params]
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for p, d in zip(params, dst):
+            if not p.is_pinned():
+                raise RuntimeError("a HOST-tier leaf is not in pinned "
+                                   "memory: its copy would run in line")
+            d.copy_(p.detach(), non_blocking=True)
+            HOST_COPIED["h2d"] += p.numel() * p.element_size()
+    for d in dst:
+        d.record_stream(side)
+    event = torch.cuda.Event()
+    event.record(side)
+    return dst, event
+
+
+class HostGrads:
+    """The card gradients of a step's HOST-tier leaves, which autograd
+    cannot hand to a leaf on the host: ``_CopyFn``'s backward adds each
+    leaf's (its shard's, on a group) under the leaf; ``pop(p)`` returns it
+    (None if the loss did not reach ``p``)."""
+
+    def __init__(self):
+        self.grads: Dict[int, torch.Tensor] = {}
+
+    def add(self, key: int, g: torch.Tensor) -> None:
+        self.grads[key] = g if key not in self.grads else self.grads[key] + g
+
+    def pop(self, p: torch.Tensor) -> Optional[torch.Tensor]:
+        return self.grads.pop(id(p), None)
+
+
+class _CopyFn(torch.autograd.Function):
+    """HOST-tier leaves -> their card copies (a ``HostRead``'s); backward:
+    each copy's gradient, in the leaf's dtype and shape (reduced to this
+    rank's shard by ``_GatherFn`` first, where the leaf is gathered),
+    handed to the step's ``HostGrads`` ``sink``. No gradient flows to the
+    host leaves themselves: autograd refuses a card gradient for a leaf on
+    the host."""
+
+    @staticmethod
+    def forward(ctx, sink, read, *leaves):
+        ctx.sink, ctx.keys = sink, [id(p) for p in leaves]
+        return tuple(read.copies())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        for k, g in zip(ctx.keys, grads):
+            ctx.sink.add(k, g)
+        return (None, None) + (None,) * len(grads)
 
 
 def _pack_shard_grads(grads, axes, n: int) -> torch.Tensor:
@@ -389,21 +560,34 @@ class _GatherFn(torch.autograd.Function):
         return (None, *_unpack_shard_grads(mine, ctx.shapes))
 
 
-def gather_train(unit, group, granularity: int, reducer):
+def gather_train(unit, group, granularity: int, reducer, *, read=None,
+                 sink: Optional[HostGrads] = None):
     """``unit`` with its FSDP axes gathered over ``group`` as in
     ``FsdpRead``, differentiably: the gradient of each gathered leaf
     returns to its shard through ``reducer`` (the step's
     ``core.deterministic_store.GradReducer``), one reduction for the
     unit. Without a group of more than one rank, or without FSDP leaves,
-    the unit itself (``reducer`` may then be None)."""
+    the unit itself (``reducer`` may then be None). A unit on the HOST
+    tier is copied onto the card first (``read``, a ``HostRead`` of it
+    issued ahead, else one now, through ``_CopyFn``), then gathered as a
+    POOL unit; its card gradients go to ``sink`` (``HostGrads``), not to
+    the host leaves."""
     leaves = (_pool_leaves(unit)
               if group is not None and group.size > 1 else [])
+    # the reducer's key names the unit's own modules, not a twin's
+    key = tuple((id(mod), attr) for mod, attr, _ in leaves)
+    if on_host(unit):
+        if sink is None:
+            raise ValueError("a HOST-tier unit in training needs the "
+                             "step's HostGrads")
+        read = read if read is not None else HostRead(unit)
+        unit = read.twin(list(_CopyFn.apply(sink, read, *read.params)))
+        leaves = (_pool_leaves(unit) if leaves else [])
     if not leaves:
         return unit
     if reducer is None:
         raise ValueError(f"gather_train over {group.size} ranks needs the "
                          f"step's GradReducer")
-    key = tuple((id(mod), attr) for mod, attr, _ in leaves)
     spec = (group, [axis for *_, axis in leaves], granularity, reducer, key)
     whole = _GatherFn.apply(spec, *[mod._parameters[attr]
                                     for mod, attr, _ in leaves])

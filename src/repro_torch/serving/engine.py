@@ -42,14 +42,18 @@ axis alone, else a ``RankMesh``). Every rank runs the same scheduler on
 the same traffic. It holds its shard of the weights, split by the
 reference's ``param_specs`` (``parallel.sharding``: the attention's and
 MLP's columns / rows, the vocabulary, the experts, the Mamba2 and xLSTM
-projections) and, at ``param_tier="pool"`` over a data axis, cut again on
-their FSDP axes (``core.hdm.HDMStore``): each step gathers a layer's FSDP
-shards over the data group on the speculative read's schedule, one layer
-ahead at ``sr_prefetch_depth`` 1 (``core.speculative_read``). Its cache
-holds its own page range of every slot it holds: the slots split over
-the batch axes (data, or pod and data with ``multi_pod``) and the pages
-over the model axis, or, with one slot, the pages over the data and model
-axes together (the reference's ``decode_axes``). So the decode is the
+projections) and, at ``param_tier="pool"`` or ``"host"`` over a data
+axis, cut again on their FSDP axes (``core.hdm.HDMStore``): each step
+gathers a layer's FSDP shards over the data group on the speculative
+read's schedule, one layer ahead at ``sr_prefetch_depth`` 1
+(``core.speculative_read``). With ``param_tier="host"`` and
+``rc.enable_host_tier`` the weights (a rank's shard, or all of them on
+one rank) live in pinned host memory, and each step copies a layer onto
+the card on a side stream ``sr_prefetch_depth`` layers ahead of its use.
+Its cache holds its own page range of every slot it holds: the slots
+split over the batch axes (data, or pod and data with ``multi_pod``) and
+the pages over the model axis, or, with one slot, the pages over the data
+and model axes together (the reference's ``decode_axes``). So the decode is the
 page-sharded one on each rank's slots, a prefill chunk runs on the row
 that holds its slot and gathers the slot's pages there (the other rows
 join its FSDP gathers), the MoE is expert-parallel and the Mamba2 layers
@@ -377,10 +381,13 @@ class ServingEngine:
         # the rank groups of the steps, the slot rows and the page shards
         self.ranks = M.Ranks()
         self._rows, self._dp, page_shards = (0, 1), None, 1
+        mp = rc.mesh.multi_pod
+        store = HDMStore(self.mesh, tier=rc.param_tier,
+                         enable_host_tier=rc.enable_host_tier,
+                         multi_pod_fsdp=mp)
+        if self.mesh is None and store.pinned:
+            params = store.place(params)
         if self.mesh is not None:
-            mp = rc.mesh.multi_pod
-            store = HDMStore(self.mesh, tier=rc.param_tier,
-                             multi_pod_fsdp=mp)
             params = self._rank_params(params, store)
             dp = self.mesh.dp(mp)
             if n_slots == 1:       # no batch to split: pages over all axes
@@ -403,10 +410,12 @@ class ServingEngine:
         self.rc = rc
         # as the reference's engine: where the FSDP axes have one rank the
         # stream's prefetch slots gather nothing, and it runs without them
+        # -- unless the weights live on the HOST tier, whose reads are
+        # copies onto the card
         self._hot_rc = rc
         fsdp_size = 1 if self.mesh is None else (self.mesh.shape[0]
                                                  * self.mesh.shape[1])
-        if rc.sr_prefetch_depth and fsdp_size == 1:
+        if rc.sr_prefetch_depth and fsdp_size == 1 and not store.pinned:
             self._hot_rc = dataclasses.replace(rc, sr_prefetch_depth=0)
         self.n_slots = n_slots
         self.max_seq = config.max_seq

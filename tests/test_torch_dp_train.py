@@ -62,13 +62,15 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 def case(name, arch, dtype="float32", shape=(2, 1), multi_pod=False,
          ds=True, int8_ef=False, microbatches=1, step=True, tier="pool",
-         granularity=1):
+         granularity=1, host_memory=False):
     """One training case: the reference's and the port's run configs
-    (``tier``: the parameters' and the optimizer state's)."""
+    (``tier``: the parameters' and the optimizer state's; with
+    ``host_memory`` the port keeps a "host" tier in host arenas,
+    ``enable_host_tier``, which the reference cannot on the CPU)."""
     return dict(name=name, arch=arch, dtype=dtype, shape=list(shape),
                 multi_pod=multi_pod, ds=ds, int8_ef=int8_ef,
                 microbatches=microbatches, step=step, tier=tier,
-                granularity=granularity)
+                granularity=granularity, host_memory=host_memory)
 
 
 def np_batch(arch, seed=0):
@@ -240,7 +242,8 @@ def run_config(c, cfg):
                      ds_enabled=c["ds"], microbatches=c["microbatches"],
                      grad_compression="int8_ef" if c["int8_ef"] else "none",
                      param_tier=c["tier"], optimizer_tier=c["tier"],
-                     sr_granularity=c["granularity"])
+                     sr_granularity=c["granularity"],
+                     enable_host_tier=c.get("host_memory", False))
 
 
 def train_case(rank_mesh, c, params_np):
@@ -270,7 +273,10 @@ def train_case(rank_mesh, c, params_np):
     from repro_torch.parallel import sharding
     out = {"loss": float(loss), "grads": [bridge.to_numpy(g) for g in grads],
            "axes": sharding.fsdp_axes(state.params),
-           "coords": rank_mesh.coords}
+           "coords": rank_mesh.coords,
+           "on_host": [sharding.host_target(t) is not None for t in (
+               *state.params.parameters(), *state.opt.m, *state.opt.v,
+               *state.opt.master)]}
     if c["step"]:
         from repro_torch.core import hdm
         out["bytes"] = hdm.bytes_per_device(state, hdm.HDMStore(
@@ -416,11 +422,14 @@ def assert_step_close(runs, c, want):
 # ------------------------------------------------------------------ cases
 
 F32_CASES = [case(f"{arch}-f32", arch) for arch in FAMILIES]
+# the HOST tier in host memory at (2, 1): weights, m, v and master
+HOST_CASE = case("qwen3-1.7b-host-f32", "qwen3-1.7b", tier="host",
+                 host_memory=True)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    cases = F32_CASES
+    cases = F32_CASES + [HOST_CASE]
     out_dir = str(tmp_path_factory.mktemp("dp_train"))
     result = run_reference(cases, out_dir)
     port = run_port(cases, tmp_path_factory)
@@ -448,3 +457,27 @@ def test_dp_adamw_step_matches_reference_f32(runs, arch):
     port, ref = runs
     c = next(c for c in F32_CASES if c["arch"] == arch)
     assert_step_close(port[c["name"]], c, ref[c["name"]])
+
+
+def test_dp_host_tier_matches_reference_and_pool(runs):
+    """(host, host) at (2, 1), each rank's shards of the weights, m, v and
+    master in host arenas: the loss, the gradients and the AdamW step
+    against the reference's at ``tier="host"``, and every number bit for
+    bit the POOL case's (the same shards, the same collectives)."""
+    port, ref = runs
+    c = HOST_CASE
+    got, want = port[c["name"]], ref[c["name"]]
+    for r in got:
+        assert all(r["on_host"])
+        np.testing.assert_allclose(r["loss"], want["loss"], **F32_TOL)
+    assert_grads_close(as_tree(c["arch"], "float32", joined(got, c, "grads"),
+                               "g"), want)
+    assert_step_close(got, c, want)
+    pool = port["qwen3-1.7b-f32"]
+    for r, q in zip(got, pool):
+        assert not any(q["on_host"])
+        assert r["loss"] == q["loss"] and r["step_loss"] == q["step_loss"]
+        assert r["collectives"] == q["collectives"]
+        for key in ("grads", "params", "m", "v", "master"):
+            for a, b in zip(r[key], q[key]):
+                np.testing.assert_array_equal(a, b, err_msg=key)

@@ -315,10 +315,17 @@ def test_bytes_per_device_matches_reference_on_one_device(host_mesh, arch):
     tparams = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                             params),
                                      treg.smoke(arch), device="cpu")
-    for tier in (thdm.POOL, thdm.DEVICE):
+    for tier in (thdm.POOL, thdm.DEVICE, thdm.HOST):
         assert thdm.bytes_per_device(tparams.parameters(),
                                      thdm.HDMStore(tier=tier)) == want
-    with pytest.raises(NotImplementedError, match="HOST"):
-        thdm.HDMStore(tier=thdm.HOST)
-    with pytest.raises(NotImplementedError, match="HOST"):
-        thdm.HDMStore(enable_host_tier=True)
+    # HOST is accepted with or without its host memory; placed on the
+    # CPU it holds every byte in host arenas, copied bit for bit
+    store = thdm.HDMStore(tier=thdm.HOST, enable_host_tier=True)
+    placed = store.place(tparams)
+    assert thdm.bytes_per_device(placed.parameters(), store) == want
+    for (name, p), q in zip(tparams.named_parameters(), placed.parameters()):
+        assert thdm.host_target(q) == torch.device("cpu"), name
+        assert thdm.host_target(p) is None and torch.equal(p, q), name
+    assert thdm.HDMStore(tier=thdm.HOST).place(tparams) is tparams
+    with pytest.raises(ValueError, match="unknown tier"):
+        thdm.HDMStore(tier="ssd")

@@ -7,7 +7,9 @@ of an uninterrupted run, each rank's checkpoint its own shard, a resume
 that replays the saved step's batch as the reference's does (ROADMAP
 Queue 3) and follows the one-rank driver's resume. Training at a model
 axis of 2 and at a mixed tier pair raises ``NotImplementedError``
-(ROADMAP Queue 1 item 4), never running on one rank instead. The
+(ROADMAP Queue 1 item 4) where the pair shards the data axis apart
+(DEVICE beside POOL or HOST over two FSDP ranks), never running on one
+rank instead; on one rank every pair builds. The
 deterministic store's placements (``ds_grad_specs``) equal the
 reference's, on and off, with and without ``multi_pod``, and so do the
 training state's (``steps.state_specs``) on both tiers.
@@ -58,13 +60,25 @@ def test_training_refuses_a_model_axis_and_mixed_tiers():
                           mesh=model_axis)
     with pytest.raises(NotImplementedError, match="item 4"):
         TM.check_trainable(cfg, (1, 2))
-    for pair in (("pool", "device"), ("device", "pool")):
+    data_axis = mesh.RankMesh.of_group(mesh.RankGroup(
+        0, 1, torch.device("cpu"), "gloo"))
+    for pair in (("pool", "device"), ("device", "pool"), ("device", "host"),
+                 ("host", "device")):
         mixed = dataclasses.replace(rc, param_tier=pair[0],
                                     optimizer_tier=pair[1])
         with pytest.raises(NotImplementedError, match="item 4"):
-            tsteps.build_train_step(cfg, mixed, opt)
+            TM.check_trainable(cfg, (2, 1), mixed)
         with pytest.raises(NotImplementedError, match="item 4"):
-            tsteps.init_state(TM.init_model(cfg, device="cpu"), mixed, opt)
+            TM.check_trainable(cfg, (2, 1, 1), dataclasses.replace(
+                mixed, mesh=MeshConfig(multi_pod=True)))
+        # one FSDP rank: the pair shards alike, and trains
+        TM.check_trainable(cfg, (2, 1, 1), mixed)
+        tsteps.build_train_step(cfg, mixed, opt)
+        tsteps.build_train_step(cfg, mixed, opt, mesh=data_axis)
+        tsteps.init_state(TM.init_model(cfg, device="cpu"), mixed, opt)
+    for pair in (("pool", "host"), ("host", "pool"), ("host", "host")):
+        TM.check_trainable(cfg, (2, 1), dataclasses.replace(
+            rc, param_tier=pair[0], optimizer_tier=pair[1]))
 
 
 def test_train_ranks_checkpoints_and_resumes(tmp_path):
