@@ -199,7 +199,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    tick, 2 ``all_to_all``s per MoE layer per even chunk and none at
    decode; then the families of ``TP_FAMILIES`` at full width, cut to
    ``TP_CUT`` (zamba2-2.7b 6 of 54 layers: one group with its shared
-   block; musicgen-large 4 of 48 with 1024-token slots and 2 restores;
+   block; musicgen-large 2 of 48 with 1024-token slots and 2 restores;
    llama-3.2-vision-11b 5 of 40: four self-attention layers and a cross
    layer; xlstm-125m 6 of 12: one group), each held as qwen3 is to its
    one-rank engine
@@ -282,8 +282,22 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    turns, the collectives of a step by axis, a layer's gather ms, a
    layer's and the embedding's f32 gradient reduce-scattered (DS on) and
    all-reduced (DS off) ms, the bytes of params, m, v and master a rank
-   against one rank's, and the peak memory;
-18. serve qwen3-1.7b (7 of 28 layers, ``HOST_SERVE_LAYERS``) with its
+   against one rank's, and the peak memory; then one step with DEVICE
+   weights beside POOL m, v and masters (``steps.state_moves``: each rank
+   updates its FSDP shard of the state and the new weights are gathered),
+   its loss and its first moments within ``TP_NOISE_X`` times the one
+   rank's own distance from its f32 twin after one step;
+18. train the same model and batch at mesh (1, 2): two rank processes
+   on the one card, each on its model-axis shard (Megatron's split:
+   ``param_specs``' "M" leaves halved, each rank's heads, d_ff columns
+   and vocabulary columns, the activations whole between blocks) and the
+   whole batch. Held by the same rule: the loss, every gradient leaf (the
+   ranks' parts put together) and the first moments after one AdamW
+   step; the ranks' losses and clip norms alike, no kernel launched.
+   Prints a rank's step ms over ``TP_TRAIN_STEPS`` steps, the
+   collectives of a step by axis, the bytes of params, m, v and master a
+   rank against one rank's (and the model-split leaves'), the peak;
+19. serve qwen3-1.7b (7 of 28 layers, ``HOST_SERVE_LAYERS``) with its
    weights on the HOST tier
    (``param_tier="host"``, ``enable_host_tier``: every leaf in pinned
    host memory, each step's reads copied onto the card on a side stream,
@@ -295,7 +309,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    one, both kernels launched, a pageable leaf's copy refused; prints
    the tick and chunk ms at SR depth 1 and 0 in turns (1 0, 0 1, 1 0),
    the copies of a tick alone and the share of them the prefetch hides;
-19. train glm4-9b at full width on one rank with its weights, m, v and
+20. train glm4-9b at full width on one rank with its weights, m, v and
    master on the HOST tier: (a) 4 layers, 2 steps of 2 x 1024 tokens,
    then the DEVICE twin from the same weights and batch, the card freed
    between: every parameter, moment and master equal bit for bit, the
@@ -310,7 +324,7 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    optimizer ms, the bytes copied each way, the copy rates, the share of
    the layer copies the prefetch hides, the pinned bytes against the
    bytes held;
-20. print the measured numbers, the seconds of each phase, one
+21. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -390,18 +404,21 @@ XLSTM_TIMED_TOKENS = 32
 # of the dp and HOST phases (PERF.md section 4)
 CUT_LAYERS = {ARCH: 6, HYBRID: 12, GRANITE: 6, MUSICGEN: 6, VLM: 10,
               GLM4: 10, STARCODER2: 10, GEMMA: 9, XLSTM: 6}
-# the tp phase's qwen3-1.7b, cut to 4 of 28 layers for the same reason:
-# each rank charges its replica of the tier with the whole entry, and the
-# phase runs the one-rank engine and the two ranks in both page formats
+# the tp phase's qwen3-1.7b (and the dp phase's), cut to 4 of 28 layers
+# for the same reason: each rank charges its replica of the tier with the
+# whole entry, and the phase runs the one-rank engine and the two ranks
+# in both page formats (at 2 layers the int8 ranks' first token after a
+# restore parts from the one-rank engine's: ROADMAP Queue 3)
 TP_LAYERS = 4
 # the tp phase's other families, each beside its one-rank engine and f32
 # twin: zamba2 at one group of 6 Mamba2 layers with its shared block,
-# musicgen at 4 of 48 layers (1024-token slots), the VLM at 5 of 40 (4
+# musicgen at 2 of 48 layers (1024-token slots; 4 before the tp2-train
+# phase), the VLM at 5 of 40 (4
 # self-attention layers and one cross layer), xLSTM at one group of 6 of
 # its 12 layers (5 mLSTM layers and an sLSTM layer), the last two cut for
 # the HOST phases
 TP_FAMILIES = (HYBRID, MUSICGEN, VLM, XLSTM)
-TP_CUT = {HYBRID: 6, MUSICGEN: 4, VLM: 5, XLSTM: 6}
+TP_CUT = {HYBRID: 6, MUSICGEN: 2, VLM: 5, XLSTM: 6}
 TPF_PATHS = {arch: f"{arch} tp2" for arch in TP_FAMILIES}
 # the VLM's direct tp gate: 2 rows, one prefill chunk then one tick, the
 # cross gates set to these values and the vision K/V written by each
@@ -498,6 +515,10 @@ DP_TRAIN_MESH, DP_TRAIN_LAYERS = (2, 1), 4
 DP_TRAIN_BATCH, DP_TRAIN_SEQ = 4, 1024
 DP_TRAIN_ORDERS = ((True, False), (False, True))
 DP_TRAIN_TIMEOUT_S = 600.0
+# the tp2-train phase: the dp-train phase's model and batch at mesh (1, 2),
+# two ranks on the one card, each on its model-axis shard; 3 steps timed
+TP_TRAIN_PATH = f"{ARCH} tp2 train"
+TP_TRAIN_MESH, TP_TRAIN_STEPS = (1, 2), 3
 # the HOST tier (pinned host memory streamed onto the card by the
 # speculative read): "host-serve" serves qwen3-1.7b (HOST_SERVE_LAYERS)
 # with its weights on the HOST tier beside the same traffic on the DEVICE
@@ -4468,12 +4489,37 @@ def dp_train_file():
     return os.path.join(ROOT, "build", "dp_train", "one_rank.pt")
 
 
+def first_moments(grads, gnorm, opt_cfg):
+    """AdamW's first moments after one step from zero on ``grads`` whose
+    global norm is ``gnorm``: ``optim.adamw.update``'s arithmetic (the
+    clip in f32, each gradient cast back to its dtype, then ``(1 - b1)``
+    of it in f32)."""
+    import torch
+    norm = torch.tensor(gnorm, dtype=torch.float32, device=grads[0].device)
+    scale = torch.clamp(opt_cfg.grad_clip / (norm + 1e-9), max=1.0)
+    return [(1 - opt_cfg.b1) * (g.float() * scale).to(g.dtype).float()
+            for g in grads]
+
+
+def noise_gate(path, what, dist, noise, norms):
+    """Fail unless each leaf's distance from the one rank's (``dist``,
+    name -> float) is within ``TP_NOISE_X`` times the one rank's own
+    distance from its f32 twin (``noise``) plus 1e-6 of the twin's norm
+    (``norms``); returns the largest ratio to that noise."""
+    for n, d in dist.items():
+        if d > TP_NOISE_X * noise[n] + 1e-6 * norms[n]:
+            fail(f"{path}: {what} {n} off the one rank's by {d}, beyond "
+                 f"{TP_NOISE_X} x its own {noise[n]} from the f32 twin")
+    return max(d / max(noise[n], 1e-30) for n, d in dist.items())
+
+
 def dp_train_one_rank(dev):
     """The one-rank port's loss and gradients on the dp-train phase's
     global batch, and its f32 twin's (the same weights widened): the
-    gradients and, per leaf, the one rank's own distance from the twin,
-    saved for the ranks; then its step timed (the bytes of the whole
-    state, its peak)."""
+    gradients, their global norm and, per leaf, the one rank's own
+    distance from the twin, of the gradients and of the first moments
+    after one AdamW step, saved for the dp2 and tp2 train phases' ranks;
+    then its step timed (the bytes of the whole state, its peak)."""
     import copy
     import dataclasses
     import torch
@@ -4493,13 +4539,30 @@ def dp_train_one_rank(dev):
              for n, a, c in zip(names, g1, g32)}
     norms = {n: float(torch.linalg.vector_norm(c))
              for n, c in zip(names, g32)}
+    # one AdamW step: the one rank's first moments (from its gradients and
+    # their clip norm, ``first_moments``) against its f32 twin's after one
+    # step from the same weights, per leaf
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    del g32
+    free_card()
+    state32 = steps_lib.init_state(wide, dataclasses.replace(
+        rc, model=cfg32), opt_cfg)
+    state32, _ = steps_lib.build_train_step(
+        cfg32, dataclasses.replace(rc, model=cfg32), opt_cfg)(state32, b)
+    gnorm = float(adamw.global_norm(g1))
+    m1 = first_moments(g1, gnorm, opt_cfg)
+    m_noise = {n: float(torch.linalg.vector_norm(a - c))
+               for n, a, c in zip(names, m1, state32.opt.m)}
+    m_norms = {n: float(torch.linalg.vector_norm(c))
+               for n, c in zip(names, state32.opt.m)}
+    del state32, m1
     os.makedirs(os.path.dirname(dp_train_file()), exist_ok=True)
     torch.save({"loss": float(l1), "loss_f32": float(l32),
+                "grad_norm": gnorm,
                 "grads": {n: g.cpu() for n, g in zip(names, g1)}},
                dp_train_file())
-    del wide, g1, g32
+    del wide, g1
     free_card()
-    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
     state = steps_lib.init_state(params, rc, opt_cfg)
     step = steps_lib.build_train_step(cfg, rc, opt_cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -4514,7 +4577,8 @@ def dp_train_one_rank(dev):
         ms.append(start.elapsed_time(end))
     opt = state.opt
     out = {"loss": float(l1), "loss_f32": float(l32), "noise": noise,
-           "norms": norms, "step_ms": ms,
+           "norms": norms, "m_noise": m_noise, "m_norms": m_norms,
+           "grad_norm": gnorm, "step_ms": ms,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "bytes": {k: sum(t.numel() * t.element_size() for t in ts)
                      for k, ts in (("params", list(params.parameters())),
@@ -4641,6 +4705,60 @@ def dp_train_rank(rank_mesh):
                                   ("m", opt.m), ("v", opt.v),
                                   ("master", opt.master))}
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, opt, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["device_pool"] = device_pool_step(rank_mesh, b, names, opt_cfg)
+    return out
+
+
+def device_pool_step(rank_mesh, b, names, opt_cfg):
+    """One step of the dp-train model with DEVICE weights (whole on both
+    ranks) beside POOL m, v and masters (each rank's FSDP shard,
+    ``steps.state_moves``): its loss, and each leaf's squared distance of
+    the first moments from the one rank's (``first_moments`` of the saved
+    gradients), on this rank's shard of the state; its collectives and
+    bytes."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.launch import mesh
+    from repro_torch.launch import steps as steps_lib
+    dev = rank_mesh.device
+    cfg, rc, whole, _ = dp_train_model(dev)
+    rc = dataclasses.replace(rc, param_tier="device", optimizer_tier="pool")
+    state = steps_lib.init_state(whole, rc, opt_cfg, mesh=rank_mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    moves = steps_lib.state_moves(state.params, rc, rank_mesh)
+    mesh.COLLECTIVES.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = steps_lib.build_train_step(cfg, rc, opt_cfg,
+                                                mesh=rank_mesh)(state, b)
+    end.record()
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "step_ms": start.elapsed_time(end),
+           "collectives": dict(mesh.COLLECTIVES),
+           "sliced": [mv is not None for mv in moves]}
+    ref = torch.load(dp_train_file())
+    rank = rank_mesh.data.rank
+    sq = {}
+    for n, mv, m in zip(names, moves, state.opt.m):
+        want = first_moments([ref["grads"][n].to(dev)], ref["grad_norm"],
+                             opt_cfg)[0]
+        if mv is not None:
+            want = want.narrow(mv[1], rank * m.shape[mv[1]], m.shape[mv[1]])
+        sq[n] = float(((m - want) ** 2).sum())
+    out["m_sq_dist"] = sq
+    opt = state.opt
+    out["bytes"] = {k: sum(t.numel() * t.element_size() for t in ts)
+                    for k, ts in (("params", list(state.params.parameters())),
+                                  ("m", opt.m), ("v", opt.v),
+                                  ("master", opt.master))}
     return out
 
 
@@ -4686,8 +4804,28 @@ def train_dp(dev, one):
             fail(f"{path}: gradient {n} off the one rank's by {dist[n]}, "
                  f"beyond {TP_NOISE_X} x its own {one['noise'][n]} from the "
                  f"f32 twin")
+    # DEVICE weights beside POOL state: the loss and the first moments
+    dpool = [r["device_pool"] for r in ranks]
+    if any(d["loss"] != dpool[0]["loss"] for d in dpool):
+        fail(f"{path} DEVICE beside POOL: the ranks' losses differ: "
+             f"{[d['loss'] for d in dpool]}")
+    if abs(dpool[0]["loss"] - one["loss"]) > TP_NOISE_X * noise_loss + \
+            TOL["atol"]:
+        fail(f"{path} DEVICE beside POOL: loss {dpool[0]['loss']} vs one "
+             f"rank's {one['loss']}, beyond {TP_NOISE_X} x {noise_loss} + "
+             f"{TOL['atol']}")
+    m_dist = {n: math.sqrt(sum(d["m_sq_dist"][n] for d in dpool) if sliced
+                           else dpool[0]["m_sq_dist"][n])
+              for n, sliced in zip(dpool[0]["m_sq_dist"], dpool[0]["sliced"])}
+    m_ratio = noise_gate(f"{path} DEVICE beside POOL", "first moment",
+                         m_dist, one["m_noise"], one["m_norms"])
     launches, off = split_counts(path, first["counts"], ())
     out = {"spawn_s": spawn_s, "mesh": DP_TRAIN_MESH,
+           "device_pool": {"loss": dpool[0]["loss"],
+                           "m_dist_over_noise_max": m_ratio,
+                           "step_ms": [d["step_ms"] for d in dpool],
+                           "collectives": dpool[0]["collectives"],
+                           "bytes": [d["bytes"] for d in dpool]},
            "n_layers": DP_TRAIN_LAYERS, "batch": DP_TRAIN_BATCH,
            "seq_len": DP_TRAIN_SEQ, "launches": launches,
            "off_path_launches": off, "loss": first["loss"],
@@ -4723,6 +4861,171 @@ def train_dp(dev, one):
         f"ms; bytes a rank {out['bytes']} "
         f"(one rank {one['bytes']}); peak GiB {out['peak_gib']} (one rank "
         f"{one['peak_gib']:.2f}); spawn {spawn_s:.1f} s")
+    dp_ = out["device_pool"]
+    log(f"{path} DEVICE weights beside POOL m, v and masters: loss "
+        f"{dp_['loss']:.6f}; first moments within {m_ratio:.3f} x the one "
+        f"rank's own distance from its f32 twin; step ms {dp_['step_ms']}; "
+        f"collectives {dp_['collectives']}; bytes a rank {dp_['bytes']}")
+    return out
+
+
+def tp_train_rank(rank_mesh):
+    """One rank of the tp2-train phase (a process of its own, on the card
+    it shares with the other): the dp-train phase's model made on the card
+    and cut to this rank's shard of the model axis (``steps.init_state(
+    mesh=)``: every leaf ``param_specs`` splits on "model" halved), the
+    whole global batch; the loss and gradients under Megatron's split
+    (``steps.loss_and_grads(ranks=)``), each leaf's squared distance from
+    the one rank's gradient's part, then ``TP_TRAIN_STEPS`` steps timed,
+    the first moments after the first against the one rank's
+    (``first_moments``), the collectives of a step by axis, bytes and
+    peak. The kernel counts run from before the first loss to after the
+    last step."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import mesh
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    dev = rank_mesh.device
+    cfg, rc, whole, batch = dp_train_model(dev)
+    opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
+    state = steps_lib.init_state(whole, rc, opt_cfg, mesh=rank_mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = to_device(batch, dev)
+    ranks = steps_lib.train_ranks_of(rc, rank_mesh)
+    specs = dict(zip([n for n, _ in state.params.named_parameters()],
+                     steps_lib.param_spec_list(state.params, rc)))
+    model = rank_mesh.model
+    zero_counters()
+    loss, grads = steps_lib.loss_and_grads(state.params, cfg, rc, b,
+                                           ranks=ranks)
+    ref = torch.load(dp_train_file())
+
+    def part(n, t):
+        spec = specs[n]
+        if "model" not in spec:
+            return t
+        axis = spec.index("model")
+        k = t.shape[axis] // model.size
+        return t.narrow(axis, model.rank * k, k)
+    sq = {n: float(((g.float() - part(n, ref["grads"][n].to(dev)).float())
+                    ** 2).sum())
+          for n, g in zip(specs, grads)}
+    out = {"coords": rank_mesh.coords, "loss": float(loss), "sq_dist": sq,
+           "split": {n: "model" in spec for n, spec in specs.items()}}
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = steps_lib.build_train_step(cfg, rc, opt_cfg, mesh=rank_mesh)
+    times, losses = [], []
+    for i in range(TP_TRAIN_STEPS):
+        mesh.COLLECTIVES.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            out["collectives"] = dict(mesh.COLLECTIVES)
+            out["grad_norm"] = float(metrics["grad_norm"])
+            m_sq = {}
+            for n, m in zip(specs, state.opt.m):
+                want = first_moments([ref["grads"][n].to(dev)],
+                                     ref["grad_norm"], opt_cfg)[0]
+                m_sq[n] = float(((m - part(n, want)) ** 2).sum())
+            out["m_sq_dist"] = m_sq
+    out["counts"] = read_counters()
+    out["step_ms"], out["losses"] = times, losses
+    opt = state.opt
+    out["bytes"] = {k: sum(t.numel() * t.element_size() for t in ts)
+                    for k, ts in (("params", list(state.params.parameters())),
+                                  ("m", opt.m), ("v", opt.v),
+                                  ("master", opt.master))}
+    out["split_param_bytes"] = sum(
+        p.numel() * p.element_size()
+        for n, p in zip(specs, state.params.parameters())
+        if "model" in specs[n])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def train_tp(dev, one):
+    """The tp2-train phase: two rank processes of mesh (1, 2) on the one
+    card joined by gloo (``launch.mesh.spawn``), each on its model-axis
+    shard of the dp-train phase's qwen3-1.7b (``DP_TRAIN_LAYERS`` layers
+    at full width, 4 x 1024 tokens a step, POOL tier) and the whole
+    batch: Megatron's split under grad (``launch.steps``). Held against
+    the one rank (``one``: ``dp_train_one_rank``) by the multi-rank rule:
+    the loss, every gradient leaf (the ranks' parts put together) and the
+    first moments after one AdamW step, each within ``TP_NOISE_X`` times
+    the one rank's own distance from its f32 twin (the loss plus TOL's
+    atol); the ranks' losses and clip norms alike; no kernel launched
+    (the training forward runs none). Reported: a rank's step ms, the
+    collectives of a step by axis, parameter and state bytes a rank
+    against one rank's, the peak a rank."""
+    import math
+    from repro_torch.launch import mesh
+    t0 = time.time()
+    ranks = mesh.spawn(tp_train_rank, math.prod(TP_TRAIN_MESH), (),
+                       rendezvous_dir=os.path.join(ROOT, "build", "dp_train"),
+                       device="cuda", timeout_s=DP_TRAIN_TIMEOUT_S,
+                       mesh_shape=TP_TRAIN_MESH)
+    spawn_s = time.time() - t0
+    path, first = TP_TRAIN_PATH, ranks[0]
+    noise_loss = abs(one["loss"] - one["loss_f32"])
+    for r, run in enumerate(ranks):
+        if (run["losses"] != first["losses"] or run["loss"] != first["loss"]
+                or run["grad_norm"] != first["grad_norm"]):
+            fail(f"{path} rank {r}: losses {run['losses']} / clip norm "
+                 f"{run['grad_norm']} differ from rank 0's "
+                 f"{first['losses']} / {first['grad_norm']}")
+    if abs(first["loss"] - one["loss"]) > TP_NOISE_X * noise_loss + \
+            TOL["atol"]:
+        fail(f"{path}: loss {first['loss']} vs one rank's {one['loss']}, "
+             f"beyond {TP_NOISE_X} x {noise_loss} + {TOL['atol']}")
+
+    def dist(key):
+        return {n: math.sqrt(sum(run[key][n] for run in ranks) if split
+                             else first[key][n])
+                for n, split in first["split"].items()}
+    g_ratio = noise_gate(path, "gradient", dist("sq_dist"), one["noise"],
+                         one["norms"])
+    m_ratio = noise_gate(path, "first moment", dist("m_sq_dist"),
+                         one["m_noise"], one["m_norms"])
+    launches, off = split_counts(path, first["counts"], ())
+    out = {"spawn_s": spawn_s, "mesh": TP_TRAIN_MESH,
+           "n_layers": DP_TRAIN_LAYERS, "batch": DP_TRAIN_BATCH,
+           "seq_len": DP_TRAIN_SEQ, "launches": launches,
+           "off_path_launches": off, "loss": first["loss"],
+           "one_rank_loss": one["loss"], "one_rank_loss_f32": one["loss_f32"],
+           "grad_dist_over_noise_max": g_ratio,
+           "m_dist_over_noise_max": m_ratio,
+           "grad_norm": first["grad_norm"], "one_rank_grad_norm":
+           one["grad_norm"], "losses": first["losses"],
+           "step_ms": [r["step_ms"] for r in ranks],
+           "one_rank_step_ms": one["step_ms"],
+           "collectives": first["collectives"],
+           "bytes": [r["bytes"] for r in ranks],
+           "one_rank_bytes": one["bytes"],
+           "split_param_bytes": [r["split_param_bytes"] for r in ranks],
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "one_rank_peak_gib": one["peak_gib"]}
+    log(f"{path}: loss {first['loss']:.6f} on both ranks (one rank "
+        f"{one['loss']:.6f}, its f32 twin {one['loss_f32']:.6f}); gradients "
+        f"within {g_ratio:.3f} x and first moments after one step within "
+        f"{m_ratio:.3f} x the one rank's own distance from its f32 twin; "
+        f"step ms {out['step_ms']} (one rank {one['step_ms']}); "
+        f"collectives a step {out['collectives']}; bytes a rank "
+        f"{out['bytes']} (one rank {one['bytes']}; the model-split "
+        f"leaves' {out['split_param_bytes']}); peak GiB {out['peak_gib']} "
+        f"(one rank {one['peak_gib']:.2f}); spawn {spawn_s:.1f} s")
     return out
 
 
@@ -5449,6 +5752,10 @@ def main() -> None:
         dp_train = train_dp(dev, dpt_one)
     free_card()
 
+    with phase(TP_TRAIN_PATH):
+        tp_train = train_tp(dev, dpt_one)
+    free_card()
+
     with phase(HOST_SERVE_PATH):
         host_sv = host_serve(dev)
     free_card()
@@ -5462,6 +5769,7 @@ def main() -> None:
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
             XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained,
             XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train,
+            TP_TRAIN_PATH: tp_train,
             HOST_SERVE_PATH: host_sv, HOST_TRAIN_PATH: host_tr}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
@@ -5679,7 +5987,8 @@ def main() -> None:
                    "prefill_train": pre_train, "train_small": small_train,
                    "train_checkpoint": ckpt, "train": trained,
                    "train_driver": driver, "train_xlstm": xl_train,
-                   "train_dp": dp_train, "serve_host": host_sv,
+                   "train_dp": dp_train, "train_tp": tp_train,
+                   "serve_host": host_sv,
                    "train_host": host_tr,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)

@@ -368,28 +368,39 @@ def train_state_from_jax(np_state, cfg: ModelConfig, device="cuda", *,
     return TrainState(params, state, flat(np_state.residuals))
 
 
-def train_state_to_numpy(state, cfg: ModelConfig, group=None) -> Dict:
+def train_state_to_numpy(state, cfg: ModelConfig, group=None,
+                         model=None) -> Dict:
     """A rank's training state put back together: every FSDP shard
     gathered over ``group`` (its FSDP group; None: the state is whole),
-    as the reference's whole numpy trees ``{"params", "m", "v",
-    "master", "residuals"}`` (bf16 widened to f32; ``master`` and
+    then every leaf cut on the model axis gathered over ``model`` (its
+    model group), as the reference's whole numpy trees ``{"params", "m",
+    "v", "master", "residuals"}`` (bf16 widened to f32; ``master`` and
     ``residuals`` None where the state has none) and ``"step"``."""
-    model = state.params
-    axes = sharding.fsdp_axes(model)
+    params = state.params
+    axes = sharding.fsdp_axes(params)
+    specs = getattr(params, "specs", None)
+    m_axes = [None if specs is None or "model" not in specs[n]
+              else specs[n].index("model")
+              for n, _ in params.named_parameters()]
+
+    def gather(tensors, axes, grp):
+        moved = [i for i, a in enumerate(axes) if a is not None]
+        if grp is None or grp.size == 1 or not moved:
+            return
+        got = sharding._Gathers([tensors[i] for i in moved],
+                                [axes[i] for i in moved], grp).wait()
+        for i, t in zip(moved, got):
+            tensors[i] = t
 
     def whole(tensors):
         if tensors is None:
             return None
         tensors = [t.detach() for t in tensors]
-        if group is not None and group.size > 1:
-            moved = [i for i, a in enumerate(axes) if a is not None]
-            got = sharding._Gathers([tensors[i] for i in moved],
-                                    [axes[i] for i in moved], group).wait()
-            for i, t in zip(moved, got):
-                tensors[i] = t
-        return params_to_numpy(model, cfg, tensors)
+        gather(tensors, axes, group)
+        gather(tensors, m_axes, model)
+        return params_to_numpy(params, cfg, tensors)
 
     opt = state.opt
-    return {"params": whole(list(model.parameters())), "m": whole(opt.m),
+    return {"params": whole(list(params.parameters())), "m": whole(opt.m),
             "v": whole(opt.v), "master": whole(opt.master),
             "residuals": whole(state.residuals), "step": int(opt.step)}

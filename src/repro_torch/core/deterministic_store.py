@@ -17,7 +17,13 @@ consult the staging index first.
   the baseline's all-reduce of the whole gradient, then the rank's slice.
   ``apply_ds`` then all-reduces the leaves that have no FSDP axis (norm
   scales, leaves the divisibility guard leaves whole, every leaf on the
-  DEVICE tier), packed into one all-reduce. At a data axis of 2 both
+  DEVICE tier), packed into one all-reduce. On a model axis too (Megatron's
+  split, ``launch.steps``) a rank's gradients are its (F, M) shards and
+  every reduction here stays over the data axes: a leaf cut on "model" is
+  summed over the data ranks that hold the same part, and a leaf whole on
+  the model axis arrives with its whole gradient on every model rank (the
+  sums over the model axis are taken in the backward,
+  ``parallel.sharding.copy_in``), so it is never summed over it again. At a data axis of 2 both
   modes give the same bits (each sum is one f32 addition, a + b on one
   rank, b + a on the other). On one rank both pass their input through.
 * The staging ring (``RingState``, ``ring_init``, ``ring_write``,

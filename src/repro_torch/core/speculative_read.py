@@ -28,6 +28,9 @@ idle; the port leaves them out, on every rank alike. ``prefetch_depth``
 0 reads each layer in line, as the reference's other branch does.
 
 ``mode="train"`` reads each layer inside the function it rematerializes
+(over the FSDP ``group`` alone: on a model axis the body runs the rank's
+shard of the layer, its collectives over the model group its own, and
+the gathers and HOST copies stay over the data axes)
 (``sharding.gather_train``: differentiable, its backward the deterministic
 store's ``reducer``), as the reference's ``materialize`` runs inside
 ``jax.checkpoint``: the gathered (or copied) layer is not saved for the

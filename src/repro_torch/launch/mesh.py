@@ -17,8 +17,10 @@ Every collective of the port goes through a :class:`RankGroup`, one axis
 (or a product of axes) of the mesh: ``all_reduce`` (max or sum),
 ``all_gather`` (also issued asynchronously, for the speculative read's
 gathers one layer ahead), ``all_to_all`` (equal splits,
-``all_to_all_single``), ``broadcast`` and ``reduce_scatter`` (the
-deterministic store's gradients in training). Gloo carries the first
+``all_to_all_single``), ``broadcast``, ``reduce_scatter`` (the
+deterministic store's gradients in training) and ``sum_ranked`` (one
+``all_gather`` and a sum in rank order: the training step's sums over the
+model axis). Gloo carries the first
 four for CUDA tensors on the H100 with torch 2.11 (it stages them
 through host memory itself; ``chip_smoke.py``'s tp and dp phases); the
 reduce-scatter is built from one ``all_to_all`` and a sum in rank order
@@ -162,6 +164,19 @@ class RankGroup:
         for i in range(1, self.size):
             out += got[i]
         return out.movedim(0, dim)
+
+    def sum_ranked(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t`` in f32, added in rank order
+        from one ``all_gather``: the same bits on every rank and every
+        backend (the training step's sums over the model axis)."""
+        t = t.float()
+        if self.size == 1:
+            return t
+        parts = self.all_gather(t)
+        out = parts[0].clone()
+        for i in range(1, self.size):
+            out += parts[i]
+        return out
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """``t`` of the group's rank ``src`` on every rank, in place;

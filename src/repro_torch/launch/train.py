@@ -9,10 +9,13 @@ the active variant. The expectation divides by the H100's dense bf16 peak.
 ``Heartbeat`` and ``StragglerMitigator`` watch the workers; the state
 checkpoints asynchronously and resumes from the latest step.
 
-Over a rank mesh (``train_ranks(arch, mesh_shape=(D, 1))`` or ``(P, D,
-1)``: one process per rank, spawned as ``serve_ranks`` spawns them) each
-rank trains its POOL-tier shard of the weights and of the optimizer state
-on its rows of every global batch (``launch.steps``); every rank stamps
+Over a rank mesh (``train_ranks(arch, mesh_shape=(D, N))`` or ``(P, D,
+N)``: one process per rank, spawned as ``serve_ranks`` spawns them) each
+rank trains its shard of the weights and of the optimizer state -- its
+model rank's part of every leaf ``param_specs`` splits on "model"
+(the dense, audio and MoE families), cut again to its FSDP part on the
+POOL tier -- on its data row's rows of every global batch
+(``launch.steps``); every rank stamps
 the heartbeat with every rank's step time (one all-gather a step), and
 the QoS loop reads the slowest, so every rank picks the same variant.
 Each rank checkpoints its own shard under ``<ckpt_dir>/rank_<r>``; a
@@ -119,8 +122,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     ``global_batch`` sequences of ``seq_len`` tokens (default 64 at smoke
     size, the shape's own length at full size, where one card holds 8
     sequences of ``train_4k``, not its 256). On a rank ``mesh``
-    (``launch.mesh.RankMesh``, model axis 1) this process is one rank:
-    its shard of the state, its rows of each batch over the data axis
+    (``launch.mesh.RankMesh``) this process is one rank: its shard of
+    the state (on the model axis too), its data row's rows of each batch
     (the reference's ``MeshConfig()``: pod ranks are replicas); rank 0
     prints. ``param_tier`` / ``optimizer_tier`` place the weights and the
     optimizer state (``core.hdm``); with ``enable_host_tier`` a "host"
@@ -137,7 +140,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig(),
                    param_tier=param_tier, optimizer_tier=optimizer_tier,
                    enable_host_tier=enable_host_tier)
-    M.check_trainable(cfg, mesh.shape if mesh is not None else (), rc)
+    M.check_trainable(cfg, mesh.shape if mesh is not None else ())
     opt_cfg = adamw.AdamWConfig(learning_rate=rc.learning_rate,
                                 total_steps=max(steps, 10))
     params = M.init_model(cfg, seed=rc.seed, device=dev)
@@ -220,8 +223,8 @@ def _train_rank(rank_mesh, arch, kwargs):
 
 def train_ranks(arch: str, *, mesh_shape, device="cuda",
                 timeout_s: float = 3600.0, **kwargs):
-    """``train`` on the ranks of a ``mesh_shape`` mesh ((D, 1) or (P, D,
-    1)), spawned as ``launch.serve.serve_ranks`` spawns them (a
+    """``train`` on the ranks of a ``mesh_shape`` mesh ((D, N) or (P, D,
+    N)), spawned as ``launch.serve.serve_ranks`` spawns them (a
     ``file://`` rendezvous in a new temporary directory, each rank given
     its ``RankMesh``); rank 0 prints. Returns each rank's history and its
     shard of the final state (``state_dict`` names, numpy)."""

@@ -34,7 +34,7 @@ from repro_torch.kernels.decode_attention.ops import paged_decode
 from repro_torch.kernels.flash_attention.ops import flash_prefill
 from repro_torch.models import kv_quant
 from repro_torch.models.layers import (apply_rope, dense_init, frozen_param,
-                                       head_rmsnorm, pdtype)
+                                       head_rmsnorm, pdtype, rmsnorm)
 from repro_torch.parallel import sharding
 
 
@@ -109,6 +109,77 @@ def qkv_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def train_heads(cfg: ModelConfig, n: int) -> int:
+    """The q heads a rank of a model axis of ``n`` computes in training
+    where its split falls on head edges: H / n, when every rank's heads
+    map to whole kv heads (G divides them) or share one (they divide G);
+    else 0 (the split falls inside a head, or a rank's heads straddle kv
+    heads unevenly: its q columns are gathered whole)."""
+    h, g = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    if h % n:
+        return 0
+    hl = h // n
+    return hl if hl % g == 0 or g % hl == 0 else 0
+
+
+def qkv_project_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, group
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 bool]:
+    """``qkv_project`` under grad over a model ``group``, x [B, S, d] whole
+    on every rank: (q, k, v, split). Where ``wq`` is split on its columns
+    (``split``) each rank computes its own heads' q (``train_heads``; its
+    columns gathered whole where the split is not on head edges) and the
+    kv heads they read: its own columns of a split ``wk``/``wv`` where its
+    heads are exactly those, else the columns gathered whole (a split
+    inside a head: gemma-2b's one kv head) or a whole weight's columns,
+    sliced to its kv heads. Each rank's gradients are then its share,
+    summed over the ranks by ``copy_in`` at ``x``, at a whole ``wk`` /
+    ``wv`` and at the q/k norms, and by the gathers' backward. Where
+    ``wq`` is whole (and so ``wo``) the attention is whole on every rank,
+    a split ``wk``/``wv``'s columns gathered whole (each rank keeping its
+    columns' gradient)."""
+    b, s, _ = x.shape
+    d, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    split = attn.wq.shape[1] != cfg.q_dim
+    qn, kn = attn.q_norm, attn.k_norm
+    if not split:
+        q = x @ attn.wq
+        k, v = (x @ w if w.shape[1] == cfg.kv_dim else
+                sharding.gather_cols(group, x @ w) for w in (attn.wk,
+                                                              attn.wv))
+    else:
+        x = sharding.copy_in(group, x)
+        hl = train_heads(cfg, group.size)
+        q = x @ attn.wq
+        q_lo = group.rank * hl
+        if not hl:
+            q = sharding.gather_cols(group, q, grad="sum")
+            q_lo, hl = 0, cfg.n_heads
+        kv_lo, kv_n = q_lo // g, max(1, hl // g)
+        cols = slice(kv_lo * d, (kv_lo + kv_n) * d)
+
+        def kv(w):
+            if w.shape[1] == cfg.kv_dim:
+                return x @ sharding.copy_in(group, w)[:, cols]
+            if kv_n * d == w.shape[1] and kv_lo * d == group.rank * kv_n * d:
+                return x @ w
+            return sharding.gather_cols(group, x @ w, grad="sum")[..., cols]
+        k, v = kv(attn.wk), kv(attn.wv)
+        if cfg.qk_norm:
+            qn, kn = (sharding.copy_in(group, t) for t in (qn, kn))
+    q = q.reshape(b, s, -1, d)
+    k = k.reshape(b, s, -1, d)
+    v = v.reshape(b, s, -1, d)
+    if cfg.qk_norm:
+        q = head_rmsnorm(qn, q, cfg.norm_eps)
+        k = head_rmsnorm(kn, k, cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v, split
+
+
 def q_project(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
               group=None) -> torch.Tensor:
     """The query alone, without RoPE (the cross layer's): x: [B, S, d] ->
@@ -181,6 +252,31 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, hkv, sq, g, d).transpose(1, 2).reshape(
         b, sq, h, d).to(q.dtype)
+
+
+def attention_train(block, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, group, *, causal: bool = True,
+                    kv_block: int = 512) -> torch.Tensor:
+    """The attention half of a block (``ln_attn``, ``attn``) under grad
+    over a model ``group`` (x [B, S, d] whole on every rank; returns x
+    plus the attention's output, whole on every rank): Megatron's form --
+    each rank's heads (``qkv_project_train``), the plain
+    ``chunked_attention`` on them, the row-parallel ``wo`` product in f32
+    summed over the ranks and cast once (``sharding.reduce_out``)."""
+    b, s = x.shape[0], x.shape[1]
+    h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
+    q, k, v, split = qkv_project_train(block.attn, cfg, h, positions,
+                                       group)
+    o = chunked_attention(q, k, v, causal=causal, kv_block=kv_block,
+                          logit_softcap=cfg.attn_logit_softcap)
+    o = o.reshape(b, s, -1)
+    if not split:
+        return x + o @ block.attn.wo
+    n = block.attn.wo.shape[0]
+    if o.shape[-1] != n:                  # every head: this rank's columns
+        o = o[..., group.rank * n:(group.rank + 1) * n]
+    return x + sharding.reduce_out(
+        group, sharding.product_f32(o, block.attn.wo), x.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor,

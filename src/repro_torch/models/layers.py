@@ -133,18 +133,30 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> MLP:
 
 
 def mlp_apply(mlp: MLP, cfg: ModelConfig, x: torch.Tensor,
-              group=None) -> torch.Tensor:
+              group=None, train: bool = False) -> torch.Tensor:
     """``jax.nn.gelu`` is the tanh form, hence ``approximate="tanh"``.
     With the weights of a rank ``group`` split on d_ff
     (``parallel.sharding``): the gate / up products column-parallel, the
-    down product row-parallel (``parallel.sharding.row_parallel``)."""
+    down product row-parallel (``parallel.sharding.row_parallel``); with
+    ``train``, differentiably: ``x`` enters through ``copy_in`` and the
+    ranks' f32 products leave through ``reduce_out``."""
+    if train and group is not None and mlp.w_down.shape[0] != cfg.d_ff:
+        x = sharding.copy_in(group, x)
+        return sharding.reduce_out(
+            group, sharding.product_f32(_mlp_hidden(mlp, cfg, x),
+                                        mlp.w_down), x.dtype)
+    return sharding.row_product(group, _mlp_hidden(mlp, cfg, x),
+                                mlp.w_down, cfg.d_ff)
+
+
+def _mlp_hidden(mlp: MLP, cfg: ModelConfig, x: torch.Tensor):
     if cfg.activation == "swiglu":
         h = F.silu(x @ mlp.w_gate) * (x @ mlp.w_up)
     elif cfg.activation == "geglu":
         h = F.gelu(x @ mlp.w_gate, approximate="tanh") * (x @ mlp.w_up)
     else:
         h = F.gelu(x @ mlp.w_up, approximate="tanh")
-    return sharding.row_product(group, h, mlp.w_down, cfg.d_ff)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -180,12 +192,13 @@ def _table_rows(cfg: ModelConfig) -> int:
 
 
 def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
-                group=None):
+                group=None, train: bool = False):
     """tokens: [B, S] int -> [B, S, d]. Audio: tokens [B, K, S], codebook
     k's ids offset by ``k · vocab``, the K rows summed -> [B, S, d].
     With the table of a rank ``group`` split on its rows
     (``parallel.sharding``), an id this rank does not hold gives 0 and a
-    sum across the ranks puts the rows together."""
+    sum across the ranks puts the rows together (with ``train``,
+    ``sharding.reduce_out``: each rank's rows take their gradient)."""
     ids = tokens.long()
     if cfg.family == "audio":
         ids = ids + (torch.arange(cfg.n_codebooks, device=tokens.device)
@@ -196,8 +209,10 @@ def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         local = ids - group.rank * table.shape[0]
         held = (local >= 0) & (local < table.shape[0])
-        x = sharding.reduce_sum(group, torch.where(
-            held[..., None], table[local.clamp(0, table.shape[0] - 1)], 0))
+        rows = torch.where(held[..., None],
+                           table[local.clamp(0, table.shape[0] - 1)], 0)
+        x = (sharding.reduce_out(group, rows) if train
+             else sharding.reduce_sum(group, rows))
     return x.sum(dim=1) if cfg.family == "audio" else x
 
 
@@ -222,6 +237,54 @@ def unembed_apply(embed: Embed, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
+
+
+def table_split(embed: Embed, cfg: ModelConfig) -> bool:
+    """Whether this rank holds part of the vocabulary (the table, or the
+    untied unembedding, cut on it by ``parallel.sharding``)."""
+    if cfg.tie_embeddings:
+        return embed.embedding.shape[0] != _table_rows(cfg)
+    return embed.unembed.shape[1] != _table_rows(cfg)
+
+
+def vocab_parallel_xent(embed: Embed, cfg: ModelConfig, x: torch.Tensor,
+                        labels: torch.Tensor, group) -> torch.Tensor:
+    """``softmax_xent(unembed_apply(embed, cfg, x), labels)`` with the
+    vocabulary split over the rank ``group`` (this rank's contiguous
+    columns, ``table_split``), differentiably and without gathering the
+    [T, V] logits: each rank's logits over its columns; the max (no
+    gradient: the result does not depend on it) and, per codebook, the
+    sum of exponentials and the label's logit (from the rank holding it,
+    0 elsewhere) summed over the ranks in f32. x [B, S, d] whole on every
+    rank; labels [B, S] (audio [B, K, S])."""
+    x = sharding.copy_in(group, x)
+    w = embed.embedding.T if cfg.tie_embeddings else embed.unembed
+    logits = (x @ w).float()                                 # [B, S, n]
+    n, v = logits.shape[-1], cfg.vocab_size
+    lo = group.rank * n
+    lab = labels.long() if labels.ndim == 3 else labels.long()[:, None]
+    k_n = lab.shape[1]
+    maxes, sums, golds = [], [], []
+    for k in range(k_n):
+        a, b = max(k * v, lo), min((k + 1) * v, lo + n)
+        col = lab[:, k] + k * v - lo                         # [B, S]
+        held = (col >= 0) & (col < n)
+        golds.append(torch.where(held, logits.gather(
+            -1, col.clamp(0, n - 1)[..., None])[..., 0], 0.0))
+        if a < b:
+            part = logits[..., a - lo:b - lo]
+            maxes.append(part.detach().amax(dim=-1))
+            sums.append(part)
+        else:
+            maxes.append(torch.full_like(golds[-1], float("-inf")))
+            sums.append(None)
+    mx = group.all_reduce(torch.stack(maxes, 1).contiguous(), "max")
+    exps = [torch.zeros_like(golds[k]) if p is None else
+            torch.exp(p - mx[:, k, :, None]).sum(dim=-1)
+            for k, p in enumerate(sums)]
+    tot = sharding.reduce_out(group, torch.stack([torch.stack(exps, 1),
+                                                  torch.stack(golds, 1)]))
+    return (torch.log(tot[0]) + mx - tot[1]).mean()
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

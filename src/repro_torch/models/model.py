@@ -65,7 +65,8 @@ from repro_torch.parallel import sharding
 from repro_torch.models.layers import (Embed, RMSNorm, embed_apply,
                                        embed_init, frozen_param, pdtype,
                                        rmsnorm, sinusoidal_positions,
-                                       softmax_xent, unembed_apply)
+                                       softmax_xent, table_split,
+                                       unembed_apply, vocab_parallel_xent)
 
 PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm", "ssm")
 # families with a training forward (``loss_fn``)
@@ -324,11 +325,12 @@ def _shared_in(sp: SharedBlock, x: torch.Tensor,
 
 
 def _embed(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
-           positions: torch.Tensor, group=None) -> torch.Tensor:
+           positions: torch.Tensor, group=None,
+           train: bool = False) -> torch.Tensor:
     """The token embedding (over a rank ``group`` where its table is
-    split), plus the sinusoidal positions (positions [B, S]) for a model
-    without rope (musicgen, xLSTM)."""
-    x = embed_apply(embed, cfg, tokens, group)
+    split; differentiably with ``train``), plus the sinusoidal positions
+    (positions [B, S]) for a model without rope (musicgen, xLSTM)."""
+    x = embed_apply(embed, cfg, tokens, group, train=train)
     if cfg.family == "audio" or not cfg.use_rope:
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -350,20 +352,27 @@ def _shared_block_apply(sp: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
-                shared=None, vision=None, batch=None):
+                shared=None, vision=None, batch=None, model=None,
+                data=None):
     """The layer stream's body for one stacked step of ``cfg``'s family:
     ``body((x, aux), layer) -> (x, aux)``; ``aux`` sums the MoE layers'
     load-balance losses. ``batch``: the rank group the batch's rows are
-    split over (the MoE routes the whole batch)."""
+    split over (the MoE routes the whole batch, or at a model axis of
+    more than one rank its rows); ``model``: the model axis's group, over
+    which the dense, audio and MoE blocks run their shards (Megatron's
+    form, ``transformer.block_apply``); ``data``: the MoE's token rows
+    beside the model axis (``moe.moe_block_apply``)."""
     fam = cfg.family
 
     def body(carry, layer):
         x, aux = carry
         if fam in ("dense", "audio"):
             return transformer.block_apply(layer, cfg, x, positions,
-                                           use_pallas=rc.use_pallas), aux
+                                           use_pallas=rc.use_pallas,
+                                           group=model), aux
         if fam == "moe":
-            x, a = moe.moe_block_apply(layer, cfg, x, positions, batch=batch)
+            x, a = moe.moe_block_apply(layer, cfg, x, positions, batch=batch,
+                                       group=model, data=data)
             return x, aux + a
         if fam == "vlm":
             self_blocks, cross = layer
@@ -387,42 +396,35 @@ def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
     return body
 
 
-def check_trainable(cfg: ModelConfig, mesh_shape=(),
-                    rc: Optional[RunConfig] = None) -> None:
+# the families trained on a model axis of more than one rank
+MODEL_AXIS_FAMILIES = ("dense", "moe", "audio")
+
+
+def check_trainable(cfg: ModelConfig, mesh_shape=()) -> None:
     """Raise for what the port does not train yet: a family without
-    training forms, a mesh with a model axis of more than one rank, or
-    parameters and optimizer state on tiers that shard the data axis
-    apart -- DEVICE beside POOL or HOST on more than one FSDP rank
-    (ROADMAP Queue 1 item 4, each). Any pair trains on one rank, and POOL
-    beside HOST (both sharded alike) on any data axis."""
+    training forms, or the hybrid, VLM and xLSTM families on a model axis
+    of more than one rank (ROADMAP Queue 1 item 4b: their Mamba2 heads,
+    cross layers and xLSTM cells over a model group have no backward
+    yet). Every tier pair trains, on any mesh."""
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported "
             f"(trained: {TRAINED_FAMILIES})")
-    if mesh_shape and tuple(mesh_shape)[-1] > 1:
-        raise NotImplementedError(
-            f"training on mesh {tuple(mesh_shape)}: a model axis of "
-            f"{tuple(mesh_shape)[-1]} ranks in training (weights split on "
-            f"the model axis in the train step) is ROADMAP Queue 1 item "
-            f"4's; train over the data and pod axes (model axis 1)")
-    if rc is None or {rc.param_tier, rc.optimizer_tier} <= {"pool",
-                                                            "host"}:
+    if not mesh_shape or tuple(mesh_shape)[-1] == 1:
         return
-    shape = tuple(mesh_shape) or (1,)
-    p_n, d_n, _ = (1,) * (3 - len(shape)) + shape
-    if (rc.param_tier != rc.optimizer_tier
-            and d_n * (p_n if rc.mesh.multi_pod else 1) > 1):
+    shape = tuple(mesh_shape)
+    if cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
-            f"param_tier {rc.param_tier!r} with optimizer_tier "
-            f"{rc.optimizer_tier!r} on mesh {tuple(mesh_shape)}: a pair of "
-            f"tiers that shard the data axis apart is ROADMAP Queue 1 item "
-            f"4's; train with both on one tier, POOL beside HOST, or on "
-            f"one rank")
+            f"training the {cfg.family!r} family on mesh {shape}: a model "
+            f"axis of {shape[-1]} ranks in training is ROADMAP Queue 1 "
+            f"item 4b's for the hybrid, VLM and xLSTM families; train it "
+            f"over the data and pod axes (model axis 1)")
 
 
 def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
             batch: Dict[str, torch.Tensor], *, group=None,
-            reducer=None, host_grads=None) -> torch.Tensor:
+            reducer=None, host_grads=None,
+            ranks: Optional["Ranks"] = None) -> torch.Tensor:
     """The training loss: mean next-token cross-entropy (plus the MoE
     layers' load-balance loss). batch: ``tokens`` and ``labels`` [B, S]
     (audio [B, K, S]) and, for the VLM, ``vision_embeds`` [B, Nv, d].
@@ -434,31 +436,47 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     forward under ``torch.no_grad`` only).
 
     Over a rank ``group`` (the data axis, or pod and data: the FSDP and
-    batch axes), ``params`` is this rank's POOL-tier shard and ``batch``
-    its rows of the global batch: the leaves outside the stream (the
-    embedding, tied or not, and the hybrid's shared block) are gathered
-    once, differentiably, the stream's layers each in its remat'd body
-    (``core.speculative_read``), their gradients reduced to the shards by
-    ``reducer`` (the deterministic store). The loss returned is the global
-    mean: each rank's mean averaged over the group (``sharding.
-    mean_over``), each rank's gradient its share of it; the MoE routes the
-    whole batch, so its aux loss counts once. With the weights on the
-    HOST tier every read copies its leaves onto the card first (the
-    leaves outside the stream once a step, the final norm among them),
-    the layers ``rc.sr_prefetch_depth`` ahead, and the leaves' card
-    gradients go to ``host_grads`` (``sharding.HostGrads``)."""
+    batch axes; ``ranks.fsdp``) ``params`` is this rank's POOL-tier shard
+    and ``batch`` its rows of the global batch: the leaves outside the
+    stream (the embedding, tied or not, and the hybrid's shared block) are
+    gathered once, differentiably, the stream's layers each in its
+    remat'd body (``core.speculative_read``), their gradients reduced to
+    the shards by ``reducer`` (the deterministic store). The loss
+    returned is the global mean: each rank's mean averaged over the group
+    (``sharding.mean_over``), each rank's gradient its share of it; the
+    MoE routes the whole batch, so its aux loss counts once. With the
+    weights on the HOST tier every read copies its leaves onto the card
+    first (the leaves outside the stream once a step, the final norm
+    among them), the layers ``rc.sr_prefetch_depth`` ahead, and the
+    leaves' card gradients go to ``host_grads`` (``sharding.HostGrads``).
+
+    Over a model axis (``ranks.model``, N > 1; dense, audio and MoE)
+    ``params`` holds this rank's shard of every leaf ``param_specs``
+    splits on "model", and the activations are whole on every model rank
+    between blocks (Megatron's form): the embedding looked up over the
+    rank's vocabulary rows and summed, each block over its heads, d_ff
+    columns and experts (``transformer.block_apply``, ``moe.
+    moe_block_apply``), the cross-entropy over the rank's vocabulary
+    columns (``layers.vocab_parallel_xent``). Every model rank computes
+    the same loss; the gathers, copies and reductions stay over the data
+    axes."""
     check_trainable(cfg)
+    if ranks is None:
+        ranks = Ranks(fsdp=group, batch=group)
+    group, model = ranks.fsdp, ranks.model
+    train = model is not None and model.size > 1
     tokens = batch["tokens"]
     bsz, seq = tokens.shape[0], tokens.shape[-1]
     positions = torch.arange(seq, dtype=torch.int32,
                              device=tokens.device)[None].expand(bsz, seq)
     top = sharding.gather_train(_outside(params, cfg), group,
                                 rc.sr_granularity, reducer, sink=host_grads)
-    x = _embed(top[0], cfg, tokens, positions)
+    x = _embed(top[0], cfg, tokens, positions, model, train=train)
     shared = ({"params": top[2], "emb": x}
               if cfg.family == "hybrid" else None)
     body = _body_train(cfg, rc, positions, shared=shared,
-                       vision=batch.get("vision_embeds"), batch=group)
+                       vision=batch.get("vision_embeds"), batch=ranks.batch,
+                       model=model if train else None, data=ranks.data)
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = sr.stream_layers(
         body, (x, aux0), _units(params, cfg),
@@ -466,22 +484,29 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
         mode="train", remat=rc.remat, remat_policy=rc.remat_policy,
         group=group, reducer=reducer, host_grads=host_grads)
     x = rmsnorm(top[1], x, cfg.norm_eps)
-    loss = _chunked_xent(top[0], cfg, x, batch["labels"]) + aux
+    loss = _chunked_xent(top[0], cfg, x, batch["labels"],
+                         group=model if train else None) + aux
     return sharding.mean_over(group, loss)
 
 
 def _chunked_xent(embed: Embed, cfg: ModelConfig, x: torch.Tensor,
-                  labels: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
+                  labels: torch.Tensor, n_chunks: int = 8,
+                  group=None) -> torch.Tensor:
     """Cross-entropy over ``n_chunks`` slices of the sequence (one when S
     does not divide), so the [T, V] logits are never whole; audio labels
     keep their [B, K, S] layout. Under grad each chunk is recomputed in
-    the backward pass, so no chunk's logits are held across the loss."""
+    the backward pass, so no chunk's logits are held across the loss.
+    With the vocabulary split over a model ``group`` each chunk is the
+    vocabulary-parallel cross-entropy (``layers.vocab_parallel_xent``)."""
     b, s, _ = x.shape
     if s % n_chunks or s // n_chunks == 0:
         n_chunks = 1
     cs = s // n_chunks
+    split = group is not None and table_split(embed, cfg)
 
     def chunk(xc, lc):
+        if split:
+            return vocab_parallel_xent(embed, cfg, xc, lc, group)
         return softmax_xent(unembed_apply(embed, cfg, xc), lc)
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -505,12 +530,16 @@ class Ranks:
     serving step runs over: ``model`` for the weights split on the model
     axis, ``pages`` for the cache's page axis, ``fsdp`` for the POOL
     tier's gathers (the speculative read), ``batch`` for the rows of slots
-    the decode batch is split into (the MoE routes the whole batch)."""
+    the decode batch is split into (the MoE routes the whole batch);
+    in training, ``data`` for the data axis alone, over which the MoE
+    shards its tokens beside the model axis even where the batch splits
+    over (pod, data) (the reference's ``moe_apply_ep`` default)."""
 
     model: Optional[object] = None
     pages: Optional[object] = None
     fsdp: Optional[object] = None
     batch: Optional[object] = None
+    data: Optional[object] = None
 
 
 def _ranks(group, ranks: Optional[Ranks]) -> Ranks:
@@ -717,6 +746,47 @@ def prefill_step_cached(params: nn.Module, cfg: ModelConfig,
     logits = unembed_apply(top[0], cfg, x, r.model)
     cache["pos"] += c
     return logits, cache
+
+
+@torch.no_grad()
+def prefill_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
+                 batch: Dict[str, torch.Tensor], *, group=None,
+                 ranks: Optional[Ranks] = None) -> torch.Tensor:
+    """The reference's non-cached prefill forward: the whole prompt
+    through the training forward with no cache and no remat, the last
+    position's logits [B, 1, V] (audio [B, K, 1, V]). batch: ``tokens``
+    [B, S] (audio [B, K, S]) and, for the VLM, ``vision_embeds``. The
+    layers stream through the speculative read (``mode="infer"``), their
+    FSDP axes gathered over ``ranks.fsdp``. Over a model axis (a rank
+    ``group`` or ``ranks.model``; the dense, audio and MoE families) the
+    blocks run this rank's shard as the training forward does (the MoE
+    expert-parallel over the sequence) and the logits are gathered
+    whole."""
+    r = _ranks(group, ranks)
+    model = r.model if r.model is not None and r.model.size > 1 else None
+    if model is not None and cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's full-sequence forward on a model "
+            f"axis is ROADMAP Queue 1 item 4b's")
+    top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp,
+                         label="outside")
+    tokens = batch["tokens"]
+    bsz, seq = tokens.shape[0], tokens.shape[-1]
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device=tokens.device)[None].expand(bsz, seq)
+    x = _embed(top[0], cfg, tokens, positions, model)
+    shared = ({"params": top[2], "emb": x}
+              if cfg.family == "hybrid" else None)
+    body = _body_train(cfg, rc, positions, shared=shared,
+                       vision=batch.get("vision_embeds"), batch=r.batch,
+                       model=model, data=r.data)
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _ = sr.stream_layers(body, (x, aux0), _units(params, cfg),
+                            prefetch_depth=rc.sr_prefetch_depth,
+                            granularity=rc.sr_granularity, mode="infer",
+                            remat=False, group=r.fsdp)
+    x = rmsnorm(top[1], x[:, -1:], cfg.norm_eps)
+    return unembed_apply(top[0], cfg, x, model)
 
 
 # ---------------------------------------------------------------------------

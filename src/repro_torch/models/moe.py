@@ -19,7 +19,7 @@ bit-stable run to run on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -314,6 +314,10 @@ def _rank(group) -> Tuple[int, int]:
     return (0, 1) if group is None else (group.rank, group.size)
 
 
+def _size(group) -> int:
+    return 1 if group is None else group.size
+
+
 def moe_apply_ep(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *,
                  group=None, aux: bool = True
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -514,9 +518,65 @@ def moe_apply_ep_loop(moe: MoE, cfg: ModelConfig, x: torch.Tensor,
     return y.to(x.dtype).view(b, s, d), drops
 
 
+class _Routes(NamedTuple):
+    """The router and the experts as ``route`` / ``moe_apply`` read them
+    off an ``MoE``: the leaves a training rank runs through ``copy_in``
+    or gathers."""
+
+    router: torch.Tensor
+    e_gate: torch.Tensor
+    e_up: torch.Tensor
+    e_down: torch.Tensor
+
+
+def moe_apply_ep_train(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *,
+                       group, data=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's expert-parallel ``moe_apply_ep`` under grad over a
+    model ``group`` of N ranks (E and S divisible by N): the tokens
+    sharded over (data, model) -- ``x`` [B, S, d] this data rank's rows,
+    whole on every model rank, of which model rank m routes the sequence
+    slice [m S/N, (m+1) S/N) -- at the stage-1 capacity of its own t
+    tokens and the stage-2 capacity of the data row's t N, the two
+    ``all_to_all``s differentiable (``sharding.all_to_all_grad``) and the
+    rows gathered back over the sequence (each rank keeping its slice's
+    gradient). The router, and experts that ``param_specs`` leaves whole,
+    enter through ``copy_in``: each rank's gradient is its tokens' share.
+    Returns (y [B, S, d], this data rank's load-balance term): ``ce``,
+    each expert's share of the routes, is the mean over the ``data`` and
+    model ranks, as the reference's ``pmean`` takes it;
+    ``me``, the mean router probability, the mean over the model ranks
+    here, so that the data ranks' terms average to the reference's loss
+    (the training loss is their mean, ``sharding.mean_over``)."""
+    rank, n = group.rank, group.size
+    b, s, d = x.shape
+    sl = s // n
+    x = sharding.copy_in(group, x)
+    own = _own_weights(moe, cfg, rank, n)
+    if moe.e_gate.shape[0] != own[0].shape[0]:        # whole experts
+        e_loc = cfg.n_experts // n
+        own = tuple(sharding.copy_in(group, w)[rank * e_loc:
+                                               (rank + 1) * e_loc]
+                    for w in (moe.e_gate, moe.e_up, moe.e_down))
+    routes = _Routes(sharding.copy_in(group, moe.router), *own)
+    xt = x[:, rank * sl:(rank + 1) * sl].reshape(b * sl, d)
+    sent = _ep_send(routes, cfg, xt, n)
+    recv_x, recv_meta = sharding.all_to_all_grad(group, sent["x"],
+                                                 sent["meta"])
+    back, _ = _ep_experts(own, cfg, recv_x, recv_meta, b * s)
+    y = _ep_combine(sharding.all_to_all_grad(group, back), sent, cfg.top_k)
+    y = sharding.gather_cols(group, y.view(b, sl, d), dim=1)
+    me, ce, _ = _aux(cfg, sent["probs"], sent["gate_i"])
+    me = sharding.reduce_out(group, me) / n
+    ce = group.all_reduce(ce.detach().clone(), "sum") / n
+    if data is not None and data.size > 1:
+        ce = data.all_reduce(ce, "sum") / data.size
+    return y, cfg.router_aux_coef * cfg.n_experts * torch.sum(me * ce)
+
+
 def moe_block_apply(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    kv_block: int = 512, batch=None
+                    kv_block: int = 512, batch=None, group=None, data=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The full-sequence forward of an MoE block (``ln_attn``, ``attn``,
     ``ln_mlp``, ``moe``; training). x: [B, S, d] -> (x, the load-balance
@@ -529,7 +589,46 @@ def moe_block_apply(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
     reference's ``moe_apply`` routes its global batch on a model axis of
     one -- one capacity over every token, positions in global token order
     -- and this rank keeps its rows; the aux loss is the whole batch's,
-    the same on every rank."""
+    the same on every rank.
+
+    Over a model ``group`` of N > 1 ranks (x whole on every model rank)
+    the attention is this rank's heads (``attention.attention_train``)
+    and, where N divides E and S, the MoE the reference's expert-parallel
+    form over (``data``, model) (``moe_apply_ep_train``): where the batch
+    splits over (pod, data) (``multi_pod``) the reference still shards the
+    tokens over the data axis alone, so the rows are gathered over the
+    batch group, this data rank's block routed, and its output gathered
+    over the data axis for this rank's rows. Else the reference falls back
+    to ``moe_apply`` over the global batch, which every model rank runs
+    whole (its experts gathered where they are split)."""
+    if group is not None and group.size > 1:
+        x = attn.attention_train(block, cfg, x, positions, group,
+                                 causal=causal, kv_block=kv_block)
+        h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
+        n, b = group.size, x.shape[0]
+        if not cfg.n_experts % n and not x.shape[1] % n:
+            if _size(batch) == _size(data):
+                y, aux = moe_apply_ep_train(block.moe, cfg, h, group=group,
+                                            data=data)
+                return x + y, aux
+            rows = sharding.gather_rows(batch, h)
+            k = rows.shape[0] // _size(data)
+            lo = (0 if data is None else data.rank) * k
+            y, aux = moe_apply_ep_train(block.moe, cfg, rows[lo:lo + k],
+                                        group=group, data=data)
+            y = sharding.gather_rows(data, y)
+            return x + y[batch.rank * b:(batch.rank + 1) * b], aux
+        whole = block.moe
+        if whole.e_gate.shape[0] != cfg.n_experts:
+            whole = _Routes(whole.router, *(
+                sharding.gather_cols(group, w, dim=0)
+                for w in (whole.e_gate, whole.e_up, whole.e_down)))
+        rows = (sharding.gather_rows(batch, h) if batch is not None
+                else h)
+        y, aux = moe_apply(whole, cfg, rows)
+        if batch is not None and batch.size > 1:
+            y = y[batch.rank * b:(batch.rank + 1) * b]
+        return x + y, aux
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
     o = attn.chunked_attention(q, k, v, causal=causal, kv_block=kv_block)

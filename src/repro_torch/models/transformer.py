@@ -189,14 +189,22 @@ def _finish(block: Block | MoEBlock, cfg: ModelConfig, x: torch.Tensor,
 
 def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool = True,
-                kv_block: int = 512, use_pallas: bool = False) -> torch.Tensor:
+                kv_block: int = 512, use_pallas: bool = False,
+                group=None) -> torch.Tensor:
     """The full-sequence forward of a dense block (training). x: [B, S, d];
     positions [B, S]. The attention is the plain ``chunked_attention``, or
     with ``use_pallas`` the flash-prefill kernel: the whole sequence one
     chunk at position 0 with its own K/V as the cache (Smax = S). The
     kernel has no backward, so its wrapper refuses inputs that require
     grad, as the reference cannot differentiate through its Pallas
-    kernel."""
+    kernel. Over a model ``group`` of more than one rank, this rank's
+    shard of the block under grad (``attention.attention_train``, the MLP's
+    ``mlp_apply(train=True)``); x whole on every rank."""
+    if group is not None and group.size > 1:
+        x = attn.attention_train(block, cfg, x, positions, group,
+                                 causal=causal, kv_block=kv_block)
+        h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
+        return x + mlp_apply(block.mlp, cfg, h, group, train=True)
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q, k, v = attn.qkv_project(block.attn, cfg, h, positions)
     cap = cfg.attn_logit_softcap

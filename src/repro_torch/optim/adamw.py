@@ -32,6 +32,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import hdm
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import HOST_COPIED, copy_stream, host_target
 
 # the largest piece of a HOST-tier leaf streamed through the card at once
@@ -101,45 +102,118 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tensors: Sequence[torch.Tensor], group=None,
-                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                sharded: Optional[Sequence[bool]] = None, model=None,
+                split: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, in f32. Over a rank
     ``group``, the tensors flagged in ``sharded`` are this rank's FSDP
     shards: their squares are summed across the ranks; the others are
-    whole and equal on every rank, counted once."""
+    whole and equal on every rank, counted once. Over a ``model`` group
+    the tensors flagged in ``split`` are this rank's part of a leaf cut
+    on the model axis: their squares are summed across its ranks too
+    (one all-reduce an axis); a leaf whole on the model axis counts
+    once."""
     sq = [torch.sum(torch.square(t.float())) for t in tensors]
-    if group is None or group.size == 1 or not sharded or not any(sharded):
+    on_model = bool(model is not None and model.size > 1 and split
+                    and any(split))
+    on_group = bool(group is not None and group.size > 1 and sharded
+                    and any(sharded))
+    if not on_model and not on_group:
         total = sum(sq)
         return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
     dev = tensors[0].device
-    part = sum((q for q, s in zip(sq, sharded) if s),
-               torch.zeros((), dtype=torch.float32, device=dev))
-    whole = sum((q for q, s in zip(sq, sharded) if not s),
-                torch.zeros((), dtype=torch.float32, device=dev))
-    part = group.all_reduce(part.reshape(1).clone(), "sum")[0]
-    return torch.sqrt(part + whole)
+    sharded = sharded if on_group else [False] * len(sq)
+    split = split if on_model else [False] * len(sq)
+
+    def part(f, m):
+        return sum((q for q, a, b in zip(sq, sharded, split)
+                    if a == f and b == m),
+                   torch.zeros((), dtype=torch.float32, device=dev))
+    fm, f_only, m_only, whole = (part(True, True), part(True, False),
+                                 part(False, True), part(False, False))
+    if on_model:
+        fm, m_only = model.all_reduce(torch.stack([fm, m_only]), "sum")
+    if on_group:
+        fm, f_only = group.all_reduce(torch.stack([fm, f_only]), "sum")
+    return torch.sqrt(fm + f_only + m_only + whole)
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
-                        group=None, sharded=None
+                        group=None, sharded=None, model=None, split=None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``;
     returns (the scaled gradients in their dtypes, the norm)."""
-    norm = global_norm(grads, group, sharded)
+    norm = global_norm(grads, group, sharded, model, split)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return [(g.float() * scale).to(g.dtype) for g in grads], norm
+
+
+def _to_state(grads, params, moves, group):
+    """The gradients and parameters of the leaves whose weights and
+    optimizer state are placed apart on the FSDP ``group`` (``moves[i]``:
+    ``("slice", axis)`` -- a weight whole on the group, its state this
+    rank's contiguous 1/F along ``axis``; ``("gather", axis)`` -- a weight
+    shard, its state whole) in the state's placement: a slice of the
+    gradient and a copy of the weight's slice, or the gradient and the
+    weight gathered whole (one all-gather for them all). Returns (grads,
+    params, finish): ``finish()`` puts the updated values back into the
+    weights -- the new slices gathered to every rank (one all-gather), or
+    this rank's slice of the whole update."""
+    grads, params = list(grads), list(params)
+    rank, n = group.rank, group.size
+    owned = list(params)
+    gather = [i for i, mv in enumerate(moves) if mv and mv[0] == "gather"]
+    if gather:
+        whole = sharding._Gathers(
+            [t.detach().to(grads[i].device) for i in gather
+             for t in (grads[i], params[i])],
+            [moves[i][1] for i in gather for _ in range(2)], group).wait()
+        for j, i in enumerate(gather):
+            grads[i], params[i] = whole[2 * j], whole[2 * j + 1]
+    sliced = [i for i, mv in enumerate(moves) if mv and mv[0] == "slice"]
+    for i in sliced:
+        axis = moves[i][1]
+        k = params[i].shape[axis] // n
+        grads[i] = grads[i].narrow(axis, rank * k, k)
+        params[i] = params[i].detach().narrow(axis, rank * k,
+                                              k).contiguous()
+
+    def finish():
+        for i in gather:
+            axis = moves[i][1]
+            k = params[i].shape[axis] // n
+            owned[i].copy_(params[i].narrow(axis, rank * k, k))
+        if sliced:
+            got = sharding._Gathers([params[i] for i in sliced],
+                                    [moves[i][1] for i in sliced],
+                                    group).wait()
+            for i, t in zip(sliced, got):
+                owned[i].copy_(t)
+    return grads, params, finish
 
 
 @torch.no_grad()
 def update(grads: Sequence[torch.Tensor], state: AdamWState,
            params: Sequence[torch.Tensor], cfg: AdamWConfig, *,
-           group=None, sharded: Optional[Sequence[bool]] = None
+           group=None, sharded: Optional[Sequence[bool]] = None,
+           model=None, split: Optional[Sequence[bool]] = None,
+           moves: Optional[Sequence] = None
            ) -> Tuple[Sequence[torch.Tensor], AdamWState, dict]:
     """One AdamW step. Writes the moments, masters and ``params`` in place
     and returns (params, the new state, {"grad_norm", "lr"}). Over a rank
     ``group``, ``params`` (and ``grads``, the moments, the masters) are
     this rank's: the ones flagged in ``sharded`` its FSDP shards, the
-    others whole; only the clip's norm crosses the ranks."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, group, sharded)
+    others whole; over a ``model`` group the ones flagged in ``split``
+    its part of a leaf cut on the model axis. Only the clip's norm
+    crosses the ranks, but for the leaves whose weights and state are
+    placed apart on the group (``moves``, ``_to_state``): DEVICE weights
+    beside POOL or HOST state update the state's shard and gather the new
+    weights; POOL or HOST weights beside DEVICE state gather the gradient
+    and the weight, update whole and keep the weight's shard."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, group, sharded,
+                                       model, split)
+    out, finish = params, None
+    if moves and any(moves):
+        grads, params, finish = _to_state(grads, params, moves, group)
     step = state.step + 1
     lr = schedule(step, cfg)
     bc1 = 1 - torch.pow(cfg.b1, step.float())
@@ -160,9 +234,11 @@ def update(grads: Sequence[torch.Tensor], state: AdamWState,
         p.copy_(new.to(p.dtype))
     if streamed:
         _stream_update(streamed, lr, bc1, bc2, cfg)
+    if finish is not None:
+        finish()
     new_state = AdamWState(step=step, m=state.m, v=state.v,
                            master=state.master)
-    return params, new_state, {"grad_norm": gnorm, "lr": lr}
+    return out, new_state, {"grad_norm": gnorm, "lr": lr}
 
 
 def _adamw(g, m, v, base, lr, bc1, bc2, cfg: AdamWConfig):

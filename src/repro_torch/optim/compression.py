@@ -70,14 +70,19 @@ def init_residuals(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             for p in params]
 
 
-def block_ids(shape, axis: int, rank: int, n: int,
+def block_ids(shape, axis, rank: int = 0, n: int = 1,
               device=None) -> torch.Tensor:
     """The block of 256 (in the whole leaf's flattened order) of every
-    element of FSDP rank ``rank``'s shard (the contiguous 1/n along
-    ``axis``) of a leaf of whole ``shape``: int64, the shard's shape."""
+    element of a shard of a leaf of whole ``shape``: FSDP rank ``rank``'s
+    (the contiguous 1/n along ``axis``), or with ``axis`` a dict ``{axis:
+    (index, count)}`` the shard cut on each of those axes to its
+    index-th contiguous 1/count (an (F, M) shard). int64, the shard's
+    shape."""
+    cuts = axis if isinstance(axis, dict) else {axis: (rank, n)}
     shape = tuple(shape)
     part = list(shape)
-    part[axis] //= n
+    for a, (_, count) in cuts.items():
+        part[a] //= count
     stride, strides = 1, []
     for dim in reversed(shape):
         strides.append(stride)
@@ -85,7 +90,7 @@ def block_ids(shape, axis: int, rank: int, n: int,
     strides.reverse()
     idx = torch.zeros(part, dtype=torch.int64, device=device)
     for d, size in enumerate(part):
-        off = rank * size if d == axis else 0
+        off = cuts[d][0] * size if d in cuts else 0
         view = [1] * len(part)
         view[d] = size
         idx = idx + ((torch.arange(size, device=device) + off)
@@ -95,8 +100,9 @@ def block_ids(shape, axis: int, rank: int, n: int,
 
 def _shard_blocks(x: torch.Tensor, layout, group):
     """(the whole leaf's block of each element of the shard ``x``, whose
-    layout is ``(whole shape, axis)``; this rank's absmax of every block
-    [n_blocks])."""
+    layout is ``(whole shape, axis)`` -- FSDP rank ``group.rank``'s part
+    -- or ``(whole shape, {axis: (index, count)})``; this rank's absmax of
+    every block [n_blocks])."""
     shape, axis = layout
     b = block_ids(shape, axis, group.rank, group.size, x.device)
     m = torch.zeros(-(-math.prod(shape) // BLOCK), dtype=torch.float32,
@@ -105,10 +111,15 @@ def _shard_blocks(x: torch.Tensor, layout, group):
     return b, m
 
 
-def _scales(maxes: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+def _scales(maxes: Sequence[torch.Tensor], group,
+            model=None) -> List[torch.Tensor]:
     """Every block's f32 scale, from the ranks' ``maxes`` (one tensor a
-    leaf): one max all-reduce over ``group`` for them all."""
-    flat = group.all_reduce(torch.cat(list(maxes)), "max")
+    leaf): one max all-reduce over ``group`` for them all (and one over
+    ``model`` where leaves are cut on the model axis too)."""
+    flat = torch.cat(list(maxes))
+    for g in (group, model):
+        if g is not None and g.size > 1:
+            flat = g.all_reduce(flat, "max")
     return [torch.clamp(c / 127.0, min=1e-12)
             for c in flat.split([m.numel() for m in maxes])]
 
@@ -117,15 +128,16 @@ def _codes(x: torch.Tensor, scale: torch.Tensor, b: torch.Tensor):
     return torch.clamp(torch.round(x / scale[b]), -127, 127).to(torch.int8)
 
 
-def quantize_shards(xs: Sequence[torch.Tensor], layouts, group
-                    ) -> List[Tuple[torch.Tensor, ...]]:
+def quantize_shards(xs: Sequence[torch.Tensor], layouts, group,
+                    model=None) -> List[Tuple[torch.Tensor, ...]]:
     """The reference's ``_quantize`` of whole leaves, for shards: per
     tensor of ``xs`` (f32), whose layout is ``(whole shape, axis)``, (its
     elements' int8 codes, shaped as the shard; every block's f32 scale
     [n_blocks] of the whole leaf; its elements' blocks, ``block_ids``).
-    One max all-reduce over ``group`` for them all."""
+    One max all-reduce over ``group`` for them all (and over ``model``:
+    ``compress_grads``)."""
     blocks = [_shard_blocks(x, lay, group) for x, lay in zip(xs, layouts)]
-    scales = _scales([m for _, m in blocks], group)
+    scales = _scales([m for _, m in blocks], group, model)
     return [(_codes(x, s, b), s, b)
             for x, (b, _), s in zip(xs, blocks, scales)]
 
@@ -151,19 +163,26 @@ def _keep(r: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
 
 def compress_grads(grads: Sequence[torch.Tensor],
                    residuals: Sequence[torch.Tensor], *, group=None,
-                   layouts=None
+                   layouts=None, model=None
                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """int8-EF compression leaf by leaf: (grads', residuals'). Over a
     rank ``group``, ``layouts`` (aligned with ``grads``) gives each FSDP
     shard's whole shape and axis, None for a whole leaf: the shards are
-    quantized in their whole leaves' blocks (``quantize_shards``). A
+    quantized in their whole leaves' blocks (``quantize_shards``). Over a
+    ``model`` group too, a layout ``(whole shape, {axis: (index,
+    count)})`` names a shard cut on the model axis, the FSDP axis or both
+    (the embedding's ("M", "F") and ``wq``'s ("F", "M") at (2, 2)), and
+    the blocks' absmax is taken over both groups. A
     residual on the HOST tier (``core.hdm``, pinned host memory) is copied
     onto the card for its own leaf only -- over a group twice, once for
     the blocks' absmax and once for the codes -- and its new value
     written back into it in place, so that at most one leaf's residual is
     on the card at a time."""
-    if group is None or group.size == 1 or layouts is None:
+    multi = any(g is not None and g.size > 1 for g in (group, model))
+    if not multi or layouts is None:
         layouts = [None] * len(grads)
+    if group is None:
+        group = model
     new_g, new_r = list(grads), list(residuals)
     idx = [i for i, lay in enumerate(layouts) if lay is not None]
     for i in (i for i, lay in enumerate(layouts) if lay is None):
@@ -181,7 +200,8 @@ def compress_grads(grads: Sequence[torch.Tensor],
         maxes.append(m)
         if host_target(residuals[i]) is None:
             held[i] = (x, b)
-    for i, scale in zip(idx, _scales(maxes, group)):
+    for i, scale in zip(idx, _scales(maxes, group,
+                                     None if model is group else model)):
         x, b = held.pop(i) if i in held else (g32(i), block_ids(
             *layouts[i], group.rank, group.size, grads[i].device))
         deq = _codes(x, scale, b).float() * scale[b]

@@ -641,6 +641,155 @@ def mean_over(group, t: torch.Tensor) -> torch.Tensor:
     return _MeanFn.apply(group, t)
 
 
+# ------------------------------------------------ the model axis in training
+#
+# Training splits each block over the model axis as Megatron does: the
+# activations between blocks whole (and equal) on every model rank, each
+# rank computing its own heads, d_ff columns and experts. Every rank then
+# holds the same loss, and the gradient of an activation held whole is
+# complete on each rank; inside a block a rank's gradients are its share.
+# Five differentiable collectives join the two (each a no-op on one rank;
+# every sum in f32, in rank order, ``RankGroup.sum_ranked``):
+#
+#  * ``copy_in``: identity forward, sum backward -- at the input of a
+#    column-parallel product, and on a whole leaf that a rank uses for
+#    its own share of the work (the router on its tokens, a q/k norm on
+#    its heads, a whole ``wk`` sliced to its kv heads);
+#  * ``reduce_out``: sum forward (cast once), identity backward -- after a
+#    row-parallel product, and where each rank holds some of the terms
+#    (a vocabulary-split lookup, the cross-entropy's sums);
+#  * ``all_sum``: sum forward and backward -- a statistic every rank
+#    uses for its own share (the split RMSNorm's squares);
+#  * ``gather_cols``: all-gather forward; backward this rank's slice of
+#    the gradient where the gathered tensor's use is whole on every rank
+#    (``"own"``), else the slice of the gradient summed over the ranks
+#    (``"sum"``);
+#  * ``all_to_all_grad``: the tiled ``all_to_all``, whose backward is the
+#    ``all_to_all`` of the gradient (the expert-parallel MoE's dispatch).
+#
+# The serving collectives (``reduce_sum``, ``gather_columns``, the uint8
+# ``all_gather``) cut or miss the graph: autograd sees an all-reduce in
+# place as an identity and a gather through bytes as a constant.
+
+
+def _grouped(group) -> bool:
+    return group is not None and group.size > 1
+
+
+class _CopyInFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.sum_ranked(g).to(g.dtype)
+
+
+class _ReduceOutFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x, dtype):
+        ctx.dtype = x.dtype
+        return group.sum_ranked(x).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g.to(ctx.dtype), None
+
+
+class _AllSumFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group.sum_ranked(x).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.sum_ranked(g).to(g.dtype)
+
+
+class _GatherColsFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x, dim, grad):
+        ctx.group, ctx.dim, ctx.grad, ctx.n = group, dim, grad, x.shape[dim]
+        return torch.cat(list(group.all_gather(x)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, n = ctx.group, ctx.dim, ctx.n
+        if ctx.grad == "sum":
+            g = group.sum_ranked(g).to(g.dtype)
+        return None, g.narrow(dim, group.rank * n, n).contiguous(), None, None
+
+
+class _AllToAllFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x, *riders):
+        ctx.group = group
+        n = group.size
+        parts = [x] + list(riders)
+        msg = torch.cat([p.contiguous().view(torch.uint8).reshape(n, -1)
+                         for p in parts], dim=1)
+        got = group.all_to_all(msg)
+        out, at = [], 0
+        for p in parts:
+            nb = p[0].numel() * p.element_size()
+            out.append(got[:, at:at + nb].contiguous().view(p.dtype)
+                       .view(p.shape))
+            at += nb
+        if riders:
+            ctx.mark_non_differentiable(*out[1:])
+        return tuple(out) if riders else out[0]
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        return (None, ctx.group.all_to_all(g.contiguous()),
+                *([None] * len(_)))
+
+
+def copy_in(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (f32, rank
+    order)."""
+    return _CopyInFn.apply(group, x) if _grouped(group) else x
+
+
+def reduce_out(group, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The ranks' partial terms ``x`` summed in f32 and cast once to
+    ``dtype`` (default ``x``'s); the gradient passes to each rank's
+    ``x`` as it is."""
+    if not _grouped(group):
+        return x.to(dtype or x.dtype)
+    return _ReduceOutFn.apply(group, x, dtype or x.dtype)
+
+
+def all_sum(group, x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' ``x`` (f32, rank order), each rank using it
+    for its own share: its gradient summed over the ranks too."""
+    return _AllSumFn.apply(group, x) if _grouped(group) else x
+
+
+def gather_cols(group, x: torch.Tensor, dim: int = -1,
+                grad: str = "own") -> torch.Tensor:
+    """The ranks' parts ``x`` concatenated along ``dim`` in rank order;
+    backward this rank's part of the gradient (``grad="own"``: the use is
+    whole on every rank) or of its sum over the ranks (``"sum"``: each
+    rank's gradient is its share)."""
+    if not _grouped(group):
+        return x
+    return _GatherColsFn.apply(group, x, dim % x.ndim, grad)
+
+
+def all_to_all_grad(group, x: torch.Tensor, *riders):
+    """``RankGroup.all_to_all`` of ``x`` [size, ...], differentiably (its
+    backward the ``all_to_all`` of the gradient); ``riders`` ([size, ...]
+    tensors without gradient, the MoE's expert ids) travel in the same
+    message. Returns ``x``'s result, or a tuple with the riders'."""
+    if not _grouped(group):
+        return (x, *riders) if riders else x
+    return _AllToAllFn.apply(group, x, *riders)
+
+
 def check_pages(n_pages: int, n_ranks: int, max_seq: int,
                 kv_page_size: int) -> None:
     """The reference engine's construction-time check
@@ -743,9 +892,31 @@ def product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     output (``out_dtype``); on the CPU, which has no such call, the same
     sum is taken from f32 copies."""
     if x.is_cuda and x.dtype != torch.float32:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _MmF32Fn.apply(x, w)
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.view(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+class _MmF32Fn(torch.autograd.Function):
+    """``product_f32`` on the card under grad: the f32-output product
+    forward; backward the products of the gradient in the operands'
+    dtype, as a product in that dtype takes them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.T
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx, gw
 
 
 def row_parallel(group, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -784,6 +955,11 @@ def split_rmsnorm(group, scale: torch.Tensor, x: torch.Tensor, width: int,
     xf = x.float()
     if n == width:
         var = (xf * xf).mean(dim=-1, keepdim=True)
+    elif torch.is_grad_enabled() and x.requires_grad:
+        # training: each rank scales its own channels by the whole sum,
+        # and takes the whole scale's gradient for its channels only
+        var = all_sum(group, (xf * xf).sum(dim=-1, keepdim=True)) / width
+        scale = copy_in(group, scale)
     else:
         var = group.all_reduce((xf * xf).sum(dim=-1, keepdim=True),
                                "sum") / width

@@ -7,8 +7,11 @@ subprocess for every case of this file): its state placed by
 ``steps.state_specs`` (weights, m, v and the f32 master FSDP-sharded over
 the data axis on the POOL tier), the batch by ``steps.batch_specs``, the
 gradients pinned to the pool specs by ``ds.apply_ds``; it writes the
-loss, the gradients after DS and the state after one AdamW step. The
-port runs the same cases as two gloo ranks (``launch.mesh.spawn``, a
+loss, the gradients after DS and the state after one AdamW step, both
+from one compiled program a case, its layer scan at SR depth 0 (in
+training the reference's depth only sets how far its scan is unrolled,
+``unroll = depth + 1``: the same values from half the program to
+compile). The port runs the same cases as two gloo ranks (``launch.mesh.spawn``, a
 ``file://`` rendezvous under the test's temporary directory), each
 placing the reference's weights and a fresh AdamW state by their tier
 (``launch.steps.init_state(mesh=)``: its FSDP shards on POOL) and taking
@@ -62,15 +65,23 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 def case(name, arch, dtype="float32", shape=(2, 1), multi_pod=False,
          ds=True, int8_ef=False, microbatches=1, step=True, tier="pool",
-         granularity=1, host_memory=False):
+         granularity=1, host_memory=False, opt_tier=None, over=None,
+         same_as=None):
     """One training case: the reference's and the port's run configs
-    (``tier``: the parameters' and the optimizer state's; with
-    ``host_memory`` the port keeps a "host" tier in host arenas,
-    ``enable_host_tier``, which the reference cannot on the CPU)."""
+    (``tier``: the parameters' and, unless ``opt_tier`` names its own, the
+    optimizer state's; with ``host_memory`` the port keeps a "host" tier
+    in host arenas, ``enable_host_tier``, which the reference cannot on
+    the CPU; ``over``: fields of the smoke config replaced in both;
+    ``same_as``: an earlier case at the same mesh whose reference program
+    computes this one's values -- it differs only in a knob that moves
+    no value in the reference, its DS mode, gather granularity or tier
+    placement -- so the reference reuses them and counts only this
+    case's bytes)."""
     return dict(name=name, arch=arch, dtype=dtype, shape=list(shape),
                 multi_pod=multi_pod, ds=ds, int8_ef=int8_ef,
                 microbatches=microbatches, step=step, tier=tier,
-                granularity=granularity, host_memory=host_memory)
+                granularity=granularity, host_memory=host_memory,
+                opt_tier=opt_tier or tier, over=over or {}, same_as=same_as)
 
 
 def np_batch(arch, seed=0):
@@ -104,7 +115,6 @@ _JAX = textwrap.dedent("""
     import dataclasses, json, sys
     import repro  # installs the jax < 0.5 compat shims
     import jax, jax.numpy as jnp, numpy as np
-    from jax.sharding import NamedSharding, PartitionSpec as P
     from repro.configs import registry
     from repro.configs.base import MeshConfig, RunConfig, SHAPES
     from repro.core import deterministic_store as ds
@@ -123,10 +133,10 @@ _JAX = textwrap.dedent("""
                     leaf, np.float32)
                 for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
 
-    params = {}
+    params, done = {}, {}
     for c in cases:
         cfg = dataclasses.replace(registry.smoke(c["arch"]),
-                                  dtype=c["dtype"])
+                                  dtype=c["dtype"], **c["over"])
         b = {k: np.asarray(v, np.float32 if k == "vision_embeds"
                            else np.int32)
              for k, v in batches[c["arch"]].items()}
@@ -138,14 +148,32 @@ _JAX = textwrap.dedent("""
                        ds_enabled=c["ds"], microbatches=c["microbatches"],
                        grad_compression="int8_ef" if c["int8_ef"]
                        else "none", param_tier=c["tier"],
-                       optimizer_tier=c["tier"],
-                       sr_granularity=c["granularity"])
+                       optimizer_tier=c["opt_tier"],
+                       sr_granularity=c["granularity"], sr_prefetch_depth=0)
         opt_cfg = adamw.AdamWConfig(learning_rate=lr, warmup_steps=0)
         if (c["arch"], c["dtype"]) not in params:
             params[c["arch"], c["dtype"]] = M.init_model(
                 jax.random.PRNGKey(0), cfg)
         p0 = params[c["arch"], c["dtype"]]
         pmesh = make_production_mesh(shape=tuple(c["shape"]))
+        stores = [hdm.HDMStore(pmesh, tier=tier,
+                               multi_pod_fsdp=rc.mesh.multi_pod)
+                  for tier in (rc.param_tier, rc.optimizer_tier)]
+
+        def state_bytes(st):
+            # the weights (and residuals) under the parameter tier, the
+            # optimizer state under its own
+            trees = [(st.params, 0), (st.opt.m, 1), (st.opt.v, 1),
+                     (st.opt.master, 1), (st.residuals, 0)]
+            return np.asarray(sum(hdm.bytes_per_device(t, stores[i])
+                                  for t, i in trees if t is not None))
+        if c["same_as"]:
+            out = dict(done[c["same_as"]])
+            with jax.set_mesh(pmesh):
+                out["bytes"] = state_bytes(steps.state_shapes(cfg, rc,
+                                                              opt_cfg))
+            np.savez(os.path.join(out_dir, c["name"] + ".npz"), **out)
+            continue
         with jax.set_mesh(pmesh):
             st_shapes = steps.state_shapes(cfg, rc, opt_cfg)
             st_shard = steps.shardings(pmesh, steps.state_specs(
@@ -167,7 +195,18 @@ _JAX = textwrap.dedent("""
                 loss, g = jax.value_and_grad(
                     lambda q: M.loss_fn(q, cfg, one, bt, pspecs))(p)
                 return loss, ds.apply_ds(g, pspecs, rc.ds_enabled)
-            loss, grads = jax.jit(lg)(state.params, batch)
+            train_step = steps.build_train_step(cfg, rc, opt_cfg)
+
+            def both(st, bt):
+                # the loss and DS's gradients, and one step from the same
+                # state: one compiled program for the two
+                loss, grads = lg(st.params, bt)
+                if not c["step"]:
+                    return loss, grads
+                return (loss, grads) + train_step(st, bt)
+            got = jax.jit(both, in_shardings=(st_shard, bshard))(state,
+                                                                 batch)
+            loss, grads = got[:2]
             out = {"loss": np.asarray(loss, np.float32)}
             out.update(flat(grads, "g"))
             if c["int8_ef"]:
@@ -177,11 +216,7 @@ _JAX = textwrap.dedent("""
                     out["q/" + key] = np.asarray(q).reshape(-1)[:g.size]
                     out["s/" + key] = np.asarray(s).reshape(-1)
             if c["step"]:
-                step = jax.jit(steps.build_train_step(cfg, rc, opt_cfg),
-                               in_shardings=(st_shard, bshard),
-                               out_shardings=(st_shard,
-                                              NamedSharding(pmesh, P())))
-                new, metrics = step(state, batch)
+                new, metrics = got[2:]
                 out["step_loss"] = np.asarray(metrics["loss"], np.float32)
                 out["grad_norm"] = np.asarray(metrics["grad_norm"],
                                               np.float32)
@@ -191,13 +226,8 @@ _JAX = textwrap.dedent("""
                 out.update(flat(new.opt.master, "master"))
                 if new.residuals is not None:
                     out.update(flat(new.residuals, "r"))
-                store = hdm.HDMStore(pmesh, tier=rc.param_tier,
-                                     multi_pod_fsdp=rc.mesh.multi_pod)
-                trees = [new.params, new.opt.m, new.opt.v, new.opt.master,
-                         new.residuals]
-                out["bytes"] = np.asarray(sum(
-                    hdm.bytes_per_device(t, store) for t in trees
-                    if t is not None))
+                out["bytes"] = state_bytes(new)
+        done[c["name"]] = out
         np.savez(os.path.join(out_dir, c["name"] + ".npz"), **out)
     print("JAX_TRAIN done")
 """)
@@ -241,7 +271,7 @@ def run_config(c, cfg):
                      mesh=MeshConfig(multi_pod=c["multi_pod"]),
                      ds_enabled=c["ds"], microbatches=c["microbatches"],
                      grad_compression="int8_ef" if c["int8_ef"] else "none",
-                     param_tier=c["tier"], optimizer_tier=c["tier"],
+                     param_tier=c["tier"], optimizer_tier=c["opt_tier"],
                      sr_granularity=c["granularity"],
                      enable_host_tier=c.get("host_memory", False))
 
@@ -252,7 +282,8 @@ def train_case(rank_mesh, c, params_np):
     gradients (its shards), then one step's state (its shards) and
     metrics, and the collectives of that step by axis."""
     from repro_torch.data.pipeline import rows_of
-    cfg = dataclasses.replace(treg.smoke(c["arch"]), dtype=c["dtype"])
+    cfg = dataclasses.replace(treg.smoke(c["arch"]), dtype=c["dtype"],
+                              **c.get("over", {}))
     rc = run_config(c, cfg)
     opt_cfg = tadamw.AdamWConfig(learning_rate=LR, warmup_steps=0)
     group = tsteps.batch_group(rc, rank_mesh)
@@ -264,15 +295,24 @@ def train_case(rank_mesh, c, params_np):
     state = tsteps.init_state(bridge.params_from_jax(
         params_np, cfg, device="cpu"), rc, opt_cfg, mesh=rank_mesh)
     from repro_torch.core import deterministic_store as ds
-    reducer = ds.GradReducer(group, c["ds"])
+    ranks = tsteps.train_ranks_of(rc, rank_mesh)
+    reducer = (None if ranks.fsdp is None
+               else ds.GradReducer(ranks.fsdp, c["ds"]))
     one = dataclasses.replace(rc, microbatches=1)
     loss, grads = tsteps.loss_and_grads(state.params, cfg, one, batch,
-                                        group=group, reducer=reducer)
-    grads = ds.apply_ds(grads, tsteps.param_spec_list(state.params, rc),
-                        group=group)
+                                        group=ranks.fsdp, reducer=reducer,
+                                        ranks=ranks)
+    specs = tsteps.param_spec_list(state.params, rc)
+    grads = ds.apply_ds(grads, specs, group=ranks.fsdp)
     from repro_torch.parallel import sharding
+    axes = sharding.fsdp_axes(state.params)
+    moves = tsteps.state_moves(state.params, rc, rank_mesh)
     out = {"loss": float(loss), "grads": [bridge.to_numpy(g) for g in grads],
-           "axes": sharding.fsdp_axes(state.params),
+           "axes": axes,
+           "opt_axes": [a if mv is None else None if mv[0] == "gather"
+                        else mv[1] for a, mv in zip(axes, moves)],
+           "model_axes": [s.index("model") if "model" in s else None
+                          for s in specs],
            "coords": rank_mesh.coords,
            "on_host": [sharding.host_target(t) is not None for t in (
                *state.params.parameters(), *state.opt.m, *state.opt.v,
@@ -326,18 +366,27 @@ def run_port(cases, tmp_path_factory, sizes=(2,)):
 
 def joined(runs, c, key):
     """A per-rank list (``key``) put together whole: each FSDP leaf's
-    shards of the ranks of the FSDP group (the world's first ones, in
-    rank order) concatenated along its axis; a whole leaf from rank 0."""
-    p_n, d_n, _ = mesh.mesh_shape3(c["shape"])
+    shards of the ranks of the FSDP group (the world's first pod, in rank
+    order) concatenated along its axis (the optimizer state's own axes
+    for m, v and the masters), then each model-axis leaf's parts of the
+    model ranks along its model axis; a whole leaf from rank 0."""
+    p_n, d_n, n_m = mesh.mesh_shape3(c["shape"])
     n = p_n * d_n if c["multi_pod"] else d_n
     first = runs[0]
+    axes = first["opt_axes" if key in ("m", "v", "master") else "axes"]
     out = []
-    for i, axis in enumerate(first["axes"]):
-        if axis is None:
-            out.append(first[key][i])
-        else:
-            out.append(np.concatenate([runs[r][key][i] for r in range(n)],
-                                      axis=axis))
+    for i, axis in enumerate(axes):
+        m_axis = first["model_axes"][i]
+        cols = []
+        for m in range(1 if m_axis is None else n_m):
+            if axis is None:
+                cols.append(runs[m][key][i])
+            else:
+                cols.append(np.concatenate(
+                    [runs[f * n_m + m][key][i] for f in range(n)],
+                    axis=axis))
+        out.append(cols[0] if m_axis is None
+                   else np.concatenate(cols, axis=m_axis))
     return out
 
 
@@ -422,9 +471,10 @@ def assert_step_close(runs, c, want):
 # ------------------------------------------------------------------ cases
 
 F32_CASES = [case(f"{arch}-f32", arch) for arch in FAMILIES]
-# the HOST tier in host memory at (2, 1): weights, m, v and master
+# the HOST tier in host memory at (2, 1): weights, m, v and master (the
+# reference's HOST is POOL on the CPU: its POOL case's values)
 HOST_CASE = case("qwen3-1.7b-host-f32", "qwen3-1.7b", tier="host",
-                 host_memory=True)
+                 host_memory=True, same_as="qwen3-1.7b-f32")
 
 
 @pytest.fixture(scope="module")

@@ -458,11 +458,13 @@ def test_int8_ef_step_on_host_equals_device(weights):
 
 
 def test_device_beside_host_on_a_data_axis_raises():
-    """DEVICE beside HOST shards the data axis apart: ROADMAP Queue 1
-    item 4's at (2, 1), either way round; on one rank it trains."""
+    """DEVICE beside HOST shards the data axis apart, either way round:
+    it trains at (2, 1) and on one rank, the state taking the optimizer
+    tier's placement (``steps.state_moves``: the state's FSDP slice of a
+    DEVICE weight, or a HOST weight's state whole; the step at (2, 1),
+    bit for bit its POOL twin: ``test_torch_tp_train.py``)."""
     _, tcfg = _cfgs()
     for pair in (("device", "host"), ("host", "device")):
         rc = _trc(tcfg, pair)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TM.check_trainable(tcfg, (2, 1), rc)
-        TM.check_trainable(tcfg, (1, 1), rc)
+        TM.check_trainable(tcfg, (2, 1))
+        tsteps.build_train_step(tcfg, rc, tadamw.AdamWConfig())

@@ -79,8 +79,11 @@ def _torch_batch(batch):
 def _configs(arch, name, **rc_over):
     jcfg = dataclasses.replace(jreg.smoke(arch), dtype=name)
     tcfg = dataclasses.replace(treg.smoke(arch), dtype=name)
+    # the reference's layer scan at SR depth 0: in training its depth only
+    # sets how far the scan is unrolled (``depth + 1``), the same values
+    # from half the program to compile
     rc = RunConfig(model=jcfg, shape=SHAPES["train_4k"], mesh=MeshConfig(),
-                   **rc_over)
+                   **{"sr_prefetch_depth": 0, **rc_over})
     trc = TRunConfig(model=tcfg, shape=TSHAPES["train_4k"],
                      mesh=TMeshConfig(), **rc_over)
     return jcfg, rc, tcfg, trc
@@ -209,8 +212,9 @@ def test_block_apply_matches_reference(host_mesh, name):
     rng = np.random.default_rng(4)
     x = (rng.standard_normal((B, S, jcfg.d_model)) * 0.5).astype(np.float32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
-    want = jtransformer.block_apply(layer, jcfg, jnp.asarray(x, name),
-                                    jnp.asarray(pos), q_block=8, kv_block=8)
+    want = jax.jit(lambda p, x, pos: jtransformer.block_apply(
+        p, jcfg, x, pos, q_block=8, kv_block=8))(
+            layer, jnp.asarray(x, name), jnp.asarray(pos))
     got = ttransformer.block_apply(tblock, tcfg,
                                    torch.from_numpy(x).to(
                                        getattr(torch, name)),

@@ -6,10 +6,11 @@ bf16, 4 sequences of 16 tokens a step): two steps equal to the first two
 of an uninterrupted run, each rank's checkpoint its own shard, a resume
 that replays the saved step's batch as the reference's does (ROADMAP
 Queue 3) and follows the one-rank driver's resume. Training at a model
-axis of 2 and at a mixed tier pair raises ``NotImplementedError``
-(ROADMAP Queue 1 item 4) where the pair shards the data axis apart
-(DEVICE beside POOL or HOST over two FSDP ranks), never running on one
-rank instead; on one rank every pair builds. The
+axis of 2 builds for the dense, audio and MoE families and raises
+``NotImplementedError`` for the hybrid, VLM and xLSTM families (ROADMAP
+Queue 1 item 4b), never running on one rank instead; every mixed tier
+pair builds, on a data axis of two and on one rank (``launch.train`` at
+(2, 2) is ``test_torch_tp_train.py``'s). The
 deterministic store's placements (``ds_grad_specs``) equal the
 reference's, on and off, with and without ``multi_pod``, and so do the
 training state's (``steps.state_specs``) on both tiers.
@@ -44,41 +45,69 @@ from repro_torch.parallel import sharding as tsh
 ARCH = "qwen3-1.7b"
 
 
+def _data_mesh(d):
+    """Rank 0's place in a (d, 1) mesh, its groups built without a
+    process group (enough to build a step; nothing runs on it)."""
+    cpu = torch.device("cpu")
+    one = mesh.RankGroup(0, 1, cpu, "gloo")
+    data = mesh.RankGroup(0, d, cpu, "gloo", axis="data",
+                          members=tuple(range(d)))
+    return mesh.RankMesh((1, d, 1), 0, one, data, one,
+                         dataclasses.replace(data, axis="pod,data"), data,
+                         data)
+
+
 def test_training_refuses_a_model_axis_and_mixed_tiers():
-    """The model axis in training and a mixed tier pair are ROADMAP
-    Queue 1 item 4's: refused, never run on one rank instead."""
+    """The model axis in training: the dense, audio and MoE families
+    build their step and state on it; the hybrid, VLM and xLSTM families
+    are ROADMAP Queue 1 item 4b's, refused, never run on one rank
+    instead. Every mixed tier pair builds on a data axis of two, with and
+    without ``multi_pod``, and builds and places its state on one rank
+    (the pairs' steps against the reference: ``test_torch_tp_train.py``)."""
     cfg = treg.smoke(ARCH)
     rc = RunConfig(model=cfg, shape=SHAPES["train_4k"], mesh=MeshConfig())
     opt = tadamw.AdamWConfig()
     model_axis = mesh.RankMesh.of_group(mesh.RankGroup(
         0, 2, torch.device("cpu"), "gloo"))
     assert model_axis.shape == (1, 1, 2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsteps.build_train_step(cfg, rc, opt, mesh=model_axis)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsteps.init_state(TM.init_model(cfg, device="cpu"), rc, opt,
+    for arch in (ARCH, "granite-moe-1b-a400m", "musicgen-large"):
+        acfg = treg.smoke(arch)
+        arc = dataclasses.replace(rc, model=acfg)
+        tsteps.build_train_step(acfg, arc, opt, mesh=model_axis)
+        tsteps.init_state(TM.init_model(acfg, device="cpu"), arc, opt,
                           mesh=model_axis)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TM.check_trainable(cfg, (1, 2))
+        TM.check_trainable(acfg, (1, 2))
+        TM.check_trainable(acfg, (2, 2, 2))
+    for arch in ("zamba2-2.7b", "llama-3.2-vision-11b", "xlstm-125m"):
+        acfg = treg.smoke(arch)
+        arc = dataclasses.replace(rc, model=acfg)
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            tsteps.build_train_step(acfg, arc, opt, mesh=model_axis)
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            tsteps.init_state(TM.init_model(acfg, device="cpu"), arc, opt,
+                              mesh=model_axis)
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            TM.check_trainable(acfg, (2, 2))
+        TM.check_trainable(acfg, (2, 1))
     data_axis = mesh.RankMesh.of_group(mesh.RankGroup(
         0, 1, torch.device("cpu"), "gloo"))
+    two_rows = _data_mesh(2)
     for pair in (("pool", "device"), ("device", "pool"), ("device", "host"),
                  ("host", "device")):
         mixed = dataclasses.replace(rc, param_tier=pair[0],
                                     optimizer_tier=pair[1])
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TM.check_trainable(cfg, (2, 1), mixed)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TM.check_trainable(cfg, (2, 1, 1), dataclasses.replace(
-                mixed, mesh=MeshConfig(multi_pod=True)))
-        # one FSDP rank: the pair shards alike, and trains
-        TM.check_trainable(cfg, (2, 1, 1), mixed)
+        TM.check_trainable(cfg, (2, 1))
+        TM.check_trainable(cfg, (2, 1, 1))
+        tsteps.build_train_step(cfg, mixed, opt, mesh=two_rows)
+        tsteps.build_train_step(cfg, dataclasses.replace(
+            mixed, mesh=MeshConfig(multi_pod=True)), opt, mesh=two_rows)
         tsteps.build_train_step(cfg, mixed, opt)
         tsteps.build_train_step(cfg, mixed, opt, mesh=data_axis)
         tsteps.init_state(TM.init_model(cfg, device="cpu"), mixed, opt)
     for pair in (("pool", "host"), ("host", "pool"), ("host", "host")):
-        TM.check_trainable(cfg, (2, 1), dataclasses.replace(
-            rc, param_tier=pair[0], optimizer_tier=pair[1]))
+        tsteps.build_train_step(cfg, dataclasses.replace(
+            rc, param_tier=pair[0], optimizer_tier=pair[1]), opt,
+            mesh=two_rows)
 
 
 def test_train_ranks_checkpoints_and_resumes(tmp_path):
