@@ -186,7 +186,11 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    times the one-rank engine's own distance from that twin plus TOL's
    atol; the tokens equal but where the two argmaxes part at a near tie
    (the one-rank logits of the two tokens within the bound; the gap
-   printed); its
+   printed; a restore starts from its entry's first token, its source's
+   on each engine, so where that token parted at a near tie the restore
+   is conditioned on another token from its first step: its first token
+   must be its source's on both engines, and each engine's restore is
+   held instead to its own source's rows at the matching steps); its
    bf16 tick and chunk timed again with the row-parallel products taken
    from f32 copies; then granite-moe-1b-a400m at full width (cut to its
    ``CUT_LAYERS``; bf16 pages), its MoE expert-parallel (``all_to_all``
@@ -297,6 +301,14 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    Prints a rank's step ms over ``TP_TRAIN_STEPS`` steps, the
    collectives of a step by axis, the bytes of params, m, v and master a
    rank against one rank's (and the model-split leaves'), the peak;
+   then, the same way, the families of ``TPF_TRAIN`` at full width cut to
+   whole groups, each beside its own one rank and f32 twin run first:
+   zamba2-2.7b at 12 of 54 layers (its Mamba2 heads split, the shared
+   block's attention and MLP) on 2 x 1024 tokens, llama-3.2-vision-11b at
+   5 of 40 (four self-attention layers and a cross layer: a rank's q and
+   kv heads of the 1601 vision tokens) on 2 x 1024 tokens, xlstm-125m
+   whole (each layer whole on every rank from its gathered leaves) on 2 x
+   512 tokens, ``TPF_TRAIN_STEPS`` steps each, one spawn for the three;
 19. serve qwen3-1.7b (7 of 28 layers, ``HOST_SERVE_LAYERS``) with its
    weights on the HOST tier
    (``param_tier="host"``, ``enable_host_tier``: every leaf in pinned
@@ -404,12 +416,13 @@ XLSTM_TIMED_TOKENS = 32
 # of the dp and HOST phases (PERF.md section 4)
 CUT_LAYERS = {ARCH: 6, HYBRID: 12, GRANITE: 6, MUSICGEN: 6, VLM: 10,
               GLM4: 10, STARCODER2: 10, GEMMA: 9, XLSTM: 6}
-# the tp phase's qwen3-1.7b (and the dp phase's), cut to 4 of 28 layers
+# the tp phase's qwen3-1.7b (and the dp phase's), cut to 2 of 28 layers
 # for the same reason: each rank charges its replica of the tier with the
 # whole entry, and the phase runs the one-rank engine and the two ranks
-# in both page formats (at 2 layers the int8 ranks' first token after a
-# restore parts from the one-rank engine's: ROADMAP Queue 3)
-TP_LAYERS = 4
+# in both page formats (at 2 layers the int8 ranks' first token of rid 0
+# parts from the one-rank engine's at a near tie, and its restore, rid
+# 1000, takes each engine's own first token: tp_logits_gate's sources)
+TP_LAYERS = 2
 # the tp phase's other families, each beside its one-rank engine and f32
 # twin: zamba2 at one group of 6 Mamba2 layers with its shared block,
 # musicgen at 2 of 48 layers (1024-token slots; 4 before the tp2-train
@@ -519,6 +532,17 @@ DP_TRAIN_TIMEOUT_S = 600.0
 # two ranks on the one card, each on its model-axis shard; 3 steps timed
 TP_TRAIN_PATH = f"{ARCH} tp2 train"
 TP_TRAIN_MESH, TP_TRAIN_STEPS = (1, 2), 3
+# the tp2-train-families phase: the hybrid, VLM and xLSTM families at full
+# width, each cut in depth to whole groups, at mesh (1, 2) beside its one
+# rank and f32 twin, held by the tp2-train phase's rule: {arch: (layers,
+# batch, tokens)} -- zamba2-2.7b at 2 of its 9 groups (12 of 54 layers:
+# 12 Mamba2 layers and 2 calls of the shared block), llama-3.2-vision-11b
+# at 1 of 8 (5 of 40: 4 self-attention layers and a cross layer over its
+# 1601 vision tokens), xlstm-125m whole (its sLSTM cells token by token);
+# TPF_TRAIN_STEPS steps timed a family
+TPF_TRAIN_PATH = "tp2 train families"
+TPF_TRAIN = {HYBRID: (12, 2, 1024), VLM: (5, 2, 1024), XLSTM: (12, 2, 512)}
+TPF_TRAIN_STEPS = 2
 # the HOST tier (pinned host memory streamed onto the card by the
 # speculative read): "host-serve" serves qwen3-1.7b (HOST_SERVE_LAYERS)
 # with its weights on the HOST tier beside the same traffic on the DEVICE
@@ -3026,21 +3050,81 @@ def tp_logits_bound(one, wide):
     return TP_NOISE_X * noise + TOL["atol"], noise
 
 
-def tp_logits_gate(path, got, ref):
+def restore_sources(waves):
+    """Each request of ``waves`` after the first that resubmits a prompt
+    of the first wave -> that request's rid: the one whose retired entry
+    it restores."""
+    first = {tuple(prompt): rid for rid, prompt, _ in waves[0]}
+    return {rid: first[tuple(prompt)] for wave in waves[1:]
+            for rid, prompt, _ in wave if tuple(prompt) in first}
+
+
+def restore_vs_source(path, rid, src, rows, tokens, bound):
+    """One engine's logits rows of a restored request ``rid`` against its
+    own rows of ``src``, the request whose retired entry it restores
+    (``rows`` / ``tokens``: ``{rid: [V] rows}`` / ``{rid: greedy
+    tokens}``). The restore starts from the entry's first token and its
+    pages, so its row j is conditioned as the source's row j + 1 while
+    their tokens agree: each such row within ``bound`` of it. Returns the
+    rows held and their max abs error; (0, None) where this rank did not
+    sample the source (the dp phase's restore that crossed data rows)."""
+    import torch
+    if src not in rows:
+        return 0, None
+    held, err = 0, 0.0
+    for j, row in enumerate(rows[rid][:len(rows[src]) - 1]):
+        e = float((row.float() - rows[src][j + 1].float()).abs().max())
+        if not torch.isfinite(row).all() or e > bound:
+            fail(f"{path} rid {rid} step {j}: logits {e} off its source "
+                 f"rid {src}'s step {j + 1}, beyond {bound}")
+        held, err = j + 1, max(err, e)
+        if tokens[rid][j + 1] != tokens[src][j + 1]:
+            break
+    if not held:
+        fail(f"{path} rid {rid}: no step held against its source rid {src}")
+    return held, err
+
+
+def tp_logits_gate(path, got, ref, tokens=None, sources=None):
     """The ranks' greedy steps against the one-rank engine's, request by
     request and step by step (``got``: ``{rid: [V] rows}``; ``ref``: the
-    one-rank engine's rows ``one``, its f32 twin's ``f32`` and the
-    ``bound`` of ``tp_logits_bound``): every logits row within the bound
-    of the one-rank row, and of the f32 twin's while that one's tokens
-    agree, until the ranks' and the one-rank argmaxes part; where they
-    part, the one-rank logits of the two tokens must lie within the bound
-    of each other (a near tie), and the request's later steps, conditioned
-    on other tokens, are not held. Returns per request the steps held,
+    one-rank engine's rows ``one``, its f32 twin's ``f32``, the ``bound``
+    of ``tp_logits_bound`` and its greedy ``tokens``): every logits row
+    within the bound of the one-rank row, and of the f32 twin's while that
+    one's tokens agree, until the ranks' and the one-rank argmaxes part;
+    where they part, the one-rank logits of the two tokens must lie within
+    the bound of each other (a near tie), and the request's later steps,
+    conditioned on other tokens, are not held. A restored request's first
+    token is its source's (``sources``: restored rid -> the rid whose
+    entry it restores) and takes no step: where it differs between the
+    ranks (``tokens``) and the one-rank engine, every step of the request
+    is conditioned on another token, so the ranks' rows and the one-rank
+    engine's are each held to that engine's own rows of the source
+    instead (``restore_vs_source``; ``parted_at`` -1, the source and
+    ``vs_source`` recorded; ``tp_tokens_check`` then holds the source to
+    a near tie at its first step). Returns per request the steps held,
     the max abs errors against both and, where the tokens parted, the
     step, the two tokens and that gap."""
     import torch
     bound, out = ref["bound"], {}
+    sources = sources or {}
     for rid, rows in ref["one"].items():
+        if rid in sources and tokens is not None and \
+                tokens[rid][0] != ref["tokens"][rid][0]:
+            src = sources[rid]
+            held, err = restore_vs_source(f"{path} ranks'", rid, src, got,
+                                          tokens, bound)
+            held1, err1 = restore_vs_source(f"{path} one-rank engine's", rid,
+                                            src, ref["one"], ref["tokens"],
+                                            bound)
+            out[rid] = {"steps": held, "max_abs_err": 0.0,
+                        "max_abs_err_f32": 0.0, "parted_at": -1,
+                        "tokens": [ref["tokens"][rid][0], tokens[rid][0]],
+                        "source": src,
+                        "vs_source": {"steps": held, "max_abs_err": err,
+                                      "one_rank_steps": held1,
+                                      "one_rank_max_abs_err": err1}}
+            continue
         mine, wide = got.get(rid, []), ref["f32"][rid]
         if len(mine) != len(rows):
             fail(f"{path}: rid {rid} took {len(mine)} greedy steps, the "
@@ -3136,7 +3220,8 @@ def tp_rank(group):
             ref[side] = {rid: list(t.to(dev)) for rid, t in
                          ref[side].items()}
         out[kv_quant]["logits_vs_one_rank"] = tp_logits_gate(
-            f"{path} rank {group.rank}", rows, ref)
+            f"{path} rank {group.rank}", rows, ref,
+            out[kv_quant]["tokens"], restore_sources(waves))
         del rows, ref
         out[kv_quant].update(tp_steps(group, params, cfg, rc, kv_quant,
                                       dev, waves[0][0][1]))
@@ -3227,7 +3312,8 @@ def tp_family_rank(group, arch):
     for side in ("one", "f32"):
         ref[side] = {rid: list(t.to(dev)) for rid, t in ref[side].items()}
     run["logits_vs_one_rank"] = tp_logits_gate(
-        f"{TPF_PATHS[arch]} rank {group.rank}", rows, ref)
+        f"{TPF_PATHS[arch]} rank {group.rank}", rows, ref, run["tokens"],
+        restore_sources(waves))
     del rows, ref
     run.update(tp_steps(group, params, cfg, rc, "none", dev,
                         waves[0][0][1]))
@@ -3431,7 +3517,8 @@ def serve_tp(dev):
                             for rid, r in rows.items()},
                     "f32": {rid: torch.stack(r).cpu()
                             for rid, r in rows32.items()},
-                    "bound": bound}, logits_file(kv_quant))
+                    "bound": bound, "tokens": one[kv_quant]["tokens"]},
+                   logits_file(kv_quant))
         del rows, rows32
         one[kv_quant].update(tp_steps(None, params, cfg, rc, kv_quant, dev,
                                       waves[0][0][1]))
@@ -3567,7 +3654,7 @@ def tp_family_one_rank(dev, arch):
     torch.save({"one": {rid: torch.stack(r).cpu() for rid, r in rows.items()},
                 "f32": {rid: torch.stack(r).cpu()
                         for rid, r in rows32.items()},
-                "bound": bound}, logits_file(arch))
+                "bound": bound, "tokens": one["tokens"]}, logits_file(arch))
     del rows, rows32
     one.update(tp_steps(None, params, cfg, rc, "none", dev, waves[0][0][1]))
     if arch == VLM:
@@ -3638,13 +3725,22 @@ def tp_tokens_check(path, got, want, gate, restored, bound):
     whose steps never parted (``gate``, ``tp_logits_gate``'s) has every
     token equal; one that parted at step j has its tokens equal up to
     that step's token and not at it (a restored request's first token,
-    from its entry, takes no step). Returns each request's equal leading
-    tokens."""
+    from its entry, takes no step); a restored request whose first token
+    parted (step -1) equals its source's first token on both engines, and
+    the source parted there, at its first step. Returns each request's
+    equal leading tokens."""
     leading = {rid: next((i for i, (a, b) in enumerate(zip(got.get(rid, ()),
                                                           t)) if a != b),
                          len(t)) for rid, t in want.items()}
     for rid, t in want.items():
         parted = gate[rid]["parted_at"]
+        src = gate[rid].get("source")
+        if parted == -1 and (gate[src]["parted_at"] != 0 or got[src][0] != got[
+                rid][0] or want[src][0] != t[0]):
+            fail(f"{path}: rid {rid} restored first token "
+                 f"{gate[rid]['tokens']}, its source rid {src} parted at "
+                 f"{gate[src]['parted_at']} (first tokens {got[src][0]} / "
+                 f"{want[src][0]}): not its source's first step")
         at = len(t) if parted is None else parted + (rid in restored)
         if leading[rid] != at or len(got.get(rid, ())) != len(t):
             fail(f"{path}: rid {rid}: {leading[rid]} leading tokens equal "
@@ -3736,7 +3832,7 @@ def dp_one_rank(dev):
     torch.save({"one": {rid: torch.stack(r).cpu() for rid, r in rows.items()},
                 "f32": {rid: torch.stack(r).cpu()
                         for rid, r in rows32.items()},
-                "bound": bound}, logits_file("dp"))
+                "bound": bound, "tokens": one["tokens"]}, logits_file("dp"))
     del rows, rows32, wide
     one.update(tp_steps(None, params, cfg, rc, "none", dev, waves[0][0][1]))
     return one
@@ -3842,7 +3938,8 @@ def dp_rank(rank_mesh):
         ref[side] = {rid: list(t.to(dev)) for rid, t in ref[side].items()
                      if rid in rows}
     run["logits_vs_one_rank"] = tp_logits_gate(
-        f"{DP_PATH} rank {rank_mesh.rank}", rows, ref)
+        f"{DP_PATH} rank {rank_mesh.rank}", rows, ref, run["tokens"],
+        restore_sources(waves))
     del rows, ref
     gc.collect()
     run["steps"] = dp_steps(rank_mesh, params, cfg, rc, dev, waves[0][0][1])
@@ -4465,28 +4562,32 @@ def train_xlstm(dev):
     return res
 
 
-def dp_train_model(dev):
+def dp_train_model(dev, arch=ARCH):
     """The dp-train phase's model (qwen3-1.7b at full width cut to
-    ``DP_TRAIN_LAYERS``, random bf16 weights from the seed on ``dev``),
-    its run config and its global batch (numpy)."""
+    ``DP_TRAIN_LAYERS``), or a family of ``TPF_TRAIN`` at its cut, random
+    bf16 weights from the seed on ``dev``, its run config and its global
+    batch (numpy; the VLM's vision embeddings with it)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(registry.get(ARCH), n_layers=DP_TRAIN_LAYERS)
-    shape = dataclasses.replace(SHAPES["train_4k"],
-                                global_batch=DP_TRAIN_BATCH,
-                                seq_len=DP_TRAIN_SEQ)
+    layers, n_batch, seq = TPF_TRAIN.get(arch, (
+        DP_TRAIN_LAYERS, DP_TRAIN_BATCH, DP_TRAIN_SEQ))
+    cfg = dataclasses.replace(registry.get(arch), n_layers=layers)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=n_batch,
+                                seq_len=seq)
     rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    vision = cfg.n_vision_tokens if cfg.family == "vlm" else 0
     batch = SyntheticLM(DataConfig(
-        vocab_size=cfg.vocab_size, global_batch=DP_TRAIN_BATCH,
-        seq_len=DP_TRAIN_SEQ, seed=SEED)).batch(0)
+        vocab_size=cfg.vocab_size, global_batch=n_batch, seq_len=seq,
+        seed=SEED, vision_tokens=vision, d_model=cfg.d_model)).batch(0)
     return cfg, rc, M.init_model(cfg, seed=SEED, device=dev), batch
 
 
-def dp_train_file():
-    return os.path.join(ROOT, "build", "dp_train", "one_rank.pt")
+def dp_train_file(arch=ARCH):
+    name = "one_rank.pt" if arch == ARCH else f"one_rank_{arch}.pt"
+    return os.path.join(ROOT, "build", "dp_train", name)
 
 
 def first_moments(grads, gnorm, opt_cfg):
@@ -4513,20 +4614,21 @@ def noise_gate(path, what, dist, noise, norms):
     return max(d / max(noise[n], 1e-30) for n, d in dist.items())
 
 
-def dp_train_one_rank(dev):
+def dp_train_one_rank(dev, arch=ARCH):
     """The one-rank port's loss and gradients on the dp-train phase's
-    global batch, and its f32 twin's (the same weights widened): the
-    gradients, their global norm and, per leaf, the one rank's own
-    distance from the twin, of the gradients and of the first moments
-    after one AdamW step, saved for the dp2 and tp2 train phases' ranks;
-    then its step timed (the bytes of the whole state, its peak)."""
+    global batch (or a ``TPF_TRAIN`` family's), and its f32 twin's (the
+    same weights widened): the gradients, their global norm and, per
+    leaf, the one rank's own distance from the twin, of the gradients and
+    of the first moments after one AdamW step, saved for the dp2 and tp2
+    train phases' ranks; then its step timed (the bytes of the whole
+    state, its peak)."""
     import copy
     import dataclasses
     import torch
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim import adamw
-    cfg, rc, params, batch = dp_train_model(dev)
+    cfg, rc, params, batch = dp_train_model(dev, arch)
     b = to_device(batch, dev)
     params.requires_grad_(True)
     l1, g1 = steps_lib.loss_and_grads(params, cfg, rc, b)
@@ -4556,18 +4658,18 @@ def dp_train_one_rank(dev):
     m_norms = {n: float(torch.linalg.vector_norm(c))
                for n, c in zip(names, state32.opt.m)}
     del state32, m1
-    os.makedirs(os.path.dirname(dp_train_file()), exist_ok=True)
+    os.makedirs(os.path.dirname(dp_train_file(arch)), exist_ok=True)
     torch.save({"loss": float(l1), "loss_f32": float(l32),
                 "grad_norm": gnorm,
                 "grads": {n: g.cpu() for n, g in zip(names, g1)}},
-               dp_train_file())
+               dp_train_file(arch))
     del wide, g1
     free_card()
     state = steps_lib.init_state(params, rc, opt_cfg)
     step = steps_lib.build_train_step(cfg, rc, opt_cfg)
     torch.cuda.reset_peak_memory_stats()
     ms = []
-    for _ in range(3):
+    for _ in range(3 if arch == ARCH else TPF_TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -4869,18 +4971,19 @@ def train_dp(dev, one):
     return out
 
 
-def tp_train_rank(rank_mesh):
+def tp_train_rank(rank_mesh, arch=ARCH):
     """One rank of the tp2-train phase (a process of its own, on the card
-    it shares with the other): the dp-train phase's model made on the card
-    and cut to this rank's shard of the model axis (``steps.init_state(
-    mesh=)``: every leaf ``param_specs`` splits on "model" halved), the
-    whole global batch; the loss and gradients under Megatron's split
+    it shares with the other): the dp-train phase's model (or a
+    ``TPF_TRAIN`` family's) made on the card and cut to this rank's shard
+    of the model axis (``steps.init_state(mesh=)``: every leaf
+    ``param_specs`` splits on "model" halved), the whole global batch; the
+    loss and gradients under the model axis's split
     (``steps.loss_and_grads(ranks=)``), each leaf's squared distance from
-    the one rank's gradient's part, then ``TP_TRAIN_STEPS`` steps timed,
-    the first moments after the first against the one rank's
-    (``first_moments``), the collectives of a step by axis, bytes and
-    peak. The kernel counts run from before the first loss to after the
-    last step."""
+    the one rank's gradient's part, then ``TP_TRAIN_STEPS`` (a family:
+    ``TPF_TRAIN_STEPS``) steps timed, the first moments after the first
+    against the one rank's (``first_moments``), the collectives of a step
+    by axis, bytes and peak. The kernel counts run from before the first
+    loss to after the last step."""
     import gc
     import torch
     from repro_torch.data.pipeline import to_device
@@ -4888,7 +4991,7 @@ def tp_train_rank(rank_mesh):
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim import adamw
     dev = rank_mesh.device
-    cfg, rc, whole, batch = dp_train_model(dev)
+    cfg, rc, whole, batch = dp_train_model(dev, arch)
     opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
     state = steps_lib.init_state(whole, rc, opt_cfg, mesh=rank_mesh)
     del whole
@@ -4903,7 +5006,7 @@ def tp_train_rank(rank_mesh):
     zero_counters()
     loss, grads = steps_lib.loss_and_grads(state.params, cfg, rc, b,
                                            ranks=ranks)
-    ref = torch.load(dp_train_file())
+    ref = torch.load(dp_train_file(arch))
 
     def part(n, t):
         spec = specs[n]
@@ -4922,7 +5025,7 @@ def tp_train_rank(rank_mesh):
     torch.cuda.empty_cache()
     step = steps_lib.build_train_step(cfg, rc, opt_cfg, mesh=rank_mesh)
     times, losses = [], []
-    for i in range(TP_TRAIN_STEPS):
+    for i in range(TP_TRAIN_STEPS if arch == ARCH else TPF_TRAIN_STEPS):
         mesh.COLLECTIVES.clear()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -4977,8 +5080,57 @@ def train_tp(dev, one):
                        rendezvous_dir=os.path.join(ROOT, "build", "dp_train"),
                        device="cuda", timeout_s=DP_TRAIN_TIMEOUT_S,
                        mesh_shape=TP_TRAIN_MESH)
+    return check_tp_train(TP_TRAIN_PATH, ARCH, ranks, one,
+                          time.time() - t0)
+
+
+def tp_train_families_rank(rank_mesh):
+    """One rank of the tp2-train-families phase: ``tp_train_rank`` for
+    each family of ``TPF_TRAIN`` in turn, the card freed between."""
+    import gc
+    import torch
+    out = {}
+    for arch in TPF_TRAIN:
+        out[arch] = tp_train_rank(rank_mesh, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_families(dev):
+    """The tp2-train-families phase: each family of ``TPF_TRAIN`` on one
+    rank and its f32 twin first (``dp_train_one_rank``), then one spawn of
+    two rank processes of mesh (1, 2) on the one card joined by gloo, each
+    family on its model-axis shard in turn (``tp_train_families_rank``):
+    the hybrid's Mamba2 heads and shared block, the VLM's self-attention
+    and cross layers (Megatron's form), xLSTM's layers whole on every rank
+    from their split leaves gathered. Each family held and reported as the tp2-train phase holds
+    and reports qwen3-1.7b (``check_tp_train``)."""
+    import math
+    from repro_torch.launch import mesh
+    one = {}
+    for arch in TPF_TRAIN:
+        one[arch] = dp_train_one_rank(dev, arch)
+        free_card()
+    t0 = time.time()
+    ranks = mesh.spawn(tp_train_families_rank, math.prod(TP_TRAIN_MESH), (),
+                       rendezvous_dir=os.path.join(ROOT, "build", "dp_train"),
+                       device="cuda", timeout_s=DP_TRAIN_TIMEOUT_S,
+                       mesh_shape=TP_TRAIN_MESH)
     spawn_s = time.time() - t0
-    path, first = TP_TRAIN_PATH, ranks[0]
+    return {f"{arch} tp2 train": check_tp_train(
+        f"{arch} tp2 train", arch, [r[arch] for r in ranks], one[arch],
+        spawn_s) for arch in TPF_TRAIN}
+
+
+def check_tp_train(path, arch, ranks, one, spawn_s):
+    """A tp2-train path from its ranks' reports (``tp_train_rank``)
+    against its one rank's (``dp_train_one_rank``), by the rule of
+    ``train_tp``; returns the path's record."""
+    import math
+    first = ranks[0]
+    layers, n_batch, seq = TPF_TRAIN.get(arch, (
+        DP_TRAIN_LAYERS, DP_TRAIN_BATCH, DP_TRAIN_SEQ))
     noise_loss = abs(one["loss"] - one["loss_f32"])
     for r, run in enumerate(ranks):
         if (run["losses"] != first["losses"] or run["loss"] != first["loss"]
@@ -5001,8 +5153,8 @@ def train_tp(dev, one):
                          one["m_noise"], one["m_norms"])
     launches, off = split_counts(path, first["counts"], ())
     out = {"spawn_s": spawn_s, "mesh": TP_TRAIN_MESH,
-           "n_layers": DP_TRAIN_LAYERS, "batch": DP_TRAIN_BATCH,
-           "seq_len": DP_TRAIN_SEQ, "launches": launches,
+           "n_layers": layers, "batch": n_batch,
+           "seq_len": seq, "launches": launches,
            "off_path_launches": off, "loss": first["loss"],
            "one_rank_loss": one["loss"], "one_rank_loss_f32": one["loss_f32"],
            "grad_dist_over_noise_max": g_ratio,
@@ -5756,6 +5908,10 @@ def main() -> None:
         tp_train = train_tp(dev, dpt_one)
     free_card()
 
+    with phase(TPF_TRAIN_PATH):
+        tpf_train = train_tp_families(dev)
+    free_card()
+
     with phase(HOST_SERVE_PATH):
         host_sv = host_serve(dev)
     free_card()
@@ -5769,7 +5925,7 @@ def main() -> None:
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
             XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained,
             XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train,
-            TP_TRAIN_PATH: tp_train,
+            TP_TRAIN_PATH: tp_train, **tpf_train,
             HOST_SERVE_PATH: host_sv, HOST_TRAIN_PATH: host_tr}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
@@ -5988,6 +6144,7 @@ def main() -> None:
                    "train_checkpoint": ckpt, "train": trained,
                    "train_driver": driver, "train_xlstm": xl_train,
                    "train_dp": dp_train, "train_tp": tp_train,
+                   "train_tp_families": tpf_train,
                    "serve_host": host_sv,
                    "train_host": host_tr,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,

@@ -30,9 +30,9 @@ the state's FSDP shard and gather the new weights; POOL or HOST weights
 beside DEVICE state gather the gradient shards and update whole
 (``state_moves``, as the reference's ``state_specs`` places the two).
 
-On a model axis of more than one rank (the dense, audio and MoE
-families; ``models.model.check_trainable``) the step is Megatron's
-tensor parallelism with the activations whole on every model rank
+On a model axis of more than one rank (every family) the step is
+Megatron's tensor parallelism with the activations whole on every model
+rank
 between blocks -- the form serving's row-parallel products already take
 -- rather than the reference's sequence-sharded activations
 (``_act_spec``): each rank computes its own heads, d_ff columns and
@@ -41,7 +41,10 @@ experts, two collectives a dense block a pass over the model axis
 backward sums; ``sharding.reduce_out`` after its row-parallel ones); the
 vocabulary-parallel cross-entropy never gathers the logits; the MoE is
 the reference's expert-parallel form, its tokens sharded over (data,
-model). The gathers, HOST copies and the deterministic store stay over
+model); the Mamba2 layers run their heads, the VLM's cross layers their
+heads of the vision K/V, and xLSTM's layers run whole and alike on
+every rank from their split leaves gathered whole (its cells are whole
+anyway). The gathers, HOST copies and the deterministic store stay over
 the data axes. The step works in place on the model, the moments and the
 masters (wherever they live), and returns the same state.
 """
@@ -179,7 +182,7 @@ def init_state(params: nn.Module, rc: RunConfig,
     (``state_moves``) its m, v and master are the state tier's: this
     rank's slice of a DEVICE weight, or a POOL or HOST weight gathered
     whole."""
-    M.check_trainable(rc.model, mesh.shape if mesh is not None else ())
+    M.check_trainable(rc.model)
     store = hdm.HDMStore(mesh, tier=rc.param_tier,
                          enable_host_tier=rc.enable_host_tier,
                          multi_pod_fsdp=rc.mesh.multi_pod)
@@ -298,7 +301,7 @@ def build_train_step(cfg: ModelConfig, rc: RunConfig,
     deterministic store reduces over the data axes only; the clip's norm
     sums an M-cut leaf's squares over the model axis too, and int8 error
     feedback quantizes each (F, M) shard in its whole leaf's blocks."""
-    M.check_trainable(cfg, mesh.shape if mesh is not None else ())
+    M.check_trainable(cfg)
     ranks = train_ranks_of(rc, mesh)
     group = None if ranks is None else ranks.fsdp
     model = None if ranks is None else ranks.model

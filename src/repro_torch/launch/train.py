@@ -140,7 +140,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig(),
                    param_tier=param_tier, optimizer_tier=optimizer_tier,
                    enable_host_tier=enable_host_tier)
-    M.check_trainable(cfg, mesh.shape if mesh is not None else ())
+    M.check_trainable(cfg)
     opt_cfg = adamw.AdamWConfig(learning_rate=rc.learning_rate,
                                 total_steps=max(steps, 10))
     params = M.init_model(cfg, seed=rc.seed, device=dev)

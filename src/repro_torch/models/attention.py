@@ -123,7 +123,8 @@ def train_heads(cfg: ModelConfig, n: int) -> int:
 
 
 def qkv_project_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, group
+                      positions: torch.Tensor, group, *,
+                      kv_x: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  bool]:
     """``qkv_project`` under grad over a model ``group``, x [B, S, d] whole
@@ -138,18 +139,28 @@ def qkv_project_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``wv`` and at the q/k norms, and by the gathers' backward. Where
     ``wq`` is whole (and so ``wo``) the attention is whole on every rank,
     a split ``wk``/``wv``'s columns gathered whole (each rank keeping its
-    columns' gradient)."""
+    columns' gradient). With ``kv_x`` (the VLM cross layer's vision
+    embeddings, [B, Nv, d]) k and v are projected from it, in the dtype
+    its product with the weights promotes to, without k-norm and without
+    RoPE."""
     b, s, _ = x.shape
     d, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     split = attn.wq.shape[1] != cfg.q_dim
     qn, kn = attn.q_norm, attn.k_norm
+    cross = kv_x is not None
+    e = x if not cross else kv_x.to(torch.promote_types(kv_x.dtype,
+                                                        attn.wk.dtype))
+
+    def prod(t, w):
+        return t @ w.to(t.dtype)
     if not split:
         q = x @ attn.wq
-        k, v = (x @ w if w.shape[1] == cfg.kv_dim else
-                sharding.gather_cols(group, x @ w) for w in (attn.wk,
-                                                              attn.wv))
+        k, v = (prod(e, w) if w.shape[1] == cfg.kv_dim else
+                sharding.gather_cols(group, prod(e, w)) for w in (attn.wk,
+                                                                  attn.wv))
     else:
         x = sharding.copy_in(group, x)
+        e = x if not cross else sharding.copy_in(group, e)
         hl = train_heads(cfg, group.size)
         q = x @ attn.wq
         q_lo = group.rank * hl
@@ -161,20 +172,22 @@ def qkv_project_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
 
         def kv(w):
             if w.shape[1] == cfg.kv_dim:
-                return x @ sharding.copy_in(group, w)[:, cols]
+                return prod(e, sharding.copy_in(group, w)[:, cols])
             if kv_n * d == w.shape[1] and kv_lo * d == group.rank * kv_n * d:
-                return x @ w
-            return sharding.gather_cols(group, x @ w, grad="sum")[..., cols]
+                return prod(e, w)
+            return sharding.gather_cols(group, prod(e, w),
+                                        grad="sum")[..., cols]
         k, v = kv(attn.wk), kv(attn.wv)
         if cfg.qk_norm:
             qn, kn = (sharding.copy_in(group, t) for t in (qn, kn))
     q = q.reshape(b, s, -1, d)
-    k = k.reshape(b, s, -1, d)
-    v = v.reshape(b, s, -1, d)
+    k = k.reshape(b, e.shape[1], -1, d)
+    v = v.reshape(b, e.shape[1], -1, d)
     if cfg.qk_norm:
         q = head_rmsnorm(qn, q, cfg.norm_eps)
-        k = head_rmsnorm(kn, k, cfg.norm_eps)
-    if cfg.use_rope:
+        if not cross:
+            k = head_rmsnorm(kn, k, cfg.norm_eps)
+    if cfg.use_rope and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v, split
@@ -269,14 +282,22 @@ def attention_train(block, cfg: ModelConfig, x: torch.Tensor,
                                        group)
     o = chunked_attention(q, k, v, causal=causal, kv_block=kv_block,
                           logit_softcap=cfg.attn_logit_softcap)
-    o = o.reshape(b, s, -1)
+    return x + out_train(block.attn, o.reshape(b, s, -1), group, split)
+
+
+def out_train(attn: Attention, o: torch.Tensor, group,
+              split: bool) -> torch.Tensor:
+    """The ``wo`` product of ``qkv_project_train``'s heads' output ``o``
+    [B, S, n]: whole where ``wq`` is (``split`` False), else this rank's
+    rows of ``wo`` (``o`` cut to its columns where it has every head) in
+    f32, summed over the ranks and cast once (``sharding.reduce_out``)."""
     if not split:
-        return x + o @ block.attn.wo
-    n = block.attn.wo.shape[0]
+        return o @ attn.wo
+    n = attn.wo.shape[0]
     if o.shape[-1] != n:                  # every head: this rank's columns
         o = o[..., group.rank * n:(group.rank + 1) * n]
-    return x + sharding.reduce_out(
-        group, sharding.product_f32(o, block.attn.wo), x.dtype)
+    return sharding.reduce_out(group, sharding.product_f32(o, attn.wo),
+                               o.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor,

@@ -256,10 +256,10 @@ def vocab_parallel_xent(embed: Embed, cfg: ModelConfig, x: torch.Tensor,
     gradient: the result does not depend on it) and, per codebook, the
     sum of exponentials and the label's logit (from the rank holding it,
     0 elsewhere) summed over the ranks in f32. x [B, S, d] whole on every
-    rank; labels [B, S] (audio [B, K, S])."""
-    x = sharding.copy_in(group, x)
+    rank; labels [B, S] (audio [B, K, S]); x's gradient is summed over the
+    ranks from their f32 parts (``sharding.col_part``)."""
     w = embed.embedding.T if cfg.tie_embeddings else embed.unembed
-    logits = (x @ w).float()                                 # [B, S, n]
+    logits = sharding.col_part(group, x, w).float()          # [B, S, n]
     n, v = logits.shape[-1], cfg.vocab_size
     lo = group.rank * n
     lab = labels.long() if labels.ndim == 3 else labels.long()[:, None]

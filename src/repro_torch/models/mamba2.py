@@ -9,7 +9,8 @@ reference's ``mamba_step`` is plain jnp, and so is the full-sequence
 training form (``mamba_apply``), the reference's jnp chunked SSD: the
 kernel has no backward.
 
-Over a rank ``group`` (serving at tp > 1) each rank holds its shard of
+Over a rank ``group`` of the model axis (serving at tp > 1, and training:
+``mamba_apply``'s own form under grad) each rank holds its shard of
 the weights (``parallel.sharding``): ``in_proj``'s columns, ``conv_w``'s
 channels, ``out_proj``'s rows and, where 16 divides the head count,
 ``A_log`` / ``D`` / ``dt_bias``. Neither column split falls on a segment
@@ -21,7 +22,8 @@ its sum of squares added across the ranks, and its rows of ``out_proj``
 summed across the ranks in f32. The states stay whole on every rank, as
 the reference's ``cache_specs`` leaves them: the conv window is taken
 from the gathered products, and the ranks' heads of ``h`` are gathered
-after every step.
+after every step. In training the same split runs on the differentiable
+collectives of ``parallel.sharding`` (``mamba_apply``).
 """
 from __future__ import annotations
 
@@ -101,26 +103,42 @@ def _heads(m: Mamba2, cfg: ModelConfig, group=None) -> Tuple[int, int]:
     return lo // p, n // p
 
 
-def _head_leaf(t: torch.Tensor, heads: Tuple[int, int]) -> torch.Tensor:
-    """A per-head leaf ([nh], or the rank's shard of it) at ``heads``."""
+def _share(group, cfg: ModelConfig, heads: Tuple[int, int], train: bool):
+    """For a tensor whole on every rank that this rank uses for its
+    ``heads`` only: under grad (``train``) over a model ``group`` whose
+    ranks split the heads it enters through ``sharding.copy_in``, its
+    gradient summed over the ranks; else it is taken as it is."""
+    split = train and heads[1] != _dims(cfg)[1]
+    return lambda t: sharding.copy_in(group if split else None, t)
+
+
+def _head_leaf(t: torch.Tensor, heads: Tuple[int, int],
+               share=None) -> torch.Tensor:
+    """A per-head leaf ([nh], or the rank's shard of it) at ``heads``; a
+    whole one through ``share`` (``_share``) first."""
     h0, n = heads
-    return t if t.shape[0] == n else t[h0:h0 + n]
+    if t.shape[0] == n:
+        return t
+    return (t if share is None else share(t))[h0:h0 + n]
 
 
 def _project(m: Mamba2, cfg: ModelConfig, u: torch.Tensor, heads,
-             group=None):
+             group=None, train: bool = False):
     """u: [B,S,d] -> z, x ([B,S,d_in], model dtype, whole), bc ([B,S,2N])
     and dt at ``heads`` ([B,S,n] f32, softplus, clipped to [1e-4, 10]).
     ``in_proj``'s product is gathered whole over a rank ``group`` that
-    splits it."""
+    splits it; with ``train``, under grad (``sharding.col_train``), z and
+    dt entering the rank's heads through ``_share``."""
     d_in, nh, _, _ = _dims(cfg)
-    z, x = sharding.whole_columns(group, u @ m.in_proj,
-                                  2 * d_in).chunk(2, dim=-1)
+    share = _share(group, cfg, heads, train)
+    zx = (sharding.col_train(group, u, m.in_proj, 2 * d_in) if train else
+          sharding.whole_columns(group, u @ m.in_proj, 2 * d_in))
+    z, x = zx.chunk(2, dim=-1)
     bc = u @ m.bc_proj
     h0, n = heads
-    dt = F.softplus((u @ m.dt_proj).float()[..., h0:h0 + n]
-                    + _head_leaf(m.dt_bias, heads))
-    return z, x, bc, dt.clamp(1e-4, 10.0)
+    dt = F.softplus(share(u @ m.dt_proj).float()[..., h0:h0 + n]
+                    + _head_leaf(m.dt_bias, heads, share))
+    return share(z), x, bc, dt.clamp(1e-4, 10.0)
 
 
 def _conv_out(m: Mamba2, cfg: ModelConfig, full: torch.Tensor, c: int,
@@ -142,16 +160,17 @@ def _conv_out(m: Mamba2, cfg: ModelConfig, full: torch.Tensor, c: int,
 
 
 def _ssd_inputs(m: Mamba2, cfg: ModelConfig, conv: torch.Tensor,
-                dt: torch.Tensor, heads):
+                dt: torch.Tensor, heads, share=None):
     """Split the conv output into the scan's f32 inputs at ``heads``: xh
-    [B,S,n,P], xdt, B, C (contiguous) and the per-step log decay
-    [B,S,n]."""
+    [B,S,n,P], xdt, B, C (contiguous) and the per-step log decay [B,S,n]
+    (a whole ``A_log`` through ``share``)."""
     d_in, nh, p, n = _dims(cfg)
     b, s = conv.shape[:2]
     x, bmat, cmat = conv.split([d_in, n, n], dim=-1)
     h0, nh_r = heads
     xh = x.reshape(b, s, nh, p)[:, :, h0:h0 + nh_r].float()
-    log_a = dt * (-torch.exp(_head_leaf(m.A_log, heads)))[None, None, :]
+    log_a = dt * (-torch.exp(_head_leaf(m.A_log, heads, share)))[
+        None, None, :]
     xdt = xh * dt[..., None]
     return (xh, xdt, bmat.float().contiguous(), cmat.float().contiguous(),
             log_a)
@@ -159,18 +178,23 @@ def _ssd_inputs(m: Mamba2, cfg: ModelConfig, conv: torch.Tensor,
 
 def _finish(m: Mamba2, cfg: ModelConfig, u: torch.Tensor, y: torch.Tensor,
             xh: torch.Tensor, z: torch.Tensor, heads,
-            group=None) -> torch.Tensor:
+            group=None, train: bool = False) -> torch.Tensor:
     """Skip term, gate, norm and output projection: y [B,S,n,P] f32 at
     ``heads``; over a rank ``group``, the norm's squares and the
-    projection's partial sums added across the ranks."""
-    d_in, _, p, _ = _dims(cfg)
+    projection's partial sums added across the ranks (with ``train``,
+    under grad: the f32 sums through ``sharding.reduce_out``)."""
+    d_in, nh, p, _ = _dims(cfg)
     b, s = y.shape[:2]
     h0, n = heads
-    y = y + xh * _head_leaf(m.D, heads)[None, None, :, None]
+    share = _share(group, cfg, heads, train)
+    y = y + xh * _head_leaf(m.D, heads, share)[None, None, :, None]
     y = y.reshape(b, s, -1).to(u.dtype)
     y = sharding.split_rmsnorm(group, m.ln_out.scale,
                                y * F.silu(z[..., h0 * p:(h0 + n) * p]),
                                d_in, cfg.norm_eps)
+    if train and n != nh:
+        return sharding.reduce_out(group, sharding.product_f32(
+            y, m.out_proj), u.dtype)
     return sharding.row_product(group, y, m.out_proj, d_in)
 
 
@@ -207,21 +231,37 @@ def _ssd_train(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
 
 
 def mamba_apply(m: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-                chunk: int = 256) -> torch.Tensor:
+                chunk: int = 256, group=None) -> torch.Tensor:
     """The full-sequence forward of one layer (training; the reference's
     ``mamba_apply``): the SSD from a zero state in plain, differentiable
     PyTorch, the conv in the model dtype. u: [B, S, d] -> [B, S, d]; S a
-    multiple of ``min(chunk, S)``."""
+    multiple of ``min(chunk, S)``.
+
+    Over a model ``group`` (``u`` whole on every rank, this rank's shard of
+    the weights) the products and the conv are whole on every rank
+    (``in_proj``'s columns and ``conv_w``'s channels gathered:
+    ``sharding.col_train``, ``channels_train``); from there each rank runs
+    the heads whose ``out_proj`` rows it holds (``_project``, ``_finish``
+    with ``train``): dt, the SSD, the skip term, the gated norm
+    (``split_rmsnorm``) and its rows of ``out_proj`` in f32, summed over
+    the ranks (``reduce_out``)."""
     s = u.shape[1]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunk {chunk} does not divide {s} tokens")
-    heads = _heads(m, cfg)
-    z, x, bc, dt = _project(m, cfg, u, heads)
-    conv = F.silu(_causal_conv(torch.cat([x, bc], dim=-1), m.conv_w))
-    xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, conv, dt, heads)
+    heads = _heads(m, cfg, group)
+    share = _share(group, cfg, heads, True)
+    z, x, bc, dt = _project(m, cfg, u, heads, group, train=True)
+    conv = sharding.channels_train(
+        group, lambda t, w: F.silu(_causal_conv(t, w)),
+        torch.cat([x, bc], dim=-1), m.conv_w)
+    # the conv output in f32 before its gradient is summed: B and C feed
+    # every rank's heads, so the ranks' parts of their gradient are added
+    # before the one cast back, as one rank's are
+    xh, xdt, bmat, cmat, log_a = _ssd_inputs(m, cfg, share(conv.float()),
+                                             dt, heads, share)
     y = _ssd_train(xdt, bmat, cmat, log_a, chunk)
-    return _finish(m, cfg, u, y, xh, z, heads)
+    return _finish(m, cfg, u, y, xh, z, heads, group, train=True)
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, *, device,

@@ -342,12 +342,15 @@ def _embed(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _shared_block_apply(sp: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
-                        emb: torch.Tensor,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        emb: torch.Tensor, positions: torch.Tensor,
+                        group=None) -> torch.Tensor:
     """zamba2's shared block over a sequence: concat(x, emb) -> in_map ->
-    the dense block -> out_map, added to x."""
+    the dense block -> out_map, added to x. Over a model ``group`` the
+    dense block runs its shard (``transformer.block_apply``); ``in_map``
+    and ``out_map`` are whole and used alike on every rank, on whole
+    activations."""
     z = transformer.block_apply(sp.block, cfg, _shared_in(sp, x, emb),
-                                positions)
+                                positions, group=group)
     return x + z @ sp.out_map
 
 
@@ -361,7 +364,12 @@ def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
     more than one rank its rows); ``model``: the model axis's group, over
     which the dense, audio and MoE blocks run their shards (Megatron's
     form, ``transformer.block_apply``); ``data``: the MoE's token rows
-    beside the model axis (``moe.moe_block_apply``)."""
+    beside the model axis (``moe.moe_block_apply``). Over a model axis
+    the hybrid's Mamba2 layers run their heads and its shared block its
+    shard (``mamba2.mamba_apply``), the VLM's cross layers Megatron's form
+    from the vision embeddings (``transformer.cross_block_train``), and
+    xLSTM's layers whole and alike on every rank from their split
+    leaves gathered whole (``xlstm.mlstm_apply``, ``slstm_apply``)."""
     fam = cfg.family
 
     def body(carry, layer):
@@ -377,48 +385,34 @@ def _body_train(cfg: ModelConfig, rc: RunConfig, positions: torch.Tensor,
         if fam == "vlm":
             self_blocks, cross = layer
             for blk in self_blocks:
-                x = transformer.block_apply(blk, cfg, x, positions)
-            k, v = transformer.vision_kv(cross, cfg, vision)
-            return transformer.cross_block_apply(cross, cfg, x, k, v,
-                                                 chunked=True), aux
+                x = transformer.block_apply(blk, cfg, x, positions,
+                                            group=model)
+            return transformer.cross_block_train(cross, cfg, x, vision,
+                                                 model), aux
         if fam == "hybrid":
             for m in layer:
-                x = x + mamba2.mamba_apply(m, cfg, x)
+                x = x + mamba2.mamba_apply(m, cfg, x, group=model)
             return _shared_block_apply(shared["params"], cfg, x,
-                                       shared["emb"], positions), aux
+                                       shared["emb"], positions,
+                                       group=model), aux
         if fam == "ssm":
             mlstm, slstm = layer
             for m in mlstm:
-                x = xlstm.mlstm_apply(m, cfg, x)
-            return xlstm.slstm_apply(slstm, cfg, x), aux
+                x = xlstm.mlstm_apply(m, cfg, x, group=model)
+            return xlstm.slstm_apply(slstm, cfg, x, group=model), aux
         raise ValueError(fam)
 
     return body
 
 
-# the families trained on a model axis of more than one rank
-MODEL_AXIS_FAMILIES = ("dense", "moe", "audio")
-
-
-def check_trainable(cfg: ModelConfig, mesh_shape=()) -> None:
-    """Raise for what the port does not train yet: a family without
-    training forms, or the hybrid, VLM and xLSTM families on a model axis
-    of more than one rank (ROADMAP Queue 1 item 4b: their Mamba2 heads,
-    cross layers and xLSTM cells over a model group have no backward
-    yet). Every tier pair trains, on any mesh."""
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a family without training forms. A trained family trains
+    on any mesh -- over the data, pod and model axes -- and on every tier
+    pair."""
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported "
             f"(trained: {TRAINED_FAMILIES})")
-    if not mesh_shape or tuple(mesh_shape)[-1] == 1:
-        return
-    shape = tuple(mesh_shape)
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family on mesh {shape}: a model "
-            f"axis of {shape[-1]} ranks in training is ROADMAP Queue 1 "
-            f"item 4b's for the hybrid, VLM and xLSTM families; train it "
-            f"over the data and pod axes (model axis 1)")
 
 
 def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
@@ -450,14 +444,17 @@ def loss_fn(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     among them), the layers ``rc.sr_prefetch_depth`` ahead, and the
     leaves' card gradients go to ``host_grads`` (``sharding.HostGrads``).
 
-    Over a model axis (``ranks.model``, N > 1; dense, audio and MoE)
-    ``params`` holds this rank's shard of every leaf ``param_specs``
-    splits on "model", and the activations are whole on every model rank
-    between blocks (Megatron's form): the embedding looked up over the
-    rank's vocabulary rows and summed, each block over its heads, d_ff
-    columns and experts (``transformer.block_apply``, ``moe.
-    moe_block_apply``), the cross-entropy over the rank's vocabulary
-    columns (``layers.vocab_parallel_xent``). Every model rank computes
+    Over a model axis (``ranks.model``, N > 1; every family) ``params``
+    holds this rank's shard of every leaf ``param_specs`` splits on
+    "model", and the activations are whole on every model rank between
+    blocks (Megatron's form): the embedding looked up over the rank's
+    vocabulary rows and summed, each block over its heads, d_ff columns
+    and experts (``transformer.block_apply``, ``moe.moe_block_apply``,
+    the VLM's ``transformer.cross_block_train``), the Mamba2 layers over
+    their heads (``mamba2.mamba_apply``), xLSTM's layers whole on every
+    rank from gathered leaves (``xlstm.mlstm_apply``, ``slstm_apply``), the
+    cross-entropy over the rank's vocabulary columns
+    (``layers.vocab_parallel_xent``). Every model rank computes
     the same loss; the gathers, copies and reductions stay over the data
     axes."""
     check_trainable(cfg)
@@ -758,16 +755,11 @@ def prefill_step(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
     [B, S] (audio [B, K, S]) and, for the VLM, ``vision_embeds``. The
     layers stream through the speculative read (``mode="infer"``), their
     FSDP axes gathered over ``ranks.fsdp``. Over a model axis (a rank
-    ``group`` or ``ranks.model``; the dense, audio and MoE families) the
-    blocks run this rank's shard as the training forward does (the MoE
-    expert-parallel over the sequence) and the logits are gathered
-    whole."""
+    ``group`` or ``ranks.model``; every family) the layers run this rank's
+    shard as the training forward does (the MoE expert-parallel over the
+    sequence) and the logits are gathered whole."""
     r = _ranks(group, ranks)
     model = r.model if r.model is not None and r.model.size > 1 else None
-    if model is not None and cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's full-sequence forward on a model "
-            f"axis is ROADMAP Queue 1 item 4b's")
     top = sr.materialize(_outside(params, cfg), rc.sr_granularity, r.fsdp,
                          label="outside")
     tokens = batch["tokens"]

@@ -7,7 +7,8 @@ The dense ``Block`` and the ``MoEBlock`` share the attention half; each
 brings its own feed-forward half (``ffn``): the MLP, or the routed experts.
 The ``CrossBlock`` (llama-3.2-vision) attends over vision K/V that no step
 writes: the serving engine leaves them at the cache's zeros, as the
-reference's does. Every block takes a rank ``group`` (serving at tp > 1)
+reference's does. Every block takes a rank ``group`` (serving at tp > 1,
+and training over a model axis: ``block_apply``, ``cross_block_train``)
 and then runs on this rank's shard of the weights (``parallel.sharding``).
 """
 from __future__ import annotations
@@ -124,14 +125,13 @@ def _gate(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def cross_block_apply(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
                       k: torch.Tensor, v: torch.Tensor, *,
-                      chunked: bool = False, group=None) -> torch.Tensor:
-    """The gated cross-attention layer over vision K/V. x: [B, S, d]; k/v:
-    [B, Nv, Hkv, D]. Every query attends to all Nv keys (no RoPE, no
-    mask): the reference's ``cross_block_apply`` for a sequence and its
-    ``_decode_vlm`` cross layer for one token, as one function. With
-    ``chunked`` (the training forward) the attention is the reference's
-    ``chunked_attention`` over key blocks of up to 512 (the last one
-    padded); else one f32 softmax over every key.
+                      group=None) -> torch.Tensor:
+    """The gated cross-attention layer over vision K/V in serving. x: [B,
+    S, d]; k/v: [B, Nv, Hkv, D]. Every query attends to all Nv keys (no
+    RoPE, no mask) in one f32 softmax: the reference's
+    ``cross_block_apply`` for a sequence and its ``_decode_vlm`` cross
+    layer for one token, as one function (training:
+    ``cross_block_train``).
 
     Over a rank ``group`` the projections are this rank's shard, as the
     self-attention's are (``wq`` gathered whole, ``wo`` and the MLP's
@@ -140,11 +140,7 @@ def cross_block_apply(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
     b, s = x.shape[0], x.shape[1]
     h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
     q = attn.q_project(block.attn, cfg, h, group=group)
-    if chunked:
-        o = attn.chunked_attention(q, k, v, causal=False,
-                                   kv_block=min(512, k.shape[1]))
-    else:
-        o = attn.decode_attention(q, k, v)
+    o = attn.decode_attention(q, k, v)
     o = sharding.row_product(group, o.reshape(b, s, cfg.q_dim),
                              block.attn.wo, cfg.q_dim)
     x = x + _gate(block.attn_gate, x) * o
@@ -153,13 +149,39 @@ def cross_block_apply(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
                                                     group)
 
 
+def cross_block_train(block: CrossBlock, cfg: ModelConfig, x: torch.Tensor,
+                      vision_embeds: torch.Tensor, group) -> torch.Tensor:
+    """The gated cross-attention layer in training (the reference's
+    ``cross_block_apply``): x [B, S, d]; ``vision_embeds`` [B, Nv, d],
+    projected to K/V here; the attention the reference's
+    ``chunked_attention`` over key blocks of up to 512 (the last one
+    padded). Over a model ``group`` (x whole on every rank) it takes
+    Megatron's form, as ``attention.attention_train``: this rank's q heads
+    and the kv heads they read of the vision K/V
+    (``attention.qkv_project_train``), ``wo``'s rows summed over the ranks
+    (``attention.out_train``), the MLP over the rank's d_ff columns
+    (``mlp_apply(train=True)``). The 0-d gates are whole and scale whole
+    activations, so their gradients are whole on every rank."""
+    b, s = x.shape[0], x.shape[1]
+    h = rmsnorm(block.ln_attn, x, cfg.norm_eps)
+    q, k, v, split = attn.qkv_project_train(block.attn, cfg, h, None, group,
+                                            kv_x=vision_embeds)
+    o = attn.chunked_attention(q, k, v, causal=False,
+                               kv_block=min(512, k.shape[1]))
+    o = attn.out_train(block.attn, o.reshape(b, s, -1), group, split)
+    x = x + _gate(block.attn_gate, x) * o
+    h = rmsnorm(block.ln_mlp, x, cfg.norm_eps)
+    return x + _gate(block.mlp_gate, x) * mlp_apply(block.mlp, cfg, h,
+                                                    group, train=True)
+
+
 def vision_kv(block: CrossBlock, cfg: ModelConfig,
               vision_embeds: torch.Tensor, group=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of (stubbed) vision embeddings [B, Nv, d] ->
     ([B, Nv, Hkv, D], [B, Nv, Hkv, D]). The serving path never calls it
-    (it has no vision input); the training forward takes them from the
-    batch's embeddings, and the tests use it to give the cross layer K/V
+    (it has no vision input), and the training forward projects them in
+    ``cross_block_train``; the tests use it to give the cross layer K/V
     that are not zero. With ``wk``/``wv`` split over a rank ``group`` on
     their columns, the products are gathered whole."""
     b, nv = vision_embeds.shape[:2]

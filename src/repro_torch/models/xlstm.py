@@ -24,10 +24,11 @@ inter-chunk state carry, chunks of ``min(256, S)`` tokens; its
 stabilizers ``m_loc`` and ``m_new`` are detached, as the reference's
 ``stop_gradient`` leaves them); ``slstm_apply`` the sequential scan of
 the cells. No Pallas kernel exists for either block: both are plain
-PyTorch, as the reference's are plain jnp, and take whole weights (the
-training path gathers them before use).
+PyTorch, as the reference's are plain jnp; over the FSDP axes the
+training path gathers the weights before use.
 
-Over a rank ``group`` (serving at tp > 1) each rank holds its shard of
+Over a rank ``group`` of the model axis (serving at tp > 1, and
+training) each rank holds its shard of
 the weights (``parallel.sharding``): the columns of ``w_up1`` /
 ``w_up2`` / ``w_qkv`` and the sLSTM's ``w_gates``, the channels of
 ``conv_w``, the rows of ``w_down2``, ``w_out`` and the FFN's ``w_down``;
@@ -37,6 +38,10 @@ its whole states, as the reference's ``cache_specs`` leaves them. The
 column products are gathered whole before they are cut (``w_qkv``'s
 split falls inside k), each rank convolves its channels and the outputs
 are gathered, and the row-split products sum across the ranks in f32.
+In training the cells are whole on every rank too, and so is the rest
+of each layer: its split leaves are gathered whole, differentiably, and
+every rank computes the layer as one rank does (``mlstm_apply``,
+``slstm_apply``).
 """
 from __future__ import annotations
 
@@ -228,11 +233,25 @@ def _mlstm_chunk(carry, qq, kk, vv, ii, ff, causal):
     return hq, (C_new, n_new, m_new)
 
 
+def _mlstm_widths(cfg: ModelConfig):
+    """Each mLSTM leaf a model axis may split: (submodule, name, axis,
+    whole size)."""
+    d_in, nh, _ = _dims(cfg)
+    return [("", "w_up1", 1, d_in), ("", "w_up2", 1, d_in),
+            ("", "conv_w", 1, d_in), ("", "w_qkv", 1, 3 * d_in),
+            ("", "w_gates", 1, 2 * nh), ("", "w_down2", 0, d_in)]
+
+
 def mlstm_apply(m: MLSTM, cfg: ModelConfig, x: torch.Tensor,
-                chunk: int = 256) -> torch.Tensor:
+                chunk: int = 256, group=None) -> torch.Tensor:
     """The chunkwise-parallel mLSTM over a whole sequence from a zero
     state, with the residual (training). x: [B, S, d] -> [B, S, d]; S must
-    be a multiple of ``min(chunk, S)``, as the reference asserts."""
+    be a multiple of ``min(chunk, S)``, as the reference asserts. Over a
+    model ``group`` (x whole on every rank) the layer runs whole and alike
+    on every rank, its split leaves gathered whole first
+    (``sharding.leaves_train``): the cells are whole on every rank anyway,
+    and so each rank's products take one rank's shapes and sums."""
+    m = sharding.leaves_train(group, m, _mlstm_widths(cfg))
     d_in, nh, dh = _dims(cfg)
     b, s, _ = x.shape
     chunk = min(chunk, s)
@@ -363,10 +382,25 @@ def slstm_step(s: SLSTM, cfg: ModelConfig, x: torch.Tensor,
             {**cell, "conv": conv})
 
 
-def slstm_apply(s: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _slstm_widths(cfg: ModelConfig):
+    """Each sLSTM leaf a model axis may split: (submodule, name, axis,
+    whole size)."""
+    d, ff = cfg.d_model, _ffn_width(cfg.d_model)
+    return [("", "conv_w", 1, d), ("", "w_gates", 1, 4 * d),
+            ("", "r_gates", 0, cfg.n_heads), ("", "w_out", 0, d),
+            ("ffn", "w_gate", 1, ff), ("ffn", "w_up", 1, ff),
+            ("ffn", "w_down", 0, ff)]
+
+
+def slstm_apply(s: SLSTM, cfg: ModelConfig, x: torch.Tensor,
+                group=None) -> torch.Tensor:
     """The sLSTM over a whole sequence from the state initialisers' state
     (h, c 0; n 1e-6; m -1e9), the cells token by token, with the residual
-    and the FFN (training). x: [B, S, d] -> [B, S, d]."""
+    and the FFN (training). x: [B, S, d] -> [B, S, d]. Over a model
+    ``group`` the layer runs whole and alike on every rank, its split
+    leaves gathered whole first (``sharding.leaves_train``), as
+    ``mlstm_apply``'s."""
+    s = sharding.leaves_train(group, s, _slstm_widths(cfg))
     d = cfg.d_model
     nh = cfg.n_heads
     dh = d // nh

@@ -667,6 +667,17 @@ def mean_over(group, t: torch.Tensor) -> torch.Tensor:
 #  * ``all_to_all_grad``: the tiled ``all_to_all``, whose backward is the
 #    ``all_to_all`` of the gradient (the expert-parallel MoE's dispatch).
 #
+# Where a layer computes something whole on every rank (the Mamba2
+# projections and conv before its heads split), its split products are
+# gathered whole first (``col_train``, ``channels_train``); where a whole
+# layer runs alike on every rank (xLSTM's), its split leaves are
+# (``leaves_train``). A whole leaf used alike on every rank then has its
+# whole gradient on each rank and is not summed again, while a whole leaf
+# used for one rank's share (a per-head leaf sliced to the rank's heads)
+# enters through ``copy_in``. A column product from a whole input
+# (``col_part``) sums the ranks' f32 parts of the input's gradient and
+# rounds once, as one rank's product does.
+#
 # The serving collectives (``reduce_sum``, ``gather_columns``, the uint8
 # ``all_gather``) cut or miss the graph: autograd sees an all-reduce in
 # place as an identity and a gather through bytes as a constant.
@@ -788,6 +799,81 @@ def all_to_all_grad(group, x: torch.Tensor, *riders):
     if not _grouped(group):
         return (x, *riders) if riders else x
     return _AllToAllFn.apply(group, x, *riders)
+
+
+class _ColPartFn(torch.autograd.Function):
+    """``x @ w`` for ``x`` whole on every rank and ``w`` this rank's
+    columns; backward ``w``'s gradient from this rank's columns and
+    ``x``'s from every rank's, each rank's part kept in f32
+    (``product_f32``) and the parts summed in f32 and cast once -- as one
+    rank's product over every column accumulates in f32 and rounds once
+    (``copy_in`` would sum parts already rounded to ``x``'s dtype)."""
+
+    @staticmethod
+    def forward(ctx, group, x, w):
+        ctx.group = group
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[1]:
+            gx = ctx.group.sum_ranked(product_f32(g, w.T)).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return None, gx, gw
+
+
+def col_part(group, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """This rank's columns of ``x @ w`` under grad, ``x`` whole on every
+    rank and ``w`` this rank's columns (``_ColPartFn``); the product
+    itself on one rank."""
+    return _ColPartFn.apply(group, x, w) if _grouped(group) else x @ w
+
+
+def col_train(group, x: torch.Tensor, w: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """``x @ w`` ([..., width]) whole on every rank under grad, ``x`` whole
+    there: where ``w`` is split over ``group`` on its columns, each rank's
+    columns (``col_part``), gathered (``gather_cols``, ``"own"``: the
+    product's use must be whole on every rank); else one product."""
+    if w.shape[-1] == width or not _grouped(group):
+        return x @ w
+    return gather_cols(group, col_part(group, x, w))
+
+
+def leaves_train(group, unit: nn.Module, widths) -> nn.Module:
+    """``unit`` (a layer) as a structural twin with every leaf that the
+    model ``group`` splits gathered whole under grad: ``widths`` lists
+    ``(submodule, name, axis, whole size)`` (submodule "" for the unit
+    itself), a leaf short of its size on that axis being this rank's part.
+    Every rank then computes the layer whole and alike, so a gathered
+    leaf's gradient is whole on each rank and the gather's backward keeps
+    this rank's part (``gather_cols``, ``"own"``)."""
+    if not _grouped(group):
+        return unit
+    got = {}
+    for sub, name, axis, width in widths:
+        mod = getattr(unit, sub) if sub else unit
+        t = mod._parameters[name]
+        if t.shape[axis] != width:
+            got[(id(mod), name)] = gather_cols(group, t, dim=axis)
+    return _with_got(unit, got)
+
+
+def channels_train(group, fn, x: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """``fn(x, w)`` of a channel-wise op (a depthwise conv) whose weight
+    ``w`` [..., C] may be split over ``group`` on its channels, ``x`` [...,
+    C] whole on every rank, under grad: each rank's channels (``x``
+    through ``copy_in``), gathered whole (``"own"``)."""
+    width = x.shape[-1]
+    if w.shape[-1] == width or not _grouped(group):
+        return fn(x, w)
+    lo, n = held_range(group, w.shape[-1], width)
+    return gather_cols(group, fn(copy_in(group, x)[..., lo:lo + n], w))
 
 
 def check_pages(n_pages: int, n_ranks: int, max_seq: int,

@@ -33,6 +33,7 @@ within lr / 2 (``tests/test_torch_optim.py``'s rule). The bf16 cases are
 ``tests/test_torch_dp_train_bf16.py``'s.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -97,9 +98,11 @@ def np_batch(arch, seed=0):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def np_params(arch, dtype):
     """The reference's smoke weights (``PRNGKey(0)``), numpy leaves (bf16
-    as 2-byte voids, which pickle without ml_dtypes)."""
+    as 2-byte voids, which pickle without ml_dtypes; read-only views, so
+    one tree serves every caller)."""
     cfg = dataclasses.replace(jreg.smoke(arch), dtype=dtype)
     params = JM.init_model(jax.random.PRNGKey(0), cfg)
 

@@ -466,5 +466,5 @@ def test_device_beside_host_on_a_data_axis_raises():
     _, tcfg = _cfgs()
     for pair in (("device", "host"), ("host", "device")):
         rc = _trc(tcfg, pair)
-        TM.check_trainable(tcfg, (2, 1))
+        TM.check_trainable(tcfg)
         tsteps.build_train_step(tcfg, rc, tadamw.AdamWConfig())

@@ -63,6 +63,7 @@ from test_torch_dp_train import (F32_TOL, _JAX as _JAX_TRAIN, as_tree,
 import test_torch_dp_train as dp
 
 QWEN, GRANITE, MUSIC = "qwen3-1.7b", "granite-moe-1b-a400m", "musicgen-large"
+ZAMBA, VLM, XLSTM = "zamba2-2.7b", "llama-3.2-vision-11b", "xlstm-125m"
 # granite's capacity factor in the training cases: both stages drop pairs
 DROPS = dict(capacity_factor=1.0)
 CASES = [case("q12", QWEN, shape=(1, 2)),
@@ -71,6 +72,10 @@ CASES = [case("q12", QWEN, shape=(1, 2)),
          case("g12", GRANITE, shape=(1, 2), over=DROPS),
          case("g22", GRANITE, shape=(2, 2), over=DROPS),
          case("m12", MUSIC, shape=(1, 2)),
+         case("z12", ZAMBA, shape=(1, 2)),
+         case("z22", ZAMBA, shape=(2, 2)),
+         case("v12", VLM, shape=(1, 2)),
+         case("x12", XLSTM, shape=(1, 2)),
          case("dev-pool", QWEN, tier="device", opt_tier="pool"),
          case("pool-dev", QWEN, tier="pool", opt_tier="device",
               same_as="dev-pool")]
@@ -91,7 +96,14 @@ TWINS = {HOST["name"]: TWIN["name"], "dev-host": "dev-pool",
 MULTIPOD = case("g212-multipod", GRANITE, shape=(2, 1, 2), multi_pod=True,
                 over=DROPS)
 # the step builders: (name, arch, mesh shape, with decode ticks)
-SERVE = [("q11", QWEN, (1, 1), True), ("q12", QWEN, (1, 2), True)]
+SERVE = [("q11", QWEN, (1, 1), True), ("q12", QWEN, (1, 2), True),
+         ("z12", ZAMBA, (1, 2), False), ("v12", VLM, (1, 2), False),
+         ("x12", XLSTM, (1, 2), False)]
+# the archs of the training cases
+ARCHS = (QWEN, GRANITE, MUSIC, ZAMBA, VLM, XLSTM)
+# xLSTM's leaves that are whole on the model axis and used alike by
+# every rank: their gradient is whole on each rank, counted once
+ALIKE = ("r_gates", "mlstm.0.0.w_gates", "gate_bias", "ln_head.scale")
 SB, SS, MAX_SEQ, PAGE, TICKS = 2, 16, 32, 8, 3
 # ``launch.train`` at (2, 2): smoke qwen3 in bf16, 4 x 16 tokens a step
 TRAIN_KW = dict(smoke=True, seq_len=16, global_batch=4, steps=2)
@@ -100,7 +112,7 @@ COLL_TOL = dict(rtol=1e-5, atol=1e-6)
 
 _SERVE_JAX = """
 serve = json.load(open(os.path.join(out_dir, "serve.json")))
-for name, arch, shp, ticks, tokens in serve:
+for name, arch, shp, ticks, sbatch in serve:
     cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
     rc = dataclasses.replace(RunConfig(model=cfg, shape=SHAPES["decode_32k"],
                                        mesh=MeshConfig()),
@@ -108,7 +120,11 @@ for name, arch, shp, ticks, tokens in serve:
     if (arch, "float32") not in params:
         params[arch, "float32"] = M.init_model(jax.random.PRNGKey(0), cfg)
     p0 = params[arch, "float32"]
-    toks = np.asarray(tokens, np.int32)
+    toks = np.asarray(sbatch["tokens"], np.int32)
+    pbatch = {"tokens": jnp.asarray(toks)}
+    if "vision_embeds" in sbatch:
+        pbatch["vision_embeds"] = jnp.asarray(np.asarray(
+            sbatch["vision_embeds"], np.float32))
     out = {}
     pmesh = make_production_mesh(shape=tuple(shp))
     with jax.set_mesh(pmesh):
@@ -116,7 +132,7 @@ for name, arch, shp, ticks, tokens in serve:
                                    multi_pod_fsdp=False)
         p = jax.device_put(p0, shlib.shardings_from_specs(pmesh, pspecs))
         out["prefill"] = np.asarray(jax.jit(steps.build_prefill_step(
-            cfg, rc))(p, {"tokens": jnp.asarray(toks)}), np.float32)
+            cfg, rc))(p, pbatch), np.float32)
         if ticks:
             b = toks.shape[0]
             cache = jax.device_put(M.cache_init(cfg, rc, b, %d),
@@ -132,10 +148,18 @@ _JAX = _JAX_TRAIN.replace('print("JAX_TRAIN done")',
                           _SERVE_JAX + 'print("JAX_TRAIN done")')
 
 
-def _serve_tokens(arch):
+def _serve_batch(arch):
+    """The step builders' batch: tokens [SB, SS] (and the VLM's f32
+    vision embeddings)."""
     cfg = treg.smoke(arch)
     rng = np.random.default_rng(3)
-    return rng.integers(0, cfg.vocab_size, (SB, SS)).astype(np.int32)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (SB, SS)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = (rng.standard_normal(
+            (SB, cfg.n_vision_tokens, cfg.d_model)) * 0.02).astype(
+                np.float32)
+    return out
 
 
 # ------------------------------------------------------------ rank work
@@ -369,9 +393,11 @@ def _serve(rank_mesh, cases, np_params_by):
         params = bridge.params_from_jax(
             np_params_by[arch], cfg, device="cpu", rank=rank_mesh.rank,
             mesh_shape=shp)
-        toks = torch.from_numpy(_serve_tokens(arch))
+        batch = {k: torch.from_numpy(v) for k, v in _serve_batch(
+            arch).items()}
+        toks = batch["tokens"]
         res = {"prefill": bridge.to_numpy(tsteps.build_prefill_step(
-            cfg, rc, mesh=m)(params, {"tokens": toks}))}
+            cfg, rc, mesh=m)(params, batch))}
         if ticks:
             cache = TM.cache_init(cfg, rc, SB, MAX_SEQ, device="cpu")
             cache = sh.shard_cache(cache, rank_mesh.model.rank,
@@ -482,15 +508,15 @@ def runs(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("tp_train"))
     import json
     with open(os.path.join(out_dir, "serve.json"), "w") as f:
-        json.dump([(n, a, list(s), t, _serve_tokens(a).tolist())
+        json.dump([(n, a, list(s), t, {k: v.tolist() for k, v in
+                                       _serve_batch(a).items()})
                    for n, a, s, t in SERVE], f)
     dp._JAX, saved = _JAX, dp._JAX
     try:
         result = run_reference(CASES, out_dir)
     finally:
         dp._JAX = saved
-    params_np = {(a, "float32"): np_params(a, "float32")
-                 for a in (QWEN, GRANITE, MUSIC)}
+    params_np = {(a, "float32"): np_params(a, "float32") for a in ARCHS}
     port = {}
     # the two worlds side by side, beside the reference's subprocess
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
@@ -563,6 +589,33 @@ def test_model_axis_and_tier_pairs_match_reference(runs, name):
         res = as_tree(c["arch"], "float32", joined(got, c, "residuals"), "r")
         for k, w in ((k, v) for k, v in want.items() if k.startswith("r/")):
             assert np.abs(res[k] - w).max() <= one_step + 3e-5 * gnorm, k
+
+
+def test_whole_leaves_used_alike_count_once(runs):
+    """xLSTM at (1, 2): the leaves whole on the model axis that every
+    rank uses alike (the sLSTM's ``r_gates``, the mLSTM's ``w_gates``,
+    both ``gate_bias`` and ``ln_head``) hold on each rank the one-device
+    gradient of the same weights and batch, not N times it."""
+    from repro_torch.optim import adamw as tadamw
+    port, _ = runs
+    c = BY_NAME["x12"]
+    cfg = dataclasses.replace(treg.smoke(XLSTM), dtype="float32")
+    rc = dp.run_config(dp.case("one", XLSTM, shape=(1, 1)), cfg)
+    params = tsteps.init_state(bridge.params_from_jax(
+        np_params(XLSTM, "float32"), cfg, device="cpu"), rc,
+        tadamw.AdamWConfig()).params
+    batch = {k: torch.from_numpy(v) for k, v in np_batch(XLSTM).items()}
+    _, grads = tsteps.loss_and_grads(params, cfg, rc, batch)
+    names = [n for n, _ in params.named_parameters()]
+    alike = [i for i, n in enumerate(names) if any(k in n for k in ALIKE)]
+    assert any(names[i].endswith("r_gates") for i in alike)
+    for i in alike:
+        want = bridge.to_numpy(grads[i])
+        assert np.abs(want).max() > 0, names[i]
+        for r in port[c["name"]]:
+            assert r["model_axes"][i] is None, names[i]
+            np.testing.assert_allclose(r["grads"][i], want, err_msg=names[i],
+                                       **F32_TOL)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])

@@ -6,11 +6,10 @@ bf16, 4 sequences of 16 tokens a step): two steps equal to the first two
 of an uninterrupted run, each rank's checkpoint its own shard, a resume
 that replays the saved step's batch as the reference's does (ROADMAP
 Queue 3) and follows the one-rank driver's resume. Training at a model
-axis of 2 builds for the dense, audio and MoE families and raises
-``NotImplementedError`` for the hybrid, VLM and xLSTM families (ROADMAP
-Queue 1 item 4b), never running on one rank instead; every mixed tier
-pair builds, on a data axis of two and on one rank (``launch.train`` at
-(2, 2) is ``test_torch_tp_train.py``'s). The
+axis of 2 builds for every family (a family without training forms is
+refused on any mesh); every mixed tier pair builds, on a data axis of
+two and on one rank (``launch.train`` at (2, 2) is
+``test_torch_tp_train.py``'s). The
 deterministic store's placements (``ds_grad_specs``) equal the
 reference's, on and off, with and without ``multi_pod``, and so do the
 training state's (``steps.state_specs``) on both tiers.
@@ -58,37 +57,28 @@ def _data_mesh(d):
 
 
 def test_training_refuses_a_model_axis_and_mixed_tiers():
-    """The model axis in training: the dense, audio and MoE families
-    build their step and state on it; the hybrid, VLM and xLSTM families
-    are ROADMAP Queue 1 item 4b's, refused, never run on one rank
-    instead. Every mixed tier pair builds on a data axis of two, with and
-    without ``multi_pod``, and builds and places its state on one rank
-    (the pairs' steps against the reference: ``test_torch_tp_train.py``)."""
+    """The model axis in training: every family builds its step and its
+    state on it and passes ``check_trainable``, which refuses only a
+    family without training forms. Every mixed tier pair builds
+    on a data axis of two, with and without ``multi_pod``, and builds and
+    places its state on one rank (the pairs' steps and the model axis's
+    against the reference: ``test_torch_tp_train.py``)."""
     cfg = treg.smoke(ARCH)
     rc = RunConfig(model=cfg, shape=SHAPES["train_4k"], mesh=MeshConfig())
     opt = tadamw.AdamWConfig()
     model_axis = mesh.RankMesh.of_group(mesh.RankGroup(
         0, 2, torch.device("cpu"), "gloo"))
     assert model_axis.shape == (1, 1, 2)
-    for arch in (ARCH, "granite-moe-1b-a400m", "musicgen-large"):
+    for arch in (ARCH, "granite-moe-1b-a400m", "musicgen-large",
+                 "zamba2-2.7b", "llama-3.2-vision-11b", "xlstm-125m"):
         acfg = treg.smoke(arch)
         arc = dataclasses.replace(rc, model=acfg)
         tsteps.build_train_step(acfg, arc, opt, mesh=model_axis)
         tsteps.init_state(TM.init_model(acfg, device="cpu"), arc, opt,
                           mesh=model_axis)
-        TM.check_trainable(acfg, (1, 2))
-        TM.check_trainable(acfg, (2, 2, 2))
-    for arch in ("zamba2-2.7b", "llama-3.2-vision-11b", "xlstm-125m"):
-        acfg = treg.smoke(arch)
-        arc = dataclasses.replace(rc, model=acfg)
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            tsteps.build_train_step(acfg, arc, opt, mesh=model_axis)
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            tsteps.init_state(TM.init_model(acfg, device="cpu"), arc, opt,
-                              mesh=model_axis)
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            TM.check_trainable(acfg, (2, 2))
-        TM.check_trainable(acfg, (2, 1))
+        TM.check_trainable(acfg)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TM.check_trainable(dataclasses.replace(cfg, family="encoder"))
     data_axis = mesh.RankMesh.of_group(mesh.RankGroup(
         0, 1, torch.device("cpu"), "gloo"))
     two_rows = _data_mesh(2)
@@ -96,8 +86,7 @@ def test_training_refuses_a_model_axis_and_mixed_tiers():
                  ("host", "device")):
         mixed = dataclasses.replace(rc, param_tier=pair[0],
                                     optimizer_tier=pair[1])
-        TM.check_trainable(cfg, (2, 1))
-        TM.check_trainable(cfg, (2, 1, 1))
+        TM.check_trainable(cfg)
         tsteps.build_train_step(cfg, mixed, opt, mesh=two_rows)
         tsteps.build_train_step(cfg, dataclasses.replace(
             mixed, mesh=MeshConfig(multi_pod=True)), opt, mesh=two_rows)
