@@ -192,10 +192,11 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    must be its source's on both engines, and each engine's restore is
    held instead to its own source's rows at the matching steps); its
    bf16 tick and chunk timed again with the row-parallel products taken
-   from f32 copies; then granite-moe-1b-a400m at full width (cut to its
-   ``CUT_LAYERS``; bf16 pages), its MoE expert-parallel (``all_to_all``
-   dispatch at prefill, the last prompt's odd final chunk on the
-   one-device fallback, a sum all-reduce at decode): the ranks' tokens,
+   from f32 copies; then granite-moe-1b-a400m at full width (cut to 2
+   of 24 layers, ``TP_CUT``; bf16 pages), its MoE expert-parallel
+   (``all_to_all`` dispatch at prefill, the last prompt's odd final chunk
+   on the one-device fallback, a sum all-reduce at decode): the ranks'
+   tokens,
    stats and tier traces equal, layer 0's MoE on each rank within TOL of
    ``moe_apply_ep_ref`` and of ``moe_apply_ep_loop`` (whole experts, on
    the card; the loop shares no helper with the form under test, and
@@ -336,7 +337,30 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    optimizer ms, the bytes copied each way, the copy rates, the share of
    the layer copies the prefetch hides, the pinned bytes against the
    bytes held;
-21. print the measured numbers, the seconds of each phase, one
+21. serve qwen3-1.7b open loop: full width cut to ``OPEN_LAYERS`` of its
+   28 layers (random bf16 weights from the seed) on phase 3's engine with
+   async tier I/O (``cxl_async``), ``OPEN_LOAD``'s seeded arrival trace
+   (``serving.loadgen``: 24 bursty arrivals at 8000 a simulated second,
+   6 zipf-shared prompts of 256-1024 tokens, 8-32 new tokens, a quarter
+   interactive) played on the simulated clock by ``drive_open_loop``, once
+   with swap and once with recompute preemption (the main path: the
+   kernels' counts from 0 before the two runs, read after). First the
+   same arrivals served closed (all submitted at once, no preemption) and
+   by its f32 twin (the weights widened), their greedy logits captured:
+   the bound of a near tie, ``TP_NOISE_X`` times the closed run's distance
+   from the twin plus TOL's atol. Gates on each run: every arrival
+   completed and none lost, at least one preemption and one prefix hit,
+   swap's bytes in equal to its bytes out, the tier's op_ns within
+   ``OPEN_REPLAY_RTOL`` of the scalar oracle's replay of its ops (in a
+   worker process beside the card's work), every request's greedy tokens
+   equal to the closed run's but where they part at a near tie (the
+   closed run's logits of the two tokens within the bound), the decode
+   once per layer per tick and the prefill once per layer per chunk (a
+   recompute's re-prefill and its ragged last chunk included), no other
+   kernel; prints the simulated TTFT / TPOT p50 / p99, goodput, queue
+   depth and restore stall (``LoadMetrics``), the wall, ticks, launches
+   a tick and the tick and chunk ms (CUDA events);
+22. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -429,9 +453,10 @@ TP_LAYERS = 2
 # phase), the VLM at 5 of 40 (4
 # self-attention layers and one cross layer), xLSTM at one group of 6 of
 # its 12 layers (5 mLSTM layers and an sLSTM layer), the last two cut for
-# the HOST phases
+# the HOST phases; and the tp phase's granite at 2 of 24 layers (6 before
+# the open-loop phase)
 TP_FAMILIES = (HYBRID, MUSICGEN, VLM, XLSTM)
-TP_CUT = {HYBRID: 6, MUSICGEN: 2, VLM: 5, XLSTM: 6}
+TP_CUT = {HYBRID: 6, MUSICGEN: 2, VLM: 5, XLSTM: 6, GRANITE: 2}
 TPF_PATHS = {arch: f"{arch} tp2" for arch in TP_FAMILIES}
 # the VLM's direct tp gate: 2 rows, one prefill chunk then one tick, the
 # cross gates set to these values and the vision K/V written by each
@@ -522,11 +547,12 @@ def bf16_limit(leaf: str) -> float:
 # sequences of 1024 tokens (train_4k's 256 x 4096 cut for one card and
 # the phase's time), 2 rows a rank; the steps timed with the
 # deterministic store on and off in DP_TRAIN_ORDERS' turns (the first
-# step a rank times runs slow, PERF.md section 7)
+# step a rank times runs slow, PERF.md section 7; one turn since the
+# open-loop phase, two before)
 DP_TRAIN_PATH = f"{ARCH} dp2 train"
 DP_TRAIN_MESH, DP_TRAIN_LAYERS = (2, 1), 4
 DP_TRAIN_BATCH, DP_TRAIN_SEQ = 4, 1024
-DP_TRAIN_ORDERS = ((True, False), (False, True))
+DP_TRAIN_ORDERS = ((True, False),)
 DP_TRAIN_TIMEOUT_S = 600.0
 # the tp2-train phase: the dp-train phase's model and batch at mesh (1, 2),
 # two ranks on the one card, each on its model-axis shard; 3 steps timed
@@ -586,6 +612,28 @@ F32_TOL = dict(atol=3e-5, rtol=3e-5)    # tests/test_kernel_parity.py
 PROMPT_LENS = (300, 1001)
 TOPOLOGY = ("dram", "ssd-fast")
 SEED = 0
+# the open-loop phase: qwen3-1.7b at full width cut to OPEN_LAYERS layers
+# on phase 3's engine with async tier I/O, played a seeded open-loop
+# arrival trace (serving.loadgen) once with each preemption policy of
+# OPEN_POLICIES; 24 bursty arrivals at the reference CLI's 8000 requests
+# a simulated second (~0.8 an engine tick of 100 us, against the ~0.35 a
+# tick that 8 slots serve at these lengths, so the queue builds) over 6
+# zipf-shared prompts of 256-1024 tokens and 8-32 new tokens, a quarter of
+# them interactive (priority 1); held to the same arrivals served closed.
+# The simulated schedule hangs on the trace and the entries' bytes, not on
+# the weights: trace seed 0 preempts no request at 2 or 4 layers, seed 1
+# twice with each policy. Depth: the Python tier's charges of a 2048-token
+# slot's entry (8 MiB a layer; PERF.md section 5) set the phase's time
+OPEN_PATH = f"{ARCH} open-loop"
+OPEN_LAYERS = 4
+OPEN_POLICIES = ("swap", "recompute")
+OPEN_LOAD = dict(n_arrivals=24, rate_rps=8000.0, arrival="bursty",
+                 burst_factor=8.0, burst_len=8, n_prompts=6, zipf_s=1.1,
+                 prompt_len_choices=(256, 512, 1024),
+                 max_new_choices=(8, 16, 32), hi_prio_frac=0.25, seed=1)
+# the tier's op_ns against the scalar oracle's replay of its ops
+# (tests/test_faults.py:371)
+OPEN_REPLAY_RTOL = 0.01
 TOL = dict(atol=2e-2, rtol=2e-2)        # bf16, tests/test_kernel_parity.py
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)    # f32, tests/test_kernels.py
 # full-width zamba2, chunked vs stepwise prefill in f32: 10x the smoke-size
@@ -2870,9 +2918,9 @@ def tp_chunks(waves):
 
 
 def tp_model(dev, arch=ARCH):
-    """qwen3-1.7b at full width cut to ``TP_LAYERS`` layers, granite cut
-    to its ``CUT_LAYERS``, or a family of ``TP_FAMILIES`` cut to its
-    ``TP_CUT``, random bf16 weights from the seed on ``dev``."""
+    """qwen3-1.7b at full width cut to ``TP_LAYERS`` layers, or granite or
+    a family of ``TP_FAMILIES`` cut to its ``TP_CUT``, random bf16 weights
+    from the seed on ``dev``."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
@@ -3477,7 +3525,7 @@ def serve_tp(dev):
     build/), each holding its shard of the weights
     (``parallel.sharding``) and half of every slot's pages, serving in
     turn qwen3-1.7b (``TP_LAYERS`` layers) in bf16 and int8 pages and
-    granite-moe-1b-a400m (``CUT_LAYERS``, bf16 pages; the expert-parallel
+    granite-moe-1b-a400m (``TP_CUT``, bf16 pages; the expert-parallel
     MoE). qwen3: every rank's greedy steps held to the one-rank engine's
     on the card over the same traffic (``tp_logits_gate``: logits within
     ``tp_logits_bound``, measured on the one-rank engine and its f32
@@ -3571,7 +3619,7 @@ def serve_tp(dev):
     path = TPG_PATH
     runs = [r[GRANITE] for r in ranks]
     chunks = tp_chunks(tp_traffic(registry.get(GRANITE).vocab_size))
-    n_layers = CUT_LAYERS[GRANITE]
+    n_layers = TP_CUT[GRANITE]
     even = sum(1 for c in chunks if c % TP_RANKS == 0)
     for r, run in enumerate(runs):
         run["on_path"] = check_tp_run(
@@ -5697,6 +5745,273 @@ def host_train(dev):
     return res
 
 
+# ------------------------------------------------------- open-loop phase
+
+def open_model(dev, dtype=None, params=None):
+    """qwen3-1.7b at full width cut to ``OPEN_LAYERS`` layers: random bf16
+    weights drawn on ``dev`` from the seed, or ``params`` widened to
+    ``dtype`` (the f32 twin)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(registry.get(ARCH), n_layers=OPEN_LAYERS)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        params = copy.deepcopy(params).float()
+    rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
+    if params is None:
+        params = M.init_model(cfg, seed=SEED, device=dev)
+    return cfg, rc, params
+
+
+def open_config(**knobs):
+    """Phase 3's engine knobs (8 slots of 2048 tokens, 256-token chunks)
+    with ``knobs``."""
+    from repro_torch.serving.config import ServeConfig
+    return ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                       store_budget_bytes=16 << 30, seed=SEED, **knobs)
+
+
+def open_closed(dev, params, cfg, rc, trace):
+    """The trace's arrivals served closed: all submitted at once, no
+    preemption, no tier (its charges move no token), each request's greedy
+    logits rows captured (``capturing_logits``). Returns its tokens, rows
+    (on the card) and the restored rids."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    engine = ServingEngine(params, cfg, rc, config=open_config(), device=dev)
+    with capturing_logits() as rows:
+        handles = [engine.submit(Request(
+            rid=a.rid, prompt=list(a.prompt), max_new_tokens=a.max_new,
+            priority=a.priority)) for a in trace]
+        engine.run(max_ticks=10_000)
+    if not all(h.done() for h in handles):
+        fail(f"{OPEN_PATH}: the closed run left requests unfinished")
+    return {"tokens": {h.rid: h.result() for h in handles},
+            "rows": dict(rows),
+            "restored": sorted(h.rid for h in handles if h.request.restored)}
+
+
+def replay_ops(ops, kw):
+    """The scalar oracle's replay of a tier's ``ops`` (run in a worker
+    process, beside the card's work)."""
+    from repro_torch.sim.engine import replay_page_trace
+    return [float(x) for x in replay_page_trace(ops, **kw)]
+
+
+def open_run(dev, params, cfg, rc, policy, pool):
+    """One open-loop run of ``OPEN_LOAD`` with ``policy``: the trace
+    driven by ``serving.loadgen.drive_open_loop`` on an engine with a DRAM
+    + SSD tier and async tier I/O; the scalar oracle's replay of the
+    tier's ops submitted to ``pool``."""
+    import torch
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.engine import ServingEngine
+    load = loadgen.LoadConfig(**OPEN_LOAD)
+    engine = ServingEngine(params, cfg, rc, config=open_config(
+        tier_topology=TOPOLOGY, cxl_async=True, preempt_policy=policy),
+        device=dev)
+    t0 = time.time()
+    handles, depths = loadgen.drive_open_loop(engine,
+                                              loadgen.make_trace(load))
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    metrics = loadgen.summarize(engine, handles, depths, load)
+    tc = engine.tier.cfg
+    replay = pool.submit(replay_ops, list(engine.tier.ops), dict(
+        media=tc.media_name, topology=tc.port_medias, sr=tc.sr_enabled,
+        ds=tc.ds_enabled, req_bytes=tc.req_bytes,
+        dram_cache_bytes=tc.dram_cache_bytes, max_inflight=tc.max_inflight,
+        faults=tc.faults))
+    st = engine.stats
+    return engine, replay, {
+        "policy": policy, "wall_s": wall_s,
+        "metrics": metrics.as_dict(), "queue_depths": list(depths),
+        "tokens": {h.rid: h.tokens() for h in handles},
+        "done": sum(h.done() for h in handles),
+        "decode_ticks": st["decode_dispatches"],
+        "prefill_chunks": st["prefill_dispatches"],
+        "ticks": len(depths),
+        "swap_out_bytes": st["swap_out_bytes"],
+        "swap_in_bytes": st["swap_in_bytes"],
+        "restore_stall_ns": st["restore_stall_ns"],
+        "restore_overlap_ratio": st["restore_overlap_ratio"],
+        "sched_inflight_peak": st["sched_inflight_peak"],
+        "tier_ops": len(engine.tier.ops),
+        "op_ns": list(engine.tier.op_ns)}
+
+
+def open_tokens_gate(policy, tokens, closed, bound):
+    """Each request's greedy tokens of the open-loop run against the same
+    arrival served closed: equal, or parted at a step where the closed
+    run's logits of its token and the open run's lie within ``bound`` of
+    each other (a near tie; later tokens are conditioned on another one
+    and not held). Returns {rid: (step, tokens, gap)} of the partings."""
+    parted = {}
+    for rid, want in closed["tokens"].items():
+        got = tokens[rid]
+        if len(got) != len(want):
+            fail(f"{OPEN_PATH} {policy}: rid {rid} has {len(got)} tokens, "
+                 f"closed {len(want)}")
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is None:
+            continue
+        rows = closed["rows"].get(rid, [])
+        skip = len(want) - len(rows)    # a restored request's first token
+        if skip not in (0, 1) or j < skip:
+            fail(f"{OPEN_PATH} {policy}: rid {rid} parts from the closed "
+                 f"run at token {j} ({got[j]} against {want[j]}), where "
+                 f"the closed run sampled no row")
+        row = rows[j - skip].float()
+        if int(row.argmax()) != want[j]:
+            fail(f"{OPEN_PATH}: the closed run's rid {rid} row {j} does not "
+                 f"give its own token")
+        gap = float(row[want[j]] - row[got[j]])
+        if gap > bound:
+            fail(f"{OPEN_PATH} {policy}: rid {rid} token {j} is {got[j]} "
+                 f"against the closed run's {want[j]}, whose logits are "
+                 f"{gap} apart there: not a near tie (bound {bound})")
+        parted[rid] = (j, [want[j], got[j]], gap)
+    return parted
+
+
+def open_bound(closed, wide):
+    """The bound of a near tie: ``TP_NOISE_X`` times the closed run's
+    largest distance from its f32 twin's logits, plus TOL's atol. A
+    request's rows are compared while both runs' rows are conditioned on
+    the same tokens: up to and including the first step whose argmaxes
+    part, and not at all for a restored request whose first token (its
+    source's) parted. Returns (bound, that distance, rows compared)."""
+    noise, held = 0.0, 0
+    for rid, toks in closed["tokens"].items():
+        if toks[:len(toks) - len(closed["rows"][rid])] != \
+                wide["tokens"][rid][:len(toks) - len(closed["rows"][rid])]:
+            continue
+        for a, b in zip(closed["rows"][rid], wide["rows"][rid]):
+            a, b = a.float(), b.float()
+            noise, held = max(noise, float((a - b).abs().max())), held + 1
+            if int(a.argmax()) != int(b.argmax()):
+                break
+    if not held:
+        fail(f"{OPEN_PATH}: no row of the closed run held to its f32 twin")
+    return TP_NOISE_X * noise + TOL["atol"], noise, held
+
+
+def serve_open_loop(dev, card):
+    """The open-loop phase: the closed run and its f32 twin (the bound of
+    a near tie), then the main path -- the trace played once with each
+    preemption policy -- with its kernels' launches counted from 0, and
+    the gates of each run."""
+    import gc
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+    import numpy as np
+    import torch
+    from repro_torch.serving import loadgen
+    trace = loadgen.make_trace(loadgen.LoadConfig(**OPEN_LOAD))
+    cfg, rc, params = open_model(dev)
+    closed = open_closed(dev, params, cfg, rc, trace)
+    cfg32, rc32, p32 = open_model(dev, "float32", params)
+    wide = open_closed(dev, p32, cfg32, rc32, trace)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if wide["tokens"].keys() != closed["tokens"].keys() or \
+            wide["restored"] != closed["restored"]:
+        fail(f"{OPEN_PATH}: the f32 twin served or restored other requests")
+    bound, noise, held = open_bound(closed, wide)
+    del wide
+    out = {"n_layers": OPEN_LAYERS, "load": OPEN_LOAD,
+           "closed_restored": closed["restored"], "bound": bound,
+           "f32_twin_noise": noise, "f32_twin_rows_held": held, "runs": {}}
+    log(f"{OPEN_PATH}: closed run of the {len(trace)} arrivals: "
+        f"{len(closed['restored'])} restored; near-tie bound {bound:.4f} "
+        f"({TP_NOISE_X} x its distance {noise:.4f} from the f32 twin over "
+        f"{held} rows + {TOL['atol']}) ({card})")
+
+    # the main path: counts from 0 just before, read just after
+    engines, replays = [], {}
+    with ProcessPoolExecutor(len(OPEN_POLICIES), mp_context=(
+            multiprocessing.get_context("spawn"))) as pool:
+        zero_counters()
+        for policy in OPEN_POLICIES:
+            engine, replays[policy], out["runs"][policy] = open_run(
+                dev, params, cfg, rc, policy, pool)
+            engines.append(engine)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        launches, off_path = split_counts(
+            OPEN_PATH, counts, ("paged_decode", "flash_prefill"))
+        out.update(step_costs(engines[-1], params, cfg, rc,
+                              list(trace[0].prompt), dev))
+        replayed = {policy: r.result() for policy, r in replays.items()}
+    out["launches"], out["off_path_launches"] = launches, off_path
+
+    runs = out["runs"]
+    ticks = sum(r["decode_ticks"] for r in runs.values())
+    chunks = sum(r["prefill_chunks"] for r in runs.values())
+    want = {"paged_decode": OPEN_LAYERS * ticks,
+            "flash_prefill": OPEN_LAYERS * chunks}
+    if launches != want:
+        fail(f"{OPEN_PATH}: launches {launches}, want once per layer per "
+             f"step {want}")
+    for policy, run in runs.items():
+        m, name = run["metrics"], f"{OPEN_PATH} {policy}"
+        if not (m["completed"] == m["arrivals"] == run["done"]
+                == len(trace)) or m["lost_requests"]:
+            fail(f"{name}: {m['completed']} of {m['arrivals']} arrivals "
+                 f"completed, {m['lost_requests']} lost")
+        if m["preemptions"] < 1 or m["prefix_hits"] < 1:
+            fail(f"{name}: {m['preemptions']} preemptions, "
+                 f"{m['prefix_hits']} prefix hits")
+        if policy == "swap" and not (
+                run["swap_in_bytes"] == run["swap_out_bytes"] > 0):
+            fail(f"{name}: swapped {run['swap_out_bytes']} bytes out, "
+                 f"{run['swap_in_bytes']} in")
+        got, ref = np.asarray(run.pop("op_ns")), np.asarray(replayed[policy])
+        err = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-12)
+        run["op_ns_vs_replay_max_rel"] = float(err.max())
+        if got.shape != ref.shape or not np.all(
+                np.abs(got - ref) <= OPEN_REPLAY_RTOL * np.abs(ref)):
+            fail(f"{name}: the tier's op_ns off the scalar oracle's replay "
+                 f"by {float(err.max())} (rtol {OPEN_REPLAY_RTOL})")
+        run["parted"] = open_tokens_gate(policy, run.pop("tokens"), closed,
+                                         bound)
+        log(f"{name}: {m['completed']}/{m['arrivals']} arrivals in "
+            f"{run['wall_s']:.2f} s wall, {run['ticks']} ticks "
+            f"({run['decode_ticks']} decode, {run['prefill_chunks']} prefill "
+            f"chunks), {1e3 * run['wall_s'] / max(run['ticks'], 1):.1f} ms "
+            f"wall a tick ({card})")
+        log(f"{name}: simulated TTFT p50/p99 {m['ttft_ms_p50']}/"
+            f"{m['ttft_ms_p99']} ms, TPOT p50/p99 {m['tpot_ms_p50']}/"
+            f"{m['tpot_ms_p99']} ms, goodput {m['goodput_req_s']} req/s "
+            f"({m['completed_in_slo']} in SLO), throughput "
+            f"{m['throughput_req_s']} req/s, queue depth p50/p99 "
+            f"{m['queue_depth_p50']}/{m['queue_depth_p99']}, restore stall "
+            f"p50/p99 {m['restore_stall_ms_p50']}/"
+            f"{m['restore_stall_ms_p99']} ms, {m['preemptions']} "
+            f"preemptions, {m['prefix_hits']} prefix hits, "
+            f"{m['sim_time_ms']} ms simulated")
+        log(f"{name}: swap {run['swap_out_bytes']} bytes out / "
+            f"{run['swap_in_bytes']} in, restore overlap "
+            f"{run['restore_overlap_ratio']:.3f}, op_ns vs replay max rel "
+            f"{run['op_ns_vs_replay_max_rel']:.2e} over {run['tier_ops']} "
+            f"ops; tokens parted from the closed run at near ties: "
+            f"{run['parted']}")
+    out["wall_s"] = sum(r["wall_s"] for r in runs.values())
+    out["launches_per_tick"] = launches["paged_decode"] / ticks
+    out["launches_per_chunk"] = launches["flash_prefill"] / chunks
+    log(f"{OPEN_PATH}: launches on the main path {launches} "
+        f"({out['launches_per_tick']} paged_decode a decode tick, "
+        f"{out['launches_per_chunk']} flash_prefill a prefill chunk); "
+        f"decode tick "
+        f"{out['decode_tick_ms']:.3f} ms, prefill chunk "
+        f"{out['prefill_chunk_ms']:.3f} ms (CUDA events) ({card})")
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5921,12 +6236,17 @@ def main() -> None:
         host_tr.update(host_train(dev))
     free_card()
 
+    with phase(OPEN_PATH):
+        open_loop = serve_open_loop(dev, card)
+    free_card()
+
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
             XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained,
             XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train,
             TP_TRAIN_PATH: tp_train, **tpf_train,
-            HOST_SERVE_PATH: host_sv, HOST_TRAIN_PATH: host_tr}
+            HOST_SERVE_PATH: host_sv, HOST_TRAIN_PATH: host_tr,
+            OPEN_PATH: open_loop}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -5938,7 +6258,7 @@ def main() -> None:
     # launches are this row's: None for all of them)
     for name, counter, res, src, replaces, paths in (
             ("paged_decode", "paged_decode", dec, decode_src, decode_tpu,
-             (ARCH, HYBRID, GEMMA, HOST_SERVE_PATH)),
+             (ARCH, HYBRID, GEMMA, HOST_SERVE_PATH, OPEN_PATH)),
             ("paged_decode_d64_granite", "paged_decode", dec64[GRANITE],
              decode_src, decode_tpu, (GRANITE,)),
             ("paged_decode_d64_musicgen", "paged_decode", dec64[MUSICGEN],
@@ -5975,7 +6295,7 @@ def main() -> None:
              decode_tpu, (DP_PATH,)),
             ("flash_prefill", "flash_prefill", pre, prefill_src, prefill_tpu,
              (ARCH, HYBRID, TP_PATH, TPF_PATHS[HYBRID], DP_PATH,
-              HOST_SERVE_PATH)),
+              HOST_SERVE_PATH, OPEN_PATH)),
             ("flash_prefill_g16_glm4", "flash_prefill", pre_g[GLM4],
              prefill_src, prefill_tpu, (GLM4,)),
             ("flash_prefill_g12_starcoder2", "flash_prefill",
@@ -6146,7 +6466,7 @@ def main() -> None:
                    "train_dp": dp_train, "train_tp": tp_train,
                    "train_tp_families": tpf_train,
                    "serve_host": host_sv,
-                   "train_host": host_tr,
+                   "train_host": host_tr, "serve_open_loop": open_loop,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,14 +26,23 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
       --smoke --device cpu --tp 2           # (also musicgen-large,
                                             # llama-3.2-vision-11b)
+  python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --cxl-topology dram,ssd-fast --cxl-async --preempt-policy swap \
+      --load --arrival bursty --arrivals 24  # open loop, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --smoke --device cpu --load --arrivals 8   # open loop, on the CPU
 
 The flags are the subset of the reference CLI (``repro.launch.serve``)
 that this port supports: every family (dense, MoE, audio, hybrid, VLM
 and xLSTM) on one rank or on ``--tp N`` ranks (N processes, each on its
 shard of the weights; rank 0 prints; on one card they share it, see
 ``launch.mesh``), bf16/f32 or int8
-(``--kv-quant int8``) pages and the
-closed submit-then-run loop. Every engine default
+(``--kv-quant int8``) pages, the
+closed submit-then-run loop and the open loop (``--load``: a seeded
+arrival trace of ``serving.loadgen``, ``--rate`` requests per simulated
+second, ``--arrival poisson|bursty``, zipf prompt popularity, played on
+the simulated clock; the SLO summary is printed instead of wall-clock
+throughput). Every engine default
 comes from :class:`~repro_torch.serving.config.ServeConfig`.
 ``--cxl-media`` / ``--cxl-topology`` attach the CXL-timed tier;
 ``--cxl-async`` and ``--preempt-policy`` drive the scheduler;
@@ -43,6 +52,7 @@ random, drawn on the device from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import tempfile
@@ -110,6 +120,24 @@ def _print_closed(engine, finished, n_requests, dt):
           f"{engine.store.evictions} evictions)")
 
 
+def _print_load(metrics, depths):
+    """Summarize one open-loop run (SLO percentiles and goodput)."""
+    m = metrics
+    print(f"[serve] open-loop: {m.completed}/{m.arrivals} arrivals "
+          f"completed in {m.sim_time_ms:.2f}ms simulated "
+          f"({m.throughput_req_s:.0f} req/s; "
+          f"{m.completed_in_slo} within SLO "
+          f"ttft<={m.slo_ttft_ms}ms & tpot<={m.slo_tpot_ms}ms "
+          f"-> goodput {m.goodput_req_s:.0f} req/s)")
+    print(f"[serve]   TTFT p50/p99 {m.ttft_ms_p50:.3f}/"
+          f"{m.ttft_ms_p99:.3f}ms, TPOT p50/p99 {m.tpot_ms_p50:.4f}/"
+          f"{m.tpot_ms_p99:.4f}ms, queue depth p50/p99 "
+          f"{m.queue_depth_p50:.0f}/{m.queue_depth_p99:.0f} "
+          f"({len(depths)} samples), restore stall p50/p99 "
+          f"{m.restore_stall_ms_p50:.3f}/{m.restore_stall_ms_p99:.3f}ms, "
+          f"{m.preemptions} preemptions, {m.prefix_hits} prefix hits")
+
+
 def _print_tier(engine, config):
     """Per-tier and per-port stats lines for an attached CXL tier."""
     tier = engine.tier
@@ -168,39 +196,59 @@ def _print_tier(engine, config):
 def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           max_new: int = 12, prompt_len: int = 6,
           config: ServeConfig = _DEF, device="cuda", verbose: bool = True,
-          group=None):
-    """Serve ``n_requests`` random prompts through the engine built from
-    ``config`` on ``device``; prints throughput and tier stats (unless not
-    ``verbose``) and returns ``(engine, finished_requests)``. ``smoke``
-    picks the reduced config. With a mesh of more than one rank
-    (``config.tp > 1`` or ``config.mesh_shape``) it serves as ``group``'s
-    rank (``serve_ranks``)."""
+          group=None, load=None, max_ticks: int = 100_000):
+    """Serve through the engine built from ``config`` on ``device``; prints
+    the run's summary and tier stats (unless not ``verbose``) and returns
+    ``(engine, finished_requests)``. ``smoke`` picks the reduced config.
+
+    Closed mode (``load is None``): ``n_requests`` random prompts submitted
+    up front and run to completion; wall-clock throughput is printed.
+    Open-loop mode: ``load`` is a ``serving.loadgen.LoadConfig``; its
+    seeded arrival trace is played on the simulated clock (at most
+    ``max_ticks`` ticks) and the SLO summary is printed. With a mesh of
+    more than one rank (``config.tp > 1`` or ``config.mesh_shape``) it
+    serves as ``group``'s rank (``serve_ranks``)."""
     dev = resolve_device(device)
     cfg = registry.smoke(arch) if smoke else registry.get(arch)
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
+    if config.n_ranks > 1:
+        # sharded decode needs the page axis divisible by the model
+        # axis: cap the page size so each slot has >= n_ranks pages
+        rc = dataclasses.replace(rc, kv_page_size=min(
+            rc.kv_page_size, max(config.max_seq // config.n_ranks, 1)))
     params = M.init_model(cfg, seed=config.seed, device=dev)
     engine = ServingEngine(params, cfg, rc, config=config, device=dev,
                            group=group)
-    rng = np.random.default_rng(config.seed)
-    handles = []
-    for rid in range(n_requests):
-        prompt = rng.integers(1, cfg.vocab_size, prompt_len).tolist()
-        handles.append(engine.submit(
-            Request(rid=rid, prompt=prompt, max_new_tokens=max_new)))
-    t0 = time.time()
-    finished = engine.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.time() - t0
-    if not verbose:
-        return engine, finished
-    _print_closed(engine, finished, n_requests, dt)
-    ttfts = [h.ttft_ns for h in handles if h.ttft_ns is not None]
-    if ttfts:
-        print(f"[serve]   per-request handles: "
-              f"{sum(1 for h in handles if h.done())} done, "
-              f"mean TTFT {sum(ttfts) / len(ttfts) / 1e6:.3f}ms simulated")
-    if engine.tier is not None:
+    if load is not None:
+        from repro_torch.serving.loadgen import (drive_open_loop,
+                                                 make_trace, summarize)
+        handles, depths = drive_open_loop(engine, make_trace(load),
+                                          max_ticks=max_ticks)
+        metrics = summarize(engine, handles, depths, load)
+        finished = [h.request for h in handles if h.done()]
+        if verbose:
+            _print_load(metrics, depths)
+    else:
+        rng = np.random.default_rng(config.seed)
+        handles = []
+        for rid in range(n_requests):
+            prompt = rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+            handles.append(engine.submit(
+                Request(rid=rid, prompt=prompt, max_new_tokens=max_new)))
+        t0 = time.time()
+        finished = engine.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.time() - t0
+        if verbose:
+            _print_closed(engine, finished, n_requests, dt)
+            ttfts = [h.ttft_ns for h in handles if h.ttft_ns is not None]
+            if ttfts:
+                print(f"[serve]   per-request handles: "
+                      f"{sum(1 for h in handles if h.done())} done, "
+                      f"mean TTFT {sum(ttfts) / len(ttfts) / 1e6:.3f}ms "
+                      f"simulated")
+    if verbose and engine.tier is not None:
         _print_tier(engine, config)
     return engine, finished
 
@@ -258,6 +306,13 @@ def serve_waves(group, params, cfg, rc, config: ServeConfig, waves,
     if keep_cache:
         out["cache"] = {name: t.cpu() for name, t in
                         engine.cache["kv"].items()}
+    return _with_tier(engine, out)
+
+
+def _with_tier(engine, out: dict) -> dict:
+    """``out`` with the engine's tier traces as plain data, when it has a
+    tier (one ``CxlTier``: ``ops`` / ``op_ns``; a ``ShardedTier``: every
+    rank's and every peer lane's, and its counters) and its snapshot."""
     tier = getattr(engine.tier, "inner", engine.tier)
     if tier is None:
         return out
@@ -270,6 +325,37 @@ def serve_waves(group, params, cfg, rc, config: ServeConfig, waves,
         out["tier"] = {"ops": tier.ops, "op_ns": tier.op_ns}
     out["tier"]["snapshot"] = tier.snapshot()
     return out
+
+
+def open_loop_record(engine, handles, depths, metrics) -> dict:
+    """One open-loop run (``serving.loadgen.drive_open_loop`` and
+    ``summarize`` on ``engine``) as plain data: each arrival's tokens and
+    simulated timings (``ttft_ns``, ``tpot_ns``, ``restore_stall_ns``,
+    ``recoveries``) by rid, the ``LoadMetrics``, the queue-depth samples,
+    the stats and the tier's traces."""
+    out = {"tokens": {h.rid: h.tokens() for h in handles},
+           "done": {h.rid: h.done() for h in handles},
+           "timings": {h.rid: (h.ttft_ns, h.tpot_ns, h.restore_stall_ns,
+                               h.recoveries) for h in handles},
+           "metrics": metrics.as_dict(), "depths": list(depths),
+           "stats": engine.stats.as_dict()}
+    return _with_tier(engine, out)
+
+
+def serve_open_loop(group, params, cfg, rc, config: ServeConfig, load,
+                    device="cuda", max_ticks: int = 100_000) -> dict:
+    """Play ``load``'s arrival trace (a ``serving.loadgen.LoadConfig``) on
+    the engine built from ``config`` (as ``group``'s rank when its mesh
+    has more than one rank, else ``group`` is None) and return the run as
+    plain data (``open_loop_record``)."""
+    from repro_torch.serving.loadgen import (drive_open_loop, make_trace,
+                                             summarize)
+    engine = ServingEngine(params, cfg, rc, config=config, device=device,
+                           group=group)
+    handles, depths = drive_open_loop(engine, make_trace(load),
+                                      max_ticks=max_ticks)
+    return open_loop_record(engine, handles, depths,
+                            summarize(engine, handles, depths, load))
 
 
 def main(argv=None) -> None:
@@ -321,6 +407,21 @@ def main(argv=None) -> None:
                          "split over N processes, the MoE is expert-"
                          "parallel (the dense and MoE families); the tier "
                          "gets one root-port set per rank")
+    ap.add_argument("--load", action="store_true",
+                    help="open-loop mode: play a seeded arrival trace on "
+                         "the simulated clock instead of submitting all "
+                         "requests up front; prints the SLO summary")
+    ap.add_argument("--rate", type=float, default=8000.0,
+                    help="open-loop offered load, requests per simulated "
+                         "second")
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "bursty"],
+                    help="open-loop inter-arrival process")
+    ap.add_argument("--arrivals", type=int, default=64,
+                    help="open-loop trace length (number of requests)")
+    ap.add_argument("--zipf-s", type=float, default=1.1,
+                    help="zipf exponent for prompt popularity (prefix "
+                         "reuse); larger = more skew")
     args = ap.parse_args(argv)
     topology = tuple(m.strip() for m in
                      args.cxl_topology.split(",") if m.strip())
@@ -339,9 +440,15 @@ def main(argv=None) -> None:
         tier_heat_half_life_ns=args.cxl_heat_half_life_ns,
         tier_sr=not args.cxl_sr_off,
         tier_faults=tier_faults, fault_seed=args.fault_seed, tp=args.tp)
+    load = None
+    if args.load:
+        from repro_torch.serving.loadgen import LoadConfig
+        load = LoadConfig(n_arrivals=args.arrivals, rate_rps=args.rate,
+                          arrival=args.arrival, zipf_s=args.zipf_s,
+                          seed=args.seed)
     run = serve_ranks if config.n_world > 1 else serve
     run(args.arch, smoke=args.smoke, n_requests=args.requests,
-        max_new=args.max_new, config=config, device=args.device)
+        max_new=args.max_new, config=config, device=args.device, load=load)
 
 
 if __name__ == "__main__":

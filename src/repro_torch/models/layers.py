@@ -198,14 +198,16 @@ def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
     With the table of a rank ``group`` split on its rows
     (``parallel.sharding``), an id this rank does not hold gives 0 and a
     sum across the ranks puts the rows together (with ``train``,
-    ``sharding.reduce_out``: each rank's rows take their gradient)."""
+    ``sharding.reduce_out``: each rank's rows take their gradient). An id
+    past the table gives a row of NaN, as the reference's ``jnp.take``
+    (its default mode fills) does."""
     ids = tokens.long()
     if cfg.family == "audio":
         ids = ids + (torch.arange(cfg.n_codebooks, device=tokens.device)
                      * cfg.vocab_size)[None, :, None]
-    table = embed.embedding
-    if group is None or table.shape[0] == _table_rows(cfg):
-        x = table[ids]
+    table, n_rows = embed.embedding, _table_rows(cfg)
+    if group is None or table.shape[0] == n_rows:
+        x = table[ids.clamp(max=n_rows - 1)]
     else:
         local = ids - group.rank * table.shape[0]
         held = (local >= 0) & (local < table.shape[0])
@@ -213,6 +215,7 @@ def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor,
                            table[local.clamp(0, table.shape[0] - 1)], 0)
         x = (sharding.reduce_out(group, rows) if train
              else sharding.reduce_sum(group, rows))
+    x = x.masked_fill((ids >= n_rows)[..., None], float("nan"))
     return x.sum(dim=1) if cfg.family == "audio" else x
 
 

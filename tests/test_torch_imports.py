@@ -51,7 +51,8 @@ def test_engine_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.models.kv_quant, "
-            "repro_torch.kernels.hdm_stream.ops; "
+            "repro_torch.kernels.hdm_stream.ops, "
+            "repro_torch.serving.loadgen, repro_torch.sim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -82,6 +83,7 @@ def _default_device_calls():
     from repro_torch.launch import serve, train
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.loadgen import LoadConfig
 
     cfg = registry.smoke("qwen3-1.7b")
     rc = RunConfig(model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig())
@@ -112,6 +114,10 @@ def _default_device_calls():
                                                     kv_quant="int8"),
         "int8_cli": lambda: serve.main(["--arch", "qwen3-1.7b", "--smoke",
                                         "--kv-quant", "int8"]),
+        "load_serve": lambda: serve.serve(
+            "qwen3-1.7b", smoke=True, load=LoadConfig(n_arrivals=2)),
+        "load_cli": lambda: serve.main(["--arch", "qwen3-1.7b", "--smoke",
+                                        "--load", "--arrivals", "2"]),
         "train": lambda: train.train("qwen3-1.7b", smoke=True, steps=1),
         "train_cli": lambda: train.main(["--arch", "qwen3-1.7b", "--smoke",
                                          "--steps", "1"]),
@@ -131,7 +137,7 @@ def _default_device_calls():
                                    "hybrid_ServingEngine", "hybrid_serve",
                                    "hybrid_cli", "int8_cache_init",
                                    "int8_ServingEngine", "int8_cli",
-                                   "train", "train_cli", "Pipeline",
+                                   "load_serve", "load_cli", "train", "train_cli", "Pipeline",
                                    "adamw_state_from_jax"])
 def test_default_device_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():

@@ -19,7 +19,12 @@ TCP port, and a timeout on every spawn). Held here:
  * the same traffic through the JAX sharded engine at tp 2, in a
    subprocess with ``XLA_FLAGS=--xla_force_host_platform_device_count=2``
    (as ``tests/test_system.py`` runs the reference's sharded decode):
-   tokens, tier stats and the per-rank and peer-lane traces equal.
+   tokens, tier stats and the per-rank and peer-lane traces equal;
+ * the open loop at tp 2 (``tests/test_sharded_serving.py:260``'s trace
+   and engine: async tier I/O, recompute preemption) against the same
+   subprocess's run: every arrival completed, tokens, timings,
+   ``LoadMetrics``, queue depths, stats and every rank's and peer lane's
+   trace equal, each replaying within 1% of the scalar oracle.
 """
 import dataclasses
 import json
@@ -50,9 +55,10 @@ from repro_torch.configs.base import SHAPES as TSHAPES
 from repro_torch.core.sharded_tier import ShardedTier as TShardedTier
 from repro_torch.core.tier import TierConfig as TTierConfig
 from repro_torch.launch import mesh
-from repro_torch.launch.serve import serve_waves
+from repro_torch.launch.serve import serve_open_loop, serve_waves
 from repro_torch.parallel import sharding as tsharding
 from repro_torch.serving.config import ServeConfig as TServeConfig
+from repro_torch.serving.loadgen import LoadConfig as TLoadConfig
 from repro_torch.sim import engine as tsim
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +70,24 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # tests/test_kernel_parity.py
 SPAWN_TIMEOUT_S = 240.0
 # wall-clock stats, the only ones that may differ between engines and ranks
 WALL_STATS = ("prefill_time_s",)
+# the open loop at tp 2: tests/test_sharded_serving.py:260's engine knobs
+# and trace, its prompt ids drawn inside the smoke vocabulary (the same
+# draws: arrival times, lengths, prompt ranks and budgets are its trace's)
+OPEN_KNOBS = dict(KNOBS, cxl_async=True, preempt_policy="recompute")
+OPEN_LOAD = dict(n_arrivals=16, rate_rps=8000.0, arrival="bursty",
+                 n_prompts=8, prompt_len_choices=(8, 16),
+                 max_new_choices=(4, 8), vocab=256, seed=0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The one-rank engines of this process on one intra-op thread, as the
+    spawned ranks run: the smoke model's ops are tiny, and a pool of
+    threads per process spins against the other test workers' pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _waves():
@@ -265,7 +289,7 @@ _JAX_TP2 = textwrap.dedent("""
     from repro.serving.config import ServeConfig
     from repro.serving.engine import Request, ServingEngine
 
-    waves, knobs, page = json.loads(sys.stdin.read())
+    waves, knobs, page, open_knobs, load = json.loads(sys.stdin.read())
     cfg = registry.smoke("qwen3-1.7b")
     rc = dataclasses.replace(RunConfig(model=cfg, shape=SHAPES["decode_32k"],
                                        mesh=MeshConfig()), kv_page_size=page)
@@ -287,6 +311,25 @@ _JAX_TP2 = textwrap.dedent("""
                      "peer": list(zip(t.peer_ops, t.peer_op_ns)),
                      "shard_counters": dict(t.shard_counters),
                      "snapshot": t.snapshot()}}
+    from repro.serving import loadgen
+    lc = loadgen.LoadConfig(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in load.items()})
+    eng = ServingEngine(params, cfg, rc, config=ServeConfig(
+        tp=2, **dict(knobs, **open_knobs)))
+    handles, depths = loadgen.drive_open_loop(eng, loadgen.make_trace(lc),
+                                              max_ticks=4000)
+    t = eng.tier
+    out["open"] = {
+        "tokens": {h.rid: [int(x) for x in h.tokens()] for h in handles},
+        "done": {h.rid: h.done() for h in handles},
+        "timings": {h.rid: (h.ttft_ns, h.tpot_ns, h.restore_stall_ns,
+                            h.recoveries) for h in handles},
+        "metrics": loadgen.summarize(eng, handles, depths, lc).as_dict(),
+        "depths": depths, "stats": eng.stats.as_dict(),
+        "tier": {"ranks": [(r.ops, r.op_ns) for r in t.ranks],
+                 "peer": list(zip(t.peer_ops, t.peer_op_ns)),
+                 "shard_counters": dict(t.shard_counters),
+                 "snapshot": t.snapshot()}}
     print("JAX_TP2 " + json.dumps(out))
 """)
 
@@ -297,8 +340,10 @@ def jax_tp2():
     env["PYTHONPATH"] = os.path.join(REPO, "src")
     env.pop("XLA_FLAGS", None)
     knobs = dict(KNOBS, tier_topology=list(KNOBS["tier_topology"]))
+    open_knobs = {k: v for k, v in OPEN_KNOBS.items() if k not in KNOBS}
     res = subprocess.run([sys.executable, "-c", _JAX_TP2],
-                         input=json.dumps([_waves(), knobs, PAGE]),
+                         input=json.dumps([_waves(), knobs, PAGE, open_knobs,
+                                           OPEN_LOAD]),
                          capture_output=True, text=True, env=env,
                          timeout=600)
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("JAX_TP2 ")]
@@ -323,3 +368,72 @@ def test_sharded_engine_matches_jax_sharded(kv_quant, ranks, jax_tp2):
     assert _as_json(_stats(run)) == _stats(want)
     assert _as_json(run["tier"]) == want["tier"]
     assert want["stats"]["tier_peer_fetches"] > 0
+
+
+# ------------------------------------------------- the open loop at tp 2
+
+@pytest.fixture(scope="module")
+def open_ranks(models, tmp_path_factory):
+    """The open loop on the port's two ranks, spawned once."""
+    _, _, _, tcfg, trc, tparams = models
+    return mesh.spawn(
+        serve_open_loop, 2, (tparams, tcfg, trc,
+                             TServeConfig(tp=2, **OPEN_KNOBS),
+                             TLoadConfig(**OPEN_LOAD), "cpu", 4000),
+        rendezvous_dir=str(tmp_path_factory.mktemp("rendezvous")),
+        device="cpu", timeout_s=SPAWN_TIMEOUT_S)
+
+
+def _replay_lanes(run):
+    """Every rank's trace and every peer lane's, each against the scalar
+    oracle's replay of its ops (``tests/test_sharded_serving.py``'s
+    ``_assert_sharded_replay``, from the traces as data)."""
+    shard = TShardedTier(2, TServeConfig(**OPEN_KNOBS).make_tier().cfg)
+    for r, (ops, op_ns) in enumerate(run["tier"]["ranks"]):
+        t = shard.ranks[r]
+        assert ops
+        np.testing.assert_allclose(np.asarray(op_ns), tsim.replay_page_trace(
+            ops, media=t.cfg.media_name, topology=t.cfg.port_medias,
+            sr=t.cfg.sr_enabled, ds=t.cfg.ds_enabled,
+            req_bytes=t.cfg.req_bytes,
+            dram_cache_bytes=t.cfg.dram_cache_bytes,
+            max_inflight=t.cfg.max_inflight, faults=t.cfg.faults),
+            rtol=0.01)
+    for ops, op_ns in run["tier"]["peer"]:
+        if ops:
+            np.testing.assert_allclose(np.asarray(op_ns),
+                                       tsim.replay_page_trace(
+                ops, media=shard.peer_media, sr=False, ds=False,
+                req_bytes=shard.cfg.req_bytes,
+                dram_cache_bytes=shard.cfg.dram_cache_bytes,
+                max_inflight=shard.cfg.max_inflight), rtol=0.01)
+
+
+def test_open_loop_ranks_complete_and_replay(open_ranks):
+    """Both ranks complete every arrival, lose none, schedule alike, and
+    every rank's and peer lane's trace replays within 1%."""
+    for run in open_ranks:
+        m = run["metrics"]
+        assert m["completed"] == m["arrivals"] == OPEN_LOAD["n_arrivals"]
+        assert m["lost_requests"] == 0 and all(run["done"].values())
+        assert run["stats"]["mesh_ranks"] == 2
+        assert run["stats"]["flushes"] > 0
+        _replay_lanes(run)
+    assert _stats(open_ranks[1]) == _stats(open_ranks[0])
+    assert open_ranks[1]["tier"] == open_ranks[0]["tier"]
+    assert any(ops for ops, _ in open_ranks[0]["tier"]["peer"])
+
+
+@pytest.mark.parametrize("aspect", ["tokens", "timings", "metrics",
+                                    "depths", "stats", "tier"])
+def test_open_loop_matches_jax_sharded(aspect, open_ranks, jax_tp2):
+    """tp 2, open loop: the port's rank 0 against the reference's sharded
+    engine on the same trace and weights."""
+    want, run = jax_tp2["open"], open_ranks[0]
+    if aspect == "tokens":
+        assert _as_json(run["done"]) == want["done"]
+        assert _as_json(run["tokens"]) == want["tokens"]
+    elif aspect == "stats":
+        assert _as_json(_stats(run)) == _stats(want)
+    else:
+        assert _as_json(run[aspect]) == want[aspect]

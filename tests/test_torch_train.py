@@ -49,6 +49,18 @@ NAMES = ["float32", "bfloat16"]
 B, S = 2, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's smoke steps on one intra-op thread: their ops are tiny,
+    and a pool of threads per process spins against the other test
+    workers' pools (a module's seconds under the suite's six workers fell
+    ~15x on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tol(name):
     return (dict(atol=2e-2, rtol=2e-2) if name == "bfloat16"
             else dict(atol=3e-5, rtol=3e-5))
