@@ -360,7 +360,25 @@ Needs one CUDA card, ``nvcc`` and the repository around it; imports neither
    kernel; prints the simulated TTFT / TPOT p50 / p99, goodput, queue
    depth and restore stall (``LoadMetrics``), the wall, ticks, launches
    a tick and the tick and chunk ms (CUDA events);
-22. print the measured numbers, the seconds of each phase, one
+22. the dry run (``launch.dryrun``): (a) qwen3-1.7b and
+   qwen3-moe-235b-a22b on the (16, 16) mesh, every shape, counted on meta
+   in processes of their own on the host (started after the build, beside
+   the card's phases; ``DRYRUN_ARCHS``), printed per rank: arguments,
+   peak, flops, collective bytes by kind, whether it fits 80 GB; (b)
+   ``steps.assemble``'s prediction held against the real step on the
+   card at full width for the cells one card holds (``DRYRUN_CELLS``):
+   qwen3-1.7b decode of 8 slots x 2048 tokens (a rank's part of
+   decode_32k at (16, 16)), prefill of 2 x 2048 (cut from 32768), a train
+   step at 4 of 28 layers on 2 x 1024 tokens: the arguments' bytes equal
+   the real tensors' nbytes exactly, the card's peak above its baseline
+   (``torch.cuda.max_memory_allocated``, the second run) within
+   ``DRYRUN_PEAK_RTOL`` and ``DRYRUN_PEAK_SLACK`` of the predicted
+   temporaries, the decode launching ``paged_decode`` once a layer and
+   the prefill and train step no kernel (the training forward, no
+   ``use_pallas``); (c) ``examples/quickstart_torch.py`` and
+   ``examples/serve_kv_offload_torch.py`` on the card: the losses fall,
+   every request of both acts completes, the two resubmits restore;
+23. print the measured numbers, the seconds of each phase, one
    ``kernels`` JSON line, the card line
    and last ``{"ok": true, "device": {...}}``.
    ``chiprun_out/chip_smoke.json`` keeps the full record.
@@ -634,6 +652,22 @@ OPEN_LOAD = dict(n_arrivals=24, rate_rps=8000.0, arrival="bursty",
 # the tier's op_ns against the scalar oracle's replay of its ops
 # (tests/test_faults.py:371)
 OPEN_REPLAY_RTOL = 0.01
+# The dry run (phase 22): the archs counted on meta on the (16, 16) mesh
+# in processes beside the card's phases, and the cells one card holds,
+# cut from the production shapes: (kind, tokens, rows, layers; None:
+# all 28). The decode is a rank's part of decode_32k at (16, 16) (128
+# slots over 16 data ranks, 32768 tokens over 16 model ranks).
+DRYRUN_PATH = f"{ARCH} dry run"
+EXAMPLES_PATH = "examples"
+DRYRUN_ARCHS = (ARCH, "qwen3-moe-235b-a22b")
+DRYRUN_CELLS = (("decode", 2048, 8, None), ("prefill", 2048, 2, None),
+                ("train", 1024, 2, 4))
+# the bound on the card's peak above its baseline, stated before the first
+# run on the card: the predicted temporaries within 10%, plus 64 MiB for
+# what the card allocates and meta cannot see (library workspaces, the
+# caching allocator's 512-byte rounding)
+DRYRUN_PEAK_RTOL, DRYRUN_PEAK_SLACK = 0.10, 64 << 20
+CARD_BYTES = 80e9                       # an H100's HBM
 TOL = dict(atol=2e-2, rtol=2e-2)        # bf16, tests/test_kernel_parity.py
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)    # f32, tests/test_kernels.py
 # full-width zamba2, chunked vs stepwise prefill in f32: 10x the smoke-size
@@ -901,9 +935,8 @@ def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
         lambda: ref.paged_decode_ref(q, kp, vp, kv_len), 10)
     res["library_ms"] = device_ms(sdpa, 50)
     tokens = sum(min(n, smax) for n in lens)
-    n_bytes = (2 * tokens * hkv * d * 2 + 2 * q.numel() * 2
-               + kv_len.numel() * 4)
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * tokens * h * d)
+    flops, n_bytes = ops.cost(b, h, hkv, d, tokens, kv_bytes=2, q_bytes=2)
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
     res["max_abs_err"] = res["err_softcap0"]
     # the instance runs ``group_pad`` query rows per CTA, ``group_chunks``
     # CTAs per kv head: g of those rows real, the rest padding (G 4 runs
@@ -996,10 +1029,9 @@ def check_decode_int8(dev, hkv, g, d):
     # pages, read once; q, the new rows and the output in bf16
     tokens = sum(min(n, smax) for n in lens)
     pages_read = sum(-(-min(n, smax) // page) for n in lens)
-    n_bytes = (2 * tokens * hkv * d + 2 * pages_read * hkv * 4
-               + 2 * q.numel() * 2 + 2 * new["k"].numel() * 2
-               + pos.numel() * 4)
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * tokens * h * d)
+    flops, n_bytes = ops.cost(b, h, hkv, d, tokens, kv_bytes=1, q_bytes=2,
+                              pages_read=pages_read, int8=True)
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
     res["max_abs_err"] = res["err_softcap0"]
     res["shape"] = (f"q [{b},1,{h},{d}] bf16, codes [{b},{p},{page},{hkv},"
                     f"{d}] int8, scales [{b},{p},{hkv}], pos "
@@ -1324,8 +1356,8 @@ def check_prefill(dev, hkv, g, d, smax=MAX_SEQ):
                         ] = device_ms(lambda p=alt: ops.launch(
                             q, kc, vc, pos, 0.0, p), 20)
     visible = sum(p0 + i + 1 for i in range(c))          # (query, key) pairs
-    n_bytes = (2 * (p0 + c) * hkv * d * 2 + 2 * q.numel() * 2 + 4)
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d)
+    res["bound_ms"], res["bound_by"] = bound(
+        *reversed(ops.cost(1, c, h, hkv, d, visible, p0 + c, 2)))
     res["max_abs_err"] = res["err_pos300_softcap0"]
     res["shape"] = (f"q [1,{c},{h},{d}] bf16, cache [1,{smax},{hkv},{d}], "
                     f"pos {p0} (also 0)")
@@ -1825,9 +1857,7 @@ def check_ssd(dev, h=80, sweep=True):
             device_ms(lambda pl=alt: ops.launch(xdt, bm, cm, la, h0, pl), 50)
     # each input read once, each output written once (f32); the
     # recurrence's 4 P N flops per (token, head) as 3 TF32 products
-    n_bytes = 4 * (2 * xdt.numel() + bm.numel() + cm.numel() + la.numel()
-                   + 2 * h0.numel())
-    flops = 4 * b * CHUNK * h * p * n
+    flops, n_bytes = ops.cost(b, CHUNK, h, p, n)
     res["bound_ms"], res["bound_by"] = bound(
         n_bytes, TF32_PRODUCTS * flops, TF32_FLOPS)
     res["bound_f32_fma_ms"] = bound(n_bytes, flops, F32_FLOPS)[0]
@@ -2082,9 +2112,8 @@ def check_paged_matmul(dev):
                 device_ms(rotating(lambda i, pl=alt: ops.launch(
                     x, pools[i], ids, pl), n), 4 * n)
         # x and the 8 pages read once, y written once (bf16)
-        n_bytes = 2 * (x.numel() + w.numel() + m * MATMUL_N) + 4 * n_k
-        r["bound_ms"], r["bound_by"] = bound(n_bytes,
-                                             2 * m * MATMUL_K * MATMUL_N)
+        flops, n_bytes = ops.cost(m, MATMUL_K, MATMUL_N, n_k, 2)
+        r["bound_ms"], r["bound_by"] = bound(n_bytes, flops)
         res[f"m{m}"] = r
     res.update({k: res["m8"][k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by",
@@ -4161,8 +4190,8 @@ def check_train_prefill(dev):
         res["plans_ms"][f"rows{rows} stages{stages}"] = device_ms(
             lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 10)
     visible = b * c * (c + 1) // 2                   # (query, key) pairs
-    n_bytes = 2 * q.numel() * 2 + 2 * kc.numel() * 2 + 4 * b
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * visible * h * d)
+    res["bound_ms"], res["bound_by"] = bound(
+        *reversed(ops.cost(b, c, h, hkv, d, visible, b * c, 2)))
     res["shape"] = (f"q [{b},{c},{h},{d}] bf16, cache = its own K/V "
                     f"[{b},{c},{hkv},{d}], pos 0 (the use_pallas loss of "
                     f"full-width {ARCH})")
@@ -5899,6 +5928,178 @@ def open_bound(closed, wide):
     return TP_NOISE_X * noise + TOL["atol"], noise, held
 
 
+def start_dryrun():
+    """Phase 22 (a), started early: one process for each of
+    ``DRYRUN_ARCHS`` counting every shape on the (16, 16) mesh on meta,
+    on the host (no card: ``CUDA_VISIBLE_DEVICES`` empty), its cells'
+    JSON under build/dryrun. Each is stopped at exit."""
+    import atexit
+    out = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch in DRYRUN_ARCHS:
+        log_f = open(os.path.join(out, f"{arch}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--out", out], stdout=log_f, stderr=subprocess.STDOUT,
+            env=env, cwd=ROOT))
+        log_f.close()
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return procs, out
+
+
+def dryrun_table(procs, out):
+    """Phase 22 (a): wait for the dry-run processes and print each cell:
+    a rank's arguments, peak (arguments and temporaries), flops and
+    collective bytes by kind, and whether it fits the card's 80 GB."""
+    from repro_torch.configs.base import SHAPES
+    t0 = time.time()
+    for arch, p in zip(DRYRUN_ARCHS, procs):
+        try:
+            rc = p.wait(timeout=max(1.0, 600 - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"dry run of {arch}: still running after 600 s")
+        if rc != 0:
+            with open(os.path.join(out, f"{arch}.log")) as f:
+                fail(f"dry run of {arch}: exit {rc}\n{f.read()[-3000:]}")
+    wait_s = time.time() - t0
+    table = {}
+    for arch in DRYRUN_ARCHS:
+        for shape in SHAPES:
+            with open(os.path.join(out, f"{arch}__{shape}__sp.json")) as f:
+                cell = json.load(f)
+            key = f"{arch} {shape}"
+            if cell["status"] != "ok":
+                table[key] = {"status": cell["status"],
+                              "reason": cell.get("reason", "")[:60]}
+                log(f"dry run {key} (16x16): {cell['status']}")
+                continue
+            mem, mod = cell["memory_analysis"], cell["module"]
+            peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            coll = {k: v for k, v in mod["collective_bytes"].items() if v}
+            table[key] = {
+                "args_gb": mem["argument_size_in_bytes"] / 1e9,
+                "peak_gb": peak / 1e9, "tflop": mod["flops"] / 1e12,
+                "coll_gb": {k: (v if k == "count" else v / 1e9)
+                            for k, v in coll.items()},
+                "fits_80gb": peak <= CARD_BYTES,
+                "count_s": cell["compile_s"]}
+            log(f"dry run {key} (16x16, a rank): {table[key]}")
+    return {"cells": table, "wait_s": wait_s}
+
+
+def dryrun_cell(dev, kind, seq, rows, layers):
+    """Phase 22 (b): one cell of ``DRYRUN_CELLS`` predicted on meta
+    (``steps.assemble`` and ``dryrun.count_step``, one rank) and run on
+    the card from the same ``assemble``: the arguments' bytes against
+    the real tensors' nbytes (exact), the peak above the baseline of the
+    second run against the predicted temporaries (``DRYRUN_PEAK_RTOL``,
+    ``DRYRUN_PEAK_SLACK``), the kernels it launched."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    cfg = registry.get(ARCH)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = ShapeConfig(f"{kind}_{seq}", seq, rows, kind)
+    rc = RunConfig(model=cfg, shape=shape, mesh=MeshConfig())
+    t0 = time.time()
+    pred = dryrun.count_step(steps.assemble(cfg, shape, rc, None))
+    count_s = time.time() - t0
+    mem = pred["memory_analysis"]
+    cell = steps.assemble(cfg, shape, rc, None, device=dev)
+    seen, real_args = set(), 0
+    for t in dryrun.tensors_of(cell.args):
+        if id(t) not in seen:
+            seen.add(id(t))
+            real_args += t.nbytes
+    name = f"{DRYRUN_PATH} {kind}"
+    if real_args != mem["argument_size_in_bytes"]:
+        fail(f"{name}: the arguments hold {real_args} bytes on the card, "
+             f"the dry run predicted {mem['argument_size_in_bytes']}")
+    out = cell.step(*cell.args)             # workspaces, library handles
+    del out
+    torch.cuda.synchronize()
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.time()
+    out = cell.step(*cell.args)
+    torch.cuda.synchronize()
+    step_s = time.time() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = read_counters()
+    del out, cell
+    want = {"paged_decode": cfg.n_layers} if kind == "decode" else {}
+    launches, off_path = split_counts(name, counts, list(want))
+    if launches != want:
+        fail(f"{name}: launches {launches}, want {want}")
+    temp = mem["temp_size_in_bytes"]
+    slack = DRYRUN_PEAK_RTOL * temp + DRYRUN_PEAK_SLACK
+    res = {"shape": f"{rows} x {seq} tokens, {cfg.n_layers} of 28 layers",
+           "args_bytes": real_args, "pred_temp_bytes": temp,
+           "card_peak_bytes": peak, "peak_err_bytes": peak - temp,
+           "bound_bytes": slack, "pred_args_plus_temp_gb":
+               (real_args + temp) / 1e9,
+           "card_args_plus_peak_gb": (real_args + peak) / 1e9,
+           "pred_tflop": pred["module"]["flops"] / 1e12,
+           "count_s": count_s, "step_s": step_s, "launches": launches,
+           "off_path_launches": off_path}
+    log(f"{name}: {res}")
+    if abs(peak - temp) > slack:
+        fail(f"{name}: the card's peak above its baseline, {peak} bytes, "
+             f"is {peak - temp:+d} from the predicted {temp} (bound "
+             f"{slack:.0f})")
+    return res
+
+
+def dryrun_examples(dev):
+    """Phase 22 (c): the quickstart and the serving example on the card,
+    each the function its script runs; the serving example's launches
+    counted from 0."""
+    import runpy
+    ex = os.path.join(ROOT, "examples")
+    qs = runpy.run_path(os.path.join(ex, "quickstart_torch.py"))
+    t0 = time.time()
+    quick = qs["quickstart"](device=dev, log=log)
+    quick_s = time.time() - t0
+    losses = quick["losses"]
+    if not all(x == x for x in losses) or losses[-1] >= losses[0]:
+        fail(f"quickstart_torch: losses {losses} do not fall")
+    sv = runpy.run_path(os.path.join(ex, "serve_kv_offload_torch.py"))
+    zero_counters()
+    t0 = time.time()
+    acts = sv["serve_kv_offload"](device=dev, log=log)
+    serve_s = time.time() - t0
+    counts = read_counters()
+    launches, off_path = split_counts(
+        EXAMPLES_PATH, counts, ["paged_decode", "flash_prefill_scalar"])
+    if not all(launches.values()):
+        fail(f"serve_kv_offload_torch: kernels not launched: {launches}")
+    for act, run in acts.items():
+        if not all(h.done() for h in run["handles"]):
+            fail(f"serve_kv_offload_torch {act}: a request did not finish")
+    restored = [r.rid for r in acts["offload"]["finished"] if r.restored]
+    if restored != [0, 3] or acts["offload"]["extra_prefills"]:
+        fail(f"serve_kv_offload_torch: restores {restored}, extra "
+             f"prefills {acts['offload']['extra_prefills']}")
+    return {"quickstart_losses": losses, "quickstart_s": quick_s,
+            "serve_s": serve_s, "restored": restored,
+            "tokens": {act: [list(r.generated) for r in run["finished"]]
+                       for act, run in acts.items()},
+            "launches": launches, "off_path_launches": off_path}
+
+
 def serve_open_loop(dev, card):
     """The open-loop phase: the closed run and its f32 twin (the bound of
     a near tie), then the main path -- the trace played once with each
@@ -6044,6 +6245,7 @@ def main() -> None:
         lib_path, parent = built.result(), parent_built.result()
     build.library()
     build_s = time.time() - t0
+    dry_procs, dry_out = start_dryrun()
     log(f"kernels built in {build_s:.1f}s -> {lib_path}; parent's "
         f"flash_prefill and paged_matmul: "
         f"{'built from ' + args.parent if parent else 'not built'}")
@@ -6240,13 +6442,27 @@ def main() -> None:
         open_loop = serve_open_loop(dev, card)
     free_card()
 
+    with phase(DRYRUN_PATH):
+        dry = {"table": dryrun_table(dry_procs, dry_out)}
+        for kind, seq, rows, layers in DRYRUN_CELLS:
+            dry[kind] = dryrun_cell(dev, kind, seq, rows, layers)
+            free_card()
+        dry[DRYRUN_PATH] = {
+            "launches": dry["decode"]["launches"],
+            "off_path_launches": {**dry["decode"]["off_path_launches"],
+                                  **dry["prefill"]["launches"],
+                                  **dry["train"]["launches"]}}
+        examples = dryrun_examples(dev)
+    free_card()
+
     runs = {ARCH: run, HYBRID: hyb, int8_name: run8, GEMMA: gem,
             gem8_name: gem8, GRANITE: gran, MUSICGEN: mus, VLM: vlm,
             XLSTM: xl, **groups, **tp, DP_PATH: dp, TRAIN_PATH: trained,
             XLSTM_TRAIN_PATH: xl_train, DP_TRAIN_PATH: dp_train,
             TP_TRAIN_PATH: tp_train, **tpf_train,
             HOST_SERVE_PATH: host_sv, HOST_TRAIN_PATH: host_tr,
-            OPEN_PATH: open_loop}
+            OPEN_PATH: open_loop, DRYRUN_PATH: dry[DRYRUN_PATH],
+            EXAMPLES_PATH: examples}
     prefill_src = "src/repro_torch/csrc/flash_prefill.cu"
     matmul_src = "src/repro_torch/csrc/paged_matmul.cu"
     decode_src = "src/repro_torch/csrc/paged_decode.cu"
@@ -6258,7 +6474,8 @@ def main() -> None:
     # launches are this row's: None for all of them)
     for name, counter, res, src, replaces, paths in (
             ("paged_decode", "paged_decode", dec, decode_src, decode_tpu,
-             (ARCH, HYBRID, GEMMA, HOST_SERVE_PATH, OPEN_PATH)),
+             (ARCH, HYBRID, GEMMA, HOST_SERVE_PATH, OPEN_PATH, DRYRUN_PATH,
+              EXAMPLES_PATH)),
             ("paged_decode_d64_granite", "paged_decode", dec64[GRANITE],
              decode_src, decode_tpu, (GRANITE,)),
             ("paged_decode_d64_musicgen", "paged_decode", dec64[MUSICGEN],
@@ -6467,6 +6684,7 @@ def main() -> None:
                    "train_tp_families": tpf_train,
                    "serve_host": host_sv,
                    "train_host": host_tr, "serve_open_loop": open_loop,
+                   "dryrun": dry, "examples": examples,
                    "cut_layers": CUT_LAYERS, "phase_s": PHASE_S,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -174,8 +174,12 @@ def host_empty(metas: Sequence[Tuple[Tuple[int, ...], torch.dtype]],
     """Zeroed host tensors of ``metas`` (shape, dtype), packed in order
     into arenas of at most ``ARENA_BYTES`` (a larger one alone in its
     own), each marked as streaming to ``device``: pinned for a CUDA
-    ``device``; plain host memory for a CPU one."""
+    ``device``; plain host memory for a CPU one; on the meta device (the
+    dry run) meta tensors, marked alike, and no arena."""
     device = torch.device(device)
+    if device.type == "meta":
+        return [_mark(torch.empty(shape, dtype=dt, device=device), device)
+                for shape, dt in metas]
     pin = device.type == "cuda"
     sizes = [int(np.prod(shape, dtype=np.int64)) * torch.empty(
         (), dtype=dt).element_size() for shape, dt in metas]

@@ -2,8 +2,9 @@
 
 On a CUDA tensor it launches ``csrc/paged_decode.cu`` (or raises); on a
 CPU tensor it runs the plain version (``ref.paged_decode_ref``, or
-``ref.paged_decode_int8_ref`` for int8 pages). There is no fallback from
-one to the other. ``launches`` counts launches of the bf16/f32 mode,
+``ref.paged_decode_int8_ref`` for int8 pages); on a meta tensor (the dry
+run) it returns the outputs' shapes and charges ``cost`` to
+``kernels.meta``. There is no fallback from one to the other. ``launches`` counts launches of the bf16/f32 mode,
 ``int8_launches`` those of the int8 mode; each call is one launch.
 
 The launch plan (split and tile sizes, stages, the cut of the query-head
@@ -28,7 +29,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.decode_attention.ref import (int8_rows,
                                                       paged_decode_int8_ref,
                                                       paged_decode_ref)
@@ -112,6 +113,38 @@ def plan(b: int, h: int, hkv: int, smax: int, page: int, d: int,
                 counters=(b, hkv, chunks))
 
 
+def cost(b: int, h: int, hkv: int, d: int, tokens: int, *, kv_bytes: int,
+         q_bytes: int, out_bytes: int = None, pages_read: int = 0,
+         int8: bool = False):
+    """(flops, bytes) of one launch over ``b`` slots whose visible tokens
+    sum to ``tokens``: Q K^T and P V, 2 flops a multiply-add each, for
+    every query head; the visible keys and values read once
+    (``kv_bytes`` an element), q read and the output written once, the
+    lengths read. The int8 mode (``int8``) also reads the scales of the
+    ``pages_read`` pages it visits and the new token's K/V rows."""
+    out_bytes = q_bytes if out_bytes is None else out_bytes
+    n_bytes = (2 * tokens * hkv * d * kv_bytes + b * h * d * q_bytes
+               + b * h * d * out_bytes + b * 4)
+    if int8:
+        n_bytes += 2 * pages_read * hkv * 4 + 2 * b * hkv * d * q_bytes
+    return 4 * tokens * h * d, n_bytes
+
+
+def _meta(name, q, pages, return_ml, int8=False):
+    """The meta branch: the outputs' shapes, and one launch's ``cost``
+    charged, every slot over its whole cache (the lengths' values are
+    not known on meta)."""
+    b, _, h, d = q.shape
+    _, p, page, hkv, _ = pages.shape
+    outs = _outputs(q, return_ml)
+    meta.charge(name, *cost(b, h, hkv, d, b * p * page,
+                            kv_bytes=pages.element_size(),
+                            q_bytes=q.element_size(),
+                            out_bytes=4 if return_ml else None,
+                            pages_read=b * p, int8=int8))
+    return _result(*outs)
+
+
 def _workspace(device: torch.device, p: Plan):
     """The partials and counters of ``p`` on ``device``, made once."""
     key = (device, p.part_acc)
@@ -188,6 +221,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, kv_len, logit_softcap,
                                 return_ml=return_ml)
+    if q.device.type == "meta":
+        return _meta("paged_decode", q, k_pages, return_ml)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in build.DTYPE_CODES:
@@ -272,6 +307,8 @@ def _paged_decode_int8(q, k_codes, v_codes, k_scale, v_scale, new_k, new_v,
                                      new_k, new_v, None, logit_softcap,
                                      kv_len=kv_len, fresh=fresh,
                                      return_ml=return_ml)
+    if q.device.type == "meta":
+        return _meta("paged_decode_int8", q, k_codes, return_ml, int8=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in build.DTYPE_CODES:

@@ -1,8 +1,9 @@
 """Wrapper of the chunked-prefill flash attention kernel (model layout).
 
 On a CUDA tensor it launches ``csrc/flash_prefill.cu`` (or raises); on a
-CPU tensor it runs the plain version (``ref.flash_prefill_ref``). There is
-no fallback from one to the other. ``launches`` counts kernel launches,
+CPU tensor it runs the plain version (``ref.flash_prefill_ref``); on a
+meta tensor (the dry run) it returns the output's shape and charges
+``cost`` to ``kernels.meta``. There is no fallback from one to the other. ``launches`` counts kernel launches,
 ``kernel_launches`` the same by the plan's kernel.
 
 The launch plan (which of the file's five kernels, the grid, rows per
@@ -25,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.flash_attention.ref import flash_prefill_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # instantiated in csrc/flash_prefill.cu
@@ -191,6 +192,18 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
                          f"does not fit {MAX_SMEM} bytes")
 
 
+def cost(b: int, c: int, h: int, hkv: int, d: int, visible: int,
+         cache_tokens: int, elem_bytes: int):
+    """(flops, bytes) of one launch: Q K^T and P V over the ``visible``
+    (query, key) pairs, 2 flops a multiply-add each, for every query
+    head; the ``cache_tokens`` keys and values the rows read, once, q
+    read and the output written once ([b, c, h, d] of ``elem_bytes``),
+    the positions read."""
+    return (4 * visible * h * d,
+            2 * cache_tokens * hkv * d * elem_bytes
+            + 2 * b * c * h * d * elem_bytes + 4 * b)
+
+
 def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pos: torch.Tensor, *,
                   logit_softcap: float = 0.0) -> torch.Tensor:
@@ -220,6 +233,13 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"inputs span devices {devices}")
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k_cache, v_cache, pos, logit_softcap)
+    if q.device.type == "meta":
+        # each row's chunk at position 0 (pos is not known on meta): its
+        # causal pairs, and its own keys read
+        meta.charge("flash_prefill", *cost(b, c, h, hkv, d,
+                                           b * c * (c + 1) // 2, b * c,
+                                           q.element_size()))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in build.DTYPE_CODES:

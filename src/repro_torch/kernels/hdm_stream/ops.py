@@ -1,8 +1,9 @@
 """Wrapper of the paged weight-streaming matmul kernel.
 
 On a CUDA tensor it launches ``csrc/paged_matmul.cu`` (or raises); on a
-CPU tensor it runs the plain version (``ref.paged_matmul_ref``). There is
-no fallback from one to the other. ``launches`` counts kernel launches,
+CPU tensor it runs the plain version (``ref.paged_matmul_ref``); on a meta
+tensor (the dry run) it returns the output's shape and charges ``cost``
+to ``kernels.meta``. There is no fallback from one to the other. ``launches`` counts kernel launches,
 ``instance_launches`` the same by the plan's instance.
 
 The launch plan (the instance, its tiles, ring stages, K-splits, shared
@@ -28,7 +29,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.hdm_stream.ref import paged_matmul_ref
 
 N_SMS = 132                              # H100 SXM
@@ -222,6 +223,14 @@ def _workspace(device: torch.device, p: Plan):
     return ws
 
 
+def cost(m: int, k: int, n: int, n_ids: int, elem_bytes: int):
+    """(flops, bytes) of one launch: the [m, k] x [k, n] product, 2 flops
+    a multiply-add; x and the K/page_k gathered pages read once, y
+    written once (``elem_bytes`` an element), the ``n_ids`` page ids
+    read."""
+    return 2 * m * k * n, elem_bytes * (m * k + k * n + m * n) + 4 * n_ids
+
+
 def stream_matmul(x: torch.Tensor, w_pages: torch.Tensor,
                   page_ids: torch.Tensor) -> torch.Tensor:
     """y = x @ vstack(w_pages[page_ids]).
@@ -246,6 +255,10 @@ def stream_matmul(x: torch.Tensor, w_pages: torch.Tensor,
         raise ValueError(f"inputs span devices {devices}")
     if x.device.type == "cpu":
         return paged_matmul_ref(x, w_pages, page_ids)
+    if x.device.type == "meta":
+        meta.charge("paged_matmul", *cost(m, k, n, page_ids.shape[0],
+                                          x.element_size()))
+        return torch.empty((m, n), dtype=x.dtype, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in build.DTYPE_CODES:

@@ -1,8 +1,9 @@
 """Wrapper of the chunked SSD scan kernel (model layout).
 
 On a CUDA tensor it launches ``csrc/ssd_scan.cu`` (or raises); on a CPU
-tensor it runs the plain chunked form (``ref.ssd_chunked_ref``). There is no
-fallback from one to the other. ``launches`` counts kernel launches.
+tensor it runs the plain chunked form (``ref.ssd_chunked_ref``); on a meta
+tensor (the dry run) it returns the outputs' shapes and charges ``cost``
+to ``kernels.meta``. There is no fallback from one to the other. ``launches`` counts kernel launches.
 
 The kernel cuts the token axis into spans of whole sub-chunks of
 ``KERNEL_CHUNK`` tokens, one CTA per (head, span, row), scans each span
@@ -29,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.mamba2_scan.ref import ssd_chunked_ref
 
 KERNEL_CHUNK = 64
@@ -100,6 +101,16 @@ def _workspace(device: torch.device, pl: Plan):
     return ws
 
 
+def cost(b: int, s: int, h: int, p: int, n: int, h0: bool = True):
+    """(flops, bytes) of one launch, f32: the recurrence's 4 P N flops a
+    (token, head) -- the state's update and its read-out, 2 flops a
+    multiply-add each; xdt, B, C and the log decays read once, y and the
+    end state written once, the start state ``h0`` read once."""
+    n_bytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h
+                   + (2 if h0 else 1) * b * h * p * n)
+    return 4 * b * s * h * p * n, n_bytes
+
+
 def ssd(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         log_a: torch.Tensor, *, h0: Optional[torch.Tensor] = None,
         chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -133,6 +144,11 @@ def ssd(xdt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         raise ValueError(f"inputs span devices {devices}")
     if xdt.device.type == "cpu":
         return ssd_chunked_ref(xdt, bmat, cmat, log_a, h0, chunk)
+    if xdt.device.type == "meta":
+        meta.charge("ssd_scan", *cost(b, s, h, p, n, h0 is not None))
+        return (torch.empty_like(xdt),
+                torch.empty((b, h, p, n), dtype=torch.float32,
+                            device=xdt.device))
     if xdt.device.type != "cuda":
         raise ValueError(f"unsupported device {xdt.device}")
     if (p, n) not in HEAD_STATE_DIMS:

@@ -32,7 +32,13 @@ reports.
 
 ``init_mesh`` builds a :class:`RankMesh`: the world and its model, data,
 pod, (pod, data) and (data, model) sub-groups, every sub-group created by
-every process in the same order (``dist.new_group``). ``spawn`` starts
+every process in the same order (``dist.new_group``).
+``make_production_mesh`` builds the same mesh for one rank of the
+reference's production meshes, (16, 16) or (2, 16, 16), on the meta
+device: its groups are ``DryRunGroup``s, which join no process group and
+return meta tensors of their results' shapes (the dry run,
+``launch.dryrun``). With ``RECORD`` a list, every group appends each
+collective it runs (kind, axis, payload bytes). ``spawn`` starts
 the ranks (``torch.multiprocessing``, spawn context) with a ``file://``
 rendezvous, runs one function on each with its group (or, given
 ``mesh_shape``, its mesh) and returns what each returned, pickled by
@@ -61,6 +67,17 @@ import torch.distributed as dist
 # "<axis>:<op>"
 COLLECTIVES: collections.Counter = collections.Counter()
 
+# with a list here (None: off), every collective a group runs appends
+# (kind, axis, bytes): the reference's HLO kind ("all-gather", ...), the
+# group's axis, and its payload bytes per rank as the reference's dry run
+# counts them (``collective_bytes``): the output for an all-gather or a
+# reduce-scatter, the operand for the rest
+RECORD: Optional[list] = None
+
+_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+          "all_to_all": "all-to-all", "reduce_scatter": "reduce-scatter",
+          "broadcast": "broadcast"}
+
 
 class _Pending:
     """An asynchronous ``all_gather`` in flight: ``wait()`` returns
@@ -75,6 +92,10 @@ class _Pending:
         t = self.like
         return torch.stack(self.parts).view(t.dtype).reshape(
             (self.size,) + t.shape)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +114,11 @@ class RankGroup:
     axis: str = "model"
     members: Tuple[int, ...] = ()
 
-    def _count(self, op: str) -> None:
+    def _count(self, op: str, n_bytes: int = 0) -> None:
         COLLECTIVES[op if self.axis == "model" else
                     f"{self.axis}:{op}"] += 1
+        if RECORD is not None:
+            RECORD.append((_KINDS[op], self.axis, int(n_bytes)))
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
         """In place over the ranks: ``op`` "max" or "sum"; returns ``t``.
@@ -103,7 +126,7 @@ class RankGroup:
         red = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
         if self.size == 1:
             return t
-        self._count("all_reduce")
+        self._count("all_reduce", _nbytes(t))
         dist.all_reduce(t, op=red, group=self.pg)
         return t
 
@@ -121,7 +144,7 @@ class RankGroup:
         if self.size == 1:
             return _Pending(None, [flat], t, 1)
         parts = [torch.empty_like(flat) for _ in range(self.size)]
-        self._count("all_gather")
+        self._count("all_gather", self.size * _nbytes(t))
         work = dist.all_gather(parts, flat, group=self.pg, async_op=True)
         return _Pending(work, parts, t, self.size)
 
@@ -135,7 +158,7 @@ class RankGroup:
         t = t.contiguous()
         flat = t.view(torch.uint8).reshape(self.size, -1)
         out = torch.empty_like(flat)
-        self._count("all_to_all")
+        self._count("all_to_all", _nbytes(t))
         dist.all_to_all_single(out, flat, group=self.pg)
         return out.view(t.dtype).reshape(t.shape)
 
@@ -155,7 +178,7 @@ class RankGroup:
                              f"{self.size} ranks")
         parts = t.movedim(dim, 0).reshape((self.size, -1) + tuple(
             t.movedim(dim, 0).shape[1:]))
-        self._count("reduce_scatter")
+        self._count("reduce_scatter", _nbytes(t) // self.size)
         flat = parts.contiguous().view(torch.uint8).reshape(self.size, -1)
         recv = torch.empty_like(flat)
         dist.all_to_all_single(recv, flat, group=self.pg)
@@ -183,7 +206,7 @@ class RankGroup:
         returns ``t``."""
         if self.size == 1:
             return t
-        self._count("broadcast")
+        self._count("broadcast", _nbytes(t))
         dist.broadcast(t, src=self.members[src], group=self.pg)
         return t
 
@@ -304,9 +327,6 @@ def init_mesh(rank: int, shape: Sequence[int], init_method: str = "", *,
     world = dataclasses.replace(world, axis="pod,data,model")
     timeout = datetime.timedelta(seconds=timeout_s)
 
-    def rank_of(p, d, m):
-        return (p * d_n + d) * n + m
-
     def axis(name, groups):
         """Create every group of ``groups`` (lists of world ranks) and
         return the one holding this rank."""
@@ -321,17 +341,108 @@ def init_mesh(rank: int, shape: Sequence[int], init_method: str = "", *,
                                  tuple(members))
         return mine
 
-    model = axis("model", [[rank_of(p, d, m) for m in range(n)]
-                           for p in range(p_n) for d in range(d_n)])
-    data = axis("data", [[rank_of(p, d, m) for d in range(d_n)]
-                         for p in range(p_n) for m in range(n)])
-    pod = axis("pod", [[rank_of(p, d, m) for p in range(p_n)]
-                       for d in range(d_n) for m in range(n)])
-    pod_data = axis("pod,data", [[rank_of(p, d, m) for p in range(p_n)
-                                  for d in range(d_n)] for m in range(n)])
-    plane = axis("data,model", [[rank_of(p, d, m) for d in range(d_n)
-                                 for m in range(n)] for p in range(p_n)])
-    return RankMesh((p_n, d_n, n), rank, model, data, pod, pod_data, plane,
+    return RankMesh((p_n, d_n, n), rank,
+                    *(axis(name, groups)
+                      for name, groups in _axis_groups(p_n, d_n, n)),
+                    world)
+
+
+def _axis_groups(p_n: int, d_n: int, n: int):
+    """(axis name, the world ranks of each of its groups) of a (P, D, N)
+    mesh, in ``RankMesh``'s field order and the order every process
+    creates them: model, data, pod, (pod, data), (data, model)."""
+    def rank_of(p, d, m):
+        return (p * d_n + d) * n + m
+
+    return (("model", [[rank_of(p, d, m) for m in range(n)]
+                       for p in range(p_n) for d in range(d_n)]),
+            ("data", [[rank_of(p, d, m) for d in range(d_n)]
+                      for p in range(p_n) for m in range(n)]),
+            ("pod", [[rank_of(p, d, m) for p in range(p_n)]
+                     for d in range(d_n) for m in range(n)]),
+            ("pod,data", [[rank_of(p, d, m) for p in range(p_n)
+                           for d in range(d_n)] for m in range(n)]),
+            ("data,model", [[rank_of(p, d, m) for d in range(d_n)
+                             for m in range(n)] for p in range(p_n)]))
+
+
+# ------------------------------------------------------------ the dry run
+#
+# One rank of a production mesh counted on the meta device: its groups
+# run no collective, return meta tensors of the real results' shapes and
+# dtypes, and record each call as the real groups do (``COLLECTIVES``,
+# ``RECORD``).
+
+
+@dataclasses.dataclass(frozen=True)
+class DryRunGroup(RankGroup):
+    """A ``RankGroup`` that never calls ``torch.distributed``: each
+    collective returns a meta tensor of its real result's shape and
+    dtype, and is counted and recorded with the real one's payload
+    bytes."""
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        if op not in ("max", "sum"):
+            raise KeyError(op)
+        if self.size > 1:
+            self._count("all_reduce", _nbytes(t))
+        return t
+
+    def all_gather_async(self, t: torch.Tensor) -> _Pending:
+        t = t.contiguous()
+        if self.size > 1:
+            self._count("all_gather", self.size * _nbytes(t))
+        parts = [t.reshape(-1).view(torch.uint8)] * self.size
+        return _Pending(None, parts, t, self.size)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        self._count("all_to_all", _nbytes(t))
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: axis {dim} of "
+                             f"{tuple(t.shape)} does not split over "
+                             f"{self.size} ranks")
+        self._count("reduce_scatter", _nbytes(t) // self.size)
+        shape = list(t.shape)
+        shape[dim] //= self.size
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        if self.size > 1:
+            self._count("broadcast", _nbytes(t))
+        return t
+
+
+def make_production_mesh(*, multi_pod: bool = False, shape=None,
+                         rank: int = 0) -> RankMesh:
+    """World ``rank``'s place in the reference's production mesh, (16,
+    16) or with ``multi_pod`` (2, 16, 16), or in ``shape``, on the meta
+    device: every group a ``DryRunGroup`` (the dry run's mesh; no process
+    group is joined)."""
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    p_n, d_n, n = mesh_shape3(shape)
+    size = p_n * d_n * n
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} of a mesh of {size}")
+    meta = torch.device("meta")
+
+    def mine(name, groups):
+        members = next(g for g in groups if rank in g)
+        return DryRunGroup(members.index(rank), len(members), meta,
+                           "dryrun", None, name, tuple(members))
+
+    world = DryRunGroup(rank, size, meta, "dryrun", None, "pod,data,model",
+                        tuple(range(size)))
+    return RankMesh((p_n, d_n, n), rank,
+                    *(mine(name, groups)
+                      for name, groups in _axis_groups(p_n, d_n, n)),
                     world)
 
 

@@ -50,7 +50,8 @@ masters (wherever they live), and returns the same state.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,16 +74,36 @@ class TrainState(NamedTuple):
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,
                 rc: RunConfig) -> Dict[str, Tuple[Tuple[int, ...],
                                                   torch.dtype]]:
-    """The train step's inputs as ``name -> (shape, dtype)`` (the
-    reference's ShapeDtypeStructs for ``kind == "train"``)."""
+    """The step's inputs for ``shape.kind`` as ``name -> (shape, dtype)``
+    (the reference's ShapeDtypeStructs): tokens and labels to train,
+    tokens to prefill, one token a row to decode against a cache of
+    ``seq_len``; the VLM's vision embeddings but at decode."""
     del rc
     B, S = shape.global_batch, shape.seq_len
     tok = (B, cfg.n_codebooks, S) if cfg.family == "audio" else (B, S)
-    out = {"tokens": (tok, torch.int32), "labels": (tok, torch.int32)}
-    if cfg.family == "vlm":
+    if shape.kind == "train":
+        out = {"tokens": (tok, torch.int32), "labels": (tok, torch.int32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": (tok, torch.int32)}
+    else:
+        one = (B, cfg.n_codebooks, 1) if cfg.family == "audio" else (B, 1)
+        out = {"tokens": (one, torch.int32)}
+    if cfg.family == "vlm" and shape.kind != "decode":
         out["vision_embeds"] = ((B, cfg.n_vision_tokens, cfg.d_model),
                                 pdtype(cfg))
     return out
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                rc: RunConfig) -> Dict[str, Tuple]:
+    """The reference's ``batch_specs``: each input's rows over the data
+    axes (the (pod, data) product with ``multi_pod``; none for a batch of
+    one), its other dimensions whole."""
+    dp = ("pod", "data") if rc.mesh.multi_pod else "data"
+    if shape.global_batch == 1:
+        dp = None
+    return {name: (dp,) + (None,) * (len(dims) - 1)
+            for name, (dims, _) in input_specs(cfg, shape, rc).items()}
 
 
 def batch_group(rc: RunConfig, mesh):
@@ -206,6 +227,16 @@ def init_state(params: nn.Module, rc: RunConfig,
                                     moves, batch_group(rc, mesh))
     return TrainState(params, adamw.init(src, opt_cfg, host=host),
                       residuals)
+
+
+def state_shapes(cfg: ModelConfig, rc: RunConfig,
+                 opt_cfg: adamw.AdamWConfig, mesh=None) -> TrainState:
+    """The training state on the meta device (the reference's
+    ``state_shapes``: shapes and dtypes, nothing allocated): of the whole
+    model, or with a rank ``mesh`` this rank's part as ``init_state``
+    places it."""
+    params = M.init_model(cfg, device="meta")
+    return init_state(params, rc, opt_cfg, mesh)
 
 
 def loss_and_grads(params: nn.Module, cfg: ModelConfig, rc: RunConfig,
@@ -364,9 +395,14 @@ def build_prefill_step(cfg: ModelConfig, rc: RunConfig, mesh=None):
     """``step(params, batch) -> logits``: the reference's prefill step,
     ``models.model.prefill_step`` (the whole prompt, no cache, the last
     position's logits) on this rank's shard of the weights over the rank
-    groups of ``mesh`` (``serve_ranks_of``; ``batch`` this rank's rows)."""
+    groups of ``mesh`` (``serve_ranks_of``; ``batch`` this rank's rows),
+    the MoE's tokens over the data axis beside the model axis as the
+    training forward shards them (``train_ranks_of``)."""
     def step(params, batch):
-        ranks = serve_ranks_of(rc, mesh, batch["tokens"].shape[0])
+        ranks = serve_ranks_of(rc, mesh, batch["tokens"].shape[0] * (
+            1 if mesh is None else mesh.dp(rc.mesh.multi_pod).size))
+        if mesh is not None and mesh.data.size > 1:
+            ranks = dataclasses.replace(ranks, data=mesh.data)
         return M.prefill_step(params, cfg, rc, batch, ranks=ranks)
     return step
 
@@ -409,3 +445,109 @@ def _layouts(grads, axes, split, specs, group, model):
             shape[a] *= count
         out.append((tuple(shape), cuts))
     return out
+
+
+# ---------------------------------------------------------------------------
+# one dry-run cell: a step and this rank's arguments
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LoweredCell:
+    """A step for one (config, shape, mesh) cell and this rank's
+    arguments in call order (``step(*args)``); ``donated``: the
+    arguments the step updates in place and returns (the reference's
+    ``donate_argnums``: the train state, the decode cache)."""
+
+    kind: str
+    step: Callable
+    args: Tuple
+    donated: Tuple[int, ...] = ()
+
+
+def rank_inputs(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig, mesh,
+                device="meta", seed: int = 0) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the step's inputs (``input_specs``), as
+    ``batch_specs`` places them (its part over the data axes; every row
+    of a batch of one, or without a mesh), on ``device``: uninitialised
+    on meta, else token ids drawn from ``seed`` and vision embeddings
+    N(0, 1)."""
+    group = batch_group(rc, mesh)
+    rows = shape.global_batch
+    if group is not None and rows > 1:
+        if rows % group.size:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{group.size} data ranks")
+        rows //= group.size
+    dev = torch.device(device)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    out = {}
+    for name, (dims, dtype) in input_specs(cfg, shape, rc).items():
+        dims = (rows,) + tuple(dims[1:])
+        if gen is None:
+            out[name] = torch.empty(dims, dtype=dtype, device=dev)
+        elif dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, dims, generator=gen,
+                                      device=dev, dtype=dtype)
+        else:
+            out[name] = torch.randn(dims, generator=gen, device=dev
+                                    ).to(dtype)
+    return out
+
+
+def rank_cache(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig, mesh,
+               device="meta") -> Dict:
+    """This rank's part of the decode cache of ``shape`` (the global
+    batch, ``seq_len`` tokens a row), as ``M.cache_specs`` places it: its
+    rows' slots over the data axes, its pages over the model axis (a
+    batch of one row: over every axis). Raises where the ranks do not
+    divide the page axis, as the reference's engine does."""
+    b = shape.global_batch
+    cache = M.cache_init(cfg, rc, b, max_seq=shape.seq_len, device=device)
+    if mesh is None:
+        return cache
+    mp = rc.mesh.multi_pod
+    pages = mesh.all_axes(mp) if b == 1 else mesh.model
+    if "kv" in cache and pages.size > 1:
+        n_pages = cache["kv"]["k"].shape[sharding.PAGE_AXIS]
+        sharding.check_pages(n_pages, pages.size, shape.seq_len,
+                             rc.kv_page_size)
+    rows = (0, 1) if b == 1 else (mesh.dp(mp).rank, mesh.dp(mp).size)
+    return sharding.shard_cache(cache, pages.rank, pages.size, rows)
+
+
+def assemble(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig, mesh,
+             opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+             device="meta") -> LoweredCell:
+    """The step of one dry-run cell and this rank's arguments: for
+    ``shape.kind`` "train" the step ``build_train_step(mesh=)`` builds on
+    the state ``init_state`` places, for "prefill" ``build_prefill_step``
+    on the weights ``HDMStore`` places under ``rc.param_tier``, for
+    "decode" ``build_serve_step`` on those weights and this rank's part
+    of the cache; each beside this rank's rows of the inputs. On the meta
+    device (the dry run; ``mesh`` a ``launch.mesh.make_production_mesh``)
+    nothing is allocated; on a card (``mesh`` None: one rank) the
+    arguments are real, the weights random."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig(
+        learning_rate=rc.learning_rate, weight_decay=rc.weight_decay,
+        grad_clip=rc.grad_clip)
+    batch = rank_inputs(cfg, shape, rc, mesh, device)
+    if shape.kind == "train":
+        params = M.init_model(cfg, device=device)
+        state = init_state(params, rc, opt_cfg, mesh)
+        return LoweredCell("train", build_train_step(cfg, rc, opt_cfg,
+                                                     mesh=mesh),
+                           (state, batch), donated=(0,))
+    store = hdm.HDMStore(mesh, tier=rc.param_tier,
+                         enable_host_tier=rc.enable_host_tier,
+                         multi_pod_fsdp=rc.mesh.multi_pod)
+    params = M.init_model(cfg, device=device)
+    if mesh is not None or store.pinned:
+        params = store.place(params)
+    if shape.kind == "prefill":
+        return LoweredCell("prefill", build_prefill_step(cfg, rc, mesh),
+                           (params, batch))
+    cache = rank_cache(cfg, shape, rc, mesh, device)
+    return LoweredCell("decode", build_serve_step(cfg, rc, mesh),
+                       (params, cache, batch["tokens"]), donated=(1,))

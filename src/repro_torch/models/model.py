@@ -152,6 +152,14 @@ def n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // period
 
 
+def n_stacked(cfg: ModelConfig) -> int:
+    """The reference's stacked layer axis (its scan's trip count): every
+    layer of the dense, MoE and audio families, else ``n_groups``."""
+    if cfg.family in ("dense", "moe", "audio"):
+        return cfg.n_layers
+    return n_groups(cfg)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -162,10 +170,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     """Random weights (N(0, 0.02^2)) drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``. The draws cannot reproduce
     the reference's ``jax.random`` bits; to compare with it, carry its
-    weights across with ``repro_torch.bridge.params_from_jax``."""
+    weights across with ``repro_torch.bridge.params_from_jax``. On the
+    ``meta`` device (the dry run) the weights are shapes and dtypes only,
+    drawn from no generator."""
     check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = pdtype(cfg)
     with torch.no_grad():
         embed = embed_init(gen, cfg, dev)
@@ -265,6 +276,40 @@ def cache_init(cfg: ModelConfig, rc: RunConfig, batch: int, max_seq: int,
         for name in ("cross_k", "cross_v"):
             cache[name] = torch.zeros(vshape, dtype=pdtype(cfg), device=dev)
     return cache
+
+
+def decode_axes(rc: RunConfig, batch: int):
+    """(batch axes, page axes) of the page-sharded decode cache, as the
+    reference names them: a batch of more than one row over the data
+    axes (with ``multi_pod`` the (pod, data) product), the pages over the
+    model axis; one row's pages over every axis."""
+    dp = ("pod", "data") if rc.mesh.multi_pod else "data"
+    if batch == 1:
+        return None, (dp if isinstance(dp, tuple) else (dp,)) + ("model",)
+    return dp, "model"
+
+
+def cache_specs(cfg: ModelConfig, rc: RunConfig, batch: int) -> Dict:
+    """The reference's ``cache_specs``: the spec of every leaf of
+    ``cache_init(cfg, rc, batch, ...)`` (a tuple of axis names or None a
+    dimension, leading stack axes included), as
+    ``parallel.sharding.shard_cache`` cuts a rank's part: the K/V pages
+    and their int8 scales over the batch and page axes, the vision K/V
+    and ``pos`` over the batch axes, a recurrent state over the batch
+    axes at its batch axis."""
+    batch_axes, page_axes = decode_axes(rc, batch)
+    cache = cache_init(cfg, rc, batch, max_seq=rc.kv_page_size,
+                       device="meta")
+    out = {}
+    for name, a in cache.items():
+        if name == "kv":
+            out["kv"] = {n: (None, batch_axes, page_axes) + (None,) * (
+                t.dim() - 3) for n, t in a.items()}
+            continue
+        spec = [None] * a.dim()
+        spec[_BATCH_AXIS[name]] = batch_axes
+        out[name] = tuple(spec)
+    return out
 
 
 # batch axis of each cache leaf ("kv" leaves: 1)

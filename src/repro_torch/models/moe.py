@@ -380,23 +380,25 @@ def check_mesh(dp: int, n: int) -> None:
 def moe_apply_ep_decode(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *,
                         group=None, batch=None) -> torch.Tensor:
     """The decode MoE over a rank ``group``'s model axis. x [B, 1, d],
-    whole on every rank. On one rank, or where the ranks do not divide E,
-    ``moe_apply``'s output, drops included (the reference's "no drops"
-    holds only for its multi-rank form); else each rank runs its own
-    experts' pairs, none dropped, and one sum all-reduce in f32
-    combines. With the decode batch's rows split over ``batch`` (a model
-    axis of one rank; ``check_mesh``), x is this rank's rows: the whole
-    batch is gathered and routed at once, as the reference's
-    ``moe_apply`` routes it (one capacity over every token), and this
-    rank keeps its rows."""
+    whole on every rank of the model axis. On one rank, or where the
+    ranks do not divide E, ``moe_apply``'s output, drops included (the
+    reference's "no drops" holds only for its multi-rank form); else each
+    rank runs its own experts' pairs, none dropped, and one sum
+    all-reduce in f32 combines. With the decode batch's rows split over
+    ``batch``, x is this rank's rows: where the model axis splits the
+    experts, each rank runs its own experts' pairs of its rows and the
+    model axis sums them (the reference's ``shard_map`` over (data,
+    model)); else the whole batch is gathered and routed at once, as the
+    reference's ``moe_apply`` routes it (one capacity over every token),
+    and this rank keeps its rows."""
     rank, n = _rank(group)
-    if batch is not None and batch.size > 1:
-        check_mesh(batch.size, n)
+    split = n > 1 and not cfg.n_experts % n
+    if batch is not None and batch.size > 1 and not split:
         b = x.shape[0]
         whole = batch.all_gather(x).reshape((-1,) + x.shape[1:])
         return moe_apply(moe, cfg, whole)[0][batch.rank * b:
                                              (batch.rank + 1) * b]
-    if n == 1 or cfg.n_experts % n:
+    if not split:
         return moe_apply(moe, cfg, x)[0]
     b, s, d = x.shape
     part, _ = _own_pairs(moe, cfg, x.reshape(b * s, d), rank, n,

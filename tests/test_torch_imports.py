@@ -24,9 +24,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "benchmarks" /
-                                          "torch_profile.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "benchmarks" /
+                                           "torch_profile.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) > 20
     return files
 
@@ -67,6 +68,24 @@ def test_training_import_pulls_in_no_jax():
             "repro_torch.core.hdm, repro_torch.optim.compression, "
             "repro_torch.checkpoint.checkpointer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_dryrun_and_examples_import_pulls_in_no_jax():
+    """The dry run and the four examples: no JAX on the card's machine,
+    and none for the dry run, which runs without a card too."""
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in examples] == [
+        "cxl_sim_explore_torch.py", "quickstart_torch.py",
+        "serve_kv_offload_torch.py", "train_lm_torch.py"]
+    code = ("import runpy, sys; import repro_torch.launch.dryrun, "
+            "repro_torch.kernels.meta; "
+            + "; ".join(f"runpy.run_path({str(p)!r})" for p in examples)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -125,7 +144,18 @@ def _default_device_calls():
                                                 global_batch=2, seq_len=4)),
         "adamw_state_from_jax": lambda: bridge.adamw_state_from_jax(
             None, cfg),
+        "quickstart_example": lambda: _example("quickstart_torch").main([]),
+        "serve_kv_offload_example": lambda: _example(
+            "serve_kv_offload_torch").main([]),
+        "train_lm_example": lambda: _example("train_lm_torch").main(
+            ["--arch", "qwen3-1.7b", "--steps", "1"]),
     }
+
+
+def _example(name):
+    import runpy
+    ns = runpy.run_path(str(ROOT / "examples" / f"{name}.py"))
+    return type("Example", (), {"main": staticmethod(ns["main"])})
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_model",
@@ -138,7 +168,10 @@ def _default_device_calls():
                                    "hybrid_cli", "int8_cache_init",
                                    "int8_ServingEngine", "int8_cli",
                                    "load_serve", "load_cli", "train", "train_cli", "Pipeline",
-                                   "adamw_state_from_jax"])
+                                   "adamw_state_from_jax",
+                                   "quickstart_example",
+                                   "serve_kv_offload_example",
+                                   "train_lm_example"])
 def test_default_device_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
