@@ -5,7 +5,7 @@ card.
     python3 benchmarks/torch_profile.py [--arch qwen3-1.7b] [--ticks 5]
         [--chunks 2] [--kv-quant int8]
     python3 benchmarks/torch_profile.py --train [--arch qwen3-1.7b]
-        [--steps 1]
+        [--steps 1] [--pallas-forward]
 
 Builds the full-width engine of ``chip_smoke.py`` for ``--arch``
 (qwen3-1.7b, zamba2-2.7b or gemma-2b; 8 slots, 2048-token slots, bf16
@@ -23,8 +23,10 @@ writes the chrome traces and a JSON record under
 training steps of ``--arch`` at full width (``launch/steps.py``: forward
 with remat, backward, AdamW with f32 masters; 8 sequences of 4096 tokens
 from the port's ``SyntheticLM``, random bf16 weights from a seed, one
-untraced step first) and prints the same step record. Needs one CUDA
-card; imports no JAX.
+untraced step first) and prints the same step record; with
+``--pallas-forward`` it traces the ``use_pallas`` forward loss instead
+(under ``no_grad``: the attention through ``flash_prefill``, no backward)
+beside the plain forward loss. Needs one CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -120,9 +122,10 @@ def print_step(kind: str, r: dict) -> None:
         print(f"[profile]   {ms:9.4f} ms  x{count:<5d} {key}")
 
 
-def profile_train(arch: str, n_steps: int) -> None:
-    """Trace full-width training steps of ``arch`` (see the module
-    docstring)."""
+def profile_train(arch: str, n_steps: int,
+                  pallas_forward: bool = False) -> None:
+    """Trace full-width training steps of ``arch``, or its forward loss
+    with and without ``use_pallas`` (see the module docstring)."""
     import dataclasses
     import torch
     from repro_torch.configs import registry
@@ -141,22 +144,34 @@ def profile_train(arch: str, n_steps: int) -> None:
     batch = to_device(SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, global_batch=shape.global_batch,
         seq_len=shape.seq_len, seed=0)).batch(0), dev)
-    step = steps_lib.build_train_step(cfg, rc, opt_cfg)
-    holder = {"state": state}
-
-    def one_step():
-        holder["state"], metrics = step(holder["state"], batch)
-        return float(metrics["loss"])
-
-    torch.cuda.reset_peak_memory_stats()
     rec = {"card": torch.cuda.get_device_name(0), "arch": arch,
-           "batch": shape.global_batch, "seq_len": shape.seq_len,
-           "train_step": profile(one_step, n_steps, f"{arch}_train_step"),
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    print_step("train_step", rec["train_step"])
+           "batch": shape.global_batch, "seq_len": shape.seq_len}
+    torch.cuda.reset_peak_memory_stats()
+    if pallas_forward:
+        rc_pallas = dataclasses.replace(rc, use_pallas=True)
+        for kind, run_cfg in (("forward_pallas", rc_pallas),
+                              ("forward_plain", rc)):
+            def forward(run_cfg=run_cfg):
+                with torch.no_grad():
+                    return float(M.loss_fn(state.params, cfg, run_cfg,
+                                           batch))
+            rec[kind] = profile(forward, n_steps, f"{arch}_{kind}")
+            print_step(kind, rec[kind])
+        name = f"torch_profile_{arch}_forward.json"
+    else:
+        step = steps_lib.build_train_step(cfg, rc, opt_cfg)
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], metrics = step(holder["state"], batch)
+            return float(metrics["loss"])
+
+        rec["train_step"] = profile(one_step, n_steps, f"{arch}_train_step")
+        print_step("train_step", rec["train_step"])
+        name = f"torch_profile_{arch}_train.json"
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[profile] peak memory {rec['peak_gib']:.2f} GiB")
-    with open(os.path.join(OUT_DIR, f"torch_profile_{arch}_train.json"),
-              "w") as f:
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(rec, f, indent=1)
 
 
@@ -170,6 +185,9 @@ def main() -> None:
                     help="trace full-width training steps instead")
     ap.add_argument("--steps", type=int, default=1,
                     help="training steps traced with --train")
+    ap.add_argument("--pallas-forward", action="store_true",
+                    help="with --train: trace the use_pallas forward loss "
+                         "beside the plain one instead of a step")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -177,7 +195,7 @@ def main() -> None:
         sys.exit("torch.cuda is not available: this profile needs the card")
     if args.train:
         torch.backends.cuda.matmul.allow_tf32 = False
-        profile_train(args.arch, args.steps)
+        profile_train(args.arch, args.steps, args.pallas_forward)
         return
     from repro_torch.configs import registry
     from repro_torch.configs.base import MeshConfig, RunConfig, SHAPES

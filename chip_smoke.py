@@ -881,11 +881,47 @@ def ptxas_report(text: str):
 
 
 
+def in_turns(first, second, iters=50):
+    """Device ms of two calls timed in turns (first, second, second,
+    first), each the mean of its two readings."""
+    a = [device_ms(first, iters)]
+    b = [device_ms(second, iters), device_ms(second, iters)]
+    a.append(device_ms(first, iters))
+    return sum(a) / 2, sum(b) / 2, {"first": a, "second": b}
+
+
+def decode_counter(cfg, kv_quant="none"):
+    """The ``read_counters`` name of the decode instance that ``cfg``'s
+    serving path runs (plan() at its heads over the path's slots)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    p = ops.plan(N_SLOTS, cfg.n_heads, cfg.n_kv_heads, MAX_SEQ, 256,
+                 cfg.head_dim,
+                 torch.int8 if kv_quant == "int8" else torch.bfloat16)
+    return (("paged_decode_int8" if kv_quant == "int8" else "paged_decode")
+            + ("_mma" if p.kernel == "mma" else ""))
+
+
+def other_decode_plan(ops, b, h, hkv, smax, page, d, kv_dtype, routed):
+    """The instance plan() does not route this shape to, where it takes
+    the shape (timed and gated beside the routed one), else None."""
+    if routed.kernel == "mma":
+        return ops.lanes_plan(b, h, hkv, smax, page, d, kv_dtype)
+    if ops.mma_takes(h, hkv, page, d, kv_dtype):
+        return ops.mma_plan(b, h, hkv, smax, page, d, kv_dtype)
+    return None
+
+
 def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
     """paged_decode at ``hkv`` kv heads of ``g`` query heads, head_dim
     ``d``, over the serving path's 8 slots of ``smax`` tokens (lengths
     past ``smax`` cut to it); f32 too where the decode kernel has an f32
-    instance (a row of at most 32 16-byte chunks: D <= 128)."""
+    instance (a row of at most 32 16-byte chunks: D <= 128). Where the
+    other instance also takes the shape (the lanes instance at D 256; the
+    tensor-core one at D 128 with G >= 4) it is gated the same way and
+    timed beside the routed one, in turns; on the tensor-core instance the
+    return_ml output (f32 o, base-2 m, l) is gated too, o at f32's 1e-4,
+    m and l at 1e-4 relative."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
@@ -900,13 +936,30 @@ def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
     lens = [min(n, smax) for n in (1, smax, 300, 777, 1024, 1500, 64,
                                    smax - 1)]
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    res = {}
+    pl = ops.plan(b, h, hkv, smax, page, d, torch.bfloat16)
+    alt = other_decode_plan(ops, b, h, hkv, smax, page, d, torch.bfloat16,
+                            pl)
+    res = {"instance": pl.kernel}
     for cap in (0.0, 30.0):
-        got = ops.paged_decode(q, kp, vp, kv_len, logit_softcap=cap)
         want = ref.paged_decode_ref(q, kp, vp, kv_len, cap)
+        got = ops.paged_decode(q, kp, vp, kv_len, logit_softcap=cap)
         torch.cuda.synchronize()
         res[f"err_softcap{cap:g}"] = check_close(f"paged_decode cap={cap}",
                                                  got, want)
+        if alt is not None:
+            got = ops.launch(q, kp, vp, kv_len, cap, False, alt)
+            torch.cuda.synchronize()
+            res[f"{alt.kernel}_err_softcap{cap:g}"] = check_close(
+                f"paged_decode {alt.kernel} instance cap={cap}", got, want)
+    if pl.kernel == "mma":
+        f32_tol = dict(atol=1e-4, rtol=1e-4)
+        (o, m, l), (wo, wm, wl) = (
+            ops.paged_decode(q, kp, vp, kv_len, return_ml=True),
+            ref.paged_decode_ref(q, kp, vp, kv_len, return_ml=True))
+        res["err_ml_o"] = check_close("paged_decode ml o", o, wo, f32_tol)
+        check_close("paged_decode ml m", m, wm, f32_tol)
+        check_close("paged_decode ml l", l / wl, torch.ones_like(wl),
+                    f32_tol)
     if d * 4 <= 32 * 16:
         got32 = ops.paged_decode(q.float(), kp.float(), vp.float(), kv_len)
         res["err_f32"] = float((got32 - ref.paged_decode_ref(
@@ -929,7 +982,18 @@ def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
     got = ops.paged_decode(q, kp, vp, kv_len)
     res["library_err"] = float((sdpa().transpose(1, 2).float()
                                 - got.float()).abs().max())
-    res["ms"] = device_ms(lambda: ops.paged_decode(q, kp, vp, kv_len), 50)
+    if alt is None:
+        res["ms"] = device_ms(lambda: ops.paged_decode(q, kp, vp, kv_len),
+                              50)
+    else:
+        # the other instance first and last: old, new, new, old
+        alt_ms, res["ms"], res["turns_ms"] = in_turns(
+            lambda: ops.launch(q, kp, vp, kv_len, 0.0, False, alt),
+            lambda: ops.paged_decode(q, kp, vp, kv_len))
+        res[f"{alt.kernel}_ms"] = alt_ms
+        res[f"{alt.kernel}_plan"] = str(alt)
+        if alt.kernel == "lanes":
+            res["old_instance_ms"] = alt_ms
     res["call_ms"] = time_ms(lambda: ops.paged_decode(q, kp, vp, kv_len), 50)
     res["plain_ms"] = time_ms(
         lambda: ref.paged_decode_ref(q, kp, vp, kv_len), 10)
@@ -940,8 +1004,9 @@ def check_decode(dev, hkv, g, d, smax=MAX_SEQ):
     res["max_abs_err"] = res["err_softcap0"]
     # the instance runs ``group_pad`` query rows per CTA, ``group_chunks``
     # CTAs per kv head: g of those rows real, the rest padding (G 4 runs
-    # the 8-row instance; G 12 two CTAs of 6 rows on it)
-    pl = ops.plan(b, h, hkv, smax, page, d, torch.bfloat16)
+    # the 8-row lanes instance; G 12 two CTAs of 6 rows on it; the
+    # tensor-core instance one CTA of 16 rows)
+    res["plan"] = str(pl)
     res["group_pad"], res["group_chunks"] = pl.group_pad, pl.group_chunks
     res["padded_rows_share"] = 1 - g / (pl.group_pad * pl.group_chunks)
     res["shape"] = (f"q [{b},1,{h},{d}] bf16, pages [{b},{p},{page},{hkv},"
@@ -953,9 +1018,13 @@ def check_decode_int8(dev, hkv, g, d):
     """paged_decode's int8 mode at ``hkv`` kv heads of ``g`` query heads,
     head_dim ``d``, over the serving path's 8 slots of 2048 tokens: codes
     quantized from random bf16 K/V with ``kv_quant.requantize_pages``, the
-    new token's K/V at ``pos = kv_len - 1``. Also times the bf16 mode at the
+    new token's K/V at ``pos = kv_len - 1`` (a 32-token tile's first row at
+    pos 0, its last at 63, 1023 and 2047). Also times the bf16 mode at the
     same shapes, and dequantize + SDPA as the library yardstick (no single
-    PyTorch call reads int8 pages)."""
+    PyTorch call reads int8 pages). Where the other instance also takes the
+    shape it is gated the same way and timed beside the routed one, in
+    turns (f32 q runs the lanes instance at every shape); on the
+    tensor-core instance the return_ml output is gated at f32's 1e-4."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
@@ -978,7 +1047,15 @@ def check_decode_int8(dev, hkv, g, d):
     pos = kv_len - 1
     args = dict(k_scale=ks, v_scale=vs, new_k=new["k"], new_v=new["v"],
                 pos=pos)
-    res = {}
+    pl = ops.plan(b, h, hkv, smax, page, d, torch.int8)
+    alt = other_decode_plan(ops, b, h, hkv, smax, page, d, torch.int8, pl)
+
+    def alt_int8(cap=0.0):
+        # the other instance on what paged_decode gives its own: the rows
+        # from pos, then one launch
+        return ops.launch_int8(q, kc, vc, ks, vs, new["k"], new["v"],
+                               *ref.int8_rows(pos, smax), cap, False, alt)
+    res = {"instance": pl.kernel}
     for cap in (0.0, 30.0):
         got = ops.paged_decode(q, kc, vc, logit_softcap=cap, **args)
         want = ref.paged_decode_int8_ref(q, kc, vc, ks, vs, new["k"],
@@ -986,6 +1063,26 @@ def check_decode_int8(dev, hkv, g, d):
         torch.cuda.synchronize()
         res[f"err_softcap{cap:g}"] = check_close(
             f"paged_decode int8 cap={cap}", got, want)
+        if alt is not None:
+            got = alt_int8(cap)
+            torch.cuda.synchronize()
+            res[f"{alt.kernel}_err_softcap{cap:g}"] = check_close(
+                f"paged_decode int8 {alt.kernel} instance cap={cap}", got,
+                want)
+    if pl.kernel == "mma":
+        f32_tol = dict(atol=1e-4, rtol=1e-4)
+        kv_len1, fresh = ref.int8_rows(pos, smax)
+        ml_args = dict(k_scale=ks, v_scale=vs, new_k=new["k"],
+                       new_v=new["v"], fresh=fresh, return_ml=True)
+        o, m, l = ops.paged_decode(q, kc, vc, kv_len1, **ml_args)
+        wo, wm, wl = ref.paged_decode_int8_ref(
+            q, kc, vc, ks, vs, new["k"], new["v"], None, kv_len=kv_len1,
+            fresh=fresh, return_ml=True)
+        res["err_ml_o"] = check_close("paged_decode int8 ml o", o, wo,
+                                      f32_tol)
+        check_close("paged_decode int8 ml m", m, wm, f32_tol)
+        check_close("paged_decode int8 ml l", l / wl, torch.ones_like(wl),
+                    f32_tol)
     a32 = dict(args, new_k=new["k"].float(), new_v=new["v"].float())
     got32 = ops.paged_decode(q.float(), kc, vc, **a32)
     res["err_f32"] = float((got32 - ref.paged_decode_int8_ref(
@@ -1015,7 +1112,18 @@ def check_decode_int8(dev, hkv, g, d):
     got = ops.paged_decode(q, kc, vc, **args)
     res["library_err"] = float((deq_sdpa().transpose(1, 2).float()
                                 - got.float()).abs().max())
-    res["ms"] = device_ms(lambda: ops.paged_decode(q, kc, vc, **args), 50)
+    if alt is None:
+        res["ms"] = device_ms(lambda: ops.paged_decode(q, kc, vc, **args),
+                              50)
+    else:
+        # the other instance first and last: old, new, new, old
+        alt_ms, res["ms"], res["turns_ms"] = in_turns(
+            alt_int8,
+            lambda: ops.paged_decode(q, kc, vc, **args))
+        res[f"{alt.kernel}_ms"] = alt_ms
+        res[f"{alt.kernel}_plan"] = str(alt)
+        if alt.kernel == "lanes":
+            res["old_instance_ms"] = alt_ms
     res["call_ms"] = time_ms(lambda: ops.paged_decode(q, kc, vc, **args), 50)
     res["plain_ms"] = time_ms(lambda: ref.paged_decode_int8_ref(
         q, kc, vc, ks, vs, new["k"], new["v"], pos), 10)
@@ -1033,6 +1141,7 @@ def check_decode_int8(dev, hkv, g, d):
                               pages_read=pages_read, int8=True)
     res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
     res["max_abs_err"] = res["err_softcap0"]
+    res["plan"] = str(pl)
     res["shape"] = (f"q [{b},1,{h},{d}] bf16, codes [{b},{p},{page},{hkv},"
                     f"{d}] int8, scales [{b},{p},{hkv}], pos "
                     f"{[n - 1 for n in lens]}")
@@ -1372,7 +1481,8 @@ def check_decode_edges(dev):
     first and the last row of a tile (the plan's tile) and past the cache
     (pos >= Smax, clamped to its last row). Also G = 4 (the VLM's group,
     on the 8-row instance with half its rows padding), and G 12 and 16
-    (starcoder2-15b's and glm4-9b's groups, split over two CTAs)."""
+    (starcoder2-15b's and glm4-9b's groups, split over two CTAs); and
+    gemma-2b's D 256 on the tensor-core instance, around its split."""
     import torch
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.models import kv_quant
@@ -1422,6 +1532,48 @@ def check_decode_edges(dev):
                 f"paged_decode int8 edges G={g} {name}", got, want, tol)
         res[f"g{g}_int8_pos"] = pos8
     res["kv_len"] = lens
+    # gemma-2b's heads (one kv head of 8 query heads, D 256) on the
+    # tensor-core instance: lengths around its split, bf16 (TOL); int8
+    # with the fresh row on a tile's first and last row and past the cache,
+    # bf16 q (TOL; the tensor-core instance) and f32 q (1e-4; the lanes
+    # instance, the only one that takes f32 q)
+    hkv, g, d = 1, 8, 256
+    h = hkv * g
+    pl = ops.plan(1, h, hkv, smax, page, d, torch.bfloat16)
+    split, tile = pl.split, pl.tile
+    lens256 = [1, split - 1, split, split + 1, 2 * split + 1, smax]
+    pos256 = [0, tile - 1, tile, split - 1, split, 3 * tile - 1, smax - 1,
+              smax, smax + 7]
+    b = max(len(lens256), len(pos256))
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
+    kp, vp = (torch.randn((b, p, page, hkv, d), generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    kv_len = torch.tensor(lens256 + [smax] * (b - len(lens256)),
+                          dtype=torch.int32, device=dev)
+    for cap in (0.0, 30.0):
+        got = ops.paged_decode(q, kp, vp, kv_len, logit_softcap=cap)
+        want = ref.paged_decode_ref(q, kp, vp, kv_len, cap)
+        torch.cuda.synchronize()
+        res[f"d256_g8_bf16_softcap{cap:g}"] = check_close(
+            f"paged_decode edges D 256 G 8 bf16 cap={cap}", got, want)
+    init = torch.full((b, p, hkv), kv_quant.INIT_SCALE, device=dev)
+    (kc, ks), (vc, vs) = (kv_quant.requantize_pages(x, init)
+                          for x in (kp, vp))
+    nk, nv = (torch.randn((b, 1, hkv, d), generator=gen, device=dev)
+              for _ in range(2))
+    pos = torch.tensor(pos256 + [smax - 1] * (b - len(pos256)),
+                       dtype=torch.int32, device=dev)
+    for name, dt, tol in (("bf16", torch.bfloat16, TOL),
+                          ("f32", torch.float32, f32_tol)):
+        qd, nkd, nvd = q.to(dt), nk.to(dt), nv.to(dt)
+        got = ops.paged_decode(qd, kc, vc, k_scale=ks, v_scale=vs,
+                               new_k=nkd, new_v=nvd, pos=pos)
+        want = ref.paged_decode_int8_ref(qd, kc, vc, ks, vs, nkd, nvd, pos)
+        torch.cuda.synchronize()
+        res[f"d256_g8_int8_{name}"] = check_close(
+            f"paged_decode int8 edges D 256 G 8 {name}", got, want, tol)
+    res["d256_split"], res["d256_tile"] = split, tile
+    res["d256_kv_len"], res["d256_int8_pos"] = lens256, pos256
     return res
 
 
@@ -1870,7 +2022,8 @@ def check_ssd(dev, h=80, sweep=True):
 
 
 def check_refusals(dev):
-    """The C entries of flash_prefill, ssd_scan and paged_matmul refuse
+    """The C entries of flash_prefill, paged_decode (its tensor-core
+    instance), ssd_scan and paged_matmul refuse
     the plans that ``check_plan`` refuses, called directly past it, so
     that the Python and the C limits cannot part unnoticed; nothing is
     launched. Each refused plan is inside the block's shared memory, so
@@ -1926,7 +2079,15 @@ def check_refusals(dev):
                                           ).smem_bytes - 16),
             torch.float32, 256),
         "tf32_256 on bf16": (fops.tf32_256_plan(1, 256, 16, 8, 16, 2),
-                             torch.bfloat16, 256)}
+                             torch.bfloat16, 256),
+        "wgmma stages 2": (fops.wgmma_plan(1, 256, 16, 8, 2),
+                           torch.bfloat16, 128),
+        "wgmma smem short": (dataclasses.replace(
+            fops.wgmma_plan(1, 256, 16, 8),
+            smem_bytes=fops.wgmma_plan(1, 256, 16, 8).smem_bytes - 16),
+            torch.bfloat16, 128),
+        "wgmma on f32": (fops.wgmma_plan(1, 256, 16, 8), torch.float32,
+                         128)}
     for name, (pl, dtype, d) in prefill.items():
         q = torch.zeros((1, 256, 16, d), dtype=dtype, device=dev)
         kc = torch.zeros((1, MAX_SEQ, 8, d), dtype=dtype, device=dev)
@@ -1945,6 +2106,38 @@ def check_refusals(dev):
             pl.rows, pl.stages, pl.smem_bytes, stream)
         if rc == 0:
             fail(f"the flash_prefill C entry takes plan {name}: {pl}")
+    from repro_torch.kernels.decode_attention import ops as dops
+    mma = dops.plan(N_SLOTS, 8, 1, MAX_SEQ, 256, 256, torch.bfloat16)
+    decode = {   # name: (plan, dtype of q and pages) at gemma-2b's shape
+        "mma tile 16": (dataclasses.replace(mma, tile=16), torch.bfloat16),
+        "mma smem short": (dataclasses.replace(
+            mma, smem_bytes=mma.smem_bytes - 16), torch.bfloat16),
+        "mma split past the splits": (dataclasses.replace(
+            mma, split=2 * mma.split), torch.bfloat16),
+        "mma on f32": (mma, torch.float32)}
+    for name, (pl, dtype) in decode.items():
+        try:
+            dops.check_plan(pl, N_SLOTS, 8, 1, MAX_SEQ, 256, 256, dtype,
+                            dtype)
+            fail(f"paged_decode check_plan takes plan {name}: {pl}")
+        except ValueError:
+            pass
+        q = torch.zeros((N_SLOTS, 1, 8, 256), dtype=dtype, device=dev)
+        kp = torch.zeros((N_SLOTS, MAX_SEQ // 256, 256, 1, 256),
+                         dtype=dtype, device=dev)
+        kv_len = torch.ones((N_SLOTS,), dtype=torch.int32, device=dev)
+        part = torch.zeros(pl.part_acc, device=dev)
+        ml = torch.zeros(pl.part_ml, device=dev)
+        cnt = torch.zeros(pl.counters, dtype=torch.int32, device=dev)
+        out[f"paged_decode {name}"] = rc = lib.repro_paged_decode(
+            q.data_ptr(), kp.data_ptr(), kp.data_ptr(), kv_len.data_ptr(),
+            torch.empty_like(q).data_ptr(), None, None, part.data_ptr(),
+            ml.data_ptr(), cnt.data_ptr(), N_SLOTS, 8, 1, MAX_SEQ, 256, 256,
+            pl.split, pl.n_splits, pl.tile, pl.stages, pl.lanes,
+            pl.group_pad, pl.group_rows, pl.smem_bytes,
+            build.DTYPE_CODES[dtype], 1.0 / 16.0, 0.0, stream)
+        if rc == 0:
+            fail(f"the paged_decode C entry takes plan {name}: {pl}")
     good = sops.plan(1, 256, 80, 64, 64)
     ssd = {"spans short": dataclasses.replace(good, splits=3, span=1),
            "a span past S": dataclasses.replace(good, splits=4, span=2)}
@@ -2394,6 +2587,7 @@ def zero_counters():
     from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.kernels.mamba2_scan import ops as sops
     dops.launches = dops.int8_launches = 0
+    dops.kernel_launches = dict.fromkeys(dops.kernel_launches, 0)
     fops.launches = 0
     fops.kernel_launches = dict.fromkeys(fops.kernel_launches, 0)
     sops.launches = hops.launches = 0
@@ -2407,9 +2601,12 @@ def read_counters():
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.hdm_stream import ops as hops
     from repro_torch.kernels.mamba2_scan import ops as sops
-    return {"paged_decode": dops.launches,
-            "paged_decode_int8": dops.int8_launches,
+    return {"paged_decode": dops.kernel_launches["lanes"],
+            "paged_decode_int8": dops.kernel_launches["lanes_int8"],
+            "paged_decode_mma": dops.kernel_launches["mma"],
+            "paged_decode_int8_mma": dops.kernel_launches["mma_int8"],
             "flash_prefill": fops.kernel_launches["mma"],
+            "flash_prefill_wgmma": fops.kernel_launches["wgmma"],
             "flash_prefill_d256": fops.kernel_launches["mma256"],
             "flash_prefill_tf32": fops.kernel_launches["tf32"],
             "flash_prefill_tf32_256": fops.kernel_launches["tf32_256"],
@@ -2580,7 +2777,8 @@ def serve(dev, kv_quant="none", arch=ARCH):
         counts = read_counters()
     # bf16 pages: the bf16 decode mode and the bf16 tensor-core prefill
     # (gemma-2b: its D 256 instance); int8 pages: the int8 mode and the f32
-    # (3xTF32) prefill instance (gemma-2b: its D 256 instance)
+    # (3xTF32) prefill instance (gemma-2b: its D 256 instance). The decode
+    # runs the instance plan() routes the heads to (decode_counter)
     int8 = kv_quant == "int8"
     prefill = {(ARCH, False): "flash_prefill",
                (GEMMA, False): "flash_prefill_d256",
@@ -2590,9 +2788,9 @@ def serve(dev, kv_quant="none", arch=ARCH):
                (STARCODER2, False): "flash_prefill",
                (ARCH, True): "flash_prefill_tf32",
                (GEMMA, True): "flash_prefill_tf32_256"}[arch, int8]
+    decode = decode_counter(cfg, kv_quant)
     launches, off_path = split_counts(
-        f"{arch} int8" if int8 else arch, counts,
-        ("paged_decode_int8" if int8 else "paged_decode", prefill))
+        f"{arch} int8" if int8 else arch, counts, (decode, prefill))
 
     out = run_stats(engine, first + again, wall_s, launches, init_s)
     out["off_path_launches"] = off_path
@@ -2822,7 +3020,8 @@ def check_int8_run(name, run8, bf16_run):
             and len(post["tokens_equal"]) == N_RESUBMIT):
         fail(f"{name}: restores of post-prefill entries differ from the "
              f"first run: {post}")
-    per_tick = run8["launches"]["paged_decode_int8"] / run8["decode_ticks"]
+    per_tick = sum(n for k, n in run8["launches"].items()
+                   if k.startswith("paged_decode_int8")) / run8["decode_ticks"]
     if per_tick != run8["kv_layers"]:
         fail(f"{name}: int8 decode launches per tick {per_tick} (want one "
              f"per layer, {run8['kv_layers']})")
@@ -2853,17 +3052,17 @@ def serve_vlm(dev):
     """Serve full-width llama-3.2-vision-11b (``CUT_LAYERS``); its gates:
     every request finished and its pages were flushed as one entry of the
     self-attention layers' pages, flash_prefill ran once per self-attention
-    layer per chunk and the bf16 paged_decode once per self-attention
-    layer per tick, no other kernel ran, and the vision K/V are still
+    layer per chunk and the bf16 paged_decode (its tensor-core instance at
+    G 4) once per self-attention layer per tick, no other kernel ran, and the vision K/V are still
     the cache's zeros (the serving path never writes them, as in the
     reference)."""
     import dataclasses
     from repro_torch.configs import registry
     cfg = dataclasses.replace(registry.get(VLM), n_layers=CUT_LAYERS[VLM])
-    vlm = serve_fresh(dev, VLM, N_VLM_REQUESTS,
-                      ("paged_decode", "flash_prefill"))
+    decode = decode_counter(cfg)
+    vlm = serve_fresh(dev, VLM, N_VLM_REQUESTS, (decode, "flash_prefill"))
     report(VLM, vlm)
-    check_per_step(VLM, vlm, "flash_prefill", "paged_decode")
+    check_per_step(VLM, vlm, "flash_prefill", decode)
     entry = 2 * vlm["kv_layers"] * MAX_SEQ * cfg.kv_dim * 2
     log(f"{VLM}: {vlm['kv_layers']} K/V layers; entries "
         f"{vlm['entry_bytes']} bytes (want {entry}) for requests "
@@ -2911,13 +3110,15 @@ def check_group_kernels(dev):
 
 def serve_group(dev, arch):
     """Serve full-width glm4-9b or starcoder2-15b (query-head groups of 16
-    and 12: the decode split over two CTAs per kv head) with bf16 pages:
+    and 12: the tensor-core decode instance) with bf16 pages:
     4 requests, then 2 of them again (prefix restores); phase 3's gates,
     and the bf16 decode and prefill once per layer per step."""
+    from repro_torch.configs import registry
     run = serve(dev, arch=arch)
     report(arch, run)
     check_restores(arch, run)
-    check_per_step(arch, run, "flash_prefill", "paged_decode")
+    check_per_step(arch, run, "flash_prefill",
+                   decode_counter(registry.get(arch)))
     return run
 
 
@@ -3766,7 +3967,8 @@ def check_tp_family(arch, runs, one, spawn_s):
                                                     1)}[arch]
     per_step = {}
     if attn:
-        per_step = {"paged_decode": (attn, "decode"),
+        # a rank's heads keep the group: the decode instance of the whole
+        per_step = {decode_counter(cfg): (attn, "decode"),
                     "flash_prefill": (attn, "prefill")}
     if arch == HYBRID:
         per_step["ssd_scan"] = (cfg.n_layers, "prefill")
@@ -4132,12 +4334,16 @@ def serve_dp(dev, one):
 def check_train_prefill(dev):
     """flash_prefill at the training loss's shape (TRAIN_PREFILL_TOL): one
     layer's whole 4096-token sequence as one chunk at position 0, its own
-    K/V the cache (q [8, 4096, 16, 128], K/V [8, 4096, 8, 128]), against
-    its plain version (run a batch row at a time: the whole batch's
-    [C, Smax] scores in f32 would take 8.6 GB), timed beside causal SDPA
-    and at the other plans of the tensor-core kernel (rows per CTA x
-    stages). The bound must see a lost key tile: the last 64 rows computed
-    without the last 64 keys have to miss it."""
+    K/V the cache (q [8, 4096, 16, 128], K/V [8, 4096, 8, 128]), on the
+    Hopper instance plan() routes it to, against its plain version (run a
+    batch row at a time: the whole batch's [C, Smax] scores in f32 would
+    take 8.6 GB) and bit for bit from run to run (50 times); timed in turns
+    with the tensor-core ("mma") plan that plan() chose before it (64 rows,
+    3 stages: old, new, new, old), beside the other "mma" plans (rows per
+    CTA x stages; 64 x 2 among them) and causal SDPA. The bound
+    must see a lost key tile: the last 64 rows computed without the last
+    64 keys have to miss it. Then a chunk at pos > 0 with softcap 30 on the
+    Hopper instance, at a smaller batch (TRAIN_PREFILL_TOL)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -4149,6 +4355,9 @@ def check_train_prefill(dev):
     vc = torch.randn((b, c, hkv, d), generator=gen, device=dev).bfloat16()
     pos = torch.zeros((b,), dtype=torch.int32, device=dev)
     p = ops.plan(b, c, h, hkv, d, torch.bfloat16)
+    if p.kernel != "wgmma":
+        fail(f"flash_prefill train shape: plan {p} is not the Hopper "
+             f"instance")
 
     def plain():
         return torch.cat([ref.flash_prefill_ref(q[i:i + 1], kc[i:i + 1],
@@ -4176,22 +4385,50 @@ def check_train_prefill(dev):
         return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     res["library_err"] = float((sdpa().transpose(1, 2).float()
                                 - got.float()).abs().max())
-    res["ms"] = device_ms(lambda: ops.flash_prefill(q, kc, vc, pos), 10)
-    res["plain_ms"] = time_ms(plain, 2, warmup=1)
-    res["library_ms"] = device_ms(sdpa, 10)
-    # the other plans of the tensor-core kernel at this shape (the plan
-    # was chosen on 256-row chunks): rows per CTA x ring depth
+    # the tensor-core plans at this shape, each held to the plain version
+    # and timed once; plan()'s choice before the Hopper instance (64 rows,
+    # 3 stages) in turns with it
+    old = ops.mma_plan(b, c, h, hkv, d, 64, 3)
     res["plans_ms"] = {}
-    for rows, stages in ((16, 3), (32, 3), (64, 2), (64, 4)):
+    for rows, stages in ((16, 3), (32, 3), (64, 2), (64, 3), (64, 4)):
         alt = ops.mma_plan(b, c, h, hkv, d, rows, stages)
         check_close(f"flash_prefill train shape rows={rows} "
                     f"stages={stages}", ops.launch(q, kc, vc, pos, 0.0, alt),
                     want, TRAIN_PREFILL_TOL)
-        res["plans_ms"][f"rows{rows} stages{stages}"] = device_ms(
-            lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 10)
+        if alt != old:
+            res["plans_ms"][f"rows{rows} stages{stages}"] = device_ms(
+                lambda pl=alt: ops.launch(q, kc, vc, pos, 0.0, pl), 10)
+    del want
+    res["bitwise_repeats"] = check_repeatable(
+        "flash_prefill train shape", lambda: ops.flash_prefill(q, kc, vc,
+                                                               pos),
+        lambda: ops.launch(q, kc, vc, pos, 0.0, old))
+    old_ms, res["ms"], res["turns_ms"] = in_turns(
+        lambda: ops.launch(q, kc, vc, pos, 0.0, old),
+        lambda: ops.flash_prefill(q, kc, vc, pos), 10)
+    res["plans_ms"]["rows64 stages3"] = res["old_instance_ms"] = old_ms
+    res["old_plan"] = str(old)
+    res["plain_ms"] = time_ms(plain, 2, warmup=1)
+    res["library_ms"] = device_ms(sdpa, 10)
     visible = b * c * (c + 1) // 2                   # (query, key) pairs
     res["bound_ms"], res["bound_by"] = bound(
         *reversed(ops.cost(b, c, h, hkv, d, visible, b * c, 2)))
+    res["library_target"] = ("met" if res["ms"] <= res["library_ms"]
+                             else "missed")
+    # a chunk at pos > 0 with softcap 30, on the Hopper instance at a
+    # smaller batch: rows whose limits cross key tiles at other offsets
+    b2, c2, smax2 = 2, 1024, 3072
+    q2 = torch.randn((b2, c2, h, d), generator=gen, device=dev).bfloat16()
+    k2, v2 = (torch.randn((b2, smax2, hkv, d), generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    pos2 = torch.tensor([300, smax2 - c2], dtype=torch.int32, device=dev)
+    got2 = ops.launch(q2, k2, v2, pos2, 30.0, ops.wgmma_plan(b2, c2, h, hkv))
+    res["offset_softcap_err"] = check_close(
+        "flash_prefill Hopper instance pos > 0 softcap 30", got2,
+        ref.flash_prefill_ref(q2, k2, v2, pos2, 30.0), TRAIN_PREFILL_TOL)
+    res["offset_shape"] = (f"q [{b2},{c2},{h},{d}] bf16, cache [{b2},"
+                           f"{smax2},{hkv},{d}], pos {pos2.tolist()}, "
+                           f"softcap 30")
     res["shape"] = (f"q [{b},{c},{h},{d}] bf16, cache = its own K/V "
                     f"[{b},{c},{hkv},{d}], pos 0 (the use_pallas loss of "
                     f"full-width {ARCH})")
@@ -4318,7 +4555,7 @@ def train_full(dev):
         loss_pallas = float(M.loss_fn(params, cfg, rc_pallas, batch))
         counts = read_counters()
         loss_plain = float(M.loss_fn(params, cfg, rc, batch))
-    launches, off = split_counts(TRAIN_PATH, counts, ("flash_prefill",))
+    launches, off = split_counts(TRAIN_PATH, counts, ("flash_prefill_wgmma",))
     res.update(loss_pallas=loss_pallas, loss_plain=loss_plain,
                launches=launches, off_path_launches=off)
     log(f"{TRAIN_PATH}: forward loss use_pallas {loss_pallas:.6f}, plain "
@@ -4327,9 +4564,9 @@ def train_full(dev):
             1 + abs(loss_plain)):
         fail(f"{TRAIN_PATH}: the use_pallas loss {loss_pallas} is not "
              f"within {PALLAS_LOSS_TOL} of the plain one {loss_plain}")
-    if launches["flash_prefill"] != cfg.n_layers:
+    if launches["flash_prefill_wgmma"] != cfg.n_layers:
         fail(f"{TRAIN_PATH}: flash_prefill launched "
-             f"{launches['flash_prefill']} times, not once a layer")
+             f"{launches['flash_prefill_wgmma']} times, not once a layer")
     opt_cfg = adamw.AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=0)
     state = steps_lib.init_state(params, rc, opt_cfg)
     try:
@@ -6237,6 +6474,7 @@ def main() -> None:
         f"cuda {torch.version.cuda}")
 
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import registry
     from repro_torch.kernels import build
     t0 = time.time()
     with ThreadPoolExecutor(2) as pool:    # every nvcc starts at once
@@ -6343,7 +6581,8 @@ def main() -> None:
         gem = serve(dev, arch=GEMMA)
         report(GEMMA, gem)
         check_restores(GEMMA, gem)
-        check_per_step(GEMMA, gem, "flash_prefill_d256", "paged_decode")
+        check_per_step(GEMMA, gem, "flash_prefill_d256",
+                       decode_counter(registry.get(GEMMA)))
     free_card()
 
     gem8_name = f"{GEMMA} int8"
@@ -6352,7 +6591,7 @@ def main() -> None:
         report(gem8_name, gem8)
         check_int8_run(gem8_name, gem8, gem)
         check_per_step(gem8_name, gem8, "flash_prefill_tf32_256",
-                       "paged_decode_int8")
+                       decode_counter(registry.get(GEMMA), "int8"))
     free_card()
 
     with phase(GRANITE):
@@ -6474,25 +6713,27 @@ def main() -> None:
     # launches are this row's: None for all of them)
     for name, counter, res, src, replaces, paths in (
             ("paged_decode", "paged_decode", dec, decode_src, decode_tpu,
-             (ARCH, HYBRID, GEMMA, HOST_SERVE_PATH, OPEN_PATH, DRYRUN_PATH,
+             (ARCH, HYBRID, HOST_SERVE_PATH, OPEN_PATH, DRYRUN_PATH,
               EXAMPLES_PATH)),
+            ("paged_decode_mma_d256", "paged_decode_mma", dec256,
+             decode_src, decode_tpu, (GEMMA,)),
             ("paged_decode_d64_granite", "paged_decode", dec64[GRANITE],
              decode_src, decode_tpu, (GRANITE,)),
             ("paged_decode_d64_musicgen", "paged_decode", dec64[MUSICGEN],
              decode_src, decode_tpu, (MUSICGEN,)),
-            ("paged_decode_g4_vlm", "paged_decode", dec_g4, decode_src,
+            ("paged_decode_g4_vlm", "paged_decode_mma", dec_g4, decode_src,
              decode_tpu, (VLM,)),
             ("paged_decode_int8", "paged_decode_int8", dec8, decode_src,
              decode_tpu, (int8_name,)),
-            ("paged_decode_int8_d256", "paged_decode_int8", dec8_256,
-             decode_src, decode_tpu, (gem8_name,)),
-            ("paged_decode_g16_glm4", "paged_decode", dec_g[GLM4],
+            ("paged_decode_int8_mma_d256", "paged_decode_int8_mma",
+             dec8_256, decode_src, decode_tpu, (gem8_name,)),
+            ("paged_decode_g16_glm4", "paged_decode_mma", dec_g[GLM4],
              decode_src, decode_tpu, (GLM4,)),
-            ("paged_decode_g12_starcoder2", "paged_decode",
+            ("paged_decode_g12_starcoder2", "paged_decode_mma",
              dec_g[STARCODER2], decode_src, decode_tpu, (STARCODER2,)),
-            ("paged_decode_int8_g16", "paged_decode_int8", dec8_g[GLM4],
+            ("paged_decode_int8_g16", "paged_decode_int8_mma", dec8_g[GLM4],
              decode_src, decode_tpu, ()),
-            ("paged_decode_int8_g12", "paged_decode_int8",
+            ("paged_decode_int8_g12", "paged_decode_int8_mma",
              dec8_g[STARCODER2], decode_src, decode_tpu, ()),
             ("paged_decode_ml_tp2", "paged_decode", dec_ml["bf16"],
              decode_src, decode_tpu, (TP_PATH,)),
@@ -6506,7 +6747,7 @@ def main() -> None:
             ("paged_decode_ml_tp2_musicgen", "paged_decode",
              dec_ml["bf16 d64 s1024"], decode_src, decode_tpu,
              (TPF_PATHS[MUSICGEN],)),
-            ("paged_decode_ml_tp2_vlm", "paged_decode", dec_ml["bf16 g4"],
+            ("paged_decode_ml_tp2_vlm", "paged_decode_mma", dec_ml["bf16 g4"],
              decode_src, decode_tpu, (TPF_PATHS[VLM],)),
             ("paged_decode_ml_dp2xtp2", "paged_decode", dec_dp, decode_src,
              decode_tpu, (DP_PATH,)),
@@ -6524,8 +6765,8 @@ def main() -> None:
              (MUSICGEN, TPF_PATHS[MUSICGEN])),
             ("flash_prefill_g4_vlm", "flash_prefill", pre_g4, prefill_src,
              prefill_tpu, (VLM, TPF_PATHS[VLM])),
-            ("flash_prefill_train", "flash_prefill", pre_train, prefill_src,
-             prefill_tpu, (TRAIN_PATH,)),
+            ("flash_prefill_wgmma", "flash_prefill_wgmma", pre_train,
+             prefill_src, prefill_tpu, (TRAIN_PATH,)),
             ("flash_prefill_tf32", "flash_prefill_tf32", pre32, prefill_src,
              prefill_tpu, None),
             ("flash_prefill_d256", "flash_prefill_d256", pre256, prefill_src,
@@ -6548,7 +6789,8 @@ def main() -> None:
              mm32["tile_f32"], matmul_src, matmul_tpu, None),
             ("paged_matmul_scalar", "paged_matmul_scalar", mm32["scalar"],
              matmul_src, matmul_tpu, None)):
-        by_path = {arch: ({**r["launches"], **r["off_path_launches"]}[counter]
+        by_path = {arch: ({**r["launches"], **r["off_path_launches"]}.get(
+                              counter, 0)
                           if paths is None or arch in paths else 0)
                    for arch, r in runs.items()}
         row = {"name": name, "route": "cuda", "source": src,
@@ -6559,7 +6801,8 @@ def main() -> None:
                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                "shape": res["shape"]}
         for key in ("parent_ms", "plans_ms", "padded_rows_share",
-                    "group_chunks"):
+                    "group_chunks", "instance", "old_instance_ms",
+                    "mma_ms", "lanes_ms", "library_target"):
             if key in res:
                 row[key] = res[key]
         if name.endswith(("_granite", "_musicgen")):
@@ -6567,25 +6810,26 @@ def main() -> None:
                            + name.split("_")[-1] + " (the same kernel and "
                            "count as the row without the suffix, whose "
                            "launches on this path are this row's)")
-        if name.endswith("_g4_vlm"):
-            row["note"] = ("the bf16 instance at D 128 on the VLM's path "
-                           "(8 kv heads of 4 query heads; the decode runs "
-                           "its 8-row instance, half of whose rows are "
-                           "padding): the same kernel and count as the row "
-                           "without the suffix, whose launches on this "
-                           "path are this row's")
-        if name.endswith(("_glm4", "_starcoder2")):
-            row["note"] = ("the bf16 instance at D 128 on the path of "
-                           + name.split("_")[-1] + " (its query-head group "
-                           "of 16 or 12; the decode splits it over two "
-                           "CTAs per kv head): the same kernel and count as "
-                           "the row without the suffix, whose launches on "
-                           "this path are this row's")
+        if name.endswith(("_g4_vlm", "_glm4", "_starcoder2")):
+            heads = {"_g4_vlm": "the VLM's 8 kv heads of 4 query heads",
+                     "_glm4": "glm4-9b's 2 kv heads of 16 query heads",
+                     "_starcoder2": "starcoder2-15b's 4 kv heads of 12 "
+                                    "query heads"}
+            where = next(v for k, v in heads.items() if name.endswith(k))
+            row["note"] = (
+                f"the bf16 decode at {where}, D 128, on that path: its "
+                "tensor-core instance (the group as the rows of one CTA's "
+                "products), lanes_ms the lanes instance it replaced there, "
+                "timed in turns" if name.startswith("paged_decode") else
+                f"the bf16 instance at {where}, D 128, on that path: the "
+                "same kernel and count as the row without the suffix, "
+                "whose launches on this path are this row's")
         if name in ("paged_decode_int8_g16", "paged_decode_int8_g12"):
             row["note"] = ("the int8 mode at glm4-9b's / starcoder2-15b's "
-                           "heads (split over two CTAs per kv head): held "
-                           "and timed here; no path serves these configs "
-                           "with int8 pages")
+                           "heads (the tensor-core instance; lanes_ms the "
+                           "lanes instance, timed in turns): held and "
+                           "timed here; no path serves these configs with "
+                           "int8 pages")
         if "_ml_tp2" in name:
             view = {"_granite": "granite-moe-1b-a400m's heads, D 64, bf16",
                     "_zamba2": "zamba2-2.7b's shared block, Hkv 32, G 1, "
@@ -6594,8 +6838,9 @@ def main() -> None:
                                  "64, bf16, 512 of a slot's 1024 tokens",
                     "_vlm": "llama-3.2-vision-11b's heads, Hkv 8, G 4, D "
                             "128, bf16"}
-            row["note"] = ("the same kernel with its f32 output and m / l "
-                           "(the return_ml partials) at a rank's view on "
+            row["note"] = ("the kernel with its f32 output and m / l "
+                           "(the return_ml partials; at the VLM's G 4 its "
+                           "tensor-core instance) at a rank's view on "
                            "the tp 2 path ("
                            + next((v for k, v in view.items()
                                    if name.endswith(k)),
@@ -6617,19 +6862,24 @@ def main() -> None:
             row["note"] = ("the same kernel at a rank's 40 of zamba2-2.7b's "
                            "80 heads on the tp 2 path (its count read in "
                            "rank 0's process)")
-        if name == "flash_prefill_train":
-            row["note"] = ("the bf16 instance at D 128 on the use_pallas "
+        if name == "flash_prefill_wgmma":
+            row["note"] = ("the Hopper instance (TMA, a producer warp, two "
+                           "consumer warpgroups on wgmma) on the use_pallas "
                            "training loss of full-width qwen3-1.7b (a 4096-"
                            "token sequence as one chunk at position 0; "
-                           "forward only, no backward): the same kernel and "
-                           "count as the row without the suffix, whose "
-                           "launches on this path are this row's")
-        if name == "paged_decode_int8_d256":
-            row["note"] = ("the int8 mode at gemma-2b's shape (one kv head "
-                           "of 8 query heads, D 256): the same kernel and "
-                           "count as paged_decode_int8, whose launches on "
-                           "the gemma-2b int8 path are this row's; not "
-                           "redesigned in this slice")
+                           "forward only, no backward); old_instance_ms: "
+                           "the tensor-core plan plan() chose before it, "
+                           "timed in turns with it; plans_ms: the other "
+                           "tensor-core plans")
+        if name in ("paged_decode_mma_d256", "paged_decode_int8_mma_d256"):
+            row["note"] = ("the tensor-core decode instance (the group's "
+                           "query heads as the rows of mma.sync products) "
+                           "at gemma-2b's shape (one kv head of 8 query "
+                           "heads, D 256), "
+                           + ("bf16 pages" if "int8" not in name else
+                              "int8 pages")
+                           + "; old_instance_ms: the lanes instance at the "
+                           "same shape, timed in turns with it")
         if name == "flash_prefill_scalar":
             row["note"] = ("bf16 and f32 at head dims 16 and 32 (the smoke "
                            "models); no full-width path runs it")

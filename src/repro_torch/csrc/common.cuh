@@ -112,6 +112,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (x, y) as a bf16x2 high part and the bf16x2 rounding of what is left:
+// hi + lo carries x and y to ~2^-17 relative
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
 // ---- f32 products on tensor cores: error-compensated 3xTF32
 // (mma.sync m16n8k8, tf32 in, f32 accumulate). Fragments of a 16x8 A tile
 // (row-major) and an 8x8 B tile (column-major), g = lane / 4, t = lane % 4:

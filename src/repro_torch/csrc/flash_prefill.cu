@@ -28,7 +28,7 @@
 // operations bound it; outside the tensor cores (67 TFLOP/s) they would
 // take 0.0134 ms, and the scalar kernel took ~0.135 ms.
 //
-// Five kernels, dispatched explicitly by (dtype, D) in dispatch():
+// Six kernels, dispatched explicitly by (dtype, D, rows) in dispatch():
 //
 // - bf16 at D in {64, 80, 128} (qwen3's 128, zamba2's shared block's 80):
 //   flash_prefill_mma_kernel, FlashAttention-2 style. Each warp owns 16
@@ -123,10 +123,52 @@
 //   or 3 stages, plus 8 KB of partials (every fragment read free of bank
 //   conflicts at the 1040-byte row stride). The stages come from the plan,
 //   chosen by chip_smoke.py's sweep (PERF.md).
+// - bf16 at D 128 on long chunks (the training loss's 4096-token sequence
+//   as one chunk at position 0: q [8, 4096, 16, 128], 8 kv heads):
+//   flash_prefill_wgmma_kernel, the Hopper instance (plan "wgmma", 128
+//   rows per CTA), in place of the same TPU kernel
+//   (src/repro/kernels/flash_attention/kernel.py:77). There ~550 GFLOP of
+//   causal products against ~0.3 GB of bytes: operations bound it (0.556
+//   ms at 989 TFLOP/s), so the design is about keeping the tensor cores
+//   fed. FlashAttention-3's shape:
+//   * warp specialisation: one producer warpgroup (setmaxnreg 24; one
+//     thread of it issues every copy) and two consumer warpgroups
+//     (setmaxnreg 240), each owning 64 of the CTA's 128 (position, head)
+//     rows: 64 positions x the G 2 heads of a kv head, so that every K/V
+//     tile serves both heads;
+//   * TMA: q's rows as one box {64 columns, G heads, 128/G positions} per
+//     half of D, K and V as boxes of 128 keys, 128-byte swizzled, into a
+//     ring of 3 stages of 64 KB with full and empty mbarriers. The tensor
+//     maps come from cuTensorMapEncodeTiled, taken from the driver through
+//     cudaGetDriverEntryPoint (no -lcuda at link time);
+//   * wgmma: S = Q K^T as m64n128k16 with both operands in shared memory;
+//     P.V as m64n128k16 with P (bf16) from registers -- the S
+//     accumulator's fragments -- and V MN-major over its two 64-column
+//     boxes (the descriptor's leading byte offset);
+//   * overlap: a warpgroup issues S of tile t and P.V of tile t - 1
+//     together and runs tile t's softmax while P.V does; the two
+//     warpgroups issue their products in turns (named barriers 1 and 2,
+//     ping-pong), so one's products run while the other does its softmax;
+//   * softmax in f32 on the accumulator (base 2, the scale folded into one
+//     FFMA, ex2.approx); the mask only on tiles that cross a row's limit;
+//     both warpgroups walk the CTA's whole tile range (a tile past a
+//     row's limit is masked whole) so that their turns pair up;
+//   * order: CTAs start longest first within groups of 4 (kv head, batch
+//     row) pairs, so that the CTAs in flight share a group's K/V in L2
+//     (kernels/flash_attention/ops.py wgmma_order mirrors the map);
+//   * no float atomics: bit for bit the same from run to run.
+//   Shared memory 1024 (alignment) + 32 KB of q + 3 x 64 KB + barriers =
+//   230,528 bytes: one CTA an SM. Measured on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py; PERF.md): ~1.07 ms, against 2.90 ms for the best plan
+//   of flash_prefill_mma_kernel at this shape (4.47 for the one plan()
+//   took before) and ~0.9 ms for causal SDPA. plan() routes it only at
+//   the query-head groups chip_smoke.py gates it at (ops.py WGMMA_GROUPS:
+//   G 2); the kernel is written for any group that divides 128 rows.
 // - everything else -- bf16 and f32 at D in {16, 32}, the smoke models'
 //   head dims -- goes to flash_prefill_scalar_kernel, the first version:
 //   64-row CTAs, f32 tiles in shared memory, scalar f32 FMAs.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -1237,6 +1279,318 @@ flash_prefill_tf32_256_kernel(const float* __restrict__ q,
   }
 }
 
+// ---- the Hopper kernel: bf16 at D 128 on long chunks (the training loss);
+// see the file's header for the design
+
+constexpr int kWgD = 128;
+constexpr int kWgRows = 128;      // (query, head) rows per CTA
+constexpr int kWgKeys = 128;      // keys per K/V tile
+constexpr int kWgHalf = 64;       // columns of one 128-byte swizzled box
+constexpr int kWgConsumers = 8;   // warps of the two consumer warpgroups
+// + the producer warpgroup (one thread of it issues every copy): whole
+// warpgroups, so that setmaxnreg can move its registers to the consumers
+constexpr int kWgThreads = (kWgConsumers + 4) * 32;
+constexpr int kWgProducerRegs = 24, kWgConsumerRegs = 240;
+constexpr int kWgGroupPairs = 4;  // (kv head, batch row) pairs in flight
+constexpr int kWgQBytes = kWgRows * kWgD * 2;         // Q: 32 KB
+constexpr int kWgTileBytes = kWgKeys * kWgD * 2;      // K or V: 32 KB
+constexpr int kWgBoxBytes = kWgTileBytes / 2;         // one 64-column half
+
+// the plan's shared memory: 1024 bytes to align the swizzled tiles, Q, the
+// ring of K and V tiles, then the barriers
+constexpr size_t wgmma_smem_bytes(int stages) {
+  return (size_t)1024 + kWgQBytes + (size_t)stages * 2 * kWgTileBytes + 128;
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const int* __restrict__ pos,
+                           __nv_bfloat16* __restrict__ out, int C, int H,
+                           int Hkv, int Smax, int stages, float scale,
+                           float softcap) {
+  using bf16 = __nv_bfloat16;
+  const int G = H / Hkv;
+  // longest first, a few (kv head, batch row) pairs at a time: the CTAs
+  // the hardware starts first (lowest linear index) take the last row tile
+  // of each pair of the first group of kWgGroupPairs, then the one before,
+  // ...; then the next group. The CTAs in flight share the K/V of a group
+  // (kWgGroupPairs x 2 MB at the training shape), which stays in L2
+  const int n_row_tiles = gridDim.x, pairs = Hkv * gridDim.z;
+  const int lin = blockIdx.x + n_row_tiles * (blockIdx.y + Hkv * blockIdx.z);
+  const int group = lin / (kWgGroupPairs * n_row_tiles);
+  const int in_group = min(kWgGroupPairs, pairs - group * kWgGroupPairs);
+  const int idx = lin - group * kWgGroupPairs * n_row_tiles;
+  const int tile = n_row_tiles - 1 - idx / in_group;
+  const int pair = group * kWgGroupPairs + idx % in_group;
+  const int hk = pair % Hkv, b = pair / Hkv;
+
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* base =
+      wg_smem + ((1024u - (smem_addr(wg_smem) & 1023u)) & 1023u);
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // 2 halves x [128 rows][64]
+  unsigned char* ring = base + kWgQBytes;    // stages x {K 2 halves, V 2}
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + (size_t)stages * 2 * kWgTileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + stages;
+
+  const int n_rows = C * G, row0 = tile * kWgRows, p0 = pos[b];
+  // last visible key of a row; rows past C*G take the last row's
+  auto limit = [&](int row) {
+    return min(p0 + min(row, n_rows - 1) / G, Smax - 1);
+  };
+  const int kv_end = limit(row0 + kWgRows - 1) + 1;  // keys [0, kv_end)
+  const int n_tiles = (kv_end + kWgKeys - 1) / kWgKeys;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWgConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers) {
+    // the producer warpgroup gives up its registers; one thread keeps the
+    // ring full by TMA. Q's rows are (position, head) pairs, row = qi * G
+    // + g: the box {64 columns, G heads, 128 / G positions} lands them in
+    // that order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kWgProducerRegs));
+    if (warp == kWgConsumers && lane == 0) {
+      mbar_expect_tx(q_full, kWgQBytes);
+      for (int h = 0; h < 2; ++h)
+        tma_load_4d(Qs + h * kWgRows * kWgHalf, &tm_q, q_full, h * kWgHalf,
+                    hk * G, row0 / G, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(empty + s, (t / stages - 1) & 1);
+        unsigned char* kt = ring + (size_t)s * 2 * kWgTileBytes;
+        mbar_expect_tx(full + s, 2 * kWgTileBytes);
+        for (int h = 0; h < 2; ++h) {
+          tma_load_4d(kt + h * kWgBoxBytes, &tm_k, full + s, h * kWgHalf, hk,
+                      t * kWgKeys, b);
+          tma_load_4d(kt + kWgTileBytes + h * kWgBoxBytes, &tm_v, full + s,
+                      h * kWgHalf, hk, t * kWgKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile;
+  // a thread holds rows gid and gid + 8 of its warp's 16
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kWgConsumerRegs));
+  const int wg = warp >> 2, wq = warp & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wrow0 = row0 + wg * 64;
+  const bool live = wrow0 < n_rows;
+  const int r_a = wrow0 + wq * 16 + gid;
+  const int lim_a = limit(r_a), lim_b = limit(r_a + 8);
+  const int lim_lo = limit(wrow0);
+  const float qk_scale = scale * kLog2e;
+
+  float o[2][32];  // O's two 64-column halves
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+  float sc[64];           // S of the tile in flight, then its p
+  uint32_t pa[8][4];      // P (bf16) of the previous tile: P.V's A operand
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  auto release = [&](int t) {  // this warp is done with tile t's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + t % stages);
+  };
+  // ping-pong: the two warpgroups issue their products in turns (named
+  // barrier 1 + w: warpgroup w's turn), so that one's products run while
+  // the other does its softmax
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+  };
+  auto turn_pass = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+  };
+  auto fence_o_p = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) reg_fence(o[h][i]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) reg_fence_u32(pa[kk][r]);
+  };
+  // S = Q K^T of tile t (64 x 128 keys) issued: both operands K-major
+  auto issue_s = [&](int t) {
+    const unsigned char* kt = ring + (size_t)(t % stages) * 2 * kWgTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < kWgD / 16; ++kk) {
+      const int h = kk / 4, kq = kk % 4;
+      const uint64_t da = wgmma_desc(
+          Qs + h * kWgRows * kWgHalf + wg * 64 * kWgHalf + kq * 16, 0, 1024);
+      const uint64_t db = wgmma_desc(kt + h * kWgBoxBytes + kq * 32, 0,
+                                     1024);
+      wgmma_ss_n128(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V of tile t issued: P from registers, V MN-major, O's two
+  // 64-column halves (its 64 registers in order) one n128 product over
+  // V's two boxes (16 KB apart: the descriptor's leading byte offset)
+  auto issue_pv = [&](int t) {
+    const unsigned char* vt =
+        ring + (size_t)(t % stages) * 2 * kWgTileBytes + kWgTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < kWgKeys / 16; ++kk)
+      wgmma_rs_n128_tb(o[0], pa[kk],
+                       wgmma_desc(vt + kk * 16 * 128, kWgBoxBytes, 1024));
+    wgmma_commit();
+  };
+  // online softmax on S of the tile at key k0, in place (log2 domain):
+  // sc[4j + e] holds key k0 + 8j + 2 tig + (e & 1) of row gid (e < 2) or
+  // gid + 8; the mask only where a row's limit falls inside the tile.
+  // Leaves p in sc; returns each row's rescale of O and l and its sum
+  auto softmax = [&](int k0, float& al_a, float& al_b, float& rs_a,
+                     float& rs_b) {
+    // the logits in sc stay unscaled without a softcap (the scale is > 0,
+    // so the max commutes with it) and go into the exponent by one FFMA
+    const bool capped = softcap > 0.f;
+    const float mul = capped ? kLog2e : qk_scale;
+    const bool masked = k0 + kWgKeys - 1 > lim_lo;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int e = i & 3;
+      float x = capped ? softcap_logit(sc[i] * scale, softcap) : sc[i];
+      if (masked && k0 + (i >> 2) * 8 + tig * 2 + (e & 1) >
+                        (e < 2 ? lim_a : lim_b))
+        x = -INFINITY;
+      sc[i] = x;
+      if (e < 2) mx_a = fmaxf(mx_a, x);
+      else mx_b = fmaxf(mx_b, x);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a * mul), mn_b = fmaxf(m_b, mx_b * mul);
+    // a row with no visible key yet keeps m = -inf: exponentiate against
+    // 0 so that nothing becomes NaN
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    al_a = fast_exp2(m_a - base_a);
+    al_b = fast_exp2(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    rs_a = rs_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const bool ra = (i & 3) < 2;
+      sc[i] = fast_exp2(fmaf(sc[i], mul, -(ra ? base_a : base_b)));
+      if (ra) rs_a += sc[i];
+      else rs_b += sc[i];
+    }
+  };
+  auto to_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+  mbar_wait(q_full, 0);
+  if (wg == 1) turn_pass();  // warpgroup 0 goes first
+
+  // both warpgroups walk all n_tiles (a tile past a row's limit is masked
+  // whole and adds nothing), so that their turns pair up
+  {
+    // tile 0: S, then its softmax (O is still 0)
+    float al_a, al_b, rs_a, rs_b;
+    mbar_wait(full, 0);
+    turn_wait();
+    wgmma_fence();
+    issue_s(0);
+    turn_pass();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) reg_fence(sc[i]);
+    softmax(0, al_a, al_b, rs_a, rs_b);
+    l_a = rs_a;
+    l_b = rs_b;
+    to_p();
+    // tile t: its S and tile t - 1's P.V in flight together; the softmax
+    // of tile t runs while P.V does
+    for (int t = 1; t < n_tiles; ++t) {
+      mbar_wait(full + t % stages, (t / stages) & 1);
+      fence_o_p();
+      turn_wait();
+      wgmma_fence();
+      issue_s(t);
+      issue_pv(t - 1);
+      turn_pass();
+      wgmma_wait<1>();  // S of tile t
+#pragma unroll
+      for (int i = 0; i < 64; ++i) reg_fence(sc[i]);
+      softmax(t * kWgKeys, al_a, al_b, rs_a, rs_b);
+      wgmma_wait<0>();  // P.V of tile t - 1
+      fence_o_p();
+      release(t - 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[h][i] *= (i & 3) < 2 ? al_a : al_b;
+      l_a = l_a * al_a + rs_a;  // this thread's columns; summed over the
+      l_b = l_b * al_b + rs_b;  // quad at the end
+      to_p();
+    }
+    fence_o_p();
+    turn_wait();
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    if (wg == 0) turn_pass();  // warpgroup 1's last turn passes to no one
+    wgmma_wait<0>();
+    fence_o_p();
+    release(n_tiles - 1);
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r_a + 8 * hr;
+    if (row >= n_rows) continue;
+    const int qi = row / G, g = row - qi * G;
+    bf16* op = out + (((size_t)b * C + qi) * H + (size_t)hk * G + g) * kWgD +
+               tig * 2;
+    const float inv = hr ? inv_b : inv_a;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + h * kWgHalf + j * 8) =
+            __floats2bfloat162_rn(o[h][4 * j + 2 * hr] * inv,
+                                  o[h][4 * j + 2 * hr + 1] * inv);
+  }
+}
+
 // ---- launches
 
 template <typename T, int D>
@@ -1328,6 +1682,74 @@ cudaError_t launch_tf32_256(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// -lcuda at link time); null where the driver does not give it
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+TensorMapEncodeTiled tensor_map_encoder() {
+  static TensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &got);
+#endif
+    if (err != cudaSuccess || got != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      return nullptr;
+    }
+    fn = reinterpret_cast<TensorMapEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a bf16 tensor [d3][d2][d1][d0] (d0 innermost) read in boxes
+// {64, box1, box2, 1}: 128-byte rows, swizzled as wgmma reads them,
+// elements past an edge read as zeros
+bool bf16_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+              uint64_t d2, uint64_t d3, uint32_t box1, uint32_t box2) {
+  TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kWgHalf, box1, box2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const int* pos, void* out, int B, int C, int H,
+                         int Hkv, int Smax, float scale, float softcap,
+                         int grid_x, int stages, int smem,
+                         cudaStream_t stream) {
+  const int G = H / Hkv;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!bf16_map(&tm_q, q, kWgD, H, C, B, G, kWgRows / G) ||
+      !bf16_map(&tm_k, k, kWgD, Hkv, Smax, B, 1, kWgKeys) ||
+      !bf16_map(&tm_v, v, kWgD, Hkv, Smax, B, 1, kWgKeys))
+    return cudaErrorInvalidValue;
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(flash_prefill_wgmma_kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(grid_x, Hkv, B);
+  flash_prefill_wgmma_kernel<<<grid, kWgThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, pos, static_cast<__nv_bfloat16*>(out), C, H, Hkv,
+      Smax, stages, scale, softcap);
+  return cudaGetLastError();
+}
+
 // the head dims without a tensor-core instance (16 and 32)
 template <typename T>
 cudaError_t dispatch_scalar(const void* q, const void* k, const void* v,
@@ -1371,6 +1793,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
       return cudaErrorInvalidValue;
     return launch_tf32_256(q, k, v, pos, out, B, C, H, Hkv, Smax, scale,
                            softcap, grid_x, stages, smem, s);
+  }
+  if (bf16 && D == kWgD && rows == kWgRows) {  // the Hopper instance
+    if (kWgRows % (H / Hkv) != 0 || stages != 3 ||
+        (size_t)smem != wgmma_smem_bytes(stages))
+      return cudaErrorInvalidValue;
+    return launch_wgmma(q, k, v, pos, out, B, C, H, Hkv, Smax, scale,
+                        softcap, grid_x, stages, smem, s);
   }
   if (tensor_core_dim(D)) {
     const size_t need = bf16 ? mma_smem_bytes(D, rows, stages)

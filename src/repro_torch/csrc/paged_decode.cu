@@ -32,13 +32,14 @@
 //
 // What bounds it on an H100: the K/V bytes it reads. Each (b, kv head)
 // serves G query rows, so there are ~2G flops per K/V byte, far below
-// the card's ~295 flop/byte ridge, and nothing for tensor cores to do. At
+// the card's ~295 flop/byte ridge: tensor cores add no rate here (the
+// tensor-core instance below takes them to spare per-token work). At
 // qwen3-1.7b's decode tick (8 slots x 2048 tokens, Hkv 8, D 128, bf16) the
 // visible K/V of chip_smoke.py's ragged lengths is 31.8 MB: 0.0095 ms at
 // 3.35 TB/s, and 0.0048 ms for the int8 codes; this kernel takes ~3.6x
 // and ~6x that on an H100 SXM at 700 W (chip_smoke.py; PERF.md), where the
-// two-pass version it replaces took ~13x and ~22x. The design is about
-// bytes in flight:
+// two-pass version it replaces took ~13x and ~22x. The lanes instance
+// (paged_decode_kernel; plan "lanes") is about bytes in flight:
 // - grid (splits, Hkv x group chunks, B), 128 threads. A split is a whole
 //   number of pages (256 tokens at the path's shapes: 8 splits x 8 kv
 //   heads x 8 slots = 512 CTAs, 2048 at zamba2-2.7b's 32 kv heads); splits
@@ -72,6 +73,44 @@
 // the bytes grow with the CTAs (x2 at G 12 and 16), where a 16-row
 // instance would hold acc[16][E] and a [4][16] score block in registers
 // (over 255 at D 128 in bf16 and int8, so spills).
+//
+// The tensor-core instance (paged_decode_mma_kernel; plan "mma", gm 16),
+// in place of the same TPU kernel (src/repro/kernels/decode_attention/
+// kernel.py:79), for bf16 q over bf16 or int8 pages at D 128 and 256 with
+// up to 16 query heads a kv head; plan() routes groups of 4 or more to it
+// (gemma-2b's one kv head of 8 at D 256, the VLM's G 4, starcoder2-15b's
+// G 12, glm4-9b's G 16). Bytes bound it as they do the lanes instance
+// (gemma-2b's tick: 9.6 MB of visible K/V, 0.0024 ms at 3.35 TB/s; 0.0012
+// ms for the int8 codes), and there the lanes instance spent its time
+// elsewhere: a 512-byte bf16 row takes a whole warp, so it scored one
+// token at a time with 5 xor shuffles per query head, and its 64 CTAs
+// left most of the card idle. This one:
+// - puts the group's query heads on the 16 rows of mma.sync.m16n8k16
+//   products (padding up to 16): S[16 x 32] = Q K^T with K by ldmatrix
+//   from the tile, then P V with V by ldmatrix.trans, softmax state per
+//   row in registers; no per-token shuffles. Each of the 4 warps owns a
+//   quarter of the head dim: its partial S over its columns goes through
+//   shared memory and all four add the four partials in warp order, so
+//   every warp holds the same S and runs the same softmax, then multiplies
+//   P by its columns of V. P goes into the product as a bf16 high part
+//   plus the bf16 rounding of the rest, so that the f32 output of
+//   return_ml carries f32 accuracy;
+// - splits the cache into 32-token tiles (inside a page: the int8 mode
+//   reads one scale a tile) and splits of the lanes instance's size,
+//   halved until the grid has 2 x 132 CTAs at the cache's length (gemma-
+//   2b: 64 splits of 32 tokens, 512 CTAs); 16-byte cp.async into a ring
+//   of up to 2 tiles; the last CTA of a (slot, kv head) merges the splits
+//   in split order (each split's m and l into shared memory, each row's
+//   weights once, then float4 sums; no float atomics);
+// - int8: widens a tile's codes to bf16 in shared memory (exact: |code| <=
+//   127) and folds the page scales in where that is exact: the K scale
+//   into S's columns, the V scale into P's; the row fresh[b] is new_k /
+//   new_v as given (bf16), with scale 1.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md): at
+// gemma-2b's tick ~0.021 ms in bf16 and ~0.022 ms in int8, against
+// ~0.22 and ~0.17 ms for the lanes instance and ~0.062 / ~0.097 ms for
+// SDPA / dequantize + SDPA; ~0.016-0.025 ms at the D 128 groups, 3-7x
+// faster than the lanes instance there.
 #include <type_traits>
 
 #include "common.cuh"
@@ -464,6 +503,451 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   if (tid == 0) *counter = 0;  // ready for the next call
 }
 
+// ---- the tensor-core instance: bf16 q, bf16 or int8 pages, D 128 / 256
+
+constexpr int kMmaRows = 16;     // the group's query heads, padded: one M tile
+constexpr int kMmaQuarters = 4;  // warps: each owns a quarter of the head dim
+constexpr int kMmaTile = 32;     // tokens per K/V tile
+
+// The dynamic shared memory the tensor-core instance indexes: q's 16 rows,
+// the ring of K/V tiles (bf16 rows padded to D + 8; int8: the codes, then
+// one bf16 tile pair they are widened into), the warps' S partials (which
+// the last split's merge reuses for each split's m and l).
+size_t mma_smem_needed(int kv_bytes, int D, int stages, int n_splits) {
+  const size_t row = (size_t)(D + 8) * 2;
+  const size_t bf16_tiles = (size_t)2 * kMmaTile * row;
+  const size_t ring = kv_bytes == 1
+                          ? (size_t)stages * 2 * kMmaTile * D + bf16_tiles
+                          : (size_t)stages * bf16_tiles;
+  const size_t sx = (size_t)kMmaQuarters * (kMmaTile / 2) * 32;
+  const size_t merge = ((size_t)2 * n_splits + 3) * kMmaRows;
+  return kMmaRows * row + ring + (sx > merge ? sx : merge) * sizeof(float);
+}
+
+// the two int8 codes in bits [shift, shift + 16) of `word` as a bf16x2
+// (exact: |code| <= 127)
+__device__ __forceinline__ uint32_t widen2(uint32_t word, int shift) {
+  const int lo = static_cast<int8_t>((word >> shift) & 0xffu);
+  const int hi = static_cast<int8_t>((word >> (shift + 8)) & 0xffu);
+  return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+// One CTA per (split, kv head, slot), 4 warps. The G query heads are the
+// rows of m16n8k16 products (padded to 16); warp w owns columns [w D/4,
+// (w + 1) D/4) of q, K and V. Per tile: each warp's partial S over its
+// columns, the four summed through shared memory in warp order (so every
+// warp holds the same S, bit for bit, and runs the same online softmax),
+// then P times its columns of V, with P split into a bf16 high part and
+// the bf16 rounding of the rest (two products): ~2^-17 relative, so the
+// f32 output of return_ml meets the f32 tolerance. kQuant (KV = int8): a
+// tile's codes are widened to bf16 in shared memory (exact: |code| <= 127)
+// and its page's scales folded in where the arithmetic stays exact: the K
+// scale into S's columns, the V scale into P's, except on the row
+// fresh_at[b] (when >= 0), which is new_k / new_v as given (bf16, scale 1).
+template <typename KV, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const KV* __restrict__ k, const KV* __restrict__ v,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        const __nv_bfloat16* __restrict__ new_k,
+                        const __nv_bfloat16* __restrict__ new_v,
+                        const int* __restrict__ kv_len,
+                        const int* __restrict__ fresh_at,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ out_f32,
+                        float* __restrict__ out_ml,
+                        float* __restrict__ part_acc,
+                        float* __restrict__ part_ml,
+                        int* __restrict__ counters, int H, int Hkv, int Smax,
+                        int page, int split, int stages, float scale,
+                        float softcap) {
+  using bf16 = __nv_bfloat16;
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int LD = D + 8;              // padded bf16 row (elements)
+  constexpr int DW = D / kMmaQuarters;   // a warp's columns
+  constexpr int KS = DW / 16;            // its k-steps of Q K^T
+  constexpr int NB = DW / 8;             // its 8-column blocks of O
+  constexpr int CH = D * (int)sizeof(KV) / 16;  // 16-byte chunks of a row
+  constexpr int tile = kMmaTile, SB = tile / 8;  // 8-key blocks of S
+  const int si = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.x;
+  const int G = H / Hkv;
+  const int len = min(kv_len[b], Smax);
+  const int n_active = max(1, (len + split - 1) / split);
+  if (si >= n_active) return;  // past the slot's length: read nothing
+  const int t0 = si * split;
+  const int n_tok = max(0, min(split, len - t0));
+  const int n_tiles = (n_tok + tile - 1) / tile;
+  int fresh = -1;  // split-local row of the new token, if this split has it
+  if constexpr (kQuant) {
+    const int fa = fresh_at[b];
+    fresh = fa >= 0 ? fa - t0 : -1;
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);            // [16][LD]
+  unsigned char* ring = smem + (size_t)kMmaRows * LD * 2;
+  const size_t code_bytes = (size_t)tile * D;          // int8 codes of K
+  const size_t tile_bytes = (size_t)tile * LD * 2;     // a bf16 K tile
+  const size_t slot_bytes = kQuant ? 2 * code_bytes : 2 * tile_bytes;
+  bf16* wide = reinterpret_cast<bf16*>(ring + (size_t)stages * slot_bytes);
+  float* Sx = reinterpret_cast<float*>(
+      ring + (size_t)stages * slot_bytes + (kQuant ? 2 * tile_bytes : 0));
+
+  const size_t row0 = (size_t)b * H + (size_t)hk * G;  // first query head
+  for (int i = tid; i < kMmaRows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = i - r * (D / 8);
+    cp_async16(Qs + r * LD + c * 8, q + (row0 + (r < G ? r : 0)) * D + c * 8,
+               r < G);
+  }
+  cp_async_commit();
+
+  const size_t tok_stride = (size_t)Hkv * D;
+  const KV* kb = k + ((size_t)b * Smax + t0) * tok_stride + (size_t)hk * D;
+  const KV* vb = v + ((size_t)b * Smax + t0) * tok_stride + (size_t)hk * D;
+  // tile j's rows -> ring slot j % stages; rows past the split's tokens
+  // are zero-filled (a zero V row times p = 0 adds nothing)
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      unsigned char* kt = ring + (size_t)(j % stages) * slot_bytes;
+      unsigned char* vt = kt + slot_bytes / 2;
+      for (int i = tid; i < tile * CH; i += kThreads) {
+        const int r = i / CH, c = i - r * CH, t = j * tile + r;
+        const bool ok = t < n_tok;
+        const size_t src = (size_t)(ok ? t : 0) * tok_stride + c * 16 /
+                           sizeof(KV);
+        const size_t dst = kQuant ? (size_t)r * D + c * 16
+                                  : ((size_t)r * LD + c * 8) * 2;
+        cp_async16(kt + dst, kb + src, ok);
+        cp_async16(vt + dst, vb + src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages; ++s) issue(s);
+
+  uint32_t qf[KS][4];  // this warp's q fragments, loaded at the first tile
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  const float qk_scale = scale * kLog2e;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // this thread's copies of tile j (and q) landed: the groups committed
+    // after it are those of tiles j + 1 .. j + stages - 1 (empty past the
+    // split)
+    cp_async_wait(stages - 1);
+    const unsigned char* kt = ring + (size_t)(j % stages) * slot_bytes;
+    const bf16* Kt = reinterpret_cast<const bf16*>(kt);
+    const bf16* Vt = reinterpret_cast<const bf16*>(kt + slot_bytes / 2);
+    if constexpr (kQuant) {
+      // widen the chunks this thread copied: the codes, or the new row
+      const bf16* fresh_row[2] = {new_k + ((size_t)b * Hkv + hk) * D,
+                                  new_v + ((size_t)b * Hkv + hk) * D};
+      for (int i = tid; i < tile * CH; i += kThreads) {
+        const int r = i / CH, c = i - r * CH;
+        const bool is_fresh = j * tile + r == fresh;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const int8_t* codes = reinterpret_cast<const int8_t*>(
+              kt + kv * code_bytes + (size_t)r * D + c * 16);
+          bf16* dst = wide + (size_t)kv * tile * LD + (size_t)r * LD + c * 16;
+          uint4 lo, hi;
+          if (is_fresh) {
+            lo = *reinterpret_cast<const uint4*>(fresh_row[kv] + c * 16);
+            hi = *reinterpret_cast<const uint4*>(fresh_row[kv] + c * 16 + 8);
+          } else {
+            const uint4 u = *reinterpret_cast<const uint4*>(codes);
+            lo = make_uint4(widen2(u.x, 0), widen2(u.x, 16), widen2(u.y, 0),
+                            widen2(u.y, 16));
+            hi = make_uint4(widen2(u.z, 0), widen2(u.z, 16), widen2(u.w, 0),
+                            widen2(u.w, 16));
+          }
+          *reinterpret_cast<uint4*>(dst) = lo;
+          *reinterpret_cast<uint4*>(dst + 8) = hi;
+        }
+      }
+      Kt = wide;
+      Vt = wide + (size_t)tile * LD;
+    }
+    __syncthreads();  // tile j (widened) and q are everyone's
+    // the tile's page scales (1 and 1 over bf16 pages) and its column of
+    // the new row (none: -1)
+    float ksc = 1.f, vsc = 1.f;
+    int fcol = -1;
+    if constexpr (kQuant) {
+      const size_t at = ((size_t)b * (Smax / page) + (t0 + j * tile) / page)
+                        * Hkv + hk;
+      ksc = k_scale[at];
+      vsc = v_scale[at];
+      fcol = fresh - j * tile;
+    }
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (lane & 15) * LD + warp * DW + kk * 16 +
+                                (lane >> 4) * 8);
+    }
+
+    // this warp's partial S = Q K^T over its columns; s[jb] holds keys
+    // 8jb .. 8jb + 7 of rows gid and gid + 8
+    float s[SB][4];
+#pragma unroll
+    for (int jb = 0; jb < SB; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < SB / 2; ++j2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                 LD + warp * DW + kk * 16 +
+                             ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * j2 + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+    // ... summed over the four warps in warp order
+#pragma unroll
+    for (int jb = 0; jb < SB; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        Sx[((warp * SB + jb) * 4 + e) * 32 + lane] = s[jb][e];
+    __syncthreads();
+    const bool masked = (j + 1) * tile > n_tok;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int jb = 0; jb < SB; ++jb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = jb * 8 + tig * 2 + (e & 1);  // in the tile
+        float d = Sx[((0 * SB + jb) * 4 + e) * 32 + lane];
+#pragma unroll
+        for (int w = 1; w < kMmaQuarters; ++w)
+          d += Sx[((w * SB + jb) * 4 + e) * 32 + lane];
+        if (kQuant && key != fcol) d *= ksc;
+        float x = softcap > 0.f ? softcap_logit(d * scale, softcap) * kLog2e
+                                : d * qk_scale;
+        if (masked && j * tile + key >= n_tok)
+          x = -INFINITY;
+        s[jb][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x);
+        else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    // every tile holds a visible token of the split, so the max is finite
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < SB; ++jb) {
+      s[jb][0] = exp2f(s[jb][0] - mn_a);
+      s[jb][1] = exp2f(s[jb][1] - mn_a);
+      s[jb][2] = exp2f(s[jb][2] - mn_b);
+      s[jb][3] = exp2f(s[jb][3] - mn_b);
+      rs_a += s[jb][0] + s[jb][1];
+      rs_b += s[jb][2] + s[jb][3];
+    }
+    l_a = l_a * al_a + rs_a;  // this thread's keys; summed over the quad
+    l_b = l_b * al_b + rs_b;  // at the end
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= al_a;
+      o[n][1] *= al_a;
+      o[n][2] *= al_b;
+      o[n][3] *= al_b;
+    }
+
+    // O += P V over this warp's columns: P (times each row's V scale)
+    // from the S fragments of keys 16kk .. 16kk + 15 as the A operand, in a
+    // bf16 high part and a bf16 low part; V by ldmatrix.trans
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int jb = 0; jb < SB; ++jb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (jb * 8 + tig * 2 + (e & 1) != fcol) s[jb][e] *= vsc;
+    }
+#pragma unroll
+    for (int kk = 0; kk < SB / 2; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* pr = s[2 * kk + (r >> 1)] + (r & 1) * 2;
+        split_bf16(pr[0], pr[1], hi[r], lo[r]);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < DW / 16; ++n2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  warp * DW + n2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * n2], hi, vf[0], vf[1]);
+        mma_bf16(o[2 * n2 + 1], hi, vf[2], vf[3]);
+        mma_bf16(o[2 * n2], lo, vf[0], vf[1]);
+        mma_bf16(o[2 * n2 + 1], lo, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // the slot, the widened tile and Sx are free again
+    issue(j + stages);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+
+  const bool single = n_active == 1;
+  const size_t part0 = (size_t)(b * Hkv + hk) * n_splits;
+  // this thread's rows gid, gid + 8 and columns warp DW + 8n + 2tig (+1)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int g = gid + 8 * hr;
+    if (g >= G) continue;
+    const float mx = hr ? m_b : m_a, lsum = hr ? l_b : l_a;
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const int col = warp * DW + n * 8 + tig * 2;
+      const float a0 = o[n][2 * hr], a1 = o[n][2 * hr + 1];
+      if (!single) {
+        float* pa = part_acc + (part0 + si) * G * D + (size_t)g * D + col;
+        pa[0] = a0;
+        pa[1] = a1;
+      } else if (out_f32 != nullptr) {
+        out_f32[(row0 + g) * D + col] = a0 * inv;
+        out_f32[(row0 + g) * D + col + 1] = a1 * inv;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + g) * D + col) =
+            __floats2bfloat162_rn(a0 * inv, a1 * inv);
+      }
+    }
+    if (warp == 0 && tig == 0) {
+      if (!single) {
+        part_ml[((part0 + si) * G + g) * 2] = mx;
+        part_ml[((part0 + si) * G + g) * 2 + 1] = lsum;
+      } else if (out_ml != nullptr) {
+        out_ml[(row0 + g) * 2] = mx;
+        out_ml[(row0 + g) * 2 + 1] = lsum;
+      }
+    }
+  }
+  if (single) return;
+
+  // the last split of this (b, kv head) to finish merges all of them in
+  // split order: each (split, row)'s m and l into shared memory, every
+  // row's weights 2^(m - max) once, then each thread's float4s of the
+  // output summed over the splits
+  int* counter = counters + (size_t)b * Hkv + hk;
+  __threadfence();
+  __syncthreads();
+  int last = 0;
+  if (tid == 0) last = atomicAdd(counter, 1) == n_active - 1;
+  if (!__syncthreads_or(last)) return;
+  __threadfence();
+  float* wt = Sx;                                 // [n_active][16]
+  float* ls = Sx + (size_t)n_active * kMmaRows;   // [n_active][16]
+  float* row_ml = ls + (size_t)n_active * kMmaRows;  // [16][3]
+  for (int i = tid; i < n_active * G; i += kThreads) {
+    const int sp = i / G, g = i - sp * G;
+    const float* ml = part_ml + ((part0 + sp) * G + g) * 2;
+    wt[sp * kMmaRows + g] = __ldcg(ml);
+    ls[sp * kMmaRows + g] = __ldcg(ml + 1);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mx = -INFINITY;
+    for (int sp = 0; sp < n_active; ++sp)
+      mx = fmaxf(mx, wt[sp * kMmaRows + tid]);
+    float lsum = 0.f;
+    for (int sp = 0; sp < n_active; ++sp) {  // split order
+      const float w = exp2f(wt[sp * kMmaRows + tid] - mx);
+      wt[sp * kMmaRows + tid] = w;
+      lsum += ls[sp * kMmaRows + tid] * w;
+    }
+    row_ml[tid * 3] = mx;
+    row_ml[tid * 3 + 1] = lsum;
+    row_ml[tid * 3 + 2] = 1.f / fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  constexpr int kVecs = kMmaRows * D / 4 / kThreads;  // float4s a thread
+  constexpr int kChunk = 4;   // of them summed together
+  constexpr int kUnroll = 4;  // splits whose loads are in flight at once
+  const int n_vec = G * D / 4;
+  float4 acc[kVecs];
+#pragma unroll
+  for (int kv = 0; kv < kVecs; ++kv) acc[kv] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // kUnroll splits' loads first, then their sums in split order (loads
+  // past the last split or the group read nothing and add 0)
+#pragma unroll
+  for (int kc = 0; kc < kVecs; kc += kChunk) {
+    if (kc * kThreads >= n_vec) continue;  // the same for every thread
+#pragma unroll 1
+    for (int sp0 = 0; sp0 < n_active; sp0 += kUnroll) {
+      float4 x[kUnroll][kChunk];
+      float w[kUnroll][kChunk];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int sp = sp0 + u, v4 = tid + (kc + k) * kThreads;
+          const bool ok = sp < n_active && v4 < n_vec;
+          x[u][k] = ok ? __ldcg(reinterpret_cast<const float4*>(
+                             part_acc + (part0 + sp) * G * D) + v4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          w[u][k] = ok ? wt[sp * kMmaRows + v4 * 4 / D] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {  // split order
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          acc[kc + k].x += x[u][k].x * w[u][k];
+          acc[kc + k].y += x[u][k].y * w[u][k];
+          acc[kc + k].z += x[u][k].z * w[u][k];
+          acc[kc + k].w += x[u][k].w * w[u][k];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int kv = 0; kv < kVecs; ++kv) {
+    const int v4 = tid + kv * kThreads;
+    if (v4 >= n_vec) continue;
+    const int i = v4 * 4, g = i / D;
+    const float inv = row_ml[g * 3 + 2];
+    const float4 o4 = make_float4(acc[kv].x * inv, acc[kv].y * inv,
+                                  acc[kv].z * inv, acc[kv].w * inv);
+    if (out_f32 != nullptr) {
+      *reinterpret_cast<float4*>(out_f32 + row0 * D + i) = o4;
+      if (i % D == 0) {
+        out_ml[(row0 + g) * 2] = row_ml[g * 3];
+        out_ml[(row0 + g) * 2 + 1] = row_ml[g * 3 + 1];
+      }
+    } else {
+      __nv_bfloat162* o2 =
+          reinterpret_cast<__nv_bfloat162*>(out + row0 * D + i);
+      o2[0] = __floats2bfloat162_rn(o4.x, o4.y);
+      o2[1] = __floats2bfloat162_rn(o4.z, o4.w);
+    }
+  }
+  if (tid == 0) *counter = 0;  // ready for the next call
+}
+
 // The plan from kernels/decode_attention/ops.py::plan, which owns the
 // layout, bounds-checked against what the kernel instance it names (gm)
 // can run; 0 if it holds. The group's cut is exactly the plan's: ceil(G/8)
@@ -472,6 +956,18 @@ int check_plan(int kv_bytes, int G, int Smax, int page, int D, int split,
                int n_splits, int tile, int stages, int lanes, int gm,
                int group_rows, int smem) {
   if (G < 1) return cudaErrorInvalidValue;
+  if (gm == kMmaRows) {  // the tensor-core instance: the whole group in
+                         // one CTA, 32-token tiles inside a page
+    if (group_rows != G || G > kMmaRows || (D != 128 && D != 256) ||
+        page <= 0 || Smax % page != 0 || page % kMmaTile != 0 ||
+        tile != kMmaTile || split <= 0 || split % kMmaTile != 0 ||
+        n_splits != (Smax + split - 1) / split || stages < 1 ||
+        stages > 2 || stages > split / kMmaTile ||
+        (size_t)smem < mma_smem_needed(kv_bytes, D, stages, n_splits) ||
+        smem > kMaxSmem)
+      return cudaErrorInvalidValue;
+    return cudaSuccess;
+  }
   const int n_gc = (G + kMaxGroup - 1) / kMaxGroup;
   const int rows = (G + n_gc - 1) / n_gc;
   if (group_rows != rows || gm != (rows <= 2 ? 2 : kMaxGroup) ||
@@ -533,6 +1029,24 @@ cudaError_t launch_gm(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename KV, int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  static int smem_set = 0;
+  cudaError_t err =
+      allow_smem(paged_decode_mma_kernel<KV, D>, a.smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.n_splits, a.Hkv, a.B);
+  paged_decode_mma_kernel<KV, D><<<grid, kThreads, a.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.k_scale, a.v_scale,
+      static_cast<const __nv_bfloat16*>(a.new_k),
+      static_cast<const __nv_bfloat16*>(a.new_v), a.kv_len, a.fresh,
+      static_cast<__nv_bfloat16*>(a.out), a.out_f32, a.out_ml, a.part_acc,
+      a.part_ml, a.counters, a.H, a.Hkv, a.Smax, a.page, a.split, a.stages,
+      a.scale, a.softcap);
+  return cudaGetLastError();
+}
+
 template <typename T, typename KV>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   if (a.Hkv <= 0 || a.H % a.Hkv != 0 ||
@@ -542,6 +1056,13 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
                             a.split, a.n_splits, a.tile, a.stages, a.lanes,
                             a.gm, a.group_rows, a.smem);
   if (rc != cudaSuccess) return static_cast<cudaError_t>(rc);
+  if (a.gm == kMmaRows) {  // bf16 q over bf16 or int8 pages only
+    if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                  !std::is_same<KV, float>::value)
+      return a.D == 256 ? launch_mma<KV, 256>(a, s)
+                        : launch_mma<KV, 128>(a, s);
+    return cudaErrorInvalidValue;
+  }
   if (a.gm == 2) return launch_gm<T, KV, 2>(a, s);
   return launch_gm<T, KV, kMaxGroup>(a, s);
 }

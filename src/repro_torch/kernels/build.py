@@ -6,7 +6,9 @@ library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use into ``build/kernels/<digest>/`` at the repository root (the
 digest covers the sources and flags, so an edited source rebuilds), and
 never while a module is imported: the CPU tests import every module and
-have no ``nvcc``.
+have no ``nvcc``. Nothing links ``-lcuda``: the Hopper prefill instance
+takes ``cuTensorMapEncodeTiled`` (its TMA descriptors) from the driver at
+run time through ``cudaGetDriverEntryPoint`` (``csrc/flash_prefill.cu``).
 """
 from __future__ import annotations
 

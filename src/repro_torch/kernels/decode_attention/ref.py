@@ -4,7 +4,10 @@ The same functions as ``csrc/paged_decode.cu`` with f32 accumulation and
 an exact (not online) softmax: the CPU tests run them, and
 ``chip_smoke.py`` holds the kernel against them on the card.
 ``paged_decode_split_ref`` is the kernel's split-and-merge arithmetic
-written out plainly, for the CPU tests of the plan.
+written out plainly, for the CPU tests of the plan;
+``paged_decode_mma_ref`` and ``paged_decode_int8_mma_ref`` are the
+tensor-core instance's (P.V with p in two bf16 parts, int8 scales folded
+into S and P), held to the reference's Pallas kernel on the CPU.
 """
 from __future__ import annotations
 
@@ -141,3 +144,106 @@ def paged_decode_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
             acc, l = acc + a * w[..., None], l + s_ * w
         out[i] = acc / l[..., None]
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel multiplies it: a bf16 high part plus the bf16
+    rounding of the rest (~2^-17 relative)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _mma_decode(q, k, v, k_row_scale, v_row_scale, kv_len, split,
+                logit_softcap, return_ml):
+    """The tensor-core instance over flat K/V [B, Smax, Hkv, D] as its
+    tiles hold them, with each row's K and V scale [B, Smax, Hkv]."""
+    b, _, h, d = q.shape
+    smax, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qh = q.reshape(b, hkv, g, d).float()
+    out = torch.zeros(b, hkv, g, d)
+    m_out = torch.full((b, hkv, g), -math.inf)
+    l_out = torch.zeros(b, hkv, g)
+    log2e = 1.0 / math.log(2.0)
+    for i in range(b):
+        n = min(int(kv_len[i]), smax)
+        parts = []
+        for t0 in range(0, n, split):
+            t1 = min(n, t0 + split)
+            ks = k_row_scale[i, t0:t1].T[:, None]           # [hkv, 1, k]
+            vs = v_row_scale[i, t0:t1].T[:, None]
+            s = torch.einsum("hgd,khd->hgk", qh[i], k[i, t0:t1].float())
+            s = s * ks / d ** 0.5
+            if logit_softcap > 0.0:
+                s = logit_softcap * torch.tanh(s / logit_softcap)
+            s = s * log2e
+            m = s.amax(-1)                                  # [hkv, g]
+            e = torch.exp2(s - m[..., None])
+            parts.append((torch.einsum("hgk,khd->hgd", _split_bf16(e * vs),
+                                       v[i, t0:t1].float()),
+                          m, e.sum(-1)))
+        if not parts:
+            continue
+        m_all = torch.stack([m for _, m, _ in parts]).amax(0)
+        acc, l = torch.zeros(hkv, g, d), torch.zeros(hkv, g)
+        for a, m, s_ in parts:                              # split order
+            w = torch.exp2(m - m_all)
+            acc, l = acc + a * w[..., None], l + s_ * w
+        out[i] = acc / l[..., None]
+        m_out[i], l_out[i] = m_all, l
+    if return_ml:
+        return out.reshape(b, 1, h, d), m_out.reshape(b, h), l_out.reshape(
+            b, h)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_decode_mma_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, kv_len: torch.Tensor,
+                         split: int, logit_softcap: float = 0.0, *,
+                         return_ml: bool = False):
+    """The tensor-core instance's arithmetic written out plainly: per
+    split of ``split`` tokens, S = q K^T in f32 from q and K as given, the
+    base-2 max ``m`` and ``p = 2^(s - m)``; ``l`` sums p in f32, and P.V
+    takes p as a bf16 high part plus the bf16 rounding of the rest
+    (~2^-17 relative) against V; the splits that hold a visible token are
+    merged in split order. ``return_ml`` as in ``paged_decode_ref``."""
+    b, p, page, hkv, d = k_pages.shape
+    flat = (b, p * page, hkv, d)
+    ones = torch.ones(b, p * page, hkv)
+    return _mma_decode(q, k_pages.reshape(flat), v_pages.reshape(flat), ones,
+                       ones, kv_len, split, logit_softcap, return_ml)
+
+
+def paged_decode_int8_mma_ref(q: torch.Tensor, k_codes: torch.Tensor,
+                              v_codes: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, new_k: torch.Tensor,
+                              new_v: torch.Tensor, pos: torch.Tensor = None,
+                              logit_softcap: float = 0.0, *, split: int,
+                              kv_len: torch.Tensor = None,
+                              fresh: torch.Tensor = None,
+                              return_ml: bool = False):
+    """The int8 mode on the tensor-core instance: the codes as they are
+    (exact in bf16), the row ``fresh[b]`` replaced by new_k / new_v as
+    given, and the page scales folded in where that is exact: each row's
+    K scale into S's column, its V scale into P's (1 on the new row); then
+    ``paged_decode_mma_ref``'s arithmetic. Arguments as
+    ``paged_decode_int8_ref``'s."""
+    b, p, page, hkv, d = k_codes.shape
+    smax = p * page
+    if pos is not None:
+        kv_len, fresh = int8_rows(pos, smax)
+    rows = torch.arange(b, device=q.device)
+    own = fresh >= 0
+    at = fresh.long().clamp(min=0)
+    kv, row_scale = [], []
+    for codes, scale, new in ((k_codes, k_scale, new_k),
+                              (v_codes, v_scale, new_v)):
+        x = codes.float().reshape(b, smax, hkv, d)
+        x[rows, at] = torch.where(own[:, None, None], new[:, 0].float(),
+                                  x[rows, at])
+        sc = scale.float().repeat_interleave(page, dim=1)    # [B, Smax, Hkv]
+        sc[rows, at] = torch.where(own[:, None], 1.0, sc[rows, at])
+        kv.append(x)
+        row_scale.append(sc)
+    return _mma_decode(q, kv[0], kv[1], row_scale[0], row_scale[1], kv_len,
+                       split, logit_softcap, return_ml)

@@ -6,7 +6,7 @@ meta tensor (the dry run) it returns the output's shape and charges
 ``cost`` to ``kernels.meta``. There is no fallback from one to the other. ``launches`` counts kernel launches,
 ``kernel_launches`` the same by the plan's kernel.
 
-The launch plan (which of the file's five kernels, the grid, rows per
+The launch plan (which of the file's six kernels, the grid, rows per
 CTA, pipeline stages and dynamic shared memory) is ``plan()``, a pure function of the shapes that the CPU tests check; the C
 entry takes it as given and rejects a plan that does not match its kernel.
 The kernel follows from (dtype, head_dim): bf16 at ``MMA_HEAD_DIMS`` on
@@ -15,9 +15,12 @@ rows, each on half of the head dim ("mma256", gemma-2b), f32 at
 ``MMA_HEAD_DIMS`` on tensor cores in 3xTF32 ("tf32"), f32 at D 256 in
 3xTF32 with four warps per 16 rows, each on a quarter of the head dim
 ("tf32_256", gemma-2b with int8 pages), and the rest -- D 16 and 32 in both
-dtypes -- on the scalar kernel. Rows per CTA and stages were chosen by
-timing the candidates on the H100 (``chip_smoke.py``'s plan sweeps,
-PERF.md).
+dtypes -- on the scalar kernel. bf16 chunks of at least ``WGMMA_MIN_CHUNK``
+tokens at D 128 with a query-head group of ``WGMMA_GROUPS`` (the training
+loss's 4096-token sequence at G 2) run the Hopper instance instead
+("wgmma": TMA, warp specialisation, wgmma). Rows per CTA
+and stages were chosen by timing the candidates on the H100
+(``chip_smoke.py``'s plan sweeps, PERF.md).
 """
 from __future__ import annotations
 
@@ -43,6 +46,16 @@ D256_ROWS, D256_STAGES = 32, 3           # the D 256 plan (chip_smoke.py's sweep
 # 32-key K/V tiles; its stages (chip_smoke.py's sweep)
 TQ_ROWS, TQ_KEYS, TQ_STAGES = 16, 32, 2
 SCALAR_ROWS, SCALAR_KEYS = 64, 64
+# the Hopper instance: 128 rows per CTA (two consumer warpgroups of 64),
+# 128-key K/V tiles by TMA in a ring of 3 stages (a tile's P.V holds its
+# stage while the next two load); routed for bf16 chunks of at least
+# WGMMA_MIN_CHUNK tokens at D 128 with a query-head group of WGMMA_GROUPS,
+# the groups chip_smoke.py gates it at and times it against the "mma"
+# plans at (the training shape's G 2)
+WGMMA_D, WGMMA_ROWS, WGMMA_KEYS, WGMMA_STAGES = 128, 128, 128, 3
+WGMMA_MIN_CHUNK = 4096
+WGMMA_GROUPS = (2,)
+WGMMA_GROUP_PAIRS = 4   # kWgGroupPairs in csrc/flash_prefill.cu
 N_SMS = 132                              # H100 SXM
 MAX_SMEM = 232448                        # dynamic shared memory per block
 # rows per CTA and stages each kernel is written for
@@ -50,6 +63,7 @@ PLAN_RANGE = {"mma": ((16, 32, 64), (2, 3, 4)),
               "tf32": ((16, 32, 64), (2, 3)),
               "mma256": ((16, 32, 64), (2, 3)),
               "tf32_256": ((TQ_ROWS,), (2, 3)),
+              "wgmma": ((WGMMA_ROWS,), (WGMMA_STAGES,)),
               "scalar": ((SCALAR_ROWS,), (1,))}
 
 launches = 0
@@ -60,14 +74,16 @@ kernel_launches = dict.fromkeys(PLAN_RANGE, 0)
 class Plan:
     kernel: str        # "mma" (bf16 tensor cores), "mma256" (bf16 at D
                        # 256), "tf32" (f32 tensor cores, 3xTF32),
-                       # "tf32_256" (f32 at D 256, 3xTF32) or "scalar"
+                       # "tf32_256" (f32 at D 256, 3xTF32), "wgmma" (bf16
+                       # at D 128 on Hopper's wgmma) or "scalar"
     grid: tuple        # (row tiles, kv heads, batch)
     rows: int          # (query, head) rows per CTA; 32 threads per 16 rows
                        # on bf16 tensor cores, 64 at D 256 (two warps split
                        # the head dim) and in 3xTF32 (two warps share the
                        # keys), 128 in f32 at D 256 (two key groups of four
-                       # warps on the head dim's quarters), 256 threads in
-                       # the scalar kernel
+                       # warps on the head dim's quarters), 128 on wgmma
+                       # (two consumer warpgroups and a producer warp), 256
+                       # threads in the scalar kernel
     stages: int        # K/V tiles in flight (1: the scalar kernel's one)
     smem_bytes: int
 
@@ -117,6 +133,46 @@ def tf32_256_plan(b: int, c: int, h: int, hkv: int, rows: int,
     return Plan("tf32_256", (gx, hkv, b), rows, stages, smem)
 
 
+def wgmma_plan(b: int, c: int, h: int, hkv: int,
+               stages: int = WGMMA_STAGES) -> Plan:
+    """The Hopper instance's launch: ``WGMMA_ROWS`` rows per CTA, then 1024
+    bytes to align the 128-byte-swizzled tiles, q's rows and a ring of
+    ``stages`` K and V tiles of ``WGMMA_KEYS`` keys in bf16 (no padding:
+    the swizzle keeps the products free of bank conflicts), and 128 bytes
+    of mbarriers."""
+    gx = -(-c * (h // hkv) // WGMMA_ROWS)
+    smem = (1024 + 2 * WGMMA_ROWS * WGMMA_D
+            + stages * 2 * 2 * WGMMA_KEYS * WGMMA_D + 128)
+    return Plan("wgmma", (gx, hkv, b), WGMMA_ROWS, stages, smem)
+
+
+def wgmma_order(p: Plan):
+    """(row tile, kv head, batch row) of each CTA of a "wgmma" launch, in
+    the order the hardware starts them (by linear block index), as the
+    kernel maps its block to the triple: the (kv head, batch row) pairs in
+    groups of ``WGMMA_GROUP_PAIRS``, and within a group the last row tile
+    of each pair first, then the one before, so that the CTAs with the
+    most key tiles start first and the CTAs in flight share a group's
+    K/V."""
+    gx, hkv, b = p.grid
+    pairs = hkv * b
+    order = []
+    for lin in range(gx * pairs):
+        group, idx = divmod(lin, WGMMA_GROUP_PAIRS * gx)
+        in_group = min(WGMMA_GROUP_PAIRS, pairs - group * WGMMA_GROUP_PAIRS)
+        pair = group * WGMMA_GROUP_PAIRS + idx % in_group
+        order.append((gx - 1 - idx // in_group, pair % hkv, pair // hkv))
+    return order
+
+
+def wgmma_takes(h: int, hkv: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the Hopper instance takes the shape: bf16 at D 128, a
+    query-head group of ``WGMMA_GROUPS`` (the kernel is written for any
+    group that divides its 128 rows; the card has checked it at these)."""
+    return (dtype == torch.bfloat16 and d == WGMMA_D and h % hkv == 0
+            and h // hkv in WGMMA_GROUPS)
+
+
 def scalar_plan(b: int, c: int, h: int, hkv: int, d: int) -> Plan:
     """The scalar kernel's launch: 64-row CTAs, f32 tiles of q, K, V and
     the scores in shared memory."""
@@ -147,7 +203,10 @@ def plan(b: int, c: int, h: int, hkv: int, d: int,
     ``D256_ROWS`` rows and ``D256_STAGES`` stages and f32 there the
     "tf32_256" one at ``TQ_ROWS`` rows and ``TQ_STAGES`` stages, the
     fastest of their sweeps at gemma-2b's chunk;
-    D 16 and 32 the scalar kernel's 64-row CTAs."""
+    D 16 and 32 the scalar kernel's 64-row CTAs. A bf16 chunk of at least
+    ``WGMMA_MIN_CHUNK`` tokens that the Hopper instance takes runs it."""
+    if c >= WGMMA_MIN_CHUNK and wgmma_takes(h, hkv, d, dtype):
+        return wgmma_plan(b, c, h, hkv)
     kernel = kernel_for(d, dtype)
     if kernel == "tf32":
         return tf32_plan(b, c, h, hkv, d, TF32_ROWS, TF32_STAGES)
@@ -168,12 +227,15 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
                dtype: torch.dtype) -> None:
     """Raise ValueError unless ``p`` is what its kernel's plan function
     gives at its rows and stages (grid and shared memory included), on the
-    kernel that (dtype, d) names, at rows and stages that kernel takes,
-    inside the block's shared memory. The C entry checks the launch again
-    against the kernel it instantiates."""
+    kernel that (dtype, d) names -- or on the Hopper instance where it
+    takes the shape -- at rows and stages that kernel takes, inside the
+    block's shared memory. The C entry checks the launch again against the
+    kernel it instantiates."""
     if d not in HEAD_DIMS or dtype not in build.DTYPE_CODES:
         raise ValueError(f"no instance for head_dim {d} in {dtype}")
     want = kernel_for(d, dtype)
+    if p.kernel == "wgmma" and wgmma_takes(h, hkv, d, dtype):
+        want = "wgmma"
     if p.kernel != want:
         raise ValueError(f"plan names the {p.kernel} kernel; {dtype} at "
                          f"head_dim {d} runs the {want} kernel")
@@ -181,6 +243,7 @@ def check_plan(p: Plan, b: int, c: int, h: int, hkv: int, d: int,
     if p.rows not in rows or p.stages not in stages:
         raise ValueError(f"the {want} kernel refuses plan {p}")
     made = (scalar_plan(b, c, h, hkv, d) if want == "scalar"
+            else wgmma_plan(b, c, h, hkv, p.stages) if want == "wgmma"
             else d256_plan(b, c, h, hkv, p.rows, p.stages)
             if want == "mma256"
             else tf32_256_plan(b, c, h, hkv, p.rows, p.stages)
@@ -260,7 +323,8 @@ def launch(q, k_cache, v_cache, pos, logit_softcap: float,
            p: Plan) -> torch.Tensor:
     """One launch of the kernel at plan ``p`` on inputs that
     ``flash_prefill`` has checked (``chip_smoke.py`` also times other
-    plans of the tensor-core kernels through it)."""
+    plans of the tensor-core kernels through it, the "mma" plans beside
+    the Hopper instance at the training shape among them)."""
     global launches
     b, c, h, d = q.shape
     _, smax, hkv, _ = k_cache.shape

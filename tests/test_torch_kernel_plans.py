@@ -72,24 +72,37 @@ def test_decode_plan_splits_tiles_and_fits(shape, kv_dtype):
     b, h, hkv, smax, page, d = shape
     p = dops.plan(b, h, hkv, smax, page, d, kv_dtype)
     assert p.smem_bytes <= MAX_SMEM
-    # splits: whole pages, covering [0, smax) exactly once
-    assert p.split % page == 0
+    # splits covering [0, smax) exactly once: whole pages on the lanes
+    # instance, whole 32-token tiles on the tensor-core one (G >= 4 at
+    # D 128 in bf16 q, the group in one CTA of 16 rows)
+    step = page if p.kernel == "lanes" else p.tile
+    assert p.split % step == 0
     cover = np.zeros(smax, np.int64)
     for si in range(p.n_splits):
         lo, hi = si * p.split, min(smax, (si + 1) * p.split)
-        assert lo < hi and lo % page == 0
+        assert lo < hi and lo % step == 0
         cover[lo:hi] += 1
     np.testing.assert_array_equal(cover, 1)
-    # tiles never cross a page; a tile is at most 4 rows per row slot; a
-    # row is 16-byte chunks on a power-of-two group of lanes
+    # tiles never cross a page
     assert page % p.tile == 0 and p.split % p.tile == 0
+    g = h // hkv
+    if p.kernel == "mma":
+        assert g >= dops.MMA_MIN_GROUP and d in dops.MMA_HEAD_DIMS
+        assert (p.tile, p.group_pad, p.group_rows, p.group_chunks) == (
+            dops.MMA_TILE, dops.MMA_ROWS, g, 1)
+        assert p.n_splits * hkv * b >= dops.MMA_MIN_CTAS or (
+            p.split == dops.MMA_TILE)
+        assert p.part_acc == (b, hkv, p.n_splits, g, d)
+        assert p.counters == (b, hkv, 1)
+        return
+    # a tile is at most 4 rows per row slot; a row is 16-byte chunks on a
+    # power-of-two group of lanes
     assert p.tile <= dops.ROWS_PER_THREAD * (dops.THREADS // p.lanes)
     row_bytes = d * kv_dtype.itemsize
     assert row_bytes % 16 == 0 and p.lanes * 16 >= row_bytes
     assert p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
     # the group: CTAs of equal rows (at most MAX_GROUP, none empty) that
     # cover it once, on the smallest instance that holds the rows
-    g = h // hkv
     assert p.group_rows <= dops.MAX_GROUP and p.group_rows <= p.group_pad
     assert p.group_chunks == -(-g // dops.MAX_GROUP)
     assert (p.group_chunks - 1) * p.group_rows < g
@@ -128,7 +141,7 @@ def test_decode_workspace_is_made_once():
     again = dops._workspace(dev, p)
     assert all(a is b for a, b in zip(first, again))
     assert first[2].dtype == torch.int32 and not first[2].any()
-    dops._WORKSPACE.pop((dev, p.part_acc))
+    dops._WORKSPACE.pop((dev, p.part_acc, p.counters))
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=str)
@@ -300,14 +313,18 @@ def test_split_merge_matches_plain_at_main_path(softcap):
 @pytest.mark.parametrize("name", ["glm4-9b", "starcoder2-15b"])
 def test_decode_plan_splits_the_group(name, kv_dtype):
     """G 16 (glm4-9b) and G 12 (starcoder2-15b) at full width, both modes:
-    two CTAs per kv head of 8 + 8 and 6 + 6 query heads on the 8-row
-    instance, q staged in shared memory, and the same shared memory as
-    qwen3-1.7b's G 2 ... 8 plans of the 8-row instance."""
+    plan() runs the tensor-core instance (the whole group in one CTA); the
+    lanes instance, which still takes the shape (f32 q, and chip_smoke.py's
+    in-call comparison), splits it over two CTAs per kv head of 8 + 8 and
+    6 + 6 query heads on the 8-row instance, q staged in shared memory,
+    with the same shared memory as its G 2 ... 8 plans of the 8-row
+    instance."""
     b, h, hkv, smax, page, d = DECODE_SHAPES[name]
-    p = dops.plan(b, h, hkv, smax, page, d, kv_dtype)
+    assert dops.plan(b, h, hkv, smax, page, d, kv_dtype).kernel == "mma"
+    p = dops.lanes_plan(b, h, hkv, smax, page, d, kv_dtype)
     rows = {"glm4-9b": 8, "starcoder2-15b": 6}[name]
     assert (p.group_chunks, p.group_rows, p.group_pad) == (2, rows, 8)
-    g8 = dops.plan(b, 8 * hkv, hkv, smax, page, d, kv_dtype)
+    g8 = dops.lanes_plan(b, 8 * hkv, hkv, smax, page, d, kv_dtype)
     assert p.smem_bytes == g8.smem_bytes <= MAX_SMEM
     assert p.counters == (b, hkv, 2)
     assert (p.split, p.n_splits, p.stages) == (256, 8, 4)

@@ -34,7 +34,9 @@ holds them. The HOST tier at (1, 2) (weights, m, v and masters in host
 arenas) bit for bit its DEVICE twin. ``build_prefill_step`` /
 ``build_serve_step`` against the reference's at (1, 1) and (1, 2):
 qwen3's last-position logits and three decode ticks over a page-sharded
-cache.
+cache; granite's (the expert-parallel MoE) at (2, 2) and at (2, 2, 2)
+with ``multi_pod`` on a batch of 4 rows (each (pod, data) rank's rows,
+its model rank's pages), every rank's rows of the reference's.
 The reference's training state carried to a (2, 2) rank's shards and
 back (``bridge``), and ``launch.train``'s rank there against one rank's
 ``train``. The refusals are ``test_torch_train_ranks.py``'s.
@@ -95,16 +97,23 @@ TWINS = {HOST["name"]: TWIN["name"], "dev-host": "dev-pool",
 # model axis, as at (1, 2): the reference's (1, 2) case is its reference
 MULTIPOD = case("g212-multipod", GRANITE, shape=(2, 1, 2), multi_pod=True,
                 over=DROPS)
-# the step builders: (name, arch, mesh shape, with decode ticks)
+# the step builders: (name, arch, mesh shape, with decode ticks); granite
+# over (data, model) and (pod, data, model): the prefill's MoE routes each
+# data rank's tokens (the reference's moe_apply_ep), the ticks each data
+# rank's slots (moe_apply_ep_decode)
 SERVE = [("q11", QWEN, (1, 1), True), ("q12", QWEN, (1, 2), True),
          ("z12", ZAMBA, (1, 2), False), ("v12", VLM, (1, 2), False),
-         ("x12", XLSTM, (1, 2), False)]
+         ("x12", XLSTM, (1, 2), False), ("g22", GRANITE, (2, 2), True),
+         ("g222", GRANITE, (2, 2, 2), True)]
 # the archs of the training cases
 ARCHS = (QWEN, GRANITE, MUSIC, ZAMBA, VLM, XLSTM)
 # xLSTM's leaves that are whole on the model axis and used alike by
 # every rank: their gradient is whole on each rank, counted once
 ALIKE = ("r_gates", "mlstm.0.0.w_gates", "gate_bias", "ln_head.scale")
 SB, SS, MAX_SEQ, PAGE, TICKS = 2, 16, 32, 8, 3
+# granite's rows: a row for each (pod, data) rank of (2, 2, 2), two for
+# each data rank of (2, 2) (the reference's moe_apply_ep takes both)
+SERVE_ROWS = {GRANITE: 4}
 # ``launch.train`` at (2, 2): smoke qwen3 in bf16, 4 x 16 tokens a step
 TRAIN_KW = dict(smoke=True, seq_len=16, global_batch=4, steps=2)
 # the collectives sum in f32, as the norms, softmaxes and routing do
@@ -114,9 +123,9 @@ _SERVE_JAX = """
 serve = json.load(open(os.path.join(out_dir, "serve.json")))
 for name, arch, shp, ticks, sbatch in serve:
     cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
-    rc = dataclasses.replace(RunConfig(model=cfg, shape=SHAPES["decode_32k"],
-                                       mesh=MeshConfig()),
-                             kv_page_size=%d)
+    rc = dataclasses.replace(RunConfig(
+        model=cfg, shape=SHAPES["decode_32k"],
+        mesh=MeshConfig(multi_pod=len(shp) == 3)), kv_page_size=%d)
     if (arch, "float32") not in params:
         params[arch, "float32"] = M.init_model(jax.random.PRNGKey(0), cfg)
     p0 = params[arch, "float32"]
@@ -144,20 +153,23 @@ for name, arch, shp, ticks, sbatch in serve:
                 out["tick%%d" %% t] = np.asarray(lg, np.float32)
     np.savez(os.path.join(out_dir, "serve_" + name + ".npz"), **out)
 """ % (PAGE, MAX_SEQ, TICKS)
+# eight host devices: the (2, 2, 2) mesh's (a mesh takes the first of them)
 _JAX = _JAX_TRAIN.replace('print("JAX_TRAIN done")',
-                          _SERVE_JAX + 'print("JAX_TRAIN done")')
+                          _SERVE_JAX + 'print("JAX_TRAIN done")').replace(
+    "device_count=4", "device_count=8")
 
 
 def _serve_batch(arch):
-    """The step builders' batch: tokens [SB, SS] (and the VLM's f32
-    vision embeddings)."""
+    """The step builders' batch: tokens [rows, SS] (SB rows, or
+    ``SERVE_ROWS``'; and the VLM's f32 vision embeddings)."""
     cfg = treg.smoke(arch)
     rng = np.random.default_rng(3)
+    rows = SERVE_ROWS.get(arch, SB)
     out = {"tokens": rng.integers(0, cfg.vocab_size,
-                                  (SB, SS)).astype(np.int32)}
+                                  (rows, SS)).astype(np.int32)}
     if cfg.family == "vlm":
         out["vision_embeds"] = (rng.standard_normal(
-            (SB, cfg.n_vision_tokens, cfg.d_model)) * 0.02).astype(
+            (rows, cfg.n_vision_tokens, cfg.d_model)) * 0.02).astype(
                 np.float32)
     return out
 
@@ -380,28 +392,39 @@ def _collectives(group):
 
 
 def _serve(rank_mesh, cases, np_params_by):
-    """The step builders of every ``SERVE`` case of this world's size."""
+    """The step builders of every ``SERVE`` case of this world's size:
+    each on this rank's rows of the batch (its (pod, data) rank's part)
+    and its model rank's pages, its rows kept under "rows"."""
     from repro_torch.models import model as TM
     from repro_torch.parallel import sharding as sh
     out = {}
     for name, arch, shp, ticks in cases:
         cfg = dataclasses.replace(treg.smoke(arch), dtype="float32")
         rc = dataclasses.replace(RunConfig(
-            model=cfg, shape=SHAPES["decode_32k"], mesh=MeshConfig()),
-            kv_page_size=PAGE)
+            model=cfg, shape=SHAPES["decode_32k"],
+            mesh=MeshConfig(multi_pod=len(shp) == 3)), kv_page_size=PAGE)
         m = rank_mesh if rank_mesh.world.size > 1 else None
+        # placed as the port's serving steps take it (hdm.HDMStore): with
+        # multi_pod the FSDP shards are over (pod, data)
         params = bridge.params_from_jax(
             np_params_by[arch], cfg, device="cpu", rank=rank_mesh.rank,
-            mesh_shape=shp)
-        batch = {k: torch.from_numpy(v) for k, v in _serve_batch(
-            arch).items()}
+            mesh_shape=shp, multi_pod_fsdp=rc.mesh.multi_pod)
+        whole = _serve_batch(arch)
+        dp_group = tsteps.batch_group(rc, m)
+        row, n_rows = (0, 1) if dp_group is None else (dp_group.rank,
+                                                        dp_group.size)
+        per = whole["tokens"].shape[0] // n_rows
+        batch = {k: torch.from_numpy(v[row * per:(row + 1) * per])
+                 for k, v in whole.items()}
         toks = batch["tokens"]
-        res = {"prefill": bridge.to_numpy(tsteps.build_prefill_step(
-            cfg, rc, mesh=m)(params, batch))}
+        res = {"rows": (row * per, (row + 1) * per),
+               "prefill": bridge.to_numpy(tsteps.build_prefill_step(
+                   cfg, rc, mesh=m)(params, batch))}
         if ticks:
-            cache = TM.cache_init(cfg, rc, SB, MAX_SEQ, device="cpu")
+            cache = TM.cache_init(cfg, rc, whole["tokens"].shape[0],
+                                  MAX_SEQ, device="cpu")
             cache = sh.shard_cache(cache, rank_mesh.model.rank,
-                                   rank_mesh.model.size)
+                                   rank_mesh.model.size, (row, n_rows))
             step = tsteps.build_serve_step(cfg, rc, mesh=m)
             for t in range(TICKS):
                 lg, cache = step(params, cache, toks[:, t:t + 1])
@@ -465,8 +488,8 @@ def _drops():
 
 
 def _rank(group, cases, params_np, np_state):
-    """One rank of a world of 2 or 4: the training cases of its size, the
-    step builders and, on 2, the collectives and the HOST twins; on 4
+    """One rank of a world of 2, 4 or 8: the training cases of its size,
+    the step builders and, on 2, the collectives and the HOST twins; on 4
     the bridge."""
     out = {}
     for c in cases + [MULTIPOD]:
@@ -475,14 +498,19 @@ def _rank(group, cases, params_np, np_state):
         if c["name"] in out:
             out[c["name"]]["drops"] = dict(drops)
     by_arch = {a: params_np[a, "float32"] for a, _ in params_np}
+    if group.size == 8:
+        rank_mesh = mesh.init_mesh(group.rank, (2, 2, 2), device="cpu")
+        out["serve"] = _serve(rank_mesh, [s for s in SERVE
+                                          if s[2] == (2, 2, 2)], by_arch)
+        return out
+    shape = (1, 2) if group.size == 2 else (2, 2)
+    rank_mesh = mesh.init_mesh(group.rank, shape, device="cpu")
+    out["serve"] = _serve(rank_mesh, [s for s in SERVE if s[2] == shape],
+                          by_arch)
     if group.size == 2:
         out["collectives"] = _collectives(group)
         out.update(_host_twin(group, params_np[QWEN, "float32"]))
-        rank_mesh = mesh.init_mesh(group.rank, (1, 2), device="cpu")
-        out["serve"] = _serve(rank_mesh, [s for s in SERVE
-                                          if s[2] == (1, 2)], by_arch)
     else:
-        rank_mesh = mesh.init_mesh(group.rank, (2, 2), device="cpu")
         out["bridge"] = _bridge(rank_mesh, np_state)
         from repro_torch.launch import train
         run = train._train_rank(rank_mesh, QWEN, TRAIN_KW)
@@ -518,12 +546,12 @@ def runs(tmp_path_factory):
         dp._JAX = saved
     params_np = {(a, "float32"): np_params(a, "float32") for a in ARCHS}
     port = {}
-    # the two worlds side by side, beside the reference's subprocess
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # the three worlds side by side, beside the reference's subprocess
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         worlds = [pool.submit(
             mesh.spawn, _rank, size, (CASES, params_np, _np_state()),
             rendezvous_dir=str(tmp_path_factory.mktemp("rdv")),
-            device="cpu", timeout_s=600.0) for size in (2, 4)]
+            device="cpu", timeout_s=600.0) for size in (2, 4, 8)]
         for world in worlds:
             for r in world.result():
                 for name, res in r.items():
@@ -680,16 +708,23 @@ def test_host_tier_is_its_card_twin(runs, name):
 def test_step_builders_match_reference(runs, name):
     """``build_prefill_step`` (the last position's logits) and
     ``build_serve_step`` (three ticks over the page-sharded cache) against
-    the reference's at the same mesh, every rank, f32 3e-5."""
+    the reference's at the same mesh, every rank (its rows), f32 3e-5."""
     port, ref = runs
     want = ref["serve_" + name]
     got = [r[name] for r in port["serve"] if name in r]
     _, _, shp, ticks = next(s for s in SERVE if s[0] == name)
     assert len(got) == int(np.prod(shp))
+    rows = {tuple(r["rows"]) for r in got}
+    assert sorted(rows) == sorted({(i * len(want["prefill"]) // len(rows),
+                                    (i + 1) * len(want["prefill"])
+                                    // len(rows))
+                                   for i in range(len(rows))})
     for r in got:
-        assert sorted(r) == sorted(want)
+        lo, hi = r["rows"]
+        assert sorted(k for k in r if k != "rows") == sorted(want)
         for k in want:
-            np.testing.assert_allclose(r[k], want[k], err_msg=k, **F32_TOL)
+            np.testing.assert_allclose(r[k], want[k][lo:hi], err_msg=k,
+                                       **F32_TOL)
 
 
 def test_train_loop_on_the_model_axis(runs):
